@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``tpudl_torch``) on one NVIDIA
+GPU. Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the final line):
+
+1. Print the card's name and power limit; refuse to run without CUDA.
+   TF32 is switched off for matmuls and cuDNN, so f32 runs in full f32.
+2. Build every kernel of the port from ``tpudl_torch/csrc`` with nvcc.
+3. Hold each kernel against its plain PyTorch version on the card, in f32
+   and bf16, over the CPU tests' cases and the serving shape.
+4. Drive the serving slice at full width — ``TinyCausalLM(vocab=32000,
+   dim=1024, heads=16, layers=12)`` from seeded random weights — through
+   ``LMFeaturizer``, ``LMClassifier`` and ``LMGenerator``; check that
+   every decoder block of every featurize/classify batch launched the
+   flash kernel, hold two rows of each stage against the same stages run
+   on the CPU, and profile one featurize batch (kernel time by name).
+5. Time each kernel at the serving shape against its plain version, one
+   PyTorch library call and the card's bound; print one ``{"kernels":
+   [...]}`` line.
+
+The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+VOCAB, DIM, HEADS, LAYERS, MAX_LEN = 32000, 1024, 16, 12, 4096
+N_ROWS, BATCH = 256, 16            # featurize / classify: 16 batches each
+TEXT_BYTES = (600, 1023)           # + BOS, every batch pads to 1024 tokens
+PROMPTS = ["The port runs on the card", "Flash attention",
+           "Serving a causal language model answers", "tpudl"]
+MAX_NEW = 16
+CLASSES = ["positive", "negative", "mixed"]
+SLICE_SHAPE = (16, 1024, 16, 64)   # [B, S, H, D] of every decoder block
+
+# H100 SXM data-sheet peaks (dense): memory rate and the rate for the
+# inputs' type; the flash kernel does its arithmetic in f32 either way
+MEM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+
+# kernel vs plain on the card. f32: both compute in f32 with the products
+# and sums in another order (D <= 128 terms, up to 1024 keys).
+# bf16: both widen to f32 and round the output to bf16 once, so they may
+# differ by one bf16 ulp (2^-7 relative); lse stays f32 in both.
+TOL = {"float32": {"o_abs": 2e-5, "o_rel": 0.0, "lse_abs": 2e-5},
+       "bfloat16": {"o_abs": 1e-3, "o_rel": 2.0 ** -7, "lse_abs": 2e-5}}
+# GPU vs CPU run of the whole f32 model: 12 layers of 1024/4096-wide
+# products summed in other orders, on a host CPU whose own summation order
+# varies by machine. Pooled features (up to ~3.1) differed by 2.1e-6 and
+# by 1.7e-5 on two H100 machines (PERF.md): the limit leaves about 6x the
+# larger reading. Class scores (up to ~0.39) differed by 2.3e-6 where the
+# features differed by 2.1e-6, and are held to the same limit.
+FEATURE_ATOL = 1e-4
+SCORE_ATOL = 1e-4
+
+
+def fail(msg: str):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable ({e})"
+    return res.stdout.strip() or f"nvidia-smi rc {res.returncode}"
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def visible_pairs(s_q, s_k, causal, q_offset, k_offset) -> int:
+    """(query, key) pairs the causal mask leaves visible — the work the
+    kernel cannot skip on these inputs."""
+    if not causal:
+        return s_q * s_k
+    return sum(min(s_k, max(0, q_offset + i - k_offset + 1))
+               for i in range(s_q))
+
+
+def flash_bound(shape, s_k, dtype_name, causal=True, q_offset=0,
+                k_offset=0):
+    b, s_q, h, d = shape
+    item = 4 if dtype_name == "float32" else 2
+    nbytes = item * b * h * d * (2 * s_q + 2 * s_k) + 4 * b * s_q * h
+    ops = 4 * b * h * d * visible_pairs(s_q, s_k, causal, q_offset, k_offset)
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, ops
+
+
+def check_flash():
+    """Phase 3: kernel vs plain on the card; returns the f32 max abs O
+    error at the serving shape."""
+    from tpudl_torch import cuda_ops
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    # (name, q shape, Sk, causal, q_offset, k_offset)
+    cases = [("dense", (2, 64, 2, 32), 64, False, 0, 0),
+             ("causal", (2, 64, 2, 32), 64, True, 0, 0),
+             ("shifted q_offset", (2, 32, 2, 32), 32, True, 32, 0),
+             ("fully-future K", (2, 16, 2, 32), 16, True, 0, 1000),
+             ("Sq != Sk", (2, 48, 2, 32), 80, True, 0, 0),
+             ("S=200", (1, 200, 2, 64), 200, True, 0, 0),
+             ("D=16", (2, 130, 3, 16), 130, True, 0, 0),
+             ("D=128", (2, 130, 3, 128), 77, False, 0, 0),
+             ("serving", SLICE_SHAPE, SLICE_SHAPE[1], True, 0, 0)]
+    slice_err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for name, (b, s_q, h, d), s_k, causal, q_off, k_off in cases:
+            q = rand(b, s_q, h, d, dtype=dtype)
+            k, v = (rand(b, s_k, h, d, dtype=dtype) for _ in range(2))
+            kw = dict(causal=causal, q_offset=q_off, k_offset=k_off,
+                      return_lse=True)
+            o, lse = cuda_ops.flash_attention(q, k, v, **kw)
+            po, plse = cuda_ops.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            diff = (o.float() - po.float()).abs()
+            o_abs = diff.max().item()
+            o_rel = (diff / po.float().abs().clamp_min(1e-6)).max().item()
+            lse_abs = (lse - plse).abs().max().item()
+            ok = (bool((diff <= tol["o_abs"]
+                        + tol["o_rel"] * po.float().abs()).all())
+                  and lse_abs <= tol["lse_abs"])
+            if name == "fully-future K":
+                ok = ok and bool((o == 0).all()) and bool((lse < -1e29).all())
+            print(f"  flash {str(dtype)[6:]:8s} {name:16s} q{(b, s_q, h, d)}"
+                  f" Sk={s_k}: O max abs {o_abs:.3e} rel {o_rel:.3e}, "
+                  f"lse max abs {lse_abs:.3e} {'ok' if ok else 'MISS'}")
+            if not ok:
+                fail(f"flash kernel disagrees with its plain version "
+                     f"({dtype}, {name}; tolerance {tol})")
+            if name == "serving" and dtype == torch.float32:
+                slice_err = o_abs
+        # ring contract: two half-K calls merge through their lse weights
+        q, k, v = (rand(2, 64, 2, 32, dtype=dtype) for _ in range(3))
+        o1, l1 = cuda_ops.flash_attention(q, k[:, :32], v[:, :32],
+                                          return_lse=True)
+        o2, l2 = cuda_ops.flash_attention(q, k[:, 32:], v[:, 32:],
+                                          return_lse=True)
+        m = torch.maximum(l1, l2)
+        w1, w2 = torch.exp(l1 - m)[..., None], torch.exp(l2 - m)[..., None]
+        merged = (o1.float() * w1 + o2.float() * w2) / (w1 + w2)
+        want = cuda_ops.flash_attention_plain(q, k, v).float()
+        err = (merged - want).abs().max().item()
+        # each half's O was rounded to the working type before the merge
+        lim = 2e-5 if dtype == torch.float32 else 2 ** -7 * 4
+        print(f"  flash {str(dtype)[6:]:8s} lse merge of two K halves: "
+              f"max abs {err:.3e} {'ok' if err <= lim else 'MISS'}")
+        if err > lim:
+            fail(f"lse merge off by {err} ({dtype})")
+    return slice_err
+
+
+def make_texts(n, seed):
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ,.",
+                            dtype=np.uint8)
+    return np.array([rng.choice(letters, size=int(rng.integers(
+        TEXT_BYTES[0], TEXT_BYTES[1] + 1))).tobytes().decode()
+        for _ in range(n)], dtype=object)
+
+
+def run_slice():
+    """Phase 4: the three stages at full width on the card; returns the
+    kernel launches of the featurize + classify run."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMClassifier, LMFeaturizer, LMGenerator
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    t0 = time.perf_counter()
+    weights = spec.init(SEED)
+    n_params = sum(a.size for g in weights.values() for a in g.values())
+    print(f"  init(seed={SEED}) of {n_params:,} f32 params: "
+          f"{time.perf_counter() - t0:.1f} s")
+    tok = ByteTokenizer()
+    texts = make_texts(N_ROWS, SEED)
+    frame = Frame({"text": texts})
+    prompts = Frame({"text": np.array(PROMPTS, dtype=object)})
+    common = dict(inputCol="text", model=spec, weights=weights,
+                  tokenizer=tok)
+
+    def stages(device):
+        return (LMFeaturizer(outputCol="vec", batchSize=BATCH,
+                             device=device, **common),
+                LMClassifier(outputCol="label", classes=CLASSES,
+                             batchSize=BATCH, device=device, **common),
+                LMGenerator(outputCol="gen", maxNew=MAX_NEW,
+                            device=device, **common))
+
+    feat, clf, gen = stages("cuda")
+    # warm-up: loads each stage's weights onto the card, wakes cuBLAS
+    feat.transform(Frame({"text": texts[:2]}))
+    clf.transform(Frame({"text": texts[:2]}))
+    gen.transform(prompts)
+    torch.cuda.synchronize()
+
+    n_tokens = sum(len(t.encode()) + 1 for t in texts)   # + BOS
+    cuda_ops.launches = 0
+    t0 = time.perf_counter()
+    vec = feat.transform(frame)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab = clf.transform(frame)
+    torch.cuda.synchronize()
+    t_clf = time.perf_counter() - t0
+    new_tokens = metrics.counter("lm.generate.tokens")
+    n_new = new_tokens.value
+    t0 = time.perf_counter()
+    out = gen.transform(prompts)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = cuda_ops.launches
+
+    n_batches = 2 * -(-N_ROWS // BATCH)
+    print(f"  flash kernel launches: {launches} (want {LAYERS} layers x "
+          f"{n_batches} featurize+classify batches = {LAYERS * n_batches}; "
+          f"generate adds none)")
+    if launches != LAYERS * n_batches:
+        fail("the main path did not launch the flash kernel once per "
+             "decoder block per batch")
+    vecs = np.stack(list(vec["vec"]))
+    if vecs.shape != (N_ROWS, DIM) or not np.isfinite(vecs).all():
+        fail(f"featurizer output {vecs.shape}, finite="
+             f"{bool(np.isfinite(vecs).all())}")
+    labels = list(lab["label"])
+    if len(labels) != N_ROWS or not set(labels) <= set(CLASSES):
+        fail(f"classifier labels {set(labels)} not within {CLASSES}")
+    n_new = int(new_tokens.value - n_new)
+    print(f"  LMFeaturizer: {N_ROWS} rows, {n_tokens} tokens in "
+          f"{t_feat:.3f} s = {N_ROWS / t_feat:.1f} rows/s, "
+          f"{n_tokens / t_feat:.0f} tokens/s")
+    print(f"  LMClassifier: {N_ROWS} rows in {t_clf:.3f} s = "
+          f"{N_ROWS / t_clf:.1f} rows/s, {n_tokens / t_clf:.0f} tokens/s; "
+          f"labels { {c: labels.count(c) for c in CLASSES} }")
+    print(f"  LMGenerator: {len(PROMPTS)} prompts, maxNew={MAX_NEW}, "
+          f"{n_new} new tokens in {t_gen:.3f} s = "
+          f"{len(PROMPTS) / t_gen:.2f} rows/s, {n_new / t_gen:.1f} tokens/s")
+
+    # two rows of each stage against the same stages on the CPU
+    f_cpu, c_cpu, g_cpu = stages("cpu")
+    two = Frame({"text": texts[:2]})
+    cpu_vecs = np.stack(list(f_cpu.transform(two)["vec"]))
+    err = float(np.abs(cpu_vecs - vecs[:2]).max())
+    print(f"  featurizer card vs CPU, 2 rows: max abs {err:.3e} "
+          f"(tolerance {FEATURE_ATOL}; features up to "
+          f"{np.abs(cpu_vecs).max():.3e})")
+    if not err <= FEATURE_ATOL:
+        fail("featurizer disagrees with the CPU run")
+    # the first row of each label the card gave, so the rows differ
+    picks = [labels.index(c) for c in CLASSES if c in labels]
+    rows = texts[picks]
+    cpu_labels = list(c_cpu.transform(Frame({"text": rows}))["label"])
+    card_labels = [labels[i] for i in picks]
+    print(f"  classifier card vs CPU, rows {picks}: {card_labels} vs "
+          f"{cpu_labels}")
+    if cpu_labels != card_labels:
+        fail("classifier disagrees with the CPU run")
+    scores = {d: class_scores(weights, tok, rows, d) for d in ("cuda", "cpu")}
+    err = float(np.abs(scores["cuda"] - scores["cpu"]).max())
+    print(f"  class scores card vs CPU, rows {picks}: max abs {err:.3e} "
+          f"(tolerance {SCORE_ATOL}; scores up to "
+          f"{np.abs(scores['cpu']).max():.3e})")
+    if not err <= SCORE_ATOL:
+        fail("class scores disagree with the CPU run")
+    cpu_gen = list(g_cpu.transform(Frame({"text": np.array(
+        PROMPTS[:2], dtype=object)}))["gen"])
+    print(f"  generator card vs CPU, 2 prompts: "
+          f"{'equal' if cpu_gen == list(out['gen'][:2]) else 'DIFFER'}")
+    if cpu_gen != list(out["gen"][:2]):
+        fail(f"generator disagrees with the CPU run: {cpu_gen!r} vs "
+             f"{list(out['gen'][:2])!r}")
+    profile_batch(feat, Frame({"text": texts[:BATCH]}))
+    return launches
+
+
+def class_scores(weights, tok, texts, device) -> np.ndarray:
+    """What LMClassifier takes its argmax over: the last real position's
+    logits at each class's leading token id, ``[rows, classes]``."""
+    from tpudl_torch.text import PAD_ID, tokenize_pack
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    net = TinyCausalLM.from_jax_params(
+        weights, vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+        max_len=MAX_LEN, device=device)
+    ids = [int(tok.encode(c)[0]) for c in CLASSES]
+    tokens = torch.from_numpy(tokenize_pack(tok, bos=True)(texts)).to(device)
+    with torch.inference_mode():
+        logits = net.apply(tokens)
+    last = (tokens != PAD_ID).sum(dim=1) - 1
+    rows = logits[torch.arange(len(texts), device=device), last]
+    return rows[:, ids].double().cpu().numpy()
+
+
+def profile_batch(stage, frame):
+    """Where one featurize batch spends the card's time: kernel time by
+    name from torch.profiler, and its share of the batch's wall time
+    (measured under the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage.transform(frame)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print("  profile of one featurize batch: device time not measured "
+              "(the profiler saw no kernels)")
+        return
+    print(f"  profile of one featurize batch ({len(frame)} rows): wall "
+          f"{wall_ms:.1f} ms, kernels {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% busy)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        ms = e.self_device_time_total / 1e3
+        print(f"    {ms:8.2f} ms {100 * ms / busy_ms:5.1f}%  x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
+def time_flash(dtype):
+    """Phase 5: medians of 5 rounds, each round kernel/plain/library in
+    turn, at the serving shape (causal)."""
+    import torch.nn.functional as F
+
+    from tpudl_torch import cuda_ops
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    q, k, v = (torch.randn(*SLICE_SHAPE, generator=gen).to("cuda", dtype)
+               for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
+    fns = {
+        "ms": lambda: cuda_ops.flash_attention(q, k, v, causal=True),
+        "plain_ms": lambda: cuda_ops.flash_attention_plain(q, k, v,
+                                                           causal=True),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True),
+    }
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    runs = {key: [] for key in fns}
+    for _ in range(5):
+        for key, fn in fns.items():
+            runs[key].append(cuda_ms(fn))
+    return {key: median(xs) for key, xs in runs.items()}
+
+
+def main() -> int:
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False; this script measures "
+             "the port on an NVIDIA GPU and has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
+          f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN "
+          "(f32 products run in full f32)", flush=True)
+
+    from tpudl_torch import _build
+
+    print("phase 2: build", flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"  built {sorted(logs) or 'nothing (cached)'} from "
+          f"{_build.CSRC} in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    print("phase 3: kernels vs their plain versions", flush=True)
+    slice_err = check_flash()
+
+    print(f"phase 4: serving slice at full width on {card}", flush=True)
+    launches = run_slice()
+
+    print("phase 5: kernel timing at the serving shape "
+          f"{list(SLICE_SHAPE)} causal", flush=True)
+    kernels = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        t = time_flash(dtype)
+        bound, by, nbytes, ops = flash_bound(SLICE_SHAPE, SLICE_SHAPE[1],
+                                             name)
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
+              f" ms, scaled_dot_product_attention {t['library_ms']:.4f} ms,"
+              f" bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP); card {card}")
+        if dtype == torch.float32:   # the dtype the serving path runs
+            kernels.append({
+                "name": "flash_attn_fwd", "route": "cuda",
+                "source": "tpudl_torch/csrc/flash_attn_fwd.cu",
+                "replaces": "tpudl/pallas_ops.py:77",
+                "launches": launches, "max_abs_err": slice_err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": t["library_ms"],
+                "shape": list(SLICE_SHAPE), "dtype": name})
+    print(f"card: {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,265 @@
+"""Deterministic, fingerprintable tokenizers for string columns.
+
+Copied from ``tpudl/text/tokenizer.py``, unchanged in behaviour:
+fingerprints, cache tokens, ids and vocab manifests are byte-equal to
+tpudl's, so both packages may share tokenized caches.
+
+The text subsystem's ground rule (TEXT.md): tokenization is CACHE-KEY
+MATERIAL. A tokenized Dataset's shard cache and HBM residency replay
+across epochs and processes, so two runs may only share shards when
+their token ids mean the same thing — which demands a tokenizer whose
+identity is (a) deterministic (no dict-order, no hash-seed, no
+environment dependence) and (b) summarizable as one short string. Every
+tokenizer here answers ``fingerprint``: the sha1 of its canonical spec
+JSON (sorted keys, no whitespace), and round-trips through
+``spec()`` / :func:`tokenizer_from_spec` and through an on-disk vocab
+manifest (``save`` / :func:`load_vocab`) that ``tools/validate_text.py``
+audits — format, schema, and a recomputed-fingerprint match.
+
+Import discipline: stdlib + numpy only (the validator imports nothing
+from here but mirrors the fingerprint math; the prepare pool runs
+``encode`` host-side with no jax in sight).
+
+Two concrete tokenizers cover the judged workloads:
+
+- :class:`ByteTokenizer` — UTF-8 bytes shifted past the specials;
+  vocab 260, lossless round-trip, zero build cost. The LM bench family
+  and the examples ride it.
+- :class:`WordTokenizer` — a corpus-built word/punct vocab, sorted by
+  (-count, token) so the SAME corpus always yields the SAME ids; OOV
+  maps to ``<unk>``. Lossy decode (single-space join), documented.
+
+Specials are fixed across modes: pad=0, bos=1, eos=2, unk=3 — pad MUST
+be 0 so a right-padded int32 batch is also the attention mask's zero
+set (tpudl_torch.text.codec.pad_mask) and packed buffers can be np.zeros.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+
+import numpy as np
+
+__all__ = [
+    "PAD_ID", "BOS_ID", "EOS_ID", "UNK_ID", "N_SPECIALS",
+    "VOCAB_FORMAT", "Tokenizer", "ByteTokenizer", "WordTokenizer",
+    "tokenizer_from_spec", "load_vocab", "spec_fingerprint",
+]
+
+PAD_ID = 0
+BOS_ID = 1
+EOS_ID = 2
+UNK_ID = 3
+N_SPECIALS = 4
+
+VOCAB_FORMAT = "tpudl-vocab-v1"
+
+_WORD_RE = re.compile(r"\w+|[^\w\s]")
+
+
+def spec_fingerprint(spec: dict) -> str:
+    """sha1 over the canonical JSON of a tokenizer spec — THE
+    fingerprint definition, shared verbatim by ``tools/validate_text.py``
+    (which recomputes it from a manifest without importing tpudl).
+    Canonical = sorted keys, compact separators, ensure_ascii: every
+    byte of the digest input is pinned."""
+    blob = json.dumps(spec, sort_keys=True, separators=(",", ":"),
+                      ensure_ascii=True)
+    return hashlib.sha1(blob.encode("utf-8")).hexdigest()
+
+
+class Tokenizer:
+    """Deterministic text ↔ int32-ids contract.
+
+    Subclasses implement ``_encode_one`` / ``_decode_ids`` and
+    ``spec()``; everything identity-shaped (fingerprint, cache token,
+    manifest save) lives here so no subclass can drift from the
+    canonical form the validator audits."""
+
+    mode = "abstract"
+
+    # -- identity ----------------------------------------------------------
+    def spec(self) -> dict:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    @property
+    def vocab_size(self) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    @property
+    def fingerprint(self) -> str:
+        return spec_fingerprint(self.spec())
+
+    @property
+    def cache_token(self) -> str:
+        """Shard-cache identity (`data.dataset._callable_token` honors
+        this attr on pack callables built over a tokenizer)."""
+        return f"text.tok:{self.mode}:{self.fingerprint}"
+
+    # -- encode / decode ---------------------------------------------------
+    def _encode_one(self, text: str) -> list:  # pragma: no cover
+        raise NotImplementedError
+
+    def _decode_ids(self, ids: list) -> str:  # pragma: no cover
+        raise NotImplementedError
+
+    def encode(self, text, *, bos: bool = False,
+               eos: bool = False) -> np.ndarray:
+        """One string → int32 id vector (never padded here — padding
+        and rung-snapping belong to the codec/pack layer)."""
+        ids = self._encode_one("" if text is None else str(text))
+        if bos:
+            ids = [BOS_ID] + ids
+        if eos:
+            ids = ids + [EOS_ID]
+        return np.asarray(ids, dtype=np.int32)
+
+    def encode_batch(self, texts, *, bos: bool = False,
+                     eos: bool = False) -> list:
+        return [self.encode(t, bos=bos, eos=eos) for t in texts]
+
+    def decode(self, ids) -> str:
+        """ids → text, specials dropped; trailing pad is how a packed
+        row carries its length, so decode is pad-blind by design."""
+        ids = [int(i) for i in np.asarray(ids).reshape(-1)
+               if int(i) >= N_SPECIALS]
+        return self._decode_ids(ids)
+
+    def decode_batch(self, batch) -> list:
+        return [self.decode(row) for row in np.asarray(batch)]
+
+    # -- manifest ----------------------------------------------------------
+    def save(self, path: str) -> str:
+        """Write the vocab manifest (atomic tmp + rename — a killed
+        writer never leaves a half manifest for load_vocab/the
+        validator to trip on)."""
+        doc = dict(self.spec())
+        doc["format"] = VOCAB_FORMAT
+        doc["fingerprint"] = self.fingerprint
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, sort_keys=True, indent=1)
+        os.replace(tmp, path)
+        return path
+
+    def __repr__(self):
+        return (f"{type(self).__name__}(vocab={self.vocab_size}, "
+                f"fingerprint={self.fingerprint[:12]})")
+
+
+class ByteTokenizer(Tokenizer):
+    """UTF-8 bytes shifted past the 4 specials — vocab 260, lossless,
+    build-free; the deterministic default for benches and examples."""
+
+    mode = "byte"
+
+    def __init__(self, *, lowercase: bool = False):
+        self.lowercase = bool(lowercase)
+
+    @property
+    def vocab_size(self) -> int:
+        return N_SPECIALS + 256
+
+    def spec(self) -> dict:
+        return {"mode": self.mode, "lowercase": self.lowercase,
+                "specials": {"pad": PAD_ID, "bos": BOS_ID,
+                             "eos": EOS_ID, "unk": UNK_ID}}
+
+    def _encode_one(self, text: str) -> list:
+        if self.lowercase:
+            text = text.lower()
+        return [b + N_SPECIALS for b in text.encode("utf-8")]
+
+    def _decode_ids(self, ids: list) -> str:
+        return bytes(i - N_SPECIALS for i in ids
+                     if N_SPECIALS <= i < N_SPECIALS + 256).decode(
+                         "utf-8", errors="replace")
+
+
+class WordTokenizer(Tokenizer):
+    """Corpus-built word/punctuation vocab with deterministic ids.
+
+    ``build`` sorts candidates by (-count, token) — a pure function of
+    the corpus multiset, so re-building from the same texts always
+    yields the same vocab (and the same fingerprint). Decode joins with
+    single spaces: LOSSY by declaration (whitespace is not modeled)."""
+
+    mode = "word"
+
+    def __init__(self, tokens, *, lowercase: bool = True):
+        self.lowercase = bool(lowercase)
+        self.tokens = [str(t) for t in tokens]
+        if len(set(self.tokens)) != len(self.tokens):
+            raise ValueError("vocab tokens must be unique")
+        self._ids = {t: i + N_SPECIALS for i, t in enumerate(self.tokens)}
+
+    @classmethod
+    def build(cls, texts, *, size: int = 1024,
+              lowercase: bool = True) -> "WordTokenizer":
+        counts: dict = {}
+        for t in texts:
+            t = "" if t is None else str(t)
+            if lowercase:
+                t = t.lower()
+            for w in _WORD_RE.findall(t):
+                counts[w] = counts.get(w, 0) + 1
+        ordered = sorted(counts, key=lambda w: (-counts[w], w))
+        return cls(ordered[: max(0, int(size))], lowercase=lowercase)
+
+    @property
+    def vocab_size(self) -> int:
+        return N_SPECIALS + len(self.tokens)
+
+    def spec(self) -> dict:
+        return {"mode": self.mode, "lowercase": self.lowercase,
+                "tokens": list(self.tokens),
+                "specials": {"pad": PAD_ID, "bos": BOS_ID,
+                             "eos": EOS_ID, "unk": UNK_ID}}
+
+    def _encode_one(self, text: str) -> list:
+        if self.lowercase:
+            text = text.lower()
+        return [self._ids.get(w, UNK_ID) for w in _WORD_RE.findall(text)]
+
+    def _decode_ids(self, ids: list) -> str:
+        n = len(self.tokens)
+        return " ".join(self.tokens[i - N_SPECIALS] for i in ids
+                        if N_SPECIALS <= i < N_SPECIALS + n)
+
+
+def tokenizer_from_spec(spec: dict) -> Tokenizer:
+    """Inverse of ``Tokenizer.spec()`` — how a persisted vocab manifest
+    (or a serve registry entry) becomes a live tokenizer again."""
+    mode = spec.get("mode")
+    if mode == "byte":
+        return ByteTokenizer(lowercase=bool(spec.get("lowercase", False)))
+    if mode == "word":
+        return WordTokenizer(spec.get("tokens", ()),
+                             lowercase=bool(spec.get("lowercase", True)))
+    raise ValueError(f"unknown tokenizer mode {mode!r} "
+                     "(known: ['byte', 'word'])")
+
+
+def load_vocab(path: str) -> Tokenizer:
+    """Load + VERIFY a vocab manifest: format tag, spec round-trip, and
+    a recomputed fingerprint match — a hand-edited vocab whose ids
+    silently shifted must fail here, not corrupt a warm cache."""
+    with open(path) as f:
+        doc = json.load(f)
+    if doc.get("format") != VOCAB_FORMAT:
+        raise ValueError(
+            f"{path}: not a {VOCAB_FORMAT} manifest "
+            f"(format={doc.get('format')!r})")
+    want = doc.get("fingerprint")
+    spec = {k: v for k, v in doc.items()
+            if k not in ("format", "fingerprint")}
+    tok = tokenizer_from_spec(spec)
+    if want and tok.fingerprint != want:
+        raise ValueError(
+            f"{path}: fingerprint mismatch (manifest {want[:12]}..., "
+            f"recomputed {tok.fingerprint[:12]}...) — the vocab was "
+            "edited after it was fingerprinted")
+    return tok
