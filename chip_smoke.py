@@ -10,14 +10,23 @@ Phases (any failure exits non-zero before the final line):
    TF32 is switched off for matmuls and cuDNN, so f32 runs in full f32.
 2. Build every kernel of the port from ``tpudl_torch/csrc`` with nvcc.
 3. Hold each kernel against its plain PyTorch version on the card, in f32
-   and bf16, over the CPU tests' cases and the serving shape.
+   and bf16, over the CPU tests' cases and the slices' shapes: the
+   forward, then the dq and dk/dv backward kernels under a nonzero lse
+   cotangent.
 4. Drive the serving slice at full width — ``TinyCausalLM(vocab=32000,
    dim=1024, heads=16, layers=12)`` from seeded random weights — through
    ``LMFeaturizer``, ``LMClassifier`` and ``LMGenerator``; check that
    every decoder block of every featurize/classify batch launched the
    flash kernel, hold two rows of each stage against the same stages run
    on the CPU, and profile one featurize batch (kernel time by name).
-5. Time each kernel at the serving shape against its plain version, one
+4b. Drive the training slice at full width — ``TinyCausalLM(vocab=50257,
+   dim=512, heads=8, layers=12)`` (README's training recipe) from seeded
+   random weights — through ``Trainer(lm.loss_fn(), adamw(3e-4)).fit`` on
+   8 dense-packed rows of 1025 tokens a step; check that every step
+   launched each of the three kernels once per decoder block and that
+   the loss fell, hold a small batch's loss, gradients and 3-step losses
+   against the same run on the CPU, and profile one step.
+5. Time each kernel at its slice's shape against its plain version, one
    PyTorch library call and the card's bound; print one ``{"kernels":
    [...]}`` line.
 
@@ -44,6 +53,15 @@ MAX_NEW = 16
 CLASSES = ["positive", "negative", "mixed"]
 SLICE_SHAPE = (16, 1024, 16, 64)   # [B, S, H, D] of every decoder block
 
+# training slice: README's TinyCausalLM training recipe, 8 rows of 1025
+# dense-packed tokens a step (1024 predicted positions each)
+TRAIN_ARCH = dict(vocab=50257, dim=512, heads=8, layers=12)
+TRAIN_BATCH, TRAIN_SEQ = 8, 1025
+TRAIN_SHAPE = (8, 1024, 8, 64)     # [B, S, H, D] of every decoder block
+WARMUP_STEPS, TIMED_STEPS = 2, 20
+LR = 3e-4
+CPU_TOKENS, CPU_STEPS = 257, 3     # the card-vs-CPU batch: 1 row
+
 # H100 SXM data-sheet peaks (dense): memory rate and the rate for the
 # inputs' type; the flash kernel does its arithmetic in f32 either way
 MEM_BYTES_PER_S = 3.35e12
@@ -55,6 +73,12 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 # differ by one bf16 ulp (2^-7 relative); lse stays f32 in both.
 TOL = {"float32": {"o_abs": 2e-5, "o_rel": 0.0, "lse_abs": 2e-5},
        "bfloat16": {"o_abs": 1e-3, "o_rel": 2.0 ** -7, "lse_abs": 2e-5}}
+# backward kernels vs the plain backward: the same reasoning, with the
+# gradients' own scale (they sum up to 1024 products and reach ~10 here):
+# f32 within 2e-5 of max(1, max |grad|); bf16 also one bf16 ulp of each
+# value, since each side rounds its f32 result to bf16 once
+GRAD_TOL = {"float32": {"abs": 2e-5, "rel": 0.0},
+            "bfloat16": {"abs": 2e-5, "rel": 2.0 ** -7}}
 # GPU vs CPU run of the whole f32 model: 12 layers of 1024/4096-wide
 # products summed in other orders, on a host CPU whose own summation order
 # varies by machine. Pooled features (up to ~3.1) differed by 2.1e-6 and
@@ -63,6 +87,18 @@ TOL = {"float32": {"o_abs": 2e-5, "o_rel": 0.0, "lse_abs": 2e-5},
 # features differed by 2.1e-6, and are held to the same limit.
 FEATURE_ATOL = 1e-4
 SCORE_ATOL = 1e-4
+# GPU vs CPU training of the full-width model on one row of 257 tokens,
+# 12 f32 layers summed in other orders (first reading on an H100, PERF.md):
+# the first loss (~10.8, one f32 ulp 9.5e-7) differed by 1.9e-6, so 2e-5;
+# block 0's wq/wk/wv gradients, held relative to their largest value
+# (3.2e-2), by 8.1e-7 of it, so 2e-5 (about 25x: the serving features'
+# error moved 8x between machines with the CPU's summation order); the
+# losses of 3
+# AdamW steps by 1.9e-6, so 5e-5 (Adam's √v̂ can amplify a gradient's
+# rounding)
+TRAIN_LOSS_ATOL = 2e-5
+TRAIN_GRAD_RTOL = 2e-5
+TRAIN_STEPS_ATOL = 5e-5
 
 
 def fail(msg: str):
@@ -106,16 +142,42 @@ def visible_pairs(s_q, s_k, causal, q_offset, k_offset) -> int:
                for i in range(s_q))
 
 
+def bound(nbytes, ops, dtype_name):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over the peak rate for the inputs' type."""
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def flash_bound(shape, s_k, dtype_name, causal=True, q_offset=0,
                 k_offset=0):
+    """The forward reads q, k, v once and writes O and lse; it does 4·D
+    flops per visible pair (QKᵀ and PV)."""
     b, s_q, h, d = shape
     item = 4 if dtype_name == "float32" else 2
     nbytes = item * b * h * d * (2 * s_q + 2 * s_k) + 4 * b * s_q * h
     ops = 4 * b * h * d * visible_pairs(s_q, s_k, causal, q_offset, k_offset)
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, ops
+    return (*bound(nbytes, ops, dtype_name), nbytes, ops)
+
+
+def bwd_bounds(shape, dtype_name):
+    """Causal self-attention backward at ``shape`` (Sq = Sk): dq reads q,
+    k, v, dO, lse and dlt once and writes dq, 6·D flops per visible pair
+    (QKᵀ, dO·Vᵀ, ds·K); dk/dv reads the same and writes dk and dv, 8·D
+    flops per pair (QKᵀ, dO·Vᵀ, dsᵀ·Q, pᵀ·dO). Returns ``{kernel: (ms,
+    by, bytes, flops)}``."""
+    b, s, h, d = shape
+    item = 4 if dtype_name == "float32" else 2
+    pairs = b * h * visible_pairs(s, s, True, 0, 0)
+    rows = b * s * h
+    out = {}
+    for name, tensors, flops in (("dq", 5, 6), ("dkv", 6, 8)):
+        nbytes = item * rows * d * tensors + 4 * 2 * rows
+        ops = flops * d * pairs
+        out[name] = (*bound(nbytes, ops, dtype_name), nbytes, ops)
+    return out
 
 
 def check_flash():
@@ -186,6 +248,71 @@ def check_flash():
     return slice_err
 
 
+def check_flash_bwd():
+    """Phase 3, backward: the dq and dk/dv kernels (through
+    ``flash_attention_bwd``) vs the plain backward on the card, on the
+    forward kernel's outputs under random dO and dlse cotangents; returns
+    the f32 max abs errors at the training shape, ``{"dq", "dkv"}``."""
+    from tpudl_torch import cuda_ops
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    # (name, q shape, Sk, causal, q_offset, k_offset)
+    cases = [("dense", (2, 64, 2, 32), 64, False, 0, 0),
+             ("causal", (2, 64, 2, 32), 64, True, 0, 0),
+             ("shifted q_offset", (2, 32, 2, 32), 32, True, 32, 0),
+             ("fully-future K", (2, 16, 2, 32), 16, True, 0, 1000),
+             ("Sq != Sk", (2, 48, 2, 32), 80, True, 0, 0),
+             ("Sq != Sk, shifted", (2, 80, 2, 32), 48, True, 0, 40),
+             ("S=200", (1, 200, 2, 64), 200, True, 0, 0),
+             ("D=16", (2, 130, 3, 16), 130, True, 0, 0),
+             ("D=128", (2, 130, 3, 128), 77, False, 0, 0),
+             ("strided dO", (2, 96, 3, 64), 96, True, 0, 0),
+             ("training", TRAIN_SHAPE, TRAIN_SHAPE[1], True, 0, 0)]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = GRAD_TOL[str(dtype).split(".")[1]]
+        for name, (b, s_q, h, d), s_k, causal, q_off, k_off in cases:
+            q = rand(b, s_q, h, d, dtype=dtype)
+            k, v = (rand(b, s_k, h, d, dtype=dtype) for _ in range(2))
+            kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+            o, lse = cuda_ops.flash_attention(q, k, v, return_lse=True, **kw)
+            if name == "strided dO":   # a [B, H, S, D] buffer seen as [B, S, H, D]
+                do = rand(b, h, s_q, d, dtype=dtype).transpose(1, 2)
+            else:
+                do = rand(b, s_q, h, d, dtype=dtype)
+            dlse = rand(b, s_q, h)
+            got = cuda_ops.flash_attention_bwd(q, k, v, o, lse, do, dlse, **kw)
+            want = cuda_ops.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      dlse, **kw)
+            torch.cuda.synchronize()
+            ok, report, case_err = True, [], {}
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                g, w = g.float(), w.float()
+                diff = (g - w).abs()
+                scale = max(1.0, w.abs().max().item())
+                ok = ok and bool((diff <= tol["abs"] * scale
+                                  + tol["rel"] * w.abs()).all())
+                if name == "fully-future K":
+                    ok = ok and bool((g == 0).all())
+                case_err[gname] = diff.max().item()
+                report.append(f"{gname} {case_err[gname]:.3e}/{scale:.2e}")
+            print(f"  flash bwd {str(dtype)[6:]:8s} {name:17s} "
+                  f"q{(b, s_q, h, d)} Sk={s_k}: max abs err/scale "
+                  f"{', '.join(report)} {'ok' if ok else 'MISS'}")
+            if not ok:
+                fail(f"flash backward kernels disagree with the plain "
+                     f"backward ({dtype}, {name}; tolerance {tol} x "
+                     "max(1, max |grad|))")
+            if name == "training" and dtype == torch.float32:
+                errs = {"dq": case_err["dq"],
+                        "dkv": max(case_err["dk"], case_err["dv"])}
+    return errs
+
+
 def make_texts(n, seed):
     rng = np.random.default_rng(seed)
     letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ,.",
@@ -234,7 +361,7 @@ def run_slice():
     torch.cuda.synchronize()
 
     n_tokens = sum(len(t.encode()) + 1 for t in texts)   # + BOS
-    cuda_ops.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     vec = feat.transform(frame)
     torch.cuda.synchronize()
@@ -249,15 +376,18 @@ def run_slice():
     out = gen.transform(prompts)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    launches = cuda_ops.launches
+    counts = dict(cuda_ops.launch_counts)
+    launches = counts.pop("flash_attn_fwd")
 
     n_batches = 2 * -(-N_ROWS // BATCH)
     print(f"  flash kernel launches: {launches} (want {LAYERS} layers x "
           f"{n_batches} featurize+classify batches = {LAYERS * n_batches}; "
-          f"generate adds none)")
+          f"generate adds none); backward kernels {counts} (want 0)")
     if launches != LAYERS * n_batches:
         fail("the main path did not launch the flash kernel once per "
              "decoder block per batch")
+    if any(counts.values()):
+        fail("serving launched a backward kernel")
     vecs = np.stack(list(vec["vec"]))
     if vecs.shape != (N_ROWS, DIM) or not np.isfinite(vecs).all():
         fail(f"featurizer output {vecs.shape}, finite="
@@ -309,7 +439,8 @@ def run_slice():
     if cpu_gen != list(out["gen"][:2]):
         fail(f"generator disagrees with the CPU run: {cpu_gen!r} vs "
              f"{list(out['gen'][:2])!r}")
-    profile_batch(feat, Frame({"text": texts[:BATCH]}))
+    profile_run(f"one featurize batch ({BATCH} rows)",
+                lambda: feat.transform(Frame({"text": texts[:BATCH]})))
     return launches
 
 
@@ -331,32 +462,154 @@ def class_scores(weights, tok, texts, device) -> np.ndarray:
     return rows[:, ids].double().cpu().numpy()
 
 
-def profile_batch(stage, frame):
-    """Where one featurize batch spends the card's time: kernel time by
-    name from torch.profiler, and its share of the batch's wall time
+def reset_launch_counts():
+    from tpudl_torch import cuda_ops
+
+    for name in cuda_ops.launch_counts:
+        cuda_ops.launch_counts[name] = 0
+
+
+def profile_run(what, fn, top=6):
+    """Where one run of ``fn`` spends the card's time: kernel time by
+    name from torch.profiler, and its share of the run's wall time
     (measured under the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stage.transform(frame)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
-        print("  profile of one featurize batch: device time not measured "
-              "(the profiler saw no kernels)")
+        print(f"  profile of {what}: device time not measured (the "
+              "profiler saw no kernels)")
         return
-    print(f"  profile of one featurize batch ({len(frame)} rows): wall "
-          f"{wall_ms:.1f} ms, kernels {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% busy)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+    print(f"  profile of {what}: wall {wall_ms:.1f} ms, kernels "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% busy)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"    {ms:8.2f} ms {100 * ms / busy_ms:5.1f}%  x{e.count:<4d} "
               f"{e.key[:90]}")
+
+
+def training_rows(n_rows):
+    """The training data: ``make_texts`` → ``ByteTokenizer`` →
+    ``tokenize_pack(dense=True, seq_len=1025, eos=True)``, enough texts
+    for ``n_rows`` full rows."""
+    from tpudl_torch.text import ByteTokenizer, tokenize_pack
+
+    pack = tokenize_pack(ByteTokenizer(), seq_len=TRAIN_SEQ, dense=True,
+                         eos=True)
+    # every text gives at least TEXT_BYTES[0] + 1 tokens (+ EOS)
+    n_texts = -(-n_rows * TRAIN_SEQ // (TEXT_BYTES[0] + 1))
+    rows = pack(make_texts(n_texts, SEED + 3))
+    return rows[:n_rows]
+
+
+def run_training():
+    """Phase 4b: the training slice at full width on the card; returns
+    the kernel launch counts of the timed steps."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.train import Trainer, adamw
+    from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
+
+    lm = TinyCausalLM(**TRAIN_ARCH, device="cuda")
+    t0 = time.perf_counter()
+    weights = lm.init(SEED)
+    load_jax_params(lm, weights)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"  init(seed={SEED}) of {n_params:,} f32 params: "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_steps = WARMUP_STEPS + TIMED_STEPS + 1        # + the profiled step
+    rows = training_rows(TRAIN_BATCH * n_steps)
+    print(f"  data: {rows.shape[0]} dense-packed rows of {rows.shape[1]} "
+          f"tokens, {TRAIN_BATCH} a step; attention at {list(TRAIN_SHAPE)} "
+          "causal")
+
+    def data_fn(step):
+        return rows[step * TRAIN_BATCH:(step + 1) * TRAIN_BATCH]
+
+    # warm-up: allocates the optimizer's moments, wakes cuBLAS
+    _, opt, warm = Trainer(lm.loss_fn(), adamw(LR), log_every=1).fit(
+        lm, data_fn, WARMUP_STEPS)
+    trainer = Trainer(lm.loss_fn(), adamw(LR))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, opt, hist = trainer.fit(lm, lambda s: data_fn(WARMUP_STEPS + s),
+                               TIMED_STEPS, opt_state=opt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(cuda_ops.launch_counts)
+
+    want = TRAIN_ARCH["layers"] * TIMED_STEPS
+    print(f"  kernel launches over {TIMED_STEPS} steps: {counts} (want "
+          f"{TRAIN_ARCH['layers']} layers x {TIMED_STEPS} steps = {want} "
+          "of each)")
+    if any(n != want for n in counts.values()):
+        fail("a training step did not launch each kernel once per decoder "
+             "block")
+    loss0, last = warm[0]["loss"], hist[-1]["loss"]
+    print(f"  loss: steps 1-{WARMUP_STEPS} {[h['loss'] for h in warm]}, "
+          f"step {WARMUP_STEPS + TIMED_STEPS} {last}")
+    if not (np.isfinite(last) and last < loss0):
+        fail(f"the loss did not fall: step 1 {loss0}, last {last}")
+    tokens = TIMED_STEPS * TRAIN_BATCH * (TRAIN_SEQ - 1)
+    print(f"  {TIMED_STEPS} steps in {dt:.3f} s = {TIMED_STEPS / dt:.3f} "
+          f"steps/s, {tokens / dt:.0f} tokens/s (predicted positions); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_run(f"one training step ({TRAIN_BATCH}x{TRAIN_SEQ} tokens)",
+                lambda: trainer.fit(lm, lambda s: data_fn(n_steps - 1), 1,
+                                    opt_state=opt), top=10)
+    train_card_vs_cpu(weights, rows[:1, :CPU_TOKENS])
+    return counts
+
+
+def train_card_vs_cpu(weights, batch):
+    """The full-width model from the same weights on one small batch,
+    card vs CPU: the first loss, block 0's wq/wk/wv gradients (they come
+    through the dq, dk and dv kernels) and the losses of 3 AdamW steps."""
+    from tpudl_torch.train import Trainer, adamw
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m = TinyCausalLM.from_jax_params(weights, **TRAIN_ARCH,
+                                         device=device)
+        loss_fn = m.loss_fn()
+        loss = loss_fn(m, torch.from_numpy(batch).to(m.device))
+        loss.backward()
+        grads = {w: m.blocks[0][w].grad.double().cpu().numpy()
+                 for w in ("wq", "wk", "wv")}
+        _, _, hist = Trainer(loss_fn, adamw(LR), log_every=1).fit(
+            m, lambda s: batch, CPU_STEPS)
+        runs[device] = (loss.item(), grads,
+                        np.array([h["loss"] for h in hist]))
+        print(f"  {device}: {CPU_STEPS + 1} forward+backward passes on "
+              f"{list(batch.shape)} tokens in "
+              f"{time.perf_counter() - t0:.1f} s")
+    (loss_g, g_g, hist_g), (loss_c, g_c, hist_c) = runs["cuda"], runs["cpu"]
+    loss_err = abs(loss_g - loss_c)
+    g_scale = max(np.abs(g).max() for g in g_c.values())
+    g_abs = max(np.abs(g_g[w] - g_c[w]).max() for w in g_c)
+    g_err = g_abs / g_scale
+    hist_err = float(np.abs(hist_g - hist_c).max())
+    print(f"  training card vs CPU, {list(batch.shape)} tokens: first loss "
+          f"{loss_g:.6f} vs {loss_c:.6f}, abs err {loss_err:.3e} (tolerance "
+          f"{TRAIN_LOSS_ATOL}); block 0 wq/wk/wv grads max abs err "
+          f"{g_abs:.3e} = {g_err:.3e} of the largest |grad| {g_scale:.3e} "
+          f"(tolerance {TRAIN_GRAD_RTOL} of it); {CPU_STEPS}-step losses {hist_g.tolist()} vs "
+          f"{hist_c.tolist()}, max abs err {hist_err:.3e} (tolerance "
+          f"{TRAIN_STEPS_ATOL})")
+    if not (loss_err <= TRAIN_LOSS_ATOL and g_err <= TRAIN_GRAD_RTOL
+            and hist_err <= TRAIN_STEPS_ATOL):
+        fail("training on the card disagrees with the CPU run")
 
 
 def time_flash(dtype):
@@ -388,6 +641,58 @@ def time_flash(dtype):
     return {key: median(xs) for key, xs in runs.items()}
 
 
+def time_bwd(dtype):
+    """Phase 5, backward: medians of 5 rounds at the training shape
+    (causal), each round in turn: the forward, the dq kernel alone, the
+    dk/dv kernel alone, the whole backward (dlt, then both kernels), the
+    plain backward, and ``scaled_dot_product_attention`` forward and
+    forward+backward (its backward is the difference)."""
+    import torch.nn.functional as F
+
+    from tpudl_torch import cuda_ops
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    q, k, v, do = (torch.randn(*TRAIN_SHAPE, generator=gen).to("cuda", dtype)
+                   for _ in range(4))
+    dlse = torch.randn(*TRAIN_SHAPE[:3], generator=gen).to("cuda")
+    mask = dict(causal=True, q_offset=0, k_offset=0)
+    o, lse = cuda_ops.flash_attention(q, k, v, return_lse=True, causal=True)
+    dlt = ((do.float() * o.float()).sum(dim=-1) - dlse).contiguous()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))                      # [B, H, S, D]
+    dot = do.transpose(1, 2)
+
+    def library_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    fns = {
+        "fwd_ms": lambda: cuda_ops.flash_attention(q, k, v, causal=True),
+        "dq_ms": lambda: cuda_ops._launch_bwd_dq(q, k, v, do, lse, dlt,
+                                                 **mask),
+        "dkv_ms": lambda: cuda_ops._launch_bwd_dkv(q, k, v, do, lse, dlt,
+                                                   **mask),
+        "bwd_ms": lambda: cuda_ops.flash_attention_bwd(
+            q, k, v, o, lse, do, dlse, causal=True),
+        "plain_ms": lambda: cuda_ops.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, dlse, causal=True),
+        "library_fwd_ms": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True),
+        "library_fwd_bwd_ms": library_fwd_bwd,
+    }
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    runs = {key: [] for key in fns}
+    for _ in range(5):
+        for key, fn in fns.items():
+            runs[key].append(cuda_ms(fn))
+    t = {key: median(xs) for key, xs in runs.items()}
+    t["library_bwd_ms"] = t["library_fwd_bwd_ms"] - t["library_fwd_ms"]
+    return t
+
+
 def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -414,9 +719,13 @@ def main() -> int:
 
     print("phase 3: kernels vs their plain versions", flush=True)
     slice_err = check_flash()
+    bwd_err = check_flash_bwd()
 
     print(f"phase 4: serving slice at full width on {card}", flush=True)
     launches = run_slice()
+
+    print(f"phase 4b: training slice at full width on {card}", flush=True)
+    train_counts = run_training()
 
     print("phase 5: kernel timing at the serving shape "
           f"{list(SLICE_SHAPE)} causal", flush=True)
@@ -439,7 +748,45 @@ def main() -> int:
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": t["library_ms"],
-                "shape": list(SLICE_SHAPE), "dtype": name})
+                "shape": list(SLICE_SHAPE), "dtype": name,
+                "launches_by_path": {
+                    "serving": launches,
+                    "training": train_counts["flash_attn_fwd"]}})
+    print(f"phase 5: backward kernel timing at the training shape "
+          f"{list(TRAIN_SHAPE)} causal", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        t = time_bwd(dtype)
+        bounds = bwd_bounds(TRAIN_SHAPE, name)
+        fwd_bound = flash_bound(TRAIN_SHAPE, TRAIN_SHAPE[1], name)
+        print(f"  {name}: forward kernel {t['fwd_ms']:.4f} ms (bound "
+              f"{fwd_bound[0]:.4f} ms by {fwd_bound[1]}); backward: dq "
+              f"{t['dq_ms']:.4f} ms, dk/dv {t['dkv_ms']:.4f} ms, whole "
+              f"backward {t['bwd_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
+              f" scaled_dot_product_attention backward "
+              f"{t['library_bwd_ms']:.4f} ms (forward+backward "
+              f"{t['library_fwd_bwd_ms']:.4f} - forward "
+              f"{t['library_fwd_ms']:.4f}); card {card}")
+        for kernel in ("dq", "dkv"):
+            ms, by, nbytes, ops = bounds[kernel]
+            print(f"    {kernel} bound {ms:.4f} ms by {by} "
+                  f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+        if dtype != torch.float32:   # the training path runs f32
+            continue
+        for kernel, line in (("dq", 129), ("dkv", 164)):
+            ms, by, _, _ = bounds[kernel]
+            kernels.append({
+                "name": f"flash_attn_bwd_{kernel}", "route": "cuda",
+                "source": "tpudl_torch/csrc/flash_attn_bwd.cu",
+                "replaces": f"tpudl/pallas_ops.py:{line}",
+                "launches": train_counts[f"flash_attn_bwd_{kernel}"],
+                "max_abs_err": bwd_err[kernel],
+                "ms": t[f"{kernel}_ms"],
+                # the plain and library versions compute dq, dk and dv
+                # together: the whole backward is their yardstick
+                "plain_ms": t["plain_ms"], "bound_ms": ms, "bound_by": by,
+                "library_ms": t["library_bwd_ms"],
+                "shape": list(TRAIN_SHAPE), "dtype": name})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -99,19 +99,13 @@ def test_attention_reference_matches_tpudl(causal):
 
 def test_cpu_tensors_route_to_plain_and_count_no_launch():
     q, k, v = _torch(*_qkv(4, 1, 24, 24, 2, 8))
-    before = cuda_ops.launches
+    before = dict(cuda_ops.launch_counts)
     out, lse = cuda_ops.flash_attention(q, k, v, causal=True,
                                         return_lse=True)
     want_o, want_lse = cuda_ops.flash_attention_plain(
         q, k, v, causal=True, return_lse=True)
-    assert cuda_ops.launches == before
+    assert cuda_ops.launch_counts == before
     assert torch.equal(out, want_o) and torch.equal(lse, want_lse)
-
-
-def test_inputs_that_require_grad_are_refused():
-    q, k, v = _torch(*_qkv(5, 1, 8, 8, 1, 16))
-    with pytest.raises(RuntimeError, match="no backward"):
-        cuda_ops.flash_attention(q.requires_grad_(), k, v)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype"])

@@ -87,6 +87,39 @@ def test_tokenize_pack_matches(kw):
     np.testing.assert_array_equal(got(col), want(col))
 
 
+@pytest.mark.parametrize("lengths,seq_len", [((5, 4, 3), 4), ((), 4),
+                                             ((7, 0, 2), 3), ((1,), 1)])
+def test_pack_dense_matches(lengths, seq_len):
+    """The cases of tests/test_text.py's dense-packing test, and a
+    partial last row."""
+    seqs = [np.arange(4, 4 + n, dtype=np.int32) for n in lengths]
+    want = jax_codec.pack_dense(seqs, seq_len)
+    got = codec.pack_dense(seqs, seq_len)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [dict(seq_len=8, dense=True, eos=True),
+                                dict(seq_len=5, dense=True, eos=True,
+                                     bos=True),
+                                dict(seq_len=1025, dense=True, eos=True),
+                                dict(seq_len=6, eos=True)])
+def test_tokenize_pack_dense_matches(kw):
+    want = jax_codec.tokenize_pack(jax_tok.ByteTokenizer(), **kw)
+    got = codec.tokenize_pack(tokenizer.ByteTokenizer(), **kw)
+    for texts in (["abc", "defgh"], CORPUS):
+        col = np.array(texts, dtype=object)
+        np.testing.assert_array_equal(got(col), want(col))
+        assert got(col).dtype == want(col).dtype
+
+
+def test_dense_packing_needs_seq_len():
+    with pytest.raises(ValueError, match="seq_len"):
+        codec.tokenize_pack(tokenizer.ByteTokenizer(), dense=True)
+    with pytest.raises(ValueError, match="seq_len"):
+        codec.pack_dense([np.arange(3)], 0)
+
+
 @pytest.mark.parametrize("vocab", [260, 70000])
 def test_token_codec_matches_and_restores_on_device(vocab):
     want = jax_codec.TokenCodec(vocab_size=vocab)

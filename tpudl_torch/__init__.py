@@ -9,7 +9,9 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Ported so far: text serving on ``TinyCausalLM`` — :mod:`tpudl_torch.ml.lm`
 (``LMFeaturizer``, ``LMClassifier``, ``LMGenerator``) over
 :mod:`tpudl_torch.zoo.transformer`, whose attention runs the
-flash-attention forward of :mod:`tpudl_torch.cuda_ops`.
+flash-attention forward of :mod:`tpudl_torch.cuda_ops` — and its training
+(``TinyCausalLM.loss_fn`` under :mod:`tpudl_torch.train`), whose
+gradient runs the flash-attention dq and dk/dv kernels.
 """
 
 from tpudl_torch.device import resolve_device

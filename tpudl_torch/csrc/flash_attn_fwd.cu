@@ -29,20 +29,15 @@
 // bandwidth, not the FMA rate, limits it. wgmma on bf16 tiles fed by TMA, with
 // a producer warp and a ring of tiles, is the work of a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_attn_common.cuh"
 
 namespace {
+
+using namespace tpudl_flash;
 
 constexpr int BQ = 64;          // Q rows per block
 constexpr int BK = 64;          // K/V rows per inner tile
 constexpr int THREADS = 256;    // 4 threads per Q row
-constexpr float NEG_INF = -1e30f;  // finite -inf stand-in, as in the TPU kernel
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -90,13 +85,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + BQ, Sq) - 1;
   const long long qpos = (long long)q_offset + q0 + row;
 
-  int n_kt = (Sk + BK - 1) / BK;
-  if (causal) {
-    // local index of the last key any row of this tile can see; every tile
-    // that starts after it lies wholly in the causal future
-    const long long lim = (long long)q_offset + q_last - k_offset;
-    n_kt = lim < 0 ? 0 : (int)min((long long)n_kt, lim / BK + 1);
-  }
+  const int n_kt = live_k_tiles((Sk + BK - 1) / BK, BK, causal, q_offset,
+                                k_offset, q_last);
 
   float m = NEG_INF, l = 0.f;
   float acc[DPT];
@@ -230,10 +220,6 @@ int tpudl_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Sq, Sk, st, causal, q_offset, k_offset, scale, s);
   return -1;
-}
-
-const char* tpudl_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

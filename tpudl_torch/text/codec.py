@@ -2,17 +2,18 @@
 int32 batches.
 
 Copied from ``tpudl/text/codec.py`` (``TokenCodec``, ``pad_mask``,
-``pack_ragged``, ``tokenize_pack``); the host halves are unchanged, the
-device halves (``TokenCodec.prologue``, ``pad_mask``) are torch. Only the
-serving stages' packing is carried over: dense training packing waits for
-the training slice, and the wire type follows the vocab alone.
+``pack_ragged``, ``pack_dense``, ``tokenize_pack``); the host halves are
+unchanged, the device halves (``TokenCodec.prologue``, ``pad_mask``) are
+torch. The wire type follows the vocab alone, and ``tokenize_pack`` keeps
+no ``cache_token`` (the port has no shard or device cache yet).
 
 - :class:`TokenCodec` ships token ids as uint16 when the vocab fits
   (half the wire bytes of int32) and restores them on the device with one
   cast to int32 — exact, ids are integers.
 - :func:`tokenize_pack` builds the string-column pack fn for
   ``Frame.map_batches(pack=)``: rows 1:1 with the input strings,
-  right-padded with id 0 to a bucket-ladder rung (:func:`pack_ragged`).
+  right-padded with id 0 to a bucket-ladder rung (:func:`pack_ragged`),
+  or, with ``dense=True``, the training layout (:func:`pack_dense`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from tpudl_torch.data.codec import CodecError, WireCodec
 from tpudl_torch.obs import metrics as _m
 from tpudl_torch.text.tokenizer import PAD_ID, Tokenizer
 
-__all__ = ["TokenCodec", "pad_mask", "pack_ragged", "tokenize_pack"]
+__all__ = ["TokenCodec", "pad_mask", "pack_ragged", "pack_dense",
+           "tokenize_pack"]
 
 
 class TokenCodec(WireCodec):
@@ -90,25 +92,50 @@ def pack_ragged(seqs, *, buckets="pow2", pad_id: int = PAD_ID,
     return out
 
 
+def pack_dense(seqs, seq_len: int, *, pad_id: int = PAD_ID) -> np.ndarray:
+    """Dense LM-training packing: concatenate the id streams and chunk
+    into ``seq_len`` rows — pad waste only in the final partial row (the
+    separator policy — eos between documents — is the tokenizer call's
+    ``eos=True``, upstream of here). Always emits at least one row so a
+    batch of empty strings still has the declared shape."""
+    seq_len = int(seq_len)
+    if seq_len < 1:
+        raise ValueError(f"seq_len must be >= 1, got {seq_len}")
+    flat = (np.concatenate([np.asarray(s, dtype=np.int32).reshape(-1)
+                            for s in seqs])
+            if len(seqs) else np.zeros(0, dtype=np.int32))
+    n_rows = max(1, -(-int(flat.size) // seq_len))
+    out = np.full(n_rows * seq_len, int(pad_id), dtype=np.int32)
+    out[: flat.size] = flat
+    return out.reshape(n_rows, seq_len)
+
+
 def tokenize_pack(tokenizer: Tokenizer, *, seq_len=None, buckets="pow2",
-                  pad_id: int = PAD_ID, bos: bool = False):
+                  pad_id: int = PAD_ID, bos: bool = False,
+                  eos: bool = False, dense: bool = False):
     """Build the string-column pack fn for ``Frame.map_batches(pack=)``:
     tokenize, then :func:`pack_ragged` (rows 1:1 with the strings, capped
-    at ``seq_len`` when given). Publishes the ``text.tokenize.*`` and
-    ``text.pack.*`` metrics."""
+    at ``seq_len`` when given) or, with ``dense=True`` (which requires
+    ``seq_len``), :func:`pack_dense`. Publishes the ``text.tokenize.*``
+    and ``text.pack.*`` metrics."""
+    if dense and seq_len is None:
+        raise ValueError("dense packing requires seq_len")
     ladder = resolve_ladder(buckets if buckets is not None else "pow2")
 
     def pack(col) -> np.ndarray:
         t0 = time.perf_counter()
         seqs = tokenizer.encode_batch(list(np.asarray(col, dtype=object)),
-                                      bos=bos)
+                                      bos=bos, eos=eos)
         n_tok = int(sum(len(s) for s in seqs))
         _m.counter("text.tokenize.calls").inc()
         _m.counter("text.tokenize.tokens").inc(n_tok)
         _m.histogram("text.tokenize.seconds").observe(
             time.perf_counter() - t0)
-        out = pack_ragged(seqs, buckets=ladder, pad_id=pad_id,
-                          max_len=seq_len)
+        if dense:
+            out = pack_dense(seqs, int(seq_len), pad_id=pad_id)
+        else:
+            out = pack_ragged(seqs, buckets=ladder, pad_id=pad_id,
+                              max_len=seq_len)
         _m.counter("text.pack.rows").inc(int(out.shape[0]))
         pad_tokens = int(out.size) - min(n_tok, int(out.size))
         _m.counter("text.pack.pad_tokens").inc(pad_tokens)

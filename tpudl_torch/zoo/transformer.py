@@ -10,10 +10,12 @@ so both packages run the same model from the same ``init(seed)``.
 
 The full-sequence forward (:meth:`TinyCausalLM.hidden`) runs attention
 through :func:`tpudl_torch.cuda_ops.flash_attention` (the hand-written
-CUDA kernel on the card). The KV-cache decode step keeps tpudl's dense
-masked attention over the cache. The cache is updated in place
-(``decode_step`` returns the same list it was given) — JAX had to return a
-new one.
+CUDA kernels on the card, forward and, under autograd, backward), and
+:meth:`TinyCausalLM.loss_fn` is tpudl's next-token training loss. The
+KV-cache decode step keeps tpudl's dense masked attention over the cache.
+The cache is updated in place (``decode_step`` returns the same list it
+was given) — JAX had to return a new one. :func:`to_jax_params` carries
+the module's weights back to tpudl's numpy param pytree.
 
 Not ported yet, and refused with ``NotImplementedError``: mixture of
 experts, tensor parallelism, ring attention over a mesh, the pipelined
@@ -29,12 +31,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpudl_torch import cuda_ops
 from tpudl_torch.compile.buckets import resolve_ladder
 from tpudl_torch.device import resolve_device
 
-__all__ = ["TinyCausalLM", "load_jax_params"]
+__all__ = ["TinyCausalLM", "load_jax_params", "to_jax_params"]
 
 
 def _not_ported(what: str, item: str):
@@ -53,9 +56,9 @@ class TinyCausalLM(nn.Module):
 
     Parameters are allocated as zeros on ``device`` (default ``"cuda"``);
     fill them with :func:`load_jax_params` (or build in one call with
-    :meth:`from_jax_params`). Inputs that require grad are refused by the
-    attention kernel until its backward is ported, so run the forward
-    under ``torch.no_grad()`` or ``torch.inference_mode()``."""
+    :meth:`from_jax_params`). The module trains like any other: gradients
+    of :meth:`loss_fn` reach every parameter, through the flash backward
+    kernels on the card."""
 
     def __init__(self, vocab: int = 256, dim: int = 64, heads: int = 4,
                  layers: int = 2, max_len: int = 4096, experts: int = 0,
@@ -142,18 +145,24 @@ class TinyCausalLM(nn.Module):
         if tp:
             _not_ported("tensor parallelism (tp=True)", "LM parallelism")
 
-    def apply(self, tokens, *, mesh=None, tp: bool = False):
+    def apply(self, tokens, *, mesh=None, tp: bool = False,
+              remat: bool = False):
         """tokens ``[B, S]`` int → logits ``[B, S, vocab]`` (tied head).
         tpudl's name; it shadows ``nn.Module.apply(fn)``."""
-        x = self.hidden(tokens, mesh=mesh, tp=tp)
+        x = self.hidden(tokens, mesh=mesh, tp=tp, remat=remat)
         return x @ self.embed["table"].T
 
     forward = apply
 
-    def hidden(self, tokens, *, mesh=None, tp: bool = False):
+    def hidden(self, tokens, *, mesh=None, tp: bool = False,
+               remat: bool = False):
         """tokens ``[B, S]`` int → final-norm hidden states ``[B, S, D]``:
         :meth:`apply` minus the head. Causal attention runs the flash
-        kernel (12 launches for a 12-layer model)."""
+        kernel (12 launches for a 12-layer model). ``remat=True``
+        checkpoints each block (``torch.utils.checkpoint``, the
+        counterpart of tpudl's ``jax.checkpoint``): its activations are
+        recomputed in the backward, so the forward kernel runs twice per
+        block per training step."""
         self._single_device(mesh, tp)
         b, s = tokens.shape
         if s > self.max_len:
@@ -165,7 +174,11 @@ class TinyCausalLM(nn.Module):
             return cuda_ops.flash_attention(q, k, v, causal=True)
 
         for p in self.blocks:
-            x = self._decoder_block(x, p, attn)
+            if remat:
+                x = checkpoint(self._decoder_block, x, p, attn,
+                               use_reentrant=False)
+            else:
+                x = self._decoder_block(x, p, attn)
         return _layer_norm(x, self.final_norm)
 
     def apply_pipelined(self, *args, **kwargs):
@@ -265,6 +278,28 @@ class TinyCausalLM(nn.Module):
     def precompile_generate(self, *args, **kwargs):
         _not_ported("AOT precompilation of generate", "Compile")
 
+    # -- training loss -----------------------------------------------------
+    def loss_fn(self, *, mesh=None, use_pallas: bool = False,
+                remat: bool = False, tp: bool = False):
+        """``loss(model, tokens)``: next-token cross-entropy of ``model``
+        (a :class:`TinyCausalLM` of this architecture) on ``tokens``
+        ``[B, S]``, the mean over the batch, with logits cast to f32 —
+        tpudl's ``loss_fn``, with the module in the place of the param
+        pytree. ``remat=True`` checkpoints each block (see :meth:`hidden`).
+
+        ``use_pallas`` is accepted and changes nothing: tpudl picks
+        between dense attention and its Pallas kernel, which it proves
+        equal; here both run the flash op (the CUDA kernels on the card).
+        ``mesh=`` and ``tp=True`` are refused."""
+        self._single_device(mesh, tp)
+
+        def loss(model, tokens):
+            logits = model.apply(tokens[:, :-1], remat=remat)
+            return F.cross_entropy(logits.float().flatten(0, 1),
+                                   tokens[:, 1:].flatten().long())
+
+        return loss
+
 
 def _cached_attn(layer_cache: dict, pos: int):
     """Attention for one decode step: write this token's K/V at ``pos``,
@@ -291,12 +326,26 @@ def _pick(logits, temperature: float, generator):
     return logits.argmax(dim=-1).to(torch.int32)
 
 
+def _param_groups(model: TinyCausalLM) -> dict:
+    """tpudl's param group name → the module's ``ParameterDict``."""
+    groups = {"embed": model.embed, "final_norm": model.final_norm}
+    groups.update({f"block_{i}": p for i, p in enumerate(model.blocks)})
+    return groups
+
+
+def to_jax_params(model: TinyCausalLM) -> dict:
+    """The module's weights as tpudl's param pytree of numpy arrays (host
+    copies): the inverse of :func:`load_jax_params`."""
+    return {name: {key: t.detach().cpu().numpy().copy()
+                   for key, t in group.items()}
+            for name, group in _param_groups(model).items()}
+
+
 def load_jax_params(model: TinyCausalLM, params) -> TinyCausalLM:
     """Copy tpudl's param pytree (``{"embed": {"table"}, "final_norm":
     {...}, "block_<i>": {...}}`` of numpy or jax arrays) into ``model``.
     Names and shapes must match exactly; returns ``model``."""
-    groups = {"embed": model.embed, "final_norm": model.final_norm}
-    groups.update({f"block_{i}": p for i, p in enumerate(model.blocks)})
+    groups = _param_groups(model)
     if set(params) != set(groups):
         raise KeyError(f"param groups {sorted(params)} do not match the "
                        f"model's {sorted(groups)}")
