@@ -12,7 +12,9 @@ Phases (any failure exits non-zero before the final line):
 3. Hold each kernel against its plain PyTorch version on the card, in f32
    and bf16, over the CPU tests' cases and the slices' shapes: the
    forward, then the dq and dk/dv backward kernels under a nonzero lse
-   cotangent.
+   cotangent, on scores large enough that one TF32 pass would miss the
+   f32 tolerance, on rows that are not 16-byte aligned, and twice at the
+   training shape to show that a launch repeats bit for bit.
 4. Drive the serving slice at full width — ``TinyCausalLM(vocab=32000,
    dim=1024, heads=16, layers=12)`` from seeded random weights — through
    ``LMFeaturizer``, ``LMClassifier`` and ``LMGenerator``; check that
@@ -27,8 +29,9 @@ Phases (any failure exits non-zero before the final line):
    the loss fell, hold a small batch's loss, gradients and 3-step losses
    against the same run on the CPU, and profile one step.
 5. Time each kernel at its slice's shape against its plain version, one
-   PyTorch library call and the card's bound; print one ``{"kernels":
-   [...]}`` line.
+   PyTorch library call and the card's bound (for f32 the tensor cores'
+   3xTF32 rate, with the f32 FFMA figure beside it); print one
+   ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -63,9 +66,14 @@ LR = 3e-4
 CPU_TOKENS, CPU_STEPS = 257, 3     # the card-vs-CPU batch: 1 row
 
 # H100 SXM data-sheet peaks (dense): memory rate and the rate for the
-# inputs' type; the flash kernel does its arithmetic in f32 either way
+# inputs' type. An f32-accurate product on the tensor cores takes three TF32
+# passes (3xTF32, as the backward kernels and PyTorch's memory-efficient
+# attention run f32), so for f32 the least time for the operations is the
+# lesser of FFMAs at 67 TFLOP/s and 3 passes at the 495 TFLOP/s TF32 rate
 MEM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+TF32_OPS_PER_S = 495e12
+TF32_PASSES = 3
 
 # kernel vs plain on the card. f32: both compute in f32 with the products
 # and sums in another order (D <= 128 terms, up to 1024 keys).
@@ -91,9 +99,9 @@ SCORE_ATOL = 1e-4
 # 12 f32 layers summed in other orders (first reading on an H100, PERF.md):
 # the first loss (~10.8, one f32 ulp 9.5e-7) differed by 1.9e-6, so 2e-5;
 # block 0's wq/wk/wv gradients, held relative to their largest value
-# (3.2e-2), by 8.1e-7 of it, so 2e-5 (about 25x: the serving features'
-# error moved 8x between machines with the CPU's summation order); the
-# losses of 3
+# (3.2e-2), by 8.1e-7 of it with scalar-FMA backward kernels and 1.4e-6
+# with the tensor-core ones, so 2e-5 (the serving features' error moved 8x
+# between machines with the CPU's summation order); the losses of 3
 # AdamW steps by 1.9e-6, so 5e-5 (Adam's √v̂ can amplify a gradient's
 # rounding)
 TRAIN_LOSS_ATOL = 2e-5
@@ -143,12 +151,19 @@ def visible_pairs(s_q, s_k, causal, q_offset, k_offset) -> int:
 
 
 def bound(nbytes, ops, dtype_name):
-    """(ms, what bounds it): the larger of the bytes over the memory rate
-    and the operations over the peak rate for the inputs' type."""
+    """(ms, what bounds it, the FFMA figure): the larger of the bytes over
+    the memory rate and the operations over the peak rate for the inputs'
+    type. For f32 that rate is the better of the FFMA peak and 3xTF32 on
+    the tensor cores; the FFMA figure is the bound with the FFMA peak
+    alone (None for bf16)."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    ffma = None
+    if dtype_name == "float32":
+        ffma = max(t_bytes, t_ops)
+        t_ops = min(t_ops, TF32_PASSES * ops / TF32_OPS_PER_S * 1e3)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), ffma
 
 
 def flash_bound(shape, s_k, dtype_name, causal=True, q_offset=0,
@@ -167,7 +182,7 @@ def bwd_bounds(shape, dtype_name):
     k, v, dO, lse and dlt once and writes dq, 6·D flops per visible pair
     (QKᵀ, dO·Vᵀ, ds·K); dk/dv reads the same and writes dk and dv, 8·D
     flops per pair (QKᵀ, dO·Vᵀ, dsᵀ·Q, pᵀ·dO). Returns ``{kernel: (ms,
-    by, bytes, flops)}``."""
+    by, FFMA ms, bytes, flops)}``."""
     b, s, h, d = shape
     item = 4 if dtype_name == "float32" else 2
     pairs = b * h * visible_pairs(s, s, True, 0, 0)
@@ -178,6 +193,53 @@ def bwd_bounds(shape, dtype_name):
         ops = flops * d * pairs
         out[name] = (*bound(nbytes, ops, dtype_name), nbytes, ops)
     return out
+
+
+def check_ptxas(logs):
+    """Print nvcc's ``-Xptxas=-v`` lines (``{source: log}``) that name each
+    kernel instance and give its registers and spills; fail if an f32
+    D=64 backward instance spills."""
+    import re
+
+    entry, seen = "", set()
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                entry = line
+            elif not ("registers" in line or "spill" in line):
+                continue
+            print(f"  {name}: {line.strip()}")
+            m = re.search(r"flash_bwd_(dq|dkv)_kernelIfLi64E", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if m and spill:
+                seen.add(m.group(1))
+                if spill.group(1, 2) != ("0", "0"):
+                    fail(f"the f32 D=64 {m.group(1)} kernel spills: "
+                         f"{line.strip()}")
+    if "flash_attn_bwd" in logs and seen != {"dq", "dkv"}:
+        fail(f"no spill report for the f32 D=64 backward kernels "
+             f"(found {sorted(seen)})")
+
+
+def bound_text(b, ms) -> str:
+    """One line on a kernel's bound ``b`` (from flash_bound / bwd_bounds)
+    and the rate its time ``ms`` achieves."""
+    bound_ms, by, ffma, nbytes, ops = b
+    text = f"bound {bound_ms:.4f} ms by {by}"
+    if ffma is not None:
+        text += f" at 3xTF32 (FFMA bound {ffma:.4f} ms)"
+    return (f"{text} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
+            f"achieved {ops / ms / 1e9:.1f} TFLOP/s")
+
+
+def bound_keys(b, ms) -> dict:
+    """The bound's keys of an f32 ``kernels`` entry: ``bound_ms`` and
+    ``bound_by`` (bytes or operations, the latter at the 3xTF32 rate), the
+    FFMA figure and the achieved rate."""
+    bound_ms, by, ffma, _, ops = b
+    return {"bound_ms": bound_ms, "bound_by": by, "bound_ffma_ms": ffma,
+            "tflops": ops / ms / 1e9}
 
 
 def check_flash():
@@ -252,13 +314,22 @@ def check_flash_bwd():
     """Phase 3, backward: the dq and dk/dv kernels (through
     ``flash_attention_bwd``) vs the plain backward on the card, on the
     forward kernel's outputs under random dO and dlse cotangents; returns
-    the f32 max abs errors at the training shape, ``{"dq", "dkv"}``."""
+    the f32 max abs errors at the training shape, ``{"dq", "dkv"}``.
+
+    "large scores" draws q and k ×3, so the scores have a standard
+    deviation near 9: one TF32 pass (about 2⁻¹¹·|s| of error in s) would
+    move p by tenths of a percent and miss the f32 tolerance, so the case
+    shows that the 3-pass split holds f32 accuracy. The training case runs
+    twice and its gradients must be bitwise equal: every output tile has
+    one owning block and no atomics. "unaligned rows" passes views that
+    start one element into a D+1-wide buffer, so no row is 16-byte aligned
+    and the wrapper copies them before the kernels' cp.async loads."""
     from tpudl_torch import cuda_ops
 
     gen = torch.Generator().manual_seed(SEED + 2)
 
-    def rand(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+    def rand(*shape, dtype=torch.float32, mul=1.0):
+        return (torch.randn(*shape, generator=gen) * mul).to("cuda", dtype)
 
     # (name, q shape, Sk, causal, q_offset, k_offset)
     cases = [("dense", (2, 64, 2, 32), 64, False, 0, 0),
@@ -271,19 +342,24 @@ def check_flash_bwd():
              ("D=16", (2, 130, 3, 16), 130, True, 0, 0),
              ("D=128", (2, 130, 3, 128), 77, False, 0, 0),
              ("strided dO", (2, 96, 3, 64), 96, True, 0, 0),
-             ("training", TRAIN_SHAPE, TRAIN_SHAPE[1], True, 0, 0)]
+             ("training", TRAIN_SHAPE, TRAIN_SHAPE[1], True, 0, 0),
+             ("large scores", (2, 130, 3, 64), 130, True, 0, 0),
+             ("unaligned rows", (2, 70, 2, 32), 70, True, 0, 0)]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = GRAD_TOL[str(dtype).split(".")[1]]
         for name, (b, s_q, h, d), s_k, causal, q_off, k_off in cases:
-            q = rand(b, s_q, h, d, dtype=dtype)
-            k, v = (rand(b, s_k, h, d, dtype=dtype) for _ in range(2))
+            mul = 3.0 if name == "large scores" else 1.0
+            pad = 1 if name == "unaligned rows" else 0
+            q = rand(b, s_q, h, d + pad, dtype=dtype, mul=mul)[..., pad:]
+            k = rand(b, s_k, h, d + pad, dtype=dtype, mul=mul)[..., pad:]
+            v = rand(b, s_k, h, d + pad, dtype=dtype)[..., pad:]
             kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
             o, lse = cuda_ops.flash_attention(q, k, v, return_lse=True, **kw)
             if name == "strided dO":   # a [B, H, S, D] buffer seen as [B, S, H, D]
                 do = rand(b, h, s_q, d, dtype=dtype).transpose(1, 2)
             else:
-                do = rand(b, s_q, h, d, dtype=dtype)
+                do = rand(b, s_q, h, d + pad, dtype=dtype)[..., pad:]
             dlse = rand(b, s_q, h)
             got = cuda_ops.flash_attention_bwd(q, k, v, o, lse, do, dlse, **kw)
             want = cuda_ops.flash_attention_bwd_plain(q, k, v, o, lse, do,
@@ -307,7 +383,17 @@ def check_flash_bwd():
                 fail(f"flash backward kernels disagree with the plain "
                      f"backward ({dtype}, {name}; tolerance {tol} x "
                      "max(1, max |grad|))")
-            if name == "training" and dtype == torch.float32:
+            if name != "training":
+                continue
+            again = cuda_ops.flash_attention_bwd(q, k, v, o, lse, do, dlse,
+                                                 **kw)
+            same = all(torch.equal(a, g) for a, g in zip(again, got))
+            print(f"  flash bwd {str(dtype)[6:]:8s} {name:17s} second "
+                  f"launch: dq, dk, dv {'bitwise equal' if same else 'DIFFER'}")
+            if not same:
+                fail(f"the backward kernels did not repeat bit for bit "
+                     f"({dtype}, {name})")
+            if dtype == torch.float32:
                 errs = {"dq": case_err["dq"],
                         "dkv": max(case_err["dk"], case_err["dv"])}
     return errs
@@ -712,10 +798,7 @@ def main() -> int:
     logs = _build.build()
     print(f"  built {sorted(logs) or 'nothing (cached)'} from "
           f"{_build.CSRC} in {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    check_ptxas(logs)
 
     print("phase 3: kernels vs their plain versions", flush=True)
     slice_err = check_flash()
@@ -733,12 +816,10 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         t = time_flash(dtype)
-        bound, by, nbytes, ops = flash_bound(SLICE_SHAPE, SLICE_SHAPE[1],
-                                             name)
+        b = flash_bound(SLICE_SHAPE, SLICE_SHAPE[1], name)
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
-              f" ms, scaled_dot_product_attention {t['library_ms']:.4f} ms,"
-              f" bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.2f} GFLOP); card {card}")
+              f" ms, scaled_dot_product_attention {t['library_ms']:.4f} ms;"
+              f" {bound_text(b, t['ms'])}; card {card}")
         if dtype == torch.float32:   # the dtype the serving path runs
             kernels.append({
                 "name": "flash_attn_fwd", "route": "cuda",
@@ -746,7 +827,7 @@ def main() -> int:
                 "replaces": "tpudl/pallas_ops.py:77",
                 "launches": launches, "max_abs_err": slice_err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": bound, "bound_by": by,
+                **bound_keys(b, t["ms"]),
                 "library_ms": t["library_ms"],
                 "shape": list(SLICE_SHAPE), "dtype": name,
                 "launches_by_path": {
@@ -759,22 +840,20 @@ def main() -> int:
         t = time_bwd(dtype)
         bounds = bwd_bounds(TRAIN_SHAPE, name)
         fwd_bound = flash_bound(TRAIN_SHAPE, TRAIN_SHAPE[1], name)
-        print(f"  {name}: forward kernel {t['fwd_ms']:.4f} ms (bound "
-              f"{fwd_bound[0]:.4f} ms by {fwd_bound[1]}); backward: dq "
-              f"{t['dq_ms']:.4f} ms, dk/dv {t['dkv_ms']:.4f} ms, whole "
-              f"backward {t['bwd_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
+        print(f"  {name}: forward kernel {t['fwd_ms']:.4f} ms "
+              f"({bound_text(fwd_bound, t['fwd_ms'])}); backward: dq "
+              f"{t['dq_ms']:.4f} ms, dk/dv {t['dkv_ms']:.4f} ms (pair "
+              f"{t['dq_ms'] + t['dkv_ms']:.4f} ms), whole backward "
+              f"{t['bwd_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
               f" scaled_dot_product_attention backward "
               f"{t['library_bwd_ms']:.4f} ms (forward+backward "
               f"{t['library_fwd_bwd_ms']:.4f} - forward "
               f"{t['library_fwd_ms']:.4f}); card {card}")
         for kernel in ("dq", "dkv"):
-            ms, by, nbytes, ops = bounds[kernel]
-            print(f"    {kernel} bound {ms:.4f} ms by {by} "
-                  f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+            print(f"    {kernel}: {bound_text(bounds[kernel], t[kernel + '_ms'])}")
         if dtype != torch.float32:   # the training path runs f32
             continue
         for kernel, line in (("dq", 129), ("dkv", 164)):
-            ms, by, _, _ = bounds[kernel]
             kernels.append({
                 "name": f"flash_attn_bwd_{kernel}", "route": "cuda",
                 "source": "tpudl_torch/csrc/flash_attn_bwd.cu",
@@ -784,7 +863,8 @@ def main() -> int:
                 "ms": t[f"{kernel}_ms"],
                 # the plain and library versions compute dq, dk and dv
                 # together: the whole backward is their yardstick
-                "plain_ms": t["plain_ms"], "bound_ms": ms, "bound_by": by,
+                "plain_ms": t["plain_ms"],
+                **bound_keys(bounds[kernel], t[f"{kernel}_ms"]),
                 "library_ms": t["library_bwd_ms"],
                 "shape": list(TRAIN_SHAPE), "dtype": name})
     print(f"card: {card}")

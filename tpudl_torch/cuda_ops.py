@@ -10,7 +10,9 @@ correct. Under autograd it is one ``torch.autograd.Function`` (the
 counterpart of tpudl's ``jax.custom_vjp`` ``_flash_fn``) whose backward
 runs the dq and dk/dv kernels (``csrc/flash_attn_bwd.cu``) on both
 cotangents, dO and dlse — the lse output is differentiable, as the ring
-merge needs. The kernels are built by :mod:`tpudl_torch._build`.
+merge needs. The backward kernels take their products on the tensor cores
+at f32 accuracy (three TF32 passes, ``csrc/flash_attn_mma.cuh``) and
+repeat bit for bit. The kernels are built by :mod:`tpudl_torch._build`.
 
 Routing is by the tensors' device, with no fallback: CPU tensors run the
 plain versions (:func:`flash_attention_plain`,
@@ -155,6 +157,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, dlse, *, causal: bool = False,
     do = do.to(q.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
+    # the kernels copy rows into shared memory in 16-byte cp.async chunks,
+    # so every row must start on a 16-byte boundary
+    q, k, v, do = (t if _rows_aligned16(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v, do))
     mask = dict(causal=causal, q_offset=int(q_offset), k_offset=int(k_offset))
     lse = lse.contiguous()
     dq = _launch_bwd_dq(q, k, v, do, lse, dlt, **mask)
@@ -268,6 +275,14 @@ def _run(name, q, k, pointers, strides, *, causal, q_offset, k_offset):
                 else "no kernel instance for this dtype/head_dim")
         raise RuntimeError(f"{name} launch failed ({rc}): {what}")
     launch_counts[name] += 1
+
+
+def _rows_aligned16(t):
+    """Whether every ``[B, S, H]`` row of ``t`` starts on a 16-byte
+    boundary."""
+    item = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(st * item % 16 == 0 for st in t.stride()[:3]))
 
 
 def _strides(*tensors):
