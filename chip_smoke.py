@@ -12,9 +12,9 @@ Phases (any failure exits non-zero before the final line):
 3. Hold each kernel against its plain PyTorch version on the card, in f32
    and bf16, over the CPU tests' cases and the slices' shapes: the
    forward, then the dq and dk/dv backward kernels under a nonzero lse
-   cotangent, on scores large enough that one TF32 pass would miss the
-   f32 tolerance, on rows that are not 16-byte aligned, and twice at the
-   training shape to show that a launch repeats bit for bit.
+   cotangent; each also on scores large enough that one TF32 pass would
+   miss the f32 tolerance, on rows that are not 16-byte aligned, and twice
+   at its path's shape to show that a launch repeats bit for bit.
 4. Drive the serving slice at full width — ``TinyCausalLM(vocab=32000,
    dim=1024, heads=16, layers=12)`` from seeded random weights — through
    ``LMFeaturizer``, ``LMClassifier`` and ``LMGenerator``; check that
@@ -30,8 +30,8 @@ Phases (any failure exits non-zero before the final line):
    against the same run on the CPU, and profile one step.
 5. Time each kernel at its slice's shape against its plain version, one
    PyTorch library call and the card's bound (for f32 the tensor cores'
-   3xTF32 rate, with the f32 FFMA figure beside it); print one
-   ``{"kernels": [...]}`` line.
+   3xTF32 rate, with the f32 FFMA figure beside it), and the forward also
+   at the training shape; print one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -198,9 +198,10 @@ def bwd_bounds(shape, dtype_name):
 def check_ptxas(logs):
     """Print nvcc's ``-Xptxas=-v`` lines (``{source: log}``) that name each
     kernel instance and give its registers and spills; fail if an f32
-    D=64 backward instance spills."""
+    D=64 instance (the one both paths run) spills."""
     import re
 
+    want = {"flash_attn_fwd": {"fwd"}, "flash_attn_bwd": {"bwd_dq", "bwd_dkv"}}
     entry, seen = "", set()
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -209,7 +210,7 @@ def check_ptxas(logs):
             elif not ("registers" in line or "spill" in line):
                 continue
             print(f"  {name}: {line.strip()}")
-            m = re.search(r"flash_bwd_(dq|dkv)_kernelIfLi64E", entry)
+            m = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernelIfLi64E", entry)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
             if m and spill:
@@ -217,9 +218,9 @@ def check_ptxas(logs):
                 if spill.group(1, 2) != ("0", "0"):
                     fail(f"the f32 D=64 {m.group(1)} kernel spills: "
                          f"{line.strip()}")
-    if "flash_attn_bwd" in logs and seen != {"dq", "dkv"}:
-        fail(f"no spill report for the f32 D=64 backward kernels "
-             f"(found {sorted(seen)})")
+    missing = set().union(*(want[n] for n in logs if n in want)) - seen
+    if missing:
+        fail(f"no spill report for the f32 D=64 kernels {sorted(missing)}")
 
 
 def bound_text(b, ms) -> str:
@@ -244,13 +245,19 @@ def bound_keys(b, ms) -> dict:
 
 def check_flash():
     """Phase 3: kernel vs plain on the card; returns the f32 max abs O
-    error at the serving shape."""
+    error at the serving shape.
+
+    As for the backward (``check_flash_bwd``): "large scores" draws q and
+    k ×3, where one TF32 pass would miss the f32 tolerance; "unaligned
+    rows" passes views one element into a D+1-wide buffer, which the
+    wrapper copies before the kernel's cp.async loads; the serving case
+    runs twice and its O and lse must be bitwise equal."""
     from tpudl_torch import cuda_ops
 
     gen = torch.Generator().manual_seed(SEED)
 
-    def rand(*shape, dtype):
-        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+    def rand(*shape, dtype, mul=1.0):
+        return (torch.randn(*shape, generator=gen) * mul).to("cuda", dtype)
 
     # (name, q shape, Sk, causal, q_offset, k_offset)
     cases = [("dense", (2, 64, 2, 32), 64, False, 0, 0),
@@ -261,13 +268,18 @@ def check_flash():
              ("S=200", (1, 200, 2, 64), 200, True, 0, 0),
              ("D=16", (2, 130, 3, 16), 130, True, 0, 0),
              ("D=128", (2, 130, 3, 128), 77, False, 0, 0),
+             ("large scores", (2, 130, 3, 64), 130, True, 0, 0),
+             ("unaligned rows", (2, 70, 2, 32), 70, True, 0, 0),
              ("serving", SLICE_SHAPE, SLICE_SHAPE[1], True, 0, 0)]
     slice_err = None
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
         for name, (b, s_q, h, d), s_k, causal, q_off, k_off in cases:
-            q = rand(b, s_q, h, d, dtype=dtype)
-            k, v = (rand(b, s_k, h, d, dtype=dtype) for _ in range(2))
+            mul = 3.0 if name == "large scores" else 1.0
+            pad = 1 if name == "unaligned rows" else 0
+            q = rand(b, s_q, h, d + pad, dtype=dtype, mul=mul)[..., pad:]
+            k = rand(b, s_k, h, d + pad, dtype=dtype, mul=mul)[..., pad:]
+            v = rand(b, s_k, h, d + pad, dtype=dtype)[..., pad:]
             kw = dict(causal=causal, q_offset=q_off, k_offset=k_off,
                       return_lse=True)
             o, lse = cuda_ops.flash_attention(q, k, v, **kw)
@@ -288,7 +300,16 @@ def check_flash():
             if not ok:
                 fail(f"flash kernel disagrees with its plain version "
                      f"({dtype}, {name}; tolerance {tol})")
-            if name == "serving" and dtype == torch.float32:
+            if name != "serving":
+                continue
+            o2, lse2 = cuda_ops.flash_attention(q, k, v, **kw)
+            same = torch.equal(o2, o) and torch.equal(lse2, lse)
+            print(f"  flash {str(dtype)[6:]:8s} {name:16s} second launch: "
+                  f"O, lse {'bitwise equal' if same else 'DIFFER'}")
+            if not same:
+                fail(f"the forward kernel did not repeat bit for bit "
+                     f"({dtype}, {name})")
+            if dtype == torch.float32:
                 slice_err = o_abs
         # ring contract: two half-K calls merge through their lse weights
         q, k, v = (rand(2, 64, 2, 32, dtype=dtype) for _ in range(3))
@@ -821,7 +842,7 @@ def main() -> int:
               f" ms, scaled_dot_product_attention {t['library_ms']:.4f} ms;"
               f" {bound_text(b, t['ms'])}; card {card}")
         if dtype == torch.float32:   # the dtype the serving path runs
-            kernels.append({
+            fwd_entry = {
                 "name": "flash_attn_fwd", "route": "cuda",
                 "source": "tpudl_torch/csrc/flash_attn_fwd.cu",
                 "replaces": "tpudl/pallas_ops.py:77",
@@ -832,7 +853,8 @@ def main() -> int:
                 "shape": list(SLICE_SHAPE), "dtype": name,
                 "launches_by_path": {
                     "serving": launches,
-                    "training": train_counts["flash_attn_fwd"]}})
+                    "training": train_counts["flash_attn_fwd"]}}
+            kernels.append(fwd_entry)
     print(f"phase 5: backward kernel timing at the training shape "
           f"{list(TRAIN_SHAPE)} causal", flush=True)
     for dtype in (torch.float32, torch.bfloat16):
@@ -841,7 +863,9 @@ def main() -> int:
         bounds = bwd_bounds(TRAIN_SHAPE, name)
         fwd_bound = flash_bound(TRAIN_SHAPE, TRAIN_SHAPE[1], name)
         print(f"  {name}: forward kernel {t['fwd_ms']:.4f} ms "
-              f"({bound_text(fwd_bound, t['fwd_ms'])}); backward: dq "
+              f"({bound_text(fwd_bound, t['fwd_ms'])}), "
+              f"scaled_dot_product_attention forward "
+              f"{t['library_fwd_ms']:.4f} ms; backward: dq "
               f"{t['dq_ms']:.4f} ms, dk/dv {t['dkv_ms']:.4f} ms (pair "
               f"{t['dq_ms'] + t['dkv_ms']:.4f} ms), whole backward "
               f"{t['bwd_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
@@ -853,6 +877,11 @@ def main() -> int:
             print(f"    {kernel}: {bound_text(bounds[kernel], t[kernel + '_ms'])}")
         if dtype != torch.float32:   # the training path runs f32
             continue
+        # the forward at the training shape, beside SDPA's forward there
+        fwd_entry["training"] = {
+            "shape": list(TRAIN_SHAPE), "ms": t["fwd_ms"],
+            **bound_keys(fwd_bound, t["fwd_ms"]),
+            "library_ms": t["library_fwd_ms"]}
         for kernel, line in (("dq", 129), ("dkv", 164)):
             kernels.append({
                 "name": f"flash_attn_bwd_{kernel}", "route": "cuda",

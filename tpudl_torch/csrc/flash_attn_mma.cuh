@@ -44,6 +44,10 @@ namespace tpudl_flash {
 template <typename T>
 __host__ __device__ constexpr int tile_pitch(int d) { return d + 16 / (int)sizeof(T); }
 
+// Pitch of a tile read with load_a_paired / load_bt_paired (below): rows stay
+// 16-byte aligned for cp.async
+__host__ __device__ constexpr int paired_pitch(int d) { return d + 8; }
+
 // ---- 3xTF32 ---------------------------------------------------------------
 
 // f32 -> TF32, round to nearest with ties away from zero: cvt.rna.tf32.f32
@@ -139,6 +143,42 @@ __device__ __forceinline__ FragB load_b_paired(const T* tile, int pitch,
                                                int k0, int n0, int g, int t) {
   const T* p = tile + (k0 + 2 * t) * pitch + n0 + g;
   const float x[2] = {to_f32(p[0]), to_f32(p[pitch])};
+  return split<kExact>(x);
+}
+
+// Two neighbouring elements of a row, widened to f32, in one 8-byte (f32) or
+// 4-byte (bf16) shared-memory load; p must be aligned to the pair
+__device__ __forceinline__ float2 load_f32x2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_f32x2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The paired k order on BOTH operands of a product of two row-major tiles
+// (Q K^T in the forward): slot t holds column k0 + 2t and slot t + 4 column
+// k0 + 2t + 1, so each row's two values come in one vector load. The sum over
+// k is the same; the accumulator layout does not change. The tile wants the
+// pitch paired_pitch: an 8-byte load is served a half-warp (rows g = 0..3) at
+// a time, and D + 8 elements puts those rows 8 banks apart, where
+// tile_pitch's D + 4 floats would put rows g and g + 1 two-way on one bank
+// (bf16's 4-byte loads are conflict-free at either pitch).
+// A = rows r0..r0+15, columns k0..k0+7
+template <bool kExact, typename T>
+__device__ __forceinline__ FragA load_a_paired(const T* tile, int pitch,
+                                               int r0, int k0, int g, int t) {
+  const T* p = tile + (r0 + g) * pitch + k0 + 2 * t;
+  const float2 lo = load_f32x2(p), hi = load_f32x2(p + 8 * pitch);
+  const float x[4] = {lo.x, hi.x, lo.y, hi.y};
+  return split<kExact>(x);
+}
+
+// B with B[k][n] = tile[n0 + n][k0 + k] (rows n0..n0+7 read transposed)
+template <bool kExact, typename T>
+__device__ __forceinline__ FragB load_bt_paired(const T* tile, int pitch,
+                                                int n0, int k0, int g, int t) {
+  const float2 x2 = load_f32x2(tile + (n0 + g) * pitch + k0 + 2 * t);
+  const float x[2] = {x2.x, x2.y};
   return split<kExact>(x);
 }
 

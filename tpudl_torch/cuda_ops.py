@@ -10,7 +10,7 @@ correct. Under autograd it is one ``torch.autograd.Function`` (the
 counterpart of tpudl's ``jax.custom_vjp`` ``_flash_fn``) whose backward
 runs the dq and dk/dv kernels (``csrc/flash_attn_bwd.cu``) on both
 cotangents, dO and dlse — the lse output is differentiable, as the ring
-merge needs. The backward kernels take their products on the tensor cores
+merge needs. All three kernels take their products on the tensor cores
 at f32 accuracy (three TF32 passes, ``csrc/flash_attn_mma.cuh``) and
 repeat bit for bit. The kernels are built by :mod:`tpudl_torch._build`.
 
@@ -157,11 +157,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, dlse, *, causal: bool = False,
     do = do.to(q.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
-    # the kernels copy rows into shared memory in 16-byte cp.async chunks,
-    # so every row must start on a 16-byte boundary
-    q, k, v, do = (t if _rows_aligned16(t)
-                   else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v, do))
+    q, k, v, do = _aligned_rows(q, k, v, do)
     mask = dict(causal=causal, q_offset=int(q_offset), k_offset=int(k_offset))
     lse = lse.contiguous()
     dq = _launch_bwd_dq(q, k, v, do, lse, dlt, **mask)
@@ -285,12 +281,22 @@ def _rows_aligned16(t):
             and all(st * item % 16 == 0 for st in t.stride()[:3]))
 
 
+def _aligned_rows(*tensors):
+    """The kernels copy rows into shared memory in 16-byte cp.async
+    chunks, so every row must start on a 16-byte boundary: each tensor
+    whose rows do not is copied."""
+    return tuple(t if _rows_aligned16(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in tensors)
+
+
 def _strides(*tensors):
     return [st for t in tensors for st in t.stride()[:3]]
 
 
 def _launch_fwd(q, k, v, *, causal, q_offset, k_offset):
     _check_kernel_inputs(q, (q, k, v), q_offset, k_offset)
+    q, k, v = _aligned_rows(q, k, v)
     b, s_q, h, d = q.shape
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, s_q, h), dtype=torch.float32, device=q.device)
