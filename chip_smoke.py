@@ -31,9 +31,26 @@ Phases (any failure exits non-zero before the final line):
 5. Time each kernel at its slice's shape against its plain version, one
    PyTorch library call and the card's bound (for f32 the tensor cores'
    3xTF32 rate, with the f32 FFMA figure beside it), and the forward also
-   at the training shape; print one ``{"kernels": [...]}`` line.
+   at the training shape.
+6. Drive the image slice at full width — ``DeepImageFeaturizer(modelName=
+   "InceptionV3", weights="random")`` at 299×299 — over 512 seeded uint8
+   BGR image structs in batches of 64, plus 256 at 480×640 (the
+   antialiased resize), in f32 and bf16, and ``DeepImagePredictor`` on 64
+   rows; where PIL imports, also over ``readImages`` of 64 JPEGs. cuDNN's
+   TF32 setting is back at PyTorch's default (allowed) for this phase, so
+   the f32 checks hold the stages' own precision. Print images/s (median
+   and spread of 5 windows each), achieved TFLOP/s against the bounds,
+   and the per-batch function's rate alone; hold 4 rows (and 2 of the
+   480×640 batch) against the same stage on the CPU, bf16 against f32,
+   and check that no attention kernel launched. Last, after every timed
+   run, a profile split of one batch in each dtype. Then print the
+   ``{"kernels": [...]}`` line of phase 5.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+
+``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
+alone: the image slice's rates in a process that has run no profiler
+session before them (phases 4 and 4b profile a batch and a step).
 """
 
 from __future__ import annotations
@@ -107,6 +124,25 @@ SCORE_ATOL = 1e-4
 TRAIN_LOSS_ATOL = 2e-5
 TRAIN_GRAD_RTOL = 2e-5
 TRAIN_STEPS_ATOL = 5e-5
+
+# image slice: README's first example, sparkdl's flagship
+IMAGE_MODEL = "InceptionV3"
+IMAGE_ROWS, IMAGE_BATCH = 512, 64  # 8 batches at the model's 299×299
+IMAGE_BIG = (480, 640)             # through the antialiased resize
+IMAGE_BIG_ROWS = 256               # 4 batches at 480×640
+IMAGE_WINDOWS = 5                  # timed windows of each rate (median, spread)
+IMAGE_CPU_ROWS = 4                 # card vs CPU rows (and 2 of the big batch)
+# card vs CPU run of the f32 stage, relative to max |y| (init(0) features
+# are ~5e-3, so an absolute bound would prove nothing): 94 conv layers
+# summed in other orders, on cuDNN's algorithms (FFT among them) and the
+# host's. First reading on an H100 (PERF.md): features 1.3e-6 (299x299)
+# and 1.0e-6 (480x640) of max |y|, scores 2.3e-7; the limit leaves ~16x
+# the largest, as the CPU's own summation order varies by machine.
+IMAGE_CPU_RTOL = 2e-5
+# bf16 against f32 on the card, relative to max |y|: read 1.13e-2 on an
+# H100; on the CPU the port's bf16 read 1.2e-2 of its f32 and tpudl's
+# 1.4e-2 of its f32.
+IMAGE_BF16_RTOL = 3e-2
 
 
 def fail(msg: str):
@@ -800,7 +836,326 @@ def time_bwd(dtype):
     return t
 
 
-def main() -> int:
+def image_structs(n, shape, seed):
+    """``n`` seeded uint8 BGR image structs of ``shape`` (h, w, 3), built
+    with numpy (no PIL, no libjpeg)."""
+    from tpudl_torch.image import imageArrayToStruct
+
+    rng = np.random.default_rng(seed)
+    col = np.empty(n, dtype=object)
+    col[:] = [imageArrayToStruct(rng.integers(0, 256, shape, dtype=np.uint8),
+                                 origin=f"img{i}") for i in range(n)]
+    return col
+
+
+def image_flops(head):
+    """Multiply-add work of one image through the model's products
+    (convolutions and the dense layer, 2 flops each), counted on meta
+    tensors by ``torch.utils.flop_counter`` from the shapes of this run's
+    model; elementwise work is not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpudl_torch.zoo import getKerasApplicationModel
+
+    with FlopCounterMode(display=False) as fc:
+        getKerasApplicationModel(IMAGE_MODEL).init(
+            0, include_top=(head == "predict"))
+    return fc.get_total_flops()
+
+
+def timed_windows(fn, n):
+    """Run ``fn`` (a transform of ``n`` rows that returns numpy)
+    ``IMAGE_WINDOWS`` times on the host clock; returns each window's
+    images/s and the first window's result."""
+    rates, first = [], None
+    for _ in range(IMAGE_WINDOWS):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+        first = out if first is None else first
+    return rates, first
+
+
+def image_rate_text(n, rates, flops, dtype_name, card):
+    """images/s over the timed windows (median, least and most), achieved
+    TFLOP/s at the median, and the bounds of the same work."""
+    per_s = median(rates)
+    text = (f"{n} images a window, {len(rates)} windows: median "
+            f"{per_s:.1f} images/s (least {min(rates):.1f}, most "
+            f"{max(rates):.1f}), {per_s * flops / 1e12:.2f} TFLOP/s of the "
+            f"products at the median ({flops / 1e9:.3f} GFLOP an image)")
+    if dtype_name == "float32":
+        ffma = PEAK_OPS_PER_S["float32"] / flops
+        tf32 = TF32_OPS_PER_S / TF32_PASSES / flops
+        text += (f"; f32 FFMA bound {ffma:.0f} images/s (67 TFLOP/s), "
+                 f"3xTF32 bound {tf32:.0f} images/s")
+    else:
+        text += (f"; bf16 tensor-core bound "
+                 f"{PEAK_OPS_PER_S['bfloat16'] / flops:.0f} images/s")
+    return text + f"; card {card}"
+
+
+# aten op → the part of the batch it belongs to (profile split)
+IMAGE_OP_GROUPS = (
+    ("convolutions (cuDNN)", ("convolution",)),
+    ("BN scale+shift", ("aten::mul", "aten::add", "aten::rsqrt",
+                        "aten::neg")),
+    ("ReLU", ("aten::relu", "aten::clamp_min")),
+    ("concatenations", ("aten::cat",)),
+    ("pooling", ("pool", "aten::mean")),
+    ("prologue (cast, flip, resize, preprocess)",
+     ("upsample", "aten::flip", "aten::div", "aten::sub", "aten::_to_copy")),
+    ("host<->device copies", ("aten::copy_",)),
+)
+
+
+def profile_image_batch(dtype_name, fn, card):
+    """Where one batch's card time goes: kernel time attributed to the
+    aten op that launched it (``self_device_time_total``), grouped by
+    ``IMAGE_OP_GROUPS``, and the card's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print("  profile: device time not measured (the profiler saw no "
+              "kernels)")
+        return
+    print(f"  profile of one {dtype_name} batch ({IMAGE_BATCH} rows): wall "
+          f"{wall_ms:.2f} ms, kernels {busy_ms:.2f} ms, card idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% of the wall; card {card}")
+    groups = {name: [0.0, 0] for name, _ in IMAGE_OP_GROUPS}
+    other = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or \
+                not e.self_device_time_total:
+            continue
+        for name, keys in IMAGE_OP_GROUPS:
+            if any(k in e.key for k in keys):
+                groups[name][0] += e.self_device_time_total / 1e3
+                groups[name][1] += e.count
+                break
+        else:
+            other[e.key] = other.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3
+    for name, (ms, count) in groups.items():
+        print(f"    {ms:8.2f} ms {100 * ms / busy_ms:5.1f}%  x{count:<5d} "
+              f"{name}")
+    rest = sum(other.values())
+    print(f"    {rest:8.2f} ms {100 * rest / busy_ms:5.1f}%  other "
+          f"{sorted(other, key=other.get, reverse=True)[:4]}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        ms = e.self_device_time_total / 1e3
+        print(f"      kernel {ms:8.2f} ms x{e.count:<4d} {e.key[:80]}")
+
+
+def time_batch_fn(feat, frame):
+    """The stage's per-batch function alone, on one batch already on the
+    card (what the stage would reach if the executor cost nothing):
+    ``IMAGE_WINDOWS`` windows of 5 calls, ms a call."""
+    from tpudl_torch.ml.tf_image import _pack_image_structs
+
+    fn = feat._batch_fn()
+    batch = torch.from_numpy(_pack_image_structs(
+        frame["image"][:IMAGE_BATCH])).to(feat._net().device)
+    with torch.inference_mode():
+        return [cuda_ms(lambda: fn(batch), reps=5)
+                for _ in range(IMAGE_WINDOWS)]
+
+
+def batch_fn_text(ms):
+    return (f"{IMAGE_WINDOWS} windows of 5 calls: median {median(ms):.2f} ms"
+            f" (least {min(ms):.2f}, most {max(ms):.2f}) = "
+            f"{IMAGE_BATCH / median(ms) * 1e3:.1f} images/s")
+
+
+def rel_err(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def run_image_slice(card):
+    """Phase 6: the image slice at full width on the card."""
+    import contextlib
+    from unittest import mock
+
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
+    from tpudl_torch.zoo import registry
+
+    # phase 1 switched cuDNN's TF32 off for the whole process; put it back
+    # at PyTorch's default, so that the f32 checks below hold the stages'
+    # own precision, as a user gets it
+    torch.backends.cudnn.allow_tf32 = True
+    print("  cuDNN TF32 at PyTorch's default (allowed) for this phase; the "
+          "float32 stages switch it off for their own calls")
+    flops = image_flops("featurize")
+    flops_pred = image_flops("predict")
+    frame = Frame({"image": image_structs(IMAGE_ROWS, (299, 299, 3), SEED)})
+    big = Frame({"image": image_structs(IMAGE_BIG_ROWS, (*IMAGE_BIG, 3),
+                                        SEED + 1)})
+    print(f"  data: {IMAGE_ROWS} uint8 BGR structs at 299x299 and "
+          f"{IMAGE_BIG_ROWS} at {IMAGE_BIG[0]}x{IMAGE_BIG[1]}, batchSize "
+          f"{IMAGE_BATCH}; work counted on meta tensors: {flops / 1e9:.3f} "
+          f"GFLOP an image (featurize), {flops_pred / 1e9:.3f} (predict)")
+    common = dict(inputCol="image", modelName=IMAGE_MODEL, weights="random",
+                  batchSize=IMAGE_BATCH)
+    reset_launch_counts()
+    feats = {}
+    for dtype_name in ("float32", "bfloat16"):
+        feat = DeepImageFeaturizer(outputCol="f", computeDtype=dtype_name,
+                                   **common)
+        t0 = time.perf_counter()
+        feat.warmup(299, 299)
+        feat.warmup(*IMAGE_BIG)
+        torch.cuda.synchronize()
+        print(f"  {dtype_name}: weights loaded and warmed in "
+              f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        rates, y = timed_windows(
+            lambda: np.stack(list(feat.transform(frame)["f"])), IMAGE_ROWS)
+        rates_big, y_big = timed_windows(
+            lambda: np.stack(list(feat.transform(big)["f"])), IMAGE_BIG_ROWS)
+        for name, arr in (("299x299", y), ("480x640", y_big)):
+            if arr.shape[1:] != (2048,) or not np.isfinite(arr).all():
+                fail(f"{dtype_name} features at {name}: shape {arr.shape},"
+                     f" finite={bool(np.isfinite(arr).all())}")
+        print(f"  DeepImageFeaturizer {dtype_name} at 299x299: "
+              + image_rate_text(IMAGE_ROWS, rates, flops, dtype_name, card)
+              + f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+              " GB")
+        print(f"  DeepImageFeaturizer {dtype_name} at "
+              f"{IMAGE_BIG[0]}x{IMAGE_BIG[1]} (resized on the card): "
+              + image_rate_text(IMAGE_BIG_ROWS, rates_big, flops, dtype_name,
+                                card))
+        feats[dtype_name] = (feat, y, y_big)
+        ms = time_batch_fn(feat, frame)
+        print(f"  {dtype_name} per-batch function alone (batch already on "
+              f"the card), {batch_fn_text(ms)}; the stage's median reached "
+              f"{median(rates) * median(ms) / IMAGE_BATCH / 1e3:.2f} of it")
+
+    pred = DeepImagePredictor(outputCol="p", decodePredictions=False,
+                              **common)
+    rows = Frame({"image": frame["image"][:IMAGE_BATCH]})
+    pred.warmup(299, 299)
+    torch.cuda.synchronize()
+    rates, scores = timed_windows(
+        lambda: np.stack(list(pred.transform(rows)["p"])), IMAGE_BATCH)
+    if scores.shape != (IMAGE_BATCH, 1000) or not np.isfinite(scores).all() \
+            or np.abs(scores.sum(axis=1) - 1).max() > 1e-4:
+        fail(f"predictor scores {scores.shape} are not finite softmax rows")
+    print("  DeepImagePredictor float32 at 299x299: "
+          + image_rate_text(IMAGE_BATCH, rates, flops_pred, "float32", card))
+    top = DeepImagePredictor(outputCol="p", decodePredictions=True, topK=3,
+                             **common).transform(Frame(
+                                 {"image": frame["image"][:2]}))["p"]
+    if [len(r) for r in top] != [3, 3] or not all(
+            isinstance(e, tuple) and len(e) == 3 for r in top for e in r):
+        fail(f"decoded predictions have the wrong structure: {list(top)}")
+    print(f"  decoded top-3 of row 0: {top[0]}")
+
+    # card vs the same stage on the CPU
+    f32, y, y_big = feats["float32"]
+    n = IMAGE_CPU_ROWS
+    t0 = time.perf_counter()
+    cpu = DeepImageFeaturizer(outputCol="f", device="cpu", **common)
+    y_cpu = np.stack(list(cpu.transform(Frame(
+        {"image": frame["image"][:n]}))["f"]))
+    y_cpu_big = np.stack(list(cpu.transform(Frame(
+        {"image": big["image"][:2]}))["f"]))
+    p_cpu = np.stack(list(DeepImagePredictor(
+        outputCol="p", device="cpu", **common).transform(Frame(
+            {"image": frame["image"][:2]}))["p"]))
+    print(f"  CPU run of {n} + 2 featurize rows and 2 predict rows: "
+          f"{time.perf_counter() - t0:.1f} s")
+    errs = {"features 299x299": (rel_err(y[:n], y_cpu), y_cpu),
+            f"features {IMAGE_BIG[0]}x{IMAGE_BIG[1]}": (
+                rel_err(y_big[:2], y_cpu_big), y_cpu_big),
+            "scores": (rel_err(scores[:2], p_cpu), p_cpu)}
+    for name, (err, ref) in errs.items():
+        print(f"  card vs CPU, {name}: max abs err {err:.3e} of max |y| "
+              f"{np.abs(ref).max():.3e} (tolerance {IMAGE_CPU_RTOL})")
+    if not all(err <= IMAGE_CPU_RTOL for err, _ in errs.values()):
+        fail("the image stages on the card disagree with the CPU run")
+    # what the check above would read had the stage left cuDNN's TF32 on
+    with mock.patch.object(registry, "full_f32", contextlib.nullcontext):
+        y_tf32 = np.stack(list(f32.transform(Frame(
+            {"image": frame["image"][:n]}))["f"]))
+    print(f"  for scale, the same {n} rows with the stage's TF32 switch "
+          f"removed: {rel_err(y_tf32, y_cpu):.3e} of max |y|")
+    _, yb, yb_big = feats["bfloat16"]
+    err = max(rel_err(yb, y), rel_err(yb_big, y_big))
+    print(f"  bf16 vs f32 on the card, {IMAGE_ROWS}+{IMAGE_BIG_ROWS} rows: "
+          f"max abs err {err:.3e} of max |y| (tolerance {IMAGE_BF16_RTOL})")
+    if not err <= IMAGE_BF16_RTOL:
+        fail("bf16 features disagree with f32")
+
+    read_images_leg(f32, card)
+    # profiles last: a profiler session slows the timed runs after it,
+    # which the per-batch function timed again after them shows
+    for dtype_name, (feat, _, _) in feats.items():
+        profile_image_batch(dtype_name, lambda: feat.transform(Frame(
+            {"image": frame["image"][:IMAGE_BATCH]})), card)
+    for dtype_name, (feat, _, _) in feats.items():
+        print(f"  {dtype_name} per-batch function alone after the profiles,"
+              f" {batch_fn_text(time_batch_fn(feat, frame))}")
+    counts = dict(cuda_ops.launch_counts)
+    print(f"  attention kernel launches across phase 6: {counts} (want 0)")
+    if any(counts.values()):
+        fail("the image path launched an attention kernel")
+
+
+def read_images_leg(feat, card):
+    """``readImages`` over 64 JPEGs in a temporary directory, when PIL
+    imports on this machine: images/s with host decode in the loop (each
+    window reads the files anew), and 2 rows against the CPU stage on the
+    same files."""
+    import tempfile
+
+    try:
+        from PIL import Image
+    except ImportError:
+        print("  readImages leg skipped: PIL does not import here")
+        return
+    from tpudl_torch import native
+    from tpudl_torch.image import readImages
+    from tpudl_torch.ml import DeepImageFeaturizer
+
+    native.available()   # build (or fail to build) the decoder untimed
+    rng = np.random.default_rng(SEED + 2)
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(IMAGE_BATCH):
+            Image.fromarray(rng.integers(0, 256, (299, 299, 3),
+                                         dtype=np.uint8)).save(
+                f"{d}/img{i:03d}.jpg", quality=90)
+        rates, y = timed_windows(lambda: np.stack(list(
+            feat.transform(readImages(d))["f"])), IMAGE_BATCH)
+        cpu = DeepImageFeaturizer(
+            inputCol="image", outputCol="f", modelName=IMAGE_MODEL,
+            batchSize=2, device="cpu").transform(readImages(d).head(2))
+        err = rel_err(y[:2], np.stack(list(cpu["f"])))
+    if y.shape != (IMAGE_BATCH, 2048) or not np.isfinite(y).all():
+        fail(f"readImages features {y.shape}")
+    print(f"  readImages + DeepImageFeaturizer float32 (decoder: "
+          f"{'libjpeg' if native.available() else 'PIL'}), with decode: "
+          f"{IMAGE_BATCH} JPEGs a window, {len(rates)} windows: median "
+          f"{median(rates):.1f} images/s (least {min(rates):.1f}, most "
+          f"{max(rates):.1f}); card vs CPU 2 rows {err:.3e} of max |y| "
+          f"(tolerance {IMAGE_CPU_RTOL}); card {card}")
+    if not err <= IMAGE_CPU_RTOL:
+        fail("readImages features on the card disagree with the CPU run")
+
+
+def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     if not torch.cuda.is_available():
@@ -811,6 +1166,16 @@ def main() -> int:
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN "
           "(f32 products run in full f32)", flush=True)
+    if argv == ["--image-only"]:
+        # phase 6 alone, in a process that has run no profiler session
+        print(f"phase 6 alone: image slice at full width on {card}",
+              flush=True)
+        run_image_slice(card)
+        print(f"card: {card}")
+        print("image-only run: every check passed")
+        return 0
+    if argv:
+        fail(f"unknown arguments {argv}; the only option is --image-only")
 
     from tpudl_torch import _build
 
@@ -896,6 +1261,8 @@ def main() -> int:
                 **bound_keys(bounds[kernel], t[f"{kernel}_ms"]),
                 "library_ms": t["library_bwd_ms"],
                 "shape": list(TRAIN_SHAPE), "dtype": name})
+    print(f"phase 6: image slice at full width on {card}", flush=True)
+    run_image_slice(card)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -905,4 +1272,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

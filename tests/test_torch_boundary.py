@@ -1,6 +1,6 @@
 """The boundary between the packages: ``tpudl_torch`` and ``chip_smoke.py``
-import neither jax nor tpudl, the port's main paths (serving and training)
-run with both blocked, and ``chip_smoke.py`` refuses to report without a card or without the
+import neither jax nor tpudl, the port's main paths (text serving,
+training and the image path) run with both blocked, and ``chip_smoke.py`` refuses to report without a card or without the
 package beside it."""
 
 import os
@@ -65,6 +65,33 @@ print("BLOCKED_OK")
 """
 
 
+_BLOCKED_IMAGE = r"""
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["tpudl"] = None
+import numpy as np
+from PIL import Image
+from tpudl_torch.image import readImages
+from tpudl_torch.ml import DeepImageFeaturizer
+
+d = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+for i in range(2):
+    Image.fromarray(rng.integers(0, 256, (40, 50, 3), dtype=np.uint8)).save(
+        f"{d}/img{i}.jpg")
+open(f"{d}/bad.jpg", "wb").write(b"garbage")
+feat = DeepImageFeaturizer(inputCol="image", outputCol="vec",
+                           modelName="InceptionV3", batchSize=2,
+                           device="cpu")
+out = feat.transform(readImages(d).dropna())
+vecs = np.stack(list(out["vec"]))
+assert vecs.shape == (2, 2048) and np.isfinite(vecs).all()
+assert not any(m == "jax" or m.startswith(("jax.", "tpudl."))
+               for m, mod in sys.modules.items() if mod is not None)
+print("BLOCKED_OK")
+"""
+
+
 def _env():
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
@@ -87,10 +114,23 @@ def test_training_runs_with_jax_and_tpudl_blocked():
     assert "BLOCKED_OK" in res.stdout
 
 
+def test_image_path_runs_with_jax_and_tpudl_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_IMAGE], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "BLOCKED_OK" in res.stdout
+
+
 def test_no_source_imports_jax_or_tpudl():
     files = sorted((REPO / "tpudl_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    for sub in ("zoo/nn.py", "zoo/core.py", "zoo/inception_v3.py",
+                "zoo/registry.py", "zoo/convert.py", "zoo/preprocessing.py",
+                "image/ops.py", "image/imageIO.py", "native/__init__.py",
+                "ml/named_image.py", "ml/tf_image.py", "frame/frame.py"):
+        assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []

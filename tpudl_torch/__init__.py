@@ -11,7 +11,11 @@ Ported so far: text serving on ``TinyCausalLM`` — :mod:`tpudl_torch.ml.lm`
 :mod:`tpudl_torch.zoo.transformer`, whose attention runs the
 flash-attention forward of :mod:`tpudl_torch.cuda_ops` — and its training
 (``TinyCausalLM.loss_fn`` under :mod:`tpudl_torch.train`), whose
-gradient runs the flash-attention dq and dk/dv kernels.
+gradient runs the flash-attention dq and dk/dv kernels — and the image
+path: ``readImages`` (:mod:`tpudl_torch.image`, with the host libjpeg
+decoder of :mod:`tpudl_torch.native`) → ``DeepImageFeaturizer`` /
+``DeepImagePredictor`` (:mod:`tpudl_torch.ml.named_image`) on InceptionV3
+(:mod:`tpudl_torch.zoo`), whose convolutions run on cuDNN.
 """
 
 from tpudl_torch.device import resolve_device

@@ -1,5 +1,5 @@
-"""The port's ``Frame`` container and serial batch executor."""
+"""The port's ``Frame`` container, lazy columns and serial batch executor."""
 
-from tpudl_torch.frame.frame import Frame
+from tpudl_torch.frame.frame import Frame, LazyColumn
 
-__all__ = ["Frame"]
+__all__ = ["Frame", "LazyColumn"]

@@ -1,0 +1,472 @@
+"""Image struct ⇄ ndarray codec, decode, resize and lazy file reads.
+
+Port of ``tpudl/image/imageIO.py``, host-only code copied: the Spark
+image struct (``origin, height, width, nChannels, mode, data`` with
+OpenCV mode ordinals and **BGR** storage order), PIL and libjpeg
+(:mod:`tpudl_torch.native`) decoding, host resize, and the lazy file
+column behind ``readImages``. The device half (cast, flip, resize to the
+model) lives in :mod:`tpudl_torch.image.ops`.
+
+Reads and decodes run serially, one batch at a time. Not ported yet, and
+refused where they are options: the parallel read/decode pools and the
+``numPartition`` hint (ROADMAP Queue 1, 'Executor'), ``host_sharded``
+(Queue 1, 'Training, rest', multi-host), the read retry policy and fault
+points (Queue 1, 'Jobs, faults and the supervisor'), the flight-recorder
+samples of decode errors (Queue 1, 'The rest of observability'), the
+shard-cache fingerprint (Queue 1, 'Data layer') and
+``createNativeImageLoader`` (Queue 1, 'The rest of the sparkdl surface').
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from io import BytesIO
+from typing import Callable, Iterable
+
+import numpy as np
+
+from tpudl_torch.frame.frame import Frame, LazyColumn
+from tpudl_torch.obs import metrics as _obs_metrics
+
+try:  # PIL is the decode substrate, as in tpudl
+    from PIL import Image
+except ImportError:  # pragma: no cover
+    Image = None
+
+__all__ = [
+    "ImageType",
+    "supportedImageTypes",
+    "imageTypeByOrdinal",
+    "imageTypeByName",
+    "imageArrayToStruct",
+    "imageStructToArray",
+    "imageStructToPIL",
+    "PIL_decode",
+    "PIL_decode_and_resize",
+    "default_decode",
+    "default_probe",
+    "resizeImage",
+    "createResizeImageUDF",
+    "filesToFrame",
+    "readImagesWithCustomFn",
+    "readImages",
+    "LazyFileColumn",
+    "SPARK_MODE",
+]
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to tpudl_torch yet (ROADMAP Queue 1, "
+        f"{item!r})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageType:
+    """One OpenCV storage mode of the Spark image schema."""
+
+    name: str
+    ord: int
+    nChannels: int
+    dtype: str
+
+
+_SUPPORTED = [
+    ImageType("CV_8UC1", 0, 1, "uint8"),
+    ImageType("CV_32FC1", 5, 1, "float32"),
+    ImageType("CV_8UC3", 16, 3, "uint8"),
+    ImageType("CV_32FC3", 21, 3, "float32"),
+    ImageType("CV_8UC4", 24, 4, "uint8"),
+    ImageType("CV_32FC4", 29, 4, "float32"),
+]
+_BY_ORD = {t.ord: t for t in _SUPPORTED}
+_BY_NAME = {t.name: t for t in _SUPPORTED}
+
+
+class SPARK_MODE:
+    """Symbolic channel orders."""
+
+    BGR = "BGR"
+    RGB = "RGB"
+    GRAY = "L"
+
+
+def supportedImageTypes() -> list[ImageType]:
+    return list(_SUPPORTED)
+
+
+def imageTypeByOrdinal(ord: int) -> ImageType:
+    if ord not in _BY_ORD:
+        raise KeyError(
+            f"unsupported image mode ordinal {ord}; supported: {sorted(_BY_ORD)}"
+        )
+    return _BY_ORD[ord]
+
+
+def imageTypeByName(name: str) -> ImageType:
+    if name not in _BY_NAME:
+        raise KeyError(
+            f"unsupported image mode {name!r}; supported: {sorted(_BY_NAME)}"
+        )
+    return _BY_NAME[name]
+
+
+def imageArrayToStruct(imgArray: np.ndarray, origin: str = "") -> dict:
+    """ndarray (H, W, C) or (H, W), already in storage channel order (BGR
+    for color) → Spark image struct dict. No flip happens here."""
+    arr = np.asarray(imgArray)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    if arr.ndim != 3:
+        raise ValueError(f"image array must be 2-D or 3-D, got shape {arr.shape}")
+    h, w, c = arr.shape
+    if arr.dtype == np.uint8:
+        dtype = "uint8"
+    elif arr.dtype in (np.float32, np.float64):
+        dtype = "float32"
+        arr = arr.astype(np.float32)
+    else:
+        raise ValueError(f"unsupported image array dtype {arr.dtype}")
+    matches = [t for t in _SUPPORTED if t.nChannels == c and t.dtype == dtype]
+    if not matches:
+        raise ValueError(f"no OpenCV mode for nChannels={c} dtype={dtype}")
+    t = matches[0]
+    return {
+        "origin": origin,
+        "height": int(h),
+        "width": int(w),
+        "nChannels": int(c),
+        "mode": t.ord,
+        "data": np.ascontiguousarray(arr).tobytes(),
+    }
+
+
+def imageStructToArray(imageRow: dict, copy: bool = True) -> np.ndarray:
+    """Spark image struct dict → ndarray (H, W, C) in storage order;
+    ``copy=False`` returns a read-only view over the struct's bytes."""
+    t = imageTypeByOrdinal(imageRow["mode"])
+    shape = (imageRow["height"], imageRow["width"], imageRow["nChannels"])
+    arr = np.frombuffer(imageRow["data"], dtype=t.dtype).reshape(shape)
+    return arr.copy() if copy else arr
+
+
+def imageStructToPIL(imageRow: dict):
+    """struct → PIL image (RGB/RGBA/L)."""
+    arr = imageStructToArray(imageRow)
+    t = imageTypeByOrdinal(imageRow["mode"])
+    if t.dtype == "float32":
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    c = arr.shape[2]
+    if c == 1:
+        return Image.fromarray(arr[:, :, 0], mode="L")
+    if c == 3:
+        return Image.fromarray(arr[:, :, ::-1], mode="RGB")  # BGR → RGB
+    if c == 4:
+        rgba = arr[:, :, [2, 1, 0, 3]]  # BGRA → RGBA
+        return Image.fromarray(rgba, mode="RGBA")
+    raise ValueError(f"unsupported channel count {c}")
+
+
+def PIL_decode(raw_bytes: bytes, origin: str = "") -> dict | None:
+    """Encoded image bytes → image struct (BGR, grayscale widened to 3
+    channels), or None when undecodable."""
+    if Image is None:  # pragma: no cover
+        raise ImportError("PIL is required for image decoding")
+    try:
+        img = Image.open(BytesIO(raw_bytes))
+        img = img.convert("RGB")
+    except Exception:
+        return None
+    rgb = np.asarray(img, dtype=np.uint8)
+    return imageArrayToStruct(rgb[:, :, ::-1], origin=origin)  # store BGR
+
+
+def PIL_decode_and_resize(
+    raw_bytes: bytes, size: tuple[int, int], origin: str = ""
+) -> dict | None:
+    """Decode + bilinear resize to ``size`` (h, w) in one host step."""
+    if Image is None:  # pragma: no cover
+        raise ImportError("PIL is required for image decoding")
+    try:
+        img = Image.open(BytesIO(raw_bytes)).convert("RGB")
+        img = img.resize((size[1], size[0]), Image.BILINEAR)  # PIL takes (W, H)
+    except Exception:
+        return None
+    rgb = np.asarray(img, dtype=np.uint8)
+    return imageArrayToStruct(rgb[:, :, ::-1], origin=origin)
+
+
+# copied from tpudl/image/imageIO.py:_jpeg_dims
+def _jpeg_dims(raw: bytes) -> tuple[int, int] | None:
+    """(height, width) from a JPEG header's SOF marker (no decode), or None
+    when the bytes aren't a JPEG."""
+    if len(raw) < 4 or raw[0:2] != b"\xff\xd8":
+        return None
+    i, n = 2, len(raw)
+    while i + 9 < n:
+        if raw[i] != 0xFF:
+            i += 1
+            continue
+        marker = raw[i + 1]
+        if marker == 0xFF:  # 0xFF fill/padding byte before a marker
+            i += 1
+            continue
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            i += 2  # parameterless markers
+            continue
+        if marker == 0xDA:  # start-of-scan reached without a SOF
+            return None
+        seg_len = int.from_bytes(raw[i + 2:i + 4], "big")
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            h = int.from_bytes(raw[i + 5:i + 7], "big")
+            w = int.from_bytes(raw[i + 7:i + 9], "big")
+            return (h, w) if h > 0 and w > 0 else None
+        i += 2 + seg_len
+    return None
+
+
+def default_decode(raw_bytes: bytes, origin: str = "") -> dict | None:
+    """Decode bytes → image struct: libjpeg (:mod:`tpudl_torch.native`) for
+    JPEGs when it is available, PIL for every other format or as the
+    fallback."""
+    from tpudl_torch import native
+
+    if native.available():
+        dims = _jpeg_dims(raw_bytes)
+        # decompression-bomb guard: huge claimed geometry goes to PIL,
+        # whose own check yields the null row
+        if dims is not None and dims[0] * dims[1] <= 64_000_000:
+            batch, ok = native.decode_resize_batch(
+                [raw_bytes], dims[0], dims[1], n_threads=1)
+            if ok[0]:  # already BGR storage order
+                return imageArrayToStruct(batch[0], origin=origin)
+    return PIL_decode(raw_bytes, origin=origin)
+
+
+def default_probe(raw_bytes: bytes) -> bool:
+    """Cheap validity twin of :func:`default_decode`: a header parse and
+    stream verify (PIL ``Image.verify``), no pixel decode."""
+    if Image is None:  # pragma: no cover
+        raise ImportError("PIL is required for image probing")
+    try:
+        img = Image.open(BytesIO(raw_bytes))
+        img.verify()
+        return True
+    except Exception:
+        return False
+
+
+def resizeImage(imageRow: dict, height: int, width: int) -> dict:
+    """Bilinear host resize of an image struct (PIL)."""
+    if (imageRow["height"], imageRow["width"]) == (height, width):
+        return imageRow
+    t = imageTypeByOrdinal(imageRow["mode"])
+    if t.dtype == "float32":
+        # PIL has no multi-channel float mode: resize each channel as 'F'
+        src = imageStructToArray(imageRow, copy=False)
+        chans = [
+            np.asarray(
+                Image.fromarray(src[:, :, c], mode="F").resize(
+                    (width, height), Image.BILINEAR
+                ),
+                dtype=np.float32,
+            )
+            for c in range(src.shape[2])
+        ]
+        arr = np.stack(chans, axis=-1)
+        return imageArrayToStruct(arr, origin=imageRow.get("origin", ""))
+    pil = imageStructToPIL(imageRow)
+    resized = pil.resize((width, height), Image.BILINEAR)
+    arr = np.asarray(resized, dtype=np.uint8)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    elif arr.shape[2] == 3:
+        arr = arr[:, :, ::-1]  # back to BGR storage
+    elif arr.shape[2] == 4:
+        arr = arr[:, :, [2, 1, 0, 3]]
+    return imageArrayToStruct(arr, origin=imageRow.get("origin", ""))
+
+
+def createResizeImageUDF(size: tuple[int, int]) -> Callable[[dict], dict]:
+    """Row-function form of :func:`resizeImage`."""
+    height, width = int(size[0]), int(size[1])
+
+    def _resize(row: dict) -> dict:
+        return resizeImage(row, height, width)
+
+    return _resize
+
+
+class LazyFileColumn(LazyColumn):
+    """File-backed lazy column: stores only the paths; the bytes of an
+    accessed batch are read (and passed through ``transform(path, raw)``
+    when given) on access, so host RAM is O(batch). ``reads`` counts file
+    reads. Accesses of up to 32 rows are memoized (the same index set
+    twice reads once), as in tpudl."""
+
+    _MEMO_MAX_ROWS = 32
+
+    def __init__(self, paths, transform: Callable | None = None,
+                 probe: Callable | None = None):
+        self._paths = np.asarray(list(paths), dtype=object)
+        self._transform = transform
+        self._probe = probe  # (path, raw) -> bool; see validity_mask
+        self._validity: np.ndarray | None = None
+        self._memo: tuple[bytes, np.ndarray] | None = None
+        self.reads = 0
+
+    def __len__(self) -> int:
+        return len(self._paths)
+
+    def _read_batch(self, indices: np.ndarray) -> list[bytes]:
+        raws = []
+        for i in indices:
+            with open(self._paths[i], "rb") as f:
+                raws.append(f.read())
+        self.reads += len(raws)
+        if raws:
+            _obs_metrics.counter("imageio.files_read").inc(len(raws))
+            _obs_metrics.counter("imageio.bytes_read").inc(
+                sum(len(r) for r in raws))
+        return raws
+
+    def _get(self, indices: np.ndarray) -> np.ndarray:
+        key = indices.tobytes()
+        if self._memo is not None and self._memo[0] == key:
+            _obs_metrics.counter("imageio.memo_hits").inc()
+            return _copy_rows(self._memo[1])
+        raws = self._read_batch(indices)
+        out = np.empty(len(indices), dtype=object)
+        if self._transform is None:
+            out[:] = raws
+        else:
+            out[:] = [self._transform(self._paths[i], raw)
+                      for i, raw in zip(indices, raws)]
+        if len(indices) <= self._MEMO_MAX_ROWS:
+            self._memo = (key, out)
+            return _copy_rows(out)
+        return out
+
+    def validity_mask(self) -> np.ndarray | None:
+        """Per-row validity without running the transform: a raw-bytes
+        column is never null; a transform column answers through its
+        ``probe`` (each file read once, no decode), else None."""
+        if self._transform is None:
+            return np.ones(len(self), dtype=bool)
+        if self._probe is None:
+            return None
+        if self._validity is None:
+            flags = np.empty(len(self), dtype=bool)
+            for start in range(0, len(self), 256):
+                idx = np.arange(start, min(start + 256, len(self)))
+                raws = self._read_batch(idx)
+                flags[idx] = [bool(self._probe(self._paths[i], raw))
+                              for i, raw in zip(idx, raws)]
+            self._validity = flags
+        return self._validity
+
+    def with_transform(self, transform: Callable,
+                       probe: Callable | None = None) -> "LazyFileColumn":
+        """Same paths, another per-file transform (and its cheap validity
+        ``probe``)."""
+        return LazyFileColumn(self._paths, transform, probe=probe)
+
+
+def _copy_rows(arr: np.ndarray) -> np.ndarray:
+    """Fresh object array with dict rows shallow-copied, so a caller that
+    mutates a returned struct cannot change the memo."""
+    out = np.empty(len(arr), dtype=object)
+    for j, v in enumerate(arr):
+        out[j] = dict(v) if isinstance(v, dict) else v
+    return out
+
+
+def _listFiles(path: str | Iterable[str]) -> list[str]:
+    if isinstance(path, (list, tuple)):
+        return [str(p) for p in path]
+    if os.path.isdir(path):
+        out = []
+        for root, _dirs, files in os.walk(path):
+            out.extend(os.path.join(root, f) for f in sorted(files))
+        return sorted(out)
+    return [path]
+
+
+def _refuse_read_options(numPartitions, host_sharded):
+    if numPartitions is not None:
+        _not_ported("numPartitions (the executor's partition hint)",
+                    "Executor")
+    if host_sharded:
+        _not_ported("host_sharded=True (multi-host file sharding)",
+                    "Training, rest")
+
+
+def filesToFrame(path, numPartitions: int | None = None,
+                 host_sharded: bool = False, lazy: bool = True) -> Frame:
+    """A Frame with columns (filePath, fileData) over raw file bytes;
+    ``fileData`` is a :class:`LazyFileColumn` unless ``lazy=False``."""
+    _refuse_read_options(numPartitions, host_sharded)
+    paths = _listFiles(path)
+    if lazy:
+        data = LazyFileColumn(paths)
+    else:
+        datas = []
+        for p in paths:
+            with open(p, "rb") as f:
+                datas.append(f.read())
+        data = np.empty(len(datas), dtype=object)
+        data[:] = datas
+    return Frame({"filePath": np.array(paths, dtype=object), "fileData": data})
+
+
+def _decode_row(decode_f, origin, raw):
+    """``decode_f`` semantics shared by the eager and lazy read paths: an
+    exception or None gives a None row (counted in
+    ``imageio.decode_errors``, never retried); an ndarray becomes a
+    struct with the file's origin."""
+    try:
+        out = decode_f(raw)
+    except Exception:
+        _obs_metrics.counter("imageio.decode_errors").inc()
+        return None
+    if out is None:
+        _obs_metrics.counter("imageio.decode_errors").inc()
+        return None
+    if isinstance(out, dict):
+        out = dict(out)
+        if not out.get("origin"):
+            out["origin"] = origin
+        return out
+    return imageArrayToStruct(np.asarray(out), origin=origin)
+
+
+def readImagesWithCustomFn(path, decode_f, numPartition: int | None = None,
+                           host_sharded: bool = False, lazy: bool = True,
+                           probe_f: Callable | None = None) -> Frame:
+    """A directory of images → Frame["image"], decoded by ``decode_f``
+    (raw bytes → ndarray (H, W, C) in BGR storage order, a struct, or
+    None); undecodable files become None rows. Lazy by default: each
+    accessed batch is read and decoded on access. ``probe_f`` (raw →
+    bool, True iff the decode would succeed) lets ``dropna`` classify rows
+    without decoding them."""
+    _refuse_read_options(numPartition, host_sharded)
+    files = filesToFrame(path, lazy=lazy)
+    if lazy:
+        col = files["fileData"].with_transform(
+            lambda p, raw: _decode_row(decode_f, p, raw),
+            probe=(lambda p, raw: probe_f(raw)) if probe_f else None)
+        return Frame({"image": col})
+    structs = np.empty(len(files), dtype=object)
+    structs[:] = [_decode_row(decode_f, origin, raw) for origin, raw
+                  in zip(files["filePath"], files["fileData"])]
+    return Frame({"image": structs})
+
+
+def readImages(path, numPartition: int | None = None) -> Frame:
+    """:func:`readImagesWithCustomFn` with :func:`default_decode` (libjpeg
+    for JPEGs, PIL otherwise) and :func:`default_probe`, so
+    ``readImages(...).dropna()`` decodes no dropped row."""
+    return readImagesWithCustomFn(path, default_decode,
+                                  numPartition=numPartition,
+                                  probe_f=default_probe)

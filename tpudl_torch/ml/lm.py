@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from tpudl_torch.compile.buckets import resolve_ladder
-from tpudl_torch.data.codec import WireCodec
-from tpudl_torch.ml.params import HasInputCol, HasOutputCol, keyword_only
+from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol,
+                                   HasOutputCol, keyword_only,
+                                   refuse_unported)
 from tpudl_torch.ml.pipeline import Transformer
 from tpudl_torch.obs import metrics as _obs_metrics
 from tpudl_torch.text.codec import TokenCodec, pad_mask, tokenize_pack
@@ -41,11 +42,7 @@ __all__ = ["LMFeaturizer", "LMGenerator", "LMClassifier"]
 _LM_ATTRS = ("model", "weights", "tokenizer", "maxLen", "maxNew",
              "temperature", "seed", "classes", "promptBuckets",
              "batchSize", "device")
-# tpudl stage knobs with no counterpart yet → the ROADMAP Queue 1 item
-_NOT_PORTED = {"mesh": "Executor", "tp": "LM parallelism",
-               "prefetchDepth": "Executor", "prepareWorkers": "Executor",
-               "fuseSteps": "Executor", "dispatchDepth": "Executor",
-               "cacheDir": "Executor", "deviceCache": "Executor"}
+_NOT_PORTED = {**EXECUTOR_KNOBS, "tp": "LM parallelism"}
 
 
 class _LMStage(Transformer, HasInputCol, HasOutputCol):
@@ -54,17 +51,8 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
 
     def _init_lm(self):
         kwargs = dict(self._input_kwargs)
-        for k, item in _NOT_PORTED.items():
-            if kwargs.pop(k, None) not in (None, False):
-                raise NotImplementedError(
-                    f"{type(self).__name__}({k}=...) is not ported to "
-                    f"tpudl_torch yet (ROADMAP Queue 1, {item!r})")
-        codec = kwargs.pop("wireCodec", None)
-        if codec is not None and not isinstance(codec, WireCodec):
-            raise NotImplementedError(
-                f"wireCodec={codec!r}: codecs by name are not ported yet "
-                "(ROADMAP Queue 1, 'Executor'); pass a WireCodec")
-        self.wireCodec = codec
+        self.wireCodec = refuse_unported(type(self).__name__, kwargs,
+                                         _NOT_PORTED)
         for k in _LM_ATTRS:
             kwargs.pop(k, None)
         self._set(**kwargs)

@@ -2,8 +2,12 @@
 
 Copied from ``tpudl/ml/params.py`` (``Param``, ``Params``,
 ``keyword_only``, ``HasInputCol``, ``HasOutputCol``: Spark ML's param-map
-semantics with explicit and default maps). The ingest/Keras/loss
-converters come with the stages that use them.
+semantics with explicit and default maps) and the converters the LM and
+image stages use (``toString``, ``toInt``, ``toBoolean``,
+``supportedNameConverter``). The ingest/Keras/loss converters come with
+the stages that use them. :func:`refuse_unported` is the port's own: the
+stages' shared refusal of tpudl's executor knobs that have no counterpart
+yet.
 """
 
 from __future__ import annotations
@@ -11,8 +15,36 @@ from __future__ import annotations
 import copy as _copy
 import functools
 
+from tpudl_torch.data.codec import WireCodec
+
 __all__ = ["Param", "Params", "TypeConverters", "keyword_only",
-           "HasInputCol", "HasOutputCol"]
+           "HasInputCol", "HasOutputCol", "EXECUTOR_KNOBS",
+           "refuse_unported"]
+
+# tpudl's stage knobs with no counterpart in the port yet → the ROADMAP
+# Queue 1 item that brings them
+EXECUTOR_KNOBS = {"mesh": "Executor", "prefetchDepth": "Executor",
+                  "prepareWorkers": "Executor", "fuseSteps": "Executor",
+                  "dispatchDepth": "Executor", "cacheDir": "Executor",
+                  "deviceCache": "Executor"}
+
+
+def refuse_unported(stage: str, kwargs: dict, table: dict):
+    """Pop every knob of ``table`` and ``wireCodec`` from a stage's
+    constructor ``kwargs``. A knob that is set raises
+    ``NotImplementedError`` naming its ROADMAP Queue 1 item, as does a
+    codec given by name; returns the ``WireCodec`` or ``None``."""
+    for k, item in table.items():
+        if kwargs.pop(k, None) not in (None, False):
+            raise NotImplementedError(
+                f"{stage}({k}=...) is not ported to tpudl_torch yet "
+                f"(ROADMAP Queue 1, {item!r})")
+    codec = kwargs.pop("wireCodec", None)
+    if codec is not None and not isinstance(codec, WireCodec):
+        raise NotImplementedError(
+            f"wireCodec={codec!r}: codecs by name are not ported yet "
+            "(ROADMAP Queue 1, 'Executor'); pass a WireCodec")
+    return codec
 
 
 class Param:
@@ -157,6 +189,30 @@ class TypeConverters:
         if isinstance(v, str):
             return v
         raise TypeError(f"expected str, got {type(v).__name__}")
+
+    @staticmethod
+    def toInt(v):
+        if isinstance(v, bool) or not isinstance(v, int):
+            raise TypeError(f"expected int, got {type(v).__name__}")
+        return int(v)
+
+    @staticmethod
+    def toBoolean(v):
+        if not isinstance(v, bool):
+            raise TypeError(f"expected bool, got {type(v).__name__}")
+        return v
+
+    @staticmethod
+    def supportedNameConverter(supported):
+        """The value must be one of ``supported``'s names (a registry)."""
+
+        def convert(v):
+            if v in supported:
+                return v
+            raise TypeError(
+                f"model name {v!r} unsupported; one of {sorted(supported)}")
+
+        return convert
 
 
 class HasInputCol(Params):
