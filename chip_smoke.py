@@ -42,15 +42,26 @@ Phases (any failure exits non-zero before the final line):
    and spread of 5 windows each), achieved TFLOP/s against the bounds,
    and the per-batch function's rate alone; hold 4 rows (and 2 of the
    480×640 batch) against the same stage on the CPU, bf16 against f32,
-   and check that no attention kernel launched. Last, after every timed
-   run, a profile split of one batch in each dtype. Then print the
+   and a profile split of one batch in each dtype. Then the other nine
+   named models, each at its own input size from seeded random weights:
+   ResNet50 and Xception (BASELINE.json configs[1]) with the featurizer
+   and the predictor over 512 rows in f32 and bf16, and VGG16, VGG19,
+   MobileNetV2, DenseNet121, ResNet101, ResNet152 and EfficientNetB0 with
+   the featurizer over 256 rows in f32 and bf16 and one predictor call;
+   each prints its parameter count, counted work, rates (median and
+   spread of 5 windows) and the time of its leg, holds bf16 against f32,
+   and holds 2 rows (features, and scores for configs[1]) against the CPU
+   run with perturbed BN stats. Last, after every timed run, a profile
+   split of one ResNet50 and one Xception batch in each dtype, and the
+   check that no attention kernel launched in the phase. Then print the
    ``{"kernels": [...]}`` line of phase 5.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
-alone: the image slice's rates in a process that has run no profiler
-session before them (phases 4 and 4b profile a batch and a step).
+alone, every model's leg: the image slice's rates in a process that has
+run no profiler session before them (phases 4 and 4b profile a batch and
+a step).
 """
 
 from __future__ import annotations
@@ -143,6 +154,23 @@ IMAGE_CPU_RTOL = 2e-5
 # H100; on the CPU the port's bf16 read 1.2e-2 of its f32 and tpudl's
 # 1.4e-2 of its f32.
 IMAGE_BF16_RTOL = 3e-2
+# softmax rows of the predictor sum to 1 within: f32, a few ulps of 1000
+# terms; bf16, each score rounded to bf16 once (2^-9 relative), so 2^-8
+SOFTMAX_SUM_ATOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
+
+# the rest of the zoo, each at its own input size, after InceptionV3's leg.
+# configs[1] of BASELINE.json, "DeepImagePredictor ResNet50/Xception
+# ImageNet-1k batch inference": featurizer and predictor rates over
+# IMAGE_ROWS rows in f32 and bf16, and a profile split of each dtype
+CONFIG1_MODELS = ("ResNet50", "Xception")
+# the other seven: featurizer rates over ZOO_ROWS rows in f32 and bf16 and
+# one predictor call, no profile
+ZOO_MODELS = ("VGG16", "VGG19", "MobileNetV2", "DenseNet121", "ResNet101",
+              "ResNet152", "EfficientNetB0")
+ZOO_ROWS = 256
+# card vs CPU rows of every leg, with perturbed BN stats (the limit is
+# IMAGE_CPU_RTOL, as for InceptionV3)
+ZOO_CPU_ROWS = 2
 
 
 def fail(msg: str):
@@ -848,18 +876,26 @@ def image_structs(n, shape, seed):
     return col
 
 
-def image_flops(head):
+def image_flops(name, head, params=None):
     """Multiply-add work of one image through the model's products
-    (convolutions and the dense layer, 2 flops each), counted on meta
-    tensors by ``torch.utils.flop_counter`` from the shapes of this run's
-    model; elementwise work is not counted."""
+    (convolutions and dense layers, 2 flops each), counted by
+    ``torch.utils.flop_counter`` on meta tensors as ``head`` ("featurize"
+    or "predict") runs them at the model's input size; elementwise work is
+    not counted. ``params`` is the model's ``init(0)`` tree, drawn here if
+    not given."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from tpudl_torch.zoo import getKerasApplicationModel
+    from tpudl_torch.zoo.convert import torch_layout
 
+    model = getKerasApplicationModel(name)
+    params = model.init(0) if params is None else params
+    meta = {layer: {k: torch_layout(k, v).to("meta")
+                    for k, v in leaves.items()}
+            for layer, leaves in params.items()}
+    x = torch.empty((1, *model.input_size, 3), device="meta")
     with FlopCounterMode(display=False) as fc:
-        getKerasApplicationModel(IMAGE_MODEL).init(
-            0, include_top=(head == "predict"))
+        getattr(model, head)(meta, x)
     return fc.get_total_flops()
 
 
@@ -983,14 +1019,11 @@ def rel_err(got, want) -> float:
 
 
 def run_image_slice(card):
-    """Phase 6: the image slice at full width on the card."""
-    import contextlib
-    from unittest import mock
-
+    """Phase 6: the image slice at full width on the card — InceptionV3's
+    leg, the legs of configs[1]'s models and of the rest of the zoo, the
+    profiles of configs[1]'s models, and no attention kernel launched."""
     from tpudl_torch import cuda_ops
     from tpudl_torch.frame import Frame
-    from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
-    from tpudl_torch.zoo import registry
 
     # phase 1 switched cuDNN's TF32 off for the whole process; put it back
     # at PyTorch's default, so that the f32 checks below hold the stages'
@@ -998,8 +1031,37 @@ def run_image_slice(card):
     torch.backends.cudnn.allow_tf32 = True
     print("  cuDNN TF32 at PyTorch's default (allowed) for this phase; the "
           "float32 stages switch it off for their own calls")
-    flops = image_flops("featurize")
-    flops_pred = image_flops("predict")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    inception_leg(card)
+    print(f"  {IMAGE_MODEL} leg: {time.perf_counter() - t0:.1f} s")
+    profiles = [zoo_leg(name, card, IMAGE_ROWS, config1=True)
+                for name in CONFIG1_MODELS]
+    for name in ZOO_MODELS:
+        zoo_leg(name, card, ZOO_ROWS, config1=False)
+    # profiles last: a profiler session slows the timed runs after it
+    for name, feats, frame in profiles:
+        for dtype_name, feat in feats.items():
+            print(f"  {name} {dtype_name}:")
+            profile_image_batch(dtype_name, lambda: feat.transform(Frame(
+                {"image": frame["image"][:IMAGE_BATCH]})), card)
+    counts = dict(cuda_ops.launch_counts)
+    print(f"  attention kernel launches across phase 6: {counts} (want 0)")
+    if any(counts.values()):
+        fail("the image path launched an attention kernel")
+
+
+def inception_leg(card):
+    """InceptionV3 at 299x299 and through the resize (PR 5's phase 6)."""
+    import contextlib
+    from unittest import mock
+
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
+    from tpudl_torch.zoo import registry
+
+    flops = image_flops(IMAGE_MODEL, "featurize")
+    flops_pred = image_flops(IMAGE_MODEL, "predict")
     frame = Frame({"image": image_structs(IMAGE_ROWS, (299, 299, 3), SEED)})
     big = Frame({"image": image_structs(IMAGE_BIG_ROWS, (*IMAGE_BIG, 3),
                                         SEED + 1)})
@@ -1009,7 +1071,6 @@ def run_image_slice(card):
           f"GFLOP an image (featurize), {flops_pred / 1e9:.3f} (predict)")
     common = dict(inputCol="image", modelName=IMAGE_MODEL, weights="random",
                   batchSize=IMAGE_BATCH)
-    reset_launch_counts()
     feats = {}
     for dtype_name in ("float32", "bfloat16"):
         feat = DeepImageFeaturizer(outputCol="f", computeDtype=dtype_name,
@@ -1050,9 +1111,7 @@ def run_image_slice(card):
     torch.cuda.synchronize()
     rates, scores = timed_windows(
         lambda: np.stack(list(pred.transform(rows)["p"])), IMAGE_BATCH)
-    if scores.shape != (IMAGE_BATCH, 1000) or not np.isfinite(scores).all() \
-            or np.abs(scores.sum(axis=1) - 1).max() > 1e-4:
-        fail(f"predictor scores {scores.shape} are not finite softmax rows")
+    check_softmax_rows("predictor", scores, IMAGE_BATCH, "float32")
     print("  DeepImagePredictor float32 at 299x299: "
           + image_rate_text(IMAGE_BATCH, rates, flops_pred, "float32", card))
     top = DeepImagePredictor(outputCol="p", decodePredictions=True, topK=3,
@@ -1108,10 +1167,6 @@ def run_image_slice(card):
     for dtype_name, (feat, _, _) in feats.items():
         print(f"  {dtype_name} per-batch function alone after the profiles,"
               f" {batch_fn_text(time_batch_fn(feat, frame))}")
-    counts = dict(cuda_ops.launch_counts)
-    print(f"  attention kernel launches across phase 6: {counts} (want 0)")
-    if any(counts.values()):
-        fail("the image path launched an attention kernel")
 
 
 def read_images_leg(feat, card):
@@ -1153,6 +1208,137 @@ def read_images_leg(feat, card):
           f"(tolerance {IMAGE_CPU_RTOL}); card {card}")
     if not err <= IMAGE_CPU_RTOL:
         fail("readImages features on the card disagree with the CPU run")
+
+
+def check_softmax_rows(what, scores, n, dtype_name):
+    if scores.shape != (n, 1000) or not np.isfinite(scores).all() or \
+            np.abs(scores.sum(axis=1) - 1).max() > SOFTMAX_SUM_ATOL[
+                dtype_name]:
+        fail(f"{what} scores {scores.shape} are not finite softmax rows")
+
+
+def perturbed_bn(params, seed=1):
+    """``params`` with BN stats, shifts and scales (and EfficientNet's
+    ``normalization`` mean and variance) moved away from 0 and 1, as the
+    CPU tests perturb them, so that the outputs are not tiny. BN layers are
+    the ones holding a ``moving_mean``, whatever their names."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for layer, leaves in params.items():
+        leaves = dict(leaves)
+        if "moving_mean" in leaves:
+            c = leaves["beta"].shape[0]
+            leaves["moving_mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+            leaves["moving_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+            leaves["beta"] = rng.normal(0, 0.1, c).astype(np.float32)
+            if "gamma" in leaves:
+                leaves["gamma"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        if "variance" in leaves:
+            c = leaves["mean"].shape[0]
+            leaves["mean"] = rng.uniform(0.4, 0.5, c).astype(np.float32)
+            leaves["variance"] = rng.uniform(0.04, 0.08, c).astype(np.float32)
+        out[layer] = leaves
+    return out
+
+
+def zoo_leg(name, card, rows, *, config1):
+    """One named model at its own input size, from seeded random weights:
+    the featurizer in f32 and bf16 over ``rows`` seeded uint8 structs,
+    ``IMAGE_WINDOWS`` windows each (median and spread) beside the counted
+    work and the bounds; for configs[1]'s models the predictor likewise,
+    for the others one predictor call; bf16 against f32; ``ZOO_CPU_ROWS``
+    rows of each stage (features, and scores for configs[1]) against the
+    CPU run with perturbed BN stats. Returns ``(name, {dtype:
+    featurizer}, frame)`` for the profiles of configs[1]'s models."""
+    import tempfile
+
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
+    from tpudl_torch.zoo import getKerasApplicationModel, save_params_npz
+
+    t_leg = time.perf_counter()
+    model = getKerasApplicationModel(name)
+    h, w = model.input_size
+    params = model.init(0)
+    n_params = sum(a.size for g in params.values() for a in g.values())
+    flops = image_flops(name, "featurize", params)
+    flops_pred = image_flops(name, "predict", params)
+    frame = Frame({"image": image_structs(rows, (h, w, 3), SEED)})
+    print(f"  {name}: {n_params:,} parameters, {h}x{w} input, "
+          f"{model.feature_dim}-d features, '{model.preprocess_mode}' "
+          f"preprocessing; {rows} uint8 BGR structs at {h}x{w}, batchSize "
+          f"{IMAGE_BATCH}; {flops / 1e9:.3f} GFLOP an image (featurize), "
+          f"{flops_pred / 1e9:.3f} (predict)", flush=True)
+    common = dict(inputCol="image", modelName=name, weights="random",
+                  batchSize=IMAGE_BATCH)
+    feats, ys = {}, {}
+    for dtype_name in ("float32", "bfloat16"):
+        feat = DeepImageFeaturizer(outputCol="f", computeDtype=dtype_name,
+                                   **common)
+        feat.warmup(h, w)
+        torch.cuda.synchronize()
+        rates, y = timed_windows(
+            lambda: np.stack(list(feat.transform(frame)["f"])), rows)
+        if y.shape != (rows, model.feature_dim) or not np.isfinite(y).all():
+            fail(f"{name} {dtype_name} features: shape {y.shape}, "
+                 f"finite={bool(np.isfinite(y).all())}")
+        print(f"  {name} DeepImageFeaturizer {dtype_name}: "
+              + image_rate_text(rows, rates, flops, dtype_name, card))
+        feats[dtype_name], ys[dtype_name] = feat, y
+        if not config1:
+            continue
+        pred = DeepImagePredictor(outputCol="p", computeDtype=dtype_name,
+                                  **common)
+        pred.warmup(h, w)
+        torch.cuda.synchronize()
+        rates, scores = timed_windows(
+            lambda: np.stack(list(pred.transform(frame)["p"])), rows)
+        check_softmax_rows(f"{name} {dtype_name} predictor", scores, rows,
+                           dtype_name)
+        print(f"  {name} DeepImagePredictor {dtype_name}: "
+              + image_rate_text(rows, rates, flops_pred, dtype_name, card))
+        del pred
+    if not config1:
+        batch = Frame({"image": frame["image"][:IMAGE_BATCH]})
+        scores = np.stack(list(DeepImagePredictor(
+            outputCol="p", **common).transform(batch)["p"]))
+        check_softmax_rows(f"{name} predictor", scores, IMAGE_BATCH,
+                           "float32")
+        print(f"  {name} DeepImagePredictor float32, one call of "
+              f"{IMAGE_BATCH} rows: finite softmax rows (sums within "
+              f"{np.abs(scores.sum(axis=1) - 1).max():.1e} of 1)")
+    err = rel_err(ys["bfloat16"], ys["float32"])
+    print(f"  {name} bf16 vs f32 on the card, {rows} rows: max abs err "
+          f"{err:.3e} of max |y| {np.abs(ys['float32']).max():.3e} "
+          f"(tolerance {IMAGE_BF16_RTOL})")
+    if not err <= IMAGE_BF16_RTOL:
+        fail(f"{name} bf16 features disagree with f32")
+
+    # card vs CPU, f32, with perturbed BN stats
+    t0 = time.perf_counter()
+    cpu_rows = Frame({"image": frame["image"][:ZOO_CPU_ROWS]})
+    stages = [("features", DeepImageFeaturizer)]
+    if config1:
+        stages.append(("scores", DeepImagePredictor))
+    with tempfile.TemporaryDirectory() as d:
+        path = save_params_npz(perturbed_bn(params), f"{d}/{name}.npz")
+        del params
+        for what, stage in stages:
+            out = {device: np.stack(list(stage(
+                inputCol="image", outputCol="y", modelName=name,
+                weights=path, batchSize=ZOO_CPU_ROWS,
+                device=device).transform(cpu_rows)["y"]))
+                for device in ("cuda", "cpu")}
+            err = rel_err(out["cuda"], out["cpu"])
+            print(f"  {name} card vs CPU, {what} of {ZOO_CPU_ROWS} rows, "
+                  f"perturbed BN stats: max abs err {err:.3e} of max |y| "
+                  f"{np.abs(out['cpu']).max():.3e} (tolerance "
+                  f"{IMAGE_CPU_RTOL})")
+            if not err <= IMAGE_CPU_RTOL:
+                fail(f"{name} {what} on the card disagree with the CPU run")
+    print(f"  {name} leg: {time.perf_counter() - t_leg:.1f} s (card vs CPU "
+          f"{time.perf_counter() - t0:.1f} s of it)", flush=True)
+    return name, feats, frame
 
 
 def main(argv) -> int:

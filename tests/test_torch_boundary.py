@@ -1,5 +1,6 @@
 """The boundary between the packages: ``tpudl_torch`` and ``chip_smoke.py``
-import neither jax nor tpudl, the port's main paths (text serving,
+import neither jax, keras (which imports jax) nor tpudl, the port's main
+paths (text serving,
 training and the image path) run with both blocked, and ``chip_smoke.py`` refuses to report without a card or without the
 package beside it."""
 
@@ -13,8 +14,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|tpudl)(?:[.\s,]|$)",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|keras|tpudl)(?:[.\s,]|$)", re.MULTILINE)
 
 _BLOCKED_MAIN = r"""
 import sys
@@ -127,7 +128,9 @@ def test_no_source_imports_jax_or_tpudl():
     files.append(REPO / "chip_smoke.py")
     names = {str(f.relative_to(REPO)) for f in files}
     for sub in ("zoo/nn.py", "zoo/core.py", "zoo/inception_v3.py",
-                "zoo/registry.py", "zoo/convert.py", "zoo/preprocessing.py",
+                "zoo/resnet.py", "zoo/xception.py", "zoo/vgg.py",
+                "zoo/mobilenet_v2.py", "zoo/densenet.py",
+                "zoo/efficientnet.py", "zoo/registry.py", "zoo/convert.py", "zoo/preprocessing.py",
                 "image/ops.py", "image/imageIO.py", "native/__init__.py",
                 "ml/named_image.py", "ml/tf_image.py", "frame/frame.py"):
         assert f"tpudl_torch/{sub}" in names

@@ -7,8 +7,9 @@ machine with a card as
 
 Tolerance: the card's float32 outputs against the port's CPU run on the
 same rows, 2e-5 of max |y|, as ``chip_smoke.py`` phase 6 holds them. The
-weights are ``init(0)`` with seeded perturbed BN stats, so that the
-outputs are not tiny."""
+weights are ``init(0)`` with seeded perturbed BN stats (BN layers found by
+their leaves, so ResNet's ``conv1_bn`` counts), so that the outputs are
+not tiny. Each model runs at its own input size."""
 
 import numpy as np
 import pytest
@@ -22,21 +23,24 @@ from tpudl_torch.zoo import getKerasApplicationModel, save_params_npz
 TOL = 2e-5
 
 
-def _perturbed_weights(path):
-    params = getKerasApplicationModel("InceptionV3").init(0)
+def _perturbed_weights(name, path):
+    params = getKerasApplicationModel(name).init(0)
     rng = np.random.default_rng(1)
-    for layer, leaves in params.items():
-        if layer.startswith("batch_normalization"):
+    for leaves in params.values():
+        if "moving_mean" in leaves:
             c = leaves["beta"].shape[0]
             leaves["moving_mean"] = rng.normal(0, 0.1, c).astype(np.float32)
             leaves["moving_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
             leaves["beta"] = rng.normal(0, 0.1, c).astype(np.float32)
+            if "gamma" in leaves:
+                leaves["gamma"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
     return save_params_npz(params, str(path))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage", [DeepImageFeaturizer, DeepImagePredictor])
-def test_float32_stage_on_card_computes_in_f32(tmp_path, stage):
+@pytest.mark.parametrize("name", ["InceptionV3", "ResNet50", "Xception"])
+def test_float32_stage_on_card_computes_in_f32(tmp_path, stage, name):
     """cuDNN may run f32 convolutions in TF32 unless told not to, and
     PyTorch's default allows it; a float32 stage must compute in f32 all
     the same. TF32's 10-bit mantissa would put the outputs far outside the
@@ -44,16 +48,17 @@ def test_float32_stage_on_card_computes_in_f32(tmp_path, stage):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     assert torch.backends.cudnn.allow_tf32      # PyTorch's default
-    weights = _perturbed_weights(tmp_path / "perturbed.npz")
+    weights = _perturbed_weights(name, tmp_path / "perturbed.npz")
+    size = getKerasApplicationModel(name).input_size
     rng = np.random.default_rng(0)
     col = np.empty(4, dtype=object)
-    col[:] = [imageArrayToStruct(rng.integers(0, 256, (299, 299, 3),
+    col[:] = [imageArrayToStruct(rng.integers(0, 256, (*size, 3),
                                               dtype=np.uint8))
               for _ in range(4)]
     frame = Frame({"image": col})
     outs = {}
     for device in ("cuda", "cpu"):
-        out = stage(inputCol="image", outputCol="y", modelName="InceptionV3",
+        out = stage(inputCol="image", outputCol="y", modelName=name,
                     weights=weights, batchSize=4, device=device)
         outs[device] = np.stack(list(out.transform(frame)["y"]))
     want = outs["cpu"].astype(np.float64)

@@ -114,6 +114,38 @@ def test_sampling_generator_is_seeded(lm):
     assert run(3) != run(4)
 
 
+@pytest.mark.parametrize("stage,method", [
+    ("featurizer", "hidden"), ("classifier", "apply"),
+    ("generator", "decode_step")])
+def test_stages_switch_tf32_off_while_they_run(lm, monkeypatch, stage,
+                                               method):
+    """A caller may allow TF32 for f32 products (``allow_tf32``, or
+    ``set_float32_matmul_precision("high")``, which sets it). tpudl
+    computes the LM in f32, so each stage switches TF32 off for cuBLAS and
+    cuDNN while its model runs and restores the caller's setting after."""
+    _, params, _, spec = lm
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen = []
+    original = getattr(TinyCausalLM, method)
+
+    def spy(self, *args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return original(self, *args, **kwargs)
+
+    monkeypatch.setattr(TinyCausalLM, method, spy)
+    kw = dict(outputCol="y", **_stage_kw(spec, params))
+    make = {"featurizer": lambda: LMFeaturizer(batchSize=4, **kw),
+            "classifier": lambda: LMClassifier(classes=CLASSES, batchSize=4,
+                                               **kw),
+            "generator": lambda: LMGenerator(maxNew=2, **kw)}[stage]
+    make().transform(Frame({"text": TEXTS}))
+    assert seen and set(seen) == {(False, False)}
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
 def test_stages_count_rows(lm):
     _, params, _, spec = lm
     frame = Frame({"text": TEXTS})

@@ -53,19 +53,90 @@ def _rel_err(got, want):
 
 
 def _perturbed(params, seed=1):
-    """BN stats and shifts away from 0 and 1, so folding BN into a scale
-    and shift works at a scale that shows errors."""
+    """BN stats, shifts and scales away from 0 and 1, so folding BN into a
+    scale and shift works at a scale that shows errors. BN layers are found
+    by their leaves (a ``moving_mean``), not by name: ResNet's ``conv1_bn``
+    or MobileNetV2's ``bn_Conv1`` hold no ``batch_normalization`` prefix.
+    InceptionV3's BN layers hold no ``gamma``, so its draws are the ones a
+    selection by name made."""
     rng = np.random.default_rng(seed)
     out = {}
     for layer, leaves in params.items():
         leaves = dict(leaves)
-        if layer.startswith("batch_normalization"):
+        if "moving_mean" in leaves:
             c = leaves["beta"].shape[0]
             leaves["moving_mean"] = rng.normal(0, 0.1, c).astype(np.float32)
             leaves["moving_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
             leaves["beta"] = rng.normal(0, 0.1, c).astype(np.float32)
+            if "gamma" in leaves:
+                leaves["gamma"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        if "variance" in leaves:   # EfficientNet's normalization layer
+            c = leaves["mean"].shape[0]
+            leaves["mean"] = rng.uniform(0.4, 0.5, c).astype(np.float32)
+            leaves["variance"] = rng.uniform(0.04, 0.08, c).astype(np.float32)
         out[layer] = leaves
     return out
+
+
+# -- shared by the model files (test_torch_zoo_*.py) -----------------------
+
+def _assert_init_bit_equal(name, size, include_top):
+    """The port's ``init(0)`` of ``name`` at ``size`` is tpudl's: the same
+    layers in the same order, the same leaves, bit for bit."""
+    want = jreg.getKerasApplicationModel(name).init(
+        0, image_size=size, include_top=include_top)
+    got = registry.getKerasApplicationModel(name).init(
+        0, image_size=size, include_top=include_top)
+    assert list(got) == list(want)
+    assert ("predictions" in got) == include_top
+    for layer, leaves in want.items():
+        assert sorted(got[layer]) == sorted(leaves)
+        for k, v in leaves.items():
+            assert got[layer][k].dtype == v.dtype
+            np.testing.assert_array_equal(got[layer][k], v)
+    return got
+
+
+def _tpudl_side(name, size, x_range=(-1, 1)):
+    """tpudl's ``name`` at ``size``: ``init(0)``, the perturbed weights, 2
+    seeded input rows in ``x_range``, and for each weights the features,
+    class scores and NHWC maps of one jitted program."""
+    jm = jreg.getKerasApplicationModel(name)
+    params = jm.init(0, image_size=size)
+    x = np.random.default_rng(2).uniform(*x_range, (2, *size, 3)).astype(
+        np.float32)
+    fn = jax.jit(lambda p, x: {
+        "featurize": jm.featurize(p, x), "predict": jm.predict(p, x),
+        "maps": jm.apply(p, x, include_top=False)})
+    weights = {"init": params, "perturbed": _perturbed(params)}
+    want = {w: {k: np.asarray(v) for k, v in fn(p, jnp.asarray(x)).items()}
+            for w, p in weights.items()}
+    return {"x": x, "weights": weights, "want": want}
+
+
+def _assert_forward_matches(side, name, weights, head):
+    """``ImageModel(...).featurize`` or ``.predict`` on the CPU against
+    tpudl's on the same weights and rows, within TOL of max |y|."""
+    model = registry.getKerasApplicationModel(name)
+    net = ImageModel(model, side["weights"][weights], device="cpu")
+    with torch.inference_mode():
+        got = getattr(net, head)(torch.from_numpy(side["x"])).numpy()
+    want = side["want"][weights][head]
+    assert got.shape == want.shape == (
+        2, model.feature_dim if head == "featurize" else 1000)
+    assert _rel_err(got, want) <= TOL
+
+
+def _assert_maps_match(side, name, shape):
+    """``NamedModel.apply(..., include_top=False)`` returns tpudl's NHWC
+    maps (perturbed weights)."""
+    m = registry.getKerasApplicationModel(name)
+    with torch.inference_mode():
+        got = m.apply(convert.torch_params(side["weights"]["perturbed"]),
+                      torch.from_numpy(side["x"]), include_top=False).numpy()
+    want = side["want"]["perturbed"]["maps"]
+    assert got.shape == want.shape == shape
+    assert _rel_err(got, want) <= TOL
 
 
 @pytest.fixture(scope="module")
@@ -83,18 +154,8 @@ def small():
 
 
 @pytest.mark.parametrize("include_top", [True, False])
-def test_init_is_bit_equal_to_tpudl(small, include_top):
-    want = (small["params"]["init"] if include_top else
-            small["jm"].init(0, image_size=SMALL, include_top=False))
-    got = registry.getKerasApplicationModel("InceptionV3").init(
-        0, image_size=SMALL, include_top=include_top)
-    assert list(got) == list(want)
-    assert ("predictions" in got) == include_top
-    for layer, leaves in want.items():
-        assert sorted(got[layer]) == sorted(leaves)
-        for k, v in leaves.items():
-            assert got[layer][k].dtype == v.dtype
-            np.testing.assert_array_equal(got[layer][k], v)
+def test_init_is_bit_equal_to_tpudl(include_top):
+    got = _assert_init_bit_equal("InceptionV3", SMALL, include_top)
     n = sum(a.size for g in got.values() for a in g.values())
     assert n == (23_851_784 if include_top else 21_802_784)
 
@@ -203,16 +264,36 @@ def test_decode_predictions_matches_tpudl():
         preprocessing.decode_predictions(scores[:, :10])
 
 
+# keras.applications' published parameter counts, with the top
+KERAS_PARAMS = {"InceptionV3": 23_851_784, "Xception": 22_910_480,
+                "ResNet50": 25_636_712, "VGG16": 138_357_544,
+                "VGG19": 143_667_240, "MobileNetV2": 3_538_984,
+                "DenseNet121": 8_062_504, "ResNet101": 44_707_176,
+                "ResNet152": 60_419_944,
+                # Keras also counts its Normalization layer's int ``count``
+                "EfficientNetB0": 5_330_571 - 1}
+
+
 def test_registry_lists_tpudl_names_and_builds_only_inception():
+    """Every name of tpudl's registry builds in the port (no name is left
+    unported since the nine other models landed): ``init(0)`` at the
+    model's own input size has Keras's parameter count, and the
+    featurizer's vector, run on meta tensors, is ``feature_dim`` wide."""
     assert list(registry.SUPPORTED_MODELS) == list(jreg.SUPPORTED_MODELS)
     for name, want in jreg.SUPPORTED_MODELS.items():
         got = registry.getKerasApplicationModel(name)
         assert (got.input_size, got.feature_dim, got.preprocess_mode,
                 got.classes) == (want.input_size, want.feature_dim,
                                  want.preprocess_mode, want.classes)
-        if name != "InceptionV3":
-            with pytest.raises(NotImplementedError, match="'Image path'"):
-                got.init(0)
+        params = got.init(0)
+        assert sum(a.size for g in params.values()
+                   for a in g.values()) == KERAS_PARAMS[name], name
+        meta = {layer: {k: convert.torch_layout(k, v).to("meta")
+                        for k, v in leaves.items()}
+                for layer, leaves in params.items()}
+        del params
+        x = torch.empty((1, *got.input_size, 3), device="meta")
+        assert got.featurize(meta, x).shape == (1, got.feature_dim), name
     with pytest.raises(ValueError, match="unsupported model"):
         registry.getKerasApplicationModel("AlexNet")
 
@@ -357,8 +438,6 @@ def test_unported_options_raise(stage, kwargs, item):
 def test_stage_refusals_and_validation(image_dir):
     frame = imageIO.readImages(image_dir).dropna().head(1)
     common = dict(inputCol="image", outputCol="y", device="cpu")
-    with pytest.raises(NotImplementedError, match="'Image path'"):
-        DeepImageFeaturizer(modelName="ResNet50", **common).transform(frame)
     with pytest.raises(NotImplementedError, match="sparkdl surface"):
         DeepImageFeaturizer(modelName="InceptionV3", weights="m.h5",
                             **common).transform(frame)

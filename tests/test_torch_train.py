@@ -239,6 +239,27 @@ def test_train_step_returns_a_detached_loss(params):
     assert not torch.equal(before, model.embed["table"])
 
 
+def test_float32_step_switches_tf32_off_while_it_runs(params, monkeypatch):
+    """tpudl's train step computes in f32: a float32 model's step (forward,
+    backward and update) runs with TF32 off for cuBLAS and cuDNN, whatever
+    the caller allowed, and the caller's setting comes back after."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    model = _model(params)
+    loss_fn = model.loss_fn()
+    seen = []
+
+    def spy(m, *batch):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return loss_fn(m, *batch)
+
+    Trainer(spy, sgd(0.1)).fit(model, _tokens, 2)
+    assert seen == [(False, False)] * 2
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
 def test_to_jax_params_inverts_load(params):
     got = to_jax_params(_model(params))
     assert sorted(got) == sorted(params)

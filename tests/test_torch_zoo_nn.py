@@ -13,10 +13,13 @@ values without arithmetic (pads, max pools, relu) are held exactly."""
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
 from tpudl.zoo import core as jcore
+from tpudl.zoo import efficientnet as jeff
+from tpudl.zoo import mobilenet_v2 as jmobile
 from tpudl.zoo import nn as jnn
 from tpudl_torch.zoo import core, nn
 from tpudl_torch.zoo.convert import torch_layout, torch_params
@@ -229,6 +232,35 @@ def test_softmax_and_zero_pad_match_tpudl():
     np.testing.assert_array_equal(_nhwc(nn.zero_pad(_nchw(x), pad)),
                                   np.asarray(jnn.zero_pad(jnp.asarray(x),
                                                           pad)))
+
+
+@pytest.mark.parametrize("name,jax_fn", [("swish", jax.nn.silu),
+                                         ("sigmoid", jax.nn.sigmoid)])
+def test_swish_and_sigmoid_match_jax_nn(name, jax_fn):
+    """EfficientNet's activations, which tpudl takes from ``jax.nn``."""
+    x = _x((2, 5, 4, 3)) * 8.0
+    _close(_nhwc(getattr(nn, name)(_nchw(x))), jax_fn(jnp.asarray(x)))
+
+
+def test_flatten_nhwc_is_keras_flatten():
+    """VGG's head: the NCHW map flattened in Keras's NHWC row-major order,
+    as tpudl reshapes its NHWC map."""
+    x = _x((2, 3, 2, 5))
+    np.testing.assert_array_equal(nn.flatten_nhwc(_nchw(x)).numpy(),
+                                  x.reshape(2, -1))
+
+
+@pytest.mark.parametrize("hw", [(32, 32), (33, 33), (16, 17), (9, 8)])
+@pytest.mark.parametrize("kernel", [3, 5])
+def test_correct_pad_matches_tpudl(hw, kernel):
+    """Keras's ``correct_pad`` as MobileNetV2 and EfficientNet call it:
+    tpudl reads (h, w) off NHWC, the port off NCHW; 3 channels would read
+    as an odd height if the axes were carried over."""
+    x = np.zeros((1, *hw, 3), np.float32)
+    want = jeff._correct_pad(x, kernel)
+    if kernel == 3:
+        assert jmobile._correct_pad(x, kernel) == want
+    assert nn.correct_pad(_nchw(x), kernel) == want
 
 
 def test_same_pads_is_tf_same():

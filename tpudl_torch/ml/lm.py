@@ -20,6 +20,10 @@ object. ``tokenizer=`` is a :mod:`tpudl_torch.text` tokenizer. The
 executor knobs of tpudl's stages (``mesh``, ``tp``, ``prefetchDepth``,
 ``prepareWorkers``, ``fuseSteps``, ``dispatchDepth``, ``cacheDir``,
 ``deviceCache``, a codec given by name) are not ported yet and raise.
+
+The model is float32, and each stage computes its products in full f32
+whatever TF32 setting the process holds (``device.full_f32``), as tpudl
+computes them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from tpudl_torch.compile.buckets import resolve_ladder
+from tpudl_torch.device import full_f32
 from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol,
                                    HasOutputCol, keyword_only,
                                    refuse_unported)
@@ -111,7 +116,7 @@ class LMFeaturizer(_LMStage):
             pooled = (h * mask[..., None]).sum(dim=1)
             return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
 
-        with torch.inference_mode():
+        with torch.inference_mode(), full_f32():
             out = frame.map_batches(
                 fn, [self.getInputCol()], [self.getOutputCol()],
                 batch_size=self.batchSize, pack=pack,
@@ -176,7 +181,7 @@ class LMClassifier(_LMStage):
             return row[:, class_ids].argmax(dim=-1).to(torch.int32)
 
         out_col = self.getOutputCol()
-        with torch.inference_mode():
+        with torch.inference_mode(), full_f32():
             out = frame.map_batches(
                 fn, [self.getInputCol()], [out_col],
                 batch_size=self.batchSize, pack=pack,
@@ -236,10 +241,11 @@ class LMGenerator(_LMStage):
                     # as tpudl folds its key, so chunks are independent
                     gen = torch.Generator(device=net.device)
                     gen.manual_seed(self.seed * 1_000_003 + plen * 8191 + c0)
-                toks = net.generate(
-                    np.stack([prompts[i] for i in chunk]), self.maxNew,
-                    temperature=self.temperature, generator=gen,
-                    prompt_buckets=ladder).cpu().numpy()
+                with full_f32():
+                    toks = net.generate(
+                        np.stack([prompts[i] for i in chunk]), self.maxNew,
+                        temperature=self.temperature, generator=gen,
+                        prompt_buckets=ladder).cpu().numpy()
                 for row, i in zip(toks, chunk):
                     stop = np.flatnonzero(row == EOS_ID)
                     if stop.size:

@@ -8,7 +8,10 @@ tpudl's one jitted program: packed uint8 BGR batch → float32 → RGB →
 antialiased resize to the model's geometry (``image.ops.to_model_input``)
 → ``preprocess`` in f32 → cast to ``computeDtype`` → ``featurize`` or
 ``predict`` (:class:`~tpudl_torch.zoo.registry.ImageModel`, convolutions
-on cuDNN) → float32 rows.
+on cuDNN) → float32 rows. Every name of the registry runs, each at its
+own input size; a featurizer row is the model's ``feature_dim`` wide
+(the post-ReLU ``fc2`` of VGG16/19, the pooled map of the others) and a
+predictor row holds 1000 class scores.
 
 Weights: ``"random"`` is ``init(0)``; ``"imagenet"`` reads
 ``$TPUDL_WEIGHTS_DIR/<model>.npz`` and nothing else (the port never

@@ -11,6 +11,12 @@ raise; ``with_compute_dtype`` and ``make_eval_step`` are not ported yet
 
 from __future__ import annotations
 
+import contextlib
+
+import torch
+
+from tpudl_torch.device import full_f32
+
 __all__ = ["make_train_step"]
 
 
@@ -19,7 +25,9 @@ def make_train_step(loss_fn, *, mesh=None, param_shardings=None):
     *batch)`` returns the batch-mean scalar loss (for example
     ``TinyCausalLM.loss_fn()``); ``optimizer`` is a ``torch.optim``
     optimizer over the model's parameters. The returned loss is a
-    detached device tensor: the step forces no host sync."""
+    detached device tensor: the step forces no host sync. A float32 model
+    steps in full f32 whatever TF32 setting the process holds
+    (:func:`tpudl_torch.device.full_f32`), as tpudl's step computes."""
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...) (data parallelism) is not ported to "
@@ -31,10 +39,12 @@ def make_train_step(loss_fn, *, mesh=None, param_shardings=None):
             "'LM parallelism')")
 
     def step(model, optimizer, *batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, *batch)
-        loss.backward()
-        optimizer.step()
+        f32 = next(model.parameters()).dtype == torch.float32
+        with full_f32() if f32 else contextlib.nullcontext():
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(model, *batch)
+            loss.backward()
+            optimizer.step()
         return loss.detach()
 
     return step

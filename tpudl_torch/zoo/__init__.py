@@ -1,5 +1,7 @@
-"""Model zoo of the port: ``transformer`` (TinyCausalLM) and the named
-image models (``registry``, over ``nn``, ``core`` and ``inception_v3``)."""
+"""Model zoo of the port: ``transformer`` (TinyCausalLM) and the ten named
+image models (``registry``, over ``nn``, ``core`` and the architectures
+``inception_v3``, ``xception``, ``resnet``, ``vgg``, ``mobilenet_v2``,
+``densenet`` and ``efficientnet``)."""
 
 from tpudl_torch.zoo.convert import (load_params_npz, save_params_npz,
                                      torch_params)

@@ -1,7 +1,8 @@
 """Define-by-run parameter store — the zoo's graph builder.
 
 Port of ``tpudl/zoo/core.py`` (``Namer``, ``glorot_uniform``'s numpy
-branch, ``Store`` with its init, apply and train modes). Each
+branch, ``Store`` with its init, apply and train modes and every layer
+method, ``norm_stats`` included). Each
 architecture is one build function over a ``Store``:
 
 - init: ``Store(rng=np.random.Generator)`` — layer calls draw Keras-
@@ -15,14 +16,12 @@ architecture is one build function over a ``Store``:
   OIHW conv kernels.
 - train: ``Store(params=p, train=True)`` — BN uses batch stats and the
   updated moving averages collect in ``store.bn_updates``.
-
-Not ported yet: the Keras ``Normalization`` layer (``norm_stats``) that
-only EfficientNet uses (ROADMAP Queue 1, 'Image path').
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpudl_torch.zoo import nn
 from tpudl_torch.zoo.convert import torch_layout
@@ -178,6 +177,23 @@ class Store:
             self.bn_updates[lname] = new_stats
             return y
         return nn.batch_norm(x, p, train=False, epsilon=epsilon)
+
+    def norm_stats(self, x, *, name=None):
+        """Keras ``Normalization`` over the channel axis (1): ``(x - mean)
+        / max(sqrt(variance), 1e-7)`` with mean and variance as weights
+        (EfficientNet normalizes inside the model this way). Init is the
+        identity, mean 0 and variance 1; the clamp keeps a zero-variance
+        channel finite, as Keras does."""
+        lname = self.name("normalization", name)
+        c = x.shape[1]
+
+        def make():
+            return {"mean": self._zeros((c,)), "variance": self._ones((c,))}
+
+        p = self._get(lname, make, x.device)
+        mean = p["mean"].to(x.dtype).reshape(1, -1, 1, 1)
+        std = torch.sqrt(p["variance"].to(x.dtype)).clamp_min(1e-7)
+        return (x - mean) / std.reshape(1, -1, 1, 1)
 
     def dense(self, x, units, *, use_bias=True, name=None):
         lname = self.name("dense", name)

@@ -1,6 +1,9 @@
 """Functional NN ops with TF/Keras numerics, in torch.
 
-Port of ``tpudl/zoo/nn.py`` (every function of its ``__all__``).
+Port of ``tpudl/zoo/nn.py`` (every function of its ``__all__``), plus
+the ops tpudl's models call from ``jax.nn`` or spell inline: ``swish``,
+``sigmoid``, Keras's ``Flatten`` (:func:`flatten_nhwc`) and
+``correct_pad`` (MobileNetV2's and EfficientNet's ``_correct_pad``).
 
 **Layout.** Activations are NCHW tensors; on the card they stay in
 ``torch.channels_last`` memory (an NHWC batch seen through
@@ -38,8 +41,12 @@ __all__ = [
     "global_avg_pool",
     "global_max_pool",
     "zero_pad",
+    "correct_pad",
     "relu",
     "relu6",
+    "swish",
+    "sigmoid",
+    "flatten_nhwc",
     "softmax",
 ]
 
@@ -198,6 +205,16 @@ def zero_pad(x, pad):
     return F.pad(x, (l, r, t, b))
 
 
+def correct_pad(x, kernel):
+    """Keras ``imagenet_utils.correct_pad`` of an NCHW map: the zero pad
+    ``((top, bottom), (left, right))`` that puts a stride-2 VALID conv on
+    the grid a SAME one would use. tpudl reads (h, w) off NHWC axes 1 and
+    2; here they are axes 2 and 3."""
+    h, w = x.shape[2], x.shape[3]
+    c = kernel // 2
+    return ((c - (1 - h % 2), c), (c - (1 - w % 2), c))
+
+
 def relu(x):
     return F.relu(x)
 
@@ -205,6 +222,22 @@ def relu(x):
 def relu6(x):
     """Keras ReLU(6.0), the MobileNet activation."""
     return torch.clamp(x, 0.0, 6.0)
+
+
+def swish(x):
+    """Keras swish (``jax.nn.silu``), the EfficientNet activation."""
+    return F.silu(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def flatten_nhwc(x):
+    """Keras ``Flatten`` of an NCHW map: the rows in Keras's NHWC row-major
+    order, so a dense layer after it reads the weights tpudl trained or
+    converted (a plain reshape of NCHW would permute its inputs)."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
 def softmax(x):

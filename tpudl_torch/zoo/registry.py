@@ -1,10 +1,12 @@
 """Named pretrained-model registry — the zoo's public surface.
 
 Port of ``tpudl/zoo/registry.py`` (``NamedModel``, ``cast_params``,
-``SUPPORTED_MODELS``, ``getKerasApplicationModel``). All ten of tpudl's
-names are listed, so a name is validated as tpudl validates it; only
-InceptionV3 builds so far, and the other nine raise
-``NotImplementedError`` when built (ROADMAP Queue 1, 'Image path').
+``SUPPORTED_MODELS``, ``getKerasApplicationModel``): all ten of tpudl's
+names, each with its architecture (``inception_v3``, ``xception``,
+``resnet`` for ResNet50/101/152, ``vgg`` for VGG16/19, ``mobilenet_v2``,
+``densenet``, ``efficientnet``), input size, feature width and
+preprocessing mode. ``featurize`` cuts VGG16/19 at the post-ReLU ``fc2``
+(4096-d) and every other model at its global average pool.
 
 ``NamedModel.init`` returns tpudl's numpy param pytree (Keras names and
 layout), bit-equal to tpudl's ``init`` for the same seed. ``apply``,
@@ -14,7 +16,7 @@ tpudl's do; inside, the model runs NCHW in channels_last memory (a view
 of the NHWC batch, no copy). :class:`ImageModel` holds the converted
 weights of one model as an ``nn.Module`` on one device in one dtype; in
 float32 it runs its convolutions and products in full f32, never TF32
-(:func:`full_f32`).
+(:func:`tpudl_torch.device.full_f32`, kept importable from here).
 """
 
 from __future__ import annotations
@@ -26,29 +28,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tpudl_torch.device import resolve_device
-from tpudl_torch.zoo import inception_v3
+from tpudl_torch.device import full_f32, resolve_device
+from tpudl_torch.zoo import (densenet, efficientnet, inception_v3,
+                             mobilenet_v2, resnet, vgg, xception)
 from tpudl_torch.zoo.convert import torch_params
 from tpudl_torch.zoo.core import Store
 from tpudl_torch.zoo.preprocessing import preprocess_input
 
 __all__ = ["NamedModel", "ImageModel", "SUPPORTED_MODELS",
            "getKerasApplicationModel", "cast_params", "full_f32"]
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Switch TF32 off for cuDNN convolutions and cuBLAS products while the
-    block runs, and restore the process's settings after. PyTorch lets
-    cuDNN run f32 convolutions in TF32 (10-bit mantissa) by default, so a
-    float32 model would otherwise not compute in f32."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def cast_params(params: dict, dtype: torch.dtype) -> dict:
@@ -63,18 +51,11 @@ def cast_params(params: dict, dtype: torch.dtype) -> dict:
 @dataclasses.dataclass(frozen=True)
 class NamedModel:
     name: str
-    build_fn: Callable | None    # None: not ported yet
+    build_fn: Callable
     input_size: tuple[int, int]
     feature_dim: int
     preprocess_mode: str
     classes: int = 1000
-
-    def _build(self):
-        if self.build_fn is None:
-            raise NotImplementedError(
-                f"{self.name} is not ported to tpudl_torch yet (ROADMAP "
-                "Queue 1, 'Image path'); InceptionV3 is")
-        return self.build_fn
 
     # -- params ----------------------------------------------------------
     def init(self, rng, *, image_size: tuple[int, int] | None = None,
@@ -82,11 +63,10 @@ class NamedModel:
         """Random-init param pytree (Keras initializers), numpy, Keras
         layout. ``rng`` is an int seed or a ``np.random.Generator``; the
         build runs on a meta tensor, so only the draws cost anything."""
-        build = self._build()
         h, w = image_size or self.input_size
         gen = np.random.default_rng(rng) if isinstance(rng, int) else rng
         s = Store(rng=gen)
-        build(s, torch.empty((1, 3, h, w), device="meta"),
+        self.build_fn(s, torch.empty((1, 3, h, w), device="meta"),
               include_top=include_top, classes=self.classes)
         return s.params
 
@@ -96,9 +76,8 @@ class NamedModel:
         """Forward pass over preprocessed input ``x`` ``(B, H, W, C)``; a
         4-D result comes back NHWC. ``train=True`` returns ``(y,
         bn_updates)``."""
-        build = self._build()
         s = Store(params=params, train=train)
-        y = build(s, x.permute(0, 3, 1, 2), include_top=include_top,
+        y = self.build_fn(s, x.permute(0, 3, 1, 2), include_top=include_top,
                   pooling=pooling, classes=self.classes)
         if y.ndim == 4:
             y = y.permute(0, 2, 3, 1)
@@ -111,7 +90,10 @@ class NamedModel:
         return preprocess_input(x, self.preprocess_mode)
 
     def featurize(self, params: dict, x):
-        """Penultimate-layer features (the DeepImageFeaturizer vector)."""
+        """Penultimate-layer features (the DeepImageFeaturizer vector): the
+        post-ReLU ``fc2`` for VGG, the global average pool otherwise."""
+        if self.build_fn in (vgg.build_vgg16, vgg.build_vgg19):
+            return self.apply(params, x, include_top="features")
         return self.apply(params, x, include_top=False, pooling="avg")
 
     def predict(self, params: dict, x):
@@ -128,7 +110,6 @@ class ImageModel(torch.nn.Module):
     def __init__(self, model: NamedModel, params: dict, *, device="cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        model._build()
         self.model = model
         self.dtype = dtype
         tree = cast_params(torch_params(params), dtype)
@@ -163,24 +144,31 @@ class ImageModel(torch.nn.Module):
             return self.model.predict(self.tree(), x)
 
 
-def _unported(name, input_size, feature_dim, mode):
-    return NamedModel(name, None, input_size, feature_dim, mode)
-
-
 SUPPORTED_MODELS: dict[str, NamedModel] = {
     m.name: m
     for m in [
         NamedModel("InceptionV3", inception_v3.build, inception_v3.INPUT_SIZE,
                    inception_v3.FEATURE_DIM, inception_v3.PREPROCESS_MODE),
-        _unported("Xception", (299, 299), 2048, "tf"),
-        _unported("ResNet50", (224, 224), 2048, "caffe"),
-        _unported("VGG16", (224, 224), 4096, "caffe"),
-        _unported("VGG19", (224, 224), 4096, "caffe"),
-        _unported("MobileNetV2", (224, 224), 1280, "tf"),
-        _unported("DenseNet121", (224, 224), 1024, "torch"),
-        _unported("ResNet101", (224, 224), 2048, "caffe"),
-        _unported("ResNet152", (224, 224), 2048, "caffe"),
-        _unported("EfficientNetB0", (224, 224), 1280, "raw"),
+        NamedModel("Xception", xception.build, xception.INPUT_SIZE,
+                   xception.FEATURE_DIM, xception.PREPROCESS_MODE),
+        NamedModel("ResNet50", resnet.build, resnet.INPUT_SIZE,
+                   resnet.FEATURE_DIM, resnet.PREPROCESS_MODE),
+        NamedModel("VGG16", vgg.build_vgg16, vgg.INPUT_SIZE, vgg.FEATURE_DIM,
+                   vgg.PREPROCESS_MODE),
+        NamedModel("VGG19", vgg.build_vgg19, vgg.INPUT_SIZE, vgg.FEATURE_DIM,
+                   vgg.PREPROCESS_MODE),
+        NamedModel("MobileNetV2", mobilenet_v2.build,
+                   mobilenet_v2.INPUT_SIZE, mobilenet_v2.FEATURE_DIM,
+                   mobilenet_v2.PREPROCESS_MODE),
+        NamedModel("DenseNet121", densenet.build, densenet.INPUT_SIZE,
+                   densenet.FEATURE_DIM, densenet.PREPROCESS_MODE),
+        NamedModel("ResNet101", resnet.build_resnet101, resnet.INPUT_SIZE,
+                   resnet.FEATURE_DIM, resnet.PREPROCESS_MODE),
+        NamedModel("ResNet152", resnet.build_resnet152, resnet.INPUT_SIZE,
+                   resnet.FEATURE_DIM, resnet.PREPROCESS_MODE),
+        NamedModel("EfficientNetB0", efficientnet.build,
+                   efficientnet.INPUT_SIZE, efficientnet.FEATURE_DIM,
+                   efficientnet.PREPROCESS_MODE),
     ]
 }
 
