@@ -56,17 +56,45 @@ Phases (any failure exits non-zero before the final line):
    check that no attention kernel launched in the phase. Then print the
    ``{"kernels": [...]}`` line of phase 5.
 
+7. Drive the pipelined executor (``Frame.map_batches``: prepare pool, K-deep
+   infeed, D-deep dispatch window, fused dispatch as a CUDA-graph replay)
+   under the image and LM stages, each in three arms: serial
+   (``TPUDL_FRAME_PREFETCH=0``), pipelined (the defaults K=2, N=2, D=2)
+   and fused (``fuseSteps=4``). Image arms: InceptionV3 f32 and bf16,
+   ResNet50 f32 and bf16 and MobileNetV2 bf16, each over 512 rows in
+   batches of 64: images/s (median and spread of 5 windows), the
+   ``PipelineReport`` stages and gauges, the per-batch function's own
+   rate, and, last, the card's idle share from one profile over a whole
+   8-batch transform of each arm. Pipelined and fused outputs must equal
+   the serial arm's bitwise (or, where the graph's kernels differ from
+   eager's, within phase 6's 2e-5 of max |y|, with the reason printed).
+   LM arms: ``LMFeaturizer`` at serving width (256 rows, batch 16):
+   rows/s, features bitwise equal to the serial arm's, and 12 flash
+   forward launches a batch in every arm, graph replays included. Then
+   ``readImages`` of 512 seeded JPEGs with ``numPartition=8`` into the
+   f32 InceptionV3 featurizer, serial against pipelined (decode in the
+   prepare pool), and one f32 fused run with the caller's TF32 on, held
+   to the CPU within 2e-5 of max |y|.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
 alone, every model's leg: the image slice's rates in a process that has
 run no profiler session before them (phases 4 and 4b profile a batch and
-a step).
+a step). ``python3 chip_smoke.py --executor-only`` runs phase 1 and then
+phase 7 alone. ``python3 chip_smoke.py --pool-study`` runs phase 1 and
+then the prepare pool's study alone: the host-bound bf16 image cells in
+five executor arms that separate the pool's threads from the window
+(serial; D=2 with no pool; N=1; N=2, the default; N=2 with one torch
+CPU thread), images/s over 11 windows and the report's host seconds a
+batch of each arm.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -74,6 +102,7 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()     # the script's own time, printed at the end
 SEED = 0
 VOCAB, DIM, HEADS, LAYERS, MAX_LEN = 32000, 1024, 16, 12, 4096
 N_ROWS, BATCH = 256, 16            # featurize / classify: 16 batches each
@@ -171,6 +200,28 @@ ZOO_ROWS = 256
 # card vs CPU rows of every leg, with perturbed BN stats (the limit is
 # IMAGE_CPU_RTOL, as for InceptionV3)
 ZOO_CPU_ROWS = 2
+
+# phase 7, the executor: each (model, dtype) over IMAGE_ROWS rows in
+# batches of IMAGE_BATCH (8 batches), the LM featurizer over N_ROWS rows
+# in batches of BATCH (16 batches), in three arms each
+EXEC_IMAGE = (("InceptionV3", "float32"), ("InceptionV3", "bfloat16"),
+              ("ResNet50", "float32"), ("ResNet50", "bfloat16"),
+              ("MobileNetV2", "bfloat16"))
+EXEC_FUSE = 4
+EXEC_ARMS = {"serial": {}, "pipelined": {}, "fused": {"fuseSteps": EXEC_FUSE}}
+# the pool study (--pool-study): host-bound bf16 cells, arms in turn
+POOL_MODELS = ("ResNet50", "InceptionV3", "MobileNetV2")
+POOL_WINDOWS = 11
+POOL_ARMS = {
+    "serial": dict(prefetch=False, dispatch_depth=1),
+    "window, no pool": dict(prefetch=False, dispatch_depth=2),
+    "pool N=1": dict(prefetch_depth=2, prepare_workers=1, dispatch_depth=2),
+    "pool N=2": dict(prefetch_depth=2, prepare_workers=2, dispatch_depth=2),
+    "pool N=2, 1 torch thread": dict(prefetch_depth=2, prepare_workers=2,
+                                     dispatch_depth=2),
+}
+EXEC_JPEGS = 512                   # readImages leg, numPartition=8
+EXEC_PARTITIONS = 8
 
 
 def fail(msg: str):
@@ -1341,6 +1392,392 @@ def zoo_leg(name, card, rows, *, config1):
     return name, feats, frame
 
 
+@contextlib.contextmanager
+def executor_arm(arm):
+    """The serial arm switches the pipelined executor off, as a user
+    would (``TPUDL_FRAME_PREFETCH=0``); the others run with its defaults
+    and their stage knobs."""
+    saved = os.environ.get("TPUDL_FRAME_PREFETCH")
+    if arm == "serial":
+        os.environ["TPUDL_FRAME_PREFETCH"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("TPUDL_FRAME_PREFETCH", None)
+        else:
+            os.environ["TPUDL_FRAME_PREFETCH"] = saved
+
+
+def report_text(rep) -> str:
+    """The stages, gauges and counts of one PipelineReport."""
+    stages = ", ".join(f"{k} {v:.4f}" for k, v in
+                       rep["stage_seconds"].items())
+    calls = rep["stage_calls"]
+    gauges = ", ".join(
+        f"{g} mean {rep[g + '_mean']} max {rep[g + '_max']}"
+        for g in ("queue_depth", "dispatch_inflight") if g + "_max" in rep)
+    return (f"K={rep['prefetch_depth']} N={rep['prepare_workers']} "
+            f"D={rep['dispatch_depth']} M={rep['fuse_steps']}; wall "
+            f"{rep['wall_seconds']:.4f} s; stage s: {stages}; "
+            f"{gauges or 'no gauges'}; dispatches {calls.get('dispatch', 0)}"
+            f", fused {calls.get('fused_dispatches', 0)}, first dispatch "
+            f"{calls.get('first_dispatch_s', 0):.4f} s, bytes prepared "
+            f"{calls.get('bytes_prepared', 0)}; overlap efficiency "
+            f"{rep.get('overlap_efficiency')}")
+
+
+def idle_profile(fn):
+    """(wall ms, card-busy ms, device events) of one run of ``fn`` under
+    torch.profiler, tracing the card alone (recording host ops as well
+    would slow the host-bound arms it measures): the busy time sums every
+    kernel and copy the card ran, graph replays included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    return wall_ms, busy, sum(e.count for e in dev)
+
+
+def idle_text(what, wall_ms, busy_ms, n_events, card):
+    if not n_events:
+        return f"  {what}: card idle share not measured (no device events)"
+    return (f"  {what}: one transform under the profiler, wall "
+            f"{wall_ms:.1f} ms, card busy {busy_ms:.1f} ms ({n_events} "
+            f"device events), card idle {100 * (1 - busy_ms / wall_ms):.1f}%"
+            f"; card {card}")
+
+
+def check_arm_output(what, y, y_serial, card):
+    """Pipelined and fused outputs against the serial arm's: bitwise, or
+    within IMAGE_CPU_RTOL of max |y| where a graph ran other kernels."""
+    if y.shape != y_serial.shape or not np.isfinite(y).all():
+        fail(f"{what}: output {y.shape}, finite={bool(np.isfinite(y).all())}")
+    if np.array_equal(y, y_serial):
+        return "bitwise equal to the serial arm"
+    err = rel_err(y, y_serial)
+    print(f"  {what}: not bitwise equal to the serial arm: {err:.3e} of max"
+          f" |y| (tolerance {IMAGE_CPU_RTOL}); the CUDA graph was captured "
+          "with other kernels than the eager calls launch (cuDNN picks its "
+          f"algorithms per call); card {card}")
+    if "fused" not in what or not err <= IMAGE_CPU_RTOL:
+        fail(f"{what} disagrees with the serial arm")
+    return f"{err:.3e} of max |y| off the serial arm"
+
+
+def interleaved_windows(stages, run, n):
+    """Each arm's transform timed IMAGE_WINDOWS times, the arms in turn
+    within each window, so that the host's noise falls on all of them
+    alike; returns {arm: rates}, {arm: first output}, {arm: last
+    report}."""
+    from tpudl_torch.obs import last_pipeline_report
+
+    rates = {arm: [] for arm in stages}
+    first, reports = {}, {}
+    for _ in range(IMAGE_WINDOWS):
+        for arm, stage in stages.items():
+            with executor_arm(arm):
+                t0 = time.perf_counter()
+                y = run(stage)
+                torch.cuda.synchronize()
+                rates[arm].append(n / (time.perf_counter() - t0))
+                reports[arm] = last_pipeline_report()
+            first.setdefault(arm, y)
+    return rates, first, reports
+
+
+def executor_image_leg(name, dtype_name, card, profiles):
+    """One (model, dtype) in the three arms: a warm transform each (which
+    captures the fused arm's graph), IMAGE_WINDOWS windows with the arms
+    in turn, the outputs held to the serial arm's, the reports, and the
+    per-batch function's own rate; the profiles run later
+    (``profiles``)."""
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer
+    from tpudl_torch.zoo import getKerasApplicationModel
+
+    h, w = getKerasApplicationModel(name).input_size
+    frame = Frame({"image": image_structs(IMAGE_ROWS, (h, w, 3), SEED)})
+    stages, warm = {}, {}
+    for arm, knobs in EXEC_ARMS.items():
+        stages[arm] = DeepImageFeaturizer(
+            inputCol="image", outputCol="f", modelName=name,
+            weights="random", computeDtype=dtype_name,
+            batchSize=IMAGE_BATCH, **knobs)
+        with executor_arm(arm):
+            t0 = time.perf_counter()
+            stages[arm].transform(frame)
+            torch.cuda.synchronize()
+            warm[arm] = time.perf_counter() - t0
+    rates, ys, reps = interleaved_windows(
+        stages, lambda st: np.stack(list(st.transform(frame)["f"])),
+        IMAGE_ROWS)
+    for arm in EXEC_ARMS:
+        verdict = ("the yardstick" if arm == "serial" else
+                   check_arm_output(f"{name} {dtype_name} {arm}", ys[arm],
+                                    ys["serial"], card))
+        if arm == "fused" and not reps[arm]["stage_calls"].get(
+                "fused_dispatches"):
+            fail(f"{name} {dtype_name} fused arm ran no graph replay")
+        r = rates[arm]
+        print(f"  {name} {dtype_name} {arm}: warm transform "
+              f"{warm[arm]:.2f} s; {IMAGE_ROWS} images a window, {len(r)} "
+              f"windows (arms in turn): median {median(r):.1f} images/s "
+              f"(least {min(r):.1f}, most {max(r):.1f}); {verdict}; card "
+              f"{card}")
+        print(f"    report of the last window: {report_text(reps[arm])}")
+        profiles.append((f"{name} {dtype_name} {arm}", stages[arm], frame,
+                         arm))
+    ms = time_batch_fn(stages["serial"], frame)
+    print(f"  {name} {dtype_name} per-batch function alone (batch already "
+          f"on the card), {batch_fn_text(ms)}; card {card}")
+
+
+def executor_lm_leg(card, profiles):
+    """LMFeaturizer at serving width in the three arms: a counted run each
+    (LAYERS flash forward launches a batch, the fused arm's graph replays
+    included, after a warm transform that captures its graph), features
+    bitwise equal to the serial arm's, and rows/s over IMAGE_WINDOWS
+    windows with the arms in turn. Returns the launches of each arm's
+    counted run."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.obs import last_pipeline_report
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    frame = Frame({"text": make_texts(N_ROWS, SEED)})
+    n_batches = -(-N_ROWS // BATCH)
+    stages, ys, launches, counted = {}, {}, {}, {}
+    for arm, knobs in EXEC_ARMS.items():
+        stages[arm] = feat = LMFeaturizer(
+            inputCol="text", outputCol="vec", model=spec, weights=weights,
+            tokenizer=ByteTokenizer(), batchSize=BATCH, **knobs)
+        with executor_arm(arm):
+            feat.transform(frame)          # loads, warms, captures
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            y = np.stack(list(feat.transform(frame)["vec"]))
+            torch.cuda.synchronize()
+            counted[arm] = (N_ROWS / (time.perf_counter() - t0),
+                            last_pipeline_report())
+            launches[arm] = dict(cuda_ops.launch_counts)
+        n = launches[arm]["flash_attn_fwd"]
+        if n != LAYERS * n_batches or launches[arm]["flash_attn_bwd_dq"] \
+                or launches[arm]["flash_attn_bwd_dkv"]:
+            fail(f"LMFeaturizer {arm}: launches {launches[arm]}, want "
+                 f"{LAYERS} x {n_batches} forward and no backward")
+        if arm == "fused" and not counted[arm][1]["stage_calls"].get(
+                "fused_dispatches"):
+            fail("LMFeaturizer fused arm ran no graph replay")
+        if y.shape != (N_ROWS, DIM) or not np.isfinite(y).all():
+            fail(f"LMFeaturizer {arm} output {y.shape}")
+        ys[arm] = y
+        if arm != "serial" and not np.array_equal(y, ys["serial"]):
+            fail(f"LMFeaturizer {arm} features differ from the serial "
+                 f"arm's by {float(np.abs(y - ys['serial']).max()):.3e}")
+    rates, _, _ = interleaved_windows(stages, lambda st: st.transform(frame),
+                                      N_ROWS)
+    for arm in EXEC_ARMS:
+        r = rates[arm]
+        print(f"  LMFeaturizer {arm}: counted run {counted[arm][0]:.1f} "
+              f"rows/s; {len(r)} windows (arms in turn): median "
+              f"{median(r):.1f} rows/s (least {min(r):.1f}, most "
+              f"{max(r):.1f}); flash forward launches "
+              f"{launches[arm]['flash_attn_fwd']} = {LAYERS} x {n_batches} "
+              f"batches{' (graph replays)' if arm == 'fused' else ''}; "
+              f"{'the yardstick' if arm == 'serial' else 'bitwise equal to the serial arm'}"
+              f"; card {card}")
+        print(f"    report of the counted run: "
+              f"{report_text(counted[arm][1])}")
+        profiles.append((f"LMFeaturizer {arm}", stages[arm], frame, arm))
+    return {arm: c["flash_attn_fwd"] for arm, c in launches.items()}
+
+
+def executor_read_images_leg(card):
+    """``readImages`` of EXEC_JPEGS seeded JPEGs with numPartition into the
+    f32 InceptionV3 featurizer, serial against pipelined; every window
+    reads and decodes the files anew (in the prepare pool when
+    pipelined)."""
+    import tempfile
+
+    try:
+        from PIL import Image
+    except ImportError:
+        print("  readImages leg skipped: PIL does not import here")
+        return
+    from tpudl_torch import native
+    from tpudl_torch.image import readImages
+    from tpudl_torch.ml import DeepImageFeaturizer
+
+    decoder = "libjpeg" if native.available() else "PIL"
+    rng = np.random.default_rng(SEED + 3)
+    ys = {}
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(EXEC_JPEGS):
+            Image.fromarray(rng.integers(0, 256, (299, 299, 3),
+                                         dtype=np.uint8)).save(
+                f"{d}/img{i:04d}.jpg", quality=90)
+        for arm in ("serial", "pipelined"):
+            feat = DeepImageFeaturizer(inputCol="image", outputCol="f",
+                                       modelName=IMAGE_MODEL,
+                                       batchSize=IMAGE_BATCH)
+            with executor_arm(arm):
+                feat.warmup(299, 299)
+                frame = readImages(d, numPartition=EXEC_PARTITIONS)
+                workers = frame["image"].decode_workers
+                rates, y = timed_windows(lambda: np.stack(list(
+                    feat.transform(readImages(
+                        d, numPartition=EXEC_PARTITIONS))["f"])),
+                    EXEC_JPEGS)
+            ys[arm] = y
+            if y.shape[0] != EXEC_JPEGS or not np.isfinite(y).all():
+                fail(f"readImages {arm} features {y.shape}")
+            print(f"  readImages(numPartition={EXEC_PARTITIONS}) + "
+                  f"DeepImageFeaturizer float32, {arm} (decoder {decoder}, "
+                  f"decode_workers {workers}): {EXEC_JPEGS} JPEGs a window, "
+                  f"{len(rates)} windows: median {median(rates):.1f} "
+                  f"images/s (least {min(rates):.1f}, most "
+                  f"{max(rates):.1f}); card {card}")
+    if not np.array_equal(ys["pipelined"], ys["serial"]):
+        fail("readImages pipelined features differ from the serial arm's")
+    print("  readImages pipelined features bitwise equal to the serial arm")
+
+
+def executor_precision_leg(card):
+    """One f32 fused run with the caller's TF32 on for cuDNN and matmuls:
+    the stage's graph must still compute in f32, within IMAGE_CPU_RTOL of
+    max |y| of the CPU run."""
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer
+    from tpudl_torch.obs import last_pipeline_report
+
+    frame = Frame({"image": image_structs(IMAGE_ROWS, (299, 299, 3), SEED)})
+    common = dict(inputCol="image", outputCol="f", modelName=IMAGE_MODEL,
+                  batchSize=IMAGE_BATCH)
+    saved = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = np.stack(list(DeepImageFeaturizer(
+            fuseSteps=EXEC_FUSE, **common).transform(frame)["f"]))
+        fused = last_pipeline_report()["stage_calls"].get(
+            "fused_dispatches", 0)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    y_cpu = np.stack(list(DeepImageFeaturizer(device="cpu", **common)
+                          .transform(Frame({"image": frame["image"][
+                              :IMAGE_CPU_ROWS]}))["f"]))
+    err = rel_err(y[:IMAGE_CPU_ROWS], y_cpu)
+    print(f"  precision: {IMAGE_MODEL} float32 fused ({fused} graph replays) "
+          f"with the caller's TF32 on, {IMAGE_CPU_ROWS} rows against the "
+          f"CPU: {err:.3e} of max |y| {np.abs(y_cpu).max():.3e} (tolerance "
+          f"{IMAGE_CPU_RTOL}); card {card}")
+    if not fused or not err <= IMAGE_CPU_RTOL:
+        fail("a fused f32 run under the caller's TF32 left f32")
+
+
+def pool_study(card):
+    """The pipelined arm's loss on host-bound bf16 cells, taken apart:
+    each model's per-batch function through ``map_batches`` in the
+    POOL_ARMS, the arms in turn in each of POOL_WINDOWS windows; images/s
+    (median, least, most) and the report's host seconds a batch of
+    ``prepare`` (on the pool or the consumer) and ``dispatch`` (the
+    consumer's enqueue). Outputs bitwise equal to the serial arm's."""
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer
+    from tpudl_torch.ml.tf_image import _pack_image_structs
+    from tpudl_torch.obs import last_pipeline_report
+    from tpudl_torch.zoo import getKerasApplicationModel
+
+    threads = torch.get_num_threads()
+    print(f"  torch CPU threads {threads}, host cores {os.cpu_count()}")
+    for name in POOL_MODELS:
+        h, w = getKerasApplicationModel(name).input_size
+        frame = Frame({"image": image_structs(IMAGE_ROWS, (h, w, 3), SEED)})
+        fn = DeepImageFeaturizer(
+            inputCol="image", outputCol="f", modelName=name,
+            weights="random", computeDtype="bfloat16",
+            batchSize=IMAGE_BATCH)._batch_fn()
+
+        def run(arm):
+            if arm.endswith("1 torch thread"):
+                torch.set_num_threads(1)
+            try:
+                with torch.inference_mode():
+                    out = frame.map_batches(
+                        fn, ["image"], ["f"], batch_size=IMAGE_BATCH,
+                        pack=_pack_image_structs, **POOL_ARMS[arm])
+                torch.cuda.synchronize()
+            finally:
+                torch.set_num_threads(threads)
+            return np.stack(list(out["f"])), last_pipeline_report()
+
+        first = {arm: run(arm)[0] for arm in POOL_ARMS}  # warm
+        rates = {arm: [] for arm in POOL_ARMS}
+        per_batch = {arm: [] for arm in POOL_ARMS}
+        for _ in range(POOL_WINDOWS):
+            for arm in POOL_ARMS:
+                t0 = time.perf_counter()
+                _, rep = run(arm)
+                rates[arm].append(IMAGE_ROWS / (time.perf_counter() - t0))
+                per_batch[arm].append(rep["stage_seconds"])
+        for arm in POOL_ARMS:
+            if not np.array_equal(first[arm], first["serial"]):
+                fail(f"pool study: {name} {arm} differs from the serial arm")
+            r = rates[arm]
+            n_b = IMAGE_ROWS // IMAGE_BATCH
+            host = ", ".join(
+                f"{k} {1e3 * median([s.get(k, 0.0) for s in per_batch[arm]]) / n_b:.2f}"
+                for k in ("prepare", "dispatch", "dispatch_wait",
+                          "infeed_wait", "d2h"))
+            print(f"  {name} bfloat16 {arm}: median {median(r):.1f} "
+                  f"images/s (least {min(r):.1f}, most {max(r):.1f}) over "
+                  f"{POOL_WINDOWS} windows of {IMAGE_ROWS}; host ms a batch "
+                  f"(median): {host}; card {card}", flush=True)
+
+
+def run_executor(card):
+    """Phase 7: the executor's arms under the image and LM stages, the
+    readImages leg, the precision leg, then the idle-share profiles of
+    every arm (profiles last: a profiler session slows the runs after
+    it). Returns the flash forward launches of the LM arms."""
+    t0 = time.perf_counter()
+    profiles = []
+    for name, dtype_name in EXEC_IMAGE:
+        t_leg = time.perf_counter()
+        executor_image_leg(name, dtype_name, card, profiles)
+        print(f"  {name} {dtype_name} arms: "
+              f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    t_leg = time.perf_counter()
+    launches = executor_lm_leg(card, profiles)
+    print(f"  LMFeaturizer arms: {time.perf_counter() - t_leg:.1f} s",
+          flush=True)
+    t_leg = time.perf_counter()
+    executor_read_images_leg(card)
+    executor_precision_leg(card)
+    print(f"  readImages and precision legs: "
+          f"{time.perf_counter() - t_leg:.1f} s", flush=True)
+    for what, stage, frame, arm in profiles:
+        with executor_arm(arm):
+            print(idle_text(what, *idle_profile(
+                lambda: stage.transform(frame)), card))
+    print(f"  phase 7: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1360,8 +1797,24 @@ def main(argv) -> int:
         print(f"card: {card}")
         print("image-only run: every check passed")
         return 0
+    if argv == ["--executor-only"]:
+        print(f"phase 7 alone: the executor at full width on {card}",
+              flush=True)
+        run_executor(card)
+        print(f"card: {card}")
+        print(f"executor-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
+    if argv == ["--pool-study"]:
+        print(f"the prepare pool's study on {card}", flush=True)
+        pool_study(card)
+        print(f"card: {card}")
+        print(f"pool study: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if argv:
-        fail(f"unknown arguments {argv}; the only option is --image-only")
+        fail(f"unknown arguments {argv}; the options are --image-only, "
+             "--executor-only and --pool-study")
 
     from tpudl_torch import _build
 
@@ -1449,7 +1902,11 @@ def main(argv) -> int:
                 "shape": list(TRAIN_SHAPE), "dtype": name})
     print(f"phase 6: image slice at full width on {card}", flush=True)
     run_image_slice(card)
+    print(f"phase 7: the executor at full width on {card}", flush=True)
+    fwd_entry["launches_by_path"]["executor"] = run_executor(card)
     print(f"card: {card}")
+    print(f"chip_smoke.py: every check passed in "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -289,8 +289,7 @@ def test_files_to_frame_and_eager_reads_match_tpudl(image_dir):
         jio.readImages(paths)["image"])
 
 
-@pytest.mark.parametrize("kwargs,item", [({"numPartition": 4}, "Executor"),
-                                         ({"host_sharded": True},
+@pytest.mark.parametrize("kwargs,item", [({"host_sharded": True},
                                           "Training, rest")])
 def test_read_options_not_ported_raise(image_dir, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

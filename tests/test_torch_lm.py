@@ -170,10 +170,8 @@ def test_stages_count_rows(lm):
             - before["ml.LMFeaturizer.transforms"]) == 1
 
 
-@pytest.mark.parametrize("knob", ["mesh", "tp", "prefetchDepth",
-                                  "prepareWorkers", "fuseSteps",
-                                  "dispatchDepth", "cacheDir",
-                                  "deviceCache", "wireCodec"])
+@pytest.mark.parametrize("knob", ["mesh", "tp", "cacheDir", "deviceCache",
+                                  "wireCodec"])
 def test_unported_executor_knobs_raise(lm, knob):
     _, params, _, spec = lm
     value = {"tp": True, "wireCodec": "u16", "cacheDir": "/nonexistent",
@@ -181,6 +179,68 @@ def test_unported_executor_knobs_raise(lm, knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMFeaturizer(outputCol="v", **{knob: value},
                      **_stage_kw(spec, params))
+
+
+@pytest.mark.parametrize("stage", ["featurize", "classify"])
+def test_executor_knobs_reach_map_batches_bitwise(lm, stage):
+    """prefetchDepth, prepareWorkers, fuseSteps and dispatchDepth pass to
+    the executor (its report shows them) and change no bit of the
+    output; the stage builds its per-batch function once."""
+    from tpudl_torch.obs import last_pipeline_report
+
+    _, params, _, spec = lm
+    texts = np.array(["abcdefg"[: 1 + i % 7] * 3 for i in range(10)],
+                     dtype=object)
+    cls, extra = ((LMFeaturizer, {}) if stage == "featurize" else
+                  (LMClassifier, {"classes": CLASSES}))
+    outs, configs = [], []
+    for knobs in ({"fuseSteps": 1, "dispatchDepth": 1},
+                  {"prefetchDepth": 3, "prepareWorkers": 2, "fuseSteps": 2,
+                   "dispatchDepth": 3}):
+        st = cls(outputCol="y", batchSize=2, **knobs, **extra,
+                 **_stage_kw(spec, params))
+        out = st.transform(Frame({"text": texts}))
+        configs.append(last_pipeline_report())
+        fn = st._fn_entry[1]
+        st.transform(Frame({"text": texts[:4]}))
+        assert st._fn_entry[1] is fn
+        outs.append(np.stack(list(out["y"])) if stage == "featurize"
+                    else list(out["y"]))
+    assert configs[1]["fuse_steps"] == 2
+    assert configs[1]["dispatch_depth"] == 3
+    assert configs[1]["prefetch_depth"] == 3
+    assert configs[1]["prepare_workers"] == 2
+    # tokenize_pack is not marked thread-safe: one worker unless asked
+    assert configs[0]["prepare_workers"] == 1
+    assert configs[1]["stage_calls"].get("fused_dispatches", 0) >= 1
+    if stage == "featurize":
+        assert np.array_equal(outs[0], outs[1])
+    else:
+        assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("stage", ["featurize", "classify"])
+def test_reload_frees_the_old_module(lm, stage):
+    """New weights reload the module; the stage keeps one per-batch
+    function, so the old function, and the module it closes over, go."""
+    import gc
+    import weakref
+
+    _, params, _, spec = lm
+    cls, extra = ((LMFeaturizer, {}) if stage == "featurize" else
+                  (LMClassifier, {"classes": CLASSES}))
+    st = cls(outputCol="y", batchSize=2, **extra, **_stage_kw(spec, params))
+    frame = Frame({"text": np.array(["abc", "de", "f"], dtype=object)})
+    want = list(st.transform(frame)["y"])
+    old_net, old_fn = weakref.ref(st._loaded[2]), weakref.ref(
+        st._fn_entry[1])
+    st.weights = dict(params)  # the same values in a new pytree
+    got = list(st.transform(frame)["y"])
+    gc.collect()
+    assert old_net() is None and old_fn() is None
+    assert st._loaded[2] is not None and st._fn_entry[1] is not None
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
 
 
 def test_map_batches_rows_match_tpudl():

@@ -419,14 +419,10 @@ def test_featurizer_reuses_loaded_weights_and_warms(port_features):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "Executor"),
-    ({"prefetchDepth": 2}, "Executor"),
-    ({"prepareWorkers": 2}, "Executor"),
-    ({"fuseSteps": 4}, "Executor"),
-    ({"dispatchDepth": 2}, "Executor"),
-    ({"cacheDir": "/tmp/c"}, "Executor"),
-    ({"deviceCache": True}, "Executor"),
-    ({"wireCodec": "u8"}, "Executor"),
+    ({"mesh": object()}, "Training, rest"),
+    ({"cacheDir": "/tmp/c"}, "Data layer"),
+    ({"deviceCache": True}, "Data layer"),
+    ({"wireCodec": "u8"}, "Data layer"),
 ])
 @pytest.mark.parametrize("stage", [DeepImageFeaturizer, DeepImagePredictor])
 def test_unported_options_raise(stage, kwargs, item):

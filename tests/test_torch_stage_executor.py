@@ -1,0 +1,102 @@
+"""The image stages through the pipelined executor on the CPU: the
+executor knobs reach ``map_batches`` and change no bit of the features,
+the per-batch function is built once per loaded model (so a fused CUDA
+graph cached on it serves every later ``transform``), and tpudl's knobs
+with no counterpart yet are still refused by name."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpudl_torch.frame import Frame
+from tpudl_torch.image import imageArrayToStruct
+from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
+from tpudl_torch.obs import last_pipeline_report
+
+torch.set_num_threads(1)
+
+MODEL = "MobileNetV2"
+ROWS = 7                    # batches of 2: three full and a tail of 1
+
+
+@pytest.fixture(scope="module")
+def frame():
+    rng = np.random.default_rng(0)
+    col = np.empty(ROWS, dtype=object)
+    col[:] = [imageArrayToStruct(rng.integers(0, 256, (40, 30, 3),
+                                              dtype=np.uint8))
+              for _ in range(ROWS)]
+    return Frame({"image": col})
+
+
+def _run(stage, frame):
+    out = stage.transform(frame)
+    return np.stack(list(out[stage.getOutputCol()])), last_pipeline_report()
+
+
+@pytest.mark.parametrize("stage_cls", [DeepImageFeaturizer,
+                                       DeepImagePredictor])
+def test_fused_windowed_stage_is_bitwise_the_plain_one(frame, stage_cls):
+    common = dict(inputCol="image", outputCol="y", modelName=MODEL,
+                  batchSize=2, device="cpu")
+    plain = stage_cls(fuseSteps=1, dispatchDepth=1, **common)
+    fused = stage_cls(fuseSteps=2, dispatchDepth=2, prefetchDepth=3,
+                      prepareWorkers=2, **common)
+    want, rep0 = _run(plain, frame)
+    got, rep = _run(fused, frame)
+    assert np.array_equal(got, want)
+    assert (rep0["fuse_steps"], rep0["dispatch_depth"]) == (1, 1)
+    assert (rep["fuse_steps"], rep["dispatch_depth"], rep["prefetch_depth"],
+            rep["prepare_workers"]) == (2, 2, 3, 2)
+    # three full batches: one fused pair, then the third and the tail
+    assert rep["stage_calls"]["fused_dispatches"] == 1
+    assert rep["stage_calls"]["dispatch"] == 3
+    fn = fused._batch_fn()
+    again, _ = _run(fused, frame)
+    assert fused._batch_fn() is fn and np.array_equal(again, want)
+
+
+def test_rewritten_weights_free_the_old_model(frame, tmp_path):
+    """A rewritten ``.npz`` reloads the model; the stage keeps one
+    per-batch function, so the old function and model go."""
+    import gc
+    import os
+    import weakref
+
+    from tpudl_torch.ml.named_image import load_named_params
+    from tpudl_torch.zoo.convert import save_params_npz
+
+    path = str(tmp_path / "MobileNetV2.npz")
+    save_params_npz(load_named_params(MODEL, "random"), path)
+    st = DeepImageFeaturizer(inputCol="image", outputCol="y",
+                             modelName=MODEL, weights=path, batchSize=4,
+                             device="cpu")
+    want, _ = _run(st, frame)
+    old_net, old_fn = weakref.ref(st._loaded[1]), weakref.ref(
+        st._fn_entry[1])
+    save_params_npz(load_named_params(MODEL, "random"), path)
+    mtime = os.path.getmtime(path) + 1.0  # a coarse clock may not tick
+    os.utime(path, (mtime, mtime))
+    got, _ = _run(st, frame)
+    gc.collect()
+    assert old_net() is None and old_fn() is None
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    ({"mesh": object()}, "Training, rest"),
+    ({"cacheDir": "/tmp/cache"}, "Data layer"),
+    ({"deviceCache": True}, "Data layer"),
+])
+def test_unported_stage_knobs_still_raise(kwargs, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1, '{item}'"):
+        DeepImageFeaturizer(inputCol="image", outputCol="y",
+                            modelName=MODEL, device="cpu", **kwargs)
+
+
+def test_autotune_is_refused_by_the_executor(frame):
+    with pytest.raises(NotImplementedError,
+                       match="'The rest of observability'"):
+        frame.map_batches(lambda x: x, ["image"], ["y"], device="cpu",
+                          autotune=True)

@@ -2,9 +2,11 @@
 rungs.
 
 Copied from ``tpudl/compile/buckets.py`` (``BucketLadder``,
-``resolve_ladder``; host logic). In the port the rungs fix the padded
-sequence width of a packed text batch and the KV-cache length of a
-generate call, exactly as in tpudl, so both packages run the same shapes.
+``resolve_ladder``, ``pad_to``, ``count_pad_rows``; host logic). In the
+port the rungs fix the padded sequence width of a packed text batch, the
+KV-cache length of a generate call and, under ``Frame.map_batches(
+buckets=)``, the padded row count of a ragged batch, exactly as in tpudl,
+so both packages run the same shapes.
 The ladder specs mean the same as there; the port reads no environment
 variable, so a spec is always passed by the caller:
 
@@ -20,7 +22,10 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["BucketLadder", "resolve_ladder", "DEFAULT_SPEC"]
+import numpy as np
+
+__all__ = ["BucketLadder", "resolve_ladder", "DEFAULT_SPEC", "pad_to",
+           "count_pad_rows"]
 
 DEFAULT_SPEC = "pow2ish"
 
@@ -94,3 +99,24 @@ def resolve_ladder(value=None) -> BucketLadder | None:
             f"pow2ish, 1, off) nor a comma list of rungs")
     return BucketLadder(rungs=rungs)
 
+
+
+def pad_to(arr: np.ndarray, target: int) -> np.ndarray:
+    """Pad the leading dim up to ``target`` rows by repeating row 0 (zeros
+    for an empty batch); the executor strips the pad rows from the
+    outputs, so real rows are untouched."""
+    n = int(arr.shape[0])
+    if n >= int(target):
+        return arr
+    pad = np.repeat(
+        arr[:1] if n else np.zeros_like(arr, shape=(1, *arr.shape[1:])),
+        int(target) - n, axis=0)
+    return np.concatenate([arr, pad], axis=0)
+
+
+def count_pad_rows(n: int) -> None:
+    """Publish bucket padding into the process registry
+    (``compile.bucket_pad_rows``)."""
+    from tpudl_torch.obs import metrics as _m
+
+    _m.counter("compile.bucket_pad_rows").inc(int(n))

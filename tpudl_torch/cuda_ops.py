@@ -20,7 +20,11 @@ plain versions (:func:`flash_attention_plain`,
 which the CPU tests hold against tpudl and ``chip_smoke.py`` holds the
 kernels against on the card); CUDA tensors launch the kernels or raise.
 ``launch_counts`` counts each kernel's launches, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. A launch inside a CUDA-graph
+capture runs nothing then: :func:`capture_launches` records the
+capturing thread's launches apart from the counts and returns them, and
+:func:`count_replay` adds them at every replay of the graph (the
+executor's fused dispatch).
 
 The TPU version's ``block_q``/``block_k`` (Mosaic tiling), ``interpret``
 (the CPU emulation of Pallas) and ``precision`` (the MXU's bf16 passes)
@@ -32,11 +36,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "launch_counts", "HEAD_DIMS"]
+           "flash_attention_bwd_plain", "launch_counts", "capture_launches",
+           "count_replay", "HEAD_DIMS"]
 
 NEG_INF = -1e30  # finite -inf stand-in, as in the TPU kernel
 HEAD_DIMS = (16, 32, 64, 128)  # template instances in csrc/flash_attn_*.cu
@@ -45,6 +51,41 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the caller last set them to 0
 launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                  "flash_attn_bwd_dkv": 0}
+
+
+_counts_lock = threading.Lock()
+_capturing = threading.local()  # .launches: this thread's capture record
+
+
+def _count(name: str, n: int = 1) -> None:
+    rec = getattr(_capturing, "launches", None)
+    with _counts_lock:
+        if rec is not None:
+            rec[name] += n
+        else:
+            launch_counts[name] += n
+
+
+def capture_launches(capture) -> dict:
+    """Run ``capture()``, a CUDA-graph capture, and return ``{kernel:
+    launches}`` it recorded. A capture launches nothing, so this thread's
+    launches meanwhile go to that record and not to ``launch_counts``
+    (other threads' launches count as usual); :func:`count_replay` adds
+    them at each replay of the graph."""
+    rec = dict.fromkeys(launch_counts, 0)
+    _capturing.launches = rec
+    try:
+        capture()
+    finally:
+        _capturing.launches = None
+    return rec
+
+
+def count_replay(launches: dict) -> None:
+    """Count the launches of one replay of a graph (from
+    :func:`capture_launches`)."""
+    for name, n in launches.items():
+        _count(name, n)
 
 
 def _check(q, k, v):
@@ -270,7 +311,7 @@ def _run(name, q, k, pointers, strides, *, causal, q_offset, k_offset):
         what = (err_str(rc).decode() if rc > 0
                 else "no kernel instance for this dtype/head_dim")
         raise RuntimeError(f"{name} launch failed ({rc}): {what}")
-    launch_counts[name] += 1
+    _count(name)
 
 
 def _rows_aligned16(t):

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -21,6 +22,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+# process-wide state of full_f32: how many blocks are open, on any thread,
+# and the flags the first of them found
+_F32_LOCK = threading.Lock()
+_f32_depth = 0
+_f32_saved = None
+
+
 @contextlib.contextmanager
 def full_f32():
     """Switch TF32 off for cuDNN convolutions and cuBLAS products while the
@@ -28,12 +36,24 @@ def full_f32():
     cuDNN run f32 convolutions in TF32 (10-bit mantissa) by default, and a
     caller may allow it for matmuls (``allow_tf32``,
     ``set_float32_matmul_precision``), so an f32 model or step would
-    otherwise not compute in f32, as tpudl does. The flags are process
-    state: two threads inside at once can restore each other's."""
+    otherwise not compute in f32, as tpudl does.
+
+    The flags are process state, so the blocks of all threads share one
+    count under a lock: the first block to enter saves and clears the
+    flags, and the last to exit restores them. While any thread is inside
+    a block, both flags stay off."""
+    global _f32_depth, _f32_saved
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    with _F32_LOCK:
+        if _f32_depth == 0:
+            _f32_saved = cudnn.allow_tf32, matmul.allow_tf32
+            cudnn.allow_tf32 = matmul.allow_tf32 = False
+        _f32_depth += 1
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        with _F32_LOCK:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                cudnn.allow_tf32, matmul.allow_tf32 = _f32_saved
+                _f32_saved = None

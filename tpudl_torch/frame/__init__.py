@@ -1,5 +1,6 @@
-"""The port's ``Frame`` container, lazy columns and serial batch executor."""
+"""The port's ``Frame`` container, lazy columns and pipelined batch
+executor."""
 
-from tpudl_torch.frame.frame import Frame, LazyColumn
+from tpudl_torch.frame.frame import Frame, LazyColumn, concat
 
-__all__ = ["Frame", "LazyColumn"]
+__all__ = ["Frame", "LazyColumn", "concat"]

@@ -1,32 +1,47 @@
 """Frame: ordered named columns of equal length, and its batch executor.
 
-Port of ``tpudl/frame/frame.py`` (``Frame`` container with
-``filter_rows``/``dropna``/``head``, ``LazyColumn`` with its subset view,
-``null_mask``, and ``map_batches``). A :class:`LazyColumn` (such as
-``readImages``'s image column) materializes only the rows a batch asks
-for, so host RAM stays O(batch). The executor here is SERIAL: for each
-batch, pack on the host → wire-codec encode → pinned-memory host→device
-copy → codec prologue → ``fn`` → device→host copy → rows. Rows come back
-in the same order and count as tpudl's. The prefetch pool, dispatch window, fused
-dispatch, mesh sharding, batch buckets and the shard/device caches are
-later ROADMAP items (Queue 1, "Executor").
+Port of ``tpudl/frame/frame.py``: the ``Frame`` container (with its
+``num_partitions`` hint, ``filter_rows``/``take``/``dropna``/``head``,
+``fingerprint`` and ``concat``), ``LazyColumn`` with its subset view and
+fingerprint, ``null_mask``, and ``map_batches``, the pipelined executor.
+A :class:`LazyColumn` (such as ``readImages``'s image column) materializes
+only the rows a batch asks for, so host RAM stays O(batch).
+
+The executor runs tpudl's stages, rebuilt for CUDA:
+
+1. a prepare pool of N threads packs, checks, wire-encodes, bucket-pads
+   and pins each batch (:class:`_PipelineInfeed`, K batches deep);
+2. the consumer thread copies a batch to the card, runs ``fn`` and starts
+   the device→host copies of its outputs, all without waiting
+   (:func:`_start_host_copies`);
+3. a window of D such batches is in flight (:class:`_DispatchWindow`);
+   the consumer waits only on the oldest batch's copies;
+4. with ``fuse_steps`` M > 1, M full batches run as one replay of a CUDA
+   graph (:class:`_FusedGraph`).
+
+Rows come back in the same order and count as tpudl's. Mesh sharding, the
+shard and device caches, the AOT program store, the supervisor and
+autotune are refused by name (their ROADMAP Queue 1 items).
 """
 
 from __future__ import annotations
 
-from collections.abc import Callable, Mapping, Sequence
+import os
+import threading
+import time
+from collections import deque
+from collections.abc import Callable, Iterator, Mapping, Sequence
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from tpudl_torch.device import resolve_device
 
-__all__ = ["Frame", "LazyColumn", "null_mask"]
+__all__ = ["Frame", "LazyColumn", "null_mask", "concat"]
 
 
-# copied from tpudl/frame/frame.py:LazyColumn (without the cache
-# fingerprint, which belongs to the data layer: ROADMAP Queue 1, 'Data
-# layer')
+# copied from tpudl/frame/frame.py:LazyColumn
 class LazyColumn:
     """A deferred column: elements materialize per access. Concrete
     sources implement ``__len__`` and ``_get(indices) -> object ndarray``
@@ -56,13 +71,18 @@ class LazyColumn:
             yield self[i]
 
     def subset(self, indices) -> "LazyColumn":
-        """A lazy row-subset view (``filter_rows``, ``dropna``, ``head``):
-        only the index mapping is kept."""
+        """A lazy row-subset view (``filter_rows``, ``take``, ``dropna``,
+        ``head``): only the index mapping is kept."""
         return _SubsetLazyColumn(self, np.asarray(indices, dtype=np.intp))
 
     def validity_mask(self):
         """Cheap per-row validity (True = not null) without materializing
         values, or None when unknown (``null_mask`` then scans)."""
+        return None
+
+    def fingerprint(self) -> str | None:
+        """Cheap content identity without materializing values (sha1 hex),
+        or None when unknown. File-backed sources override it."""
         return None
 
 
@@ -80,6 +100,822 @@ class _SubsetLazyColumn(LazyColumn):
     def validity_mask(self):
         base = self._base.validity_mask()
         return None if base is None else base[self._indices]
+
+    def fingerprint(self):
+        base = self._base.fingerprint()
+        if base is None:
+            return None
+        import hashlib
+
+        return hashlib.sha1(
+            base.encode() + self._indices.tobytes()).hexdigest()
+
+
+# copied from tpudl/frame/frame.py:_env_int
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+# copied from tpudl/frame/frame.py:_PipelineInfeed (without the
+# attribution scope, ROADMAP Queue 1, 'The rest of observability')
+class _PipelineInfeed:
+    """K-deep bounded infeed fed by an N-worker prepare pool: up to
+    ``depth`` batches are prepared in flight, by up to ``workers``
+    threads, while the consumer dispatches. Futures are consumed in
+    submission order, so output rows keep their order whichever worker
+    finishes first; at most ``depth`` prepared batches exist at once, so
+    host RAM stays O(depth · batch)."""
+
+    def __init__(self, prepare: Callable, spans: Sequence[tuple[int, int]],
+                 depth: int = 2, workers: int = 2, report=None):
+        self._prepare = prepare
+        self._spans = spans
+        self._depth = max(1, int(depth))
+        self._ex = ThreadPoolExecutor(
+            max_workers=max(1, min(int(workers), self._depth)),
+            thread_name_prefix="tpudl-infeed")
+        self._futs: deque = deque()
+        self._next = 0
+        self._report = report
+        while self._next < min(self._depth, len(spans)):
+            self._submit()
+
+    def _submit(self):
+        self._futs.append(self._ex.submit(self._prepare,
+                                          *self._spans[self._next]))
+        self._next += 1
+
+    def get(self):
+        fut = self._futs.popleft()
+        if self._report is not None:
+            # ready batches when the consumer takes one: pinned at 0 means
+            # the pool cannot keep up, at K-1 the card is the gate
+            self._report.gauge("queue_depth",
+                               int(fut.done())
+                               + sum(f.done() for f in self._futs))
+        t0 = time.perf_counter()
+        try:
+            out = fut.result()
+        except BaseException:
+            self.close()
+            raise  # the worker's own exception, not a pool wrapper
+        if self._report is not None:
+            self._report.add("infeed_wait", time.perf_counter() - t0)
+        if self._next < len(self._spans):
+            self._submit()
+        elif not self._futs:
+            self._ex.shutdown(wait=False)
+        return out
+
+    def close(self):
+        """Release the pool on every exit path: queued prepares are
+        cancelled, and the workers exit once any prepare in flight
+        returns."""
+        for f in self._futs:
+            f.cancel()
+        self._futs.clear()
+        self._ex.shutdown(wait=False, cancel_futures=True)
+
+
+class _Dispatched:
+    """One dispatched batch or fused group: the host copies of its
+    outputs, the event recorded after them (None on the CPU, where the
+    copies are the outputs themselves), its pad rows, and the pinned
+    inputs, kept alive until the event has passed."""
+
+    __slots__ = ("host", "event", "n_pad", "keep")
+
+    def __init__(self, host, event, n_pad, keep):
+        self.host = host
+        self.event = event
+        self.n_pad = n_pad
+        self.keep = keep
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+        self.keep = None
+
+
+def _start_host_copies(result, n_pad: int, keep) -> _Dispatched:
+    """Start the device→host copy of every output of one dispatch, at
+    dispatch, into pinned host memory, and record an event after them on
+    the current stream: batch N's copies then overlap the dispatch of
+    N+1..N+D. CPU outputs need no copy."""
+    host, on_card = [], False
+    for r in result:
+        r = r.detach()
+        if r.device.type == "cuda":
+            h = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+            h.copy_(r, non_blocking=True)
+            r, on_card = h, True
+        host.append(r)
+    event = None
+    if on_card:
+        event = torch.cuda.Event()
+        event.record()
+    return _Dispatched(host, event, n_pad, keep)
+
+
+class _DispatchWindow:
+    """D-deep in-flight dispatch window, redesigned for CUDA. tpudl
+    dispatches on a thread pool because a dispatch over its tunnel
+    blocks; a torch enqueue does not, and what blocks is reading the
+    outputs. So every call of ``fn`` stays on the consumer thread, and
+    the window holds up to ``depth`` dispatched batches whose outputs are
+    not yet read, each with the event after its device→host copies
+    (:func:`_start_host_copies`). :meth:`pop` waits on the oldest event;
+    that wait is the ``dispatch_wait`` stage, the card time the window
+    did not hide. ``dispatch_inflight`` is gauged at every submit and
+    never exceeds ``depth``. Unlike tpudl's, the window does not run its
+    first dispatch alone: a capture already runs on the consumer before
+    its replay is enqueued."""
+
+    def __init__(self, depth: int, report):
+        self._depth = max(1, int(depth))
+        self._q: deque = deque()
+        self._report = report
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def full(self) -> bool:
+        return len(self._q) >= self._depth
+
+    def submit(self, entry: _Dispatched):
+        self._q.append(entry)
+        self._report.gauge("dispatch_inflight", len(self._q))
+
+    def pop(self) -> _Dispatched:
+        entry = self._q.popleft()
+        with self._report.stage("dispatch_wait"):
+            entry.wait()
+        return entry
+
+    def close(self):
+        self._q.clear()
+
+
+def _as_outputs(result, n_out: int) -> tuple:
+    if not isinstance(result, (tuple, list)):
+        result = (result,)
+    if len(result) != n_out:
+        raise ValueError(f"fn returned {len(result)} outputs, expected "
+                         f"{n_out}")
+    return tuple(result)
+
+
+# one lock over the graphs cached on every fn and over captures: two
+# threads never capture at once, nor build one key's graph twice
+_FUSED_LOCK = threading.Lock()
+_FUSED_CACHE_SIZE = 8  # graphs kept per fn, least recently used out
+
+
+class _FusedGraph:
+    """``fn`` over M microbatches as ONE CUDA graph — the port of tpudl's
+    ``_fused_wrapper``, whose ``lax.scan`` program runs M stacked
+    microbatches per dispatch. The graph reads a static ``(M, B, ...)``
+    input per column and writes ``(M·B, ...)`` outputs. A fused dispatch
+    (:meth:`run`) copies the group's pinned microbatches into the static
+    input, replays the graph and clones the outputs, all under the
+    graph's lock and after the last run's clones on any stream, so that
+    two threads transforming with one stage never share a static buffer.
+
+    The first run captures: ``fn`` runs once on a side stream first,
+    outside the capture, so that cuBLAS and cuDNN set up and the kernels
+    set their attributes; the capture runs in ``thread_local`` mode, so
+    that the prepare pool may pin host memory meanwhile. A capture or
+    replay that fails raises. Launch counts of the port's kernels are
+    recorded at capture and added at every replay. Capture and replay run
+    under ``torch.inference_mode``."""
+
+    def __init__(self, run_fn: Callable, m: int, like, n_out: int, device):
+        self._run_fn = run_fn
+        self._m = int(m)
+        self._n_out = n_out
+        with torch.inference_mode():
+            self.static_in = [torch.empty((self._m, *t.shape),
+                                          dtype=t.dtype, device=device)
+                              for t in like]
+        self.static_out: tuple = ()
+        self.graph = None
+        self.launches: dict = {}
+        self._lock = threading.Lock()
+        self._done = None  # event after the last run's clones
+
+    def _capture(self):
+        from tpudl_torch import cuda_ops
+
+        dev = self.static_in[0].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run_fn(*(x[0] for x in self.static_in))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = [_as_outputs(self._run_fn(
+                    *(x[i] for x in self.static_in)), self._n_out)
+                    for i in range(self._m)]
+                self.static_out = tuple(
+                    torch.cat([o[j] for o in outs])
+                    for j in range(self._n_out))
+
+        with _FUSED_LOCK:
+            self.launches = cuda_ops.capture_launches(capture)
+        self.graph = graph
+        self._run_fn = None  # captured: the graph no longer calls fn
+
+    def run(self, group, report) -> tuple:
+        """One fused dispatch of ``group`` (M prepared microbatches) on
+        the current stream: its outputs, cloned off the graph's."""
+        from tpudl_torch import cuda_ops
+
+        stream = torch.cuda.current_stream(self.static_in[0].device)
+        with self._lock, torch.inference_mode():
+            if self._done is not None:
+                stream.wait_event(self._done)
+            with report.stage("h2d"):
+                for j, x in enumerate(self.static_in):
+                    for i, (tensors, _) in enumerate(group):
+                        x[i].copy_(tensors[j], non_blocking=True)
+            with report.stage("dispatch"):
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+                cuda_ops.count_replay(self.launches)
+                out = tuple(o.clone() for o in self.static_out)
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+            return out
+
+    def release(self):
+        """Wait until no replay of this graph is pending, so that its
+        memory pool can go back to the allocator."""
+        with self._lock:
+            if self._done is not None:
+                self._done.synchronize()
+
+
+def _fused_graph(fn: Callable, run_fn: Callable, group, codec, n_out: int,
+                 device, local: dict) -> _FusedGraph:
+    """The graph of ``len(group)`` microbatches shaped like ``group[0]``,
+    cached ON ``fn`` (``fn._tpudl_fused``, as tpudl caches its fused
+    program), so that it lives exactly as long as ``fn``, and at most
+    ``_FUSED_CACHE_SIZE`` of them. The key covers M, the codec, every
+    input's shape and dtype, the device and the TF32 flags at capture
+    (cuDNN fixes its algorithms then). A ``fn`` that takes no attributes
+    keeps its graphs in ``local``, for one run."""
+    like = group[0][0]
+    key = (len(group), None if codec is None else codec.key(),
+           tuple((tuple(t.shape), t.dtype) for t in like), str(device),
+           torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    evicted = None
+    with _FUSED_LOCK:
+        cache = getattr(fn, "_tpudl_fused", None)
+        if cache is None:
+            try:
+                cache = fn._tpudl_fused = {}
+            except (AttributeError, TypeError):
+                cache = local
+        graph = cache.pop(key, None)
+        if graph is None:
+            graph = _FusedGraph(run_fn, len(group), like, n_out, device)
+            if len(cache) >= _FUSED_CACHE_SIZE:
+                evicted = cache.pop(next(iter(cache)))
+        cache[key] = graph  # most recently used last
+    if evicted is not None:
+        evicted.release()
+    return graph
+
+
+def _fused_plain(run_fn: Callable, group, n_out: int) -> tuple:
+    """What a fused dispatch computes, on the CPU: M plain calls and a
+    concatenation per output (the plain version the graph is held
+    against)."""
+    outs = [_as_outputs(run_fn(*tensors), n_out) for tensors, _ in group]
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(n_out))
+
+
+def _stackable(group) -> bool:
+    """Whether the microbatches of ``group`` share every input's shape
+    and dtype (tpudl's ``np.stack`` succeeding)."""
+    first = group[0][0]
+    return all(len(g[0]) == len(first)
+               and all(t.shape == f.shape and t.dtype == f.dtype
+                       for t, f in zip(g[0], first)) for g in group[1:])
+
+
+def _as_column(values) -> np.ndarray:
+    if isinstance(values, LazyColumn):
+        return values  # deferred source; materializes per access
+    if isinstance(values, np.ndarray):
+        return values
+    values = list(values)
+    if values and isinstance(values[0], (dict, bytes, str, type(None))):
+        col = np.empty(len(values), dtype=object)
+        col[:] = values
+        return col
+    try:
+        return np.asarray(values)
+    except ValueError:
+        col = np.empty(len(values), dtype=object)
+        col[:] = values
+        return col
+
+
+# map_batches knobs of tpudl with no counterpart yet → their ROADMAP
+# Queue 1 item
+_REFUSED = {"mesh": "Training, rest", "cache_dir": "Data layer",
+            "cache_key": "Data layer", "device_cache": "Data layer",
+            "aot": "Compile", "supervise": "Jobs, faults and the supervisor",
+            "autotune": "The rest of observability"}
+
+
+class Frame:
+    """Ordered named columns of equal length (numpy arrays; strings and
+    other Python objects live in object columns). ``num_partitions`` is
+    Spark's partition hint: ``map_batches`` then defaults to batches of
+    ``ceil(rows / num_partitions)`` rows."""
+
+    def __init__(self, columns: Mapping[str, object],
+                 num_partitions: int | None = None):
+        self._cols: dict[str, np.ndarray] = {}
+        n = None
+        for name, values in columns.items():
+            col = _as_column(values)
+            if n is None:
+                n = len(col)
+            elif len(col) != n:
+                raise ValueError(
+                    f"column {name!r} has length {len(col)}, expected {n}")
+            self._cols[str(name)] = col
+        self._n = n or 0
+        self.num_partitions = num_partitions
+
+    @classmethod
+    def from_files(cls, path, num_partitions: int | None = None,
+                   host_sharded: bool = False) -> "Frame":
+        """Columns (filePath, fileData) with fileData lazy: paths in RAM,
+        reads deferred to the accessed batch
+        (:func:`tpudl_torch.image.imageIO.filesToFrame`)."""
+        from tpudl_torch.image.imageIO import filesToFrame
+
+        return filesToFrame(path, numPartitions=num_partitions,
+                            host_sharded=host_sharded, lazy=True)
+
+    @property
+    def columns(self) -> list[str]:
+        return list(self._cols)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self._cols[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._cols
+
+    def __repr__(self) -> str:
+        cols = ", ".join(f"{k}:{v.dtype}" for k, v in self._cols.items())
+        return f"Frame[{self._n} rows]({cols})"
+
+    def select(self, *names: str) -> "Frame":
+        missing = [n for n in names if n not in self._cols]
+        if missing:
+            raise KeyError(f"unknown columns {missing}; have {self.columns}")
+        return Frame({n: self._cols[n] for n in names}, self.num_partitions)
+
+    def with_column(self, name: str, values) -> "Frame":
+        col = _as_column(values)
+        if len(col) != self._n:
+            raise ValueError(
+                f"column length {len(col)} != frame length {self._n}")
+        out = dict(self._cols)
+        out[name] = col
+        return Frame(out, self.num_partitions)
+
+    def with_column_renamed(self, old: str, new: str) -> "Frame":
+        if new != old and new in self._cols:
+            raise ValueError(
+                f"cannot rename {old!r} to existing column {new!r}")
+        return Frame({new if k == old else k: v
+                      for k, v in self._cols.items()}, self.num_partitions)
+
+    def drop(self, *names: str) -> "Frame":
+        return Frame({k: v for k, v in self._cols.items() if k not in names},
+                     self.num_partitions)
+
+    def filter_rows(self, mask) -> "Frame":
+        mask = np.asarray(mask, dtype=bool)
+        idx = np.nonzero(mask)[0]
+        return Frame({k: (v.subset(idx) if isinstance(v, LazyColumn)
+                          else v[mask])
+                      for k, v in self._cols.items()}, self.num_partitions)
+
+    def take(self, indices) -> "Frame":
+        """Rows by integer index, in the given order (duplicates
+        allowed)."""
+        idx = np.asarray(indices, dtype=int)
+        return Frame({k: (v.subset(idx) if isinstance(v, LazyColumn)
+                          else v[idx])
+                      for k, v in self._cols.items()}, self.num_partitions)
+
+    def dropna(self, subset: Sequence[str] | None = None) -> "Frame":
+        """Drop rows with None/NaN in ``subset`` (default: all columns); a
+        lazy column stays a lazy subset view."""
+        names = list(subset) if subset else self.columns
+        mask = np.ones(self._n, dtype=bool)
+        for n in names:
+            mask &= ~null_mask(self._cols[n])
+        return self.filter_rows(mask)
+
+    def head(self, n: int = 5) -> "Frame":
+        # np.arange(len)[:n] keeps Python's slice semantics (negative n
+        # included) for lazy and eager columns alike
+        return Frame({k: (v.subset(np.arange(len(v))[:n])
+                          if isinstance(v, LazyColumn) else v[:n])
+                      for k, v in self._cols.items()}, self.num_partitions)
+
+    def limit(self, n: int) -> "Frame":
+        return self.head(n)
+
+    def to_dict(self) -> dict[str, np.ndarray]:
+        return dict(self._cols)
+
+    def fingerprint(self, cols: Sequence[str] | None = None) -> str:
+        """Content identity of the named columns (sha1 hex), equal to
+        tpudl's ``Frame.fingerprint`` on the same columns, so that one
+        prepared-batch cache can serve both packages. Lazy columns answer
+        through their cheap ``fingerprint`` (a file column: paths, sizes,
+        mtimes — no reads); eager columns hash their bytes. A lazy column
+        without a fingerprint raises."""
+        import hashlib
+
+        h = hashlib.sha1()
+        for name in (list(cols) if cols is not None else self.columns):
+            col = self._cols[name]
+            h.update(f"col:{name}\n".encode())
+            if isinstance(col, LazyColumn):
+                fp = col.fingerprint()
+                if fp is None:
+                    raise ValueError(
+                        f"lazy column {name!r} has no content "
+                        "fingerprint; pass an explicit cache_key= to "
+                        "map_batches/Dataset to enable caching")
+                h.update(str(fp).encode())
+            elif col.dtype == object:
+                for v in col:
+                    _hash_value(h, v)
+            else:
+                h.update(f"{col.dtype}{col.shape}".encode())
+                h.update(np.ascontiguousarray(col).tobytes())
+        return h.hexdigest()
+
+    def rows(self) -> Iterator[dict]:
+        for i in range(self._n):
+            yield {k: v[i] for k, v in self._cols.items()}
+
+    def collect(self) -> list[dict]:
+        return list(self.rows())
+
+    def iter_batches(self, batch_size: int) -> Iterator[tuple[int, int]]:
+        for start in range(0, self._n, batch_size):
+            yield start, min(start + batch_size, self._n)
+
+    def map_batches(self, fn: Callable, input_cols: Sequence[str],
+                    output_cols: Sequence[str], *,
+                    batch_size: int | None = None,
+                    pack: Callable | None = None,
+                    check_finite: bool = False,
+                    prefetch: bool | None = None,
+                    prefetch_depth: int | None = None,
+                    prepare_workers: int | None = None,
+                    fuse_steps: int | None = None,
+                    dispatch_depth: int | None = None,
+                    donate: bool | None = None,
+                    wire_codec=None, buckets=None, device="cuda",
+                    mesh=None, cache_dir=None, cache_key=None,
+                    device_cache=None, aot=None, supervise=None,
+                    autotune=None) -> "Frame":
+        """Run ``fn`` over the frame in batches on ``device`` and append
+        its outputs as ``output_cols``.
+
+        ``fn`` takes one tensor per input column, on ``device``, and
+        returns one tensor or a tuple matching ``output_cols``; an output
+        with more than one dimension becomes an object column of per-row
+        arrays, as in tpudl. ``pack`` turns a column slice into a numpy
+        batch (default: stack the rows); ``check_finite`` rejects a batch
+        with a non-finite float. ``wire_codec`` (a
+        :class:`~tpudl_torch.data.codec.WireCodec`) encodes each packed
+        batch on the host, and its ``prologue`` restores it on the device
+        before ``fn``. ``batch_size`` defaults to ``ceil(rows /
+        num_partitions)`` when the frame has the hint, else 256.
+
+        The executor's knobs, with tpudl's variables and defaults:
+
+        - ``prefetch`` (default on; ``TPUDL_FRAME_PREFETCH=0`` switches
+          the whole pipelined executor off: no prefetch, D=1, M=1, no
+          buckets — the serial arm): prepare batches on a pool;
+        - ``prefetch_depth`` K (``TPUDL_FRAME_PREFETCH_DEPTH``, 2; raised
+          to D·M when left unset, so that the window stays fed):
+          batches prepared ahead;
+        - ``prepare_workers`` N (``TPUDL_FRAME_PREPARE_WORKERS``, 2): the
+          pool's threads. A ``pack`` not marked ``thread_safe = True``
+          runs on one worker unless N is given;
+        - ``dispatch_depth`` D (``TPUDL_FRAME_DISPATCH_DEPTH``, 2): batches
+          dispatched whose outputs are not yet read. D=1 waits for each
+          batch's outputs before the next is dispatched;
+        - ``fuse_steps`` M (``TPUDL_FRAME_FUSE_STEPS``, 1): on the card,
+          M full batches run as one CUDA-graph replay (on the CPU, M
+          calls and a concatenation). Only full batches whose inputs
+          stack fuse; the ragged tail, a group whose shapes differ and a
+          primary ``batch_size`` that ``buckets`` would pad take
+          per-batch dispatch, as in tpudl;
+        - ``donate`` (``TPUDL_FRAME_DONATE``, on): accepted and reported.
+          In torch it means only that a fused replay reuses its graph's
+          static input buffers, which it always does;
+        - ``buckets`` (a ladder spec or :class:`~tpudl_torch.compile.
+          BucketLadder`; default off): a ragged batch pads up to its rung
+          by repeating row 0, and the pad rows are stripped from the
+          outputs.
+
+        Each batch's outputs are copied to pinned host memory at dispatch
+        and joined once at the end. Each run files a
+        :class:`~tpudl_torch.obs.PipelineReport`
+        (``tpudl_torch.obs.last_pipeline_report()``). tpudl's ``mesh``,
+        ``cache_dir``, ``cache_key``, ``device_cache``, ``aot``,
+        ``supervise`` and ``autotune=True`` are not ported yet and raise
+        ``NotImplementedError`` naming their ROADMAP Queue 1 item."""
+        from tpudl_torch.compile import buckets as _bk
+        from tpudl_torch.obs import pipeline as _pipeline
+
+        refused = dict(mesh=mesh, cache_dir=cache_dir, cache_key=cache_key,
+                       device_cache=device_cache, aot=aot,
+                       supervise=supervise, autotune=autotune)
+        for k, v in refused.items():
+            if v not in (None, False):
+                raise NotImplementedError(
+                    f"map_batches({k}=...) is not ported to tpudl_torch yet "
+                    f"(ROADMAP Queue 1, {_REFUSED[k]!r})")
+        missing = [c for c in input_cols if c not in self._cols]
+        if missing:
+            raise KeyError(f"unknown columns {missing}; have {self.columns}")
+        if batch_size is None:
+            batch_size = (max(1, -(-self._n // int(self.num_partitions)))
+                          if self.num_partitions else 256)
+        batch_size = int(batch_size)
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        dev = resolve_device(device)
+
+        # -- knobs, resolved as tpudl resolves them (every torch fn is a
+        # device fn) --------------------------------------------------------
+        killed = os.environ.get("TPUDL_FRAME_PREFETCH", "1") == "0"
+        prefetch = (True if prefetch is None else bool(prefetch)) \
+            and not killed
+
+        def _resolve(kwarg, env_name, default):
+            if kwarg is not None:
+                return int(kwarg)
+            return _env_int(env_name, default)
+
+        depth = _resolve(prefetch_depth, "TPUDL_FRAME_PREFETCH_DEPTH", 2)
+        workers = (int(prepare_workers) if prepare_workers is not None
+                   else _env_int("TPUDL_FRAME_PREPARE_WORKERS", 2))
+        d_depth = 1 if killed else max(1, _resolve(
+            dispatch_depth, "TPUDL_FRAME_DISPATCH_DEPTH", 2))
+        donate_flag = (bool(donate) if donate is not None
+                       else os.environ.get("TPUDL_FRAME_DONATE", "1") != "0")
+        donate_flag = donate_flag and not killed
+        fuse = 1 if killed else max(1, _resolve(
+            fuse_steps, "TPUDL_FRAME_FUSE_STEPS", 1))
+        if (prepare_workers is None
+                and "TPUDL_FRAME_PREPARE_WORKERS" not in os.environ
+                and pack is not None
+                and not getattr(pack, "thread_safe", False)):
+            # a user pack never promised thread safety: one worker unless
+            # the caller opted in (first-party packs are marked)
+            workers = 1
+        ladder = None if killed else _bk.resolve_ladder(buckets)
+        if ladder is not None and ladder.pick(batch_size) != batch_size \
+                and fuse > 1:
+            # every full batch would carry pad rows, and a fused group
+            # would interleave them in its outputs
+            fuse = 1
+        if prefetch and prefetch_depth is None and \
+                os.environ.get("TPUDL_FRAME_PREFETCH_DEPTH", "") == "":
+            # a D-deep window of M-batch dispatches drains prepared
+            # batches D·M at a time: the default infeed must be able to
+            # feed it (tpudl raises K to D only; at M=1 the two agree)
+            depth = max(depth, d_depth * fuse)
+
+        report = _pipeline.PipelineReport()
+        report.config = {
+            "executor": ("pipelined" if (prefetch or fuse > 1
+                                         or d_depth > 1) else "serial"),
+            "prefetch": bool(prefetch),
+            "prefetch_depth": int(depth) if prefetch else 0,
+            "prepare_workers": (max(1, min(workers, depth))
+                                if prefetch else 0),
+            "fuse_steps": fuse,
+            "dispatch_depth": int(d_depth),
+            "donate": bool(donate_flag),
+            "autotune": False,
+            "autotuned": [],
+            "batch_size": batch_size,
+            "rows": self._n,
+            "mesh": None,
+            "wire_codec": (wire_codec.name if wire_codec is not None
+                           else "off"),
+            "batch_cache": False,
+            "device_cache": False,
+            "buckets": ladder.spec if ladder is not None else "off",
+            "aot": False,
+            "device": str(dev),
+        }
+        _pipeline.set_last_pipeline(report)
+        pin = dev.type == "cuda"
+
+        def prepare(start, stop):
+            """Pack, check, encode, bucket-pad and pin one batch: on a
+            prepare-pool thread when prefetching. Touches no device
+            state."""
+            with report.stage("prepare"):
+                packed = []
+                for c in input_cols:
+                    sl = self._cols[c][start:stop]
+                    arr = pack(sl) if pack is not None else _default_pack(sl)
+                    if check_finite and np.issubdtype(arr.dtype,
+                                                      np.floating):
+                        bad = ~np.isfinite(arr).reshape(
+                            arr.shape[0], -1).all(1)
+                        if bad.any():
+                            rows = (np.nonzero(bad)[0][:8] + start).tolist()
+                            raise ValueError(
+                                f"non-finite values in column {c!r}, rows "
+                                f"{rows} (batch {start}:{stop})")
+                    if wire_codec is not None:
+                        arr = wire_codec.encode(arr)
+                    packed.append(arr)
+                report.count("bytes_prepared",
+                             int(sum(int(a.nbytes) for a in packed)))
+                n_pad = 0
+                if ladder is not None and packed:
+                    rows_b = int(packed[0].shape[0])
+                    target = ladder.pick(rows_b)
+                    if target > rows_b:
+                        packed = [_bk.pad_to(a, target) for a in packed]
+                        n_pad = target - rows_b
+                        report.count("bucket_pad_rows", n_pad)
+                        _bk.count_pad_rows(n_pad)
+                tensors = [torch.from_numpy(np.ascontiguousarray(a))
+                           for a in packed]
+                if pin:
+                    tensors = [t.pin_memory() for t in tensors]
+                return tensors, n_pad
+
+        n_out = len(output_cols)
+        if wire_codec is None:
+            run_fn = fn
+        else:
+            def run_fn(*args):
+                return fn(*(wire_codec.prologue(a) for a in args))
+
+        acc: list[list] = [[] for _ in output_cols]  # host copies, joined at end
+        segs: list[tuple[int, int]] = []  # (padded rows, n_pad) per dispatch
+        graphs: dict = {}  # a fn that takes no attributes keeps them here
+
+        def handle(entry: _Dispatched):
+            """Keep one finished dispatch's host copies for the join."""
+            h0 = entry.host[0]
+            done_rows = int(h0.shape[0]) if h0.ndim else 1
+            report.progress(max(0, done_rows - entry.n_pad))
+            for i, h in enumerate(entry.host):
+                acc[i].append(h)
+            segs.append((done_rows, entry.n_pad))
+
+        def run_batch(tensors, n_pad):
+            with report.stage("h2d"):
+                args = [t.to(dev, non_blocking=True) for t in tensors]
+            t0 = time.perf_counter()
+            with report.stage("dispatch"):
+                result = _as_outputs(run_fn(*args), n_out)
+            return result, n_pad, tensors, t0
+
+        def run_fused(group):
+            if dev.type != "cuda":
+                t0 = time.perf_counter()
+                with report.stage("dispatch"):
+                    result = _fused_plain(run_fn, group, n_out)
+                return result, 0, None, t0
+            graph = _fused_graph(fn, run_fn, group, wire_codec, n_out, dev,
+                                 graphs)
+            t0 = time.perf_counter()
+            result = graph.run(group, report)
+            return result, 0, [g[0] for g in group], t0
+
+        first_dispatch = True
+
+        def dispatch(run, *args):
+            """Issue one dispatch on the consumer thread, after the window
+            has room; with D=1 wait for its outputs at once."""
+            nonlocal first_dispatch
+            if window is not None:
+                while window.full():
+                    handle(window.pop())
+            result, n_pad, keep, t0 = run(*args)
+            entry = _start_host_copies(result, n_pad, keep)
+            if first_dispatch:
+                first_dispatch = False
+                report.count("first_dispatch_s", time.perf_counter() - t0)
+            if window is None:
+                with report.stage("d2h"):
+                    entry.wait()
+                handle(entry)
+            else:
+                window.submit(entry)
+
+        spans = list(self.iter_batches(batch_size))
+        # only the leading run of full-size batches can fuse
+        n_full = sum(1 for s, e in spans if e - s == batch_size)
+        infeed = (_PipelineInfeed(prepare, spans, depth, workers, report)
+                  if prefetch else None)
+        window = (_DispatchWindow(d_depth, report) if d_depth > 1
+                  else None)
+        consumed = 0
+
+        def next_prepared():
+            nonlocal consumed
+            out = infeed.get() if infeed else prepare(*spans[consumed])
+            consumed += 1
+            return out
+
+        t_wall = time.perf_counter()
+        try:
+            while consumed < len(spans):
+                if fuse > 1 and consumed + fuse <= n_full:
+                    group = [next_prepared() for _ in range(fuse)]
+                    if not _stackable(group):
+                        # shapes drifted between microbatches (a ragged
+                        # pack): dispatch this group per batch
+                        for tensors, n_pad in group:
+                            dispatch(run_batch, tensors, n_pad)
+                        continue
+                    report.count("fused_dispatches")
+                    dispatch(run_fused, group)
+                else:
+                    dispatch(run_batch, *next_prepared())
+            while window is not None and len(window):
+                handle(window.pop())
+        finally:
+            if window is not None:
+                window.close()
+            if infeed is not None:
+                infeed.close()
+        outputs: list[list[np.ndarray]] = [[] for _ in output_cols]
+        with report.stage("d2h"):
+            _fetch_accumulated(acc, segs, outputs)
+        report.finish(time.perf_counter() - t_wall)
+        out = self
+        for name, chunks in zip(output_cols, outputs):
+            col = np.concatenate(chunks, axis=0) if chunks else np.empty((0,))
+            if col.ndim > 1:
+                obj = np.empty(len(col), dtype=object)
+                obj[:] = list(col)
+                col = obj
+            out = out.with_column(name, col)
+        return out
+
+
+def _fetch_accumulated(acc, segs, outputs):
+    """Join the held host copies per output, stripping each dispatch's
+    pad rows. tpudl forks here: its "acc" keeps outputs on the device and
+    fetches them once, and its "window" fetches each batch as it leaves,
+    to bound device memory. The port copies every output to pinned host
+    memory at dispatch (:func:`_start_host_copies`), so device memory is
+    bounded by the window either way, and one outfeed serves."""
+    for i, chunks in enumerate(acc):
+        if not chunks:
+            continue
+        parts = [h.numpy() for h in chunks]
+        host = np.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+        if any(n_pad for _, n_pad in segs):
+            out, pos = [], 0
+            for padded_len, n_pad in segs:
+                out.append(host[pos: pos + padded_len - n_pad])
+                pos += padded_len
+            outputs[i].extend(out)
+        else:
+            outputs[i].append(host)
+
 
 
 # copied from tpudl/frame/frame.py:null_mask
@@ -103,22 +939,24 @@ def null_mask(col) -> np.ndarray:
     return np.zeros(len(col), dtype=bool)
 
 
-def _as_column(values) -> np.ndarray:
-    if isinstance(values, LazyColumn):
-        return values  # deferred source; materializes per access
-    if isinstance(values, np.ndarray):
-        return values
-    values = list(values)
-    if values and isinstance(values[0], (dict, bytes, str, type(None))):
-        col = np.empty(len(values), dtype=object)
-        col[:] = values
-        return col
-    try:
-        return np.asarray(values)
-    except ValueError:
-        col = np.empty(len(values), dtype=object)
-        col[:] = values
-        return col
+# copied from tpudl/frame/frame.py:_hash_value
+def _hash_value(h, v) -> None:
+    """One object-column row into a running hash: image structs, bytes,
+    ndarrays, None, and the repr of anything else."""
+    if v is None:
+        h.update(b"\x00none")
+    elif isinstance(v, bytes):
+        h.update(b"\x00b")
+        h.update(v)
+    elif isinstance(v, dict):
+        for k in sorted(v):
+            h.update(f"\x00k{k}=".encode())
+            _hash_value(h, v[k])
+    elif isinstance(v, np.ndarray):
+        h.update(f"\x00a{v.dtype}{v.shape}".encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    else:
+        h.update(f"\x00r{v!r}".encode())
 
 
 def _default_pack(sl: np.ndarray) -> np.ndarray:
@@ -127,130 +965,29 @@ def _default_pack(sl: np.ndarray) -> np.ndarray:
     return np.asarray(sl)
 
 
-class Frame:
-    """Ordered named columns of equal length (numpy arrays; strings and
-    other Python objects live in object columns)."""
-
-    def __init__(self, columns: Mapping[str, object]):
-        self._cols: dict[str, np.ndarray] = {}
-        n = None
-        for name, values in columns.items():
-            col = _as_column(values)
-            if n is None:
-                n = len(col)
-            elif len(col) != n:
-                raise ValueError(
-                    f"column {name!r} has length {len(col)}, expected {n}")
-            self._cols[str(name)] = col
-        self._n = n or 0
-
-    @property
-    def columns(self) -> list[str]:
-        return list(self._cols)
-
-    def __len__(self) -> int:
-        return self._n
-
-    def __getitem__(self, name: str) -> np.ndarray:
-        return self._cols[name]
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._cols
-
-    def __repr__(self) -> str:
-        cols = ", ".join(f"{k}:{v.dtype}" for k, v in self._cols.items())
-        return f"Frame[{self._n} rows]({cols})"
-
-    def select(self, *names: str) -> "Frame":
-        missing = [n for n in names if n not in self._cols]
-        if missing:
-            raise KeyError(f"unknown columns {missing}; have {self.columns}")
-        return Frame({n: self._cols[n] for n in names})
-
-    def with_column(self, name: str, values) -> "Frame":
-        col = _as_column(values)
-        if len(col) != self._n:
+# copied from tpudl/frame/frame.py:concat
+def concat(frames: Sequence[Frame]) -> Frame:
+    """Rows of ``frames`` in order (same column set); a lazy column
+    materializes here."""
+    if not frames:
+        raise ValueError("concat of zero frames")
+    names = frames[0].columns
+    for i, f in enumerate(frames[1:], start=1):
+        if set(f.columns) != set(names):
             raise ValueError(
-                f"column length {len(col)} != frame length {self._n}")
-        out = dict(self._cols)
-        out[name] = col
-        return Frame(out)
-
-    def drop(self, *names: str) -> "Frame":
-        return Frame({k: v for k, v in self._cols.items() if k not in names})
-
-    def filter_rows(self, mask) -> "Frame":
-        mask = np.asarray(mask, dtype=bool)
-        idx = np.nonzero(mask)[0]
-        return Frame({k: (v.subset(idx) if isinstance(v, LazyColumn)
-                          else v[mask])
-                      for k, v in self._cols.items()})
-
-    def dropna(self, subset: Sequence[str] | None = None) -> "Frame":
-        """Drop rows with None/NaN in ``subset`` (default: all columns); a
-        lazy column stays a lazy subset view."""
-        names = list(subset) if subset else self.columns
-        mask = np.ones(self._n, dtype=bool)
-        for n in names:
-            mask &= ~null_mask(self._cols[n])
-        return self.filter_rows(mask)
-
-    def head(self, n: int = 5) -> "Frame":
-        # np.arange(len)[:n] keeps Python's slice semantics (negative n
-        # included) for lazy and eager columns alike
-        return Frame({k: (v.subset(np.arange(len(v))[:n])
-                          if isinstance(v, LazyColumn) else v[:n])
-                      for k, v in self._cols.items()})
-
-    def map_batches(self, fn: Callable, input_cols: Sequence[str],
-                    output_cols: Sequence[str], *, batch_size: int = 256,
-                    pack: Callable | None = None, wire_codec=None,
-                    device="cuda") -> "Frame":
-        """Run ``fn`` over the frame in batches of ``batch_size`` rows on
-        ``device`` and append its outputs as ``output_cols``.
-
-        ``fn`` takes one tensor per input column and returns one tensor or
-        a tuple matching ``output_cols``. ``pack`` turns a column slice
-        into a numpy batch (default: stack the rows). ``wire_codec`` (a
-        :class:`~tpudl_torch.data.codec.WireCodec`) encodes each packed
-        batch on the host, and its ``prologue`` restores it on the device
-        before ``fn``. An output with more than one dimension becomes an
-        object column of per-row arrays, as in tpudl."""
-        missing = [c for c in input_cols if c not in self._cols]
-        if missing:
-            raise KeyError(f"unknown columns {missing}; have {self.columns}")
-        if int(batch_size) < 1:
-            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        dev = resolve_device(device)
-        outputs: list[list[np.ndarray]] = [[] for _ in output_cols]
-        for start in range(0, self._n, int(batch_size)):
-            stop = min(start + int(batch_size), self._n)
-            args = []
-            for c in input_cols:
-                sl = self._cols[c][start:stop]
-                arr = pack(sl) if pack is not None else _default_pack(sl)
-                if wire_codec is not None:
-                    arr = wire_codec.encode(arr)
-                t = torch.from_numpy(np.ascontiguousarray(arr))
-                if dev.type == "cuda":
-                    t = t.pin_memory().to(dev, non_blocking=True)
-                if wire_codec is not None:
-                    t = wire_codec.prologue(t)
-                args.append(t)
-            result = fn(*args)
-            if not isinstance(result, (tuple, list)):
-                result = (result,)
-            if len(result) != len(output_cols):
-                raise ValueError(f"fn returned {len(result)} outputs for "
-                                 f"output_cols {list(output_cols)}")
-            for i, r in enumerate(result):
-                outputs[i].append(r.detach().cpu().numpy())
-        out = self
-        for name, chunks in zip(output_cols, outputs):
-            col = np.concatenate(chunks, axis=0) if chunks else np.empty((0,))
-            if col.ndim > 1:
-                obj = np.empty(len(col), dtype=object)
-                obj[:] = list(col)
-                col = obj
-            out = out.with_column(name, col)
-        return out
+                f"concat schema mismatch: frame 0 has {names}, "
+                f"frame {i} has {f.columns}")
+    out = {}
+    for n in names:
+        cols = [f[n] for f in frames]
+        if any(c.dtype == object for c in cols):
+            merged = np.empty(sum(len(c) for c in cols), dtype=object)
+            i = 0
+            for c in cols:
+                merged[i: i + len(c)] = (c[:] if isinstance(c, LazyColumn)
+                                         else c)
+                i += len(c)
+            out[n] = merged
+        else:
+            out[n] = np.concatenate(cols, axis=0)
+    return Frame(out, frames[0].num_partitions)

@@ -7,26 +7,29 @@ OpenCV mode ordinals and **BGR** storage order), PIL and libjpeg
 column behind ``readImages``. The device half (cast, flip, resize to the
 model) lives in :mod:`tpudl_torch.image.ops`.
 
-Reads and decodes run serially, one batch at a time. Not ported yet, and
-refused where they are options: the parallel read/decode pools and the
-``numPartition`` hint (ROADMAP Queue 1, 'Executor'), ``host_sharded``
-(Queue 1, 'Training, rest', multi-host), the read retry policy and fault
-points (Queue 1, 'Jobs, faults and the supervisor'), the flight-recorder
-samples of decode errors (Queue 1, 'The rest of observability'), the
-shard-cache fingerprint (Queue 1, 'Data layer') and
-``createNativeImageLoader`` (Queue 1, 'The rest of the sparkdl surface').
+``LazyFileColumn`` reads the files of a batch on ``io_workers`` threads
+and decodes on ``decode_workers``, and the executor's prepare pool may
+read several batches at once; a decoder not marked ``thread_safe`` runs
+under a column-wide lock. Not ported yet, and refused where they are
+options: ``host_sharded`` (Queue 1, 'Training, rest', multi-host), the
+read retry policy and fault points (Queue 1, 'Jobs, faults and the
+supervisor'), the flight-recorder samples of decode errors (Queue 1, 'The
+rest of observability') and ``createNativeImageLoader`` (Queue 1, 'The
+rest of the sparkdl surface').
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
+import threading
 from io import BytesIO
 from typing import Callable, Iterable
 
 import numpy as np
 
-from tpudl_torch.frame.frame import Frame, LazyColumn
+from tpudl_torch.frame.frame import Frame, LazyColumn, _env_int
 from tpudl_torch.obs import metrics as _obs_metrics
 
 try:  # PIL is the decode substrate, as in tpudl
@@ -244,6 +247,15 @@ def default_decode(raw_bytes: bytes, origin: str = "") -> dict | None:
     return PIL_decode(raw_bytes, origin=origin)
 
 
+# stateless over thread-safe substrates (PIL and the native decoder both
+# release the GIL): a LazyFileColumn may run it for several batches at once
+default_decode.thread_safe = True
+# tpudl's identity for the same decoder (the native decoder is a copy of
+# tpudl's, with the same PIL fallback), so that a frame's fingerprint, and
+# a prepared-batch cache keyed on it, is the same in both packages
+default_decode.cache_token = "tpudl.image.imageIO|default_decode"
+
+
 def default_probe(raw_bytes: bytes) -> bool:
     """Cheap validity twin of :func:`default_decode`: a header parse and
     stream verify (PIL ``Image.verify``), no pixel decode."""
@@ -303,48 +315,92 @@ class LazyFileColumn(LazyColumn):
     accessed batch are read (and passed through ``transform(path, raw)``
     when given) on access, so host RAM is O(batch). ``reads`` counts file
     reads. Accesses of up to 32 rows are memoized (the same index set
-    twice reads once), as in tpudl."""
+    twice reads once), as in tpudl.
+
+    Worker knobs (the executor's prepare pool calls ``_get`` for different
+    batches at once, so everything here is thread-safe):
+
+    - ``io_workers`` (``TPUDL_FRAME_IO_WORKERS``, default 8): parallel
+      file reads per batch;
+    - ``decode_workers`` (``TPUDL_FRAME_DECODE_WORKERS``, default 1):
+      parallel ``transform`` calls within one batch. A transform marked
+      ``thread_safe = True`` (``default_decode`` is) or an explicit
+      ``decode_workers > 1`` opts into concurrency; any other transform
+      runs under a column-wide lock, serial even across batches."""
 
     _MEMO_MAX_ROWS = 32
+    _IO_WORKERS = 8
 
     def __init__(self, paths, transform: Callable | None = None,
-                 probe: Callable | None = None):
+                 probe: Callable | None = None,
+                 io_workers: int | None = None,
+                 decode_workers: int | None = None):
         self._paths = np.asarray(list(paths), dtype=object)
         self._transform = transform
         self._probe = probe  # (path, raw) -> bool; see validity_mask
         self._validity: np.ndarray | None = None
         self._memo: tuple[bytes, np.ndarray] | None = None
         self.reads = 0
+        self._reads_lock = threading.Lock()
+        self._memo_lock = threading.Lock()
+        self._transform_lock = threading.Lock()
+        self.io_workers = int(io_workers if io_workers is not None
+                              else _env_workers("TPUDL_FRAME_IO_WORKERS",
+                                                self._IO_WORKERS))
+        self.decode_workers = int(
+            decode_workers if decode_workers is not None
+            else _env_workers("TPUDL_FRAME_DECODE_WORKERS", 1))
 
     def __len__(self) -> int:
         return len(self._paths)
 
+    def _read_raw(self, i) -> bytes:
+        with open(self._paths[i], "rb") as f:
+            raw = f.read()
+        with self._reads_lock:
+            self.reads += 1
+        return raw
+
     def _read_batch(self, indices: np.ndarray) -> list[bytes]:
-        raws = []
-        for i in indices:
-            with open(self._paths[i], "rb") as f:
-                raws.append(f.read())
-        self.reads += len(raws)
+        raws = _parallel_map(self._read_raw, indices, self.io_workers)
         if raws:
             _obs_metrics.counter("imageio.files_read").inc(len(raws))
             _obs_metrics.counter("imageio.bytes_read").inc(
                 sum(len(r) for r in raws))
         return raws
 
-    def _get(self, indices: np.ndarray) -> np.ndarray:
-        key = indices.tobytes()
-        if self._memo is not None and self._memo[0] == key:
-            _obs_metrics.counter("imageio.memo_hits").inc()
-            return _copy_rows(self._memo[1])
-        raws = self._read_batch(indices)
+    def _decode_batch(self, indices: np.ndarray, raws: list) -> np.ndarray:
+        """Per-row ``transform`` over the read bytes, in row order: fanned
+        over ``decode_workers`` threads for a transform that opted into
+        concurrency, else serial under the column-wide lock."""
         out = np.empty(len(indices), dtype=object)
         if self._transform is None:
             out[:] = raws
-        else:
-            out[:] = [self._transform(self._paths[i], raw)
-                      for i, raw in zip(indices, raws)]
+            return out
+
+        def row(ir):
+            return self._transform(self._paths[ir[0]], ir[1])
+
+        if (getattr(self._transform, "thread_safe", False)
+                or self.decode_workers > 1):
+            out[:] = _parallel_map(row, zip(indices, raws),
+                                   self.decode_workers)
+            return out
+        with self._transform_lock:
+            out[:] = [row(ir) for ir in zip(indices, raws)]
+        return out
+
+    def _get(self, indices: np.ndarray) -> np.ndarray:
+        key = indices.tobytes()
+        with self._memo_lock:
+            memo = self._memo
+        if memo is not None and memo[0] == key:
+            _obs_metrics.counter("imageio.memo_hits").inc()
+            return _copy_rows(memo[1])
+        out = self._decode_batch(indices, self._read_batch(indices))
         if len(indices) <= self._MEMO_MAX_ROWS:
-            self._memo = (key, out)
+            with self._memo_lock:
+                self._memo = (key, out)
             return _copy_rows(out)
         return out
 
@@ -366,11 +422,68 @@ class LazyFileColumn(LazyColumn):
             self._validity = flags
         return self._validity
 
+    # copied from tpudl/image/imageIO.py:LazyFileColumn.fingerprint
+    def fingerprint(self) -> str:
+        """Content identity without reads or decodes, equal to tpudl's:
+        sha1 over each path, its size and mtime, and the transform's
+        cache token."""
+        h = hashlib.sha1()
+        if self._transform is not None:
+            h.update(
+                f"transform:{_callable_token(self._transform)}\n".encode())
+        h.update(_uri_fingerprint(self._paths).encode())
+        return h.hexdigest()
+
     def with_transform(self, transform: Callable,
                        probe: Callable | None = None) -> "LazyFileColumn":
-        """Same paths, another per-file transform (and its cheap validity
-        ``probe``)."""
-        return LazyFileColumn(self._paths, transform, probe=probe)
+        """Same paths and workers, another per-file transform (and its
+        cheap validity ``probe``)."""
+        return LazyFileColumn(self._paths, transform, probe=probe,
+                              io_workers=self.io_workers,
+                              decode_workers=self.decode_workers)
+
+
+def _env_workers(name: str, default: int) -> int:
+    return max(1, _env_int(name, default))
+
+
+# copied from tpudl/image/imageIO.py:_parallel_map
+def _parallel_map(fn, items, workers: int) -> list:
+    """Order-preserving map, fanned over a thread pool when both the item
+    count (>= 4) and ``workers`` (> 1) justify one."""
+    items = list(items)
+    if len(items) >= 4 and workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(min(workers, len(items))) as ex:
+            return list(ex.map(fn, items))
+    return [fn(i) for i in items]
+
+
+# copied from tpudl/data/dataset.py:_callable_token
+def _callable_token(fn) -> str:
+    """Cache identity of a callable: its ``cache_token``, else
+    module|qualname."""
+    tok = getattr(fn, "cache_token", None)
+    if tok:
+        return str(tok)
+    return "|".join((getattr(fn, "__module__", "?"),
+                     getattr(fn, "__qualname__", repr(fn))))
+
+
+# copied from tpudl/data/dataset.py:_uri_fingerprint
+def _uri_fingerprint(uris) -> str:
+    """sha1 over (path, size, mtime) per file."""
+    h = hashlib.sha1()
+    for u in uris:
+        h.update(str(u).encode())
+        try:
+            st = os.stat(u)
+            h.update(f"|{st.st_size}|{st.st_mtime_ns}".encode())
+        except OSError:
+            h.update(b"|?")
+        h.update(b"\n")
+    return h.hexdigest()
 
 
 def _copy_rows(arr: np.ndarray) -> np.ndarray:
@@ -393,10 +506,7 @@ def _listFiles(path: str | Iterable[str]) -> list[str]:
     return [path]
 
 
-def _refuse_read_options(numPartitions, host_sharded):
-    if numPartitions is not None:
-        _not_ported("numPartitions (the executor's partition hint)",
-                    "Executor")
+def _refuse_host_sharded(host_sharded):
     if host_sharded:
         _not_ported("host_sharded=True (multi-host file sharding)",
                     "Training, rest")
@@ -405,8 +515,10 @@ def _refuse_read_options(numPartitions, host_sharded):
 def filesToFrame(path, numPartitions: int | None = None,
                  host_sharded: bool = False, lazy: bool = True) -> Frame:
     """A Frame with columns (filePath, fileData) over raw file bytes;
-    ``fileData`` is a :class:`LazyFileColumn` unless ``lazy=False``."""
-    _refuse_read_options(numPartitions, host_sharded)
+    ``fileData`` is a :class:`LazyFileColumn` unless ``lazy=False``.
+    ``numPartitions`` is the frame's partition hint (``map_batches``'s
+    default batch is ``ceil(rows / numPartitions)``)."""
+    _refuse_host_sharded(host_sharded)
     paths = _listFiles(path)
     if lazy:
         data = LazyFileColumn(paths)
@@ -417,7 +529,8 @@ def filesToFrame(path, numPartitions: int | None = None,
                 datas.append(f.read())
         data = np.empty(len(datas), dtype=object)
         data[:] = datas
-    return Frame({"filePath": np.array(paths, dtype=object), "fileData": data})
+    return Frame({"filePath": np.array(paths, dtype=object), "fileData": data},
+                 num_partitions=numPartitions)
 
 
 def _decode_row(decode_f, origin, raw):
@@ -447,20 +560,28 @@ def readImagesWithCustomFn(path, decode_f, numPartition: int | None = None,
     """A directory of images → Frame["image"], decoded by ``decode_f``
     (raw bytes → ndarray (H, W, C) in BGR storage order, a struct, or
     None); undecodable files become None rows. Lazy by default: each
-    accessed batch is read and decoded on access. ``probe_f`` (raw →
-    bool, True iff the decode would succeed) lets ``dropna`` classify rows
-    without decoding them."""
-    _refuse_read_options(numPartition, host_sharded)
+    accessed batch is read and decoded on access, in the executor's
+    prepare pool. ``decode_f`` runs concurrently only when it is marked
+    ``thread_safe = True``. ``probe_f`` (raw → bool, True iff the decode
+    would succeed) lets ``dropna`` classify rows without decoding them.
+    ``numPartition`` is the frame's partition hint."""
+    _refuse_host_sharded(host_sharded)
     files = filesToFrame(path, lazy=lazy)
     if lazy:
+        def tr(p, raw):
+            return _decode_row(decode_f, p, raw)
+
+        # the serial-decode contract follows decode_f's own declaration,
+        # and its cache identity keys the column's fingerprint
+        tr.thread_safe = bool(getattr(decode_f, "thread_safe", False))
+        tr.cache_token = "decode:" + _callable_token(decode_f)
         col = files["fileData"].with_transform(
-            lambda p, raw: _decode_row(decode_f, p, raw),
-            probe=(lambda p, raw: probe_f(raw)) if probe_f else None)
-        return Frame({"image": col})
+            tr, probe=(lambda p, raw: probe_f(raw)) if probe_f else None)
+        return Frame({"image": col}, num_partitions=numPartition)
     structs = np.empty(len(files), dtype=object)
     structs[:] = [_decode_row(decode_f, origin, raw) for origin, raw
                   in zip(files["filePath"], files["fileData"])]
-    return Frame({"image": structs})
+    return Frame({"image": structs}, num_partitions=numPartition)
 
 
 def readImages(path, numPartition: int | None = None) -> Frame:

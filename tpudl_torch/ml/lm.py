@@ -17,9 +17,13 @@ TinyCausalLM`, or anything with its ``vocab``/``dim``/``heads``/``layers``
 ``weights=`` is tpudl's numpy param pytree: the stage loads it into a
 module on its own device once and reuses it while ``weights`` is the same
 object. ``tokenizer=`` is a :mod:`tpudl_torch.text` tokenizer. The
-executor knobs of tpudl's stages (``mesh``, ``tp``, ``prefetchDepth``,
-``prepareWorkers``, ``fuseSteps``, ``dispatchDepth``, ``cacheDir``,
-``deviceCache``, a codec given by name) are not ported yet and raise.
+featurizer and the classifier run through ``Frame.map_batches`` with the
+executor knobs ``prefetchDepth``, ``prepareWorkers``, ``fuseSteps`` and
+``dispatchDepth``; their per-batch function is built once per loaded
+model and configuration, so that a fused CUDA graph cached on it serves
+every later ``transform``. tpudl's ``mesh`` and ``tp`` (ROADMAP Queue 1,
+'Training, rest' and 'LM parallelism'), ``cacheDir``, ``deviceCache`` and
+a codec given by name ('Data layer') are not ported yet and raise.
 
 The model is float32, and each stage computes its products in full f32
 whatever TF32 setting the process holds (``device.full_f32``), as tpudl
@@ -56,8 +60,8 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
 
     def _init_lm(self):
         kwargs = dict(self._input_kwargs)
-        self.wireCodec = refuse_unported(type(self).__name__, kwargs,
-                                         _NOT_PORTED)
+        refuse_unported(type(self).__name__, kwargs, _NOT_PORTED)
+        self._set_pipeline_opts(kwargs)
         for k in _LM_ATTRS:
             kwargs.pop(k, None)
         self._set(**kwargs)
@@ -80,9 +84,17 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
             self._loaded = (self.weights, self.device, net)
         return self._loaded[2], self.tokenizer
 
-    def _codec(self):
-        return self.wireCodec or TokenCodec(
-            vocab_size=self.tokenizer.vocab_size)
+    def _codec_opts(self) -> dict:
+        opts = self._pipeline_opts()
+        if opts.get("wire_codec") is None:
+            opts["wire_codec"] = TokenCodec(
+                vocab_size=self.tokenizer.vocab_size)
+        return opts
+
+    def _fn_key(self, net, *extra) -> tuple:
+        """What a per-batch function closes over: the loaded module, the
+        stage's geometry, and ``extra``."""
+        return (id(net), self.maxLen, self.promptBuckets, *extra)
 
 
 class LMFeaturizer(_LMStage):
@@ -110,17 +122,20 @@ class LMFeaturizer(_LMStage):
         pack = tokenize_pack(tok, seq_len=self.maxLen,
                              buckets=self.promptBuckets, bos=True)
 
-        def fn(tokens):
-            mask = pad_mask(tokens)                        # [B, S]
-            h = net.hidden(tokens)
-            pooled = (h * mask[..., None]).sum(dim=1)
-            return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+        def build():
+            def fn(tokens):
+                mask = pad_mask(tokens)                    # [B, S]
+                h = net.hidden(tokens)
+                pooled = (h * mask[..., None]).sum(dim=1)
+                return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+            return fn
 
+        fn = self._cached_fn(self._fn_key(net, "featurize"), build)
         with torch.inference_mode(), full_f32():
             out = frame.map_batches(
                 fn, [self.getInputCol()], [self.getOutputCol()],
-                batch_size=self.batchSize, pack=pack,
-                wire_codec=self._codec(), device=self.device)
+                batch_size=self.batchSize, pack=pack, device=self.device,
+                **self._codec_opts())
         _obs_metrics.counter("lm.embed.rows").inc(len(frame))
         return out
 
@@ -168,24 +183,29 @@ class LMClassifier(_LMStage):
 
     def _transform(self, frame):
         net, tok = self._require()
-        class_ids = torch.tensor(self._class_ids(tok), device=net.device)
+        ids = tuple(self._class_ids(tok))
         pack = tokenize_pack(tok, seq_len=self.maxLen,
                              buckets=self.promptBuckets, bos=True)
 
-        def fn(tokens):
-            mask = pad_mask(tokens)
-            logits = net.apply(tokens)                     # [B, S, vocab]
-            last = (mask.sum(dim=1).to(torch.int64) - 1).clamp_min(0)
-            row = logits[torch.arange(tokens.shape[0], device=net.device),
-                         last]
-            return row[:, class_ids].argmax(dim=-1).to(torch.int32)
+        def build():
+            class_ids = torch.tensor(ids, device=net.device)
 
+            def fn(tokens):
+                mask = pad_mask(tokens)
+                logits = net.apply(tokens)                 # [B, S, vocab]
+                last = (mask.sum(dim=1).to(torch.int64) - 1).clamp_min(0)
+                row = logits[torch.arange(tokens.shape[0],
+                                          device=net.device), last]
+                return row[:, class_ids].argmax(dim=-1).to(torch.int32)
+            return fn
+
+        fn = self._cached_fn(self._fn_key(net, "classify", ids), build)
         out_col = self.getOutputCol()
         with torch.inference_mode(), full_f32():
             out = frame.map_batches(
                 fn, [self.getInputCol()], [out_col],
-                batch_size=self.batchSize, pack=pack,
-                wire_codec=self._codec(), device=self.device)
+                batch_size=self.batchSize, pack=pack, device=self.device,
+                **self._codec_opts())
         labels = np.array(self.classes, dtype=object)[
             np.asarray(out[out_col], dtype=np.int64)]
         _obs_metrics.counter("lm.classify.rows").inc(len(frame))

@@ -19,11 +19,17 @@ downloads); a path ending in ``.npz`` is read as it is. The stage loads
 the weights onto its device once and reuses them while the model,
 weights, dtype and device stay the same.
 
+The executor knobs ``prefetchDepth``, ``prepareWorkers``, ``fuseSteps``
+and ``dispatchDepth`` pass to ``Frame.map_batches`` (None: its
+``TPUDL_FRAME_*`` defaults). The per-batch function is built once per
+loaded model, so that a fused CUDA graph cached on it serves every later
+``transform``.
+
 Not ported yet, and refused with ``NotImplementedError``: Keras model
 files as ``weights`` (ROADMAP Queue 1, 'The rest of the sparkdl
-surface'), and the executor knobs ``mesh``, ``prefetchDepth``,
-``prepareWorkers``, ``fuseSteps``, ``dispatchDepth``, ``cacheDir``,
-``deviceCache`` and a ``wireCodec`` given by name (Queue 1, 'Executor').
+surface'), ``mesh`` (Queue 1, 'Training, rest'), and ``cacheDir``,
+``deviceCache`` and a ``wireCodec`` given by name (Queue 1, 'Data
+layer').
 """
 
 from __future__ import annotations
@@ -98,8 +104,8 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
 
     def _init_stage(self, weights, batchSize, computeDtype, device):
         kwargs = dict(self._input_kwargs)
-        self.wireCodec = refuse_unported(type(self).__name__, kwargs,
-                                         EXECUTOR_KNOBS)
+        refuse_unported(type(self).__name__, kwargs, EXECUTOR_KNOBS)
+        self._set_pipeline_opts(kwargs)
         self.weights = weights
         self.batchSize = int(batchSize)
         self.computeDtype = _check_compute_dtype(computeDtype)
@@ -112,12 +118,17 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
     def _head(self, net: ImageModel):  # pragma: no cover - abstract
         raise NotImplementedError
 
-    def _net(self) -> ImageModel:
-        name = self.getModelName()
-        key = (name, self.weights, self.computeDtype, str(self.device))
+    def _net_key(self) -> tuple:
+        key = (self.getModelName(), self.weights, self.computeDtype,
+               str(self.device))
         if self.weights.endswith(".npz"):
             # a weights file may be rewritten between calls
             key += (os.path.getmtime(self.weights),)
+        return key
+
+    def _net(self) -> ImageModel:
+        name = self.getModelName()
+        key = self._net_key()
         if self._loaded is None or self._loaded[0] != key:
             net = ImageModel(getKerasApplicationModel(name),
                              load_named_params(name, self.weights),
@@ -128,18 +139,21 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
 
     def _batch_fn(self):
         """The per-batch function: uint8 BGR (B, H, W, C) on the device →
-        float32 model outputs."""
-        net = self._net()
-        model = net.model
-        h, w = model.input_size
-        head = self._head(net)
+        float32 model outputs; built once per loaded model."""
+        def build():
+            net = self._net()
+            model = net.model
+            h, w = model.input_size
+            head = self._head(net)
 
-        def fn(batch):
-            x = image_ops.to_model_input(batch, h, w, "BGR", "RGB")
-            x = model.preprocess(x)
-            return head(x.to(net.dtype)).to(torch.float32)
+            def fn(batch):
+                x = image_ops.to_model_input(batch, h, w, "BGR", "RGB")
+                x = model.preprocess(x)
+                return head(x.to(net.dtype)).to(torch.float32)
 
-        return fn
+            return fn
+
+        return self._cached_fn(self._net_key(), build)
 
     def _apply_batches(self, frame, out_col):
         fn = self._batch_fn()
@@ -147,7 +161,7 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
             return frame.map_batches(
                 fn, [self.getInputCol()], [out_col],
                 batch_size=self.batchSize, pack=_pack_image_structs,
-                wire_codec=self.wireCodec, device=self.device)
+                device=self.device, **self._pipeline_opts())
 
 
 class DeepImageFeaturizer(_NamedImageTransformer):

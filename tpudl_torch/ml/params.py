@@ -6,8 +6,7 @@ semantics with explicit and default maps) and the converters the LM and
 image stages use (``toString``, ``toInt``, ``toBoolean``,
 ``supportedNameConverter``). The ingest/Keras/loss converters come with
 the stages that use them. :func:`refuse_unported` is the port's own: the
-stages' shared refusal of tpudl's executor knobs that have no counterpart
-yet.
+stages' shared refusal of tpudl's knobs that have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -23,28 +22,25 @@ __all__ = ["Param", "Params", "TypeConverters", "keyword_only",
 
 # tpudl's stage knobs with no counterpart in the port yet → the ROADMAP
 # Queue 1 item that brings them
-EXECUTOR_KNOBS = {"mesh": "Executor", "prefetchDepth": "Executor",
-                  "prepareWorkers": "Executor", "fuseSteps": "Executor",
-                  "dispatchDepth": "Executor", "cacheDir": "Executor",
-                  "deviceCache": "Executor"}
+EXECUTOR_KNOBS = {"mesh": "Training, rest", "cacheDir": "Data layer",
+                  "deviceCache": "Data layer"}
 
 
 def refuse_unported(stage: str, kwargs: dict, table: dict):
-    """Pop every knob of ``table`` and ``wireCodec`` from a stage's
-    constructor ``kwargs``. A knob that is set raises
-    ``NotImplementedError`` naming its ROADMAP Queue 1 item, as does a
-    codec given by name; returns the ``WireCodec`` or ``None``."""
+    """Pop every knob of ``table`` from a stage's constructor ``kwargs``:
+    a knob that is set raises ``NotImplementedError`` naming its ROADMAP
+    Queue 1 item, as does a ``wireCodec`` given by name (a
+    :class:`WireCodec` object is left in ``kwargs``)."""
     for k, item in table.items():
         if kwargs.pop(k, None) not in (None, False):
             raise NotImplementedError(
                 f"{stage}({k}=...) is not ported to tpudl_torch yet "
                 f"(ROADMAP Queue 1, {item!r})")
-    codec = kwargs.pop("wireCodec", None)
+    codec = kwargs.get("wireCodec")
     if codec is not None and not isinstance(codec, WireCodec):
         raise NotImplementedError(
             f"wireCodec={codec!r}: codecs by name are not ported yet "
-            "(ROADMAP Queue 1, 'Executor'); pass a WireCodec")
-    return codec
+            "(ROADMAP Queue 1, 'Data layer'); pass a WireCodec")
 
 
 class Param:

@@ -56,3 +56,8 @@ def _pack_image_structs(sl: np.ndarray) -> np.ndarray:
             f"mixed image shapes {sorted(shapes)} in one column; resize "
             "first (imageIO.resizeImage / createResizeImageUDF)")
     return np.stack(arrays)
+
+
+# stateless: the executor's prepare pool may pack several batches at once
+_pack_image_structs.thread_safe = True
+_pack_image_structs.cache_token = "image_structs_v1"

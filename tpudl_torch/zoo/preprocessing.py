@@ -28,7 +28,10 @@ _TORCH_STD = (0.229, 0.224, 0.225)
 
 
 def _channel_const(values, x):
-    return torch.tensor(values, dtype=x.dtype, device=x.device)
+    """``values`` as a tensor of ``x``'s dtype on its device, made by fill
+    kernels rather than a host copy, so that a CUDA-graph capture of the
+    model (the executor's fused dispatch) can record it."""
+    return torch.stack([x.new_full((), v) for v in values])
 
 
 def preprocess_input(x, mode: str = "caffe"):
