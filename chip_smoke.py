@@ -76,13 +76,33 @@ Phases (any failure exits non-zero before the final line):
    prepare pool), and one f32 fused run with the caller's TF32 on, held
    to the CPU within 2e-5 of max |y|.
 
+8. Drive ResNet50 training (BASELINE.json configs[3], ``bench.py``'s
+   ``measure_train_step``) through ``HorovodRunner(np=1).run(train_fn)``
+   on a one-rank NCCL group, ``init(0)`` f32 masters, batches of 64 uint8
+   images at 224×224 normalized on the card, ``sgd(0.05)``: steps/s and
+   images/s (median and spread of 5 windows of 10 steps) in f32 and under
+   ``with_compute_dtype(loss_fn, torch.bfloat16)``, beside the achieved
+   TFLOP/s and the f32 FFMA and bf16 bounds, and the gradient
+   all-reduce's calls and bytes a step; 2 f32 steps at batch 4 from
+   perturbed BN statistics held against the same run on the CPU; the
+   fixed-batch eval loss (``make_eval_step``) of ``bench.py``'s band set
+   (bf16 compute) falling over 60 steps; a run that fails at step 7 and
+   restarts from its step-5 checkpoint (adam) equal, bit for bit under
+   ``cudnn.deterministic``, to an uninterrupted run, with the save and
+   restore seconds; a profile split of one f32 and one bf16-compute step
+   with the card's idle share; no flash kernel launch in the phase.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
 alone, every model's leg: the image slice's rates in a process that has
 run no profiler session before them (phases 4 and 4b profile a batch and
 a step). ``python3 chip_smoke.py --executor-only`` runs phase 1 and then
-phase 7 alone. ``python3 chip_smoke.py --pool-study`` runs phase 1 and
+phase 7 alone. ``python3 chip_smoke.py --train-only`` runs phase 1 and then phase 8
+alone. ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
+then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
+against one rank on the same global batch, and its rate against one
+rank's. ``python3 chip_smoke.py --pool-study`` runs phase 1 and
 then the prepare pool's study alone: the host-bound bf16 image cells in
 five executor arms that separate the pool's threads from the window
 (serial; D=2 with no pool; N=1; N=2, the default; N=2 with one torch
@@ -222,6 +242,22 @@ POOL_ARMS = {
 }
 EXEC_JPEGS = 512                   # readImages leg, numPartition=8
 EXEC_PARTITIONS = 8
+# phase 8, ResNet50 training through HorovodRunner (BASELINE.json
+# configs[3], bench.py's measure_train_step): batches of 64 uint8 images
+# at 224×224, 4 pre-built batches cycled, sgd(0.05)
+RESNET_BATCH, RESNET_SIDE, RESNET_LR = 64, 224, 0.05
+RESNET_WINDOWS, RESNET_WINDOW_STEPS = 5, 10
+RESNET_FLOPS = 3 * 7.71e9          # forward + backward per 224×224 image
+RESNET_CPU_BATCH, RESNET_CPU_STEPS = 4, 2  # card vs CPU, perturbed BN
+# card vs CPU, f32: cuDNN's and the CPU's convolutions sum in other
+# orders, and an activation within rounding of 0 can fall on the other
+# side of a ReLU. Read 4.8e-7 (loss) and 6.2e-4 (updates) on the H100;
+# the loss keeps phase 4b's 2e-5, the updates get 8x their reading
+RESNET_CPU_LOSS_ATOL = 2e-5
+RESNET_CPU_UPDATE_RTOL = 5e-3      # of the largest |p_after - p_before|
+CURVE_CLASSES, CURVE_BATCH, CURVE_POOL = 8, 32, 8   # bench.py's band set
+CURVE_STEPS, CURVE_EVERY = 60, 10
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 10, 5, 7
 
 
 def fail(msg: str):
@@ -1778,6 +1814,451 @@ def run_executor(card):
     return launches
 
 
+# -- phase 8: ResNet50 training through HorovodRunner ----------------------
+def resnet_loss(dtype):
+    """bench.py's configs[3] loss: uint8 images normalized on the card,
+    the clipped-log cross-entropy of ``predict``."""
+    def loss_fn(net, x, y):
+        x = (x.to(dtype) - 127.5) / 127.5
+        logp = torch.log(torch.clamp(net.predict(x), 1e-7, 1.0))
+        return -torch.mean(torch.sum(y * logp, dim=-1))
+
+    return loss_fn
+
+
+def resnet_train_loss(compute):
+    """The loss a step trains: f32, or bf16 compute on the f32 masters."""
+    from tpudl_torch.train import with_compute_dtype
+
+    if compute == "float32":
+        return resnet_loss(torch.float32)
+    return with_compute_dtype(resnet_loss(torch.bfloat16), torch.bfloat16)
+
+
+def resnet_net(ctx, params=None):
+    from tpudl_torch.zoo.registry import ImageModel, getKerasApplicationModel
+
+    model = getKerasApplicationModel("ResNet50")
+    return ImageModel(model, params if params is not None else
+                      model.init(SEED), device=ctx.device)
+
+
+def resnet_batches(n, batch, seed):
+    """bench.py's measure_train_step data: ``n`` uint8 image batches and
+    one-hot labels over 1000 classes."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.integers(0, 256, size=(batch, RESNET_SIDE, RESNET_SIDE, 3),
+                       dtype=np.uint8) for _ in range(n)]
+    ys = [np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, batch)]
+          for _ in range(n)]
+    return xs, ys
+
+
+def rate_train_fn(ctx, compute):
+    """bench.py's measure_train_step train_fn: one warm fit step, then
+    RESNET_WINDOWS windows of RESNET_WINDOW_STEPS steps; returns steps/s
+    of each window and the all-reduce calls and bytes a step."""
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.train import sgd
+
+    net = resnet_net(ctx)
+    xs, ys = resnet_batches(4, RESNET_BATCH, SEED)
+    trainer = ctx.trainer(resnet_train_loss(compute), sgd(RESNET_LR))
+    torch.cuda.reset_peak_memory_stats()
+
+    def data(step):
+        return xs[step % len(xs)], ys[step % len(ys)]
+
+    trainer.fit(net, data, 1)  # warm: cuDNN picks its algorithms
+    calls = metrics.counter("mesh.allreduce.calls").value
+    nbytes = metrics.counter("mesh.allreduce.bytes").value
+    rates = []
+    for _ in range(RESNET_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(net, data, RESNET_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        rates.append(RESNET_WINDOW_STEPS / (time.perf_counter() - t0))
+    steps = RESNET_WINDOWS * RESNET_WINDOW_STEPS
+    return {"rates": rates,
+            "calls": (metrics.counter("mesh.allreduce.calls").value
+                      - calls) / steps,
+            "bytes": (metrics.counter("mesh.allreduce.bytes").value
+                      - nbytes) / steps,
+            "params": sum(p.numel() for p in net.parameters()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def card_vs_cpu_fn(ctx, params):
+    """RESNET_CPU_STEPS f32 steps at RESNET_CPU_BATCH from ``params``:
+    the losses and every leaf's update, in float64 on the host."""
+    from tpudl_torch.train import sgd
+
+    net = resnet_net(ctx, params)
+    before = {k: v.detach().double().cpu() for k, v in
+              net.state_dict().items()}
+    xs, ys = resnet_batches(RESNET_CPU_STEPS, RESNET_CPU_BATCH, SEED + 1)
+    _, _, hist = ctx.trainer(resnet_loss(torch.float32), sgd(RESNET_LR),
+                             log_every=1).fit(
+        net, lambda s: (xs[s], ys[s]), RESNET_CPU_STEPS)
+    return (np.array([h["loss"] for h in hist]),
+            {k: (v.detach().double().cpu() - before[k]).numpy()
+             for k, v in net.state_dict().items()})
+
+
+def band_batches():
+    """bench.py's measure_resnet50_convergence set: class c is a bright
+    horizontal band c of CURVE_CLASSES, CURVE_POOL batches cycled."""
+    rng = np.random.default_rng(SEED)
+    xs, ys = [], []
+    for _ in range(CURVE_POOL):
+        cls = rng.integers(0, CURVE_CLASSES, size=CURVE_BATCH)
+        x = rng.integers(0, 96, size=(CURVE_BATCH, RESNET_SIDE, RESNET_SIDE,
+                                      3), dtype=np.uint8)
+        for i, c in enumerate(cls):
+            x[i, c * RESNET_SIDE // CURVE_CLASSES:
+              (c + 1) * RESNET_SIDE // CURVE_CLASSES] += 128
+        xs.append(x)
+        ys.append(np.eye(1000, dtype=np.float32)[cls])
+    return xs, ys
+
+
+def curve_fn(ctx):
+    """bf16 compute on f32 masters over the band set; the fixed-batch eval
+    loss (make_eval_step) at step 0 and every CURVE_EVERY steps."""
+    from tpudl_torch.train import make_eval_step, sgd
+
+    net = resnet_net(ctx)
+    xs, ys = band_batches()
+    loss = resnet_train_loss("bfloat16")
+    trainer = ctx.trainer(loss, sgd(RESNET_LR))
+    evaluate = make_eval_step(loss, mesh=ctx.mesh)
+    curve = [(0, float(evaluate(net, xs[0], ys[0])))]
+    t0 = time.perf_counter()
+    for done in range(0, CURVE_STEPS, CURVE_EVERY):
+        trainer.fit(net, lambda s, d=done: (xs[(d + s) % CURVE_POOL],
+                                            ys[(d + s) % CURVE_POOL]),
+                    CURVE_EVERY)
+        curve.append((done + CURVE_EVERY, float(evaluate(net, xs[0],
+                                                         ys[0]))))
+    return curve, time.perf_counter() - t0
+
+
+def checkpoint_fn(ctx, fail_at=None):
+    """CKPT_STEPS steps of configs[3] under adam (so that the checkpoint
+    holds the optimizer's moments too), saving every CKPT_EVERY steps;
+    ``fail_at`` raises in data_fn at that step on the first attempt."""
+    from tpudl_torch.train import adam
+
+    net = resnet_net(ctx)
+    xs, ys = resnet_batches(4, RESNET_BATCH, SEED)
+
+    def data(step):
+        if step == fail_at and ctx.attempt == 0:
+            raise RuntimeError(f"injected failure at step {step}")
+        return xs[step % len(xs)], ys[step % len(ys)]
+
+    _, _, hist = ctx.trainer(resnet_loss(torch.float32), adam(1e-4),
+                             log_every=1).fit(net, data, CKPT_STEPS)
+    return ([h["step"] for h in hist],
+            {k: v.detach().cpu().clone() for k, v in
+             net.state_dict().items()})
+
+
+TRAIN_OP_GROUPS = (  # (group, test on (ops from the launching one up, kernel))
+    ("gradient all-reduce: flatten, NCCL, copy-back",
+     lambda ops, k: "mesh.all_reduce_mean" in ops or "nccl" in k.lower()),
+    ("host->device copies (the batch)", lambda ops, k: k.startswith(
+        "Memcpy HtoD")),
+    ("bf16 casts of the weights", lambda ops, k:
+     "train.compute_dtype_cast" in ops),
+    ("conv weight-gradient", lambda ops, k: "aten::convolution_backward"
+     in ops and "wgrad" in k.lower()),
+    ("conv data-gradient", lambda ops, k: "aten::convolution_backward" in ops
+     and "dgrad" in k.lower()),
+    ("conv backward, other kernels (layout transposes, GEMMs)",
+     lambda ops, k: "aten::convolution_backward" in ops),
+    ("conv forward", lambda ops, k: "aten::convolution" in ops),
+    ("optimizer update", lambda ops, k: any("_foreach" in o or
+                                            "Optimizer.step" in o
+                                            for o in ops)),
+    ("BN, ReLU, pooling, loss and other elementwise", lambda ops, k: True),
+)
+
+
+def profile_train_step(what, fn, card):
+    """One training step under torch.profiler: kernel time by
+    TRAIN_OP_GROUPS (each kernel by the ops that launched it, from the
+    innermost aten op up through its callers) and the card's idle share
+    of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = {name: [0.0, 0] for name, _ in TRAIN_OP_GROUPS}
+    names = {}
+    for e in prof.events():
+        if not getattr(e, "kernels", None):
+            continue
+        ops, up = [], e
+        while up is not None:
+            ops.append(up.name)
+            up = up.cpu_parent
+        for k in e.kernels:
+            name = next(g for g, test in TRAIN_OP_GROUPS if test(ops, k.name))
+            groups[name][0] += k.duration / 1e3
+            groups[name][1] += 1
+            names.setdefault(name, {}).setdefault(k.name, 0.0)
+            names[name][k.name] += k.duration / 1e3
+    busy_ms = sum(ms for ms, _ in groups.values())
+    if not busy_ms:
+        print(f"  profile of {what}: device time not measured (the "
+              "profiler saw no kernels)")
+        return
+    print(f"  profile of {what}: wall {wall_ms:.2f} ms, kernels "
+          f"{busy_ms:.2f} ms, card idle {100 * (1 - busy_ms / wall_ms):.1f}%"
+          f" of the wall; card {card}")
+    for name, (ms, count) in groups.items():
+        top = sorted(names.get(name, {}).items(), key=lambda kv: -kv[1])[:2]
+        print(f"    {ms:8.2f} ms {100 * ms / busy_ms:5.1f}%  x{count:<5d} "
+              f"{name}  {[n[:60] for n, _ in top]}")
+
+
+def profile_fn(ctx, card):
+    """One warm f32 step and one warm bf16-compute step, each profiled."""
+    from tpudl_torch.train import sgd
+
+    net = resnet_net(ctx)
+    xs, ys = resnet_batches(1, RESNET_BATCH, SEED)
+    for compute in ("float32", "bfloat16"):
+        trainer = ctx.trainer(resnet_train_loss(compute), sgd(RESNET_LR))
+        trainer.fit(net, lambda s: (xs[0], ys[0]), 2)
+        torch.cuda.synchronize()
+        profile_train_step(
+            f"one {compute}-compute step (batch {RESNET_BATCH}, "
+            f"{RESNET_SIDE}x{RESNET_SIDE})",
+            lambda: trainer.fit(net, lambda s: (xs[0], ys[0]), 1), card)
+
+
+def data_parallel_fn(ctx, global_batch, steps, windows):
+    """``steps`` f32 steps of configs[3] from init(0) on ``global_batch``
+    rows (this rank takes its share), then ``windows`` timed windows of
+    RESNET_WINDOW_STEPS steps; rank 0's losses, weights and steps/s."""
+    from tpudl_torch.train import sgd
+
+    net = resnet_net(ctx)
+    xs, ys = resnet_batches(4, global_batch, SEED)
+    trainer = ctx.trainer(resnet_loss(torch.float32), sgd(RESNET_LR),
+                          log_every=1)
+
+    def data(step):
+        return xs[step % len(xs)], ys[step % len(ys)]
+
+    _, _, hist = trainer.fit(net, data, steps)
+    weights = {k: v.detach().double().cpu().numpy() for k, v in
+               net.state_dict().items()}
+    rates = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(net, data, RESNET_WINDOW_STEPS)
+        torch.cuda.synchronize()
+        rates.append(RESNET_WINDOW_STEPS / (time.perf_counter() - t0))
+    return np.array([h["loss"] for h in hist]), weights, rates
+
+
+def run_data_parallel(card, n):
+    """``--ranks N``: HorovodRunner(np=N) — N spawned ranks, one card
+    each, NCCL — on a global batch of N x RESNET_BATCH against
+    HorovodRunner(np=1) on the same global batch (3 f32 steps from
+    init(0): losses and weights), and the N-rank rate against one rank
+    at RESNET_BATCH."""
+    from tpudl_torch.train import HorovodRunner
+
+    t_phase = time.perf_counter()
+    if torch.cuda.device_count() < n:
+        fail(f"--ranks {n} needs {n} cards, have "
+             f"{torch.cuda.device_count()}")
+    g = n * RESNET_BATCH
+    one_loss, one_w, _ = HorovodRunner(np=1).run(
+        data_parallel_fn, global_batch=g, steps=3, windows=0)
+    t0 = time.perf_counter()
+    n_loss, n_w, n_rates = HorovodRunner(np=n).run(
+        data_parallel_fn, global_batch=g, steps=3, windows=RESNET_WINDOWS)
+    n_s = time.perf_counter() - t0
+    _, _, one_rates = HorovodRunner(np=1).run(
+        data_parallel_fn, global_batch=RESNET_BATCH, steps=1,
+        windows=RESNET_WINDOWS)
+    loss_err = float(np.abs(n_loss - one_loss).max())
+    ref = resnet_net_init_state()
+    d_one = {k: one_w[k] - ref[k] for k in ref}
+    d_n = {k: n_w[k] - ref[k] for k in ref}
+    scale = max(np.abs(d).max() for d in d_one.values())
+    upd = max(np.abs(d_n[k] - d_one[k]).max() for k in ref) / scale
+    print(f"  {n} ranks (np={n}, NCCL, one card each) against 1 rank on "
+          f"the global batch of {g}, 3 f32 steps of sgd({RESNET_LR}) from "
+          f"init(0): losses {n_loss.tolist()} vs {one_loss.tolist()}, max "
+          f"abs err {loss_err:.3e} (tolerance {RESNET_CPU_LOSS_ATOL}); "
+          f"updates max abs err {upd:.3e} of the largest |update| "
+          f"{scale:.3e} (tolerance {RESNET_CPU_UPDATE_RTOL}); the {n}-rank "
+          f"run took {n_s:.1f} s with its spawn; card {card}", flush=True)
+    for what, rates, rows in ((f"{n} ranks", n_rates, g),
+                              ("1 rank", one_rates, RESNET_BATCH)):
+        print(f"  {what}, {RESNET_BATCH} rows a rank: {RESNET_WINDOWS} "
+              f"windows of {RESNET_WINDOW_STEPS} steps: median "
+              f"{median(rates):.3f} steps/s (least {min(rates):.3f}, most "
+              f"{max(rates):.3f}) = {rows * median(rates):.1f} images/s; "
+              f"card {card}", flush=True)
+    print(f"  scaling: {median(n_rates) * g:.1f} / "
+          f"{median(one_rates) * RESNET_BATCH:.1f} images/s = "
+          f"{median(n_rates) * g / (median(one_rates) * RESNET_BATCH):.2f}x"
+          f" on {n} cards; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not (loss_err <= RESNET_CPU_LOSS_ATOL
+            and upd <= RESNET_CPU_UPDATE_RTOL):
+        fail(f"{n} ranks disagree with one rank on the global batch")
+
+
+def resnet_net_init_state():
+    """ResNet50's init(0) weights as the port's state_dict, float64."""
+    from tpudl_torch.zoo.convert import torch_params
+    from tpudl_torch.zoo.registry import getKerasApplicationModel
+
+    tree = torch_params(getKerasApplicationModel("ResNet50").init(SEED))
+    return {f"layers.{layer}.{k}": v.double().numpy()
+            for layer, leaves in tree.items() for k, v in leaves.items()}
+
+
+def run_resnet_training(card):
+    """Phase 8: ResNet50 training (configs[3]) through HorovodRunner(np=1)
+    on a one-rank NCCL group: rates in f32 and bf16 compute, no flash
+    launch, card vs CPU, a falling eval loss, a gang restart from a
+    checkpoint equal to an uninterrupted run, and a profile of each step
+    (last: profiling slows the runs after it). Every check runs
+    and prints; the phase fails at its end if any did not hold."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.train import HorovodRunner
+    from tpudl_torch.zoo.registry import getKerasApplicationModel
+
+    t_phase = time.perf_counter()
+    problems = []
+    reset_launch_counts()
+    gflop = RESNET_FLOPS * RESNET_BATCH / 1e9
+    for compute in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        r = HorovodRunner(np=1).run(rate_train_fn, compute=compute)
+        sps = r["rates"]
+        peak = PEAK_OPS_PER_S["float32" if compute == "float32"
+                              else "bfloat16"]
+        tflops = median(sps) * gflop / 1e3
+        print(f"  {compute} compute on f32 masters, {r['params']:,} "
+              f"params, batch {RESNET_BATCH} at {RESNET_SIDE}x{RESNET_SIDE}:"
+              f" {RESNET_WINDOWS} windows of {RESNET_WINDOW_STEPS} steps: "
+              f"median {median(sps):.3f} steps/s (least {min(sps):.3f}, "
+              f"most {max(sps):.3f}) = {RESNET_BATCH * median(sps):.1f} "
+              f"images/s (least {RESNET_BATCH * min(sps):.1f}, most "
+              f"{RESNET_BATCH * max(sps):.1f}); {tflops:.2f} TFLOP/s of "
+              f"3 x 7.71 GFLOP an image, {100 * tflops * 1e12 / peak:.2f}% "
+              f"of the {'f32 FFMA' if compute == 'float32' else 'bf16'} "
+              f"bound ({peak / 1e12:.0f} TFLOP/s = "
+              f"{gflop * 1e9 / peak * 1e3:.2f} ms a step); all-reduce "
+              f"{r['calls']:.0f} call(s) and {r['bytes'] / 1e6:.1f} MB a "
+              f"step; peak memory {r['peak_gb']:.2f} GB; "
+              f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+        if r["calls"] < 1 or not all(np.isfinite(sps)):
+            problems.append(f"{compute}: no all-reduce or no rate")
+
+    params = perturbed_bn(getKerasApplicationModel("ResNet50").init(SEED),
+                          seed=1)
+    t0 = time.perf_counter()
+    card_loss, card_d = HorovodRunner(np=1).run(card_vs_cpu_fn,
+                                                params=params)
+    cpu_loss, cpu_d = HorovodRunner(np=1, device="cpu").run(card_vs_cpu_fn,
+                                                           params=params)
+    loss_err = float(np.abs(card_loss - cpu_loss).max())
+    scale = max(np.abs(d).max() for d in cpu_d.values())
+    upd_abs = max(np.abs(card_d[k] - cpu_d[k]).max() for k in cpu_d)
+    worst = max(cpu_d, key=lambda k: np.abs(card_d[k] - cpu_d[k]).max())
+    print(f"  card vs CPU, f32, perturbed BN, {RESNET_CPU_STEPS} steps at "
+          f"batch {RESNET_CPU_BATCH}: losses {card_loss.tolist()} vs "
+          f"{cpu_loss.tolist()}, max abs err {loss_err:.3e} (tolerance "
+          f"{RESNET_CPU_LOSS_ATOL}); updates p_after - p_before: max abs "
+          f"err {upd_abs:.3e} = {upd_abs / scale:.3e} of the largest "
+          f"|update| {scale:.3e} (tolerance {RESNET_CPU_UPDATE_RTOL}; worst "
+          f"leaf {worst}); {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    if not (loss_err <= RESNET_CPU_LOSS_ATOL
+            and upd_abs / scale <= RESNET_CPU_UPDATE_RTOL):
+        problems.append("training on the card disagrees with the CPU run")
+
+    curve, dt = HorovodRunner(np=1).run(curve_fn)
+    print(f"  convergence (bench.py's band set, {CURVE_CLASSES} classes, "
+          f"batch {CURVE_BATCH}, bf16 compute on f32 masters, "
+          f"sgd({RESNET_LR})): fixed-batch eval loss "
+          f"{[(s, round(v, 4)) for s, v in curve]}; {CURVE_STEPS} steps "
+          f"and evals in {dt:.1f} s; card {card}", flush=True)
+    if not (np.isfinite(curve[-1][1]) and curve[-1][1] < curve[0][1]):
+        problems.append(f"the eval loss did not fall: {curve}")
+
+    # resume-equivalence is bitwise under cudnn.deterministic (cuDNN may
+    # otherwise pick nondeterministic convolution backward algorithms)
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ck_dir = tempfile.mkdtemp(prefix="tpudl-ckpt-")
+    try:
+        saves = metrics.histogram("train.checkpoint_save_seconds")
+        restores = metrics.histogram("train.checkpoint_restore_seconds")
+        n_save, n_restore = saves.count, restores.count
+        restarts = metrics.counter("train.restarts").value
+        t0 = time.perf_counter()
+        _, straight = HorovodRunner(np=1).run(checkpoint_fn)
+        steps, resumed = HorovodRunner(
+            np=1, checkpoint_dir=ck_dir, save_every=CKPT_EVERY,
+            max_restarts=1).run(checkpoint_fn, fail_at=CKPT_FAIL_AT)
+        differ = [k for k in straight if not torch.equal(straight[k],
+                                                         resumed[k])]
+        save_s = list(saves.samples)[-(saves.count - n_save):]
+        restore_s = list(restores.samples)[-(restores.count - n_restore):]
+        size_mb = sum(os.path.getsize(os.path.join(ck_dir, f))
+                      for f in os.listdir(ck_dir) if f.endswith(".npz"))
+        print(f"  checkpoint and gang restart (adam, save_every="
+              f"{CKPT_EVERY}, failure at step {CKPT_FAIL_AT} on attempt 0):"
+              f" restarts {metrics.counter('train.restarts').value - restarts:.0f},"
+              f" the resumed attempt ran steps {steps}; parameters and "
+              f"buffers equal to the uninterrupted run's bit for bit: "
+              f"{not differ} ({len(differ)} of {len(straight)} differ); "
+              f"saves {[round(x, 3) for x in save_s]} s, restores "
+              f"{[round(x, 3) for x in restore_s]} s, {size_mb / 1e6:.1f} MB "
+              f"on disk (model + adam moments, {len(os.listdir(ck_dir)) - 1}"
+              f" kept); {time.perf_counter() - t0:.1f} s; card {card}",
+              flush=True)
+        if differ or steps != list(range(CKPT_EVERY + 1, CKPT_STEPS + 1)):
+            problems.append(f"the resumed run differs: {differ[:4]}")
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+    HorovodRunner(np=1).run(profile_fn, card=card)
+    counts = dict(cuda_ops.launch_counts)
+    print(f"  flash kernel launches across phase 8: {counts} (want 0: "
+          "ResNet50 training runs no attention)")
+    if any(counts.values()):
+        problems.append(f"a flash kernel launched: {counts}")
+    print(f"  phase 8: {time.perf_counter() - t_phase:.1f} s; card {card}",
+          flush=True)
+    if problems:
+        fail("phase 8: " + "; ".join(problems))
+    return counts
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1805,6 +2286,22 @@ def main(argv) -> int:
         print(f"executor-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--train-only"]:
+        print(f"phase 8 alone: ResNet50 training through HorovodRunner on "
+              f"{card}", flush=True)
+        run_resnet_training(card)
+        print(f"card: {card}")
+        print(f"train-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
+    if len(argv) == 2 and argv[0] == "--ranks":
+        print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
+              f"{card}", flush=True)
+        run_data_parallel(card, int(argv[1]))
+        print(f"card: {card}")
+        print(f"ranks run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if argv == ["--pool-study"]:
         print(f"the prepare pool's study on {card}", flush=True)
         pool_study(card)
@@ -1814,7 +2311,7 @@ def main(argv) -> int:
         return 0
     if argv:
         fail(f"unknown arguments {argv}; the options are --image-only, "
-             "--executor-only and --pool-study")
+             "--executor-only, --train-only, --ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -1904,6 +2401,14 @@ def main(argv) -> int:
     run_image_slice(card)
     print(f"phase 7: the executor at full width on {card}", flush=True)
     fwd_entry["launches_by_path"]["executor"] = run_executor(card)
+    print(f"phase 8: ResNet50 training through HorovodRunner on {card}",
+          flush=True)
+    resnet_counts = run_resnet_training(card)
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {
+            "training": train_counts[entry["name"]]})
+        entry["launches_by_path"]["resnet50_training"] = \
+            resnet_counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -1,7 +1,8 @@
 """The boundary between the packages: ``tpudl_torch`` and ``chip_smoke.py``
-import neither jax, keras (which imports jax) nor tpudl, the port's main
-paths (text serving,
-training and the image path) run with both blocked, and ``chip_smoke.py`` refuses to report without a card or without the
+import neither jax, keras (which imports jax), ml_dtypes nor tpudl, the
+port's main paths (text serving, training and the image path) run with
+both blocked, a rank that ``HorovodRunner`` spawns holds none of them,
+and ``chip_smoke.py`` refuses to report without a card or without the
 package beside it."""
 
 import os
@@ -15,7 +16,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|keras|tpudl)(?:[.\s,]|$)", re.MULTILINE)
+    r"^\s*(?:from|import)\s+(?:jax|keras|ml_dtypes|tpudl)(?:[.\s,]|$)",
+    re.MULTILINE)
 
 _BLOCKED_MAIN = r"""
 import sys
@@ -132,11 +134,24 @@ def test_no_source_imports_jax_or_tpudl():
                 "zoo/mobilenet_v2.py", "zoo/densenet.py",
                 "zoo/efficientnet.py", "zoo/registry.py", "zoo/convert.py", "zoo/preprocessing.py",
                 "image/ops.py", "image/imageIO.py", "native/__init__.py",
-                "ml/named_image.py", "ml/tf_image.py", "frame/frame.py"):
+                "ml/named_image.py", "ml/tf_image.py", "frame/frame.py",
+                "distributed.py", "mesh.py", "jobs/retry.py",
+                "train/checkpoint.py", "train/runner.py", "train/step.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+def test_a_spawned_rank_imports_neither_jax_nor_tpudl():
+    """The rank imports ``test_torch_horovod`` (torch, numpy and
+    tpudl_torch only) to find its train_fn; this process holds jax and
+    tpudl, the ranks must not."""
+    from test_torch_horovod import loaded_modules
+
+    from tpudl_torch.train import HorovodRunner
+
+    assert HorovodRunner(np=-2, device="cpu").run(loaded_modules) == [[], []]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

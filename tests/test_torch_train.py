@@ -271,10 +271,7 @@ def test_to_jax_params_inverts_load(params):
 
 
 @pytest.mark.parametrize("call,item", [
-    ("trainer_mesh", "Training, rest"),
-    ("trainer_checkpoint_dir", "Training, rest"),
     ("trainer_param_shardings", "LM parallelism"),
-    ("step_mesh", "Training, rest"),
     ("step_param_shardings", "LM parallelism"),
     ("loss_tp", "LM parallelism"),
     ("loss_mesh", "LM parallelism")])

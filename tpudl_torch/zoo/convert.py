@@ -5,7 +5,9 @@ Port of ``tpudl/zoo/convert.py`` (``save_params_npz``,
 pickled layout refused unless the caller vouches for the file), plus
 :func:`torch_params`, which turns tpudl's param pytree (numpy, Keras
 names and HWIO layout) into the port's tree of torch tensors — the same
-weights, so both packages compute the same model.
+weights, so both packages compute the same model — and its inverse
+:func:`keras_params`, which returns a (trained) model's weights as
+tpudl's numpy tree.
 
 Not ported yet: ``params_from_keras``, ``load_keras_model`` and
 ``save_named_params``, which need keras (ROADMAP Queue 1, 'The rest of
@@ -17,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["torch_layout", "torch_params", "save_params_npz",
+__all__ = ["torch_layout", "torch_params", "keras_layout", "keras_params",
+           "save_params_npz",
            "load_params_npz", "params_from_keras", "load_keras_model"]
 
 
@@ -36,12 +39,13 @@ def torch_layout(key: str, value) -> torch.Tensor:
 
 
 def _dense_copy(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy; 4-D kernels in channels_last, the format cuDNN
-    runs NCHW-channels_last convolutions in (a kernel in another format
-    would be converted on every call)."""
+    """A contiguous copy that owns its memory (a model trained in place
+    must not write through to the caller's numpy arrays); 4-D kernels in
+    channels_last, the format cuDNN runs NCHW-channels_last convolutions
+    in (a kernel in another format would be converted on every call)."""
     if t.ndim == 4:
-        return t.contiguous(memory_format=torch.channels_last)
-    return t.contiguous()
+        return t.clone(memory_format=torch.channels_last)
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def torch_params(params: dict) -> dict:
@@ -50,6 +54,26 @@ def torch_params(params: dict) -> dict:
     return {layer: {k: _dense_copy(torch_layout(k, v))
                     for k, v in leaves.items()}
             for layer, leaves in params.items()}
+
+
+def keras_layout(key: str, t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`torch_layout` for the zoo's layers (depth
+    multiplier 1): one tensor in the port's layout → a numpy array in
+    Keras's (OIHW → HWIO; ``(cin, 1, kh, kw)`` → ``(kh, kw, cin, 1)``)."""
+    t = t.detach()
+    if key == "depthwise_kernel":
+        t = t.permute(2, 3, 0, 1)
+    elif t.ndim == 4:
+        t = t.permute(2, 3, 1, 0)
+    return t.cpu().contiguous().numpy().copy()
+
+
+def keras_params(tree: dict) -> dict:
+    """The port's ``{layer: {name: tensor}}`` (for example
+    ``ImageModel.tree()``) → tpudl's param pytree of numpy arrays, Keras
+    layout and names: the inverse of :func:`torch_params`."""
+    return {layer: {k: keras_layout(k, t) for k, t in leaves.items()}
+            for layer, leaves in tree.items()}
 
 
 # copied from tpudl/zoo/convert.py:save_params_npz

@@ -104,8 +104,13 @@ class NamedModel:
 class ImageModel(torch.nn.Module):
     """One named model's weights on one device in one dtype: tpudl's param
     pytree converted once (OIHW kernels in channels_last, floating leaves
-    cast as :func:`cast_params` casts them) and registered as buffers,
-    ``layers.<keras layer>.<param>``."""
+    cast as :func:`cast_params` casts them), ``layers.<keras
+    layer>.<param>``. Every floating leaf is a trainable ``nn.Parameter``,
+    BN's moving statistics included: tpudl trains the whole tree, and its
+    ``predict`` normalizes with the moving statistics, so they get
+    gradients and the optimizer moves them. Other leaves are buffers. The
+    inference stages call it under ``torch.inference_mode``, so their
+    forwards record no autograd."""
 
     def __init__(self, model: NamedModel, params: dict, *, device="cuda",
                  dtype: torch.dtype = torch.float32):
@@ -118,16 +123,23 @@ class ImageModel(torch.nn.Module):
         for lname, leaves in tree.items():
             holder = torch.nn.Module()
             for k, t in leaves.items():
-                holder.register_buffer(k, t.to(dev))
+                if t.is_floating_point():
+                    holder.register_parameter(
+                        k, torch.nn.Parameter(t.to(dev)))
+                else:
+                    holder.register_buffer(k, t.to(dev))
             self.layers[lname] = holder
 
     @property
     def device(self) -> torch.device:
-        return next(self.buffers()).device
+        return next(self.parameters()).device
 
     def tree(self) -> dict:
-        """The weights as ``NamedModel.apply`` takes them."""
-        return {lname: dict(holder.named_buffers())
+        """The weights as ``NamedModel.apply`` takes them (the tensors in
+        place for the call under :func:`tpudl_torch.train.
+        with_compute_dtype`)."""
+        return {lname: {**dict(holder.named_parameters()),
+                        **dict(holder.named_buffers())}
                 for lname, holder in self.layers.items()}
 
     def _precision(self):
