@@ -92,6 +92,24 @@ Phases (any failure exits non-zero before the final line):
    restore seconds; a profile split of one f32 and one bf16-compute step
    with the card's idle share; no flash kernel launch in the phase.
 
+9. Drive the Keras surface at full width from ``.keras`` files the port
+   writes itself (``save_keras_file``; the card's machine has no keras),
+   from seeded weights: configs[4] (``bench.py``'s
+   ``measure_keras_transformer``), ``KerasTransformer`` over 65,536 rows ×
+   100 at ``batchSize=8192`` (rows/s, median and spread of 5 windows; 64
+   rows against the CPU); configs[2] (``measure_estimator_inception``),
+   ``KerasImageFileEstimator`` fine-tuning Keras InceptionV3 + a Dense(2)
+   softmax head (the committed ``config.json`` fixture) on 96 seeded
+   299×299 JPEGs, batch 16, 1 epoch, adam, categorical cross-entropy:
+   time-to-fit cold and warm, steps/s, the step losses, the train loop
+   alone, the trained file read back bit for bit, 2 steps at batch 4
+   against the CPU (losses, and updates in the 2-norm), the returned
+   transformer on 16 images against the CPU, and a 3-epoch fit whose last
+   epoch's loss is below its first; then ``DeepImageFeaturizer
+   ("InceptionV3")`` features of 256 rows into ``LogisticRegression(
+   maxIter=100)`` on the card and the CPU (falling loss, probabilities
+   held); no flash launch; last, a profile split of one estimator step.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
@@ -99,6 +117,7 @@ alone, every model's leg: the image slice's rates in a process that has
 run no profiler session before them (phases 4 and 4b profile a batch and
 a step). ``python3 chip_smoke.py --executor-only`` runs phase 1 and then
 phase 7 alone. ``python3 chip_smoke.py --train-only`` runs phase 1 and then phase 8
+alone. ``python3 chip_smoke.py --keras-only`` runs phase 1 and then phase 9
 alone. ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -1986,11 +2005,12 @@ TRAIN_OP_GROUPS = (  # (group, test on (ops from the launching one up, kernel))
 )
 
 
-def profile_train_step(what, fn, card):
+def profile_train_step(what, fn, card, op_groups=None):
     """One training step under torch.profiler: kernel time by
-    TRAIN_OP_GROUPS (each kernel by the ops that launched it, from the
-    innermost aten op up through its callers) and the card's idle share
-    of the step's wall time."""
+    ``op_groups`` (default TRAIN_OP_GROUPS; each kernel by the ops that
+    launched it, from the innermost aten op up through its callers) and
+    the card's idle share of the step's wall time."""
+    op_groups = op_groups or TRAIN_OP_GROUPS
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1999,7 +2019,7 @@ def profile_train_step(what, fn, card):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {name: [0.0, 0] for name, _ in TRAIN_OP_GROUPS}
+    groups = {name: [0.0, 0] for name, _ in op_groups}
     names = {}
     for e in prof.events():
         if not getattr(e, "kernels", None):
@@ -2009,7 +2029,7 @@ def profile_train_step(what, fn, card):
             ops.append(up.name)
             up = up.cpu_parent
         for k in e.kernels:
-            name = next(g for g, test in TRAIN_OP_GROUPS if test(ops, k.name))
+            name = next(g for g, test in op_groups if test(ops, k.name))
             groups[name][0] += k.duration / 1e3
             groups[name][1] += 1
             names.setdefault(name, {}).setdefault(k.name, 0.0)
@@ -2259,6 +2279,493 @@ def run_resnet_training(card):
     return counts
 
 
+# phase 9, the Keras surface: configs[4] (bench.py's
+# measure_keras_transformer) and configs[2] (measure_estimator_inception),
+# every .keras file written by the port (the card's machine has no keras)
+KERAS_MLP_ROWS, KERAS_MLP_DIM, KERAS_MLP_BATCH = 65536, 100, 8192
+KERAS_MLP_CPU_ROWS = 64
+KERAS_INCEPTION_CONFIG = os.path.join(
+    "tests", "fixtures", "keras", "inception_v3_tl.config.json.gz")
+KERAS_JPEGS, KERAS_SIDE, KERAS_BATCH = 96, 299, 16
+KERAS_CPU_ROWS, KERAS_CPU_BATCH = 8, 4     # 2 steps, card vs CPU
+KERAS_TRANSFORM_ROWS = 16
+KERAS_CURVE_EPOCHS = 3
+LR_ROWS, LR_ITERS = 256, 100               # featurize then fit
+# card vs CPU, f32 (relative to max |y|): the MLP is 3 products of at most
+# 256 terms, InceptionV3 94 convolutions summed in other orders (phase 6
+# read 1.3e-6 of max |y| for the named InceptionV3): phase 6's 2e-5
+KERAS_CPU_RTOL = 2e-5
+# training card vs CPU: the losses of 2 sgd steps as phase 8 holds them
+# (2e-5). With adam, whose first update is ~lr·sign(g), a gradient within
+# rounding of 0 can take the other sign: on the H100 its second loss read
+# 1.9e-3 off the CPU's, so adam's losses are printed only.
+# The first step's gradients against a float64 run on the card, relative
+# to the largest: BN shifts sum a layer's gradient over up to 4×147×147
+# positions with cancellation, so f32 reads far above its epsilon there.
+# On the H100, with the Keras graph on NHWC (channels_last) memory, the
+# card's f32 read 8.4e-2 (cuDNN's FFT engines on 17×17 layers) and the
+# CPU's 1.1e-2; on NCHW memory, as the evaluator now runs, 1.9e-3 and
+# 1.6e-3, and 6.0e-4 with cuDNN off. Card and CPU are held within 1e-2:
+# about 5× their readings, and the NHWC fault fails it
+KERAS_LOSS_ATOL = 2e-5
+KERAS_GRAD_RTOL = 1e-2
+# LogisticRegression probabilities, card vs CPU: 100 adam steps on the same
+# features, f32 products in other orders
+LR_PROB_ATOL = 1e-4
+
+
+def keras_mlp_config():
+    """configs[4]'s model as Keras 3 writes its ``config.json``: Sequential
+    Dense 100→256→64→10, relu, relu, softmax (bench.py's
+    measure_keras_transformer)."""
+    policy = {"module": "keras", "class_name": "DTypePolicy",
+              "config": {"name": "float32"}, "registered_name": None}
+    shared = {**policy, "shared_object_id": 1}   # the model's own policy
+
+    def dense(name, units, activation, fan_in):
+        init = {"module": "keras.initializers", "registered_name": None}
+        return {
+            "module": "keras.layers", "class_name": "Dense",
+            "config": {
+                "name": name, "trainable": True,
+                "dtype": policy if name == "dense" else shared,
+                "units": units, "activation": activation, "use_bias": True,
+                "kernel_initializer": {**init, "class_name": "GlorotUniform",
+                                       "config": {"seed": None}},
+                "bias_initializer": {**init, "class_name": "Zeros",
+                                     "config": {}},
+                "kernel_regularizer": None, "bias_regularizer": None,
+                "kernel_constraint": None, "bias_constraint": None,
+                "quantization_config": None},
+            "registered_name": None,
+            "build_config": {"input_shape": [None, fan_in]}}
+
+    return {
+        "module": "keras", "class_name": "Sequential",
+        "config": {
+            "name": "sequential", "trainable": True, "dtype": shared,
+            "layers": [
+                {"module": "keras.layers", "class_name": "InputLayer",
+                 "config": {"batch_shape": [None, KERAS_MLP_DIM],
+                            "dtype": "float32", "sparse": False,
+                            "ragged": False, "name": "input_layer",
+                            "optional": False},
+                 "registered_name": None},
+                dense("dense", 256, "relu", KERAS_MLP_DIM),
+                dense("dense_1", 64, "relu", 256),
+                dense("dense_2", 10, "softmax", 64)],
+            "build_input_shape": [None, KERAS_MLP_DIM]},
+        "registered_name": None,
+        "build_config": {"input_shape": [None, KERAS_MLP_DIM]},
+        "compile_config": {}}
+
+
+def keras_inception_config():
+    """configs[2]'s model, Keras InceptionV3 + a Dense(2) softmax head, as
+    keras writes its ``config.json`` (the committed fixture)."""
+    import gzip
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with gzip.open(os.path.join(here, KERAS_INCEPTION_CONFIG), "rt") as f:
+        return json.load(f)
+
+
+def keras_weights(config, seed):
+    """Seeded weights for every variable of ``config`` as Keras initializes
+    a model built with ``weights=None`` (``bench.py``'s models):
+    Glorot-uniform kernels, zero biases and shifts, BN moving means 0 and
+    variances 1. (With BN statistics moved off 0 and 1, as the CPU tests
+    perturb them to test the fold, configs[2]'s adam fit saturates at the
+    loss clip within two steps and no longer learns.)"""
+    from tpudl_torch.ingest.kerasfile import variable_shapes
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, shape in variable_shapes(config).items():
+        var = key.rsplit("/", 1)[1]
+        if var == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            fan_out = int(np.prod(shape[:-2])) * shape[-1]
+            lim = np.sqrt(6.0 / (fan_in + fan_out))
+            v = rng.uniform(-lim, lim, shape)
+        elif var in ("moving_variance", "gamma"):
+            v = np.ones(shape)
+        else:
+            v = np.zeros(shape)
+        out[key] = v.astype(np.float32)
+    return out
+
+
+def keras_jpegs(directory, n, seed):
+    """``measure_estimator_inception``'s images: ``n`` seeded 299×299
+    JPEGs (quality 90), odd rows darkened in the top half and even rows
+    in the bottom, and their one-hot labels."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    uris, labels = [], []
+    for i in range(n):
+        arr = rng.integers(0, 255, size=(KERAS_SIDE, KERAS_SIDE, 3),
+                           dtype=np.uint8)
+        if i % 2:
+            arr[:150] //= 4
+        else:
+            arr[150:] //= 4
+        p = os.path.join(directory, f"im{i}.jpg")
+        Image.fromarray(arr).save(p, quality=90)
+        uris.append(p)
+        labels.append(np.eye(2, dtype=np.float32)[i % 2])
+    return uris, labels
+
+
+def keras_frame(uris, labels=None):
+    from tpudl_torch.frame import Frame
+
+    cols = {"uri": np.array(uris, dtype=object)}
+    if labels is not None:
+        lab = np.empty(len(labels), dtype=object)
+        lab[:] = labels
+        cols["label"] = lab
+    return Frame(cols)
+
+
+def keras_mlp_leg(directory, card, problems):
+    """configs[4]: KerasTransformer over 65,536 seeded rows at batchSize
+    8192, rows/s over 5 windows, and 64 rows card vs CPU."""
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import KerasTransformer
+
+    config = keras_mlp_config()
+    path = save_keras_file(os.path.join(directory, "mlp.keras"), config,
+                           keras_weights(config, SEED))
+    data = np.random.default_rng(SEED).normal(
+        size=(KERAS_MLP_ROWS, KERAS_MLP_DIM)).astype(np.float32)
+    kt = KerasTransformer(inputCol="x", outputCol="y", modelFile=path,
+                          batchSize=KERAS_MLP_BATCH)
+    kt.transform(Frame({"x": data[:KERAS_MLP_BATCH]}))    # warm-up
+    frame = Frame({"x": data})
+    rates, out = timed_windows(
+        lambda: np.stack(list(kt.transform(frame)["y"])), KERAS_MLP_ROWS)
+    print(f"  configs[4] KerasTransformer MLP 100-256-64-10, "
+          f"{KERAS_MLP_ROWS} rows at batchSize {KERAS_MLP_BATCH}, "
+          f"{len(rates)} windows: median {median(rates):.1f} rows/s (least "
+          f"{min(rates):.1f}, most {max(rates):.1f}); card {card}")
+    if out.shape != (KERAS_MLP_ROWS, 10) or not np.isfinite(out).all() or \
+            np.abs(out.sum(axis=1) - 1).max() > 1e-4:
+        problems.append(f"MLP outputs {out.shape} are not softmax rows")
+    cpu = KerasTransformer(inputCol="x", outputCol="y", modelFile=path,
+                           batchSize=KERAS_MLP_BATCH, device="cpu")
+    want = np.stack(list(cpu.transform(
+        Frame({"x": data[:KERAS_MLP_CPU_ROWS]}))["y"]))
+    err = rel_err(out[:KERAS_MLP_CPU_ROWS], want)
+    print(f"  MLP card vs CPU, {KERAS_MLP_CPU_ROWS} rows: {err:.3e} of max "
+          f"|y| (limit {KERAS_CPU_RTOL:g})")
+    if not err <= KERAS_CPU_RTOL:
+        problems.append(f"MLP card vs CPU {err:.3e}")
+
+
+def keras_estimator(path, loader, device="cuda", **fit):
+    from tpudl_torch.ml import KerasImageFileEstimator
+
+    return KerasImageFileEstimator(
+        inputCol="uri", outputCol="out", labelCol="label",
+        imageLoader=loader, modelFile=path, kerasOptimizer="adam",
+        kerasLoss="categorical_crossentropy", device=device,
+        kerasFitParams={"epochs": 1, "batch_size": KERAS_BATCH, **fit})
+
+
+def keras_estimator_leg(directory, card, problems, written):
+    """configs[2] at full width: the fit (cold and warm), its steps/s and
+    losses, card vs CPU on 2 steps, the written file read back bit for
+    bit, the returned transformer card vs CPU, and a 3-epoch fit. The
+    trained files the fits write are listed in ``written``."""
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.ingest.kerasfile import load_keras_file, save_keras_file
+    from tpudl_torch.ml import KerasImageFileTransformer
+
+    config = keras_inception_config()
+    path = save_keras_file(os.path.join(directory, "inception_tl.keras"),
+                           config, keras_weights(config, SEED))
+    uris, labels = keras_jpegs(directory, KERAS_JPEGS, SEED)
+    frame = keras_frame(uris, labels)
+    loader = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE,
+                                     scale=1.0 / 255.0)
+    n_steps = -(-KERAS_JPEGS // KERAS_BATCH)
+    est = keras_estimator(path, loader)
+    for what in ("cold", "warm"):
+        t0 = time.perf_counter()
+        model = est.fit(frame)
+        written.append(model.getModelFile())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"  configs[2] KerasImageFileEstimator InceptionV3+head, "
+              f"{KERAS_JPEGS} JPEGs {KERAS_SIDE}x{KERAS_SIDE}, batch "
+              f"{KERAS_BATCH}, 1 epoch, adam, {what}: fit {dt:.3f} s = "
+              f"{n_steps / dt:.3f} steps/s end to end; step losses "
+              f"{[round(v, 5) for v in model.history['step_loss']]}; "
+              f"card {card}")
+    losses = model.history["step_loss"]
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        problems.append(f"fit losses {losses}")
+    # the fit's parts, and the train loop's own rate
+    X, y = est._getNumpyFeaturesAndLabels(frame)
+    gin = est._ingest()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _epochs, _steps = est._train_one(gin, X, y)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trained = est._save_trained(gin, params)
+    save_s = time.perf_counter() - t0
+    written.append(trained)
+    images_s = KERAS_BATCH * n_steps / train_s
+    print(f"  the train loop alone: {n_steps} steps in {train_s:.3f} s = "
+          f"{n_steps / train_s:.3f} steps/s ({images_s:.1f} images/s); "
+          f"writing the trained .keras "
+          f"{os.path.getsize(trained)} bytes in {save_s:.3f} s")
+    _cfg, back = load_keras_file(trained)
+    same = list(back) == list(params) and all(
+        np.array_equal(back[k], params[k].detach().cpu().numpy()) and
+        back[k].dtype == np.float32 for k in params)
+    print(f"  trained file read back by load_keras_file: {len(back)} "
+          f"variables, bit for bit equal to the trained params: {same}")
+    if not same:
+        problems.append("the trained .keras file does not read back equal")
+    keras_card_vs_cpu(path, loader, X, y, problems)
+    # the returned transformer's outputs, card vs CPU
+    head = keras_frame(uris[:KERAS_TRANSFORM_ROWS])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        tr = KerasImageFileTransformer(
+            inputCol="uri", outputCol="out", modelFile=model.getModelFile(),
+            imageLoader=loader, device=device)
+        outs[device] = np.stack(list(tr.transform(head)["out"]))
+    err = rel_err(outs["cuda"], outs["cpu"])
+    print(f"  the returned transformer on {KERAS_TRANSFORM_ROWS} images, card"
+          f" vs CPU: {err:.3e} of max |y| (limit {KERAS_CPU_RTOL:g}); "
+          f"outputs {outs['cuda'].shape}")
+    if outs["cuda"].shape != (KERAS_TRANSFORM_ROWS, 2) or \
+            not err <= KERAS_CPU_RTOL:
+        problems.append(f"transformer card vs CPU {err:.3e}")
+    # a longer fit learns
+    t0 = time.perf_counter()
+    curve = keras_estimator(path, loader,
+                            epochs=KERAS_CURVE_EPOCHS).fit(frame)
+    written.append(curve.getModelFile())
+    epoch_loss = curve.history["epoch_loss"]
+    print(f"  {KERAS_CURVE_EPOCHS}-epoch fit in {time.perf_counter() - t0:.2f}"
+          f" s: epoch mean losses {[round(v, 5) for v in epoch_loss]} (want "
+          "the last below the first)")
+    if not epoch_loss[-1] < epoch_loss[0]:
+        problems.append(f"the {KERAS_CURVE_EPOCHS}-epoch loss did not fall")
+    return est, X, y
+
+
+def keras_first_gradient(path, loader, X, y, device, dtype):
+    """The loss and every variable's gradient of the estimator's first
+    step (categorical cross-entropy of the model's inference call) on the
+    first ``KERAS_CPU_BATCH`` rows, as float64 numpy."""
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.ml.losses import get_loss
+
+    gin = keras_estimator(path, loader, device=device)._ingest()
+    p = {k: torch.tensor(v, device=device, dtype=dtype, requires_grad=True)
+         for k, v in gin.params.items()}
+    xb = torch.tensor(X[:KERAS_CPU_BATCH], device=device, dtype=dtype)
+    yb = torch.tensor(y[:KERAS_CPU_BATCH], device=device, dtype=dtype)
+    with full_f32():
+        loss = get_loss("categorical_crossentropy")(gin.make_fn()(p, xb), yb)
+        loss.backward()
+    return float(loss.detach()), {k: t.grad.double().cpu().numpy()
+                                  for k, t in p.items()}
+
+
+def keras_card_vs_cpu(path, loader, X, y, problems):
+    """Training on the card against the CPU: the losses of the
+    estimator's first 2 sgd and adam steps at batch 4 (held for sgd; adam,
+    whose first update is ~lr·sign(g), printed), and the first step's
+    gradients of every variable against a float64 run on the card: the
+    card's f32 and the CPU's (held), and the card's with cuDNN switched
+    off (printed: the port's own arithmetic without cuDNN's engines)."""
+    small = {"batch_size": KERAS_CPU_BATCH, "shuffle": False}
+    for optimizer in ("sgd", "adam"):
+        losses = {}
+        for device in ("cuda", "cpu"):
+            e = keras_estimator(path, loader, device=device, **small)
+            e.setKerasOptimizer(optimizer)
+            _p, _el, losses[device] = e._train_one(
+                e._ingest(), X[:KERAS_CPU_ROWS], y[:KERAS_CPU_ROWS])
+        err = float(np.abs(np.subtract(losses["cuda"], losses["cpu"])).max())
+        held = optimizer == "sgd"
+        print(f"  card vs CPU, {optimizer}, {KERAS_CPU_ROWS // KERAS_CPU_BATCH}"
+              f" steps at batch {KERAS_CPU_BATCH}: losses {losses['cuda']} vs "
+              f"{losses['cpu']}, largest difference {err:.3e}"
+              + (f" (limit {KERAS_LOSS_ATOL:g})" if held else
+                 " (printed, not held)"))
+        if held and not err <= KERAS_LOSS_ATOL:
+            problems.append(f"estimator {optimizer} losses card vs CPU "
+                            f"{err:.3e}")
+    ref_loss, ref = keras_first_gradient(path, loader, X, y, "cuda",
+                                         torch.float64)
+    top = max(np.abs(v).max() for v in ref.values())
+    runs = {"card f32, cuDNN": ("cuda", True), "CPU f32": ("cpu", True),
+            "card f32, cuDNN off": ("cuda", False)}
+    for what, (device, cudnn) in runs.items():
+        with torch.backends.cudnn.flags(enabled=cudnn):
+            loss, grads = keras_first_gradient(path, loader, X, y, device,
+                                               torch.float32)
+        errs = {k: np.abs(grads[k] - ref[k]).max() / top for k in ref}
+        worst = max(errs, key=errs.get)
+        held = what != "card f32, cuDNN off"
+        print(f"  first-step gradients, {what}, against float64 on the card"
+              f" ({len(ref)} variables, largest |g| {top:.4e}): loss "
+              f"{loss - ref_loss:+.3e} off, gradients {errs[worst]:.3e} of "
+              f"the largest at worst ({worst})"
+              + (f" (limit {KERAS_GRAD_RTOL:g})" if held else
+                 " (printed, not held)"))
+        if held and not errs[worst] <= KERAS_GRAD_RTOL:
+            problems.append(f"first-step gradients, {what}: "
+                            f"{errs[worst]:.3e}")
+
+
+def keras_profile_step(est, X, y, card):
+    """One warm estimator step (batch 16) under torch.profiler."""
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.ml.losses import get_loss, get_optimizer_dynamic
+
+    gin = est._ingest()
+    dev = torch.device("cuda")
+    params = {k: torch.tensor(v, device=dev, requires_grad=True)
+              for k, v in gin.params.items()}
+    factory, _lr = get_optimizer_dynamic("adam")
+    opt = factory(list(params.values()))
+    fn, loss_fn = gin.make_fn(), get_loss("categorical_crossentropy")
+
+    def step():
+        with full_f32():
+            xb = torch.from_numpy(X[:KERAS_BATCH]).to(dev)
+            yb = torch.from_numpy(y[:KERAS_BATCH]).to(dev)
+            opt.zero_grad(set_to_none=True)
+            loss_fn(fn(params, xb), yb).backward()
+            opt.step()
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    profile_train_step(f"one estimator step (InceptionV3+head, batch "
+                       f"{KERAS_BATCH} at {KERAS_SIDE}x{KERAS_SIDE}, adam)",
+                       step, card, KERAS_OP_GROUPS)
+
+
+def keras_featurize_fit_leg(card, problems):
+    """DeepImageFeaturizer("InceptionV3") features of 256 rows, then
+    LogisticRegression(maxIter=100) on them, on the card and on the CPU."""
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.image import imageArrayToStruct
+    from tpudl_torch.ml import DeepImageFeaturizer, LogisticRegression
+
+    rng = np.random.default_rng(SEED)
+    col = np.empty(LR_ROWS, dtype=object)
+    labels = np.arange(LR_ROWS) % 2
+    for i in range(LR_ROWS):
+        arr = rng.integers(0, 255, (KERAS_SIDE, KERAS_SIDE, 3), np.uint8)
+        if labels[i]:
+            arr[:150] //= 4
+        else:
+            arr[150:] //= 4
+        col[i] = imageArrayToStruct(arr)
+    feat = DeepImageFeaturizer(inputCol="image", outputCol="features",
+                               modelName="InceptionV3", batchSize=64)
+    frame = feat.transform(Frame({"image": col, "label": labels}))
+    probs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        lr = LogisticRegression(maxIter=LR_ITERS, device=device).fit(frame)
+        dt = time.perf_counter() - t0
+        out = lr.transform(frame)
+        probs[device] = np.stack(list(out["probability"]))
+        acc = float(np.mean(out["prediction"] == labels))
+        print(f"  DeepImageFeaturizer(InceptionV3) -> LogisticRegression("
+              f"maxIter={LR_ITERS}) on {LR_ROWS} rows, {device}: fit "
+              f"{dt:.3f} s, loss {lr.history[0]:.5f} -> {lr.history[-1]:.5f},"
+              f" training accuracy {acc:.3f}")
+        if not lr.history[-1] < lr.history[0]:
+            problems.append(f"LogisticRegression loss did not fall on "
+                            f"{device}")
+    err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    print(f"  LogisticRegression probabilities card vs CPU: {err:.3e} (limit "
+          f"{LR_PROB_ATOL:g}); card {card}")
+    if not err <= LR_PROB_ATOL:
+        problems.append(f"LogisticRegression card vs CPU {err:.3e}")
+
+
+KERAS_OP_GROUPS = (  # (group, test on (ops from the launching one up, kernel))
+    ("host->device copies (the batch)", lambda ops, k: k.startswith(
+        "Memcpy HtoD")),
+    ("conv weight-gradient", lambda ops, k: "aten::convolution_backward"
+     in ops and "wgrad" in k.lower()),
+    ("conv data-gradient", lambda ops, k: "aten::convolution_backward" in ops
+     and "dgrad" in k.lower()),
+    ("conv backward, other kernels (layout transposes, GEMMs)",
+     lambda ops, k: "aten::convolution_backward" in ops),
+    ("conv forward", lambda ops, k: "aten::convolution" in ops),
+    ("optimizer update (adam)", lambda ops, k: any(
+        "_foreach" in o or "Optimizer.step" in o for o in ops)),
+    ("BN scale and shift, forward and backward (mul, add, rsqrt, neg)",
+     lambda ops, k: any(o in ("aten::mul", "aten::add", "aten::rsqrt",
+                              "aten::neg", "aten::sub") or
+                        o.startswith(("MulBackward", "AddBackward",
+                                      "RsqrtBackward", "NegBackward"))
+                        for o in ops[:3])),
+    ("ReLU, pooling, concatenation, loss and other elementwise",
+     lambda ops, k: True),
+)
+
+
+def run_keras_surface(card):
+    """Phase 9: the Keras surface at full width — configs[4]'s
+    KerasTransformer, configs[2]'s KerasImageFileEstimator on InceptionV3,
+    featurize then LogisticRegression, no flash launch, and a profile of
+    one estimator step (last). Every check runs and prints; the phase
+    fails at its end if any did not hold. Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch import cuda_ops
+
+    t_phase = time.perf_counter()
+    problems = []
+    reset_launch_counts()
+    directory = tempfile.mkdtemp(prefix="tpudl_keras_smoke_")
+    written = []      # the trained .keras files the fits write
+    try:
+        t0 = time.perf_counter()
+        keras_mlp_leg(directory, card, problems)
+        print(f"  configs[4] leg: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        est, X, y = keras_estimator_leg(directory, card, problems, written)
+        print(f"  configs[2] leg: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        keras_featurize_fit_leg(card, problems)
+        print(f"  featurize-then-fit leg: {time.perf_counter() - t0:.1f} s")
+        counts = dict(cuda_ops.launch_counts)
+        print(f"  attention kernel launches across phase 9: {counts} "
+              "(want 0)")
+        if any(counts.values()):
+            problems.append("the Keras surface launched an attention kernel")
+        keras_profile_step(est, X, y, card)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        for path in written:
+            os.remove(path)
+    print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        fail("phase 9: " + "; ".join(problems))
+    return counts
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2294,6 +2801,14 @@ def main(argv) -> int:
         print(f"train-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--keras-only"]:
+        print(f"phase 9 alone: the Keras surface at full width on {card}",
+              flush=True)
+        run_keras_surface(card)
+        print(f"card: {card}")
+        print(f"keras-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -2311,7 +2826,8 @@ def main(argv) -> int:
         return 0
     if argv:
         fail(f"unknown arguments {argv}; the options are --image-only, "
-             "--executor-only, --train-only, --ranks N and --pool-study")
+             "--executor-only, --train-only, --keras-only, --ranks N and "
+             "--pool-study")
 
     from tpudl_torch import _build
 
@@ -2404,11 +2920,15 @@ def main(argv) -> int:
     print(f"phase 8: ResNet50 training through HorovodRunner on {card}",
           flush=True)
     resnet_counts = run_resnet_training(card)
+    print(f"phase 9: the Keras surface at full width on {card}", flush=True)
+    keras_counts = run_keras_surface(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
         entry["launches_by_path"]["resnet50_training"] = \
             resnet_counts[entry["name"]]
+        entry["launches_by_path"]["keras_surface"] = \
+            keras_counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "
           f"{time.perf_counter() - T_START:.1f} s")

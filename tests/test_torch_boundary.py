@@ -1,9 +1,11 @@
 """The boundary between the packages: ``tpudl_torch`` and ``chip_smoke.py``
-import neither jax, keras (which imports jax), ml_dtypes nor tpudl, the
-port's main paths (text serving, training and the image path) run with
-both blocked, a rank that ``HorovodRunner`` spawns holds none of them,
-and ``chip_smoke.py`` refuses to report without a card or without the
-package beside it."""
+import neither jax, keras (which imports jax), ml_dtypes, tpudl, h5py,
+tensorflow nor google.protobuf; the port's main paths (text serving,
+training, the image path and the Keras surface) run with them blocked, a
+rank that ``HorovodRunner`` spawns holds none of them, ``chip_smoke.py``
+refuses to report without a card or without the package beside it, and
+the InceptionV3 config fixture that ``chip_smoke.py`` reads is what keras
+writes today."""
 
 import os
 import re
@@ -16,8 +18,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|keras|ml_dtypes|tpudl)(?:[.\s,]|$)",
-    re.MULTILINE)
+    r"^\s*(?:from|import)\s+(?:jax|keras|ml_dtypes|tpudl|h5py|tensorflow|"
+    r"google\.protobuf)(?:[.\s,]|$)", re.MULTILINE)
 
 _BLOCKED_MAIN = r"""
 import sys
@@ -95,6 +97,51 @@ print("BLOCKED_OK")
 """
 
 
+_BLOCKED_KERAS = r"""
+import sys, tempfile
+for name in ("jax", "tpudl", "keras", "h5py", "tensorflow", "ml_dtypes",
+             "google.protobuf"):
+    sys.modules[name] = None
+import numpy as np
+from PIL import Image
+import chip_smoke
+from tpudl_torch.frame import Frame
+from tpudl_torch.image.imageIO import createNativeImageLoader
+from tpudl_torch.ingest.kerasfile import save_keras_file
+from tpudl_torch.ml import KerasImageFileEstimator, KerasTransformer
+
+d = tempfile.mkdtemp()
+cfg = chip_smoke.keras_mlp_config()
+mlp = save_keras_file(f"{d}/mlp.keras", cfg, chip_smoke.keras_weights(cfg, 0))
+x = np.random.default_rng(0).normal(size=(5, 100)).astype(np.float32)
+y = np.stack(list(KerasTransformer(inputCol="x", outputCol="y", modelFile=mlp,
+                                   device="cpu").transform(Frame({"x": x}))["y"]))
+assert y.shape == (5, 10) and np.allclose(y.sum(axis=1), 1, atol=1e-5)
+cfg = chip_smoke.keras_inception_config()
+inc = save_keras_file(f"{d}/inc.keras", cfg, chip_smoke.keras_weights(cfg, 0))
+uris, labels = chip_smoke.keras_jpegs(d, 2, 0)
+lab = np.empty(2, dtype=object)
+lab[:] = labels
+est = KerasImageFileEstimator(
+    inputCol="uri", outputCol="out", labelCol="label", modelFile=inc,
+    imageLoader=createNativeImageLoader(75, 75, scale=1 / 255),
+    kerasOptimizer="adam", kerasLoss="categorical_crossentropy",
+    kerasFitParams={"batch_size": 2}, device="cpu")
+model = est.fit(Frame({"uri": np.array(uris, dtype=object), "label": lab}))
+out = np.stack(list(model.transform(Frame({"uri": np.array(uris,
+                                                            dtype=object)}))["out"]))
+assert out.shape == (2, 2) and np.isfinite(model.history["step_loss"]).all()
+import os, shutil
+os.remove(model.getModelFile())
+shutil.rmtree(d)
+assert not any(m == b or m.startswith(b + ".")
+               for m, mod in sys.modules.items() if mod is not None
+               for b in ("jax", "tpudl", "keras", "h5py", "tensorflow",
+                         "ml_dtypes", "google.protobuf"))
+print("BLOCKED_OK")
+"""
+
+
 def _env():
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
@@ -125,6 +172,14 @@ def test_image_path_runs_with_jax_and_tpudl_blocked():
     assert "BLOCKED_OK" in res.stdout
 
 
+def test_keras_surface_runs_with_jax_keras_h5py_and_tf_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_KERAS], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "BLOCKED_OK" in res.stdout
+
+
 def test_no_source_imports_jax_or_tpudl():
     files = sorted((REPO / "tpudl_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -136,7 +191,12 @@ def test_no_source_imports_jax_or_tpudl():
                 "image/ops.py", "image/imageIO.py", "native/__init__.py",
                 "ml/named_image.py", "ml/tf_image.py", "frame/frame.py",
                 "distributed.py", "mesh.py", "jobs/retry.py",
-                "train/checkpoint.py", "train/runner.py", "train/step.py"):
+                "train/checkpoint.py", "train/runner.py", "train/step.py",
+                "ingest/hdf5.py", "ingest/kerasfile.py",
+                "ingest/keras_graph.py", "ingest/input.py",
+                "ml/keras_tensor.py", "ml/tf_tensor.py", "ml/keras_image.py",
+                "ml/estimator.py", "ml/classification.py", "ml/losses.py",
+                "ml/image_params.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
@@ -167,3 +227,15 @@ def test_chip_smoke_fails_without_card_or_package(where, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_inception_config_fixture_is_what_keras_writes_today():
+    """``chip_smoke.py`` phase 9 builds configs[2]'s model from the
+    committed ``config.json`` (the card's machine has no keras); keras on
+    this host must write the same config for ``bench.py``'s
+    ``measure_estimator_inception`` model (``shared_object_id`` values,
+    Python ids at save time, renumbered)."""
+    pytest.importorskip("keras")
+    import torch_keras_models as M
+
+    assert M.inception_config() == M.fixture_config()

@@ -316,9 +316,11 @@ def test_params_npz_round_trip_with_tpudl(tmp_path, small):
         convert.load_params_npz(legacy)
     assert sorted(convert.load_params_npz(legacy, allow_legacy_pickle=True)
                   ) == sorted(params)
+    # they read a .keras path now (held to tpudl in
+    # test_torch_keras_stages.py); a path that is not there is an error
     for fn in (convert.params_from_keras, convert.load_keras_model):
-        with pytest.raises(NotImplementedError, match="sparkdl surface"):
-            fn("model.keras")
+        with pytest.raises(FileNotFoundError):
+            fn(str(tmp_path / "model.keras"))
 
 
 def test_load_named_params_sources(tmp_path, monkeypatch, small):

@@ -14,8 +14,8 @@ under a column-wide lock. Not ported yet, and refused where they are
 options: ``host_sharded`` (Queue 1, 'Training, rest', multi-host), the
 read retry policy and fault points (Queue 1, 'Jobs, faults and the
 supervisor'), the flight-recorder samples of decode errors (Queue 1, 'The
-rest of observability') and ``createNativeImageLoader`` (Queue 1, 'The
-rest of the sparkdl surface').
+rest of observability') and ``createNativeImageLoader(output_dtype=
+"uint8")``, which needs the ``U8Codec`` (Queue 1, 'Data layer').
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ __all__ = [
     "readImagesWithCustomFn",
     "readImages",
     "LazyFileColumn",
+    "createNativeImageLoader",
     "SPARK_MODE",
 ]
 
@@ -267,6 +268,95 @@ def default_probe(raw_bytes: bytes) -> bool:
         return True
     except Exception:
         return False
+
+
+# copied from tpudl/image/imageIO.py:createNativeImageLoader (float32
+# output; reads without tpudl's retry policy and fault points)
+def createNativeImageLoader(height: int, width: int, scale: float = 1.0,
+                            n_threads: int | None = None,
+                            output_dtype: str = "float32"):
+    """A URI → ndarray ``imageLoader`` whose ``batch_decode`` attribute
+    decodes a whole URI batch in one threaded native decode + resize call
+    (libjpeg, :mod:`tpudl_torch.native`), the path ``load_uri_batch``
+    takes for ``KerasImageFileTransformer``/``KerasImageFileEstimator``.
+    Where the native decoder is not built (no libjpeg headers), and for
+    a file it cannot decode, PIL decodes and resizes (bilinear). Output:
+    float32 RGB ``(H, W, 3)`` in [0, 255]·``scale``.
+
+    ``n_threads`` (``TPUDL_DECODE_THREADS``; default: the native layer's
+    choice) caps the decoder's threads per batch. ``output_dtype="uint8"``
+    defers the normalize to the ``U8Codec``, which is not ported (ROADMAP
+    Queue 1, 'Data layer')."""
+    if output_dtype == "uint8":
+        _not_ported("createNativeImageLoader(output_dtype='uint8') (the u8 "
+                    "wire codec)", "Data layer")
+    if output_dtype != "float32":
+        raise ValueError(
+            f"output_dtype must be 'float32' or 'uint8', got "
+            f"{output_dtype!r}")
+    if n_threads is None:
+        env = os.environ.get("TPUDL_DECODE_THREADS")
+        try:
+            n_threads = max(1, int(env)) if env else None
+        except ValueError:
+            n_threads = None  # malformed env: let the native layer pick
+
+    def _pil_one(uri: str) -> np.ndarray:
+        img = Image.open(uri).convert("RGB").resize(
+            (width, height), Image.BILINEAR)
+        return np.asarray(img, np.float32) * scale
+
+    def _read(uri):
+        with open(uri, "rb") as f:
+            return f.read()
+
+    def _read_all(uris: list) -> list:
+        raws = _parallel_map(
+            _read, uris,
+            _env_workers("TPUDL_FRAME_IO_WORKERS",
+                         LazyFileColumn._IO_WORKERS))
+        if raws:  # same per-batch accounting as LazyFileColumn reads
+            _obs_metrics.counter("imageio.files_read").inc(len(raws))
+            _obs_metrics.counter("imageio.bytes_read").inc(
+                sum(len(r) for r in raws))
+        return raws
+
+    def loader(uri: str) -> np.ndarray:
+        from tpudl_torch import native
+
+        if native.available():
+            batch, ok = native.decode_resize_batch(
+                [_read(uri)], height, width, n_threads=1)
+            if ok[0]:
+                return batch[0][:, :, ::-1].astype(np.float32) * scale
+        return _pil_one(uri)
+
+    def batch_decode(uris) -> np.ndarray:
+        from tpudl_torch import native
+
+        uris = list(uris)
+        if not uris:
+            return np.zeros((0, height, width, 3), np.float32)
+        if not native.available():
+            return np.stack([_pil_one(u) for u in uris])
+        batch, ok = native.decode_resize_batch(_read_all(uris), height,
+                                               width, n_threads=n_threads)
+        out = batch[:, :, :, ::-1].astype(np.float32) * scale
+        for i, good in enumerate(ok):
+            if not good:
+                out[i] = _pil_one(uris[i])
+        return out
+
+    loader.batch_decode = batch_decode
+    loader.output_dtype = output_dtype
+    loader.wire_scale = float(scale)
+    loader.wire_offset = 0.0
+    loader.cache_token = (f"native:{height}x{width}:s{scale!r}"
+                          f":{output_dtype}")
+    # stateless over thread-safe substrates: the executor's prepare pool
+    # may run batch_decode for several batches at once
+    loader.thread_safe = True
+    return loader
 
 
 def resizeImage(imageRow: dict, height: int, width: int) -> dict:

@@ -1,12 +1,14 @@
 """Typed Params — the stages' config layer.
 
 Copied from ``tpudl/ml/params.py`` (``Param``, ``Params``,
-``keyword_only``, ``HasInputCol``, ``HasOutputCol``: Spark ML's param-map
-semantics with explicit and default maps) and the converters the LM and
-image stages use (``toString``, ``toInt``, ``toBoolean``,
-``supportedNameConverter``). The ingest/Keras/loss converters come with
-the stages that use them. :func:`refuse_unported` is the port's own: the
-stages' shared refusal of tpudl's knobs that have no counterpart yet.
+``keyword_only``, the shared mixins ``HasInputCol``, ``HasOutputCol``,
+``HasLabelCol``, ``HasOutputMode``, ``HasKerasModel``,
+``HasKerasOptimizer``, ``HasKerasLoss``: Spark ML's param-map semantics
+with explicit and default maps) and its converters, the ingest ones over
+the port's :class:`~tpudl_torch.ingest.TFInputGraph` and the Keras ones
+over :mod:`tpudl_torch.ml.losses`. :func:`refuse_unported` is the port's
+own: the stages' shared refusal of tpudl's knobs that have no counterpart
+yet.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import functools
 from tpudl_torch.data.codec import WireCodec
 
 __all__ = ["Param", "Params", "TypeConverters", "keyword_only",
-           "HasInputCol", "HasOutputCol", "EXECUTOR_KNOBS",
-           "refuse_unported"]
+           "HasInputCol", "HasOutputCol", "HasLabelCol", "HasOutputMode",
+           "HasKerasModel", "HasKerasOptimizer", "HasKerasLoss",
+           "EXECUTOR_KNOBS", "refuse_unported"]
 
 # tpudl's stage knobs with no counterpart in the port yet → the ROADMAP
 # Queue 1 item that brings them
@@ -41,6 +44,13 @@ def refuse_unported(stage: str, kwargs: dict, table: dict):
         raise NotImplementedError(
             f"wireCodec={codec!r}: codecs by name are not ported yet "
             "(ROADMAP Queue 1, 'Data layer'); pass a WireCodec")
+
+
+# copied from tpudl/ingest/graphdef.py:tensor_name
+def _tensor_name(name: str) -> str:
+    """Canonicalize ``"x"`` → ``"x:0"`` (graph-output tensor form)."""
+    name = name.lstrip("^")
+    return name if ":" in name else name + ":0"
 
 
 class Param:
@@ -193,10 +203,75 @@ class TypeConverters:
         return int(v)
 
     @staticmethod
+    def toFloat(v):
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            raise TypeError(f"expected float, got {type(v).__name__}")
+        return float(v)
+
+    @staticmethod
     def toBoolean(v):
         if not isinstance(v, bool):
             raise TypeError(f"expected bool, got {type(v).__name__}")
         return v
+
+    @staticmethod
+    def toTFInputGraph(v):
+        from tpudl_torch.ingest import TFInputGraph
+
+        if isinstance(v, TFInputGraph):
+            return v
+        raise TypeError(
+            f"expected TFInputGraph, got {type(v).__name__} (build one via "
+            "TFInputGraph.fromKeras)")
+
+    @staticmethod
+    def toOutputMode(v):
+        if v in ("vector", "image"):
+            return v
+        raise TypeError(f"outputMode must be 'vector' or 'image', got {v!r}")
+
+    @staticmethod
+    def asColumnToTensorNameMap(v):
+        """{column → tensor name}, canonicalized and sorted."""
+        if not isinstance(v, dict):
+            raise TypeError(f"expected dict col→tensor, got {type(v).__name__}")
+        out = {}
+        for col, tname in v.items():
+            if not isinstance(col, str) or not isinstance(tname, str):
+                raise TypeError(f"mapping entries must be str→str, got "
+                                f"{col!r}→{tname!r}")
+            out[col] = _tensor_name(tname)
+        return dict(sorted(out.items()))
+
+    @staticmethod
+    def asTensorNameToColumnMap(v):
+        if not isinstance(v, dict):
+            raise TypeError(f"expected dict tensor→col, got {type(v).__name__}")
+        out = {}
+        for tname, col in v.items():
+            if not isinstance(col, str) or not isinstance(tname, str):
+                raise TypeError(f"mapping entries must be str→str, got "
+                                f"{tname!r}→{col!r}")
+            out[_tensor_name(tname)] = col
+        return dict(sorted(out.items()))
+
+    @staticmethod
+    def toKerasLoss(v):
+        from tpudl_torch.ml.losses import LOSSES
+
+        if v in LOSSES:
+            return v
+        raise TypeError(
+            f"named loss {v!r} unsupported; one of {sorted(LOSSES)}")
+
+    @staticmethod
+    def toKerasOptimizer(v):
+        from tpudl_torch.ml.losses import OPTIMIZERS
+
+        if v in OPTIMIZERS:
+            return v
+        raise TypeError(
+            f"named optimizer {v!r} unsupported; one of {sorted(OPTIMIZERS)}")
 
     @staticmethod
     def supportedNameConverter(supported):
@@ -231,3 +306,71 @@ class HasOutputCol(Params):
 
     def getOutputCol(self):
         return self.getOrDefault(self.outputCol)
+
+
+class HasLabelCol(Params):
+    labelCol = Param(None, "labelCol", "label column name",
+                     TypeConverters.toString)
+
+    def setLabelCol(self, value):
+        return self.set(self.labelCol, value)
+
+    def getLabelCol(self):
+        return self.getOrDefault(self.labelCol)
+
+
+class HasOutputMode(Params):
+    outputMode = Param(None, "outputMode",
+                       "output form: 'vector' (flattened) or 'image' (struct)",
+                       TypeConverters.toOutputMode)
+
+    def setOutputMode(self, value):
+        return self.set(self.outputMode, value)
+
+    def getOutputMode(self):
+        return self.getOrDefault(self.outputMode)
+
+
+class HasKerasModel(Params):
+    """modelFile (a ``.keras`` path) + kerasFitParams (the fit's
+    keywords)."""
+
+    modelFile = Param(None, "modelFile", "path to a Keras model file (.keras)",
+                      TypeConverters.toString)
+    kerasFitParams = Param(None, "kerasFitParams",
+                           "dict of fit kwargs (batch_size, epochs, verbose)")
+
+    def setModelFile(self, value):
+        return self.set(self.modelFile, value)
+
+    def getModelFile(self):
+        return self.getOrDefault(self.modelFile)
+
+    def setKerasFitParams(self, value):
+        return self.set(self.kerasFitParams, dict(value))
+
+    def getKerasFitParams(self):
+        return dict(self.getOrDefault(self.kerasFitParams))
+
+
+class HasKerasOptimizer(Params):
+    kerasOptimizer = Param(None, "kerasOptimizer",
+                           "named optimizer (keras spelling, optax semantics)",
+                           TypeConverters.toKerasOptimizer)
+
+    def setKerasOptimizer(self, value):
+        return self.set(self.kerasOptimizer, value)
+
+    def getKerasOptimizer(self):
+        return self.getOrDefault(self.kerasOptimizer)
+
+
+class HasKerasLoss(Params):
+    kerasLoss = Param(None, "kerasLoss", "named loss (keras spelling)",
+                      TypeConverters.toKerasLoss)
+
+    def setKerasLoss(self, value):
+        return self.set(self.kerasLoss, value)
+
+    def getKerasLoss(self):
+        return self.getOrDefault(self.kerasLoss)

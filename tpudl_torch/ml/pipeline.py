@@ -1,4 +1,4 @@
-"""Transformer base.
+"""Transformer / Estimator / Pipeline bases.
 
 Port of ``tpudl/ml/pipeline.py``: ``Transformer.transform`` with its
 per-class metrics (``ml.<Class>.transform_seconds``, ``.transforms``,
@@ -7,7 +7,9 @@ through (``_pipeline_opts``, ``_set_pipeline_opts``), and ``_cached_fn``,
 the counterpart of tpudl's ``_cached_jit``: torch compiles nothing per
 call, but the executor caches a fused CUDA graph on the per-batch
 function, so a stage builds that function once per configuration.
-Estimators and Pipeline come with the training slice.
+``Estimator.fit`` (``ml.<Class>.fit_seconds``, ``.fits``; a list of param
+maps fits each through ``fitMultiple``), ``Model``, ``Pipeline`` and
+``PipelineModel`` are copied.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 from tpudl_torch.ml.params import Params
 from tpudl_torch.obs import metrics as _obs_metrics
 
-__all__ = ["Transformer"]
+__all__ = ["Transformer", "Estimator", "Model", "Pipeline", "PipelineModel"]
 
 
 class Transformer(Params):
@@ -78,3 +80,88 @@ class Transformer(Params):
         self.fuseSteps = kwargs.pop("fuseSteps", None)
         self.dispatchDepth = kwargs.pop("dispatchDepth", None)
         self.wireCodec = kwargs.pop("wireCodec", None)
+
+
+class Model(Transformer):
+    """A fitted Transformer (keeps Spark's Estimator→Model naming)."""
+
+
+# copied from tpudl/ml/pipeline.py:Estimator, without its tracer span
+class Estimator(Params):
+    def fit(self, frame, params=None):
+        cls = type(self).__name__
+        with _obs_metrics.timed(f"ml.{cls}.fit_seconds"):
+            if isinstance(params, (list, tuple)):
+                models = [None] * len(params)
+                for i, m in self.fitMultiple(frame, list(params)):
+                    models[i] = m
+                out = models
+            elif params:
+                out = self.copy(params)._fit(frame)
+            else:
+                out = self._fit(frame)
+        _obs_metrics.counter(f"ml.{cls}.fits").inc()
+        return out
+
+    def fitMultiple(self, frame, paramMaps):
+        """Iterator of (index, model) as each fit finishes: a sequential
+        fit of ``self.copy(pm)`` for each map."""
+        def gen():
+            for i, pm in enumerate(paramMaps):
+                yield i, self.copy(pm)._fit(frame)
+
+        return gen()
+
+    def _fit(self, frame):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+# copied from tpudl/ml/pipeline.py:Pipeline
+class Pipeline(Estimator):
+    """Ordered stages of Transformers/Estimators."""
+
+    def __init__(self, stages=None):
+        super().__init__()
+        self._stages = list(stages or [])
+
+    def setStages(self, stages):
+        self._stages = list(stages)
+        return self
+
+    def getStages(self):
+        return list(self._stages)
+
+    def _fit(self, frame):
+        bad = [s for s in self._stages
+               if not isinstance(s, (Transformer, Estimator))]
+        if bad:
+            raise TypeError(
+                f"pipeline stage must be Transformer or Estimator, got "
+                f"{type(bad[0]).__name__}")
+        # stages after the last estimator need no fit-time data pass
+        last_est = max((i for i, s in enumerate(self._stages)
+                        if isinstance(s, Estimator)), default=-1)
+        fitted = []
+        cur = frame
+        for i, stage in enumerate(self._stages):
+            if isinstance(stage, Estimator):
+                stage = stage.fit(cur)
+            fitted.append(stage)
+            if i < last_est:
+                cur = stage.transform(cur)
+        return PipelineModel(fitted)
+
+
+# copied from tpudl/ml/pipeline.py:PipelineModel
+class PipelineModel(Model):
+    def __init__(self, stages):
+        super().__init__()
+        self._stages = list(stages)
+
+    def getStages(self):
+        return list(self._stages)
+
+    def _transform(self, frame):
+        for stage in self._stages:
+            frame = stage.transform(frame)
+        return frame

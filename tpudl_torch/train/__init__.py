@@ -9,7 +9,8 @@ uses.
 """
 
 from tpudl_torch.train.checkpoint import CheckpointManager
-from tpudl_torch.train.optim import adam, adamw, sgd
+from tpudl_torch.train.optim import (adadelta, adagrad, adam, adamax, adamw,
+                                     nadam, rmsprop, sgd)
 from tpudl_torch.train.runner import (HorovodRunner, Preempted,
                                       RestartsExhausted, TrainContext,
                                       Trainer)
@@ -18,4 +19,5 @@ from tpudl_torch.train.step import (make_eval_step, make_train_step,
 
 __all__ = ["HorovodRunner", "TrainContext", "Trainer", "CheckpointManager",
            "Preempted", "RestartsExhausted", "make_train_step",
-           "make_eval_step", "with_compute_dtype", "sgd", "adam", "adamw"]
+           "make_eval_step", "with_compute_dtype", "sgd", "adam", "adamw",
+           "rmsprop", "adagrad", "adadelta", "adamax", "nadam"]

@@ -2,26 +2,30 @@
 
 Port of ``tpudl/zoo/convert.py`` (``save_params_npz``,
 ``load_params_npz``: pickle-free ``layer/param`` archives, the legacy
-pickled layout refused unless the caller vouches for the file), plus
+pickled layout refused unless the caller vouches for the file;
+``load_keras_model`` and ``params_from_keras``, which read a ``.keras``
+file without keras, through :mod:`tpudl_torch.ingest.kerasfile`), plus
 :func:`torch_params`, which turns tpudl's param pytree (numpy, Keras
 names and HWIO layout) into the port's tree of torch tensors — the same
 weights, so both packages compute the same model — and its inverse
 :func:`keras_params`, which returns a (trained) model's weights as
 tpudl's numpy tree.
 
-Not ported yet: ``params_from_keras``, ``load_keras_model`` and
-``save_named_params``, which need keras (ROADMAP Queue 1, 'The rest of
-the sparkdl surface', ingest).
+Not ported yet: ``save_named_params``, which builds a keras application
+with its imagenet weights (ROADMAP Queue 1, 'The rest of the sparkdl
+surface').
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
 __all__ = ["torch_layout", "torch_params", "keras_layout", "keras_params",
-           "save_params_npz",
-           "load_params_npz", "params_from_keras", "load_keras_model"]
+           "save_params_npz", "load_params_npz", "params_from_keras",
+           "load_keras_model", "save_named_params"]
 
 
 def torch_layout(key: str, value) -> torch.Tensor:
@@ -115,16 +119,105 @@ def load_params_npz(path: str, allow_legacy_pickle: bool = False) -> dict:
         return z["params"].item()
 
 
-def _keras_not_ported(what):
+def load_keras_model(path):
+    """A ``.keras`` file → ``(config, weights)``
+    (:func:`~tpudl_torch.ingest.kerasfile.load_keras_file`); a live keras
+    model is refused: save it to ``.keras`` and pass the path."""
+    from tpudl_torch.ingest.input import keras_model_path
+    from tpudl_torch.ingest.kerasfile import load_keras_file
+
+    return load_keras_file(keras_model_path(path))
+
+
+# copied from tpudl/zoo/convert.py:_BASE_NAMES
+_BASE_NAMES = {
+    "Conv2D": "conv2d",
+    "SeparableConv2D": "separable_conv2d",
+    "DepthwiseConv2D": "depthwise_conv2d",
+    "BatchNormalization": "batch_normalization",
+    "Normalization": "normalization",
+    "Dense": "dense",
+}
+
+
+def _canonical_names(layers, weighted) -> dict[str, str]:
+    """tpudl's ``_canonical_names`` over layer configs: each weighted
+    layer's name → the name a fresh process gives it (auto-named layers
+    renumbered by suffix per base type; explicit names kept)."""
+    from tpudl_torch.zoo.core import Namer
+
+    auto: dict[str, list[tuple[int, str]]] = {}
+    mapping: dict[str, str] = {}
+    for layer in layers:
+        cls, name = layer["class_name"], layer["config"]["name"]
+        if cls not in _BASE_NAMES or name not in weighted:
+            continue
+        base = _BASE_NAMES[cls]
+        m = re.fullmatch(rf"{base}(?:_(\d+))?", name)
+        if m:
+            auto.setdefault(base, []).append((int(m.group(1) or 0), name))
+        else:
+            mapping[name] = name
+    namer = Namer()
+    for base, entries in auto.items():
+        for _suffix, runtime_name in sorted(entries):
+            mapping[runtime_name] = namer(base)
+    return mapping
+
+
+def params_from_keras(path) -> dict:
+    """A ``.keras`` file → tpudl's param pytree of the zoo, keyed by
+    canonical layer names, as ``tpudl.zoo.convert.params_from_keras``
+    gives it for the loaded model (``moving_variance`` → ``moving_var``,
+    a per-channel ``Rescaling`` after ``Normalization`` folded into its
+    variance)."""
+    from tpudl_torch.ingest.kerasfile import model_layers
+
+    config, weights = load_keras_model(path)
+    layers = model_layers(config)
+    weighted = {k.rsplit("/", 1)[0] for k in weights}
+    names = _canonical_names(layers, weighted)
+    params: dict[str, dict] = {}
+    last_norm = None
+    for layer in layers:
+        cls, c = layer["class_name"], layer["config"]
+        if cls == "Rescaling":
+            scale = np.asarray(c.get("scale", 1.0), dtype=np.float64)
+            offset = np.asarray(c.get("offset", 0.0))
+            if last_norm is not None and scale.ndim > 0 and \
+                    not np.any(offset):
+                var = params[last_norm]["variance"]
+                params[last_norm]["variance"] = (
+                    var / np.square(scale)).astype(var.dtype)
+            last_norm = None
+            continue
+        if cls not in _BASE_NAMES or c["name"] not in weighted:
+            if cls != "InputLayer":
+                last_norm = None
+            continue
+        name = names[c["name"]]
+        if cls != "Normalization":
+            last_norm = None
+        w = {k.rsplit("/", 1)[1]: v for k, v in weights.items()
+             if k.rsplit("/", 1)[0] == c["name"]}
+        if cls == "DepthwiseConv2D":
+            p = {"depthwise_kernel": w["kernel"]}
+        elif cls == "BatchNormalization":
+            p = {"moving_mean": w["moving_mean"],
+                 "moving_var": w["moving_variance"]}
+            p.update({k: w[k] for k in ("beta", "gamma") if k in w})
+        elif cls == "Normalization":
+            p = {"mean": w["mean"], "variance": w["variance"]}
+            last_norm = name
+        else:
+            p = {k: w[k] for k in ("kernel", "depthwise_kernel",
+                                   "pointwise_kernel", "bias") if k in w}
+        params[name] = p
+    return params
+
+
+def save_named_params(name: str, path: str, weights: str = "imagenet"):
     raise NotImplementedError(
-        f"{what} needs keras and is not ported to tpudl_torch yet (ROADMAP "
-        "Queue 1, 'The rest of the sparkdl surface'); convert with tpudl "
-        "and pass the .npz (save_params_npz)")
-
-
-def params_from_keras(model):
-    _keras_not_ported("params_from_keras")
-
-
-def load_keras_model(path_or_model):
-    _keras_not_ported("load_keras_model")
+        "save_named_params builds a keras application with its imagenet "
+        "weights and is not ported to tpudl_torch (ROADMAP Queue 1, 'The "
+        "rest of the sparkdl surface'); run tpudl's on a host with keras")
