@@ -84,7 +84,9 @@ Phases (any failure exits non-zero before the final line):
    ``with_compute_dtype(loss_fn, torch.bfloat16)``, beside the achieved
    TFLOP/s and the f32 FFMA and bf16 bounds, and the gradient
    all-reduce's calls and bytes a step; 2 f32 steps at batch 4 from
-   perturbed BN statistics held against the same run on the CPU; the
+   perturbed BN statistics held against the same run on the CPU, and the
+   first step's gradients against a float64 run on the card (within 1e-2
+   of the largest, as phase 9 holds InceptionV3's); the
    fixed-batch eval loss (``make_eval_step``) of ``bench.py``'s band set
    (bf16 compute) falling over 60 steps; a run that fails at step 7 and
    restarts from its step-5 checkpoint (adam) equal, bit for bit under
@@ -110,6 +112,27 @@ Phases (any failure exits non-zero before the final line):
    maxIter=100)`` on the card and the CPU (falling loss, probabilities
    held); no flash launch; last, a profile split of one estimator step.
 
+10. Drive model selection and models as SQL UDFs at full width, from the
+   ``.keras`` files of phase 9 written anew: ``CrossValidator`` over
+   configs[2]'s ``KerasImageFileEstimator`` (2 learning rates × 2 folds
+   of the 96 JPEGs; each trial's seconds and final loss, the completion
+   order, ``avgMetrics``, ``bestIndex``, the fit's wall time cold and
+   warm), its trials' losses against a plain loop of ``fit`` calls bit
+   for bit under ``cudnn.deterministic``, and ``fitMultiple`` with a trial
+   that fails once under a ``trialRetryPolicy`` (1 retry, the same losses
+   as without the failure); ``TFImageTransformer`` over the same file on
+   256 structs at 299×299 (images/s beside the named InceptionV3
+   featurizer's, 16 rows against the CPU, BGR against RGB on flipped
+   input bit for bit, ``outputMode="image"``); ``registerKerasImageUDF``
+   through ``sql`` with WHERE and LIMIT 64 (exactly 64 rows featurized,
+   equal bit for bit to ``TFImageTransformer``) and a GROUP BY/AVG over
+   its output; configs[4]'s MLP as ``makeGraphUDF`` through ``sql``
+   (rows/s beside ``KerasTransformer``'s, equal bit for bit); and
+   ``register_text_udfs`` at phase 4's serving width: ``embed`` and
+   ``classify`` over phase 4's 256 texts (12 flash forward launches a
+   batch, none backward) and ``generate`` over its prompts, each equal
+   bit for bit to its LM stage, with rows/s.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
@@ -118,7 +141,8 @@ run no profiler session before them (phases 4 and 4b profile a batch and
 a step). ``python3 chip_smoke.py --executor-only`` runs phase 1 and then
 phase 7 alone. ``python3 chip_smoke.py --train-only`` runs phase 1 and then phase 8
 alone. ``python3 chip_smoke.py --keras-only`` runs phase 1 and then phase 9
-alone. ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
+alone. ``python3 chip_smoke.py --surface-only`` runs phase 1 and then
+phase 10 alone. ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
 rank's. ``python3 chip_smoke.py --pool-study`` runs phase 1 and
@@ -274,6 +298,10 @@ RESNET_CPU_BATCH, RESNET_CPU_STEPS = 4, 2  # card vs CPU, perturbed BN
 # the loss keeps phase 4b's 2e-5, the updates get 8x their reading
 RESNET_CPU_LOSS_ATOL = 2e-5
 RESNET_CPU_UPDATE_RTOL = 5e-3      # of the largest |p_after - p_before|
+# the first f32 step's gradients (batch 4, perturbed BN) against a float64
+# run on the card, relative to the largest gradient: phase 9's limit for
+# InceptionV3 (there NHWC memory read 8.4e-2, NCHW 1.9e-3)
+RESNET_GRAD_RTOL = 1e-2
 CURVE_CLASSES, CURVE_BATCH, CURVE_POOL = 8, 32, 8   # bench.py's band set
 CURVE_STEPS, CURVE_EVERY = 60, 10
 CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 10, 5, 7
@@ -1925,6 +1953,54 @@ def card_vs_cpu_fn(ctx, params):
              for k, v in net.state_dict().items()})
 
 
+def resnet_first_gradient(params, device, dtype):
+    """The loss and every leaf's gradient of a first f32 (or float64) step
+    of ``loss_fn`` on RESNET_CPU_BATCH rows, as float64 numpy."""
+    from tpudl_torch.zoo.registry import ImageModel, getKerasApplicationModel
+
+    net = ImageModel(getKerasApplicationModel("ResNet50"), params,
+                     device=device, dtype=dtype)
+    # card_vs_cpu_fn's first batch
+    xs, ys = resnet_batches(RESNET_CPU_STEPS, RESNET_CPU_BATCH, SEED + 1)
+    loss = resnet_loss(dtype)(net, torch.from_numpy(xs[0]).to(device),
+                              torch.from_numpy(ys[0]).to(device, dtype))
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.double().cpu().numpy()
+                                  for k, p in net.named_parameters()}
+
+
+def resnet_gradient_check(params, card, problems):
+    """ResNet50's first f32 step's gradients against float64 on the card:
+    the card's f32 (held), the CPU's and the card's with cuDNN off
+    (printed), as phase 9 holds InceptionV3's."""
+    t0 = time.perf_counter()
+    ref_loss, ref = resnet_first_gradient(params, "cuda", torch.float64)
+    top = max(np.abs(v).max() for v in ref.values())
+    if not top > 0:
+        problems.append("ResNet50's float64 first step has no gradient")
+        return
+    runs = {"card f32, cuDNN": ("cuda", True), "CPU f32": ("cpu", True),
+            "card f32, cuDNN off": ("cuda", False)}
+    for what, (device, cudnn) in runs.items():
+        with torch.backends.cudnn.flags(enabled=cudnn):
+            loss, grads = resnet_first_gradient(params, device,
+                                                torch.float32)
+        errs = {k: np.abs(grads[k] - ref[k]).max() / top for k in ref}
+        worst = max(errs, key=errs.get)
+        held = what == "card f32, cuDNN"
+        print(f"  ResNet50 first-step gradients, {what}, batch "
+              f"{RESNET_CPU_BATCH}, perturbed BN, against float64 on the card"
+              f" ({len(ref)} leaves, largest |g| {top:.4e}): loss "
+              f"{loss - ref_loss:+.3e} off, gradients {errs[worst]:.3e} of "
+              f"the largest at worst ({worst})"
+              + (f" (limit {RESNET_GRAD_RTOL:g})" if held else
+                 " (printed, not held)") + f"; card {card}", flush=True)
+        if held and not errs[worst] <= RESNET_GRAD_RTOL:
+            problems.append(f"ResNet50 first-step gradients {errs[worst]:.3e}"
+                            " of the largest off float64")
+    print(f"  gradient check: {time.perf_counter() - t0:.1f} s")
+
+
 def band_batches():
     """bench.py's measure_resnet50_convergence set: class c is a bright
     horizontal band c of CURVE_CLASSES, CURVE_POOL batches cycled."""
@@ -2218,6 +2294,7 @@ def run_resnet_training(card):
     if not (loss_err <= RESNET_CPU_LOSS_ATOL
             and upd_abs / scale <= RESNET_CPU_UPDATE_RTOL):
         problems.append("training on the card disagrees with the CPU run")
+    resnet_gradient_check(params, card, problems)
 
     curve, dt = HorovodRunner(np=1).run(curve_fn)
     print(f"  convergence (bench.py's band set, {CURVE_CLASSES} classes, "
@@ -2766,6 +2843,555 @@ def run_keras_surface(card):
     return counts
 
 
+# phase 10, model selection and models as SQL UDFs, at full width from the
+# .keras files the port writes: configs[2]'s InceptionV3 + head under
+# CrossValidator (phase 9's 96 JPEGs, batch 16, adam), TFImageTransformer
+# over 256 image structs at 299×299, the image and configs[4]'s MLP UDFs
+# through sql, and the text UDFs at phase 4's serving width
+SURFACE_LRS = (1e-3, 1e-4)
+SURFACE_FOLDS = 2
+TFIMAGE_ROWS, TFIMAGE_BATCH, TFIMAGE_CPU_ROWS = 256, 64, 16
+CONV_IMAGE_ROWS = 64
+SQL_LIMIT = 64
+TEXT_UDF_MAX_NEW = 8
+
+
+def keras_conv_image_config(height, width):
+    """The ``conv_image`` test model as Keras 3 writes its ``config.json``
+    (Sequential: one stride-2 ``same`` Conv2D(4, 3), sigmoid: an image
+    out), at ``height`` × ``width`` × 3."""
+    policy = {"module": "keras", "class_name": "DTypePolicy",
+              "config": {"name": "float32"}, "registered_name": None}
+    shape = [None, height, width, 3]
+    init = {"module": "keras.initializers", "registered_name": None}
+    conv = {
+        "module": "keras.layers", "class_name": "Conv2D",
+        "config": {
+            "name": "conv2d", "trainable": True, "dtype": policy,
+            "filters": 4, "kernel_size": [3, 3], "strides": [2, 2],
+            "padding": "same", "data_format": "channels_last",
+            "dilation_rate": [1, 1], "groups": 1, "activation": "sigmoid",
+            "use_bias": True,
+            "kernel_initializer": {**init, "class_name": "GlorotUniform",
+                                   "config": {"seed": None}},
+            "bias_initializer": {**init, "class_name": "Zeros",
+                                 "config": {}},
+            "kernel_regularizer": None, "bias_regularizer": None,
+            "activity_regularizer": None, "kernel_constraint": None,
+            "bias_constraint": None},
+        "registered_name": None, "build_config": {"input_shape": shape}}
+    return {
+        "module": "keras", "class_name": "Sequential",
+        "config": {
+            "name": "sequential", "trainable": True,
+            "dtype": {**policy, "shared_object_id": 1},
+            "layers": [
+                {"module": "keras.layers", "class_name": "InputLayer",
+                 "config": {"batch_shape": shape, "dtype": "float32",
+                            "sparse": False, "ragged": False,
+                            "name": "input_layer", "optional": False},
+                 "registered_name": None},
+                conv],
+            "build_input_shape": shape},
+        "registered_name": None, "build_config": {"input_shape": shape},
+        "compile_config": {}}
+
+
+def cv_log_loss(frame):
+    """The evaluator of phase 10's CrossValidator: mean categorical
+    cross-entropy of the ``out`` column against ``label`` (lower is
+    better)."""
+    p = np.stack(list(frame["out"]))
+    y = np.stack(list(frame["label"]))
+    return float(-np.mean(np.sum(y * np.log(np.clip(p, 1e-7, 1.0)), axis=1)))
+
+
+class TrialRecorder:
+    """Wraps an estimator's ``fitMultiple`` (CrossValidator calls it on
+    the estimator it holds): each trial's fold, index, seconds
+    (``hpo.trial_seconds``), step losses and trained file, in completion
+    order."""
+
+    def __init__(self, est):
+        self.fit_multiple = est.fitMultiple
+        self.trials, self.files, self.fold = [], [], -1
+        est.fitMultiple = self
+
+    def __call__(self, frame, maps):
+        from tpudl_torch.obs import metrics
+
+        self.fold += 1
+        seconds = metrics.histogram("hpo.trial_seconds")
+        for i, model in self.fit_multiple(frame, maps):
+            self.files.append(model.getModelFile())
+            self.trials.append({"fold": self.fold, "index": i,
+                                "seconds": seconds.samples[-1],
+                                "steps": model.history["step_loss"]})
+            yield i, model
+
+
+def surface_estimator(path, loader, cls=None, **kw):
+    from tpudl_torch.ml import KerasImageFileEstimator
+
+    return (cls or KerasImageFileEstimator)(
+        inputCol="uri", outputCol="out", labelCol="label",
+        imageLoader=loader, modelFile=path, kerasOptimizer="adam",
+        kerasLoss="categorical_crossentropy",
+        kerasFitParams={"epochs": 1, "batch_size": KERAS_BATCH}, **kw)
+
+
+def surface_grid(est):
+    from tpudl_torch.ml import ParamGridBuilder
+
+    return ParamGridBuilder().addGrid(est.kerasFitParams, [
+        {"epochs": 1, "batch_size": KERAS_BATCH, "learning_rate": lr}
+        for lr in SURFACE_LRS]).build()
+
+
+def remove_files(paths):
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+    paths.clear()
+
+
+def surface_cv_leg(path, uris, labels, card, problems):
+    """configs[2] under CrossValidator (2 learning rates × 2 folds): each
+    trial's seconds and final loss, the completion order, avgMetrics,
+    bestIndex and the fit's wall time, cold and warm; under
+    cudnn.deterministic, the trials' losses against a plain loop of fit
+    calls, and fitMultiple with a trial that fails once (transient) under
+    a trialRetryPolicy against the same sweep without the failure."""
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.jobs import RetryPolicy
+    from tpudl_torch.ml import CrossValidator, FunctionEvaluator
+    from tpudl_torch.obs import metrics
+
+    frame = keras_frame(uris, labels)
+    loader = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE,
+                                     scale=1.0 / 255.0)
+    written = []
+
+    def cross_validate(what):
+        est = surface_estimator(path, loader)
+        rec = TrialRecorder(est)
+        cv = CrossValidator(estimator=est, estimatorParamMaps=surface_grid(
+            est), evaluator=FunctionEvaluator(cv_log_loss,
+                                              larger_is_better=False),
+            numFolds=SURFACE_FOLDS, seed=SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = cv.fit(frame)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        written.extend(rec.files + [model.bestModel.getModelFile()])
+        order = [(t["fold"], t["index"]) for t in rec.trials]
+        trials = "; ".join(
+            f"fold {t['fold']} lr {SURFACE_LRS[t['index']]:g}: "
+            f"{t['seconds']:.3f} s, final loss {t['steps'][-1]:.5f}"
+            for t in rec.trials)
+        print(f"  CrossValidator {what}: KerasImageFileEstimator "
+              f"(InceptionV3+head, {KERAS_JPEGS} JPEGs {KERAS_SIDE}x"
+              f"{KERAS_SIDE}, batch {KERAS_BATCH}, 1 epoch, adam) over "
+              f"learning rates {list(SURFACE_LRS)} x {SURFACE_FOLDS} folds:"
+              f" {dt:.3f} s for the whole fit (trials, evaluation and the "
+              f"refit on all rows); trials in completion order (fold, "
+              f"index) {order}: {trials}; avgMetrics "
+              f"{[round(m, 6) for m in model.avgMetrics]} (mean "
+              f"cross-entropy), bestIndex {model.bestIndex}; card {card}",
+              flush=True)
+        if len(rec.trials) != SURFACE_FOLDS * len(SURFACE_LRS) or \
+                not np.isfinite(model.avgMetrics).all() or \
+                model.bestIndex not in range(len(SURFACE_LRS)):
+            problems.append(f"CrossValidator {what}: {model.avgMetrics}")
+        remove_files(written)
+        return cv, rec
+
+    try:
+        cross_validate("cold")
+        cross_validate("warm")
+        saved_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            cv, rec = cross_validate("under cudnn.deterministic")
+            est = surface_estimator(path, loader)
+            maps = surface_grid(est)
+            folds = cv._folds(len(frame))
+            same = []
+            for t in rec.trials:
+                train = np.ones(len(frame), dtype=bool)
+                train[folds[t["fold"]]] = False
+                model = est.fit(frame.filter_rows(train), maps[t["index"]])
+                written.append(model.getModelFile())
+                same.append(model.history["step_loss"] == t["steps"])
+                remove_files(written)
+            print(f"  a plain loop of fit(frame, pm) over the same maps and "
+                  f"folds: per-trial step losses bit for bit equal to the "
+                  f"CrossValidator's trials: {same}")
+            if not all(same):
+                problems.append("CrossValidator trials differ from plain fits")
+            retries = metrics.counter("hpo.trial_retries")
+            clean = dict(est.fitMultiple(frame, maps))
+            written.extend(m.getModelFile() for m in clean.values())
+            flaky = surface_estimator(
+                path, loader, fails_once_estimator(),
+                trialRetryPolicy=RetryPolicy(max_attempts=2, backoff_s=0.0))
+            before = retries.value
+            retried = dict(flaky.fitMultiple(frame, maps))
+            written.extend(m.getModelFile() for m in retried.values())
+            n_retries = retries.value - before
+            equal = all(retried[i].history == clean[i].history
+                        for i in clean)
+            print(f"  fitMultiple on all {KERAS_JPEGS} rows with a "
+                  f"trialRetryPolicy and a trial that fails once "
+                  f"(OSError): hpo.trial_retries {n_retries:.0f} (want 1);"
+                  f" every trial's losses bit for bit equal to the sweep "
+                  f"without the failure: {equal}")
+            if n_retries != 1 or not equal or sorted(retried) != \
+                    list(range(len(maps))):
+                problems.append("fitMultiple's retried sweep differs")
+        finally:
+            torch.backends.cudnn.deterministic = saved_det
+    finally:
+        remove_files(written)
+
+
+def fails_once_estimator():
+    """A KerasImageFileEstimator whose first trial raises a transient
+    OSError once."""
+    from tpudl_torch.ml import KerasImageFileEstimator
+
+    class FailsOnce(KerasImageFileEstimator):
+        failed = []
+
+        def _trained_model(self, gin, X, y, device=None):
+            if not self.failed:
+                self.failed.append(True)
+                raise OSError("transient read error (injected)")
+            return super()._trained_model(gin, X, y, device)
+
+    return FailsOnce
+
+
+def tfimage_leg(directory, path, card, problems):
+    """TFImageTransformer over configs[2]'s file: images/s beside the
+    named InceptionV3 featurizer's, 16 rows against the CPU port, BGR
+    against RGB on flipped input, and outputMode="image"."""
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.image import imageArrayToStruct, imageStructToArray
+    from tpudl_torch.ingest import TFInputGraph
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import DeepImageFeaturizer, TFImageTransformer
+
+    gin = TFInputGraph.fromKeras(path)
+    structs = image_structs(TFIMAGE_ROWS, (KERAS_SIDE, KERAS_SIDE, 3), SEED)
+    frame = Frame({"image": structs})
+    stages = {
+        "TFImageTransformer(InceptionV3+head file)": TFImageTransformer(
+            inputCol="image", outputCol="out", graph=gin,
+            batchSize=TFIMAGE_BATCH),
+        "DeepImageFeaturizer(InceptionV3)": DeepImageFeaturizer(
+            inputCol="image", outputCol="out", modelName="InceptionV3",
+            weights="random", batchSize=TFIMAGE_BATCH)}
+    for st in stages.values():
+        st.transform(Frame({"image": structs[:TFIMAGE_BATCH]}))   # warm
+    rates, first, _ = interleaved_windows(
+        stages, lambda st: np.stack(list(st.transform(frame)["out"])),
+        TFIMAGE_ROWS)
+    for what, r in rates.items():
+        print(f"  {what}, f32, {TFIMAGE_ROWS} images {KERAS_SIDE}x"
+              f"{KERAS_SIDE} at batch {TFIMAGE_BATCH}, {len(r)} windows "
+              f"(the two in turn): median {median(r):.1f} images/s (least "
+              f"{min(r):.1f}, most {max(r):.1f}); card {card}")
+    out = first["TFImageTransformer(InceptionV3+head file)"]
+    if out.shape != (TFIMAGE_ROWS, 2) or not np.isfinite(out).all():
+        problems.append(f"TFImageTransformer outputs {out.shape}")
+    cpu = TFImageTransformer(inputCol="image", outputCol="out", graph=gin,
+                             batchSize=TFIMAGE_BATCH, device="cpu")
+    want = np.stack(list(cpu.transform(
+        Frame({"image": structs[:TFIMAGE_CPU_ROWS]}))["out"]))
+    err = rel_err(out[:TFIMAGE_CPU_ROWS], want)
+    print(f"  TFImageTransformer card vs CPU, {TFIMAGE_CPU_ROWS} rows: "
+          f"{err:.3e} of max |y| (limit {IMAGE_CPU_RTOL:g})")
+    if not err <= IMAGE_CPU_RTOL:
+        problems.append(f"TFImageTransformer card vs CPU {err:.3e}")
+    head = structs[:TFIMAGE_BATCH]
+    flipped = np.empty(len(head), dtype=object)
+    flipped[:] = [imageArrayToStruct(np.ascontiguousarray(
+        imageStructToArray(s)[..., ::-1])) for s in head]
+    by_order = {}
+    for order, col in (("BGR", head), ("RGB", flipped)):
+        st = TFImageTransformer(inputCol="image", outputCol="out",
+                                graph=gin, channelOrder=order,
+                                batchSize=TFIMAGE_BATCH)
+        by_order[order] = np.stack(list(st.transform(
+            Frame({"image": col}))["out"]))
+    same = np.array_equal(by_order["BGR"], by_order["RGB"])
+    print(f"  channelOrder='BGR' equals 'RGB' on channel-flipped input, "
+          f"{len(head)} rows, bit for bit: {same}")
+    if not same:
+        problems.append("channelOrder BGR differs from RGB on flipped input")
+    config = keras_conv_image_config(KERAS_SIDE, KERAS_SIDE)
+    conv = save_keras_file(os.path.join(directory, "conv_image.keras"),
+                           config, keras_weights(config, SEED))
+    imgs = TFImageTransformer(
+        inputCol="image", outputCol="out", outputMode="image",
+        graph=TFInputGraph.fromKeras(conv), batchSize=TFIMAGE_BATCH
+    ).transform(Frame({"image": structs[:CONV_IMAGE_ROWS]}))["out"]
+    side = -(-KERAS_SIDE // 2)
+    shapes = {(s["height"], s["width"], s["nChannels"]) for s in imgs}
+    arrays = np.stack([imageStructToArray(s) for s in imgs])
+    print(f"  outputMode='image' (Conv2D(4, 3, strides 2, same, sigmoid)), "
+          f"{CONV_IMAGE_ROWS} rows: struct shapes {sorted(shapes)} (want "
+          f"{(side, side, 4)}), values in [{arrays.min():.4f}, "
+          f"{arrays.max():.4f}]")
+    if shapes != {(side, side, 4)} or not (
+            (arrays >= 0) & (arrays <= 1)).all():
+        problems.append(f"outputMode='image' structs {sorted(shapes)}")
+    return gin, structs
+
+
+def sql_image_leg(path, gin, structs, card, problems):
+    """registerKerasImageUDF through sql with WHERE and LIMIT: exactly
+    SQL_LIMIT rows featurized, equal bit for bit to TFImageTransformer on
+    the same rows; then a GROUP BY/AVG over the UDF's output."""
+    from tpudl_torch.frame import Frame, sql
+    from tpudl_torch.ml import TFImageTransformer
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.udf import registerKerasImageUDF, unregister_udf
+
+    labels = np.arange(len(structs)) % 2
+    images = Frame({"image": structs, "label": labels})
+    registerKerasImageUDF("inception_udf", path, batch_size=TFIMAGE_BATCH)
+    try:
+        rows = metrics.counter("udf.inception_udf.rows")
+        sql(f"SELECT inception_udf(image) AS preds FROM images LIMIT "
+            f"{TFIMAGE_BATCH}", {"images": images})        # warm
+        before = rows.value
+        q = (f"SELECT inception_udf(image) AS preds FROM images WHERE "
+             f"label = 1 LIMIT {SQL_LIMIT}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = np.stack(list(sql(q, {"images": images})["preds"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = rows.value - before
+        chosen = images.filter_rows(labels == 1).limit(SQL_LIMIT)
+        want = np.stack(list(TFImageTransformer(
+            inputCol="image", outputCol="o", graph=gin,
+            batchSize=TFIMAGE_BATCH).transform(chosen)["o"]))
+        same = preds.shape == want.shape and np.array_equal(preds, want)
+        print(f"  sql(\"{q}\") over {len(structs)} rows: {dt:.3f} s, the UDF"
+              f" featurized {n:.0f} rows (want {SQL_LIMIT}); equal bit for "
+              f"bit to TFImageTransformer on the same rows: {same}; card "
+              f"{card}")
+        if n != SQL_LIMIT or not same:
+            problems.append(f"image UDF through sql: {n} rows, equal {same}")
+        scored = sql(f"SELECT inception_udf(image) AS preds, label FROM "
+                     f"images LIMIT {2 * SQL_LIMIT}", {"images": images})
+        p1 = np.array([v[1] for v in scored["preds"]], dtype=np.float64)
+        grouped = sql("SELECT label, COUNT(*) AS n, AVG(p1) AS mean_p1 FROM "
+                      "scored GROUP BY label ORDER BY label", {
+                          "scored": Frame({"label": scored["label"],
+                                           "p1": p1})})
+        lab = np.asarray(scored["label"])
+        want = [float(np.mean(p1[lab == k])) for k in (0, 1)]
+        err = float(np.abs(np.asarray(grouped["mean_p1"], dtype=np.float64)
+                           - want).max())
+        print(f"  GROUP BY label over the UDF's output: labels "
+              f"{[int(v) for v in grouped['label']]}, counts "
+              f"{[int(v) for v in grouped['n']]}, AVG(preds[1]) "
+              f"{[round(float(v), 6) for v in grouped['mean_p1']]} "
+              f"({err:.1e} off numpy's mean)")
+        if list(grouped["n"]) != [SQL_LIMIT, SQL_LIMIT] or not err <= 1e-12:
+            problems.append("GROUP BY/AVG over the UDF's output")
+    finally:
+        unregister_udf("inception_udf")
+
+
+def sql_mlp_leg(directory, card, problems):
+    """configs[4]'s MLP as makeGraphUDF through sql, rows/s beside
+    KerasTransformer's (in turn), outputs equal bit for bit."""
+    from tpudl_torch.frame import Frame, sql
+    from tpudl_torch.ingest import TFInputGraph
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import KerasTransformer
+    from tpudl_torch.udf import makeGraphUDF, unregister_udf
+
+    config = keras_mlp_config()
+    path = save_keras_file(os.path.join(directory, "mlp.keras"), config,
+                           keras_weights(config, SEED))
+    data = np.random.default_rng(SEED).normal(
+        size=(KERAS_MLP_ROWS, KERAS_MLP_DIM)).astype(np.float32)
+    frame = Frame({"x": data})
+    makeGraphUDF(TFInputGraph.fromKeras(path), "mlp_udf",
+                 batch_size=KERAS_MLP_BATCH)
+    try:
+        kt = KerasTransformer(inputCol="x", outputCol="y", modelFile=path,
+                              batchSize=KERAS_MLP_BATCH)
+        runs = {"sql(SELECT mlp_udf(x) AS y FROM t)": lambda: sql(
+                    "SELECT mlp_udf(x) AS y FROM t", {"t": frame}),
+                "KerasTransformer": lambda: kt.transform(frame)}
+        for run in runs.values():
+            run()                                          # warm
+        rates, first, _ = interleaved_windows(
+            runs, lambda run: np.stack(list(run()["y"])), KERAS_MLP_ROWS)
+        for what, r in rates.items():
+            print(f"  configs[4] MLP {what}, {KERAS_MLP_ROWS} rows at batch "
+                  f"{KERAS_MLP_BATCH}, {len(r)} windows (the two in turn): "
+                  f"median {median(r):.1f} rows/s (least {min(r):.1f}, most"
+                  f" {max(r):.1f}); card {card}")
+        a, b = first.values()
+        same = a.shape == b.shape == (KERAS_MLP_ROWS, 10) and \
+            np.array_equal(a, b)
+        print(f"  makeGraphUDF through sql equals KerasTransformer bit for "
+              f"bit: {same}")
+        if not same:
+            problems.append("makeGraphUDF differs from KerasTransformer")
+    finally:
+        unregister_udf("mlp_udf")
+
+
+def text_udf_leg(card, problems):
+    """register_text_udfs at phase 4's serving width: embed and classify
+    over phase 4's texts, generate over its prompts; 12 flash forward
+    launches a full-sequence batch, none backward; outputs equal bit for
+    bit to the LM stages' transforms."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame, sql
+    from tpudl_torch.ml import LMClassifier, LMFeaturizer, LMGenerator
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.udf import register_text_udfs, unregister_udf
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    tok = ByteTokenizer()
+    udfs = register_text_udfs(model=spec, weights=weights, tokenizer=tok,
+                              classes=CLASSES, max_new=TEXT_UDF_MAX_NEW,
+                              batch_size=BATCH)
+    texts = make_texts(N_ROWS, SEED)
+    docs = {"docs": Frame({"text": texts})}
+    prompts = {"docs": Frame({"text": np.array(PROMPTS, dtype=object)})}
+    try:
+        for q, t in (("SELECT embed(text) AS v FROM docs LIMIT 2", docs),
+                     ("SELECT classify(text) AS c FROM docs LIMIT 2", docs),
+                     ("SELECT generate(text) AS g FROM docs LIMIT 1",
+                      prompts)):
+            sql(q, t)                                      # warm
+        torch.cuda.synchronize()
+        outs, launches = {}, {}
+        for name, q, t, n in (
+                ("embed", "SELECT embed(text) AS v FROM docs", docs, N_ROWS),
+                ("classify", "SELECT classify(text) AS c FROM docs", docs,
+                 N_ROWS),
+                ("generate", "SELECT generate(text) AS g FROM docs",
+                 prompts, len(PROMPTS))):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = sql(q, t)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches[name] = dict(cuda_ops.launch_counts)
+            outs[name] = list(out[out.columns[0]])
+            print(f"  sql(\"{q}\"): {n} rows in {dt:.3f} s = {n / dt:.2f} "
+                  f"rows/s; kernel launches {launches[name]}; card {card}",
+                  flush=True)
+        n_batches = -(-N_ROWS // BATCH)
+        want_fwd = {"embed": LAYERS * n_batches,
+                    "classify": LAYERS * n_batches, "generate": 0}
+        for name, want in want_fwd.items():
+            c = launches[name]
+            if c["flash_attn_fwd"] != want or c["flash_attn_bwd_dq"] or \
+                    c["flash_attn_bwd_dkv"]:
+                problems.append(f"{name} UDF launched {c} (want {want} "
+                                "forward, 0 backward)")
+        print(f"  flash forward launches: embed {launches['embed']['flash_attn_fwd']}"
+              f", classify {launches['classify']['flash_attn_fwd']} (want "
+              f"{LAYERS} layers x {n_batches} batches = {LAYERS * n_batches}"
+              f" each), generate {launches['generate']['flash_attn_fwd']} "
+              "(KV-cache decode: 0); backward 0 in all")
+        common = dict(inputCol="text", model=spec, weights=weights,
+                      tokenizer=tok, batchSize=BATCH)
+        frame = docs["docs"]
+        ref = {
+            "embed": [np.asarray(v) for v in LMFeaturizer(
+                outputCol="o", **common).transform(frame)["o"]],
+            "classify": list(LMClassifier(
+                outputCol="o", classes=CLASSES, **common).transform(
+                    frame)["o"]),
+            "generate": list(LMGenerator(
+                outputCol="o", maxNew=TEXT_UDF_MAX_NEW, **common).transform(
+                    prompts["docs"])["o"])}
+        same = {
+            "embed": np.array_equal(np.stack(outs["embed"]),
+                                    np.stack(ref["embed"])),
+            "classify": outs["classify"] == ref["classify"],
+            "generate": outs["generate"] == ref["generate"]}
+        vecs = np.stack(outs["embed"])
+        print(f"  the UDFs equal LMFeaturizer/LMClassifier/LMGenerator bit "
+              f"for bit: {same}; embed {vecs.shape}, labels "
+              f"{ {c: outs['classify'].count(c) for c in CLASSES} }")
+        if not all(same.values()) or vecs.shape != (N_ROWS, DIM) or \
+                not np.isfinite(vecs).all():
+            problems.append(f"text UDFs against the stages: {same}")
+    finally:
+        for u in udfs:
+            unregister_udf(u.name)
+    return launches
+
+
+def run_surface(card):
+    """Phase 10: model selection and models as SQL UDFs at full width.
+    Every check runs and prints; the phase fails at its end if any did
+    not hold. Returns the kernel launches of the text UDFs' queries."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+
+    from tpudl_torch import cuda_ops
+
+    t_phase = time.perf_counter()
+    problems = []
+    reset_launch_counts()
+    directory = tempfile.mkdtemp(prefix="tpudl_surface_smoke_")
+    try:
+        config = keras_inception_config()
+        path = save_keras_file(os.path.join(directory, "inception_tl.keras"),
+                               config, keras_weights(config, SEED))
+        uris, labels = keras_jpegs(directory, KERAS_JPEGS, SEED)
+        t0 = time.perf_counter()
+        surface_cv_leg(path, uris, labels, card, problems)
+        print(f"  model selection leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        gin, structs = tfimage_leg(directory, path, card, problems)
+        print(f"  TFImageTransformer leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        sql_image_leg(path, gin, structs, card, problems)
+        sql_mlp_leg(directory, card, problems)
+        print(f"  SQL UDF legs: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        counts = dict(cuda_ops.launch_counts)
+        print(f"  attention kernel launches before the text UDFs: {counts} "
+              "(want 0)")
+        if any(counts.values()):
+            problems.append(f"the image and MLP legs launched {counts}")
+        t0 = time.perf_counter()
+        launches = text_udf_leg(card, problems)
+        print(f"  text UDF leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 10: " + "; ".join(problems))
+    return {k: sum(c[k] for c in launches.values())
+            for k in launches["embed"]}
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2809,6 +3435,14 @@ def main(argv) -> int:
         print(f"keras-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--surface-only"]:
+        print(f"phase 10 alone: model selection and SQL UDFs at full width "
+              f"on {card}", flush=True)
+        run_surface(card)
+        print(f"card: {card}")
+        print(f"surface-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -2826,8 +3460,8 @@ def main(argv) -> int:
         return 0
     if argv:
         fail(f"unknown arguments {argv}; the options are --image-only, "
-             "--executor-only, --train-only, --keras-only, --ranks N and "
-             "--pool-study")
+             "--executor-only, --train-only, --keras-only, --surface-only, "
+             "--ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -2922,6 +3556,9 @@ def main(argv) -> int:
     resnet_counts = run_resnet_training(card)
     print(f"phase 9: the Keras surface at full width on {card}", flush=True)
     keras_counts = run_keras_surface(card)
+    print(f"phase 10: model selection and SQL UDFs at full width on {card}",
+          flush=True)
+    surface_counts = run_surface(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -2929,6 +3566,8 @@ def main(argv) -> int:
             resnet_counts[entry["name"]]
         entry["launches_by_path"]["keras_surface"] = \
             keras_counts[entry["name"]]
+        entry["launches_by_path"]["sql_text_udfs"] = \
+            surface_counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -1,7 +1,8 @@
 """The boundary between the packages: ``tpudl_torch`` and ``chip_smoke.py``
 import neither jax, keras (which imports jax), ml_dtypes, tpudl, h5py,
 tensorflow nor google.protobuf; the port's main paths (text serving,
-training, the image path and the Keras surface) run with them blocked, a
+training, the image path, the Keras surface, and the SQL, UDF and tuning
+surface) run with them blocked, the top-level lazy names are tpudl's, a
 rank that ``HorovodRunner`` spawns holds none of them, ``chip_smoke.py``
 refuses to report without a card or without the package beside it, and
 the InceptionV3 config fixture that ``chip_smoke.py`` reads is what keras
@@ -142,6 +143,82 @@ print("BLOCKED_OK")
 """
 
 
+_BLOCKED_SURFACE = r"""
+import sys, tempfile
+for name in ("jax", "tpudl", "keras", "h5py", "tensorflow", "ml_dtypes",
+             "google.protobuf"):
+    sys.modules[name] = None
+import numpy as np
+import chip_smoke
+from tpudl_torch import sql, TFImageTransformer, TFInputGraph
+from tpudl_torch.frame import Frame
+from tpudl_torch.image import imageArrayToStruct
+from tpudl_torch.image.imageIO import createNativeImageLoader
+from tpudl_torch.ingest.kerasfile import save_keras_file
+from tpudl_torch.ml import (CrossValidator, FunctionEvaluator,
+                            KerasImageFileEstimator, ParamGridBuilder)
+from tpudl_torch.text import ByteTokenizer
+from tpudl_torch.udf import (makeGraphUDF, register_text_udfs,
+                             registerKerasImageUDF)
+from tpudl_torch.zoo.transformer import TinyCausalLM
+
+d = tempfile.mkdtemp()
+cfg = chip_smoke.keras_mlp_config()
+mlp = save_keras_file(f"{d}/mlp.keras", cfg, chip_smoke.keras_weights(cfg, 0))
+makeGraphUDF(TFInputGraph.fromKeras(mlp), "mlp_udf", device="cpu")
+x = np.empty(6, dtype=object)
+x[:] = list(np.random.default_rng(0).normal(size=(6, 100)).astype(np.float32))
+out = sql("SELECT mlp_udf(x) AS y FROM t LIMIT 4",
+          {"t": Frame({"x": x, "k": np.arange(6) % 2})})
+assert np.stack(list(out["y"])).shape == (4, 10)
+cfg = chip_smoke.keras_inception_config()
+inc = save_keras_file(f"{d}/inc.keras", cfg, chip_smoke.keras_weights(cfg, 0))
+rng = np.random.default_rng(0)
+imgs = np.empty(3, dtype=object)
+imgs[:] = [imageArrayToStruct(rng.integers(0, 256, (75, 75, 3), np.uint8))
+           for _ in range(3)]
+registerKerasImageUDF("inc_udf", inc, batch_size=2, device="cpu")
+p = sql("SELECT inc_udf(image) AS p FROM images",
+        {"images": Frame({"image": imgs})})
+v = TFImageTransformer(inputCol="image", outputCol="p", device="cpu",
+                       batchSize=2,
+                       graph=TFInputGraph.fromKeras(inc)).transform(
+    Frame({"image": imgs}))
+assert np.array_equal(np.stack(list(p["p"])), np.stack(list(v["p"])))
+spec = TinyCausalLM(vocab=260, dim=32, heads=4, layers=2, max_len=64,
+                    device="meta")
+register_text_udfs(model=spec, weights=spec.init(0), tokenizer=ByteTokenizer(),
+                   classes=["yes", "no"], max_new=3, device="cpu")
+docs = {"docs": Frame({"text": np.array(["abc", "de"], dtype=object)})}
+for q in ("SELECT embed(text) AS v FROM docs",
+          "SELECT classify(text) AS c FROM docs",
+          "SELECT generate(text) AS g FROM docs"):
+    assert len(sql(q, docs)) == 2
+uris, labels = chip_smoke.keras_jpegs(d, 4, 0)
+lab = np.empty(4, dtype=object)
+lab[:] = labels
+est = KerasImageFileEstimator(
+    inputCol="uri", outputCol="out", labelCol="label", modelFile=inc,
+    imageLoader=createNativeImageLoader(75, 75, scale=1 / 255),
+    kerasOptimizer="adam", kerasLoss="categorical_crossentropy",
+    kerasFitParams={"batch_size": 2}, device="cpu")
+grid = ParamGridBuilder().addGrid(est.kerasFitParams, [
+    {"batch_size": 2, "learning_rate": lr} for lr in (1e-3, 1e-4)]).build()
+cv = CrossValidator(estimator=est, estimatorParamMaps=grid, numFolds=2,
+                    evaluator=FunctionEvaluator(lambda f: len(f))).fit(
+    Frame({"uri": np.array(uris, dtype=object), "label": lab}))
+assert len(cv.avgMetrics) == 2 and cv.bestIndex in (0, 1)
+import os, shutil
+os.remove(cv.bestModel.getModelFile())
+shutil.rmtree(d)
+assert not any(m == b or m.startswith(b + ".")
+               for m, mod in sys.modules.items() if mod is not None
+               for b in ("jax", "tpudl", "keras", "h5py", "tensorflow",
+                         "ml_dtypes", "google.protobuf"))
+print("BLOCKED_OK")
+"""
+
+
 def _env():
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
@@ -180,6 +257,36 @@ def test_keras_surface_runs_with_jax_keras_h5py_and_tf_blocked():
     assert "BLOCKED_OK" in res.stdout
 
 
+def test_sql_udfs_and_tuning_run_with_jax_keras_h5py_and_tf_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_SURFACE], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "BLOCKED_OK" in res.stdout
+
+
+def test_lazy_names_resolve_and_are_tpudls():
+    """The port's top-level lazy map is tpudl's ``_LAZY`` restricted to
+    what is ported: every name resolves, under tpudl's spelling."""
+    import tpudl
+
+    import tpudl_torch
+
+    assert set(tpudl_torch._LAZY) <= set(tpudl._LAZY)
+    for name in ("sql", "register_udf", "registerKerasImageUDF",
+                 "TFImageTransformer", "ParamGridBuilder", "CrossValidator",
+                 "KerasImageFileEstimator", "LMFeaturizer",
+                 "DeepImageFeaturizer"):
+        assert name in tpudl_torch._LAZY
+    for name in tpudl_torch._LAZY:
+        obj = getattr(tpudl_torch, name)
+        assert getattr(obj, "__name__", name) == name
+        assert obj.__module__.startswith("tpudl_torch.")
+    assert set(dir(tpudl_torch)) >= set(tpudl_torch._LAZY)
+    with pytest.raises(AttributeError):
+        tpudl_torch.GraphFunction
+
+
 def test_no_source_imports_jax_or_tpudl():
     files = sorted((REPO / "tpudl_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -196,7 +303,10 @@ def test_no_source_imports_jax_or_tpudl():
                 "ingest/keras_graph.py", "ingest/input.py",
                 "ml/keras_tensor.py", "ml/tf_tensor.py", "ml/keras_image.py",
                 "ml/estimator.py", "ml/classification.py", "ml/losses.py",
-                "ml/image_params.py"):
+                "ml/image_params.py", "frame/sql.py", "udf/registry.py",
+                "udf/tensorframes_udf.py", "udf/keras_image_model.py",
+                "udf/text_udf.py", "ml/hpo.py", "ml/tuning.py",
+                "__init__.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]

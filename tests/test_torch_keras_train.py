@@ -211,9 +211,7 @@ def test_fit_params_are_validated(fit_set):
 
 @pytest.mark.parametrize("knob,item", [
     ("mesh", "Training, rest"), ("modelAxis", "LM parallelism"),
-    ("paramShardings", "LM parallelism"),
-    ("trialRetryPolicy", "The rest of the sparkdl surface"),
-    ("wireCodec", "Data layer"), ("cacheDir", "Data layer"),
+    ("paramShardings", "LM parallelism"), ("wireCodec", "Data layer"), ("cacheDir", "Data layer"),
     ("deviceCache", "Data layer")])
 def test_unported_knobs_are_refused_by_name(fit_set, knob, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -222,13 +220,22 @@ def test_unported_knobs_are_refused_by_name(fit_set, knob, item):
 
 
 def test_fit_multiple_is_refused_by_name(fit_set):
+    """fitMultiple and fit over a list of maps run (tests/
+    test_torch_tuning.py holds them to tpudl); what is still refused by
+    name is a mesh-wide trial, and the default device without a card."""
     path, uris, labels = fit_set
-    est = KerasImageFileEstimator(device="cpu", **_kw(path))
     frame = Frame({"uri": uris, "label": labels})
-    with pytest.raises(NotImplementedError, match="tuning"):
-        est.fitMultiple(frame, [{}])
-    with pytest.raises(NotImplementedError, match="tuning"):
-        est.fit(frame, [{est.kerasFitParams: {"epochs": 1}}])
+    with pytest.raises(NotImplementedError, match="Training, rest"):
+        KerasImageFileEstimator(device="cpu", mesh=object(), **_kw(path))
+    est = KerasImageFileEstimator(**_kw(path))            # device="cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        dict(est.fitMultiple(frame, [{}]))
+    est = KerasImageFileEstimator(device="cpu", **_kw(path, epochs=1))
+    models = est.fit(frame, [{}, {est.kerasFitParams: {"epochs": 1,
+                                                       "batch_size": 8}}])
+    assert [len(m.history["step_loss"]) for m in models] == [2, 4]
+    for m in models:
+        os.remove(m.getModelFile())
 
 
 def test_missing_card_raises_instead_of_running_on_the_cpu(fit_set):

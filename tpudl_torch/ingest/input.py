@@ -16,7 +16,9 @@ and evaluates the layer graph of its ``config.json`` in torch
   statistics included, as tpudl's is.
 
 ``input_names`` and ``output_names`` are the Keras names of the input and
-output layers as tensor names (``input_layer:0``, ``dense_2:0``). A live keras model object is refused: save it to
+output layers as tensor names (``input_layer:0``, ``dense_2:0``); a model
+may have several outputs (``fetches`` picks among them), not several
+inputs. A live keras model object is refused: save it to
 ``.keras`` and pass the path. The routes that need TF protos
 (``fromGraph``, ``fromGraphDef``, ``fromSavedModel*``,
 ``fromCheckpoint*``) are refused by name (ROADMAP Queue 1, 'The rest of
@@ -55,10 +57,10 @@ def _proto_route(name: str):
 
 class TFInputGraph:
     def __init__(self, config: dict, weights: dict, *, trainable: bool):
-        _steps, src, out = graph_steps(config)  # refuses what it cannot run
+        _steps, src, outs = graph_steps(config)  # refuses what it cannot run
         self.config = config
         self.input_names = [f"{src}:0"]
-        self.output_names = [f"{out}:0"]
+        self.output_names = [f"{o}:0" for o in outs]
         self.params = dict(weights) if trainable else None
         self._weights = weights
         self._frozen: dict = {}
@@ -73,13 +75,14 @@ class TFInputGraph:
                 f"outputs={self.output_names}, trainable={self.trainable})")
 
     def _check_names(self, feeds, fetches):
-        for given, have in ((feeds, self.input_names),
-                            (fetches, self.output_names)):
-            if given is not None and list(given) != have:
-                raise NotImplementedError(
-                    f"feeds/fetches {list(given)}: a Keras graph is run from "
-                    f"its input {self.input_names} to its output "
-                    f"{self.output_names} only")
+        bad = ((feeds is not None and list(feeds) != self.input_names) or
+               (fetches is not None and not set(fetches) <= set(
+                   self.output_names)))
+        if bad:
+            raise NotImplementedError(
+                f"feeds/fetches {feeds}/{fetches}: a Keras graph is run "
+                f"from its input {self.input_names} to its outputs "
+                f"{self.output_names} only")
 
     def frozen_params(self, device) -> dict:
         """The weights as torch tensors on ``device``, made once."""
@@ -92,9 +95,12 @@ class TFInputGraph:
             return self._frozen[device]
 
     def make_fn(self, feeds=None, fetches=None):
-        """``fn(params, x)`` for a trainable graph, else ``fn(x)``."""
+        """``fn(params, x)`` for a trainable graph, else ``fn(x)``; it
+        returns the ``fetches`` (default: every output), one tensor for
+        one, else a tuple."""
         self._check_names(feeds, fetches)
-        fn = build_torch_fn(self.config)
+        fn = build_torch_fn(self.config, None if fetches is None else
+                            [f.split(":")[0] for f in fetches])
         if self.trainable:
             return fn
         return lambda x: fn(self.frozen_params(x.device), x)

@@ -280,19 +280,25 @@ def _inbound(layer: dict) -> list[str]:
     return [_history(t) for t in (arg if isinstance(arg, list) else [arg])]
 
 
+def _endpoints(spec) -> list[str]:
+    """``input_layers``/``output_layers`` → their layer names."""
+    specs = spec if spec and isinstance(spec[0], list) else [spec]
+    return [_history({"class_name": "__keras_tensor__",
+                      "config": {"keras_history": s}}) for s in specs]
+
+
 def _endpoint(spec) -> str:
-    """``input_layers``/``output_layers`` → the one layer name."""
-    if spec and isinstance(spec[0], list):
-        if len(spec) != 1:
-            _unsupported(f"a model with {len(spec)} inputs or outputs")
-        spec = spec[0]
-    return _history({"class_name": "__keras_tensor__",
-                     "config": {"keras_history": spec}})
+    """``input_layers`` → the one input layer's name."""
+    names = _endpoints(spec)
+    if len(names) != 1:
+        _unsupported(f"a model with {len(names)} inputs")
+    return names[0]
 
 
 def graph_steps(config: dict):
-    """``(steps, input, output)``: ``steps`` is ``[(name, op, inputs)]`` in
-    an order where each layer follows its inputs."""
+    """``(steps, input, outputs)``: ``steps`` is ``[(name, op, inputs)]`` in
+    an order where each layer follows its inputs; ``outputs`` lists the
+    model's output layers."""
     cls = config.get("class_name")
     layers = config["config"]["layers"]
     if cls == "Sequential":
@@ -303,7 +309,7 @@ def graph_steps(config: dict):
         for layer in model_layers(config):
             steps.append((layer["config"]["name"], _layer_op(layer), [prev]))
             prev = layer["config"]["name"]
-        return steps, src, prev
+        return steps, src, [prev]
     if cls not in ("Functional", "Model"):
         _unsupported(f"a {cls!r} model")
     by_name = {layer["config"]["name"]: layer for layer in layers}
@@ -324,20 +330,29 @@ def graph_steps(config: dict):
             done.add(n)
         pending = [n for n in pending if n not in done]
     src = _endpoint(config["config"]["input_layers"])
-    out = _endpoint(config["config"]["output_layers"])
+    outs = _endpoints(config["config"]["output_layers"])
     steps = [(n, _layer_op(by_name[n]), inputs[n]) for n in order
              if by_name[n]["class_name"] != "InputLayer"]
-    return steps, src, out
+    return steps, src, outs
 
 
-def build_torch_fn(config: dict):
+def build_torch_fn(config: dict, outputs=None):
     """``fn(params, x)`` computing the model of ``config`` (see the module
-    docstring), and the variable paths it reads, in file order."""
-    steps, src, out = graph_steps(config)
+    docstring): the output layers named in ``outputs`` (default: the
+    model's), one tensor for one output, else a tuple in that order."""
+    steps, src, model_outs = graph_steps(config)
+    outs = list(outputs) if outputs is not None else model_outs
+    unknown = [o for o in outs if o not in model_outs]
+    if unknown:
+        raise ValueError(f"{unknown} are not outputs of the model "
+                         f"({model_outs})")
     last_use = {}
     for i, (_n, _op, ins) in enumerate(steps):
         for name in ins:
             last_use[name] = i
+
+    def nhwc(y):
+        return y.permute(0, 2, 3, 1) if y.ndim == 4 else y
 
     def fn(params, x):
         env = {src: x.permute(0, 3, 1, 2).contiguous() if x.ndim == 4
@@ -345,9 +360,10 @@ def build_torch_fn(config: dict):
         for i, (name, op, ins) in enumerate(steps):
             env[name] = op(params, *(env[n] for n in ins))
             for n in ins:
-                if last_use[n] == i and n != out:
+                if last_use[n] == i and n not in outs:
                     env.pop(n, None)
-        y = env[out]
-        return y.permute(0, 2, 3, 1) if y.ndim == 4 else y
+        if len(outs) == 1:
+            return nhwc(env[outs[0]])
+        return tuple(nhwc(env[o]) for o in outs)
 
     return fn

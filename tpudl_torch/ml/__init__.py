@@ -1,8 +1,9 @@
 """The port's ml API: text stages (``lm``), named-image stages
-(``named_image``), the Keras surface (``keras_tensor``, ``tf_tensor``,
-``keras_image``, ``estimator``), ``LogisticRegression``
-(``classification``), the pipeline bases (``pipeline``) and Params
-(``params``)."""
+(``named_image``), ``TFImageTransformer`` (``tf_image``), the Keras
+surface (``keras_tensor``, ``tf_tensor``, ``keras_image``, ``estimator``),
+model selection (``tuning``, over ``hpo``'s trial scheduler),
+``LogisticRegression`` (``classification``), the pipeline bases
+(``pipeline``) and Params (``params``)."""
 
 from tpudl_torch.ml.classification import (LogisticRegression,
                                            LogisticRegressionModel)
@@ -13,11 +14,15 @@ from tpudl_torch.ml.lm import LMClassifier, LMFeaturizer, LMGenerator
 from tpudl_torch.ml.named_image import DeepImageFeaturizer, DeepImagePredictor
 from tpudl_torch.ml.pipeline import (Estimator, Model, Pipeline, PipelineModel,
                                      Transformer)
+from tpudl_torch.ml.tf_image import TFImageTransformer
 from tpudl_torch.ml.tf_tensor import TFTransformer
+from tpudl_torch.ml.tuning import (CrossValidator, CrossValidatorModel,
+                                   FunctionEvaluator, ParamGridBuilder)
 
 __all__ = ["LMFeaturizer", "LMClassifier", "LMGenerator",
-           "DeepImageFeaturizer", "DeepImagePredictor", "KerasTransformer",
-           "TFTransformer", "KerasImageFileTransformer",
+           "DeepImageFeaturizer", "DeepImagePredictor", "TFImageTransformer",
+           "KerasTransformer", "TFTransformer", "KerasImageFileTransformer",
            "KerasImageFileEstimator", "LogisticRegression",
-           "LogisticRegressionModel", "Transformer", "Estimator", "Model",
-           "Pipeline", "PipelineModel"]
+           "LogisticRegressionModel", "ParamGridBuilder", "CrossValidator",
+           "CrossValidatorModel", "FunctionEvaluator", "Transformer",
+           "Estimator", "Model", "Pipeline", "PipelineModel"]

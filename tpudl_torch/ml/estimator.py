@@ -22,12 +22,19 @@ batches'. The returned transformer carries ``history``:
 ``{"epoch_loss": [...], "step_loss": [...]}``.
 
 ``kerasFitParams`` keys: ``batch_size``, ``epochs``, ``verbose``,
-``shuffle``, ``learning_rate``, ``seed``. Refused by name:
-``fitMultiple`` and a list of param maps (ROADMAP Queue 1, 'The rest of
-the sparkdl surface', tuning), ``trialRetryPolicy`` (the same),
-``mesh`` ('Training, rest'), ``modelAxis`` and ``paramShardings`` ('LM
-parallelism'), ``wireCodec``, ``cacheDir`` and ``deviceCache`` ('Data
-layer').
+``shuffle``, ``learning_rate``, ``seed``.
+
+``fitMultiple`` (and ``fit`` over a list of param maps) is tpudl's: one
+shared ``(X, y)`` and one ingested graph for every map that tunes only
+training knobs, the trials scheduled by
+:class:`~tpudl_torch.ml.hpo.TrialScheduler` (one in flight a card,
+yielded in completion order, each re-attempted under
+``trialRetryPolicy`` when its failure is transient), and a private
+``_fit`` for a map that overrides ``modelFile``, ``inputCol``,
+``labelCol`` or ``imageLoader`` (compared by value). Refused by name:
+``mesh`` and with it mesh-wide trials ('Training, rest'), ``modelAxis``
+and ``paramShardings`` ('LM parallelism'), ``wireCodec``, ``cacheDir``
+and ``deviceCache`` ('Data layer').
 """
 
 from __future__ import annotations
@@ -57,10 +64,8 @@ _ALLOWED_FIT_PARAMS = {"batch_size", "epochs", "verbose", "shuffle",
                        "learning_rate", "seed"}
 
 _UNPORTED = {"mesh": "Training, rest", "modelAxis": "LM parallelism",
-             "paramShardings": "LM parallelism",
-             "trialRetryPolicy": "The rest of the sparkdl surface",
-             "wireCodec": "Data layer", "cacheDir": "Data layer",
-             "deviceCache": "Data layer"}
+             "paramShardings": "LM parallelism", "wireCodec": "Data layer",
+             "cacheDir": "Data layer", "deviceCache": "Data layer"}
 
 
 class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
@@ -85,6 +90,9 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         self.prepareWorkers = kwargs.pop("prepareWorkers", None)
         self.fuseSteps = kwargs.pop("fuseSteps", None)
         self.dispatchDepth = kwargs.pop("dispatchDepth", None)
+        # per-trial retry (a RetryPolicy) for fitMultiple's scheduler;
+        # None falls back to TPUDL_HPO_TRIAL_ATTEMPTS
+        self.trialRetryPolicy = kwargs.pop("trialRetryPolicy", None)
         self._set(**kwargs)
 
     # copied from tpudl/ml/estimator.py:_validateFitParams
@@ -115,10 +123,10 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
 
         return TFInputGraph.fromKerasTrainable(self.getModelFile())
 
-    def _train_one(self, gin, X, y):
-        """Train on ``(X, y)`` from ``gin.params``: ``(params, epoch
-        losses, step losses)``, ``params`` as torch tensors on the
-        estimator's device in Keras's layout."""
+    def _train_one(self, gin, X, y, device=None):
+        """Train on ``(X, y)`` from ``gin.params`` on ``device`` (default
+        the estimator's): ``(params, epoch losses, step losses)``,
+        ``params`` as torch tensors on that device in Keras's layout."""
         fit_params = self._validateFitParams(self.getKerasFitParams())
         batch_size = int(fit_params.get("batch_size", 32))
         epochs = int(fit_params.get("epochs", 1))
@@ -128,7 +136,7 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         n = len(X)
         if n == 0:
             raise ValueError("cannot fit on an empty frame (0 images)")
-        dev = resolve_device(self.device)
+        dev = resolve_device(self.device if device is None else device)
         loss_fn = get_loss(self.getKerasLoss())
         factory, default_lr = get_optimizer_dynamic(self.getKerasOptimizer())
         params = {k: torch.tensor(np.asarray(v), device=dev,
@@ -180,25 +188,77 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         os.close(fd)
         return save_keras_file(path, gin.config, weights)
 
-    def _make_transformer(self, model_path):
+    def _make_transformer(self, model_path, device=None):
         return KerasImageFileTransformer(
             inputCol=self.getInputCol(), outputCol=self.getOutputCol(),
             modelFile=model_path, imageLoader=self.getImageLoader(),
-            device=self.device, prefetchDepth=self.prefetchDepth,
+            device=self.device if device is None else device,
+            prefetchDepth=self.prefetchDepth,
             prepareWorkers=self.prepareWorkers, fuseSteps=self.fuseSteps,
             dispatchDepth=self.dispatchDepth)
 
-    def _fit(self, frame):
-        X, y = self._getNumpyFeaturesAndLabels(frame)
-        gin = self._ingest()
-        params, epoch_losses, step_losses = self._train_one(gin, X, y)
-        model = self._make_transformer(self._save_trained(gin, params))
+    def _trained_model(self, gin, X, y, device=None):
+        """Train, write the trained file and return its transformer, with
+        the losses as its ``history``."""
+        params, epoch_losses, step_losses = self._train_one(gin, X, y, device)
+        model = self._make_transformer(self._save_trained(gin, params),
+                                       device)
         model.history = {"epoch_loss": epoch_losses,
                          "step_loss": step_losses}
         return model
 
+    def _fit(self, frame, device=None):
+        X, y = self._getNumpyFeaturesAndLabels(frame)
+        return self._trained_model(self._ingest(), X, y, device)
+
+    # copied from tpudl/ml/estimator.py:_overrides_shared
+    def _overrides_shared(self, conf):
+        """Does ``conf`` override a data/model param vs self? Compared by
+        VALUE (an equal-valued override must not force the expensive
+        private path); identity is the fallback for un-comparable values
+        (e.g. loader callables)."""
+        for p in (self.modelFile, self.inputCol, self.labelCol,
+                  self.imageLoader):
+            if p not in conf._paramMap:
+                continue
+            new = conf._paramMap[p]
+            old = self.getOrDefault(p) if self.isDefined(p) else None
+            try:
+                if not bool(new == old):
+                    return True
+            except Exception:
+                if new is not old:
+                    return True
+        return False
+
     def fitMultiple(self, frame, paramMaps):
-        raise NotImplementedError(
-            "KerasImageFileEstimator.fitMultiple (and fit over a list of "
-            "param maps) is not ported to tpudl_torch yet (ROADMAP Queue 1, "
-            "'The rest of the sparkdl surface', tuning)")
+        """Iterator of ``(index, model)`` as each trial finishes: one
+        shared dataset and one ingested graph for the maps that tune
+        training knobs, a private ``_fit`` for a map that overrides the
+        data or the model file. Trials run one a card (on the CPU, one
+        at a time)."""
+        from tpudl_torch.ml.hpo import TrialScheduler
+
+        paramMaps = list(paramMaps)
+
+        def gen():
+            confs = [self.copy(pm) for pm in paramMaps]
+            private = {i for i, c in enumerate(confs)
+                       if self._overrides_shared(c)}
+            X = y = gin = None
+            if len(private) < len(confs):
+                X, y = self._getNumpyFeaturesAndLabels(frame)
+                gin = self._ingest()
+            sched = TrialScheduler(device=self.device)
+
+            def trial(i, _pm, slice_devs):
+                # a wider slice trains on its first card (mesh-wide
+                # trials wait for mesh=, 'Training, rest')
+                if i in private:
+                    return confs[i]._fit(frame, slice_devs[0])
+                return confs[i]._trained_model(gin, X, y, slice_devs[0])
+
+            yield from sched.run(paramMaps, trial,
+                                 retry=self.trialRetryPolicy)
+
+        return gen()

@@ -230,6 +230,13 @@ class TypeConverters:
             return v
         raise TypeError(f"outputMode must be 'vector' or 'image', got {v!r}")
 
+    # copied from tpudl/ml/params.py:TypeConverters.toChannelOrder
+    @staticmethod
+    def toChannelOrder(v):
+        if v in ("RGB", "BGR", "L"):
+            return v
+        raise TypeError(f"channelOrder must be RGB, BGR or L; got {v!r}")
+
     @staticmethod
     def asColumnToTensorNameMap(v):
         """{column → tensor name}, canonicalized and sorted."""
