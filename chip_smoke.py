@@ -86,7 +86,8 @@ Phases (any failure exits non-zero before the final line):
    all-reduce's calls and bytes a step; 2 f32 steps at batch 4 from
    perturbed BN statistics held against the same run on the CPU, and the
    first step's gradients against a float64 run on the card (within 1e-2
-   of the largest, as phase 9 holds InceptionV3's); the
+   of the largest, as phase 9 holds InceptionV3's), and the same for the
+   named InceptionV3 at 299×299; the
    fixed-batch eval loss (``make_eval_step``) of ``bench.py``'s band set
    (bf16 compute) falling over 60 steps; a run that fails at step 7 and
    restarts from its step-5 checkpoint (adam) equal, bit for bit under
@@ -107,10 +108,20 @@ Phases (any failure exits non-zero before the final line):
    alone, the trained file read back bit for bit, 2 steps at batch 4
    against the CPU (losses, and updates in the 2-norm), the returned
    transformer on 16 images against the CPU, and a 3-epoch fit whose last
-   epoch's loss is below its first; then ``DeepImageFeaturizer
-   ("InceptionV3")`` features of 256 rows into ``LogisticRegression(
-   maxIter=100)`` on the card and the CPU (falling loss, probabilities
-   held); no flash launch; last, a profile split of one estimator step.
+   epoch's loss is below its first; the same fit over Keras Xception + a
+   Dense(2) head (time-to-fit, steps/s, the file read back; card vs CPU
+   and the first step's gradients against float64 on perturbed BN); the
+   Keras MobileNetV2 and EfficientNetB0 bases at 224×224 through
+   ``KerasImageFileTransformer`` over 256 JPEGs, batch 64 (images/s; 2
+   rows with perturbed BN against the CPU); ``DeepImageFeaturizer`` on
+   Xception and MobileNetV2 with ``weights=`` the base's Keras file,
+   held against ``KerasImageFileTransformer`` on that file and the same
+   images; the committed legacy ``tests/fixtures/keras/cnn.h5`` through
+   ``KerasImageFileTransformer`` against the CPU; then
+   ``DeepImageFeaturizer("InceptionV3")`` features of 256 rows into
+   ``LogisticRegression(maxIter=100)`` on the card and the CPU (falling
+   loss, probabilities held); no flash launch; last, a profile split of
+   one estimator step.
 
 10. Drive model selection and models as SQL UDFs at full width, from the
    ``.keras`` files of phase 9 written anew: ``CrossValidator`` over
@@ -1890,11 +1901,12 @@ def resnet_net(ctx, params=None):
                       model.init(SEED), device=ctx.device)
 
 
-def resnet_batches(n, batch, seed):
-    """bench.py's measure_train_step data: ``n`` uint8 image batches and
-    one-hot labels over 1000 classes."""
+def resnet_batches(n, batch, seed, side=None):
+    """bench.py's measure_train_step data: ``n`` uint8 image batches (at
+    ``side``, default RESNET_SIDE) and one-hot labels over 1000 classes."""
+    side = side or RESNET_SIDE
     rng = np.random.default_rng(seed)
-    xs = [rng.integers(0, 256, size=(batch, RESNET_SIDE, RESNET_SIDE, 3),
+    xs = [rng.integers(0, 256, size=(batch, side, side, 3),
                        dtype=np.uint8) for _ in range(n)]
     ys = [np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, batch)]
           for _ in range(n)]
@@ -1953,15 +1965,18 @@ def card_vs_cpu_fn(ctx, params):
              for k, v in net.state_dict().items()})
 
 
-def resnet_first_gradient(params, device, dtype):
+def resnet_first_gradient(params, device, dtype, name="ResNet50"):
     """The loss and every leaf's gradient of a first f32 (or float64) step
-    of ``loss_fn`` on RESNET_CPU_BATCH rows, as float64 numpy."""
+    of ``loss_fn`` through the named model ``name`` on RESNET_CPU_BATCH
+    rows at the model's own input size, as float64 numpy."""
     from tpudl_torch.zoo.registry import ImageModel, getKerasApplicationModel
 
-    net = ImageModel(getKerasApplicationModel("ResNet50"), params,
-                     device=device, dtype=dtype)
-    # card_vs_cpu_fn's first batch
-    xs, ys = resnet_batches(RESNET_CPU_STEPS, RESNET_CPU_BATCH, SEED + 1)
+    model = getKerasApplicationModel(name)
+    net = ImageModel(model, params, device=device, dtype=dtype)
+    # card_vs_cpu_fn's first batch (at RESNET_SIDE for ResNet50)
+    side = RESNET_SIDE if name == "ResNet50" else model.input_size[0]
+    xs, ys = resnet_batches(RESNET_CPU_STEPS, RESNET_CPU_BATCH, SEED + 1,
+                            side)
     loss = resnet_loss(dtype)(net, torch.from_numpy(xs[0]).to(device),
                               torch.from_numpy(ys[0]).to(device, dtype))
     loss.backward()
@@ -1969,26 +1984,27 @@ def resnet_first_gradient(params, device, dtype):
                                   for k, p in net.named_parameters()}
 
 
-def resnet_gradient_check(params, card, problems):
-    """ResNet50's first f32 step's gradients against float64 on the card:
-    the card's f32 (held), the CPU's and the card's with cuDNN off
-    (printed), as phase 9 holds InceptionV3's."""
+def resnet_gradient_check(params, card, problems, name="ResNet50"):
+    """A named model's first f32 step's gradients against float64 on the
+    card: the card's f32 (held), the CPU's and the card's with cuDNN off
+    (printed), as phase 9 holds the Keras InceptionV3's."""
     t0 = time.perf_counter()
-    ref_loss, ref = resnet_first_gradient(params, "cuda", torch.float64)
+    ref_loss, ref = resnet_first_gradient(params, "cuda", torch.float64,
+                                          name)
     top = max(np.abs(v).max() for v in ref.values())
     if not top > 0:
-        problems.append("ResNet50's float64 first step has no gradient")
+        problems.append(f"{name}'s float64 first step has no gradient")
         return
     runs = {"card f32, cuDNN": ("cuda", True), "CPU f32": ("cpu", True),
             "card f32, cuDNN off": ("cuda", False)}
     for what, (device, cudnn) in runs.items():
         with torch.backends.cudnn.flags(enabled=cudnn):
             loss, grads = resnet_first_gradient(params, device,
-                                                torch.float32)
+                                                torch.float32, name)
         errs = {k: np.abs(grads[k] - ref[k]).max() / top for k in ref}
         worst = max(errs, key=errs.get)
         held = what == "card f32, cuDNN"
-        print(f"  ResNet50 first-step gradients, {what}, batch "
+        print(f"  {name} first-step gradients, {what}, batch "
               f"{RESNET_CPU_BATCH}, perturbed BN, against float64 on the card"
               f" ({len(ref)} leaves, largest |g| {top:.4e}): loss "
               f"{loss - ref_loss:+.3e} off, gradients {errs[worst]:.3e} of "
@@ -1996,9 +2012,9 @@ def resnet_gradient_check(params, card, problems):
               + (f" (limit {RESNET_GRAD_RTOL:g})" if held else
                  " (printed, not held)") + f"; card {card}", flush=True)
         if held and not errs[worst] <= RESNET_GRAD_RTOL:
-            problems.append(f"ResNet50 first-step gradients {errs[worst]:.3e}"
+            problems.append(f"{name} first-step gradients {errs[worst]:.3e}"
                             " of the largest off float64")
-    print(f"  gradient check: {time.perf_counter() - t0:.1f} s")
+    print(f"  {name} gradient check: {time.perf_counter() - t0:.1f} s")
 
 
 def band_batches():
@@ -2295,6 +2311,11 @@ def run_resnet_training(card):
             and upd_abs / scale <= RESNET_CPU_UPDATE_RTOL):
         problems.append("training on the card disagrees with the CPU run")
     resnet_gradient_check(params, card, problems)
+    # the named InceptionV3 trains on channels_last as ResNet50 does, the
+    # layout on which the Keras InceptionV3's gradients once read 8.4e-2
+    resnet_gradient_check(
+        perturbed_bn(getKerasApplicationModel("InceptionV3").init(SEED),
+                     seed=1), card, problems, "InceptionV3")
 
     curve, dt = HorovodRunner(np=1).run(curve_fn)
     print(f"  convergence (bench.py's band set, {CURVE_CLASSES} classes, "
@@ -2361,8 +2382,8 @@ def run_resnet_training(card):
 # every .keras file written by the port (the card's machine has no keras)
 KERAS_MLP_ROWS, KERAS_MLP_DIM, KERAS_MLP_BATCH = 65536, 100, 8192
 KERAS_MLP_CPU_ROWS = 64
-KERAS_INCEPTION_CONFIG = os.path.join(
-    "tests", "fixtures", "keras", "inception_v3_tl.config.json.gz")
+KERAS_FIXTURES = os.path.join("tests", "fixtures", "keras")
+KERAS_H5 = os.path.join(KERAS_FIXTURES, "cnn.h5")   # bench.py's CNN, by keras
 KERAS_JPEGS, KERAS_SIDE, KERAS_BATCH = 96, 299, 16
 KERAS_CPU_ROWS, KERAS_CPU_BATCH = 8, 4     # 2 steps, card vs CPU
 KERAS_TRANSFORM_ROWS = 16
@@ -2389,6 +2410,21 @@ KERAS_GRAD_RTOL = 1e-2
 # LogisticRegression probabilities, card vs CPU: 100 adam steps on the same
 # features, f32 products in other orders
 LR_PROB_ATOL = 1e-4
+# the named models' own Keras files: Keras MobileNetV2 and EfficientNetB0
+# bases through KerasImageFileTransformer at 224x224 (rows/s over
+# IMAGE_WINDOWS windows, card vs CPU on 2 rows with perturbed BN at
+# KERAS_CPU_RTOL), and the named stages with weights=<the base file>
+# against the evaluator on the same file and rows
+KERAS_APPS = ("mobilenet_v2", "efficientnet_b0")
+KERAS_APP_SIDE, KERAS_APP_ROWS, KERAS_APP_BATCH = 224, 256, 64
+KERAS_APP_CPU_ROWS = 2
+KERAS_NAMED_ROWS = 16
+# the zoo (channels_last, BN folded into one scale and shift) against the
+# Keras evaluator (NCHW, BN as Keras computes it), both f32 with TF32 off
+# on the card: two implementations of one function summing in other
+# orders, held as phase 6 holds card vs CPU
+KERAS_NAMED_RTOL = 2e-5
+KERAS_H5_ROWS = 16
 
 
 def keras_mlp_config():
@@ -2437,38 +2473,136 @@ def keras_mlp_config():
         "compile_config": {}}
 
 
-def keras_inception_config():
-    """configs[2]'s model, Keras InceptionV3 + a Dense(2) softmax head, as
-    keras writes its ``config.json`` (the committed fixture)."""
+def keras_app_config(fixture):
+    """A committed Keras ``config.json`` fixture (written by keras with
+    ``tests/torch_keras_models.py``): ``inception_v3_tl`` and
+    ``xception_tl`` (the base, ``weights=None``, ``include_top=False``,
+    ``pooling="avg"``, + a Dense(2) softmax head), ``mobilenet_v2`` and
+    ``efficientnet_b0`` (the bare bases at 224x224)."""
     import gzip
 
     here = os.path.dirname(os.path.abspath(__file__))
-    with gzip.open(os.path.join(here, KERAS_INCEPTION_CONFIG), "rt") as f:
+    path = os.path.join(here, KERAS_FIXTURES, f"{fixture}.config.json.gz")
+    with gzip.open(path, "rt") as f:
         return json.load(f)
+
+
+def keras_inception_config():
+    """configs[2]'s model, Keras InceptionV3 + a Dense(2) softmax head, as
+    keras writes its ``config.json`` (the committed fixture)."""
+    return keras_app_config("inception_v3_tl")
+
+
+def keras_base_config(config):
+    """A ``*_tl`` config without its ``head``: the base model, its output
+    the head's input (the pooled features)."""
+    import copy
+
+    config = copy.deepcopy(config)
+    layers = config["config"]["layers"]
+    head = next(layer for layer in layers if layer["name"] == "head")
+    layers.remove(head)
+    arg = head["inbound_nodes"][0]["args"][0]
+    config["config"]["output_layers"] = list(arg["config"]["keras_history"])
+    return config
+
+
+def keras_perturbed(weights, seed=1):
+    """Keras-keyed ``weights`` with BN statistics, shifts and scales moved
+    off 0 and 1 (as the CPU tests perturb them), so that a fold or a
+    layout fault shows at a visible scale."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, v in weights.items():
+        var = key.rsplit("/", 1)[1]
+        if var in ("moving_mean", "beta"):
+            v = rng.normal(0, 0.1, v.shape).astype(np.float32)
+        elif var in ("moving_variance", "gamma"):
+            v = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        out[key] = v
+    return out
+
+
+# each variable's initializer key in a layer's config
+KERAS_INIT_KEYS = {"kernel": "kernel_initializer", "bias": "bias_initializer",
+                   "depthwise_kernel": "depthwise_initializer",
+                   "pointwise_kernel": "pointwise_initializer",
+                   "gamma": "gamma_initializer", "beta": "beta_initializer",
+                   "moving_mean": "moving_mean_initializer",
+                   "moving_variance": "moving_variance_initializer"}
+# the built-in initializers as keras's VarianceScaling(scale, mode, dist)
+KERAS_SCALINGS = {"GlorotUniform": (1.0, "fan_avg", "uniform"),
+                  "GlorotNormal": (1.0, "fan_avg", "truncated_normal"),
+                  "HeUniform": (2.0, "fan_in", "uniform"),
+                  "HeNormal": (2.0, "fan_in", "truncated_normal"),
+                  "LecunUniform": (1.0, "fan_in", "uniform"),
+                  "LecunNormal": (1.0, "fan_in", "truncated_normal")}
+
+
+def keras_initial(spec, shape, rng):
+    """One variable drawn as keras's initializer ``spec`` (its config
+    entry) draws it, as float64 (keras/src/initializers: ``compute_fans``
+    and ``VarianceScaling``)."""
+    cls, c = spec["class_name"], spec.get("config") or {}
+    if cls == "Zeros":
+        return np.zeros(shape)
+    if cls == "Ones":
+        return np.ones(shape)
+    if cls == "Constant":
+        return np.full(shape, float(c["value"]))
+    if cls in KERAS_SCALINGS:
+        scale, mode, dist = KERAS_SCALINGS[cls]
+    elif cls == "VarianceScaling":
+        scale, mode, dist = c["scale"], c["mode"], c["distribution"]
+    else:
+        raise NotImplementedError(f"keras initializer {cls}")
+    if len(shape) < 2:
+        fan_in = fan_out = shape[0] if shape else 1
+    else:
+        receptive = int(np.prod(shape[:-2]))
+        fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    n = {"fan_in": fan_in, "fan_out": fan_out,
+         "fan_avg": (fan_in + fan_out) / 2}[mode]
+    scale /= max(1.0, n)
+    if dist == "uniform":
+        lim = np.sqrt(3.0 * scale)
+        return rng.uniform(-lim, lim, shape)
+    if dist == "untruncated_normal":
+        return rng.normal(0.0, np.sqrt(scale), shape)
+    std = np.sqrt(scale) / 0.87962566103423978    # truncated at 2 std
+    z = rng.normal(size=shape)
+    while np.any(np.abs(z) > 2):
+        bad = np.abs(z) > 2
+        z[bad] = rng.normal(size=int(bad.sum()))
+    return z * std
 
 
 def keras_weights(config, seed):
     """Seeded weights for every variable of ``config`` as Keras initializes
-    a model built with ``weights=None`` (``bench.py``'s models):
-    Glorot-uniform kernels, zero biases and shifts, BN moving means 0 and
-    variances 1. (With BN statistics moved off 0 and 1, as the CPU tests
+    a model built with ``weights=None`` (``bench.py``'s models): each drawn
+    from its layer's own initializer in the config (Glorot-uniform kernels,
+    zero biases and shifts, BN moving means 0 and variances 1;
+    EfficientNet's VarianceScaling), a Normalization's mean 0, variance 1
+    and count 0. (With BN statistics moved off 0 and 1, as the CPU tests
     perturb them to test the fold, configs[2]'s adam fit saturates at the
     loss clip within two steps and no longer learns.)"""
-    from tpudl_torch.ingest.kerasfile import variable_shapes
+    from tpudl_torch.ingest.kerasfile import variable_paths, variable_shapes
 
     rng = np.random.default_rng(seed)
+    shapes = variable_shapes(config)
     out = {}
-    for key, shape in variable_shapes(config).items():
-        var = key.rsplit("/", 1)[1]
-        if var == "kernel":
-            fan_in = int(np.prod(shape[:-1]))
-            fan_out = int(np.prod(shape[:-2])) * shape[-1]
-            lim = np.sqrt(6.0 / (fan_in + fan_out))
-            v = rng.uniform(-lim, lim, shape)
-        elif var in ("moving_variance", "gamma"):
-            v = np.ones(shape)
+    for _group, layer, var, key in variable_paths(config):
+        shape = shapes[key]
+        if var == "count":
+            out[key] = np.zeros(shape, np.int64)
+            continue
+        if var in ("mean", "variance"):       # Normalization
+            v = np.zeros(shape) if var == "mean" else np.ones(shape)
         else:
-            v = np.zeros(shape)
+            spec = layer["config"].get(KERAS_INIT_KEYS[var])
+            if var == "kernel" and layer["class_name"] == "DepthwiseConv2D":
+                spec = layer["config"]["depthwise_initializer"]
+            v = keras_initial(spec, shape, rng)
         out[key] = v.astype(np.float32)
     return out
 
@@ -2552,39 +2686,30 @@ def keras_estimator(path, loader, device="cuda", **fit):
         kerasFitParams={"epochs": 1, "batch_size": KERAS_BATCH, **fit})
 
 
-def keras_estimator_leg(directory, card, problems, written):
-    """configs[2] at full width: the fit (cold and warm), its steps/s and
-    losses, card vs CPU on 2 steps, the written file read back bit for
-    bit, the returned transformer card vs CPU, and a 3-epoch fit. The
-    trained files the fits write are listed in ``written``."""
-    from tpudl_torch.image.imageIO import createNativeImageLoader
-    from tpudl_torch.ingest.kerasfile import load_keras_file, save_keras_file
-    from tpudl_torch.ml import KerasImageFileTransformer
+def keras_fit_leg(model, path, frame, loader, card, problems, written):
+    """configs[2]'s recipe on the Keras file ``path`` (``model`` names it):
+    the fit cold and warm, its steps/s and losses, the train loop's own
+    rate, and the written file read back bit for bit. Returns the
+    estimator and its ``(X, y)``; the trained files go to ``written``."""
+    from tpudl_torch.ingest.kerasfile import load_keras_file
 
-    config = keras_inception_config()
-    path = save_keras_file(os.path.join(directory, "inception_tl.keras"),
-                           config, keras_weights(config, SEED))
-    uris, labels = keras_jpegs(directory, KERAS_JPEGS, SEED)
-    frame = keras_frame(uris, labels)
-    loader = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE,
-                                     scale=1.0 / 255.0)
     n_steps = -(-KERAS_JPEGS // KERAS_BATCH)
     est = keras_estimator(path, loader)
     for what in ("cold", "warm"):
         t0 = time.perf_counter()
-        model = est.fit(frame)
-        written.append(model.getModelFile())
+        fitted = est.fit(frame)
+        written.append(fitted.getModelFile())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"  configs[2] KerasImageFileEstimator InceptionV3+head, "
-              f"{KERAS_JPEGS} JPEGs {KERAS_SIDE}x{KERAS_SIDE}, batch "
-              f"{KERAS_BATCH}, 1 epoch, adam, {what}: fit {dt:.3f} s = "
-              f"{n_steps / dt:.3f} steps/s end to end; step losses "
-              f"{[round(v, 5) for v in model.history['step_loss']]}; "
-              f"card {card}")
-    losses = model.history["step_loss"]
+        print(f"  KerasImageFileEstimator {model}, {KERAS_JPEGS} JPEGs "
+              f"{KERAS_SIDE}x{KERAS_SIDE}, batch {KERAS_BATCH}, 1 epoch, "
+              f"adam, {what}: fit {dt:.3f} s = {n_steps / dt:.3f} steps/s "
+              f"end to end; step losses "
+              f"{[round(v, 5) for v in fitted.history['step_loss']]}; "
+              f"card {card}", flush=True)
+    losses = fitted.history["step_loss"]
     if len(losses) != n_steps or not np.isfinite(losses).all():
-        problems.append(f"fit losses {losses}")
+        problems.append(f"{model} fit losses {losses}")
     # the fit's parts, and the train loop's own rate
     X, y = est._getNumpyFeaturesAndLabels(frame)
     gin = est._ingest()
@@ -2598,10 +2723,10 @@ def keras_estimator_leg(directory, card, problems, written):
     save_s = time.perf_counter() - t0
     written.append(trained)
     images_s = KERAS_BATCH * n_steps / train_s
-    print(f"  the train loop alone: {n_steps} steps in {train_s:.3f} s = "
-          f"{n_steps / train_s:.3f} steps/s ({images_s:.1f} images/s); "
-          f"writing the trained .keras "
-          f"{os.path.getsize(trained)} bytes in {save_s:.3f} s")
+    print(f"  {model} train loop alone: {n_steps} steps in {train_s:.3f} s "
+          f"= {n_steps / train_s:.3f} steps/s ({images_s:.1f} images/s); "
+          f"writing the trained .keras {os.path.getsize(trained)} bytes in "
+          f"{save_s:.3f} s")
     _cfg, back = load_keras_file(trained)
     same = list(back) == list(params) and all(
         np.array_equal(back[k], params[k].detach().cpu().numpy()) and
@@ -2609,8 +2734,29 @@ def keras_estimator_leg(directory, card, problems, written):
     print(f"  trained file read back by load_keras_file: {len(back)} "
           f"variables, bit for bit equal to the trained params: {same}")
     if not same:
-        problems.append("the trained .keras file does not read back equal")
-    keras_card_vs_cpu(path, loader, X, y, problems)
+        problems.append(f"the trained {model} file does not read back equal")
+    return est, X, y, fitted
+
+
+def keras_estimator_leg(directory, card, problems, written):
+    """configs[2] at full width: ``keras_fit_leg`` on InceptionV3 + head,
+    card vs CPU on 2 steps, the returned transformer card vs CPU, and a
+    3-epoch fit. The trained files the fits write are listed in
+    ``written``."""
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import KerasImageFileTransformer
+
+    config = keras_inception_config()
+    path = save_keras_file(os.path.join(directory, "inception_tl.keras"),
+                           config, keras_weights(config, SEED))
+    uris, labels = keras_jpegs(directory, KERAS_JPEGS, SEED)
+    frame = keras_frame(uris, labels)
+    loader = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE,
+                                     scale=1.0 / 255.0)
+    est, X, y, model = keras_fit_leg("configs[2] InceptionV3+head", path,
+                                     frame, loader, card, problems, written)
+    keras_card_vs_cpu(path, loader, X, y, problems, "InceptionV3+head")
     # the returned transformer's outputs, card vs CPU
     head = keras_frame(uris[:KERAS_TRANSFORM_ROWS])
     outs = {}
@@ -2637,7 +2783,7 @@ def keras_estimator_leg(directory, card, problems, written):
           "the last below the first)")
     if not epoch_loss[-1] < epoch_loss[0]:
         problems.append(f"the {KERAS_CURVE_EPOCHS}-epoch loss did not fall")
-    return est, X, y
+    return est, X, y, frame, loader
 
 
 def keras_first_gradient(path, loader, X, y, device, dtype):
@@ -2659,8 +2805,8 @@ def keras_first_gradient(path, loader, X, y, device, dtype):
                                   for k, t in p.items()}
 
 
-def keras_card_vs_cpu(path, loader, X, y, problems):
-    """Training on the card against the CPU: the losses of the
+def keras_card_vs_cpu(path, loader, X, y, problems, model):
+    """Training ``model`` on the card against the CPU: the losses of the
     estimator's first 2 sgd and adam steps at batch 4 (held for sgd; adam,
     whose first update is ~lr·sign(g), printed), and the first step's
     gradients of every variable against a float64 run on the card: the
@@ -2676,14 +2822,15 @@ def keras_card_vs_cpu(path, loader, X, y, problems):
                 e._ingest(), X[:KERAS_CPU_ROWS], y[:KERAS_CPU_ROWS])
         err = float(np.abs(np.subtract(losses["cuda"], losses["cpu"])).max())
         held = optimizer == "sgd"
-        print(f"  card vs CPU, {optimizer}, {KERAS_CPU_ROWS // KERAS_CPU_BATCH}"
+        print(f"  {model} card vs CPU, {optimizer}, "
+              f"{KERAS_CPU_ROWS // KERAS_CPU_BATCH}"
               f" steps at batch {KERAS_CPU_BATCH}: losses {losses['cuda']} vs "
               f"{losses['cpu']}, largest difference {err:.3e}"
               + (f" (limit {KERAS_LOSS_ATOL:g})" if held else
                  " (printed, not held)"))
         if held and not err <= KERAS_LOSS_ATOL:
-            problems.append(f"estimator {optimizer} losses card vs CPU "
-                            f"{err:.3e}")
+            problems.append(f"{model} estimator {optimizer} losses card "
+                            f"vs CPU {err:.3e}")
     ref_loss, ref = keras_first_gradient(path, loader, X, y, "cuda",
                                          torch.float64)
     top = max(np.abs(v).max() for v in ref.values())
@@ -2696,14 +2843,15 @@ def keras_card_vs_cpu(path, loader, X, y, problems):
         errs = {k: np.abs(grads[k] - ref[k]).max() / top for k in ref}
         worst = max(errs, key=errs.get)
         held = what != "card f32, cuDNN off"
-        print(f"  first-step gradients, {what}, against float64 on the card"
+        print(f"  {model} first-step gradients, {what}, against float64 "
+              "on the card"
               f" ({len(ref)} variables, largest |g| {top:.4e}): loss "
               f"{loss - ref_loss:+.3e} off, gradients {errs[worst]:.3e} of "
               f"the largest at worst ({worst})"
               + (f" (limit {KERAS_GRAD_RTOL:g})" if held else
                  " (printed, not held)"))
         if held and not errs[worst] <= KERAS_GRAD_RTOL:
-            problems.append(f"first-step gradients, {what}: "
+            problems.append(f"{model} first-step gradients, {what}: "
                             f"{errs[worst]:.3e}")
 
 
@@ -2778,6 +2926,171 @@ def keras_featurize_fit_leg(card, problems):
         problems.append(f"LogisticRegression card vs CPU {err:.3e}")
 
 
+def keras_xception_leg(directory, card, problems, written, frame, loader):
+    """configs[2]'s recipe over Keras Xception + a Dense(2) softmax head at
+    full width (configs[1]'s model): ``keras_fit_leg`` on the same 96
+    JPEGs, then card vs CPU and the first step's gradients against
+    float64 with BN statistics perturbed."""
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+
+    config = keras_app_config("xception_tl")
+    weights = keras_weights(config, SEED)
+    path = save_keras_file(os.path.join(directory, "xception_tl.keras"),
+                           config, weights)
+    _est, X, y, _model = keras_fit_leg("Xception+head", path, frame, loader,
+                                       card, problems, written)
+    # held on perturbed BN statistics, as phase 8 holds the named models: at
+    # Keras's init (BN shifts 0) one ReLU input of block14_sepconv2_bn read
+    # 4.5e-13 in f32 and -1.1e-11 in float64 on the CPU, and that one
+    # position put the channel's shift gradient 1.4e-2 of the largest off
+    pert = save_keras_file(os.path.join(directory, "xception_tl_p.keras"),
+                           config, keras_perturbed(weights))
+    keras_card_vs_cpu(pert, loader, X, y, problems,
+                      "Xception+head (perturbed BN)")
+
+
+def keras_app_jpegs(directory, n, side, seed):
+    """``n`` seeded ``side``x``side`` JPEGs (quality 90)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    uris = []
+    for i in range(n):
+        p = os.path.join(directory, f"app{side}_{i}.jpg")
+        Image.fromarray(rng.integers(0, 255, (side, side, 3),
+                                     dtype=np.uint8)).save(p, quality=90)
+        uris.append(p)
+    return uris
+
+
+def keras_apps_leg(directory, card, problems):
+    """Keras MobileNetV2 and EfficientNetB0 (the bases, from their own
+    Keras files) through KerasImageFileTransformer at 224x224, f32, batch
+    64: images/s over IMAGE_WINDOWS windows of KERAS_APP_ROWS JPEGs, and
+    card vs CPU on 2 rows with BN statistics perturbed."""
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import KerasImageFileTransformer
+
+    uris = keras_app_jpegs(directory, KERAS_APP_ROWS, KERAS_APP_SIDE, SEED)
+    frame = keras_frame(uris)
+    loader = createNativeImageLoader(KERAS_APP_SIDE, KERAS_APP_SIDE,
+                                     scale=1.0 / 255.0)
+    for fixture in KERAS_APPS:
+        t0 = time.perf_counter()
+        config = keras_app_config(fixture)
+        weights = keras_weights(config, SEED)
+        path = save_keras_file(os.path.join(directory, f"{fixture}.keras"),
+                               config, weights)
+        kt = KerasImageFileTransformer(
+            inputCol="uri", outputCol="out", modelFile=path,
+            imageLoader=loader, batchSize=KERAS_APP_BATCH)
+        kt.transform(keras_frame(uris[:KERAS_APP_BATCH]))       # warm-up
+        rates, out = timed_windows(
+            lambda: np.stack(list(kt.transform(frame)["out"])),
+            KERAS_APP_ROWS)
+        print(f"  {fixture} (Keras file, {len(weights)} variables) "
+              f"KerasImageFileTransformer float32 at {KERAS_APP_SIDE}x"
+              f"{KERAS_APP_SIDE}, batch {KERAS_APP_BATCH}, {KERAS_APP_ROWS} "
+              f"JPEGs, {len(rates)} windows: median {median(rates):.1f} "
+              f"images/s (least {min(rates):.1f}, most {max(rates):.1f}); "
+              f"card {card}", flush=True)
+        if out.shape != (KERAS_APP_ROWS, 1280) or not np.isfinite(out).all():
+            problems.append(f"{fixture} outputs {out.shape}")
+        pert = save_keras_file(os.path.join(directory, f"{fixture}_p.keras"),
+                               config, keras_perturbed(weights))
+        outs = {}
+        head = keras_frame(uris[:KERAS_APP_CPU_ROWS])
+        for device in ("cuda", "cpu"):
+            outs[device] = np.stack(list(KerasImageFileTransformer(
+                inputCol="uri", outputCol="out", modelFile=pert,
+                imageLoader=loader, device=device).transform(head)["out"]))
+        err = rel_err(outs["cuda"], outs["cpu"])
+        print(f"  {fixture} card vs CPU, {KERAS_APP_CPU_ROWS} rows, perturbed"
+              f" BN: {err:.3e} of max |y| {np.abs(outs['cpu']).max():.4g} "
+              f"(limit {KERAS_CPU_RTOL:g}); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if not err <= KERAS_CPU_RTOL:
+            problems.append(f"{fixture} card vs CPU {err:.3e}")
+
+
+def keras_named_leg(directory, card, problems):
+    """The named stage against the Keras evaluator on one file: for
+    Xception (the base of ``xception_tl``) and MobileNetV2, the features of
+    ``DeepImageFeaturizer(modelName, weights=<the base .keras>)`` over
+    image structs and of ``KerasImageFileTransformer`` over the same
+    images as PNG files (the model's own size, so no resize; the loader
+    applies the stage's ``x / 127.5 - 1``), both on the card, BN
+    perturbed."""
+    from PIL import Image
+
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.image import imageArrayToStruct
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import DeepImageFeaturizer, KerasImageFileTransformer
+    from tpudl_torch.zoo.registry import getKerasApplicationModel
+
+    def loader(uri):
+        rgb = np.asarray(Image.open(uri).convert("RGB"), dtype=np.float32)
+        return rgb / 127.5 - 1.0
+
+    bases = {"Xception": keras_base_config(keras_app_config("xception_tl")),
+             "MobileNetV2": keras_app_config("mobilenet_v2")}
+    rng = np.random.default_rng(SEED + 2)
+    for name, config in bases.items():
+        t0 = time.perf_counter()
+        side = getKerasApplicationModel(name).input_size[0]
+        path = save_keras_file(
+            os.path.join(directory, f"{name}_base.keras"), config,
+            keras_perturbed(keras_weights(config, SEED)))
+        rgb = rng.integers(0, 256, (KERAS_NAMED_ROWS, side, side, 3),
+                           dtype=np.uint8)
+        uris, structs = [], np.empty(KERAS_NAMED_ROWS, dtype=object)
+        for i, a in enumerate(rgb):
+            uris.append(os.path.join(directory, f"{name}_{i}.png"))
+            Image.fromarray(a).save(uris[-1])
+            structs[i] = imageArrayToStruct(a[:, :, ::-1])    # stored BGR
+        named = np.stack(list(DeepImageFeaturizer(
+            inputCol="image", outputCol="f", modelName=name, weights=path,
+            batchSize=KERAS_NAMED_ROWS).transform(
+                Frame({"image": structs}))["f"]))
+        graph = np.stack(list(KerasImageFileTransformer(
+            inputCol="uri", outputCol="f", modelFile=path, imageLoader=loader,
+            batchSize=KERAS_NAMED_ROWS).transform(keras_frame(uris))["f"]))
+        err = rel_err(named, graph)
+        print(f"  {name}: DeepImageFeaturizer(weights=<its Keras file>) vs "
+              f"KerasImageFileTransformer on that file, {KERAS_NAMED_ROWS} "
+              f"rows at {side}x{side}, both on the card: {err:.3e} of max |y|"
+              f" {np.abs(graph).max():.4g} (limit {KERAS_NAMED_RTOL:g}); "
+              f"features {named.shape}; {time.perf_counter() - t0:.1f} s; "
+              f"card {card}", flush=True)
+        if named.shape != graph.shape or not err <= KERAS_NAMED_RTOL:
+            problems.append(f"{name} named stage vs evaluator {err:.3e}")
+
+
+def keras_h5_leg(uris, card, problems):
+    """The committed legacy ``.h5`` (bench.py's CNN, written by keras)
+    through KerasImageFileTransformer, card vs CPU."""
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.ml import KerasImageFileTransformer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    loader = createNativeImageLoader(32, 32, scale=1.0 / 255.0)
+    frame = keras_frame(uris[:KERAS_H5_ROWS])
+    outs = {}
+    for device in ("cuda", "cpu"):
+        outs[device] = np.stack(list(KerasImageFileTransformer(
+            inputCol="uri", outputCol="out", modelFile=os.path.join(
+                here, KERAS_H5), imageLoader=loader,
+            device=device).transform(frame)["out"]))
+    err = rel_err(outs["cuda"], outs["cpu"])
+    print(f"  {KERAS_H5} (a legacy .h5) through KerasImageFileTransformer, "
+          f"{KERAS_H5_ROWS} rows, card vs CPU: {err:.3e} of max |y| (limit "
+          f"{KERAS_CPU_RTOL:g}); outputs {outs['cuda'].shape}; card {card}")
+    if outs["cuda"].shape != (KERAS_H5_ROWS, 2) or not err <= KERAS_CPU_RTOL:
+        problems.append(f"the .h5 card vs CPU {err:.3e}")
+
+
 KERAS_OP_GROUPS = (  # (group, test on (ops from the launching one up, kernel))
     ("host->device copies (the batch)", lambda ops, k: k.startswith(
         "Memcpy HtoD")),
@@ -2803,10 +3116,13 @@ KERAS_OP_GROUPS = (  # (group, test on (ops from the launching one up, kernel))
 
 def run_keras_surface(card):
     """Phase 9: the Keras surface at full width — configs[4]'s
-    KerasTransformer, configs[2]'s KerasImageFileEstimator on InceptionV3,
-    featurize then LogisticRegression, no flash launch, and a profile of
-    one estimator step (last). Every check runs and prints; the phase
-    fails at its end if any did not hold. Returns the launch counts."""
+    KerasTransformer, configs[2]'s KerasImageFileEstimator on InceptionV3
+    and on Xception, the Keras MobileNetV2 and EfficientNetB0 files
+    through KerasImageFileTransformer, the named stages with weights=<a
+    Keras file> against the evaluator, a legacy .h5, featurize then
+    LogisticRegression, no flash launch, and a profile of one estimator
+    step (last). Every check runs and prints; the phase fails at its end
+    if any did not hold. Returns the launch counts."""
     import shutil
     import tempfile
 
@@ -2822,8 +3138,19 @@ def run_keras_surface(card):
         keras_mlp_leg(directory, card, problems)
         print(f"  configs[4] leg: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        est, X, y = keras_estimator_leg(directory, card, problems, written)
+        est, X, y, frame, loader = keras_estimator_leg(directory, card,
+                                                       problems, written)
         print(f"  configs[2] leg: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        keras_xception_leg(directory, card, problems, written, frame,
+                           loader)
+        print(f"  Xception+head leg: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        keras_apps_leg(directory, card, problems)
+        keras_named_leg(directory, card, problems)
+        keras_h5_leg(list(frame["uri"]), card, problems)
+        print(f"  MobileNetV2, EfficientNetB0, named-stage and .h5 legs: "
+              f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         keras_featurize_fit_leg(card, problems)
         print(f"  featurize-then-fit leg: {time.perf_counter() - t0:.1f} s")

@@ -132,6 +132,20 @@ model = est.fit(Frame({"uri": np.array(uris, dtype=object), "label": lab}))
 out = np.stack(list(model.transform(Frame({"uri": np.array(uris,
                                                             dtype=object)}))["out"]))
 assert out.shape == (2, 2) and np.isfinite(model.history["step_loss"]).all()
+# a legacy .h5 model file, a named model's own Keras file and the same
+# file as a named stage's weights
+from tpudl_torch.ingest import TFInputGraph
+from tpudl_torch.image import imageArrayToStruct
+from tpudl_torch.ml import DeepImageFeaturizer
+cnn = TFInputGraph.fromKeras("tests/fixtures/keras/cnn.h5").make_fn()
+assert cnn(__import__("torch").zeros(1, 32, 32, 3)).shape == (1, 2)
+cfg = chip_smoke.keras_app_config("mobilenet_v2")
+mnv2 = save_keras_file(f"{d}/mnv2.keras", cfg, chip_smoke.keras_weights(cfg, 0))
+img = np.empty(1, dtype=object)
+img[0] = imageArrayToStruct(np.zeros((40, 50, 3), np.uint8))
+f = DeepImageFeaturizer(inputCol="image", outputCol="f", modelName="MobileNetV2",
+                        weights=mnv2, device="cpu").transform(Frame({"image": img}))
+assert np.stack(list(f["f"])).shape == (1, 1280)
 import os, shutil
 os.remove(model.getModelFile())
 shutil.rmtree(d)

@@ -176,9 +176,25 @@ def test_decoders_match_tpudl(blob):
             rgb[:, :, ::-1])
 
 
+@pytest.fixture(scope="module")
+def private_tpudl_decoder(tmp_path_factory):
+    """tpudl's decode code, built by tpudl's own ``build`` (its compiler
+    command and flags) into a library of this module's own: under pytest
+    workers, another process may be writing tpudl's shared
+    ``libtpudl_decode.so`` at the moment this one would load it, and a
+    half-written file fails every case here."""
+    lib = tmp_path_factory.mktemp("tpudl_native") / "libtpudl_decode.so"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB", str(lib))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_build_failed", False)
+        yield lib
+
+
 @pytest.mark.parametrize("size", [None, (29, 31), (5, 80)])
-def test_native_decoder_bit_equal_to_tpudl(size):
+def test_native_decoder_bit_equal_to_tpudl(size, private_tpudl_decoder):
     assert native.available() and jnative.available()
+    assert jnative.lib_path() == str(private_tpudl_decoder)
     blobs = [_encoded("JPEG", (37, 53, 3), s) for s in range(3)]
     blobs.insert(1, b"garbage")
     blobs.append(_encoded("JPEG", (24, 31), 5, mode="L"))

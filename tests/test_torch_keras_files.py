@@ -187,9 +187,14 @@ def test_later_superblocks_and_new_style_groups_raise_by_name(tmp_path):
 
 
 def test_legacy_h5_model_and_non_keras_files_are_refused(tmp_path):
+    """Keras 3's legacy ``.h5`` reads (``test_torch_keras_h5.py``); one
+    written by Keras 1 or 2 is refused by name."""
     legacy = tmp_path / "model.h5"
     M.build("mlp").save(legacy)
-    with pytest.raises(NotImplementedError, match="legacy .h5 model file"):
+    with h5py.File(legacy, "r+") as f:
+        f.attrs["keras_version"] = "2.15.0"
+    with pytest.raises(NotImplementedError,
+                       match="a Keras 2.15.0-era .h5 model file"):
         load_keras_file(legacy)
     (tmp_path / "junk.keras").write_bytes(b"junk")
     with pytest.raises(ValueError, match="not a .keras file"):
@@ -224,3 +229,27 @@ def test_fixture_config_loads_in_keras_with_seeded_weights(tmp_path):
     with zipfile.ZipFile(M.saved("mlp", tmp_path)) as z:
         want = M.normalized_config(json.loads(z.read("config.json")))
     assert M.normalized_config(mlp) == want
+
+
+NEW_FIXTURES = ("xception_tl", "mobilenet_v2", "efficientnet_b0")
+
+
+@pytest.mark.parametrize("fixture", NEW_FIXTURES)
+def test_config_fixture_is_what_keras_writes_today(fixture):
+    """chip_smoke.py's phase 9 writes these models from the committed
+    configs (the card's machine has no keras)."""
+    assert M.written_config(fixture) == M.fixture_config(fixture)
+
+
+@pytest.mark.parametrize("fixture", NEW_FIXTURES)
+def test_config_fixture_loads_in_keras_with_seeded_weights(fixture,
+                                                           tmp_path):
+    import chip_smoke
+
+    config = M.fixture_config(fixture)
+    weights = chip_smoke.keras_weights(config, 0)
+    path = save_keras_file(tmp_path / f"{fixture}.keras", config, weights)
+    model = keras.saving.load_model(path, compile=False)
+    assert [w.path for w in model.weights] == list(weights)
+    for w in model.weights:
+        assert np.array_equal(np.asarray(w.numpy()), weights[w.path])

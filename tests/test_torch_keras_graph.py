@@ -27,7 +27,7 @@ from tpudl.ingest import TFInputGraph as JaxGraph  # noqa: E402
 from tpudl_torch.ingest import TFInputGraph  # noqa: E402
 from tpudl_torch.ingest.keras_graph import build_torch_fn  # noqa: E402
 from tpudl_torch.ingest.kerasfile import (load_keras_file,  # noqa: E402
-                                          save_keras_file)
+                                          save_keras_file, variable_paths)
 
 FWD_RTOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -123,9 +123,10 @@ def _mutated(config, layer_class, **changes):
 
 
 @pytest.mark.parametrize("change,match", [
-    (("Dense", {"activation": "gelu"}), "activation 'gelu'"),
-    (("Conv2D", {"dilation_rate": [2, 2]}), "Conv2D dilation_rate"),
-    (("Conv2D", {"groups": 2}), "Conv2D groups"),
+    (("Dense", {"activation": "mish"}), "activation 'mish'"),
+    (("Conv2D", {"dilation_rate": [2, 2], "strides": [2, 2]}),
+     "Conv2D with both strides and dilation_rate"),
+    (("Conv2D", {"padding": "causal"}), "padding='causal'"),
     (("Conv2D", {"data_format": "channels_first"}),
      "data_format='channels_first'"),
     (("Dense", {"dtype": {"module": "keras", "class_name": "DTypePolicy",
@@ -143,13 +144,17 @@ def test_unsupported_options_raise_by_name(perturbed_files, change, match):
 def test_unsupported_layer_classes_raise_by_name(perturbed_files):
     config, _w = load_keras_file(perturbed_files["cnn"])
     cfg = copy.deepcopy(config)
-    cfg["config"]["layers"][2]["class_name"] = "LeakyReLU"
-    with pytest.raises(NotImplementedError, match="class 'LeakyReLU'"):
+    cfg["config"]["layers"][2]["class_name"] = "LayerNormalization"
+    with pytest.raises(NotImplementedError,
+                       match="class 'LayerNormalization'"):
         build_torch_fn(cfg)
+    # a nested model runs, but not one whose variables keras would key
+    # with the outer model's paths (its layers share their names)
     nested = copy.deepcopy(config)
     nested["config"]["layers"].append(copy.deepcopy(config))
-    with pytest.raises(NotImplementedError, match="nested model"):
-        build_torch_fn(nested)
+    with pytest.raises(NotImplementedError,
+                       match="two variables with the path 'conv2d/kernel'"):
+        variable_paths(nested)
 
 
 def test_proto_routes_and_live_models_are_refused(perturbed_files):

@@ -335,8 +335,11 @@ def test_load_named_params_sources(tmp_path, monkeypatch, small):
     monkeypatch.setenv("TPUDL_WEIGHTS_DIR", str(tmp_path / "empty"))
     with pytest.raises(RuntimeError, match="never downloads"):
         load_named_params("InceptionV3", "imagenet")
-    with pytest.raises(NotImplementedError, match="sparkdl surface"):
-        load_named_params("InceptionV3", "model.keras")
+    # any other path is a Keras model file (held to tpudl in
+    # test_torch_named_keras_weights.py); a path that is not there is an
+    # error
+    with pytest.raises(FileNotFoundError):
+        load_named_params("InceptionV3", str(tmp_path / "model.keras"))
 
 
 # -- the stages over readImages, at the model's 299×299 ------------------
@@ -436,7 +439,7 @@ def test_unported_options_raise(stage, kwargs, item):
 def test_stage_refusals_and_validation(image_dir):
     frame = imageIO.readImages(image_dir).dropna().head(1)
     common = dict(inputCol="image", outputCol="y", device="cpu")
-    with pytest.raises(NotImplementedError, match="sparkdl surface"):
+    with pytest.raises(FileNotFoundError):       # a Keras file not there
         DeepImageFeaturizer(modelName="InceptionV3", weights="m.h5",
                             **common).transform(frame)
     with pytest.raises(TypeError, match="unsupported"):

@@ -400,10 +400,10 @@ def _type_message(dtype: np.dtype) -> bytes:
 
 def _space_message(shape) -> bytes:
     rank = len(shape)
-    flags = 1 if rank else 0             # max dims = dims, as h5py
-    dims = struct.pack(f"<{rank}Q", *shape)
-    return struct.pack("<BBBB4x", 1, rank, flags, 0) + dims + (
-        dims if rank else b"")
+    if not rank:                         # a scalar: version 2, type 0
+        return struct.pack("<BBBB", 2, 0, 0, 0)
+    dims = struct.pack(f"<{rank}Q", *shape)   # max dims = dims, as h5py
+    return struct.pack("<BBBB4x", 1, rank, 1, 0) + dims + dims
 
 
 class _Writer:
@@ -462,7 +462,7 @@ class _Writer:
         return [self.attribute(k, v) for k, v in attrs.items()]
 
     def dataset(self, ds: Dataset) -> int:
-        arr = np.ascontiguousarray(ds.value)
+        arr = np.ascontiguousarray(ds.value).reshape(ds.value.shape)
         arr = arr.astype(arr.dtype.newbyteorder("<"), copy=False)
         tmsg = _type_message(arr.dtype)
         if arr.nbytes:

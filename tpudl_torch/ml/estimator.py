@@ -1,4 +1,5 @@
-"""KerasImageFileEstimator — fine-tune a ``.keras`` model over image files.
+"""KerasImageFileEstimator — fine-tune a Keras model file (``.keras`` or a
+legacy ``.h5``) over image files.
 
 Port of ``tpudl/ml/estimator.py`` (``KerasImageFileEstimator``: ``fit``,
 ``_validateFitParams``, ``_getNumpyFeaturesAndLabels``, ``_ingest``,
@@ -6,7 +7,8 @@ Port of ``tpudl/ml/estimator.py`` (``KerasImageFileEstimator``: ``fit``,
 once (``imageLoader``), ingests the file once
 (``TFInputGraph.fromKerasTrainable``), runs one train step a batch on
 ``device`` (default ``"cuda"``) in f32 (``device.full_f32``), writes the
-trained weights to a new ``.keras`` file with
+trained weights to a new ``.keras`` file (whatever it read, as tpudl's
+``_save_trained`` does) with
 :func:`~tpudl_torch.ingest.kerasfile.save_keras_file` and returns a
 :class:`~tpudl_torch.ml.keras_image.KerasImageFileTransformer` over it.
 
@@ -139,10 +141,14 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         dev = resolve_device(self.device if device is None else device)
         loss_fn = get_loss(self.getKerasLoss())
         factory, default_lr = get_optimizer_dynamic(self.getKerasOptimizer())
+        # every floating variable trains, as tpudl's step differentiates
+        # them all (BN's moving statistics too); an integer one (a
+        # Normalization's count) rides along
         params = {k: torch.tensor(np.asarray(v), device=dev,
-                                  requires_grad=True)
+                                  requires_grad=np.asarray(v).dtype.kind
+                                  == "f")
                   for k, v in gin.params.items()}
-        opt = factory(list(params.values()))
+        opt = factory([t for t in params.values() if t.requires_grad])
         set_learning_rate(opt, lr if lr is not None else default_lr)
         apply_fn = gin.make_fn()
 
@@ -179,14 +185,14 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
 
     def _save_trained(self, gin, params):
         """Write the trained params to a new ``.keras`` file (the ingested
-        file's config), so the returned transformer reads a standard
-        artifact."""
+        file's config; a ``.h5`` file's too), so the returned transformer
+        reads a standard artifact."""
         from tpudl_torch.ingest.kerasfile import save_keras_file
 
         weights = {k: t.detach().cpu().numpy() for k, t in params.items()}
         fd, path = tempfile.mkstemp(suffix=".keras", prefix="tpudl_trained_")
         os.close(fd)
-        return save_keras_file(path, gin.config, weights)
+        return save_keras_file(path, gin.config, weights, gin.layout)
 
     def _make_transformer(self, model_path, device=None):
         return KerasImageFileTransformer(

@@ -100,6 +100,7 @@ class TrialScheduler:
             slices = slices[: self._max_parallel]
         free = list(range(len(slices)))
         free_lock = threading.Lock()
+        ended = []             # trial indices in the order the trials ended
 
         def run_one(i, item):
             with free_lock:
@@ -124,11 +125,14 @@ class TrialScheduler:
                     time.perf_counter() - t0)
                 with free_lock:
                     free.append(s)
+                    ended.append(i)
 
         with ThreadPoolExecutor(max_workers=len(slices)) as pool:
-            futures = {pool.submit(run_one, i, item)
-                       for i, item in enumerate(items)}
+            index = {pool.submit(run_one, i, item): i
+                     for i, item in enumerate(items)}
+            futures = set(index)
             while futures:
                 done, futures = wait(futures, return_when=FIRST_COMPLETED)
-                for f in done:
+                # one wait may return several trials: in the order they ended
+                for f in sorted(done, key=lambda f: ended.index(index[f])):
                     yield f.result()

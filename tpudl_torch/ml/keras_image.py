@@ -1,9 +1,9 @@
 """KerasImageFileTransformer — a Keras model over image *files*.
 
 Port of ``tpudl/ml/keras_image.py``: params ``inputCol`` (URI column),
-``outputCol``, ``modelFile`` (a ``.keras`` file), ``imageLoader`` (URI →
-ndarray) and ``outputMode`` (``"vector"``: each row flattened;
-``"image"``: an image struct). The file is ingested with
+``outputCol``, ``modelFile`` (a ``.keras`` or legacy ``.h5`` model file),
+``imageLoader`` (URI → ndarray) and ``outputMode`` (``"vector"``: each
+row flattened; ``"image"``: an image struct). The file is ingested with
 ``TFInputGraph.fromKeras`` and its per-batch function is built once per
 ``(file, mtime, mode, device)``, as tpudl's ``_cached_jit``; URIs load in
 the executor's pack stage (in the prepare pool when the loader is marked

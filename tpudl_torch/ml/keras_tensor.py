@@ -1,7 +1,7 @@
 """KerasTransformer — a saved Keras model over an array column.
 
 Port of ``tpudl/ml/keras_tensor.py``: params ``modelFile`` (a ``.keras``
-file), ``inputCol`` (array column) and ``outputCol``; the file is
+or legacy ``.h5`` model file), ``inputCol`` (array column) and ``outputCol``; the file is
 ingested (``TFInputGraph.fromKeras``) and run by a
 :class:`~tpudl_torch.ml.tf_tensor.TFTransformer`, as tpudl delegates.
 The ingested graph and its per-batch function are kept while the file's

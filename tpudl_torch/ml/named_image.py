@@ -15,9 +15,12 @@ predictor row holds 1000 class scores.
 
 Weights: ``"random"`` is ``init(0)``; ``"imagenet"`` reads
 ``$TPUDL_WEIGHTS_DIR/<model>.npz`` and nothing else (the port never
-downloads); a path ending in ``.npz`` is read as it is. The stage loads
-the weights onto its device once and reuses them while the model,
-weights, dtype and device stay the same.
+downloads); a path ending in ``.npz`` is read as it is; any other path
+is a Keras model file of the named model (``.keras`` or a legacy ``.h5``,
+read by ``zoo.convert.params_from_keras`` without keras, as tpudl reads
+it with keras). The stage loads the weights onto its device once and
+reuses them while the model, weights (a file's mtime too), dtype and
+device stay the same.
 
 The executor knobs ``prefetchDepth``, ``prepareWorkers``, ``fuseSteps``
 and ``dispatchDepth`` pass to ``Frame.map_batches`` (None: its
@@ -25,9 +28,8 @@ and ``dispatchDepth`` pass to ``Frame.map_batches`` (None: its
 loaded model, so that a fused CUDA graph cached on it serves every later
 ``transform``.
 
-Not ported yet, and refused with ``NotImplementedError``: Keras model
-files as ``weights`` (ROADMAP Queue 1, 'The rest of the sparkdl
-surface'), ``mesh`` (Queue 1, 'Training, rest'), and ``cacheDir``,
+Not ported yet, and refused with ``NotImplementedError``: ``mesh``
+(ROADMAP Queue 1, 'Training, rest'), and ``cacheDir``,
 ``deviceCache`` and a ``wireCodec`` given by name (Queue 1, 'Data
 layer').
 """
@@ -45,7 +47,7 @@ from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol, HasOutputCol,
                                    refuse_unported)
 from tpudl_torch.ml.pipeline import Transformer
 from tpudl_torch.ml.tf_image import ImageBatchWarmup, _pack_image_structs
-from tpudl_torch.zoo.convert import load_params_npz
+from tpudl_torch.zoo.convert import load_params_npz, params_from_keras
 from tpudl_torch.zoo.preprocessing import decode_predictions
 from tpudl_torch.zoo.registry import (SUPPORTED_MODELS, ImageModel,
                                       getKerasApplicationModel)
@@ -75,10 +77,8 @@ def load_named_params(model_name: str, weights: str = "random") -> dict:
     if weights.endswith(".npz"):
         # an explicitly named artifact is the user vouching for the file
         return load_params_npz(weights, allow_legacy_pickle=True)
-    raise NotImplementedError(
-        f"weights={weights!r}: Keras model files are not ported to "
-        "tpudl_torch yet (ROADMAP Queue 1, 'The rest of the sparkdl "
-        "surface'); convert to .npz with tpudl")
+    # a Keras model file (.keras or .h5) of the named model
+    return params_from_keras(weights)
 
 
 def _check_compute_dtype(value: str) -> str:
@@ -121,7 +121,7 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
     def _net_key(self) -> tuple:
         key = (self.getModelName(), self.weights, self.computeDtype,
                str(self.device))
-        if self.weights.endswith(".npz"):
+        if self.weights not in ("random", "imagenet"):
             # a weights file may be rewritten between calls
             key += (os.path.getmtime(self.weights),)
         return key

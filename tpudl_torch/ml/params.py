@@ -339,10 +339,11 @@ class HasOutputMode(Params):
 
 
 class HasKerasModel(Params):
-    """modelFile (a ``.keras`` path) + kerasFitParams (the fit's
+    """modelFile (a ``.keras`` or ``.h5`` path) + kerasFitParams (the fit's
     keywords)."""
 
-    modelFile = Param(None, "modelFile", "path to a Keras model file (.keras)",
+    modelFile = Param(None, "modelFile",
+                      "path to a Keras model file (.keras / .h5)",
                       TypeConverters.toString)
     kerasFitParams = Param(None, "kerasFitParams",
                            "dict of fit kwargs (batch_size, epochs, verbose)")

@@ -4,8 +4,8 @@ Port of ``tpudl/udf/keras_image_model.py``: the per-batch function is
 image structs (packed on the host by ``_pack_image_structs``) →
 ``sp_image_converter("BGR", channel_order)`` → the optional
 ``preprocessor`` (a torch function on the ``(B, H, W, C)`` float32
-batch) → the Keras graph (``TFInputGraph.fromKeras`` of a ``.keras``
-file, read by :mod:`tpudl_torch.ingest`) → flatten, on ``device``
+batch) → the Keras graph (``TFInputGraph.fromKeras`` of a ``.keras`` or
+legacy ``.h5`` model file, read by :mod:`tpudl_torch.ingest`) → flatten, on ``device``
 (default ``"cuda"``) in f32, registered with
 :mod:`tpudl_torch.udf.registry`:
 
@@ -14,7 +14,7 @@ file, read by :mod:`tpudl_torch.ingest`) → flatten, on ``device``
 
 Each call is counted as makeGraphUDF's are (``udf.<name>.calls``,
 ``.rows``, ``.seconds``; tpudl counts none for this UDF). A live keras
-model is refused (save it to ``.keras``); ``mesh`` raises (ROADMAP Queue
+model is refused (save it to ``.keras`` or ``.h5``); ``mesh`` raises (ROADMAP Queue
 1, 'Training, rest').
 """
 

@@ -4,7 +4,8 @@ Port of ``tpudl/zoo/convert.py`` (``save_params_npz``,
 ``load_params_npz``: pickle-free ``layer/param`` archives, the legacy
 pickled layout refused unless the caller vouches for the file;
 ``load_keras_model`` and ``params_from_keras``, which read a ``.keras``
-file without keras, through :mod:`tpudl_torch.ingest.kerasfile`), plus
+or legacy ``.h5`` model file without keras, through
+:mod:`tpudl_torch.ingest.kerasfile`), plus
 :func:`torch_params`, which turns tpudl's param pytree (numpy, Keras
 names and HWIO layout) into the port's tree of torch tensors — the same
 weights, so both packages compute the same model — and its inverse
@@ -120,7 +121,7 @@ def load_params_npz(path: str, allow_legacy_pickle: bool = False) -> dict:
 
 
 def load_keras_model(path):
-    """A ``.keras`` file → ``(config, weights)``
+    """A ``.keras`` or legacy ``.h5`` model file → ``(config, weights)``
     (:func:`~tpudl_torch.ingest.kerasfile.load_keras_file`); a live keras
     model is refused: save it to ``.keras`` and pass the path."""
     from tpudl_torch.ingest.input import keras_model_path
@@ -166,16 +167,22 @@ def _canonical_names(layers, weighted) -> dict[str, str]:
 
 
 def params_from_keras(path) -> dict:
-    """A ``.keras`` file → tpudl's param pytree of the zoo, keyed by
-    canonical layer names, as ``tpudl.zoo.convert.params_from_keras``
-    gives it for the loaded model (``moving_variance`` → ``moving_var``,
-    a per-channel ``Rescaling`` after ``Normalization`` folded into its
-    variance)."""
-    from tpudl_torch.ingest.kerasfile import model_layers
+    """A ``.keras`` or legacy ``.h5`` model file → tpudl's param pytree of
+    the zoo, keyed by canonical layer names, as
+    ``tpudl.zoo.convert.params_from_keras`` gives it for the loaded model:
+    the model's own layers (a nested model's are not), ``moving_variance``
+    → ``moving_var``, a per-channel ``Rescaling`` after ``Normalization``
+    folded into its variance."""
+    from tpudl_torch.ingest.input import keras_model_path
+    from tpudl_torch.ingest.kerasfile import (file_layout, layer_keys,
+                                              model_layers)
 
     config, weights = load_keras_model(path)
+    layout = file_layout(keras_model_path(path))
     layers = model_layers(config)
-    weighted = {k.rsplit("/", 1)[0] for k in weights}
+    keys = {layer["config"]["name"]: layer_keys(layer, config, layout)
+            for layer in layers}
+    weighted = {name for name, k in keys.items() if k}
     names = _canonical_names(layers, weighted)
     params: dict[str, dict] = {}
     last_norm = None
@@ -198,10 +205,11 @@ def params_from_keras(path) -> dict:
         name = names[c["name"]]
         if cls != "Normalization":
             last_norm = None
-        w = {k.rsplit("/", 1)[1]: v for k, v in weights.items()
-             if k.rsplit("/", 1)[0] == c["name"]}
+        w = {var: weights[key] for var, key in keys[c["name"]].items()}
         if cls == "DepthwiseConv2D":
             p = {"depthwise_kernel": w["kernel"]}
+            if "bias" in w:
+                p["bias"] = w["bias"]
         elif cls == "BatchNormalization":
             p = {"moving_mean": w["moving_mean"],
                  "moving_var": w["moving_variance"]}
