@@ -81,12 +81,15 @@ Phases (any failure exits non-zero before the final line):
    on a one-rank NCCL group, ``init(0)`` f32 masters, batches of 64 uint8
    images at 224×224 normalized on the card, ``sgd(0.05)``: steps/s and
    images/s (median and spread of 5 windows of 10 steps) in f32 and under
-   ``with_compute_dtype(loss_fn, torch.bfloat16)``, beside the achieved
-   TFLOP/s and the f32 FFMA and bf16 bounds, and the gradient
-   all-reduce's calls and bytes a step; 2 f32 steps at batch 4 from
-   perturbed BN statistics held against the same run on the CPU, and the
-   first step's gradients against a float64 run on the card (within 1e-2
-   of the largest, as phase 9 holds InceptionV3's), and the same for the
+   ``with_compute_dtype(loss_fn, torch.bfloat16)``, with the training
+   convolutions on NCHW memory (the port's) and on channels_last (as
+   before it), beside the earlier channels_last rates, the achieved
+   TFLOP/s and the f32 FFMA
+   and bf16 bounds, and the gradient all-reduce's calls and bytes a step;
+   2 f32 steps at batch 4 from perturbed BN statistics held against the
+   same run on the CPU, and the first step's gradients against a float64
+   run on the card (on NCHW memory within 1e-2 of the largest, as phase 9
+   holds InceptionV3's; on channels_last printed), and the same for the
    named InceptionV3 at 299×299; the
    fixed-batch eval loss (``make_eval_step``) of ``bench.py``'s band set
    (bf16 compute) falling over 60 steps; a run that fails at step 7 and
@@ -144,6 +147,24 @@ Phases (any failure exits non-zero before the final line):
    batch, none backward) and ``generate`` over its prompts, each equal
    bit for bit to its LM stage, with rows/s.
 
+11. Drive TF graph ingestion at full width: every committed TF fixture
+   (``tests/fixtures/tf``: the float64 factory graph as a frozen
+   ``.pb``, a TF1 SavedModel and a Saver checkpoint; a TF2 export; two
+   Keras ``model.export`` files) through every ``TFInputGraph`` route, on the
+   card against the CPU port (2e-5 of max |y|; the float64 graph 1e-12
+   and against 3x + 4); configs[2]'s InceptionV3 + head as a SavedModel
+   (the committed ``saved_model.pb``, its ``variables/`` written here by
+   ``tf_bundle_writer`` from phase 9's seeded, BN-perturbed weights):
+   the time to ingest (the bundle read with its CRC-32C check, the
+   route), ``fromSavedModelWithSignature`` against ``fromKeras`` on the
+   same weights and against the CPU (2e-5 of max |y|, 4 rows at
+   299×299), ``TFImageTransformer`` over it and over the ``.keras`` graph
+   in turn (images/s, 256 structs, batch 64, f32, 5 windows), its
+   ``fuseSteps=4`` arm bit for bit, ``makeGraphUDF`` over it through
+   ``sql`` (WHERE, LIMIT 64) bit for bit against ``TFImageTransformer``;
+   ``TFTransformer`` over the float64 checkpoint graph by signature
+   names, a ``GraphFunction.fromList`` UDF; no flash launch.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
@@ -153,7 +174,8 @@ a step). ``python3 chip_smoke.py --executor-only`` runs phase 1 and then
 phase 7 alone. ``python3 chip_smoke.py --train-only`` runs phase 1 and then phase 8
 alone. ``python3 chip_smoke.py --keras-only`` runs phase 1 and then phase 9
 alone. ``python3 chip_smoke.py --surface-only`` runs phase 1 and then
-phase 10 alone. ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
+phase 10 alone. ``python3 chip_smoke.py --graph-only`` runs phase 1 and then phase 11
+alone. ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
 rank's. ``python3 chip_smoke.py --pool-study`` runs phase 1 and
@@ -313,6 +335,10 @@ RESNET_CPU_UPDATE_RTOL = 5e-3      # of the largest |p_after - p_before|
 # run on the card, relative to the largest gradient: phase 9's limit for
 # InceptionV3 (there NHWC memory read 8.4e-2, NCHW 1.9e-3)
 RESNET_GRAD_RTOL = 1e-2
+# the rates this phase read when training ran on channels_last memory
+# (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+RESNET_CHANNELS_LAST_RATES = {"float32": "652.4-659.7",
+                              "bfloat16": "689.4-855.5"}
 CURVE_CLASSES, CURVE_BATCH, CURVE_POOL = 8, 32, 8   # bench.py's band set
 CURVE_STEPS, CURVE_EVERY = 60, 10
 CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 10, 5, 7
@@ -1984,10 +2010,27 @@ def resnet_first_gradient(params, device, dtype, name="ResNet50"):
                                   for k, p in net.named_parameters()}
 
 
+@contextlib.contextmanager
+def training_layout(layout):
+    """The zoo's training convolutions on ``layout`` memory: "NCHW" (the
+    port's, NCHW-contiguous while autograd records) or "channels_last"
+    (as before it, the inference layout kept for training too)."""
+    from tpudl_torch.zoo import nn as zoo_nn
+
+    saved = zoo_nn._training_memory
+    if layout == "channels_last":
+        zoo_nn._training_memory = lambda x, kernel: (x, kernel)
+    try:
+        yield
+    finally:
+        zoo_nn._training_memory = saved
+
+
 def resnet_gradient_check(params, card, problems, name="ResNet50"):
     """A named model's first f32 step's gradients against float64 on the
-    card: the card's f32 (held), the CPU's and the card's with cuDNN off
-    (printed), as phase 9 holds the Keras InceptionV3's."""
+    card: the card's f32 on NCHW memory (held), and on channels_last
+    memory, the CPU's and the card's with cuDNN off (printed), as phase 9
+    holds the Keras InceptionV3's."""
     t0 = time.perf_counter()
     ref_loss, ref = resnet_first_gradient(params, "cuda", torch.float64,
                                           name)
@@ -1995,15 +2038,19 @@ def resnet_gradient_check(params, card, problems, name="ResNet50"):
     if not top > 0:
         problems.append(f"{name}'s float64 first step has no gradient")
         return
-    runs = {"card f32, cuDNN": ("cuda", True), "CPU f32": ("cpu", True),
-            "card f32, cuDNN off": ("cuda", False)}
-    for what, (device, cudnn) in runs.items():
-        with torch.backends.cudnn.flags(enabled=cudnn):
+    runs = {"card f32, cuDNN, NCHW": ("cuda", True, "NCHW"),
+            "card f32, cuDNN, channels_last (before)": ("cuda", True,
+                                                        "channels_last"),
+            "CPU f32": ("cpu", True, "NCHW"),
+            "card f32, cuDNN off": ("cuda", False, "NCHW")}
+    for what, (device, cudnn, layout) in runs.items():
+        with torch.backends.cudnn.flags(enabled=cudnn), \
+                training_layout(layout):
             loss, grads = resnet_first_gradient(params, device,
                                                 torch.float32, name)
         errs = {k: np.abs(grads[k] - ref[k]).max() / top for k in ref}
         worst = max(errs, key=errs.get)
-        held = what == "card f32, cuDNN"
+        held = what == "card f32, cuDNN, NCHW"
         print(f"  {name} first-step gradients, {what}, batch "
               f"{RESNET_CPU_BATCH}, perturbed BN, against float64 on the card"
               f" ({len(ref)} leaves, largest |g| {top:.4e}): loss "
@@ -2265,28 +2312,38 @@ def run_resnet_training(card):
     reset_launch_counts()
     gflop = RESNET_FLOPS * RESNET_BATCH / 1e9
     for compute in ("float32", "bfloat16"):
-        t0 = time.perf_counter()
-        r = HorovodRunner(np=1).run(rate_train_fn, compute=compute)
-        sps = r["rates"]
-        peak = PEAK_OPS_PER_S["float32" if compute == "float32"
-                              else "bfloat16"]
-        tflops = median(sps) * gflop / 1e3
-        print(f"  {compute} compute on f32 masters, {r['params']:,} "
-              f"params, batch {RESNET_BATCH} at {RESNET_SIDE}x{RESNET_SIDE}:"
-              f" {RESNET_WINDOWS} windows of {RESNET_WINDOW_STEPS} steps: "
-              f"median {median(sps):.3f} steps/s (least {min(sps):.3f}, "
-              f"most {max(sps):.3f}) = {RESNET_BATCH * median(sps):.1f} "
-              f"images/s (least {RESNET_BATCH * min(sps):.1f}, most "
-              f"{RESNET_BATCH * max(sps):.1f}); {tflops:.2f} TFLOP/s of "
-              f"3 x 7.71 GFLOP an image, {100 * tflops * 1e12 / peak:.2f}% "
-              f"of the {'f32 FFMA' if compute == 'float32' else 'bf16'} "
-              f"bound ({peak / 1e12:.0f} TFLOP/s = "
-              f"{gflop * 1e9 / peak * 1e3:.2f} ms a step); all-reduce "
-              f"{r['calls']:.0f} call(s) and {r['bytes'] / 1e6:.1f} MB a "
-              f"step; peak memory {r['peak_gb']:.2f} GB; "
-              f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
-        if r["calls"] < 1 or not all(np.isfinite(sps)):
-            problems.append(f"{compute}: no all-reduce or no rate")
+        for layout in ("NCHW", "channels_last"):
+            t0 = time.perf_counter()
+            with training_layout(layout):
+                r = HorovodRunner(np=1).run(rate_train_fn, compute=compute)
+            sps = r["rates"]
+            peak = PEAK_OPS_PER_S["float32" if compute == "float32"
+                                  else "bfloat16"]
+            tflops = median(sps) * gflop / 1e3
+            print(f"  {compute} compute on f32 masters, training "
+                  f"convolutions on {layout} memory"
+                  f"{' (now)' if layout == 'NCHW' else ' (before)'}, "
+                  f"{r['params']:,} params, batch {RESNET_BATCH} at "
+                  f"{RESNET_SIDE}x{RESNET_SIDE}: {RESNET_WINDOWS} windows of "
+                  f"{RESNET_WINDOW_STEPS} steps: median {median(sps):.3f} "
+                  f"steps/s (least {min(sps):.3f}, most {max(sps):.3f}) = "
+                  f"{RESNET_BATCH * median(sps):.1f} images/s (least "
+                  f"{RESNET_BATCH * min(sps):.1f}, most "
+                  f"{RESNET_BATCH * max(sps):.1f}; earlier builds read "
+                  f"{RESNET_CHANNELS_LAST_RATES[compute]} images/s on "
+                  f"channels_last, "
+                  f"NVIDIA H100 80GB HBM3, 700.00 W); {tflops:.2f} TFLOP/s "
+                  f"of 3 x 7.71 GFLOP an image, "
+                  f"{100 * tflops * 1e12 / peak:.2f}% of the "
+                  f"{'f32 FFMA' if compute == 'float32' else 'bf16'} bound "
+                  f"({peak / 1e12:.0f} TFLOP/s = "
+                  f"{gflop * 1e9 / peak * 1e3:.2f} ms a step); all-reduce "
+                  f"{r['calls']:.0f} call(s) and {r['bytes'] / 1e6:.1f} MB a"
+                  f" step; peak memory {r['peak_gb']:.2f} GB; "
+                  f"{time.perf_counter() - t0:.1f} s; card {card}",
+                  flush=True)
+            if r["calls"] < 1 or not all(np.isfinite(sps)):
+                problems.append(f"{compute}: no all-reduce or no rate")
 
     params = perturbed_bn(getKerasApplicationModel("ResNet50").init(SEED),
                           seed=1)
@@ -2311,8 +2368,8 @@ def run_resnet_training(card):
             and upd_abs / scale <= RESNET_CPU_UPDATE_RTOL):
         problems.append("training on the card disagrees with the CPU run")
     resnet_gradient_check(params, card, problems)
-    # the named InceptionV3 trains on channels_last as ResNet50 does, the
-    # layout on which the Keras InceptionV3's gradients once read 8.4e-2
+    # on channels_last memory the named InceptionV3's gradients read
+    # 8.93e-3 of float64, as the Keras InceptionV3's read 8.4e-2
     resnet_gradient_check(
         perturbed_bn(getKerasApplicationModel("InceptionV3").init(SEED),
                      seed=1), card, problems, "InceptionV3")
@@ -3719,6 +3776,309 @@ def run_surface(card):
             for k in launches["embed"]}
 
 
+# phase 11, TF graph ingestion at full width: the GraphDef, SavedModel and
+# checkpoint routes of TFInputGraph over the committed TF fixtures
+# (tests/fixtures/tf) and configs[2]'s InceptionV3 + head exported as a
+# SavedModel, its variables written here from phase 9's seeded weights
+GRAPH_FIXTURES = os.path.join("tests", "fixtures", "tf")
+GRAPH_ROWS, GRAPH_BATCH, GRAPH_CPU_ROWS = 256, 64, 4
+GRAPH_FUSE = 4
+GRAPH_RTOL = 2e-5                  # of max |y|, as phase 6 holds images
+GRAPH_F64_ATOL = 1e-12             # the float64 factory graph
+GRAPH_TABLE_ROWS = 4096
+
+
+def graph_fixture(*parts):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(here, GRAPH_FIXTURES, *parts)
+
+
+def graph_small_cases():
+    """(name, builder, input) for every committed fixture and route: the
+    float64 factory graph through all five file routes, the TF2 export
+    and the two Keras exports through the signature and tensor-name
+    routes."""
+    from tpudl_torch.ingest import TFInputGraph as G
+
+    rng = np.random.default_rng(SEED)
+    x64 = rng.normal(size=(5, 3))
+    x3 = rng.normal(size=(5, 3)).astype(np.float32)
+    cnn = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    dw = rng.normal(size=(2, 8, 8, 3)).astype(np.float32)
+    sm = graph_fixture("factory_saved_model")
+    ck = graph_fixture("factory_ckpt")
+    with open(graph_fixture("factory.pb"), "rb") as f:
+        pb = f.read()
+    cases = [
+        ("factory.pb fromGraphDef", lambda: G.fromGraphDef(pb, ["x"], ["z"]),
+         x64),
+        ("factory fromSavedModel", lambda: G.fromSavedModel(
+            sm, "serve", ["x:0"], ["z:0"]), x64),
+        ("factory fromSavedModelWithSignature",
+         lambda: G.fromSavedModelWithSignature(sm, "serve", "my_sig"), x64),
+        ("factory fromCheckpoint", lambda: G.fromCheckpoint(
+            ck, ["x:0"], ["z:0"]), x64),
+        ("factory fromCheckpointWithSignature",
+         lambda: G.fromCheckpointWithSignature(ck, "my_sig"), x64)]
+    for name, x in (("tf2_mlp", x3), ("keras_cnn", cnn),
+                    ("keras_depthwise", dw)):
+        d = graph_fixture(name)
+        cases.append((f"{name} fromSavedModelWithSignature",
+                      lambda d=d: G.fromSavedModelWithSignature(
+                          d, "serve", "serving_default"), x))
+        feed = "x:0" if name == "tf2_mlp" else "keras_tensor:0"
+        cases.append((f"{name} fromSavedModel(['{feed}'], ['Identity:0'])",
+                      lambda d=d, feed=feed: G.fromSavedModel(
+                          d, "serve", [feed], ["Identity:0"]), x))
+    return cases
+
+
+def graph_small_leg(card, problems):
+    """Every small fixture through every route, on the card against the
+    CPU port (2e-5 of max |y|; the float64 graph 1e-12, and against
+    3x + 4 in numpy)."""
+    for name, build, x in graph_small_cases():
+        gin = build()
+        fn = gin.make_fn()
+        got = fn(torch.from_numpy(x).cuda())
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        want = fn(torch.from_numpy(x)).numpy()
+        if x.dtype == np.float64:
+            err = float(np.abs(got - want).max())
+            ref = float(np.abs(got - (3 * x + 4)).max())
+            ok = got.dtype == np.float64 and err <= GRAPH_F64_ATOL and \
+                ref <= GRAPH_F64_ATOL
+            detail = (f"{got.dtype}, {err:.1e} off the CPU, {ref:.1e} off "
+                      f"3x + 4 (limit {GRAPH_F64_ATOL:g})")
+        else:
+            err = rel_err(got, want)
+            ok = np.isfinite(got).all() and err <= GRAPH_RTOL
+            detail = f"{err:.3e} of max |y| off the CPU (limit {GRAPH_RTOL:g})"
+        print(f"  {name}: {gin.input_names} -> {gin.output_names}, out "
+              f"{tuple(got.shape)}, {detail}")
+        if not ok:
+            problems.append(f"{name}: {detail}")
+
+
+def graph_inception_files(directory):
+    """configs[2]'s model with phase 9's seeded, BN-perturbed weights as a
+    .keras file and as a SavedModel (the committed saved_model.pb, its
+    variables/ written here with tf_bundle_writer)."""
+    import gzip
+
+    import tf_bundle_writer
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+
+    config = keras_inception_config()
+    weights = keras_perturbed(keras_weights(config, SEED))
+    path = save_keras_file(os.path.join(directory, "inception_tl.keras"),
+                           config, weights)
+    sm_dir = os.path.join(directory, "inception_tl_saved_model")
+    os.makedirs(sm_dir)
+    with gzip.open(graph_fixture("inception_v3_tl", "saved_model.pb.gz"),
+                   "rb") as f, open(os.path.join(sm_dir, "saved_model.pb"),
+                                    "wb") as out:
+        out.write(f.read())
+    with gzip.open(graph_fixture("inception_v3_tl", "variables.json.gz"),
+                   "rt") as f:
+        keys = json.load(f)
+    with gzip.open(graph_fixture("inception_v3_tl", "object_graph.bin.gz"),
+                   "rb") as f:
+        object_graph = f.read()
+    t0 = time.perf_counter()
+    tf_bundle_writer.write_saved_model_variables(sm_dir, keys, weights,
+                                                 object_graph)
+    print(f"  wrote the SavedModel's variables/ ({len(keys)} keys, "
+          f"{sum(np.asarray(weights[p]).nbytes for p in keys.values()) / 1e6:.1f}"
+          f" MB) in {time.perf_counter() - t0:.2f} s", flush=True)
+    return path, sm_dir
+
+
+def graph_ingest_time(sm_dir, card):
+    """The time to ingest: parsing saved_model.pb, reading every bundle
+    key the signature reaches with its CRC-32C check, and freezing."""
+    from tpudl_torch.ingest import TFInputGraph
+    from tpudl_torch.ingest import protowire as pw
+    from tpudl_torch.ingest.tensor_bundle import BundleReader
+
+    t0 = time.perf_counter()
+    with open(os.path.join(sm_dir, "saved_model.pb"), "rb") as f:
+        pw.parse("SavedModel", f.read())
+    t_parse = time.perf_counter() - t0
+    reader = BundleReader(os.path.join(sm_dir, "variables", "variables"))
+    keys = [k for k in reader.keys() if k.startswith("variables/")]
+    t0 = time.perf_counter()
+    nbytes = sum(len(reader.raw(k)) for k in keys)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gin = TFInputGraph.fromSavedModelWithSignature(sm_dir, "serve",
+                                                   "serving_default")
+    t_route = time.perf_counter() - t0
+    print(f"  ingest: saved_model.pb parsed in {t_parse:.3f} s; {len(keys)} "
+          f"bundle keys, {nbytes / 1e6:.1f} MB read with the CRC-32C check in"
+          f" {t_read:.3f} s ({nbytes / 1e6 / t_read:.0f} MB/s); "
+          f"fromSavedModelWithSignature (parse, restore keys, read what the "
+          f"signature reaches, freeze) {t_route:.3f} s; card {card}",
+          flush=True)
+    return gin
+
+
+def run_graph_ingest(card):
+    """Phase 11: TF graph ingestion at full width. Every check runs and
+    prints; the phase fails at its end if any did not hold."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.frame import Frame, sql
+    from tpudl_torch.image import imageStructToArray
+    from tpudl_torch.ingest import GraphFunction, TFInputGraph
+    from tpudl_torch.ml import TFImageTransformer, TFTransformer
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.udf import makeGraphUDF, unregister_udf
+
+    t_phase = time.perf_counter()
+    problems = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    graph_small_leg(card, problems)
+    print(f"  small fixtures: {time.perf_counter() - t0:.1f} s", flush=True)
+    directory = tempfile.mkdtemp(prefix="tpudl_graph_smoke_")
+    try:
+        path, sm_dir = graph_inception_files(directory)
+        gin = graph_ingest_time(sm_dir, card)
+        print(f"  InceptionV3 + head SavedModel: "
+              f"{gin.input_tensor_name_from_signature} -> "
+              f"{gin.output_tensor_name_from_signature}", flush=True)
+        kgin = TFInputGraph.fromKeras(path)
+        structs = image_structs(GRAPH_ROWS, (KERAS_SIDE, KERAS_SIDE, 3), SEED)
+        x = np.stack([imageStructToArray(s)[..., ::-1] for s in
+                      structs[:GRAPH_CPU_ROWS]]).astype(np.float32)
+        sm_fn, k_fn = gin.make_fn(), kgin.make_fn()
+        # in full f32, as the stages run both graphs (phase 6 leaves
+        # cuDNN's TF32 at PyTorch's default)
+        with torch.inference_mode(), full_f32():
+            got = sm_fn(torch.from_numpy(x).cuda()).cpu().numpy()
+            keras_y = k_fn(torch.from_numpy(x).cuda()).cpu().numpy()
+            cpu_y = sm_fn(torch.from_numpy(x)).numpy()
+        for what, want in (("the .keras route on the card", keras_y),
+                           ("the same route on the CPU", cpu_y)):
+            err = rel_err(got, want)
+            print(f"  SavedModel route on the card, {GRAPH_CPU_ROWS} rows "
+                  f"{KERAS_SIDE}x{KERAS_SIDE}, against {what}: {err:.3e} of "
+                  f"max |y| (limit {GRAPH_RTOL:g}); card {card}")
+            if not (got.shape == (GRAPH_CPU_ROWS, 2) and err <= GRAPH_RTOL):
+                problems.append(f"SavedModel route against {what}: {err:.3e}")
+
+        frame = Frame({"image": structs})
+        stages = {
+            "TFImageTransformer(SavedModel graph)": TFImageTransformer(
+                inputCol="image", outputCol="out", graph=gin,
+                batchSize=GRAPH_BATCH),
+            "TFImageTransformer(.keras graph)": TFImageTransformer(
+                inputCol="image", outputCol="out", graph=kgin,
+                batchSize=GRAPH_BATCH)}
+        for st in stages.values():
+            st.transform(Frame({"image": structs[:GRAPH_BATCH]}))   # warm
+        rates, first, _ = interleaved_windows(
+            stages, lambda st: np.stack(list(st.transform(frame)["out"])),
+            GRAPH_ROWS)
+        for what, r in rates.items():
+            print(f"  {what}, f32, {GRAPH_ROWS} images {KERAS_SIDE}x"
+                  f"{KERAS_SIDE} at batch {GRAPH_BATCH}, {len(r)} windows "
+                  f"(the two in turn): median {median(r):.1f} images/s "
+                  f"(least {min(r):.1f}, most {max(r):.1f}); card {card}")
+        serial = first["TFImageTransformer(SavedModel graph)"]
+        fused_stage = TFImageTransformer(
+            inputCol="image", outputCol="out", graph=gin,
+            batchSize=GRAPH_BATCH, fuseSteps=GRAPH_FUSE)
+        fused_stage.transform(frame)                               # capture
+        fused = np.stack(list(fused_stage.transform(frame)["out"]))
+        same = np.array_equal(fused, serial)
+        print(f"  fuseSteps={GRAPH_FUSE} arm, {GRAPH_ROWS} rows, equal bit "
+              f"for bit to the first arm: {same}")
+        if not same:
+            problems.append("fused SavedModel arm differs from the serial")
+
+        labels = np.arange(GRAPH_ROWS) % 2
+        rgb = np.empty(GRAPH_ROWS, dtype=object)
+        rgb[:] = [np.ascontiguousarray(imageStructToArray(s)[..., ::-1],
+                                       dtype=np.float32) for s in structs]
+        table = Frame({"x": rgb, "label": labels, "image": structs})
+        makeGraphUDF(gin, "inception_sm_udf", batch_size=GRAPH_BATCH,
+                     feeds_to_fields_map={gin.input_names[0]: "x"})
+        try:
+            rows = metrics.counter("udf.inception_sm_udf.rows")
+            before = rows.value
+            q = (f"SELECT inception_sm_udf(x) AS preds FROM t WHERE label = "
+                 f"1 LIMIT {SQL_LIMIT}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = np.stack(list(sql(q, {"t": table})["preds"]))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = rows.value - before
+            chosen = table.filter_rows(labels == 1).limit(SQL_LIMIT)
+            want = np.stack(list(stages[
+                "TFImageTransformer(SavedModel graph)"].transform(
+                    chosen)["out"]))
+            same = preds.shape == want.shape and np.array_equal(preds, want)
+            print(f"  makeGraphUDF over the SavedModel graph: sql(\"{q}\") "
+                  f"over {GRAPH_ROWS} rows: {dt:.3f} s, {n:.0f} rows through"
+                  f" the UDF (want {SQL_LIMIT}); equal bit for bit to "
+                  f"TFImageTransformer on the same rows: {same}; card {card}")
+            if n != SQL_LIMIT or not same:
+                problems.append(f"SavedModel UDF through sql: {n} rows, "
+                                f"equal {same}")
+        finally:
+            unregister_udf("inception_sm_udf")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+    ck = TFInputGraph.fromCheckpointWithSignature(
+        graph_fixture("factory_ckpt"), "my_sig")
+    xs = np.random.default_rng(SEED).normal(size=(GRAPH_TABLE_ROWS, 3))
+    t = TFTransformer(tfInputGraph=ck, inputMapping={"v": "input_sig"},
+                      outputMapping={"output_sig": "z"}, batchSize=1024)
+    t.transform(Frame({"v": xs[:1024]}))                           # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = np.stack(list(t.transform(Frame({"v": xs}))["z"]))
+    dt = time.perf_counter() - t0
+    err = float(np.abs(z - (3 * xs + 4)).max())
+    print(f"  TFTransformer over the float64 checkpoint graph (signature "
+          f"names), {GRAPH_TABLE_ROWS} rows: {GRAPH_TABLE_ROWS / dt:.0f} "
+          f"rows/s, {z.dtype}, {err:.1e} off 3x + 4 (limit "
+          f"{GRAPH_F64_ATOL:g}); card {card}")
+    if z.dtype != np.float64 or not err <= GRAPH_F64_ATOL:
+        problems.append(f"TFTransformer float64: {z.dtype}, {err:.1e}")
+    chain = GraphFunction.fromList([
+        ("ckpt", GraphFunction.fromTFInputGraph(ck)),
+        ("double", GraphFunction(lambda v: v * 2, ["z"], ["y"]))])
+    makeGraphUDF(chain, "chain_udf", feeds_to_fields_map={"ckpt/x": "v"})
+    try:
+        y = np.stack(list(sql("SELECT chain_udf(v) AS y FROM t", {
+            "t": Frame({"v": xs[:256]})})["y"]))
+    finally:
+        unregister_udf("chain_udf")
+    err = float(np.abs(y - 2 * (3 * xs[:256] + 4)).max())
+    print(f"  GraphFunction.fromList([checkpoint graph, v * 2]) as a UDF "
+          f"through sql, 256 rows: {err:.1e} off 2(3x + 4) (limit "
+          f"{GRAPH_F64_ATOL:g})")
+    if not err <= GRAPH_F64_ATOL:
+        problems.append(f"fromList UDF {err:.1e}")
+    counts = dict(cuda_ops.launch_counts)
+    print(f"  attention kernel launches in phase 11: {counts} (want 0)")
+    if any(counts.values()):
+        problems.append(f"phase 11 launched {counts}")
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 11: " + "; ".join(problems))
+    return counts
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -3770,6 +4130,14 @@ def main(argv) -> int:
         print(f"surface-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--graph-only"]:
+        print(f"phase 11 alone: TF graph ingestion at full width on {card}",
+              flush=True)
+        run_graph_ingest(card)
+        print(f"card: {card}")
+        print(f"graph-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -3788,7 +4156,7 @@ def main(argv) -> int:
     if argv:
         fail(f"unknown arguments {argv}; the options are --image-only, "
              "--executor-only, --train-only, --keras-only, --surface-only, "
-             "--ranks N and --pool-study")
+             "--graph-only, --ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -3886,6 +4254,9 @@ def main(argv) -> int:
     print(f"phase 10: model selection and SQL UDFs at full width on {card}",
           flush=True)
     surface_counts = run_surface(card)
+    print(f"phase 11: TF graph ingestion at full width on {card}",
+          flush=True)
+    graph_counts = run_graph_ingest(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -3895,6 +4266,8 @@ def main(argv) -> int:
             keras_counts[entry["name"]]
         entry["launches_by_path"]["sql_text_udfs"] = \
             surface_counts[entry["name"]]
+        entry["launches_by_path"]["graph_ingest"] = \
+            graph_counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "
           f"{time.perf_counter() - T_START:.1f} s")

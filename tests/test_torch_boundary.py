@@ -239,6 +239,80 @@ def _env():
     return env
 
 
+_BLOCKED_GRAPH = r"""
+import sys, gzip, json, tempfile
+for name in ("jax", "tpudl", "keras", "h5py", "tensorflow", "ml_dtypes",
+             "google.protobuf"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+import chip_smoke
+from tpudl_torch.frame import Frame, sql
+from tpudl_torch.ingest import GraphFunction, TFInputGraph
+from tpudl_torch.ml import TFTransformer
+from tpudl_torch.udf import makeGraphUDF, unregister_udf
+
+F = "tests/fixtures/tf/"
+x = np.random.default_rng(0).normal(size=(4, 3))
+graphs = [TFInputGraph.fromGraphDef(open(F + "factory.pb", "rb").read(),
+                                    ["x"], ["z"]),
+          TFInputGraph.fromSavedModel(F + "factory_saved_model", "serve",
+                                      ["x:0"], ["z:0"]),
+          TFInputGraph.fromSavedModelWithSignature(F + "factory_saved_model",
+                                                   "serve", "my_sig"),
+          TFInputGraph.fromCheckpoint(F + "factory_ckpt", ["x:0"], ["z:0"]),
+          TFInputGraph.fromCheckpointWithSignature(F + "factory_ckpt",
+                                                   "my_sig")]
+for g in graphs:
+    assert np.allclose(g.make_fn()(torch.from_numpy(x)).numpy(), 3 * x + 4)
+cnn = TFInputGraph.fromSavedModelWithSignature(F + "keras_cnn", "serve",
+                                               "serving_default")
+assert cnn.make_fn()(torch.zeros(1, 16, 16, 3)).shape == (1, 5)
+t = TFTransformer(tfInputGraph=graphs[-1], inputMapping={"v": "input_sig"},
+                  outputMapping={"output_sig": "z"}, device="cpu")
+assert np.allclose(np.stack(list(t.transform(Frame({"v": x}))["z"])),
+                   3 * x + 4)
+gf = GraphFunction.fromList([("g", GraphFunction.fromTFInputGraph(graphs[0])),
+                             ("n", GraphFunction(lambda v: -v, ["z"], ["y"]))])
+makeGraphUDF(gf, "neg_udf", feeds_to_fields_map={"g/x": "v"}, device="cpu")
+try:
+    y = np.stack(list(sql("SELECT neg_udf(v) AS y FROM t",
+                          {"t": Frame({"v": x})})["y"]))
+finally:
+    unregister_udf("neg_udf")
+assert np.allclose(y, -(3 * x + 4))
+# the InceptionV3 + head SavedModel as chip_smoke phase 11 writes it
+d = tempfile.mkdtemp()
+import os
+os.makedirs(d + "/sm")
+open(d + "/sm/saved_model.pb", "wb").write(gzip.decompress(
+    open(F + "inception_v3_tl/saved_model.pb.gz", "rb").read()))
+import tf_bundle_writer
+keys = json.loads(gzip.decompress(open(
+    F + "inception_v3_tl/variables.json.gz", "rb").read()))
+cfg = chip_smoke.keras_inception_config()
+tf_bundle_writer.write_saved_model_variables(
+    d + "/sm", keys, chip_smoke.keras_weights(cfg, 0), None)
+inc = TFInputGraph.fromSavedModelWithSignature(d + "/sm", "serve",
+                                               "serving_default")
+assert inc.make_fn()(torch.zeros(1, 75, 75, 3)).shape == (1, 2)
+import shutil
+shutil.rmtree(d)
+assert not any(m == b or m.startswith(b + ".")
+               for m, mod in sys.modules.items() if mod is not None
+               for b in ("jax", "tpudl", "keras", "h5py", "tensorflow",
+                         "ml_dtypes", "google.protobuf"))
+print("BLOCKED_OK")
+"""
+
+
+def test_graph_routes_run_with_jax_keras_tf_and_protobuf_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_GRAPH], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "BLOCKED_OK" in res.stdout
+
+
 def test_main_path_runs_with_jax_and_tpudl_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_MAIN], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
@@ -290,7 +364,7 @@ def test_lazy_names_resolve_and_are_tpudls():
     for name in ("sql", "register_udf", "registerKerasImageUDF",
                  "TFImageTransformer", "ParamGridBuilder", "CrossValidator",
                  "KerasImageFileEstimator", "LMFeaturizer",
-                 "DeepImageFeaturizer"):
+                 "DeepImageFeaturizer", "GraphFunction", "IsolatedSession"):
         assert name in tpudl_torch._LAZY
     for name in tpudl_torch._LAZY:
         obj = getattr(tpudl_torch, name)
@@ -298,12 +372,12 @@ def test_lazy_names_resolve_and_are_tpudls():
         assert obj.__module__.startswith("tpudl_torch.")
     assert set(dir(tpudl_torch)) >= set(tpudl_torch._LAZY)
     with pytest.raises(AttributeError):
-        tpudl_torch.GraphFunction
+        tpudl_torch.ring_attention
 
 
 def test_no_source_imports_jax_or_tpudl():
     files = sorted((REPO / "tpudl_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tf_bundle_writer.py"]
     names = {str(f.relative_to(REPO)) for f in files}
     for sub in ("zoo/nn.py", "zoo/core.py", "zoo/inception_v3.py",
                 "zoo/resnet.py", "zoo/xception.py", "zoo/vgg.py",
@@ -320,7 +394,9 @@ def test_no_source_imports_jax_or_tpudl():
                 "ml/image_params.py", "frame/sql.py", "udf/registry.py",
                 "udf/tensorframes_udf.py", "udf/keras_image_model.py",
                 "udf/text_udf.py", "ml/hpo.py", "ml/tuning.py",
-                "__init__.py"):
+                "ingest/protowire.py", "ingest/tensor_bundle.py",
+                "ingest/graphdef.py", "ingest/savedmodel.py",
+                "ingest/builder.py", "native/crc.py", "__init__.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]

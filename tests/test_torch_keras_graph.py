@@ -12,6 +12,7 @@ held where its errors show. Unsupported layers, activations and options
 raise ``NotImplementedError`` naming them."""
 
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +29,8 @@ from tpudl_torch.ingest import TFInputGraph  # noqa: E402
 from tpudl_torch.ingest.keras_graph import build_torch_fn  # noqa: E402
 from tpudl_torch.ingest.kerasfile import (load_keras_file,  # noqa: E402
                                           save_keras_file, variable_paths)
+
+REPO = Path(__file__).resolve().parents[1]
 
 FWD_RTOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -158,12 +161,40 @@ def test_unsupported_layer_classes_raise_by_name(perturbed_files):
 
 
 def test_proto_routes_and_live_models_are_refused(perturbed_files):
-    for route in ("fromGraph", "fromGraphDef", "fromSavedModel",
-                  "fromSavedModelWithSignature", "fromCheckpoint",
-                  "fromCheckpointWithSignature"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{route} needs TensorFlow protos"):
-            getattr(TFInputGraph, route)("x", "y", "z")
+    """Every proto route now returns a graph (the fixtures of
+    tests/fixtures/tf); a live keras model and feeds/fetches other than a
+    Keras graph's own are still refused."""
+    import tensorflow as tf
+
+    fixtures = REPO / "tests" / "fixtures" / "tf"
+    with tf.Graph().as_default() as g:
+        x = tf.compat.v1.placeholder(tf.float32, [None, 2], name="x")
+        w = tf.compat.v1.get_variable("w", initializer=np.float32(2.0))
+        tf.multiply(x, w, name="z")
+        with tf.compat.v1.Session(graph=g) as sess:
+            sess.run(tf.compat.v1.global_variables_initializer())
+            graphs = {"fromGraph": TFInputGraph.fromGraph(
+                g, sess, ["x:0"], ["z:0"])}
+    factory = str(fixtures / "factory_saved_model")
+    ckpt = str(fixtures / "factory_ckpt")
+    graphs.update({
+        "fromGraphDef": TFInputGraph.fromGraphDef(
+            (fixtures / "factory.pb").read_bytes(), ["x"], ["z"]),
+        "fromSavedModel": TFInputGraph.fromSavedModel(
+            factory, "serve", ["x:0"], ["z:0"]),
+        "fromSavedModelWithSignature":
+            TFInputGraph.fromSavedModelWithSignature(factory, "serve",
+                                                     "my_sig"),
+        "fromCheckpoint": TFInputGraph.fromCheckpoint(ckpt, ["x:0"],
+                                                      ["z:0"]),
+        "fromCheckpointWithSignature":
+            TFInputGraph.fromCheckpointWithSignature(ckpt, "my_sig")})
+    for route, gin in graphs.items():
+        assert isinstance(gin, TFInputGraph), route
+        assert (gin.input_names, gin.output_names) == (["x:0"], ["z:0"])
+        assert not gin.trainable and gin.graph_def is not None, route
+        y = gin.make_fn()(torch.ones(1, 2 if route == "fromGraph" else 3))
+        assert torch.isfinite(y).all(), route
     live = keras.saving.load_model(perturbed_files["mlp"], compile=False)
     with pytest.raises(TypeError, match="save the model"):
         TFInputGraph.fromKeras(live)

@@ -54,6 +54,8 @@ _LAZY = {
     "Pipeline": "tpudl_torch.ml",
     "PipelineModel": "tpudl_torch.ml",
     "TFInputGraph": "tpudl_torch.ingest",
+    "GraphFunction": "tpudl_torch.ingest",
+    "IsolatedSession": "tpudl_torch.ingest",
     "KerasImageFileEstimator": "tpudl_torch.ml.estimator",
     "ParamGridBuilder": "tpudl_torch.ml.tuning",
     "CrossValidator": "tpudl_torch.ml.tuning",

@@ -57,8 +57,8 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
       trainable) **or** any torch callable on a ``(B, H, W, C)`` float32
       batch.
     - ``inputTensor``/``outputTensor``: tensor names of a
-      ``TFInputGraph`` (an output of a model with several); default its
-      declared input and first output.
+      ``TFInputGraph`` of any route (an output of a model with several);
+      default its declared input and first output.
     - ``channelOrder``: what the model expects: 'RGB', 'BGR' or 'L'.
     - ``outputMode``: 'vector' (a flattened float32 vector a row) or
       'image' (an image struct a row).
@@ -101,6 +101,7 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
         if isinstance(g, TFInputGraph):
             feeds = self._paramMap.get(self.inputTensor)
             fetches = self._paramMap.get(self.outputTensor)
+
             return graph_batch_fn(g, self.device,
                                   None if feeds is None else [feeds],
                                   None if fetches is None else [fetches])

@@ -5,8 +5,11 @@ Port of ``tpudl/ml/tf_tensor.py``: params ``tfInputGraph`` (a
 input tensor name} and ``outputMapping`` {output tensor name → column};
 the graph runs as one function per batch through ``Frame.map_batches``
 with the executor knobs, on ``device`` (default ``"cuda"``), in f32
-(``device.full_f32``: no TF32 products) and float32 inputs, as tpudl's
-jitted program takes them. A Keras graph has one input and one output.
+(``device.full_f32``: no TF32 products). A Keras graph has one input and
+takes it as float32; a GraphDef, SavedModel or checkpoint graph may have
+several (one ``inputMapping`` column each), each cast to its
+placeholder's dtype (a float64 graph runs in float64). Signature logical
+names are accepted wherever tensor names are, as in tpudl.
 ``mesh`` is refused by name (ROADMAP Queue 1, 'Training, rest'), as are
 ``cacheDir``/``deviceCache`` ('Data layer').
 """
@@ -20,26 +23,39 @@ from tpudl_torch.ml.params import (EXECUTOR_KNOBS, Param, TypeConverters,
                                    keyword_only, refuse_unported)
 from tpudl_torch.ml.pipeline import Transformer
 
-__all__ = ["TFTransformer", "graph_batch_fn"]
+__all__ = ["TFTransformer", "graph_batch_fn", "function_batch_fn"]
 
 
 def graph_batch_fn(gin, device, feeds=None, fetches=None):
-    """The per-batch function of an ingested graph on ``device``: float32
-    in, the graph's first output (float32) out, computed in f32."""
+    """The per-batch function of an ingested graph on ``device``: the
+    graph's first fetch out, computed in f32. A Keras graph takes float32;
+    a proto graph casts each feed to its placeholder's dtype."""
     fn = gin.make_fn(feeds, fetches)
     if gin.trainable:
         dev = resolve_device(device)
         params = {k: torch.as_tensor(v).to(dev) for k, v in gin.params.items()}
-        model = lambda x: fn(params, x)  # noqa: E731
+        model = lambda *xs: fn(params, *xs)  # noqa: E731
     else:
         model = fn
+    keras = gin.graph_def is None
 
-    def batch_fn(x):
-        if x.dtype != torch.float32:
-            x = x.float()
+    def batch_fn(*xs):
+        if keras:
+            xs = [x if x.dtype == torch.float32 else x.float() for x in xs]
         with full_f32():
-            y = model(x)
+            y = model(*xs)
         return y[0] if isinstance(y, tuple) else y
+
+    return batch_fn
+
+
+def function_batch_fn(fn):
+    """A ``GraphFunction``'s callable as a per-batch function: its first
+    output, computed in f32."""
+    def batch_fn(*xs):
+        with full_f32():
+            y = fn(*xs)
+        return y[0] if isinstance(y, (tuple, list)) else y
 
     return batch_fn
 
@@ -79,7 +95,17 @@ class TFTransformer(Transformer):
         gin = self.getOrDefault(self.tfInputGraph)
         in_map = self.getOrDefault(self.inputMapping)    # col -> tensor
         out_map = self.getOrDefault(self.outputMapping)  # tensor -> col
-        feeds, fetches = list(in_map.values()), list(out_map.keys())
+
+        # copied from tpudl/ml/tf_tensor.py:TFTransformer._transform.resolve
+        def resolve(tname, sig):
+            if sig and tname.split(":")[0] in sig:
+                return sig[tname.split(":")[0]]
+            return tname
+
+        feeds = [resolve(t, gin.input_tensor_name_from_signature)
+                 for t in in_map.values()]
+        fetches = [resolve(t, gin.output_tensor_name_from_signature)
+                   for t in out_map.keys()]
         fn = self._cached_fn(
             (gin, tuple(feeds), tuple(fetches), str(self.device)),
             lambda: graph_batch_fn(gin, self.device, feeds, fetches))

@@ -1,8 +1,9 @@
 """makeGraphUDF — register an ingested graph as a SQL UDF.
 
 Port of ``tpudl/udf/tensorframes_udf.py``. The graph is a
-:class:`~tpudl_torch.ingest.TFInputGraph` (frozen or trainable); the UDF
-runs it as one batched call a block through ``Frame.map_batches`` on
+:class:`~tpudl_torch.ingest.TFInputGraph` (any route, frozen or
+trainable) or a :class:`~tpudl_torch.ingest.GraphFunction`; the UDF runs
+it as one batched call a block through ``Frame.map_batches`` on
 ``device`` (default ``"cuda"``), in f32
 (:func:`~tpudl_torch.ml.tf_tensor.graph_batch_fn`), with the executor
 knobs ``prefetch_depth``, ``prepare_workers``, ``fuse_steps`` and
@@ -18,8 +19,9 @@ the call are not ported (ROADMAP Queue 1, 'The rest of observability');
 ``mesh`` ('Training, rest'), ``cache_dir``, ``device_cache`` and a
 ``wire_codec`` given by name ('Data layer') raise. ``blocked`` is
 accepted and ignored, as in tpudl: one call a block is the only
-execution model. tpudl's ``GraphFunction`` graphs need its GraphDef
-routes, which are not ported ('The rest of the sparkdl surface').
+execution model. SQL's ``fn(col)`` grammar binds one input; a graph with
+several feeds registers all the same and runs as ``udf(frame)`` with
+every mapped column present, as in tpudl.
 """
 
 from __future__ import annotations
@@ -53,8 +55,9 @@ def makeGraphUDF(graph, udf_name: str, fetches=None,
     ``feeds_to_fields_map`` maps graph input name → frame column name
     (default: the input's own op name). ``register=False`` builds and
     returns the UDF without filing it."""
+    from tpudl_torch.ingest.builder import GraphFunction
     from tpudl_torch.ingest.input import TFInputGraph
-    from tpudl_torch.ml.tf_tensor import graph_batch_fn
+    from tpudl_torch.ml.tf_tensor import function_batch_fn, graph_batch_fn
 
     knobs = dict(mesh=mesh, cache_dir=cache_dir, device_cache=device_cache,
                  wireCodec=wire_codec)
@@ -64,14 +67,19 @@ def makeGraphUDF(graph, udf_name: str, fetches=None,
         raise TypeError(
             f"fetches must be a sequence of tensor names, got the "
             f"string {fetches!r} — wrap it: fetches=[{fetches!r}]")
-    if not isinstance(graph, TFInputGraph):
+    if isinstance(graph, TFInputGraph):
+        fn = graph_batch_fn(graph, device,
+                            fetches=list(fetches) if fetches else None)
+    elif isinstance(graph, GraphFunction):
+        if fetches is not None:
+            raise ValueError(
+                "fetches selection applies to TFInputGraph; a "
+                "GraphFunction already fixes its outputs")
+        fn = function_batch_fn(graph.fn)
+    else:
         raise TypeError(
-            f"graph must be a TFInputGraph, got {type(graph).__name__} "
-            "(tpudl's GraphFunction needs its GraphDef routes, not ported "
-            "to tpudl_torch yet: ROADMAP Queue 1, 'The rest of the sparkdl "
-            "surface')")
-    fn = graph_batch_fn(graph, device,
-                        fetches=list(fetches) if fetches else None)
+            f"graph must be TFInputGraph or GraphFunction, got "
+            f"{type(graph).__name__}")
     input_names = graph.input_names
 
     # copied from tpudl/udf/tensorframes_udf.py:makeGraphUDF._field

@@ -5,9 +5,12 @@ the ops tpudl's models call from ``jax.nn`` or spell inline: ``swish``,
 ``sigmoid``, Keras's ``Flatten`` (:func:`flatten_nhwc`) and
 ``correct_pad`` (MobileNetV2's and EfficientNet's ``_correct_pad``).
 
-**Layout.** Activations are NCHW tensors; on the card they stay in
+**Layout.** Activations are NCHW tensors; for inference they stay in
 ``torch.channels_last`` memory (an NHWC batch seen through
 ``permute(0, 3, 1, 2)`` already is), which cuDNN's convolutions prefer.
+While autograd records (training), convolutions take NCHW-contiguous
+inputs and kernels: on channels_last memory cuDNN's engines cost an f32
+training step's gradients precision.
 Convolution kernels are torch's OIHW, converted once from the Keras HWIO
 arrays of a param pytree (:func:`tpudl_torch.zoo.core.torch_layout`);
 depthwise kernels are ``(cin * mult, 1, kh, kw)``; dense kernels keep
@@ -84,12 +87,22 @@ def _add_bias(y, bias):
     return y + bias.to(y.dtype).reshape(1, -1, 1, 1)
 
 
+def _training_memory(x, kernel):
+    """``(x, kernel)`` NCHW-contiguous while autograd records: on
+    channels_last memory cuDNN's engines (FFT on 17×17 maps) put an
+    InceptionV3 f32 training step's gradients 8.9e-3 of the largest off
+    float64 on the H100. Inference keeps channels_last."""
+    if torch.is_grad_enabled():
+        return x.contiguous(), kernel.contiguous()
+    return x, kernel
+
+
 def conv2d(x, kernel, bias=None, *, strides=(1, 1), padding="SAME"):
     """NCHW conv with an OIHW kernel (Keras Conv2D, TF padding)."""
     s = _pair(strides)
     x, pad = _padding(x, kernel.shape[2:], s, padding)
-    return _add_bias(F.conv2d(x, kernel.to(x.dtype), stride=s, padding=pad),
-                     bias)
+    x, kernel = _training_memory(x, kernel.to(x.dtype))
+    return _add_bias(F.conv2d(x, kernel, stride=s, padding=pad), bias)
 
 
 def depthwise_conv2d(x, kernel, bias=None, *, strides=(1, 1),
@@ -101,8 +114,9 @@ def depthwise_conv2d(x, kernel, bias=None, *, strides=(1, 1),
     s = _pair(strides)
     cin = x.shape[1]
     x, pad = _padding(x, kernel.shape[2:], s, padding)
-    return _add_bias(F.conv2d(x, kernel.to(x.dtype), stride=s, padding=pad,
-                              groups=cin), bias)
+    x, kernel = _training_memory(x, kernel.to(x.dtype))
+    return _add_bias(F.conv2d(x, kernel, stride=s, padding=pad, groups=cin),
+                     bias)
 
 
 def separable_conv2d(x, depth_kernel, point_kernel, bias=None, *,
