@@ -182,6 +182,29 @@ Phases (any failure exits non-zero before the final line):
    ``tests/fixtures/keras2`` card vs CPU (2e-5 of max |y|; the
    bfloat16-policy model 1e-2); no flash launch; the phase's seconds.
 
+13. Drive the data layer (``tpudl_torch.data``) at full width: the codecs
+   on the card (a 512×299×299×3 uint8 batch through ``U8Codec`` at scale
+   1, 1/255 and 1/255 with an offset, ``BF16Codec`` over the special
+   values, ``TokenCodec`` u16 and i32: each prologue bit for bit its
+   ``decode_array``, wire bytes against dense f32); configs[2]'s
+   InceptionV3 + head (phase 9's seeded, BN-perturbed weights) through
+   ``KerasImageFileTransformer`` over 512 JPEGs, batch 64, in four arms
+   (the float32 loader; the uint8 loader and its u8 codec; that with
+   ``cacheDir``, cold then warm; that with ``deviceCache``), images/s
+   over 5 windows, the decodes, shard hits, bytes prepared and h2d
+   seconds of each, the card's idle share, every arm bit for bit the
+   first and 2 rows against the CPU; ``budget_bytes()`` and arm (d) under
+   a 64 MB budget (evictions, bit for bit); configs[2]'s fit with the
+   uint8 loader, ``cacheDir`` and ``deviceCache`` (decodes 96 then 0,
+   losses bit for bit the fit without them under ``cudnn.deterministic``,
+   the pin released, first-step gradients against float64); phase 4b's
+   model trained 2 epochs of 5 steps from ``lm_dataset`` (epoch 2
+   tokenizes and ships nothing, 12 launches of each kernel a step, losses
+   bit for bit the direct int32 feed); phase 4's ``LMFeaturizer`` with
+   ``wireCodec="tokens"`` and ``cacheDir``, cold then warm (no
+   tokenization warm, 12 launches a batch, features bit for bit); the
+   phase's seconds.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
@@ -193,7 +216,8 @@ alone. ``python3 chip_smoke.py --keras-only`` runs phase 1 and then phase 9
 alone. ``python3 chip_smoke.py --surface-only`` runs phase 1 and then
 phase 10 alone. ``python3 chip_smoke.py --graph-only`` runs phase 1 and then phase 11
 alone. ``python3 chip_smoke.py --keras2-only`` runs phase 1 and then
-phase 12 alone. ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
+phase 12 alone, and ``--data-only`` phase 1 and then phase 13.
+``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
 rank's. ``python3 chip_smoke.py --pool-study`` runs phase 1 and
@@ -4449,6 +4473,563 @@ def run_keras2_files(card):
     return counts
 
 
+# phase 13, the data layer: the u8/bf16/token codecs, the shard cache, the
+# device-memory batch cache and lm_dataset, under the executor, the stages,
+# the estimator and the trainer, at full width
+DATA_JPEGS, DATA_BATCH = 512, 64           # 8 batches of 299×299 JPEGs
+DATA_CPU_ROWS = 2
+DATA_CODEC_SHAPE = (512, 299, 299, 3)      # one prepared u8 image batch
+DATA_LM_SEQ = TRAIN_SEQ                    # phase 4b's rows: 1025 tokens
+DATA_LM_BATCH = 8                          # texts a batch = rows a batch
+DATA_LM_STEPS = 5                          # an epoch; 2 epochs
+DATA_LM_TEXT = DATA_LM_SEQ - 1             # bytes a text: + EOS = one row
+DATA_BUDGET_MB = 64                        # below one arm (d) run's bytes
+
+
+def data_counters() -> dict:
+    """The data layer's and the image reader's counters now."""
+    from tpudl_torch.obs import metrics
+
+    names = ("imageio.uris_loaded", "imageio.files_read",
+             "data.cache.hits", "data.cache.misses", "data.cache.puts",
+             "data.cache.bytes_written", "data.cache.bytes_read",
+             "data.hbm.hits", "data.hbm.puts", "data.hbm.evictions",
+             "data.hbm.bytes_served", "data.hbm.put_failed",
+             "data.wire.bytes_shipped", "data.wire.bytes_dense",
+             "text.tokenize.calls")
+    return {n: metrics.counter(n).value for n in names}
+
+
+def data_delta(before) -> dict:
+    now = data_counters()
+    return {k: now[k] - before[k] for k in before}
+
+
+def data_codec_leg(card, problems):
+    """The codecs on the card: a 512×299×299×3 uint8 batch through U8Codec
+    at scale 1, 1/255 and 1/255 with an offset, BF16Codec over the special
+    values, TokenCodec u16 and i32 — each prologue on the card bit for bit
+    its decode_array, and the wire bytes against dense f32."""
+    from tpudl_torch.data import BF16Codec, U8Codec
+    from tpudl_torch.data.codec import host_tensor
+    from tpudl_torch.text import TokenCodec
+
+    rng = np.random.default_rng(SEED)
+    q = rng.integers(0, 256, DATA_CODEC_SHAPE, dtype=np.uint8)
+    q_dev = torch.from_numpy(q).cuda()
+    for scale, offset in ((1.0, 0.0), (1 / 255, 0.0), (1 / 255, 0.5)):
+        c = U8Codec(scale, offset)
+        got = c.prologue(q_dev).cpu().numpy()
+        want = c.decode_array(q)
+        same = np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        print(f"  U8Codec(scale={scale:.6g}, offset={offset}) on "
+              f"{list(q.shape)}: card prologue bit for bit its decode_array:"
+              f" {same}; wire {q.nbytes / 1e6:.1f} MB against dense f32 "
+              f"{c.dense_nbytes(q) / 1e6:.1f} MB "
+              f"({c.dense_nbytes(q) / q.nbytes:.0f}x)")
+        if not same:
+            problems.append(f"U8Codec({scale}, {offset}) prologue on the "
+                            "card differs from decode_array")
+    del q_dev
+    bits = np.array([0, 0x80000000, 1, 0x807FFFFF, 0x7F800000, 0xFF800000,
+                     0x7FC00000, 0xFFC00001, 0x3F808000, 0x3F818000,
+                     0x7F7FFFFF], dtype=np.uint32).view(np.float32)
+    x = np.concatenate([bits, rng.standard_normal(1 << 20).astype(
+        np.float32) * 1e3])
+    c = BF16Codec()
+    enc = c.encode(x)
+    got = c.prologue(host_tensor(enc).cuda()).cpu().numpy()
+    same = np.array_equal(got.view(np.uint32),
+                          c.decode_array(enc).view(np.uint32))
+    print(f"  BF16Codec over {x.size} values (±0, subnormals, ±inf, NaN, "
+          f"halfway cases, random): card prologue bit for bit its "
+          f"decode_array: {same}; wire {enc.nbytes / 1e6:.2f} MB against "
+          f"dense f32 {c.dense_nbytes(enc) / 1e6:.2f} MB "
+          f"({c.dense_nbytes(enc) / enc.nbytes:.0f}x)")
+    if not same:
+        problems.append("BF16Codec prologue on the card differs")
+    ids = rng.integers(0, 50257, (8, DATA_LM_SEQ)).astype(np.int32)
+    for wire in ("u16", "i32"):
+        c = TokenCodec(vocab_size=50257, wire_dtype=wire)
+        enc = c.encode(ids)
+        got = c.prologue(torch.from_numpy(enc).cuda()).cpu().numpy()
+        same = np.array_equal(got, ids) and got.dtype == np.int32
+        print(f"  TokenCodec(vocab 50257, wire {wire}) on {list(ids.shape)}"
+              f": card prologue equals the int32 ids: {same}; wire "
+              f"{enc.nbytes / 1e3:.1f} kB against int32 "
+              f"{c.dense_nbytes(enc) / 1e3:.1f} kB")
+        if not same:
+            problems.append(f"TokenCodec {wire} prologue on the card")
+
+
+def data_image_arms(directory, path, uris, card, problems):
+    """configs[2]'s InceptionV3 + head over 512 JPEGs in four arms: (a) the
+    float32 loader, (b) the uint8 loader (u8 codec), (c) (b) with cacheDir,
+    cold then warm, (d) (c) with deviceCache. Returns (a)'s outputs, the
+    stage of arm (d) and its cache directory."""
+    from tpudl_torch.data import device_cache as dc
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.ml import KerasImageFileTransformer
+    from tpudl_torch.obs import last_pipeline_report
+
+    f32 = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE, scale=1 / 255)
+    u8 = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE, scale=1 / 255,
+                                 output_dtype="uint8")
+    cache = os.path.join(directory, "shards")
+
+    def stage(loader, **kw):
+        return KerasImageFileTransformer(
+            inputCol="uri", outputCol="out", modelFile=path,
+            imageLoader=loader, batchSize=DATA_BATCH, **kw)
+
+    def run(st):
+        return np.stack(list(st.transform(keras_frame(uris))["out"]))
+
+    def arm_text(arm, what, rates, rep, extra=""):
+        calls, secs = rep["stage_calls"], rep["stage_seconds"]
+        return (f"  arm ({arm}), {what}: {DATA_JPEGS} JPEGs {KERAS_SIDE}x{KERAS_SIDE}, "
+                f"batch {DATA_BATCH}, f32, {len(rates)} windows: median "
+                f"{median(rates):.1f} images/s (least {min(rates):.1f}, most "
+                f"{max(rates):.1f}); wire codec {rep['wire_codec']}, bytes "
+                f"prepared {calls.get('bytes_prepared', 0)}, h2d "
+                f"{secs.get('h2d', 0.0):.4f} s a run{extra}; card {card}")
+
+    outs = {}
+    a = stage(f32)
+    a.transform(keras_frame(uris[:DATA_BATCH]))            # warm-up
+    rates, outs["a"] = timed_windows(lambda: run(a), DATA_JPEGS)
+    print(arm_text("a", "float32 loader", rates, last_pipeline_report()),
+          flush=True)
+    b = stage(u8)
+    rates, outs["b"] = timed_windows(lambda: run(b), DATA_JPEGS)
+    print(arm_text("b", "uint8 loader + u8 codec", rates,
+                   last_pipeline_report()), flush=True)
+    c = stage(u8, cacheDir=cache)
+    before = data_counters()
+    t0 = time.perf_counter()
+    outs["c-cold"] = run(c)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    d_cold = data_delta(before)
+    print(f"  arm (c), cacheDir, cold pass: {DATA_JPEGS / cold_s:.1f} "
+          f"images/s; "
+          f"decodes {d_cold['imageio.uris_loaded']:.0f}, shards written "
+          f"{d_cold['data.cache.puts']:.0f} "
+          f"({d_cold['data.cache.bytes_written'] / 1e6:.1f} MB)", flush=True)
+    before = data_counters()
+    rates, outs["c-warm"] = timed_windows(lambda: run(c), DATA_JPEGS)
+    d_warm = data_delta(before)
+    n = len(rates)
+    print(arm_text(
+        "c", "cacheDir, warm: a new Frame over the same files", rates,
+        last_pipeline_report(),
+        f"; over {n} passes: decodes {d_warm['imageio.uris_loaded']:.0f}, "
+        f"files read {d_warm['imageio.files_read']:.0f}, shard hits "
+        f"{d_warm['data.cache.hits'] / n:.0f} a pass, read "
+        f"{d_warm['data.cache.bytes_read'] / n / 1e6:.1f} MB a pass"),
+        flush=True)
+    if d_warm["imageio.uris_loaded"] or d_warm["imageio.files_read"]:
+        problems.append(f"the warm pass decoded: {d_warm}")
+    if d_warm["data.cache.hits"] != n * DATA_JPEGS // DATA_BATCH:
+        problems.append(f"warm shard hits {d_warm['data.cache.hits']} "
+                        f"!= {n} x {DATA_JPEGS // DATA_BATCH}")
+    dc.reset_device_cache()
+    d = stage(u8, cacheDir=cache, deviceCache=True)
+    run(d)                                      # becomes resident
+    before = data_counters()
+    rates, outs["d"] = timed_windows(lambda: run(d), DATA_JPEGS)
+    d_res = data_delta(before)
+    rep = last_pipeline_report()
+    print(arm_text(
+        "d", "cacheDir + deviceCache: resident", rates, rep,
+        f"; over {n} passes: decodes {d_res['imageio.uris_loaded']:.0f}, "
+        f"files read {d_res['imageio.files_read']:.0f}, resident hits "
+        f"{d_res['data.hbm.hits'] / n:.0f} a pass, wire bytes shipped "
+        f"{d_res['data.wire.bytes_shipped']:.0f}; resident "
+        f"{dc.get_device_cache().bytes_resident / 1e6:.1f} MB"), flush=True)
+    if d_res["imageio.uris_loaded"] or d_res["imageio.files_read"] or \
+            d_res["data.wire.bytes_shipped"] or \
+            rep["stage_calls"].get("bytes_prepared") or \
+            rep["stage_seconds"].get("h2d"):
+        problems.append(f"the resident pass shipped or decoded: {d_res}, "
+                        f"{rep['stage_calls']}")
+    for what in ("b", "c-cold", "c-warm", "d"):
+        same = np.array_equal(outs[what], outs["a"])
+        print(f"  arm ({what}) bit for bit arm (a): {same}")
+        if not same:
+            problems.append(f"arm ({what}) differs from arm (a): "
+                            f"{rel_err(outs[what], outs['a']):.3e}")
+    for what, st in (("a", a), ("c-warm", c)):
+        print(idle_text(f"arm ({what})", *idle_profile(lambda: run(st)),
+                        card))
+    cpu = np.stack(list(stage(f32, device="cpu").transform(
+        keras_frame(uris[:DATA_CPU_ROWS]))["out"]))
+    err = rel_err(outs["c-warm"][:DATA_CPU_ROWS], cpu)
+    print(f"  arm (c-warm) card vs CPU, {DATA_CPU_ROWS} rows: {err:.3e} of max "
+          f"|y| (limit {IMAGE_CPU_RTOL:g})")
+    if not err <= IMAGE_CPU_RTOL:
+        problems.append(f"arm (c-warm) card vs CPU {err:.3e}")
+    return outs["a"], stage, u8, cache
+
+
+def data_budget_leg(uris, stage, u8, cache, want, card, problems):
+    """The budget: budget_bytes() on this card, and arm (d) under
+    TPUDL_DATA_HBM_BUDGET_MB below one run's bytes — another run's batches
+    evict it, and it still equals arm (a)."""
+    from tpudl_torch.data import device_cache as dc
+
+    print(f"  budget_bytes() on this card: {dc.budget_bytes() / 1e9:.2f} GB "
+          f"({dc.DEFAULT_BUDGET_FRACTION} of its memory); card {card}")
+    os.environ["TPUDL_DATA_HBM_BUDGET_MB"] = str(DATA_BUDGET_MB)
+    try:
+        dc.reset_device_cache()
+        d = stage(u8, cacheDir=cache, deviceCache=True)
+        before = data_counters()
+        first = np.stack(list(d.transform(keras_frame(uris))["out"]))
+        other = uris[: len(uris) // 2]
+        d.transform(keras_frame(other))          # another run's batches
+        again = np.stack(list(d.transform(keras_frame(uris))["out"]))
+        delta = data_delta(before)
+        print(f"  TPUDL_DATA_HBM_BUDGET_MB={DATA_BUDGET_MB}: arm (d), a run "
+              f"over half the files, arm (d) again: data.hbm puts "
+              f"{delta['data.hbm.puts']:.0f}, hits {delta['data.hbm.hits']:.0f}"
+              f", evictions {delta['data.hbm.evictions']:.0f}, put_failed "
+              f"{delta['data.hbm.put_failed']:.0f}; resident "
+              f"{dc.get_device_cache().bytes_resident / 1e6:.1f} MB of "
+              f"{dc.get_device_cache().budget / 1e6:.1f} MB")
+        same = np.array_equal(first, want) and np.array_equal(again, want)
+        print(f"  arm (d) under the budget bit for bit arm (a): {same}")
+        if not delta["data.hbm.evictions"] or not same:
+            problems.append(f"budget leg: evictions "
+                            f"{delta['data.hbm.evictions']}, equal {same}")
+    finally:
+        os.environ.pop("TPUDL_DATA_HBM_BUDGET_MB", None)
+        dc.reset_device_cache()
+
+
+def data_first_gradient(path, Xq, y, device, dtype):
+    """The estimator's first-step loss and gradients on the u8 path: the
+    first rows' uint8 pixels restored by the u8 codec on ``device``, then
+    cast to ``dtype``."""
+    from tpudl_torch.data import U8Codec
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.ml.losses import get_loss
+
+    gin = keras_estimator(path, None, device=device)._ingest()
+    p = {k: torch.tensor(v, device=device, dtype=dtype, requires_grad=True)
+         for k, v in gin.params.items()}
+    xb = U8Codec(1 / 255).prologue(torch.from_numpy(
+        Xq[:KERAS_CPU_BATCH]).to(device)).to(dtype)
+    yb = torch.tensor(y[:KERAS_CPU_BATCH], device=device, dtype=dtype)
+    with full_f32():
+        loss = get_loss("categorical_crossentropy")(gin.make_fn()(p, xb), yb)
+        loss.backward()
+    return float(loss.detach()), {k: t.grad.double().cpu().numpy()
+                                  for k, t in p.items()}
+
+
+def data_estimator_leg(directory, uris, labels, card, problems):
+    """configs[2] (96 JPEGs, batch 16, adam) with the uint8 loader,
+    cacheDir and deviceCache: the first fit decodes 96 files, a second
+    decodes none, both losses bit for bit a fit without the knobs; the
+    time to fit beside phase 9's (the float32 loader, no knobs)."""
+    from tpudl_torch.data import device_cache as dc
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import KerasImageFileEstimator
+
+    config = keras_inception_config()
+    path = save_keras_file(os.path.join(directory, "inception_fit.keras"),
+                           config, keras_weights(config, SEED))
+    frame = keras_frame(uris[:KERAS_JPEGS], labels[:KERAS_JPEGS])
+    u8 = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE, scale=1 / 255,
+                                 output_dtype="uint8")
+    f32 = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE, scale=1 / 255)
+    written = []
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fits = {}
+        for what, loader, kw in (
+                ("phase 9's recipe: float32 loader", f32, {}),
+                ("uint8 loader, no knobs", u8, {}),
+                ("uint8 loader, cacheDir + deviceCache, cold", u8,
+                 {"cacheDir": os.path.join(directory, "fit_shards"),
+                  "deviceCache": True}),
+                ("uint8 loader, cacheDir + deviceCache, warm", u8, None)):
+            if kw is None:
+                est = fits["uint8 loader, cacheDir + deviceCache, cold"][0]
+            else:
+                est = KerasImageFileEstimator(
+                    inputCol="uri", outputCol="out", labelCol="label",
+                    imageLoader=loader, modelFile=path,
+                    kerasOptimizer="adam",
+                    kerasLoss="categorical_crossentropy",
+                    kerasFitParams={"epochs": 1, "batch_size": KERAS_BATCH},
+                    **kw)
+            before = data_counters()
+            t0 = time.perf_counter()
+            model = est.fit(frame)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            written.append(model.getModelFile())
+            delta = data_delta(before)
+            fits[what] = (est, model.history["step_loss"])
+            print(f"  KerasImageFileEstimator configs[2], {KERAS_JPEGS} JPEGs,"
+                  f" batch {KERAS_BATCH}, adam, {what}: fit {dt:.3f} s; "
+                  f"decodes {delta['imageio.uris_loaded']:.0f}, shard hits "
+                  f"{delta['data.cache.hits']:.0f}, resident puts "
+                  f"{delta['data.hbm.puts']:.0f} hits "
+                  f"{delta['data.hbm.hits']:.0f}; pinned after the fit "
+                  f"{dc.get_device_cache().bytes_pinned} bytes; resident "
+                  f"{dc.get_device_cache().bytes_resident / 1e6:.1f} MB; "
+                  f"step losses {[round(v, 6) for v in model.history['step_loss']]}"
+                  f"; card {card}", flush=True)
+            want_decodes = 0 if kw is None else KERAS_JPEGS
+            if delta["imageio.uris_loaded"] != want_decodes:
+                problems.append(f"fit ({what}) decoded "
+                                f"{delta['imageio.uris_loaded']}")
+            if dc.get_device_cache().bytes_pinned:
+                problems.append(f"fit ({what}) left its bulk pinned")
+        plain = fits["uint8 loader, no knobs"][1]
+        for what in ("uint8 loader, cacheDir + deviceCache, cold",
+                     "uint8 loader, cacheDir + deviceCache, warm"):
+            same = fits[what][1] == plain
+            print(f"  losses of ({what}) bit for bit the fit without the "
+                  f"knobs: {same}")
+            if not same:
+                problems.append(f"fit ({what}) losses differ")
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = saved_det
+        remove_files(written)
+    est = fits["uint8 loader, no knobs"][0]
+    Xq, y = est._getNumpyFeaturesAndLabels(frame)
+    ref_loss, ref = data_first_gradient(path, Xq, y, "cuda", torch.float64)
+    loss, grads = data_first_gradient(path, Xq, y, "cuda", torch.float32)
+    top = max(np.abs(v).max() for v in ref.values())
+    errs = {k: np.abs(grads[k] - ref[k]).max() / top for k in ref}
+    worst = max(errs, key=errs.get)
+    print(f"  first-step gradients on the u8 path, card f32 against float64 "
+          f"({len(ref)} variables, largest |g| {top:.4e}): loss "
+          f"{loss - ref_loss:+.3e} off, gradients {errs[worst]:.3e} of the "
+          f"largest at worst ({worst}) (limit {KERAS_GRAD_RTOL:g})")
+    if not errs[worst] <= KERAS_GRAD_RTOL:
+        problems.append(f"u8-path first-step gradients {errs[worst]:.3e}")
+
+
+def data_lm_texts(n, seed):
+    """``n`` seeded texts of DATA_LM_TEXT bytes: each tokenizes to exactly
+    one 1025-token row with its EOS, so a batch of 8 texts packs to 8 rows
+    with no pad."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ,.",
+                            dtype=np.uint8)
+    return np.array([rng.choice(letters, size=DATA_LM_TEXT).tobytes().decode()
+                     for _ in range(n)], dtype=object)
+
+
+def data_lm_training_leg(directory, card, problems):
+    """phase 4b's model trained from lm_dataset (cache_dir, device_cache):
+    2 epochs of 5 steps; epoch 2 tokenizes and ships nothing; 12 launches
+    of each kernel a step; losses bit for bit the same steps fed int32
+    tokens directly. Returns the kernel launches of the dataset's run."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.data import device_cache as dc
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.text import ByteTokenizer, lm_dataset, tokenize_pack
+    from tpudl_torch.train import Trainer, adamw
+    from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
+
+    tok = ByteTokenizer()
+    texts = data_lm_texts(DATA_LM_BATCH * DATA_LM_STEPS, SEED + 5)
+    ds = lm_dataset(Frame({"text": texts}), "text", tok,
+                    seq_len=DATA_LM_SEQ, batch_size=DATA_LM_BATCH,
+                    cache_dir=os.path.join(directory, "lm_shards"),
+                    device_cache=True)
+    print(f"  TinyCausalLM vocab {TRAIN_ARCH['vocab']} >= the tokenizer's "
+          f"{tok.vocab_size}; wire {ds.plan.codecs[0].key()}; "
+          f"{ds.num_batches} batches of {DATA_LM_BATCH} texts")
+    if TRAIN_ARCH["vocab"] < tok.vocab_size or \
+            ds.plan.codecs[0].wire != "u16":
+        problems.append("the LM vocab or the wire type is wrong")
+    lm = TinyCausalLM(**TRAIN_ARCH, device="cuda")
+    weights = lm.init(SEED)
+    load_jax_params(lm, weights)
+    ref = TinyCausalLM(**TRAIN_ARCH, device="cuda")
+    load_jax_params(ref, weights)
+    pack = tokenize_pack(tok, seq_len=DATA_LM_SEQ, dense=True, eos=True)
+    direct = [pack(texts[i * DATA_LM_BATCH:(i + 1) * DATA_LM_BATCH])
+              for i in range(DATA_LM_STEPS)]
+    if any(r.shape != (DATA_LM_BATCH, DATA_LM_SEQ) for r in direct):
+        problems.append(f"batches of {[r.shape for r in direct]}")
+
+    def epochs(model, loss_fn, data_fn):
+        trainer = Trainer(loss_fn, adamw(LR), log_every=1)
+        out = []
+        opt = None
+        for _ in range(2):
+            before = data_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, opt, hist = trainer.fit(model, data_fn, DATA_LM_STEPS,
+                                       opt_state=opt)
+            torch.cuda.synchronize()
+            out.append((hist, time.perf_counter() - t0, data_delta(before)))
+        return out
+
+    reset_launch_counts()
+    runs = epochs(lm, ds.wrap(lm.loss_fn()),
+                  lambda s: ds.get_batch(s % ds.num_batches))
+    counts = dict(cuda_ops.launch_counts)
+    base = epochs(ref, ref.loss_fn(), lambda s: direct[s % DATA_LM_STEPS])
+    tokens = DATA_LM_STEPS * DATA_LM_BATCH * (DATA_LM_SEQ - 1)
+    for what, r in (("lm_dataset, cache_dir + device_cache", runs),
+                    ("int32 tokens fed directly", base)):
+        for e, (hist, dt, delta) in enumerate(r, 1):
+            print(f"  {what}, epoch {e}: {DATA_LM_STEPS} steps in {dt:.3f} "
+                  f"s = {DATA_LM_STEPS / dt:.3f} steps/s, {tokens / dt:.0f} "
+                  f"tokens/s; tokenize calls "
+                  f"{delta['text.tokenize.calls']:.0f}, wire bytes shipped "
+                  f"{delta['data.wire.bytes_shipped']:.0f}, resident hits "
+                  f"{delta['data.hbm.hits']:.0f}; losses "
+                  f"{[round(h['loss'], 6) for h in hist]}; card {card}")
+    e2 = runs[1][2]
+    if e2["text.tokenize.calls"] or e2["data.wire.bytes_shipped"] or \
+            e2["data.hbm.hits"] != DATA_LM_STEPS:
+        problems.append(f"lm_dataset epoch 2 was not resident: {e2}")
+    want = TRAIN_ARCH["layers"] * 2 * DATA_LM_STEPS
+    print(f"  kernel launches over the dataset's {2 * DATA_LM_STEPS} steps: "
+          f"{counts} (want {want} of each)")
+    if any(n != want for n in counts.values()):
+        problems.append(f"lm_dataset training launched {counts}")
+    ours = [h["loss"] for r in runs for h in r[0]]
+    theirs = [h["loss"] for r in base for h in r[0]]
+    print(f"  lm_dataset losses bit for bit the direct int32 feed: "
+          f"{ours == theirs}")
+    if ours != theirs or not ours[-1] < ours[0]:
+        problems.append(f"lm_dataset losses {ours} vs {theirs}")
+    del lm, ref
+    dc.reset_device_cache()
+    return counts
+
+
+def data_featurizer_leg(directory, card, problems):
+    """LMFeaturizer at phase 4's serving width with wireCodec="tokens" and
+    cacheDir, cold then warm, against the uncached stage: the warm run
+    tokenizes nothing, 12 forward launches a batch, features bit for bit.
+    Returns the kernel launches of the warm run."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    texts = make_texts(N_ROWS, SEED)
+    common = dict(inputCol="text", outputCol="vec", model=spec,
+                  weights=weights, tokenizer=ByteTokenizer(),
+                  batchSize=BATCH)
+    plain = LMFeaturizer(**common)
+    cached = LMFeaturizer(wireCodec="tokens",
+                          cacheDir=os.path.join(directory, "text_shards"),
+                          **common)
+    plain.transform(Frame({"text": texts[:2]}))          # warm-up
+    n_batches = -(-N_ROWS // BATCH)
+    outs, counts = {}, {}
+    for what, st in (("uncached", plain), ("cacheDir, cold", cached),
+                     ("cacheDir, warm", cached)):
+        before = data_counters()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[what] = np.stack(list(st.transform(
+            Frame({"text": texts}))["vec"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts[what] = dict(cuda_ops.launch_counts)
+        delta = data_delta(before)
+        print(f"  LMFeaturizer {what}: {N_ROWS} rows in {dt:.3f} s = "
+              f"{N_ROWS / dt:.1f} rows/s; tokenize calls "
+              f"{delta['text.tokenize.calls']:.0f}, shard hits "
+              f"{delta['data.cache.hits']:.0f}; flash launches "
+              f"{counts[what]['flash_attn_fwd']} (want {LAYERS} x "
+              f"{n_batches}); card {card}")
+        if counts[what]["flash_attn_fwd"] != LAYERS * n_batches:
+            problems.append(f"LMFeaturizer {what} launched {counts[what]}")
+        if what == "cacheDir, warm" and delta["text.tokenize.calls"]:
+            problems.append("the warm LMFeaturizer tokenized")
+    for what in ("cacheDir, cold", "cacheDir, warm"):
+        same = np.array_equal(outs[what], outs["uncached"])
+        print(f"  LMFeaturizer {what} bit for bit the uncached stage: {same}")
+        if not same:
+            problems.append(f"LMFeaturizer {what} features differ")
+    return counts["cacheDir, warm"]
+
+
+def run_data_layer(card):
+    """Phase 13: the data layer at full width. Every check runs and prints;
+    the phase fails at its end if any did not hold. Returns the kernel
+    launches of its two LM paths."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.data import device_cache as dc
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+
+    t_phase = time.perf_counter()
+    problems = []
+    directory = tempfile.mkdtemp(prefix="tpudl_data_smoke_")
+    try:
+        t0 = time.perf_counter()
+        data_codec_leg(card, problems)
+        print(f"  data_codec_leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        config = keras_inception_config()
+        path = save_keras_file(
+            os.path.join(directory, "inception_tl.keras"), config,
+            keras_perturbed(keras_weights(config, SEED)))
+        uris, labels = keras_jpegs(directory, DATA_JPEGS, SEED)
+        print(f"  wrote the model and {DATA_JPEGS} JPEGs in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        want, stage, u8, cache = data_image_arms(directory, path, uris, card,
+                                                 problems)
+        data_budget_leg(uris, stage, u8, cache, want, card, problems)
+        print(f"  image arms and budget: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        data_estimator_leg(directory, uris, labels, card, problems)
+        print(f"  data_estimator_leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        image_counts = dict(cuda_ops.launch_counts)
+        print(f"  attention kernel launches in the image legs: "
+              f"{image_counts} (want 0)")
+        if any(image_counts.values()):
+            problems.append(f"the image legs launched {image_counts}")
+        t0 = time.perf_counter()
+        lm_counts = data_lm_training_leg(directory, card, problems)
+        print(f"  data_lm_training_leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        feat_counts = data_featurizer_leg(directory, card, problems)
+        print(f"  data_featurizer_leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        dc.reset_device_cache()
+        shutil.rmtree(directory, ignore_errors=True)
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 13: " + "; ".join(problems))
+    return {"lm_dataset_training": lm_counts,
+            "lm_featurize_cached": feat_counts}
+
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4516,6 +5097,14 @@ def main(argv) -> int:
         print(f"keras2-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--data-only"]:
+        print(f"phase 13 alone: the data layer at full width on {card}",
+              flush=True)
+        run_data_layer(card)
+        print(f"card: {card}")
+        print(f"data-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -4534,7 +5123,8 @@ def main(argv) -> int:
     if argv:
         fail(f"unknown arguments {argv}; the options are --image-only, "
              "--executor-only, --train-only, --keras-only, --surface-only, "
-             "--graph-only, --keras2-only, --ranks N and --pool-study")
+             "--graph-only, --keras2-only, --data-only, --ranks N and "
+             "--pool-study")
 
     from tpudl_torch import _build
 
@@ -4637,6 +5227,8 @@ def main(argv) -> int:
     graph_counts = run_graph_ingest(card)
     print(f"phase 12: the Keras files at full width on {card}", flush=True)
     keras2_counts = run_keras2_files(card)
+    print(f"phase 13: the data layer at full width on {card}", flush=True)
+    data_counts = run_data_layer(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -4650,6 +5242,8 @@ def main(argv) -> int:
             graph_counts[entry["name"]]
         entry["launches_by_path"]["keras2_files"] = \
             keras2_counts[entry["name"]]
+        for path, counts in data_counts.items():
+            entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -9,6 +9,7 @@ refuses to report without a card or without the package beside it, and
 the InceptionV3 config fixture that ``chip_smoke.py`` reads is what keras
 writes today."""
 
+import ast
 import os
 import re
 import shutil
@@ -170,6 +171,45 @@ assert not any(m == b or m.startswith(b + ".")
                for m, mod in sys.modules.items() if mod is not None
                for b in ("jax", "tpudl", "keras", "tf_keras", "h5py",
                          "tensorflow", "ml_dtypes", "google.protobuf"))
+print("BLOCKED_OK")
+"""
+
+
+_BLOCKED_DATA = r"""
+import sys, tempfile
+for name in ("jax", "tpudl", "keras", "h5py", "tensorflow", "ml_dtypes",
+             "google.protobuf"):
+    sys.modules[name] = None
+import numpy as np
+from tpudl_torch.data import Dataset, cached_uri_load, reset_device_cache
+from tpudl_torch.frame import Frame
+from tpudl_torch.text import ByteTokenizer, lm_dataset
+from tpudl_torch.train import Trainer, sgd
+from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
+
+d = tempfile.mkdtemp()
+x = np.random.default_rng(0).standard_normal((10, 4)).astype(np.float32)
+for codec in ("bf16", "u8", None):
+    src = x if codec != "u8" else (np.abs(x) * 10).astype(np.uint8)
+    outs = [np.stack(list(Frame({"x": src}).map_batches(
+        lambda t: t * 2, ["x"], ["y"], batch_size=4, device="cpu",
+        wire_codec=codec, cache_dir=d, device_cache=True)["y"]))
+        for _ in range(2)]
+    assert np.array_equal(outs[0], outs[1])
+texts = np.empty(8, dtype=object)
+texts[:] = [f"row {i} text" for i in range(8)]
+ds = lm_dataset(Frame({"text": texts}), "text", ByteTokenizer(), seq_len=9,
+                batch_size=4, cache_dir=d, device_cache=True, device="cpu")
+lm = TinyCausalLM(vocab=260, dim=32, heads=4, layers=2, max_len=64,
+                  device="cpu")
+load_jax_params(lm, lm.init(0))
+_, _, hist = Trainer(ds.wrap(lm.loss_fn()), sgd(0.1)).fit(
+    lm, lambda s: ds.get_batch(s % ds.num_batches), 4)
+assert np.isfinite(hist[-1]["loss"])
+reset_device_cache()
+assert not any(m == b or m.startswith(b + ".")
+               for m, mod in sys.modules.items() if mod is not None
+               for b in ("jax", "tpudl", "ml_dtypes"))
 print("BLOCKED_OK")
 """
 
@@ -362,6 +402,14 @@ def test_keras_surface_runs_with_jax_keras_h5py_and_tf_blocked():
     assert "BLOCKED_OK" in res.stdout
 
 
+def test_data_layer_runs_with_jax_tpudl_and_ml_dtypes_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_DATA], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "BLOCKED_OK" in res.stdout
+
+
 def test_sql_udfs_and_tuning_run_with_jax_keras_h5py_and_tf_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_SURFACE], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
@@ -415,11 +463,73 @@ def test_no_source_imports_jax_or_tpudl():
                 "udf/text_udf.py", "ml/hpo.py", "ml/tuning.py",
                 "ingest/protowire.py", "ingest/tensor_bundle.py",
                 "ingest/graphdef.py", "ingest/savedmodel.py",
-                "ingest/builder.py", "native/crc.py", "__init__.py"):
+                "ingest/builder.py", "native/crc.py", "__init__.py",
+                "data/__init__.py", "data/codec.py", "data/shards.py",
+                "data/device_cache.py", "data/dataset.py", "text/data.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+_COPIED = re.compile(
+    r"^[ \t]*# copied from (tpudl/[\w/]+\.py):([\w.]+)[ \t]*$", re.MULTILINE)
+# the data slice's modules (every block) and the blocks it copied into
+# older ones
+_COPY_CHECKED = {"data/codec.py": None, "data/shards.py": None,
+                 "data/device_cache.py": None, "data/dataset.py": None,
+                 "text/data.py": None,
+                 "text/codec.py": {"_wire_dtype", "lengths"},
+                 "jobs/retry.py": {"_env_float", "io_policy"},
+                 "ml/image_params.py": {"load_uri_batch"},
+                 "ml/estimator.py": {"_train_codec"}}
+
+
+def _code_of(tree, qualname):
+    """The def or class ``qualname`` of a parsed module, with docstrings
+    dropped and the port's imports spelled as tpudl's: what a copy must
+    keep identical."""
+    def named(body, name):
+        return [n for n in body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                and n.name == name]
+
+    node = tree
+    for part in qualname.split("."):
+        # a bare method name: the method of that name in any class
+        found = named(node.body, part) or [
+            m for c in node.body if isinstance(c, ast.ClassDef)
+            for m in named(c.body, part)]
+        node = found[0]
+    node = ast.parse(ast.unparse(node)).body[0]     # a private copy
+    for n in ast.walk(node):
+        body = getattr(n, "body", None)
+        if (isinstance(n, (ast.FunctionDef, ast.ClassDef)) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            n.body = body[1:] or [ast.Pass()]
+        if isinstance(n, ast.ImportFrom) and n.module and \
+                n.module.startswith("tpudl_torch"):
+            n.module = "tpudl" + n.module[len("tpudl_torch"):]
+    return ast.dump(node)
+
+
+def test_copied_blocks_equal_their_tpudl_source():
+    """Every ``# copied from tpudl/<file>:<name>`` block of the data slice
+    is its source's code, docstrings aside."""
+    checked = []
+    for sub, names in _COPY_CHECKED.items():
+        text = (REPO / "tpudl_torch" / sub).read_text()
+        ours = ast.parse(text)
+        for src, qual in _COPIED.findall(text):
+            if names is not None and qual not in names:
+                continue
+            theirs = ast.parse((REPO / src).read_text())
+            assert _code_of(ours, qual) == _code_of(theirs, qual), \
+                f"tpudl_torch/{sub}:{qual} drifted from {src}"
+            checked.append(f"{sub}:{qual}")
+    assert len(checked) == 30, checked
 
 
 def test_a_spawned_rank_imports_neither_jax_nor_tpudl():

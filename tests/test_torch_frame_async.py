@@ -294,9 +294,6 @@ def test_env_variables_set_the_knobs(monkeypatch):
 
 @pytest.mark.parametrize("knob,value,item", [
     ("mesh", object(), "Training, rest"),
-    ("cache_dir", "/tmp/cache", "Data layer"),
-    ("cache_key", "k", "Data layer"),
-    ("device_cache", True, "Data layer"),
     ("aot", True, "Compile"),
     ("supervise", True, "Jobs, faults and the supervisor"),
     ("autotune", True, "The rest of observability"),
@@ -308,10 +305,39 @@ def test_unported_knobs_raise_by_name(knob, value, item):
                                       device="cpu", **{knob: value})
     out = Frame(_columns()).map_batches(
         tfn, ["x", "i"], ["y", "g"], device="cpu",
-        **{knob: None if knob in ("mesh", "cache_dir", "cache_key")
-           else False})
+        **{knob: None if knob == "mesh" else False})
     assert last_pipeline_report()["autotune"] is False
     assert len(out) == ROWS
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("cache_dir", "shards"), ("cache_key", "k"), ("device_cache", True)])
+def test_data_layer_knobs_run_as_tpudls(tmp_path, knob, value):
+    """The knobs the port used to refuse ('Data layer') run: outputs bit
+    for bit the uncached run's, and the report says what ran, as
+    tpudl's does (``cache_key`` keys a ``cache_dir``)."""
+    from tpudl_torch.data import device_cache
+
+    device_cache.reset_device_cache()
+    kw = {"cache_dir": str(tmp_path / "shards")}
+    if knob != "cache_dir":
+        kw = {knob: value} if knob == "device_cache" else {
+            **kw, knob: value}
+    base = Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
+                                         device="cpu")
+    for _ in range(2):   # cold, then warm
+        out = Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
+                                            device="cpu", **kw)
+        for c in ("y", "g"):
+            assert np.array_equal(np.stack(list(out[c])),
+                                  np.stack(list(base[c])))
+    rep = last_pipeline_report()
+    assert rep["batch_cache"] is ("cache_dir" in kw)
+    assert rep["device_cache"] is (knob == "device_cache")
+    warm = rep["stage_calls"]
+    assert warm.get("hbm_hits" if knob == "device_cache"
+                    else "cache_hits") == rep["stage_calls"]["dispatch"]
+    device_cache.reset_device_cache()
 
 
 @pytest.mark.parametrize("d_depth,fuse,want", [(1, 1, 2), (2, 1, 2),

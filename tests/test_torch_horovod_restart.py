@@ -76,3 +76,21 @@ def test_restarts_exhausted_carries_its_cause(monkeypatch):
     assert isinstance(cause, RankFailure) and cause is info.value.last_cause
     assert any("raised on rank 1" in n for n in cause.__notes__)
     assert metrics.counter("train.restarts").value == restarts + 1
+
+
+def test_ranks_failing_in_one_clock_tick_raise_the_first_ranks():
+    """Two spawned ranks preempted in the same clock tick: the runner
+    raises rank 0's exception (it once sorted the exceptions themselves
+    on the tie, and raised ``TypeError``)."""
+    import pickle
+
+    from tpudl_torch.train.runner import _earliest_failure
+
+    done = {1: ("err", 5.0, pickle.dumps(Preempted(3, saved=True))),
+            0: ("err", 5.0, pickle.dumps(Preempted(2, saved=True))),
+            2: ("ok", 4.0, pickle.dumps(None))}
+    first = _earliest_failure(done)
+    assert isinstance(first, Preempted) and first.step == 2
+    done[1] = ("err", 4.5, done[1][2])
+    assert _earliest_failure(done).step == 3
+    assert _earliest_failure({0: ("ok", 1.0, pickle.dumps(7))}) is None

@@ -119,30 +119,64 @@ def test_native_image_loader_matches_tpudls(jpegs):
     assert ours.thread_safe and ours.cache_token == theirs.cache_token
 
 
-def test_uint8_loaders_are_refused_by_name(jpegs):
-    with pytest.raises(NotImplementedError, match="Data layer"):
-        imageIO.createNativeImageLoader(8, 8, output_dtype="uint8")
+def test_uint8_loaders_are_refused_by_name(jpegs, files):
+    """A uint8 loader (once refused, 'Data layer') loads raw uint8 as
+    tpudl's does; what is refused now, by name, is a ``wireCodec`` that
+    would skip its deferred normalize."""
+    ours = imageIO.createNativeImageLoader(8, 8, output_dtype="uint8")
+    theirs = jax_imageIO.createNativeImageLoader(8, 8, output_dtype="uint8")
+    got = load_uri_batch(ours, jpegs)
+    assert got.dtype == np.uint8 and got.shape == (6, 8, 8, 3)
+    assert np.array_equal(got, theirs.batch_decode(list(jpegs)))
+    assert ours.cache_token == theirs.cache_token
 
     def u8(uri):
         return np.zeros((4, 4, 3), np.uint8)
 
     u8.output_dtype = "uint8"
-    with pytest.raises(NotImplementedError, match="Data layer"):
-        load_uri_batch(u8, jpegs)
+    assert load_uri_batch(u8, jpegs).dtype == np.uint8
+    with pytest.raises(ValueError, match="would skip it"):
+        KerasImageFileTransformer(
+            inputCol="uri", outputCol="o", modelFile=files["cnn"],
+            imageLoader=ours, wireCodec="identity", device="cpu").transform(
+                Frame({"uri": jpegs}))
 
 
 @pytest.mark.parametrize("stage,knob,item", [
     (KerasTransformer, "mesh", "Training, rest"),
     (TFTransformer, "mesh", "Training, rest"),
     (KerasImageFileTransformer, "mesh", "Training, rest"),
-    (KerasImageFileTransformer, "cacheDir", "Data layer"),
-    (KerasImageFileTransformer, "deviceCache", "Data layer"),
-    (KerasImageFileTransformer, "wireCodec", "Data layer"),
 ])
 def test_unported_stage_knobs_are_refused_by_name(stage, knob, item):
-    value = "u8" if knob == "wireCodec" else object()
     with pytest.raises(NotImplementedError, match=item):
-        stage(**{knob: value})
+        stage(**{knob: object()})
+
+
+@pytest.mark.parametrize("knob", ["cacheDir", "deviceCache", "wireCodec"])
+def test_file_transformer_data_knobs_replay_bitwise(files, jpegs, tmp_path,
+                                                    knob):
+    """``KerasImageFileTransformer``'s data-layer knobs (once refused,
+    'Data layer'): the same bits as without them, twice; the second
+    ``cacheDir`` or ``deviceCache`` transform decodes nothing."""
+    from tpudl_torch.data import device_cache
+    from tpudl_torch.obs import metrics
+
+    device_cache.reset_device_cache()
+    loader = imageIO.createNativeImageLoader(32, 32, scale=1 / 255)
+    kw = dict(inputCol="uri", outputCol="o", modelFile=files["cnn"],
+              imageLoader=loader, batchSize=4, device="cpu")
+    want = np.stack(list(KerasImageFileTransformer(**kw).transform(
+        Frame({"uri": jpegs}))["o"]))
+    value = {"cacheDir": str(tmp_path), "deviceCache": True,
+             "wireCodec": "u8"}[knob]
+    st = KerasImageFileTransformer(**{knob: value}, **kw)
+    decodes = metrics.counter("imageio.uris_loaded").value
+    for _ in range(2):
+        got = np.stack(list(st.transform(Frame({"uri": jpegs}))["o"]))
+        assert np.array_equal(got, want)
+    loaded = metrics.counter("imageio.uris_loaded").value - decodes
+    assert loaded == (6 if knob != "wireCodec" else 12)
+    device_cache.reset_device_cache()
 
 
 def test_params_from_keras_matches_tpudls(files):

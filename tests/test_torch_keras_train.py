@@ -211,12 +211,48 @@ def test_fit_params_are_validated(fit_set):
 
 @pytest.mark.parametrize("knob,item", [
     ("mesh", "Training, rest"), ("modelAxis", "LM parallelism"),
-    ("paramShardings", "LM parallelism"), ("wireCodec", "Data layer"), ("cacheDir", "Data layer"),
-    ("deviceCache", "Data layer")])
+    ("paramShardings", "LM parallelism")])
 def test_unported_knobs_are_refused_by_name(fit_set, knob, item):
     with pytest.raises(NotImplementedError, match=item):
         KerasImageFileEstimator(device="cpu", **{knob: object()},
                                 **_kw(fit_set[0]))
+
+
+@pytest.mark.parametrize("knob", ["wireCodec", "cacheDir", "deviceCache"])
+def test_data_layer_knobs_fit_and_pass_on(fit_set, tmp_path, knob):
+    """The data layer's knobs (once refused, 'Data layer'): the fit's
+    losses are the plain fit's bit for bit, a repeat fit under
+    ``cacheDir`` decodes nothing, and the knob rides into the returned
+    transformer, as tpudl's ``_make_transformer`` passes it."""
+    from tpudl.ml import KerasImageFileEstimator as JaxEstimator
+
+    from tpudl_torch.data import U8Codec
+    from tpudl_torch.data import device_cache as dc
+    from tpudl_torch.obs import metrics
+
+    path, uris, labels = fit_set
+    frame = Frame({"uri": uris, "label": labels})
+    value = {"wireCodec": "u8", "cacheDir": str(tmp_path),
+             "deviceCache": True}[knob]
+    dc.reset_device_cache()
+    plain = KerasImageFileEstimator(device="cpu", **_kw(path, epochs=1))
+    est = KerasImageFileEstimator(device="cpu", **{knob: value},
+                                  **_kw(path, epochs=1))
+    decodes = metrics.counter("imageio.uris_loaded").value
+    first, second = est.fit(frame), est.fit(frame)
+    loaded = metrics.counter("imageio.uris_loaded").value - decodes
+    assert loaded == (len(uris) if knob == "cacheDir" else 2 * len(uris))
+    want = plain.fit(frame).history
+    assert first.history == second.history == want
+    assert getattr(first, knob) == value
+    jest = JaxEstimator(**{knob: value}, **_kw(path, epochs=1))
+    assert getattr(jest._make_transformer(path), knob) == value
+    # a uint8 batch trains through the u8 codec, as tpudl's does
+    X = np.zeros((2, 4, 4, 3), np.uint8)
+    assert isinstance(est._train_codec(X), U8Codec)
+    assert est._train_codec(X).key() == jest._train_codec(X).key()
+    assert est._train_codec(X.astype(np.float32)) is None
+    dc.reset_device_cache()
 
 
 def test_fit_multiple_is_refused_by_name(fit_set):

@@ -170,15 +170,39 @@ def test_stages_count_rows(lm):
             - before["ml.LMFeaturizer.transforms"]) == 1
 
 
-@pytest.mark.parametrize("knob", ["mesh", "tp", "cacheDir", "deviceCache",
-                                  "wireCodec"])
+@pytest.mark.parametrize("knob", ["mesh", "tp"])
 def test_unported_executor_knobs_raise(lm, knob):
     _, params, _, spec = lm
-    value = {"tp": True, "wireCodec": "u16", "cacheDir": "/nonexistent",
-             "deviceCache": True, "mesh": object()}.get(knob, 2)
+    value = {"tp": True, "mesh": object()}[knob]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMFeaturizer(outputCol="v", **{knob: value},
                      **_stage_kw(spec, params))
+
+
+@pytest.mark.parametrize("knob", ["cacheDir", "deviceCache", "wireCodec"])
+def test_data_layer_knobs_replay_bitwise(lm, tmp_path, knob):
+    """The data layer's knobs (once refused, 'Data layer'): the
+    featurizer's rows are the plain stage's bit for bit, twice, and a
+    second transform under ``cacheDir`` or ``deviceCache`` tokenizes
+    nothing."""
+    from tpudl_torch.data import device_cache
+
+    _, params, _, spec = lm
+    device_cache.reset_device_cache()
+    value = {"cacheDir": str(tmp_path), "deviceCache": True,
+             "wireCodec": "tokens"}[knob]
+    want = np.stack(list(LMFeaturizer(
+        outputCol="v", batchSize=4, **_stage_kw(spec, params)).transform(
+            Frame({"text": TEXTS}))["v"]))
+    st = LMFeaturizer(outputCol="v", batchSize=4, **{knob: value},
+                      **_stage_kw(spec, params))
+    calls = metrics.counter("text.tokenize.calls").value
+    for _ in range(2):
+        got = np.stack(list(st.transform(Frame({"text": TEXTS}))["v"]))
+        assert np.array_equal(got, want)
+    made = metrics.counter("text.tokenize.calls").value - calls
+    assert made == (2 if knob != "wireCodec" else 4)
+    device_cache.reset_device_cache()
 
 
 @pytest.mark.parametrize("stage", ["featurize", "classify"])

@@ -425,15 +425,34 @@ def test_featurizer_reuses_loaded_weights_and_warms(port_features):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"mesh": object()}, "Training, rest"),
-    ({"cacheDir": "/tmp/c"}, "Data layer"),
-    ({"deviceCache": True}, "Data layer"),
-    ({"wireCodec": "u8"}, "Data layer"),
 ])
 @pytest.mark.parametrize("stage", [DeepImageFeaturizer, DeepImagePredictor])
 def test_unported_options_raise(stage, kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, '{item}'"):
         stage(inputCol="image", outputCol="y", modelName="InceptionV3",
               device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,opt", [
+    ({"cacheDir": "/tmp/c"}, "cache_dir"),
+    ({"deviceCache": True}, "device_cache"),
+    ({"wireCodec": "u8"}, "wire_codec"),
+])
+@pytest.mark.parametrize("stage", [DeepImageFeaturizer, DeepImagePredictor])
+def test_data_layer_options_reach_the_executor(stage, kwargs, opt):
+    """The data layer's knobs, once refused ('Data layer'), pass to
+    ``map_batches`` as tpudl's stage passes them."""
+    from tpudl.ml import DeepImageFeaturizer as JaxFeat
+    from tpudl.ml import DeepImagePredictor as JaxPred
+
+    jstage = {DeepImageFeaturizer: JaxFeat,
+              DeepImagePredictor: JaxPred}[stage]
+    ours = stage(inputCol="image", outputCol="y", modelName="InceptionV3",
+                 device="cpu", **kwargs)._pipeline_opts()
+    theirs = jstage(inputCol="image", outputCol="y",
+                    modelName="InceptionV3", **kwargs)._pipeline_opts()
+    theirs.pop("mesh")
+    assert ours == theirs and ours[opt] == next(iter(kwargs.values()))
 
 
 def test_stage_refusals_and_validation(image_dir):

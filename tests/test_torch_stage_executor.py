@@ -85,14 +85,35 @@ def test_rewritten_weights_free_the_old_model(frame, tmp_path):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"mesh": object()}, "Training, rest"),
-    ({"cacheDir": "/tmp/cache"}, "Data layer"),
-    ({"deviceCache": True}, "Data layer"),
 ])
 def test_unported_stage_knobs_still_raise(kwargs, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1, '{item}'"):
         DeepImageFeaturizer(inputCol="image", outputCol="y",
                             modelName=MODEL, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("knob", ["cacheDir", "deviceCache"])
+def test_data_layer_stage_knobs_replay_bitwise(frame, tmp_path, knob):
+    """``cacheDir`` and ``deviceCache`` (once refused, 'Data layer') reach
+    the executor: a second transform replays the prepared batches (from
+    the shards, or resident) and gives the same bits."""
+    from tpudl_torch.data import device_cache
+
+    device_cache.reset_device_cache()
+    value = str(tmp_path) if knob == "cacheDir" else True
+    st = DeepImageFeaturizer(inputCol="image", outputCol="y", batchSize=2,
+                             modelName=MODEL, device="cpu", **{knob: value})
+    want, _ = _run(DeepImageFeaturizer(inputCol="image", outputCol="y",
+                                       batchSize=2, modelName=MODEL,
+                                       device="cpu"), frame)
+    first, rep1 = _run(st, frame)
+    again, rep2 = _run(st, frame)
+    hits = "cache_hits" if knob == "cacheDir" else "hbm_hits"
+    assert rep1["stage_calls"].get(hits) is None
+    assert rep2["stage_calls"][hits] == 4
+    assert np.array_equal(first, want) and np.array_equal(again, want)
+    device_cache.reset_device_cache()
 
 
 def test_autotune_is_refused_by_the_executor(frame):

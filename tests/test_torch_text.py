@@ -60,11 +60,17 @@ def test_ladders_match(spec):
 @pytest.mark.parametrize("var,value", [("TPUDL_COMPILE_BUCKETS", "pow2"),
                                        ("TPUDL_TEXT_WIRE_DTYPE", "i32")])
 def test_port_reads_no_tpudl_env(monkeypatch, var, value):
-    """tpudl's operator variables leave the port alone: no ladder unless
-    the caller names one, and the wire type follows the vocab."""
+    """tpudl's bucket variable leaves the port alone (no ladder unless the
+    caller names one); ``TPUDL_TEXT_WIRE_DTYPE`` picks ``TokenCodec``'s
+    wire type as it does in tpudl, since a shard manifest persists the
+    codec key it gives."""
     monkeypatch.setenv(var, value)
     assert buckets.resolve_ladder(None) is None
-    assert codec.TokenCodec(vocab_size=260).wire == "u16"
+    for vocab in (260, 70000):
+        assert codec.TokenCodec(vocab_size=vocab).key() == \
+            jax_codec.TokenCodec(vocab_size=vocab).key()
+    assert codec.TokenCodec(vocab_size=260).wire == (
+        "i32" if var == "TPUDL_TEXT_WIRE_DTYPE" else "u16")
     assert codec.TokenCodec(vocab_size=70000).wire == "i32"
 
 

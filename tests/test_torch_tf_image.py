@@ -189,12 +189,21 @@ def test_mixed_shapes_and_unported_knobs_are_refused(files):
     with pytest.raises(TypeError, match="channelOrder"):
         TFImageTransformer(inputCol="image", outputCol="o", graph=g,
                            channelOrder="HSV")
-    for knob, item in (("mesh", "Training, rest"), ("cacheDir", "Data layer"),
-                       ("deviceCache", "Data layer"),
-                       ("wireCodec", "Data layer")):
-        with pytest.raises(NotImplementedError, match=item):
-            TFImageTransformer(inputCol="image", outputCol="o", graph=g,
-                               **{knob: "x"})
+    with pytest.raises(NotImplementedError, match="Training, rest"):
+        TFImageTransformer(inputCol="image", outputCol="o", graph=g,
+                           mesh="x")
+    # the data layer's knobs (once refused, 'Data layer') pass to the
+    # executor, as tpudl's stage passes them
+    for knob, value in (("cacheDir", "/tmp/x"), ("deviceCache", True),
+                        ("wireCodec", "u8")):
+        ours = TFImageTransformer(inputCol="image", outputCol="o", graph=g,
+                                  **{knob: value})._pipeline_opts()
+        theirs = JaxTFImage(inputCol="image", outputCol="o",
+                            graph=JaxTFInputGraph.fromKeras(
+                                files["conv_image"]),
+                            **{knob: value})._pipeline_opts()
+        theirs.pop("mesh")
+        assert ours == theirs
     with pytest.raises(RuntimeError, match="cuda"):     # default: the card
         TFImageTransformer(inputCol="image", outputCol="o",
                            graph=g).transform(

@@ -11,6 +11,8 @@ Tolerances: model outputs within 1e-5 of max |y| (f32 products in another
 order; as the Keras stages' tests); the LM's pooled features within
 2e-5 absolute (``test_torch_lm.py``'s), labels and completions exact."""
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -119,13 +121,25 @@ def test_make_graph_udf_refusals(files):
         makeGraphUDF(g, "bad", fetches="dense_2:0", device="cpu")
     with pytest.raises(TypeError, match="GraphFunction"):
         makeGraphUDF(lambda x: x, "bad", device="cpu")
-    for knob, item in (("mesh", "Training, rest"),
-                       ("cache_dir", "Data layer"),
-                       ("device_cache", "Data layer"),
-                       ("wire_codec", "Data layer")):
-        value = "u8" if knob == "wire_codec" else object()
-        with pytest.raises(NotImplementedError, match=item):
-            makeGraphUDF(g, "bad", device="cpu", **{knob: value})
+    with pytest.raises(NotImplementedError, match="Training, rest"):
+        makeGraphUDF(g, "bad", device="cpu", mesh=object())
+    # the data layer's knobs (once refused, 'Data layer') run: the same
+    # bits as the plain UDF, twice
+    x = np.random.default_rng(0).normal(size=(6, 100)).astype(np.float32)
+    want = makeGraphUDF(g, "plain", device="cpu", register=False)(
+        Frame({"input_layer": x}))["plain_out"]
+    with tempfile.TemporaryDirectory() as d:
+        for knob, value in (("cache_dir", d), ("device_cache", True),
+                            ("wire_codec", "bf16")):
+            udf = makeGraphUDF(g, "knob", device="cpu", register=False,
+                               batch_size=4, **{knob: value})
+            for _ in range(2):
+                got = udf(Frame({"input_layer": x}))["knob_out"]
+                got, ref = np.stack(list(got)), np.stack(list(want))
+                if knob == "wire_codec":   # bf16 inputs: lossy by design
+                    assert got.shape == ref.shape
+                else:
+                    assert np.array_equal(got, ref)
     with pytest.raises(RuntimeError, match="cuda"):   # default: the card
         makeGraphUDF(g, "on_card", register=False)(
             Frame({"input_layer": np.zeros((2, 100), np.float32)}))

@@ -29,7 +29,10 @@ Ported so far, slice by slice:
   ``ParamGridBuilder``/``CrossValidator`` (:mod:`tpudl_torch.ml.tuning`),
   :func:`tpudl_torch.frame.sql`, and :mod:`tpudl_torch.udf`
   (``register_udf``, ``makeGraphUDF``, ``registerKerasImageUDF``,
-  ``register_text_udfs``).
+  ``register_text_udfs``);
+- the data layer (:mod:`tpudl_torch.data`): wire codecs, the shard cache,
+  the device-memory batch cache and ``Dataset``, under the executor, the
+  stages, the estimator and ``lm_dataset`` (:mod:`tpudl_torch.text`).
 
 The names below load lazily, as tpudl's top-level names do (its
 ``_LAZY`` map, restricted to what the port has).
@@ -65,6 +68,11 @@ _LAZY = {
     "ByteTokenizer": "tpudl_torch.text",
     "WordTokenizer": "tpudl_torch.text",
     "TokenCodec": "tpudl_torch.text",
+    "lm_dataset": "tpudl_torch.text",
+    "Dataset": "tpudl_torch.data",
+    "U8Codec": "tpudl_torch.data",
+    "BF16Codec": "tpudl_torch.data",
+    "ShardCache": "tpudl_torch.data",
     "LMFeaturizer": "tpudl_torch.ml",
     "LMGenerator": "tpudl_torch.ml",
     "LMClassifier": "tpudl_torch.ml",

@@ -10,7 +10,9 @@ only the rows a batch asks for, so host RAM stays O(batch).
 The executor runs tpudl's stages, rebuilt for CUDA:
 
 1. a prepare pool of N threads packs, checks, wire-encodes, bucket-pads
-   and pins each batch (:class:`_PipelineInfeed`, K batches deep);
+   and pins each batch (:class:`_PipelineInfeed`, K batches deep), or
+   takes it from the shard cache or the device cache instead
+   (:mod:`tpudl_torch.data`);
 2. the consumer thread copies a batch to the card, runs ``fn`` and starts
    the device→host copies of its outputs, all without waiting
    (:func:`_start_host_copies`);
@@ -19,9 +21,9 @@ The executor runs tpudl's stages, rebuilt for CUDA:
 4. with ``fuse_steps`` M > 1, M full batches run as one replay of a CUDA
    graph (:class:`_FusedGraph`).
 
-Rows come back in the same order and count as tpudl's. Mesh sharding, the
-shard and device caches, the AOT program store, the supervisor and
-autotune are refused by name (their ROADMAP Queue 1 items).
+Rows come back in the same order and count as tpudl's. Mesh sharding,
+the AOT program store, the supervisor and autotune are refused by name
+(their ROADMAP Queue 1 items).
 """
 
 from __future__ import annotations
@@ -186,21 +188,25 @@ class _Dispatched:
     copies are the outputs themselves), its pad rows, and the pinned
     inputs, kept alive until the event has passed."""
 
-    __slots__ = ("host", "event", "n_pad", "keep")
+    __slots__ = ("host", "event", "n_pad", "keep", "pin")
 
-    def __init__(self, host, event, n_pad, keep):
+    def __init__(self, host, event, n_pad, keep, pin=None):
         self.host = host
         self.event = event
         self.n_pad = n_pad
         self.keep = keep
+        self.pin = pin  # a device-cache pin, released once the batch is done
 
     def wait(self):
         if self.event is not None:
             self.event.synchronize()
         self.keep = None
+        if self.pin is not None:
+            self.pin.release()
+            self.pin = None
 
 
-def _start_host_copies(result, n_pad: int, keep) -> _Dispatched:
+def _start_host_copies(result, n_pad: int, keep, pin=None) -> _Dispatched:
     """Start the device→host copy of every output of one dispatch, at
     dispatch, into pinned host memory, and record an event after them on
     the current stream: batch N's copies then overlap the dispatch of
@@ -217,7 +223,7 @@ def _start_host_copies(result, n_pad: int, keep) -> _Dispatched:
     if on_card:
         event = torch.cuda.Event()
         event.record()
-    return _Dispatched(host, event, n_pad, keep)
+    return _Dispatched(host, event, n_pad, keep, pin)
 
 
 class _DispatchWindow:
@@ -256,6 +262,9 @@ class _DispatchWindow:
         return entry
 
     def close(self):
+        for entry in self._q:   # an unwind: release device-cache pins
+            if entry.pin is not None:
+                entry.pin.release()
         self._q.clear()
 
 
@@ -342,8 +351,8 @@ class _FusedGraph:
                 stream.wait_event(self._done)
             with report.stage("h2d"):
                 for j, x in enumerate(self.static_in):
-                    for i, (tensors, _) in enumerate(group):
-                        x[i].copy_(tensors[j], non_blocking=True)
+                    for i, g in enumerate(group):
+                        x[i].copy_(g[0][j], non_blocking=True)
             with report.stage("dispatch"):
                 if self.graph is None:
                     self._capture()
@@ -362,17 +371,18 @@ class _FusedGraph:
                 self._done.synchronize()
 
 
-def _fused_graph(fn: Callable, run_fn: Callable, group, codec, n_out: int,
+def _fused_graph(fn: Callable, run_fn: Callable, group, codecs, n_out: int,
                  device, local: dict) -> _FusedGraph:
     """The graph of ``len(group)`` microbatches shaped like ``group[0]``,
     cached ON ``fn`` (``fn._tpudl_fused``, as tpudl caches its fused
     program), so that it lives exactly as long as ``fn``, and at most
-    ``_FUSED_CACHE_SIZE`` of them. The key covers M, the codec, every
-    input's shape and dtype, the device and the TF32 flags at capture
+    ``_FUSED_CACHE_SIZE`` of them. The key covers M, every column's codec
+    (``codecs``: their keys, or None), every input's shape and dtype, the
+    device and the TF32 flags at capture
     (cuDNN fixes its algorithms then). A ``fn`` that takes no attributes
     keeps its graphs in ``local``, for one run."""
     like = group[0][0]
-    key = (len(group), None if codec is None else codec.key(),
+    key = (len(group), codecs,
            tuple((tuple(t.shape), t.dtype) for t in like), str(device),
            torch.backends.cudnn.allow_tf32,
            torch.backends.cuda.matmul.allow_tf32)
@@ -399,7 +409,7 @@ def _fused_plain(run_fn: Callable, group, n_out: int) -> tuple:
     """What a fused dispatch computes, on the CPU: M plain calls and a
     concatenation per output (the plain version the graph is held
     against)."""
-    outs = [_as_outputs(run_fn(*tensors), n_out) for tensors, _ in group]
+    outs = [_as_outputs(run_fn(*g[0]), n_out) for g in group]
     return tuple(torch.cat([o[j] for o in outs]) for j in range(n_out))
 
 
@@ -432,9 +442,8 @@ def _as_column(values) -> np.ndarray:
 
 # map_batches knobs of tpudl with no counterpart yet → their ROADMAP
 # Queue 1 item
-_REFUSED = {"mesh": "Training, rest", "cache_dir": "Data layer",
-            "cache_key": "Data layer", "device_cache": "Data layer",
-            "aot": "Compile", "supervise": "Jobs, faults and the supervisor",
+_REFUSED = {"mesh": "Training, rest", "aot": "Compile",
+            "supervise": "Jobs, faults and the supervisor",
             "autotune": "The rest of observability"}
 
 
@@ -613,11 +622,27 @@ class Frame:
         with more than one dimension becomes an object column of per-row
         arrays, as in tpudl. ``pack`` turns a column slice into a numpy
         batch (default: stack the rows); ``check_finite`` rejects a batch
-        with a non-finite float. ``wire_codec`` (a
-        :class:`~tpudl_torch.data.codec.WireCodec`) encodes each packed
-        batch on the host, and its ``prologue`` restores it on the device
-        before ``fn``. ``batch_size`` defaults to ``ceil(rows /
+        with a non-finite float. ``batch_size`` defaults to ``ceil(rows /
         num_partitions)`` when the frame has the hint, else 256.
+
+        The data layer (:mod:`tpudl_torch.data`), as tpudl takes it in:
+
+        - ``wire_codec`` (``TPUDL_WIRE_CODEC``): a
+          :class:`~tpudl_torch.data.codec.WireCodec` or a name (``"u8"``,
+          ``"bf16"``, ``"identity"``, ``"tokens"``, ``"auto"``), one codec
+          a column (:class:`~tpudl_torch.data.codec.CodecPlan`): each
+          packed batch is encoded on the host and restored on the device
+          in front of ``fn``;
+        - ``cache_dir`` (``TPUDL_DATA_CACHE_DIR``): prepared batches
+          persist as checksummed shards under a key of the input's
+          content (``cache_key`` replaces the frame's fingerprint), the
+          pack's ``cache_token``, the batch size and the codec; a warm run
+          reads them instead of packing (no reads, no decodes) and adopts
+          the codecs they were encoded with;
+        - ``device_cache`` (``TPUDL_DATA_DEVICE_CACHE=1``): prepared
+          batches stay resident on the device under the budget
+          (``TPUDL_DATA_HBM_BUDGET_MB``), and a later run over the same
+          input ships nothing. Residency forces ``fuse_steps`` to 1.
 
         The executor's knobs, with tpudl's variables and defaults:
 
@@ -650,16 +675,16 @@ class Frame:
         Each batch's outputs are copied to pinned host memory at dispatch
         and joined once at the end. Each run files a
         :class:`~tpudl_torch.obs.PipelineReport`
-        (``tpudl_torch.obs.last_pipeline_report()``). tpudl's ``mesh``,
-        ``cache_dir``, ``cache_key``, ``device_cache``, ``aot``,
-        ``supervise`` and ``autotune=True`` are not ported yet and raise
-        ``NotImplementedError`` naming their ROADMAP Queue 1 item."""
+        (``tpudl_torch.obs.last_pipeline_report()``); a batch resident on
+        the device adds nothing to its ``bytes_prepared`` or ``h2d``.
+        tpudl's ``mesh``, ``aot``, ``supervise`` and ``autotune=True`` are
+        not ported yet and raise ``NotImplementedError`` naming their
+        ROADMAP Queue 1 item."""
         from tpudl_torch.compile import buckets as _bk
         from tpudl_torch.obs import pipeline as _pipeline
 
-        refused = dict(mesh=mesh, cache_dir=cache_dir, cache_key=cache_key,
-                       device_cache=device_cache, aot=aot,
-                       supervise=supervise, autotune=autotune)
+        refused = dict(mesh=mesh, aot=aot, supervise=supervise,
+                       autotune=autotune)
         for k, v in refused.items():
             if v not in (None, False):
                 raise NotImplementedError(
@@ -718,6 +743,68 @@ class Frame:
             depth = max(depth, d_depth * fuse)
 
         report = _pipeline.PipelineReport()
+
+        # -- tpudl_torch.data: wire codec, shard cache, device cache -------
+        if wire_codec is None:
+            wire_codec = os.environ.get("TPUDL_WIRE_CODEC") or None
+        if cache_dir is None:
+            cache_dir = os.environ.get("TPUDL_DATA_CACHE_DIR") or None
+        dc_flag = (bool(device_cache) if device_cache is not None
+                   else os.environ.get("TPUDL_DATA_DEVICE_CACHE", "0")
+                   == "1")
+        # the serial kill switch stays residency-free (its A/B role is
+        # the uncached wire)
+        dc_flag = dc_flag and not killed
+        plan = cache = dcache = dkey = None
+        if wire_codec is not None or cache_dir is not None or dc_flag:
+            from tpudl_torch.data import codec as _codec
+
+            if wire_codec is not None:
+                plan = _codec.CodecPlan(wire_codec, len(input_cols),
+                                        report=report)
+            if cache_dir is not None or dc_flag:
+                from tpudl_torch.data import shards as _shards
+
+                material = cache_key
+                if material is None:
+                    try:
+                        material = self.fingerprint(input_cols)
+                    except ValueError:
+                        # a lazy column with no content fingerprint: an
+                        # explicit request keeps the pass-cache_key
+                        # error; the process-wide variable only disarms
+                        if cache_dir is not None or device_cache:
+                            raise
+                        dc_flag = False
+            if cache_dir is not None or dc_flag:
+                # the pack is part of the prepared bytes' identity; one
+                # without a cache_token keys by repr (this object only)
+                pack_token = ("default" if pack is None else
+                              getattr(pack, "cache_token", None)
+                              or repr(pack))
+                key_str = _shards.cache_key(
+                    material,
+                    cols=",".join(input_cols),
+                    batch=int(batch_size),
+                    codec=_codec.spec_token(wire_codec),
+                    pack=pack_token,
+                    finite=bool(check_finite),
+                    layout="map_batches_v1")
+            if cache_dir is not None:
+                cache = _shards.ShardCache(cache_dir, key_str)
+                if plan is not None and cache.meta.get("codecs"):
+                    # a warm replay restores with the codecs the shards
+                    # were encoded with, not a fresh auto pick
+                    plan.adopt(cache.meta["codecs"])
+            if dc_flag:
+                from tpudl_torch.data import device_cache as _dc
+
+                dkey = _dc.run_key(key_str)
+                dcache = _dc.get_device_cache()
+                # residency replaces fusion: a fused replay copies host
+                # microbatches into its graph's static input
+                fuse = 1
+
         report.config = {
             "executor": ("pipelined" if (prefetch or fuse > 1
                                          or d_depth > 1) else "serial"),
@@ -733,38 +820,78 @@ class Frame:
             "batch_size": batch_size,
             "rows": self._n,
             "mesh": None,
-            "wire_codec": (wire_codec.name if wire_codec is not None
+            "wire_codec": (plan.names()[0] if plan is not None
                            else "off"),
-            "batch_cache": False,
-            "device_cache": False,
+            "batch_cache": bool(cache is not None),
+            "device_cache": bool(dcache is not None),
             "buckets": ladder.spec if ladder is not None else "off",
             "aot": False,
             "device": str(dev),
         }
         _pipeline.set_last_pipeline(report)
-        pin = dev.type == "cuda"
+        pin_host = dev.type == "cuda"
 
         def prepare(start, stop):
             """Pack, check, encode, bucket-pad and pin one batch: on a
-            prepare-pool thread when prefetching. Touches no device
-            state."""
+            prepare-pool thread when prefetching. Returns ``(tensors,
+            n_pad, pin)``. A device-cache hit skips everything (its
+            tensors are already on the device; ``pin`` marks it); a
+            shard-cache hit replaces pack, check and encode by a
+            memory-mapped read; a batch that becomes resident is copied
+            to the device here, once."""
+            from tpudl_torch.data.codec import host_tensor
+
             with report.stage("prepare"):
-                packed = []
-                for c in input_cols:
-                    sl = self._cols[c][start:stop]
-                    arr = pack(sl) if pack is not None else _default_pack(sl)
-                    if check_finite and np.issubdtype(arr.dtype,
-                                                      np.floating):
-                        bad = ~np.isfinite(arr).reshape(
-                            arr.shape[0], -1).all(1)
-                        if bad.any():
-                            rows = (np.nonzero(bad)[0][:8] + start).tolist()
-                            raise ValueError(
-                                f"non-finite values in column {c!r}, rows "
-                                f"{rows} (batch {start}:{stop})")
-                    if wire_codec is not None:
-                        arr = wire_codec.encode(arr)
-                    packed.append(arr)
+                bidx = start // batch_size
+                if dcache is not None:
+                    hit = dcache.get((dkey, bidx))
+                    if hit is not None and (plan is None or plan.resolved()
+                                            or hit.codecs):
+                        if plan is not None and not plan.resolved():
+                            plan.adopt(hit.codecs)
+                        pins.add(hit)
+                        report.count("bytes_hbm_hit", hit.nbytes)
+                        report.count("hbm_hits")
+                        return list(hit.arrays), hit.n_pad, hit
+                    if hit is not None:
+                        hit.release()  # unusable hit: codecs unknown
+                packed = None
+                if cache is not None:
+                    hit = cache.get(bidx)
+                    # an all-hits replay still needs resolved codecs; a
+                    # cache whose writer died before persisting them
+                    # re-prepares
+                    if hit is not None and (plan is None or plan.resolved()):
+                        report.count("cache_hits")
+                        packed = list(hit)
+                if packed is None:
+                    if cache is not None:
+                        report.count("cache_misses")
+                    packed = []
+                    for ci, c in enumerate(input_cols):
+                        sl = self._cols[c][start:stop]
+                        arr = (pack(sl) if pack is not None
+                               else _default_pack(sl))
+                        if check_finite and np.issubdtype(arr.dtype,
+                                                          np.floating):
+                            bad = ~np.isfinite(arr).reshape(
+                                arr.shape[0], -1).all(1)
+                            if bad.any():
+                                rows = (np.nonzero(bad)[0][:8]
+                                        + start).tolist()
+                                raise ValueError(
+                                    f"non-finite values in column {c!r}, "
+                                    f"rows {rows} (batch {start}:{stop})")
+                        if plan is not None:
+                            arr = plan.encode(ci, arr)
+                        packed.append(arr)
+                    if cache is not None:
+                        cache.put(bidx, packed)
+                        if (plan is not None and plan.resolved()
+                                and not cache.meta.get("codecs")):
+                            cache.set_meta({"codecs": plan.keys()})
+                if plan is not None:
+                    plan.record_shipped(packed)
                 report.count("bytes_prepared",
                              int(sum(int(a.nbytes) for a in packed)))
                 n_pad = 0
@@ -776,18 +903,39 @@ class Frame:
                         n_pad = target - rows_b
                         report.count("bucket_pad_rows", n_pad)
                         _bk.count_pad_rows(n_pad)
-                tensors = [torch.from_numpy(np.ascontiguousarray(a))
-                           for a in packed]
-                if pin:
-                    tensors = [t.pin_memory() for t in tensors]
-                return tensors, n_pad
+                tensors = [host_tensor(a, pin=pin_host) for a in packed]
+                if dcache is not None and dcache.would_fit(
+                        sum(int(t.nbytes) for t in tensors), run=dkey):
+                    # the batch becomes resident now, and the resident
+                    # tensors feed this dispatch: the bytes cross once
+                    with report.stage("h2d"):
+                        placed = _dc.place(tensors, dev)
+                    if placed is not None:
+                        codecs = (plan.keys() if plan is not None
+                                  and plan.resolved() else None)
+                        put = dcache.put((dkey, bidx), placed, n_pad=n_pad,
+                                         codecs=codecs)
+                        if put is not None:
+                            pins.add(put)
+                            return list(put.arrays), n_pad, put
+                return tensors, n_pad, None
+
+        # device-cache pins outstanding (hits and fresh entries awaiting
+        # their dispatch): each is released when its batch is done, and
+        # the sweep at the end releases any an unwind stranded
+        pins: set = set()
 
         n_out = len(output_cols)
-        if wire_codec is None:
-            run_fn = fn
-        else:
-            def run_fn(*args):
-                return fn(*(wire_codec.prologue(a) for a in args))
+        run_fn = fn if plan is None else None
+
+        def _run_fn():
+            """``fn`` with the codec prologues in front; bound at the
+            first dispatch, after at least one batch resolved the plan
+            ('auto' picks from it)."""
+            nonlocal run_fn
+            if run_fn is None:
+                run_fn = plan.wrap(fn)
+            return run_fn
 
         acc: list[list] = [[] for _ in output_cols]  # host copies, joined at end
         segs: list[tuple[int, int]] = []  # (padded rows, n_pad) per dispatch
@@ -802,25 +950,30 @@ class Frame:
                 acc[i].append(h)
             segs.append((done_rows, entry.n_pad))
 
-        def run_batch(tensors, n_pad):
-            with report.stage("h2d"):
-                args = [t.to(dev, non_blocking=True) for t in tensors]
+        def run_batch(tensors, n_pad, pin):
+            if pin is None:
+                with report.stage("h2d"):
+                    args = [t.to(dev, non_blocking=True) for t in tensors]
+            else:   # resident on the device: nothing to copy
+                args = tensors
             t0 = time.perf_counter()
             with report.stage("dispatch"):
-                result = _as_outputs(run_fn(*args), n_out)
-            return result, n_pad, tensors, t0
+                result = _as_outputs(_run_fn()(*args), n_out)
+            return result, n_pad, tensors, t0, pin
 
         def run_fused(group):
             if dev.type != "cuda":
                 t0 = time.perf_counter()
                 with report.stage("dispatch"):
-                    result = _fused_plain(run_fn, group, n_out)
-                return result, 0, None, t0
-            graph = _fused_graph(fn, run_fn, group, wire_codec, n_out, dev,
-                                 graphs)
+                    result = _fused_plain(_run_fn(), group, n_out)
+                return result, 0, None, t0, None
+            graph = _fused_graph(
+                fn, _run_fn(), group,
+                None if plan is None else tuple(map(tuple, plan.keys())),
+                n_out, dev, graphs)
             t0 = time.perf_counter()
             result = graph.run(group, report)
-            return result, 0, [g[0] for g in group], t0
+            return result, 0, [g[0] for g in group], t0, None
 
         first_dispatch = True
 
@@ -831,8 +984,9 @@ class Frame:
             if window is not None:
                 while window.full():
                     handle(window.pop())
-            result, n_pad, keep, t0 = run(*args)
-            entry = _start_host_copies(result, n_pad, keep)
+            result, n_pad, keep, t0, pin = run(*args)
+            pins.discard(pin)   # the entry releases it from here on
+            entry = _start_host_copies(result, n_pad, keep, pin)
             if first_dispatch:
                 first_dispatch = False
                 report.count("first_dispatch_s", time.perf_counter() - t0)
@@ -866,8 +1020,8 @@ class Frame:
                     if not _stackable(group):
                         # shapes drifted between microbatches (a ragged
                         # pack): dispatch this group per batch
-                        for tensors, n_pad in group:
-                            dispatch(run_batch, tensors, n_pad)
+                        for prepared in group:
+                            dispatch(run_batch, *prepared)
                         continue
                     report.count("fused_dispatches")
                     dispatch(run_fused, group)
@@ -880,6 +1034,10 @@ class Frame:
                 window.close()
             if infeed is not None:
                 infeed.close()
+            if cache is not None:
+                cache.flush()  # persist throttled manifest entries
+            for p in list(pins):
+                p.release()
         outputs: list[list[np.ndarray]] = [[] for _ in output_cols]
         with report.stage("d2h"):
             _fetch_accumulated(acc, segs, outputs)

@@ -13,9 +13,8 @@ read several batches at once; a decoder not marked ``thread_safe`` runs
 under a column-wide lock. Not ported yet, and refused where they are
 options: ``host_sharded`` (Queue 1, 'Training, rest', multi-host), the
 read retry policy and fault points (Queue 1, 'Jobs, faults and the
-supervisor'), the flight-recorder samples of decode errors (Queue 1, 'The
-rest of observability') and ``createNativeImageLoader(output_dtype=
-"uint8")``, which needs the ``U8Codec`` (Queue 1, 'Data layer').
+supervisor') and the flight-recorder samples of decode errors (Queue 1,
+'The rest of observability').
 """
 
 from __future__ import annotations
@@ -270,8 +269,8 @@ def default_probe(raw_bytes: bytes) -> bool:
         return False
 
 
-# copied from tpudl/image/imageIO.py:createNativeImageLoader (float32
-# output; reads without tpudl's retry policy and fault points)
+# copied from tpudl/image/imageIO.py:createNativeImageLoader (reads
+# without tpudl's retry policy and fault points)
 def createNativeImageLoader(height: int, width: int, scale: float = 1.0,
                             n_threads: int | None = None,
                             output_dtype: str = "float32"):
@@ -280,20 +279,27 @@ def createNativeImageLoader(height: int, width: int, scale: float = 1.0,
     (libjpeg, :mod:`tpudl_torch.native`), the path ``load_uri_batch``
     takes for ``KerasImageFileTransformer``/``KerasImageFileEstimator``.
     Where the native decoder is not built (no libjpeg headers), and for
-    a file it cannot decode, PIL decodes and resizes (bilinear). Output:
-    float32 RGB ``(H, W, 3)`` in [0, 255]·``scale``.
+    a file it cannot decode, PIL decodes and resizes (bilinear).
+
+    ``output_dtype`` picks the wire representation, as in tpudl:
+
+    - ``"float32"`` (default): RGB ``(H, W, 3)`` in [0, 255]·``scale``;
+    - ``"uint8"``: the raw uint8 RGB pixels, with the ``* scale``
+      normalize deferred to the card — the loader declares
+      ``wire_scale``/``wire_offset``, and the u8 wire codec's prologue
+      applies them (``f32(u8) * f32(scale)``: bit for bit the float32
+      output, at 4× fewer host→card bytes). ``KerasImageFileTransformer``
+      and ``KerasImageFileEstimator`` install that codec themselves.
 
     ``n_threads`` (``TPUDL_DECODE_THREADS``; default: the native layer's
-    choice) caps the decoder's threads per batch. ``output_dtype="uint8"``
-    defers the normalize to the ``U8Codec``, which is not ported (ROADMAP
-    Queue 1, 'Data layer')."""
-    if output_dtype == "uint8":
-        _not_ported("createNativeImageLoader(output_dtype='uint8') (the u8 "
-                    "wire codec)", "Data layer")
-    if output_dtype != "float32":
+    choice) caps the decoder's threads per batch. Every path reads the
+    files through one counted read (``imageio.files_read``,
+    ``imageio.bytes_read``)."""
+    if output_dtype not in ("float32", "uint8"):
         raise ValueError(
             f"output_dtype must be 'float32' or 'uint8', got "
             f"{output_dtype!r}")
+    raw_u8 = output_dtype == "uint8"
     if n_threads is None:
         env = os.environ.get("TPUDL_DECODE_THREADS")
         try:
@@ -301,9 +307,12 @@ def createNativeImageLoader(height: int, width: int, scale: float = 1.0,
         except ValueError:
             n_threads = None  # malformed env: let the native layer pick
 
-    def _pil_one(uri: str) -> np.ndarray:
-        img = Image.open(uri).convert("RGB").resize(
+    def _pil_one(uri: str, raw: bytes | None = None) -> np.ndarray:
+        src = BytesIO(raw) if raw is not None else uri
+        img = Image.open(src).convert("RGB").resize(
             (width, height), Image.BILINEAR)
+        if raw_u8:
+            return np.asarray(img, np.uint8)
         return np.asarray(img, np.float32) * scale
 
     def _read(uri):
@@ -328,7 +337,10 @@ def createNativeImageLoader(height: int, width: int, scale: float = 1.0,
             batch, ok = native.decode_resize_batch(
                 [_read(uri)], height, width, n_threads=1)
             if ok[0]:
-                return batch[0][:, :, ::-1].astype(np.float32) * scale
+                rgb = batch[0][:, :, ::-1]
+                if raw_u8:
+                    return np.ascontiguousarray(rgb)
+                return rgb.astype(np.float32) * scale
         return _pil_one(uri)
 
     def batch_decode(uris) -> np.ndarray:
@@ -336,18 +348,24 @@ def createNativeImageLoader(height: int, width: int, scale: float = 1.0,
 
         uris = list(uris)
         if not uris:
-            return np.zeros((0, height, width, 3), np.float32)
+            return np.zeros((0, height, width, 3),
+                            np.uint8 if raw_u8 else np.float32)
+        raws = _read_all(uris)
         if not native.available():
-            return np.stack([_pil_one(u) for u in uris])
-        batch, ok = native.decode_resize_batch(_read_all(uris), height,
-                                               width, n_threads=n_threads)
-        out = batch[:, :, :, ::-1].astype(np.float32) * scale
+            return np.stack([_pil_one(u, r) for u, r in zip(uris, raws)])
+        batch, ok = native.decode_resize_batch(raws, height, width,
+                                               n_threads=n_threads)
+        rgb = batch[:, :, :, ::-1]
+        out = (np.ascontiguousarray(rgb) if raw_u8
+               else rgb.astype(np.float32) * scale)
         for i, good in enumerate(ok):
             if not good:
-                out[i] = _pil_one(uris[i])
+                out[i] = _pil_one(uris[i], raws[i])
         return out
 
     loader.batch_decode = batch_decode
+    # wire declaration the data layer reads: with raw uint8 output the
+    # deferred normalize (scale, offset) becomes the u8 codec's prologue
     loader.output_dtype = output_dtype
     loader.wire_scale = float(scale)
     loader.wire_offset = 0.0

@@ -8,7 +8,7 @@ classification (:meth:`~RetryPolicy.is_transient`), backoff
 and :meth:`~RetryPolicy.record`. ``record`` counts into
 :mod:`tpudl_torch.obs.metrics`; tpudl's flight recorder and attribution
 ledger are not ported yet (ROADMAP Queue 1, 'The rest of observability').
-``io_policy`` has no user in the port yet.
+:func:`io_policy` is the shared IO policy the shard cache writes under.
 
 Classification contract, as in tpudl: exceptions carrying
 ``tpudl_fatal = True`` (:class:`tpudl_torch.train.Preempted`) are never
@@ -23,7 +23,7 @@ import time
 
 from tpudl_torch.obs import metrics as _metrics
 
-__all__ = ["RetryPolicy", "is_fatal", "PROGRAMMING_ERRORS"]
+__all__ = ["RetryPolicy", "is_fatal", "io_policy", "PROGRAMMING_ERRORS"]
 
 # copied from tpudl/jobs/retry.py: never retried regardless of policy
 _ALWAYS_FATAL = (SystemExit, KeyboardInterrupt, GeneratorExit,
@@ -128,3 +128,34 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, "") or default)
     except ValueError:
         return default
+
+
+# copied from tpudl/jobs/retry.py:_env_float
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+_IO_POLICIES: dict = {}
+
+
+# copied from tpudl/jobs/retry.py:io_policy
+def io_policy() -> RetryPolicy:
+    """The shared IO retry policy (shard cache, bulk image load, lazy
+    file reads): ``TPUDL_RETRY_IO_ATTEMPTS`` total attempts (default 3;
+    1 disables retries), base backoff ``TPUDL_RETRY_IO_BACKOFF_S``
+    (default 0.05s). Instances are cached per knob pair — this sits on
+    per-file/per-row hot paths, where constructing a fresh
+    ``random.Random()`` each call would cost more than the open it
+    guards — while env changes (tests) still take effect immediately.
+    The shared jitter RNG across threads only smears the jitter, which
+    is its job."""
+    key = (_env_int("TPUDL_RETRY_IO_ATTEMPTS", 3),
+           _env_float("TPUDL_RETRY_IO_BACKOFF_S", 0.05))
+    pol = _IO_POLICIES.get(key)
+    if pol is None:
+        pol = _IO_POLICIES[key] = RetryPolicy(
+            max_attempts=key[0], backoff_s=key[1], max_backoff_s=2.0)
+    return pol

@@ -33,10 +33,20 @@ training knobs, the trials scheduled by
 yielded in completion order, each re-attempted under
 ``trialRetryPolicy`` when its failure is transient), and a private
 ``_fit`` for a map that overrides ``modelFile``, ``inputCol``,
-``labelCol`` or ``imageLoader`` (compared by value). Refused by name:
-``mesh`` and with it mesh-wide trials ('Training, rest'), ``modelAxis``
-and ``paramShardings`` ('LM parallelism'), ``wireCodec``, ``cacheDir``
-and ``deviceCache`` ('Data layer').
+``labelCol`` or ``imageLoader`` (compared by value).
+
+The data layer, as in tpudl: ``cacheDir`` (default
+``TPUDL_DATA_CACHE_DIR``) shards the bulk image load, so a re-fit over
+the same files decodes nothing; a loader with ``output_dtype='uint8'``
+ships uint8 batches and the u8 codec's prologue (``_train_codec``)
+restores them inside the step; ``deviceCache`` (default
+``TPUDL_DATA_DEVICE_CACHE``) puts the whole ``(X, y)`` on the trial's card
+once (``bulk_resident``), and every step gathers its batch there — the
+pin is released when the trial ends, failed or not, and trials over the
+same data share the entry. The three knobs pass into the returned
+transformer. Refused by name: ``mesh`` and with it mesh-wide trials
+('Training, rest'), ``modelAxis`` and ``paramShardings`` ('LM
+parallelism').
 """
 
 from __future__ import annotations
@@ -66,8 +76,7 @@ _ALLOWED_FIT_PARAMS = {"batch_size", "epochs", "verbose", "shuffle",
                        "learning_rate", "seed"}
 
 _UNPORTED = {"mesh": "Training, rest", "modelAxis": "LM parallelism",
-             "paramShardings": "LM parallelism", "wireCodec": "Data layer",
-             "cacheDir": "Data layer", "deviceCache": "Data layer"}
+             "paramShardings": "LM parallelism"}
 
 
 class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
@@ -92,6 +101,11 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         self.prepareWorkers = kwargs.pop("prepareWorkers", None)
         self.fuseSteps = kwargs.pop("fuseSteps", None)
         self.dispatchDepth = kwargs.pop("dispatchDepth", None)
+        # data-layer knobs: the bulk load's shard cache, the card-resident
+        # bulk, and the codec the returned transformer ships with
+        self.wireCodec = kwargs.pop("wireCodec", None)
+        self.cacheDir = kwargs.pop("cacheDir", None)
+        self.deviceCache = kwargs.pop("deviceCache", None)
         # per-trial retry (a RetryPolicy) for fitMultiple's scheduler;
         # None falls back to TPUDL_HPO_TRIAL_ATTEMPTS
         self.trialRetryPolicy = kwargs.pop("trialRetryPolicy", None)
@@ -110,7 +124,8 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
     def _getNumpyFeaturesAndLabels(self, frame):
         if len(frame) == 0:
             raise ValueError("cannot fit on an empty frame (0 rows)")
-        X = self.loadImagesInternal(frame, self.getInputCol())
+        X = self.loadImagesInternal(frame, self.getInputCol(),
+                                    cache_dir=self.cacheDir)
         y_col = frame[self.getLabelCol()]
         if y_col.dtype == object:
             y = np.stack([np.asarray(v, dtype=np.float32) for v in y_col])
@@ -124,6 +139,37 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         from tpudl_torch.ingest import TFInputGraph
 
         return TFInputGraph.fromKerasTrainable(self.getModelFile())
+
+    # copied from tpudl/ml/estimator.py:_train_codec
+    def _train_codec(self, X):
+        """The u8 wire codec when the loaded batch ships as RAW uint8
+        (a loader built with ``output_dtype='uint8'`` — its deferred
+        ``* scale`` normalize MUST run on device or the model trains on
+        un-normalized pixels). None for float32 batches: the loader
+        already normalized, today's exact path."""
+        if getattr(X, "dtype", None) != np.uint8:
+            return None
+        from tpudl_torch.data import U8Codec
+
+        loader = self.getImageLoader()
+        return U8Codec(scale=getattr(loader, "wire_scale", 1.0),
+                       offset=getattr(loader, "wire_offset", 0.0))
+
+    def _bulk_pin(self, X, y, dev):
+        """With ``deviceCache`` on, ``(X, y)`` resident on ``dev`` (a
+        pinned entry of the shared device cache, keyed on their content),
+        or None (off, or over the budget)."""
+        dc_on = (bool(self.deviceCache) if self.deviceCache is not None
+                 else os.environ.get("TPUDL_DATA_DEVICE_CACHE", "0") == "1")
+        if not dc_on:
+            return None
+        from tpudl_torch.data import device_cache as _dc
+
+        # content tokens in the RUN component (key[0]), so a new
+        # dataset's bulk can evict a finished one's
+        key = (f"estimator-bulk|{_dc.array_token(X)}|"
+               f"{_dc.array_token(y)}|{dev}", 0)
+        return _dc.bulk_resident(key, (X, y), device=dev)
 
     def _train_one(self, gin, X, y, device=None):
         """Train on ``(X, y)`` from ``gin.params`` on ``device`` (default
@@ -139,6 +185,7 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         if n == 0:
             raise ValueError("cannot fit on an empty frame (0 images)")
         dev = resolve_device(self.device if device is None else device)
+        codec = self._train_codec(X)
         loss_fn = get_loss(self.getKerasLoss())
         factory, default_lr = get_optimizer_dynamic(self.getKerasOptimizer())
         # every floating variable trains, as tpudl's step differentiates
@@ -154,30 +201,61 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
 
         rng = np.random.default_rng(seed)
         epoch_losses, step_losses = [], []
-        with torch.enable_grad(), full_f32():
-            for _epoch in range(epochs):
-                order = rng.permutation(n) if shuffle else np.arange(n)
-                batch_losses = []     # on the device; one fetch an epoch
-                for start in range(0, n, batch_size):
-                    idx = order[start:start + batch_size]
-                    if len(idx) < batch_size:   # the ragged tail wraps
-                        reps = math.ceil((batch_size - len(idx)) / n)
-                        fill = np.concatenate(
-                            [order] * reps)[: batch_size - len(idx)]
-                        idx = np.concatenate([idx, fill])
-                    xb = torch.from_numpy(X[idx]).to(dev, non_blocking=True)
-                    yb = torch.from_numpy(y[idx]).to(dev, non_blocking=True)
-                    opt.zero_grad(set_to_none=True)
-                    pred = apply_fn(params, xb)
-                    loss = loss_fn(pred, yb)
-                    loss.backward()
-                    opt.step()
-                    batch_losses.append(loss.detach())
-                losses = torch.stack(batch_losses).cpu()
-                step_losses += losses.tolist()
-                epoch_losses.append(float(losses.mean()))
+        bulk = self._bulk_pin(X, y, dev)
+        # everything past the bulk acquisition runs under the releasing
+        # finally: a failed trial must not strand its pin in the budget
+        try:
+            Xr, yr = bulk.arrays if bulk is not None else (X, y)
+            with torch.enable_grad(), full_f32():
+                for _epoch in range(epochs):
+                    order = rng.permutation(n) if shuffle else np.arange(n)
+                    batch_losses = []     # on the device; one fetch an epoch
+                    for start in range(0, n, batch_size):
+                        idx = order[start:start + batch_size]
+                        if len(idx) < batch_size:   # the ragged tail wraps
+                            reps = math.ceil((batch_size - len(idx)) / n)
+                            fill = np.concatenate(
+                                [order] * reps)[: batch_size - len(idx)]
+                            idx = np.concatenate([idx, fill])
+                        if bulk is not None:
+                            # X/y live on the card: gather there
+                            sel = torch.from_numpy(idx).to(dev)
+                            xb, yb = Xr[sel], yr[sel]
+                        else:
+                            xb = torch.from_numpy(X[idx]).to(
+                                dev, non_blocking=True)
+                            yb = torch.from_numpy(y[idx]).to(
+                                dev, non_blocking=True)
+                        if codec is not None:
+                            xb = codec.prologue(xb)
+                        opt.zero_grad(set_to_none=True)
+                        pred = apply_fn(params, xb)
+                        loss = loss_fn(pred, yb)
+                        loss.backward()
+                        opt.step()
+                        batch_losses.append(loss.detach())
+                    losses = torch.stack(batch_losses).cpu()
+                    step_losses += losses.tolist()
+                    epoch_losses.append(float(losses.mean()))
+        finally:
+            if bulk is not None:
+                # the bulk stays resident (warm for a re-fit) but unpinned
+                bulk.release()
+        n_steps = len(step_losses)
         _obs_metrics.counter("estimator.trials").inc()
-        _obs_metrics.counter("estimator.train_steps").inc(len(step_losses))
+        _obs_metrics.counter("estimator.train_steps").inc(n_steps)
+        if codec is not None and n_steps and bulk is None:
+            # wire accounting: encoded bytes a fixed-size step ships vs
+            # the float32 the prologue reconstitutes (a resident trial
+            # ships its dataset once, counted by the data.hbm counters)
+            row = int(X.nbytes) / max(1, len(X))
+            shipped = int(n_steps * batch_size * row)
+            dense = int(n_steps * batch_size * (X.size / max(1, len(X))) * 4)
+            _obs_metrics.counter("data.wire.bytes_shipped").inc(shipped)
+            _obs_metrics.counter("data.wire.bytes_dense").inc(dense)
+            if dense > shipped:
+                _obs_metrics.counter("data.wire.bytes_saved").inc(
+                    dense - shipped)
         if epoch_losses:
             _obs_metrics.gauge("estimator.trial_final_loss").set(
                 epoch_losses[-1])
@@ -201,7 +279,8 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
             device=self.device if device is None else device,
             prefetchDepth=self.prefetchDepth,
             prepareWorkers=self.prepareWorkers, fuseSteps=self.fuseSteps,
-            dispatchDepth=self.dispatchDepth)
+            dispatchDepth=self.dispatchDepth, wireCodec=self.wireCodec,
+            cacheDir=self.cacheDir, deviceCache=self.deviceCache)
 
     def _trained_model(self, gin, X, y, device=None):
         """Train, write the trained file and return its transformer, with

@@ -2,11 +2,11 @@
 
 Port of ``tpudl/ml/image_params.py``: the user's URI → ndarray
 ``imageLoader`` and the load of a URI column into one stacked batch, the
-glue ``KerasImageFileTransformer`` and ``KerasImageFileEstimator`` use.
-Not ported yet, and refused: the sharded cache of the bulk load
-(``cache_dir``; ROADMAP Queue 1, 'Data layer') and loaders that declare
-raw uint8 output (their deferred normalize needs the ``U8Codec``, 'Data
-layer').
+glue ``KerasImageFileTransformer`` and ``KerasImageFileEstimator`` use:
+float32, or raw uint8 for a loader that declares it (its deferred
+normalize is the u8 codec's prologue), and through the sharded cache
+(:func:`~tpudl_torch.data.cached_uri_load`) when a cache directory is
+given or ``TPUDL_DATA_CACHE_DIR`` names one.
 """
 
 from __future__ import annotations
@@ -19,18 +19,10 @@ from tpudl_torch.obs import metrics as _obs_metrics
 __all__ = ["CanLoadImage", "load_uri_batch"]
 
 
-def _refuse_u8(loader):
-    if getattr(loader, "output_dtype", None) == "uint8":
-        raise NotImplementedError(
-            "an imageLoader with output_dtype='uint8' needs the u8 wire "
-            "codec, which is not ported to tpudl_torch yet (ROADMAP Queue 1, "
-            "'Data layer')")
-
-
 class CanLoadImage(Params):
     imageLoader = Param(
         None, "imageLoader",
-        "callable URI -> ndarray (H, W, C) float RGB, typically "
+        "callable URI -> ndarray (H, W, C) float/uint8 RGB, typically "
         "decode+resize+preprocess for the target model")
 
     def setImageLoader(self, value):
@@ -43,28 +35,41 @@ class CanLoadImage(Params):
 
     def loadImagesInternal(self, frame, inputCol: str,
                            cache_dir: str | None = None):
-        """URI column → stacked float32 batch (N, H, W, C). Unloadable URIs
-        raise."""
+        """URI column → stacked batch (N, H, W, C), float32 or the raw
+        uint8 of a loader that declares ``output_dtype='uint8'``.
+        Unloadable URIs raise. With ``cache_dir`` (default
+        ``TPUDL_DATA_CACHE_DIR``) the load goes through the shard cache,
+        so a repeat fit over the same files decodes nothing."""
+        loader = self.getImageLoader()
+        uris = frame[inputCol]
+        if cache_dir is None:
+            import os
+
+            cache_dir = os.environ.get("TPUDL_DATA_CACHE_DIR") or None
         if cache_dir:
-            raise NotImplementedError(
-                "loadImagesInternal(cache_dir=...) is not ported to "
-                "tpudl_torch yet (ROADMAP Queue 1, 'Data layer')")
-        return load_uri_batch(self.getImageLoader(), frame[inputCol])
+            from tpudl_torch.data import cached_uri_load
+
+            return cached_uri_load(loader, uris, cache_dir)
+        return load_uri_batch(loader, uris)
 
 
-# copied from tpudl/ml/image_params.py:load_uri_batch (float32 output)
+# copied from tpudl/ml/image_params.py:load_uri_batch
 def load_uri_batch(loader, uris) -> np.ndarray:
-    """Apply ``loader`` to each URI and stack into one float32 batch. A
-    loader with a ``batch_decode`` attribute (``createNativeImageLoader``)
+    """Apply ``loader`` to each URI and stack into one batch: float32,
+    unless the loader declares raw uint8 output (``loader.output_dtype ==
+    'uint8'``), which is kept so the u8 wire codec ships 4× fewer bytes.
+    A loader with a ``batch_decode`` attribute (``createNativeImageLoader``)
     gets the whole batch in one call. ``imageio.uris_loaded`` counts the
-    URIs."""
-    _refuse_u8(loader)
+    URIs decoded here (a cached replay leaves it unchanged)."""
     uris = list(uris)
     if uris:
         _obs_metrics.counter("imageio.uris_loaded").inc(len(uris))
+    keep_u8 = getattr(loader, "output_dtype", None) == "uint8"
     batched = getattr(loader, "batch_decode", None)
     if batched is not None:
-        out = np.asarray(batched(uris)).astype(np.float32, copy=False)
+        out = np.asarray(batched(uris))
+        if not (keep_u8 and out.dtype == np.uint8):
+            out = out.astype(np.float32, copy=False)
         if out.ndim != 4:
             raise ValueError(
                 f"batch_decode returned shape {out.shape}; expected "
@@ -79,9 +84,11 @@ def load_uri_batch(loader, uris) -> np.ndarray:
             raise ValueError(
                 f"imageLoader returned shape {arr.shape} for {uri!r}; "
                 "expected (H, W, C)")
-        arrays.append(arr.astype(np.float32, copy=False))
+        if not (keep_u8 and arr.dtype == np.uint8):
+            arr = arr.astype(np.float32, copy=False)
+        arrays.append(arr)
     if not arrays:
-        return np.zeros((0, 1, 1, 1), np.float32)
+        return np.zeros((0, 1, 1, 1), np.uint8 if keep_u8 else np.float32)
     shapes = {a.shape for a in arrays}
     if len(shapes) > 1:
         raise ValueError(

@@ -10,9 +10,13 @@ the executor's pack stage (in the prepare pool when the loader is marked
 ``thread_safe``, as ``createNativeImageLoader`` is), and the model runs
 on ``device`` (default ``"cuda"``) in f32.
 
-Refused by name: ``mesh`` (ROADMAP Queue 1, 'Training, rest'),
-``cacheDir``, ``deviceCache``, a ``wireCodec`` given by name and uint8
-loaders ('Data layer').
+The data layer's knobs pass to ``Frame.map_batches`` as tpudl's do: a
+loader that declares raw uint8 output installs ``U8Codec(scale=
+loader.wire_scale)``, whose prologue applies the deferred normalize on
+the card (a ``wireCodec`` that would skip it is refused); with
+``cacheDir`` the shards are keyed on the files' paths, sizes and mtimes;
+``deviceCache`` keeps the prepared batches on the card. ``mesh`` is
+refused by name (ROADMAP Queue 1, 'Training, rest').
 """
 
 from __future__ import annotations
@@ -23,8 +27,7 @@ import numpy as np
 import torch
 
 from tpudl_torch.image import imageIO
-from tpudl_torch.ml.image_params import CanLoadImage, _refuse_u8, \
-    load_uri_batch
+from tpudl_torch.ml.image_params import CanLoadImage, load_uri_batch
 from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol, HasKerasModel,
                                    HasOutputCol, HasOutputMode, keyword_only,
                                    refuse_unported)
@@ -69,23 +72,51 @@ class KerasImageFileTransformer(Transformer, HasInputCol, HasOutputCol,
              str(self.device)), build)
 
     def _transform(self, frame):
+        from tpudl_torch.data import U8Codec
+        from tpudl_torch.data.dataset import _loader_token
+        from tpudl_torch.image.imageIO import _uri_fingerprint
+
         mode = self.getOutputMode()
         loader = self.getImageLoader()
-        _refuse_u8(loader)
 
         def pack(sl: np.ndarray) -> np.ndarray:
             return load_uri_batch(loader, sl)
 
+        # the pack's cache identity is the loader's (geometry, scale,
+        # dtype): another loader over the same URIs re-keys the cache
+        pack.cache_token = "uri_pack:" + _loader_token(loader)
         # only a loader that declares itself thread-safe lets the prepare
         # pool run this pack for several batches at once
         pack.thread_safe = bool(getattr(loader, "thread_safe", False))
         out_col = self.getOutputCol()
         fn = self._batch_fn(self.getModelFile(), mode)
+        opts = self._pipeline_opts()
+        if getattr(loader, "output_dtype", None) == "uint8":
+            # a raw-uint8 loader defers its `* scale` normalize to the
+            # card: the u8 codec's prologue applies it. A codec that
+            # cannot carry it (identity, bf16, a bare 'u8'/'auto' that
+            # would infer scale 1) would feed the model 255×-too-large
+            # pixels; a U8Codec instance is the user owning the scale
+            if opts.get("wire_codec") is None:
+                opts["wire_codec"] = U8Codec(
+                    scale=getattr(loader, "wire_scale", 1.0),
+                    offset=getattr(loader, "wire_offset", 0.0))
+            elif not isinstance(opts["wire_codec"], U8Codec):
+                raise ValueError(
+                    f"imageLoader defers its normalize (output_dtype="
+                    f"'uint8', wire_scale={getattr(loader, 'wire_scale', 1.0)!r}) "
+                    f"but wireCodec={opts['wire_codec']!r} would skip it; "
+                    "drop wireCodec (the matching u8 codec installs "
+                    "automatically) or pass U8Codec(scale=...) explicitly")
+        if opts.get("cache_dir") or os.environ.get("TPUDL_DATA_CACHE_DIR"):
+            # URI columns name files the frame fingerprint cannot see
+            # into: key the cache on path+size+mtime
+            opts["cache_key"] = _uri_fingerprint(frame[self.getInputCol()])
         with torch.inference_mode():
             out = frame.map_batches(
                 fn, [self.getInputCol()], [out_col],
                 batch_size=self.batchSize, pack=pack, device=self.device,
-                **self._pipeline_opts())
+                **opts)
         if mode == "image":
             structs = np.empty(len(out), dtype=object)
             structs[:] = [

@@ -21,9 +21,12 @@ featurizer and the classifier run through ``Frame.map_batches`` with the
 executor knobs ``prefetchDepth``, ``prepareWorkers``, ``fuseSteps`` and
 ``dispatchDepth``; their per-batch function is built once per loaded
 model and configuration, so that a fused CUDA graph cached on it serves
-every later ``transform``. tpudl's ``mesh`` and ``tp`` (ROADMAP Queue 1,
-'Training, rest' and 'LM parallelism'), ``cacheDir``, ``deviceCache`` and
-a codec given by name ('Data layer') are not ported yet and raise.
+every later ``transform``. The data layer's knobs pass through as in
+tpudl: ``wireCodec`` (default a ``TokenCodec`` over the tokenizer's
+vocab; ``"tokens"`` by name), ``cacheDir`` (a warm run tokenizes nothing:
+the pack's ``cache_token`` carries the tokenizer's fingerprint) and
+``deviceCache``. tpudl's ``mesh`` and ``tp`` (ROADMAP Queue 1, 'Training,
+rest' and 'LM parallelism') are not ported yet and raise.
 
 The model is float32, and each stage computes its products in full f32
 whatever TF32 setting the process holds (``device.full_f32``), as tpudl

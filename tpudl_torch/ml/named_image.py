@@ -23,15 +23,14 @@ reuses them while the model, weights (a file's mtime too), dtype and
 device stay the same.
 
 The executor knobs ``prefetchDepth``, ``prepareWorkers``, ``fuseSteps``
-and ``dispatchDepth`` pass to ``Frame.map_batches`` (None: its
-``TPUDL_FRAME_*`` defaults). The per-batch function is built once per
-loaded model, so that a fused CUDA graph cached on it serves every later
-``transform``.
+and ``dispatchDepth``, and the data layer's ``wireCodec`` (an instance or
+a name), ``cacheDir`` and ``deviceCache``, pass to ``Frame.map_batches``
+(None: its ``TPUDL_FRAME_*``, ``TPUDL_WIRE_CODEC`` and ``TPUDL_DATA_*``
+defaults). The per-batch function is built once per loaded model, so
+that a fused CUDA graph cached on it serves every later ``transform``.
 
 Not ported yet, and refused with ``NotImplementedError``: ``mesh``
-(ROADMAP Queue 1, 'Training, rest'), and ``cacheDir``,
-``deviceCache`` and a ``wireCodec`` given by name (Queue 1, 'Data
-layer').
+(ROADMAP Queue 1, 'Training, rest').
 """
 
 from __future__ import annotations

@@ -8,15 +8,13 @@ with explicit and default maps) and its converters, the ingest ones over
 the port's :class:`~tpudl_torch.ingest.TFInputGraph` and the Keras ones
 over :mod:`tpudl_torch.ml.losses`. :func:`refuse_unported` is the port's
 own: the stages' shared refusal of tpudl's knobs that have no counterpart
-yet.
+yet (``mesh``).
 """
 
 from __future__ import annotations
 
 import copy as _copy
 import functools
-
-from tpudl_torch.data.codec import WireCodec
 
 __all__ = ["Param", "Params", "TypeConverters", "keyword_only",
            "HasInputCol", "HasOutputCol", "HasLabelCol", "HasOutputMode",
@@ -25,25 +23,18 @@ __all__ = ["Param", "Params", "TypeConverters", "keyword_only",
 
 # tpudl's stage knobs with no counterpart in the port yet → the ROADMAP
 # Queue 1 item that brings them
-EXECUTOR_KNOBS = {"mesh": "Training, rest", "cacheDir": "Data layer",
-                  "deviceCache": "Data layer"}
+EXECUTOR_KNOBS = {"mesh": "Training, rest"}
 
 
 def refuse_unported(stage: str, kwargs: dict, table: dict):
     """Pop every knob of ``table`` from a stage's constructor ``kwargs``:
     a knob that is set raises ``NotImplementedError`` naming its ROADMAP
-    Queue 1 item, as does a ``wireCodec`` given by name (a
-    :class:`WireCodec` object is left in ``kwargs``)."""
+    Queue 1 item."""
     for k, item in table.items():
         if kwargs.pop(k, None) not in (None, False):
             raise NotImplementedError(
                 f"{stage}({k}=...) is not ported to tpudl_torch yet "
                 f"(ROADMAP Queue 1, {item!r})")
-    codec = kwargs.get("wireCodec")
-    if codec is not None and not isinstance(codec, WireCodec):
-        raise NotImplementedError(
-            f"wireCodec={codec!r}: codecs by name are not ported yet "
-            "(ROADMAP Queue 1, 'Data layer'); pass a WireCodec")
 
 
 # copied from tpudl/ingest/graphdef.py:tensor_name

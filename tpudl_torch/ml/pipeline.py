@@ -57,17 +57,21 @@ class Transformer(Params):
     def _pipeline_opts(self) -> dict:
         """The ``Frame.map_batches`` executor knobs every batch stage
         plumbs through: prefetch depth (K), prepare workers (N), fused
-        dispatch steps (M), the dispatch window depth (D) and the wire
-        codec (tpudl's mesh and cache knobs are refused by the stages'
-        constructors, so they never reach here). None resolves inside map_batches from the
-        ``TPUDL_FRAME_*`` variables or their defaults, so a stage that
-        never sets them still rides the pipeline."""
+        dispatch steps (M), the dispatch window depth (D), plus the data
+        layer's knobs — wire codec, shard-cache directory and device
+        cache (tpudl's mesh is refused by the stages' constructors, so it
+        never reaches here). None resolves inside map_batches from the
+        ``TPUDL_FRAME_*``/``TPUDL_WIRE_CODEC``/``TPUDL_DATA_*`` variables
+        or their defaults, so a stage that never sets them still rides
+        the pipeline."""
         return {
             "prefetch_depth": getattr(self, "prefetchDepth", None),
             "prepare_workers": getattr(self, "prepareWorkers", None),
             "fuse_steps": getattr(self, "fuseSteps", None),
             "dispatch_depth": getattr(self, "dispatchDepth", None),
             "wire_codec": getattr(self, "wireCodec", None),
+            "cache_dir": getattr(self, "cacheDir", None),
+            "device_cache": getattr(self, "deviceCache", None),
         }
 
     # copied from tpudl/ml/pipeline.py:Transformer._set_pipeline_opts
@@ -80,6 +84,8 @@ class Transformer(Params):
         self.fuseSteps = kwargs.pop("fuseSteps", None)
         self.dispatchDepth = kwargs.pop("dispatchDepth", None)
         self.wireCodec = kwargs.pop("wireCodec", None)
+        self.cacheDir = kwargs.pop("cacheDir", None)
+        self.deviceCache = kwargs.pop("deviceCache", None)
 
 
 class Model(Transformer):

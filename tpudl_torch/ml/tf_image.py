@@ -63,9 +63,9 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
     - ``outputMode``: 'vector' (a flattened float32 vector a row) or
       'image' (an image struct a row).
 
-    ``mesh`` (ROADMAP Queue 1, 'Training, rest'), ``cacheDir``,
-    ``deviceCache`` and a ``wireCodec`` given by name ('Data layer')
-    raise.
+    The data layer's ``wireCodec``, ``cacheDir`` and ``deviceCache`` pass
+    to ``Frame.map_batches``; ``mesh`` (ROADMAP Queue 1, 'Training, rest')
+    raises.
     """
 
     graph = Param(None, "graph", "TFInputGraph or torch-callable model")

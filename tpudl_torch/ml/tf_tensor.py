@@ -11,8 +11,9 @@ GraphDef, SavedModel or checkpoint graph may have several (one
 ``inputMapping`` column each), each cast to its
 placeholder's dtype (a float64 graph runs in float64). Signature logical
 names are accepted wherever tensor names are, as in tpudl.
-``mesh`` is refused by name (ROADMAP Queue 1, 'Training, rest'), as are
-``cacheDir``/``deviceCache`` ('Data layer').
+``mesh`` is refused by name (ROADMAP Queue 1, 'Training, rest'); like
+tpudl's, the stage takes no data-layer knobs of its own, and
+``Frame.map_batches`` reads ``TPUDL_WIRE_CODEC`` and ``TPUDL_DATA_*``.
 """
 
 from __future__ import annotations

@@ -1,23 +1,28 @@
 """Token wire codec + sequence packing: ragged strings → rung-shaped
 int32 batches.
 
-Copied from ``tpudl/text/codec.py`` (``TokenCodec``, ``pad_mask``,
-``pack_ragged``, ``pack_dense``, ``tokenize_pack``); the host halves are
-unchanged, the device halves (``TokenCodec.prologue``, ``pad_mask``) are
-torch. The wire type follows the vocab alone, and ``tokenize_pack`` keeps
-no ``cache_token`` (the port has no shard or device cache yet).
+Copied from ``tpudl/text/codec.py`` (``_wire_dtype``, ``TokenCodec``,
+``pad_mask``, ``lengths``, ``pack_ragged``, ``pack_dense``,
+``tokenize_pack``); the host halves are unchanged, the device halves
+(``TokenCodec.prologue``, ``pad_mask``) are torch.
 
 - :class:`TokenCodec` ships token ids as uint16 when the vocab fits
   (half the wire bytes of int32) and restores them on the device with one
-  cast to int32 — exact, ids are integers.
+  cast to int32 — exact, ids are integers. The wire type resolves as in
+  tpudl: ``wire_dtype=`` first, then ``TPUDL_TEXT_WIRE_DTYPE``, then the
+  vocab; the key ``(name, pad_id, vocab_size, wire)`` is what a shard
+  manifest persists, so one cache replays in both packages.
 - :func:`tokenize_pack` builds the string-column pack fn for
   ``Frame.map_batches(pack=)``: rows 1:1 with the input strings,
   right-padded with id 0 to a bucket-ladder rung (:func:`pack_ragged`),
-  or, with ``dense=True``, the training layout (:func:`pack_dense`).
+  or, with ``dense=True``, the training layout (:func:`pack_dense`). The
+  pack carries tpudl's ``cache_token`` (tokenizer fingerprint + packing
+  geometry), the shard and device caches' key material.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -28,24 +33,48 @@ from tpudl_torch.data.codec import CodecError, WireCodec
 from tpudl_torch.obs import metrics as _m
 from tpudl_torch.text.tokenizer import PAD_ID, Tokenizer
 
-__all__ = ["TokenCodec", "pad_mask", "pack_ragged", "pack_dense",
-           "tokenize_pack"]
+__all__ = ["TokenCodec", "pad_mask", "lengths", "pack_ragged",
+           "pack_dense", "tokenize_pack"]
+
+
+# copied from tpudl/text/codec.py:_wire_dtype
+def _wire_dtype(requested: str, vocab_size) -> str:
+    """Resolve the wire dtype: explicit arg beats ``TPUDL_TEXT_WIRE_DTYPE``
+    beats auto (u16 whenever the vocab provably fits — token ids are the
+    ONE tensor whose value range is declared up front, so the 2× shrink
+    needs no probe)."""
+    req = requested or "auto"
+    if req == "auto":
+        req = os.environ.get("TPUDL_TEXT_WIRE_DTYPE", "") or "auto"
+    if req == "auto":
+        req = ("u16" if vocab_size is not None
+               and int(vocab_size) <= (1 << 16) else "i32")
+    if req not in ("u16", "i32"):
+        raise CodecError(
+            f"unknown token wire dtype {req!r}; known: ['auto', 'i32', "
+            "'u16']")
+    if req == "u16" and vocab_size is not None \
+            and int(vocab_size) > (1 << 16):
+        raise CodecError(
+            f"u16 token wire cannot carry vocab_size={vocab_size} "
+            "(> 65536); use 'i32'")
+    return req
 
 
 class TokenCodec(WireCodec):
     """Integer token ids on the wire — uint16 when the vocab fits,
     restored on the device by one cast to int32. ``encode``
-    bounds-checks every batch against ``vocab_size``, so an id from the
-    wrong tokenizer fails host-side instead of gathering a garbage
-    embedding row."""
+    bounds-checks every batch against ``vocab_size`` (and the u16
+    ceiling), so an id from the wrong tokenizer fails host-side instead
+    of gathering a garbage embedding row."""
 
     name = "tokens"
 
-    def __init__(self, *, pad_id: int = PAD_ID, vocab_size=None):
+    def __init__(self, *, pad_id: int = PAD_ID, vocab_size=None,
+                 wire_dtype: str = "auto"):
         self.pad_id = int(pad_id)
         self.vocab_size = None if vocab_size is None else int(vocab_size)
-        self.wire = ("u16" if self.vocab_size is not None
-                     and self.vocab_size <= (1 << 16) else "i32")
+        self.wire = _wire_dtype(wire_dtype, self.vocab_size)
 
     def key(self) -> tuple:
         return (self.name, self.pad_id, self.vocab_size, self.wire)
@@ -59,20 +88,36 @@ class TokenCodec(WireCodec):
             lo, hi = int(arr.min()), int(arr.max())
             if lo < 0:
                 raise CodecError(f"token ids must be >= 0 (min {lo})")
-            if self.vocab_size is not None and hi >= self.vocab_size:
+            limit = (self.vocab_size if self.vocab_size is not None
+                     else (1 << 16) if self.wire == "u16" else None)
+            if limit is not None and hi >= limit:
                 raise CodecError(
-                    f"token id {hi} out of range for vocab_size="
-                    f"{self.vocab_size} — wrong tokenizer for this model?")
+                    f"token id {hi} out of range for vocab_size={limit} "
+                    "— wrong tokenizer for this model?")
         return arr.astype(np.uint16 if self.wire == "u16" else np.int32)
+
+    def decode_array(self, arr: np.ndarray) -> np.ndarray:
+        return np.asarray(arr).astype(np.int32)
 
     def prologue(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(torch.int32)
+
+    def dense_nbytes(self, encoded: np.ndarray) -> int:
+        return int(encoded.size) * 4  # the int32 the model consumes
 
 
 def pad_mask(tokens: torch.Tensor, pad_id: int = PAD_ID) -> torch.Tensor:
     """float32 mask (1 = real, 0 = pad), computed on the tokens' device
     from the shipped ids, so no mask crosses the wire."""
     return (tokens != pad_id).to(torch.float32)
+
+
+# copied from tpudl/text/codec.py:lengths
+def lengths(batch, pad_id: int = PAD_ID) -> np.ndarray:
+    """Host-side per-row real lengths of a right-padded batch (int32);
+    the inverse of what packing erased. Counts non-pad ids — valid
+    because packing only ever right-pads with ``pad_id``."""
+    return (np.asarray(batch) != pad_id).sum(axis=1).astype(np.int32)
 
 
 def pack_ragged(seqs, *, buckets="pow2", pad_id: int = PAD_ID,
@@ -144,4 +189,9 @@ def tokenize_pack(tokenizer: Tokenizer, *, seq_len=None, buckets="pow2",
                 100.0 * (1.0 - pad_tokens / out.size))
         return out
 
+    spec = (ladder.spec if ladder is not None else "off")
+    pack.cache_token = (
+        f"text.pack:{tokenizer.cache_token}|seq={seq_len}|dense={dense}"
+        f"|buckets={spec}|pad={int(pad_id)}|bos={bos}|eos={eos}")
+    pack.tokenizer = tokenizer
     return pack

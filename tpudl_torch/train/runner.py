@@ -297,6 +297,17 @@ def _rank_entry(rank: int, spec: dict, main, kwargs, results):
             dist.destroy_process_group()
 
 
+def _earliest_failure(done: dict):
+    """The exception of the rank that failed first, or None. ``done`` maps
+    a rank to ``(kind, time, pickled payload)``; ranks that failed in the
+    same clock tick are taken in rank order (exceptions do not compare)."""
+    failures = sorted((at, rank) for rank, (kind, at, _) in done.items()
+                      if kind == "err")
+    if not failures:
+        return None
+    return pickle.loads(done[failures[0][1]][2])
+
+
 def _spawn(spec: dict, main, kwargs):
     import torch.multiprocessing as mp
 
@@ -340,11 +351,9 @@ def _spawn(spec: dict, main, kwargs):
             if p.is_alive():
                 p.terminate()
                 p.join()
-    failures = sorted((at, pickle.loads(payload))
-                      for kind, at, payload in done.values()
-                      if kind == "err")
-    if failures:
-        raise failures[0][1]
+    failure = _earliest_failure(done)
+    if failure is not None:
+        raise failure
     if len(done) < len(procs):
         raise RuntimeError(
             f"ranks {sorted(set(range(len(procs))) - set(done))} gave no "
@@ -360,9 +369,12 @@ class Trainer:
     ``loss_fn(model, *batch)`` is the batch-mean loss (for example
     ``TinyCausalLM.loss_fn()``); ``optimizer`` is a factory ``params ->
     torch.optim.Optimizer`` (:mod:`tpudl_torch.train.optim`).
-    ``data_fn(step) -> array or tuple of arrays`` (host numpy, the global
-    batch) must be stateless in ``step``, which makes the data cursor
-    exactly the step counter — resume is then correct by construction."""
+    ``data_fn(step) -> array or tuple of arrays`` (the global batch) must
+    be stateless in ``step``, which makes the data cursor exactly the step
+    counter — resume is then correct by construction. An array is host
+    numpy, or a tensor (a ``Dataset``'s batch resident on the card, fed as
+    it is: ``.to`` the model's device copies nothing when it is there
+    already, as tpudl's ``device_put`` of a device array)."""
 
     def __init__(self, loss_fn, optimizer, *, mesh: M.Mesh | None = None,
                  checkpoint_dir=None, save_every: int = 100,
@@ -505,8 +517,7 @@ class Trainer:
                 if self.mesh is not None:
                     batch = M.shard_batch(batch, self.mesh)
                 else:
-                    batch = tuple(torch.as_tensor(np.asarray(b)).to(device)
-                                  for b in batch)
+                    batch = tuple(_as_tensor(b).to(device) for b in batch)
                 loss = self._step_fn(model, optimizer, *batch)
                 step_hist.observe(time.perf_counter() - t_step)
                 step_gauge.set(step + 1)
@@ -536,6 +547,16 @@ class Trainer:
         self.history.append({"step": step, "loss": value,
                              "examples_per_sec": rate})
         log.info("step %d loss %.5f (%.1f ex/s)", step, value, rate)
+
+
+def _as_tensor(b) -> torch.Tensor:
+    """One batch array as a tensor: a tensor as it is, anything else
+    through numpy (bfloat16 bits as ``torch.bfloat16``)."""
+    if isinstance(b, torch.Tensor):
+        return b
+    from tpudl_torch.data.codec import host_tensor
+
+    return host_tensor(np.asarray(b))
 
 
 def _state(model, optimizer, step: int) -> dict:

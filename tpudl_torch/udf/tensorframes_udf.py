@@ -7,7 +7,8 @@ it as one batched call a block through ``Frame.map_batches`` on
 ``device`` (default ``"cuda"``), in f32
 (:func:`~tpudl_torch.ml.tf_tensor.graph_batch_fn`), with the executor
 knobs ``prefetch_depth``, ``prepare_workers``, ``fuse_steps`` and
-``dispatch_depth``, and files it with :mod:`tpudl_torch.udf.registry`:
+``dispatch_depth`` and the data layer's ``wire_codec``, ``cache_dir`` and
+``device_cache``, and files it with :mod:`tpudl_torch.udf.registry`:
 
     gin = TFInputGraph.fromKeras("model.keras")
     makeGraphUDF(gin, "my_udf")
@@ -16,8 +17,7 @@ knobs ``prefetch_depth``, ``prepare_workers``, ``fuse_steps`` and
 Each call counts ``udf.<name>.calls`` and ``.rows`` and times
 ``udf.<name>.seconds``. tpudl's watchdog heartbeat and tracer span around
 the call are not ported (ROADMAP Queue 1, 'The rest of observability');
-``mesh`` ('Training, rest'), ``cache_dir``, ``device_cache`` and a
-``wire_codec`` given by name ('Data layer') raise. ``blocked`` is
+``mesh`` ('Training, rest') raises. ``blocked`` is
 accepted and ignored, as in tpudl: one call a block is the only
 execution model. SQL's ``fn(col)`` grammar binds one input; a graph with
 several feeds registers all the same and runs as ``udf(frame)`` with
@@ -33,8 +33,7 @@ from tpudl_torch.udf.registry import UDF, metered, register_udf
 
 __all__ = ["makeGraphUDF"]
 
-_UNPORTED = {"mesh": "Training, rest", "cache_dir": "Data layer",
-             "device_cache": "Data layer"}
+_UNPORTED = {"mesh": "Training, rest"}
 
 
 def makeGraphUDF(graph, udf_name: str, fetches=None,
@@ -59,9 +58,7 @@ def makeGraphUDF(graph, udf_name: str, fetches=None,
     from tpudl_torch.ingest.input import TFInputGraph
     from tpudl_torch.ml.tf_tensor import function_batch_fn, graph_batch_fn
 
-    knobs = dict(mesh=mesh, cache_dir=cache_dir, device_cache=device_cache,
-                 wireCodec=wire_codec)
-    refuse_unported("makeGraphUDF", knobs, _UNPORTED)
+    refuse_unported("makeGraphUDF", dict(mesh=mesh), _UNPORTED)
     if fetches is not None and isinstance(fetches, str):
         # a bare string would be list()-split into characters
         raise TypeError(
@@ -99,7 +96,8 @@ def makeGraphUDF(graph, udf_name: str, fetches=None,
             fn, in_cols, [out_col], batch_size=batch_size, device=device,
             prefetch_depth=prefetch_depth, prepare_workers=prepare_workers,
             fuse_steps=fuse_steps, dispatch_depth=dispatch_depth,
-            wire_codec=knobs.get("wireCodec"))
+            wire_codec=wire_codec, cache_dir=cache_dir,
+            device_cache=device_cache)
 
     frame_fn = metered(udf_name, run)
 
