@@ -28,7 +28,7 @@ from tpudl.ml import KerasImageFileTransformer as JaxKIFT  # noqa: E402
 from tpudl.ml import LMFeaturizer as JaxFeaturizer  # noqa: E402
 from tpudl.text import ByteTokenizer as JaxByte  # noqa: E402
 from tpudl.zoo.transformer import TinyCausalLM as JaxLM  # noqa: E402
-from tpudl_torch.data import U8Codec  # noqa: E402
+from tpudl_torch.data import BF16Codec, Dataset, U8Codec  # noqa: E402
 from tpudl_torch.data import device_cache as dc  # noqa: E402
 from tpudl_torch.frame import Frame  # noqa: E402
 from tpudl_torch.image import imageIO  # noqa: E402
@@ -93,6 +93,22 @@ def _ours(x, **kw):
 def test_cold_warm_resident_are_bitwise(tmp_path, codec):
     x = _x()
     base = _ours(x, wire_codec=codec)
+    # the uncached run with a fixed codec against tpudl's on the same
+    # input: bitwise, but for u8, whose prologue XLA fuses into fn
+    # (reassociated). 'auto' picks from each package's own measured wire
+    # (tpudl times a host-to-host device_put here; the port has no card)
+    if codec != "auto":
+        theirs = np.stack(list(JaxFrame({"x": x}).map_batches(
+            _jax_fn, ["x"], ["y"], batch_size=8, wire_codec=codec,
+            autotune=False)["y"]))
+        if codec == "u8":
+            np.testing.assert_allclose(base, theirs, rtol=2e-7, atol=0)
+        else:
+            assert np.array_equal(base, theirs)
+    if codec == "bf16":   # lossy by design, within the codec's round trip
+        plain = _ours(x)
+        np.testing.assert_allclose(base, plain, rtol=BF16Codec.RTOL, atol=0)
+        assert not np.array_equal(base, plain)
     pack = _Pack()
     kw = dict(wire_codec=codec, cache_dir=str(tmp_path), pack=pack)
     assert np.array_equal(_ours(x, **kw), base)           # cold
@@ -112,6 +128,33 @@ def test_cold_warm_resident_are_bitwise(tmp_path, codec):
     rep = last_pipeline_report()
     assert rep["stage_calls"].get("hbm_hits") == 5
     assert rep["device_cache"] is True and rep["fuse_steps"] == 1
+
+
+def test_device_cache_is_keyed_by_device(monkeypatch):
+    """A run on another device misses what this one left resident: the
+    run key names the device (a hit would hand this run tensors on the
+    wrong device)."""
+    x = _x()
+    base = _ours(x)
+    pack = _Pack()
+    real = dc.device_token
+    monkeypatch.setattr(dc, "device_token", lambda d: "cuda:1")
+    assert np.array_equal(_ours(x, pack=pack, device_cache=True), base)
+    keys = list(dc.get_device_cache()._entries)
+    assert keys and all(k[0].endswith("|mesh=single|dev=cuda:1")
+                        for k in keys)
+    monkeypatch.setattr(dc, "device_token", real)
+    assert np.array_equal(_ours(x, pack=pack, device_cache=True), base)
+    assert pack.calls == 10                # the CPU run packed anew
+    assert not last_pipeline_report()["stage_calls"].get("hbm_hits")
+    assert np.array_equal(_ours(x, pack=pack, device_cache=True), base)
+    assert pack.calls == 10                # and its own entries hit
+    assert last_pipeline_report()["stage_calls"]["hbm_hits"] == 5
+    assert {k[0].rsplit("|dev=", 1)[1]
+            for k in dc.get_device_cache()._entries} == {"cuda:1", "cpu"}
+    ds = Dataset(Frame({"x": x}), ["x"], batch_size=8, device_cache=True,
+                 device="cpu")
+    assert ds._dkey.endswith("|mesh=single|dev=cpu")
 
 
 def test_fuse_steps_and_env_knobs(tmp_path, monkeypatch):
@@ -244,6 +287,39 @@ def test_uint8_loader_transformer_matches_tpudl(tmp_path, jpegs, functional):
         device="cpu", imageLoader=ours_u8, wireCodec=U8Codec(1 / 255), **kw)
     assert np.array_equal(np.stack(list(explicit.transform(frame)["out"])),
                           f32)
+
+
+def test_device_cache_rekeys_an_image_rewritten_in_place(tmp_path,
+                                                        functional):
+    """With ``deviceCache`` alone, the resident batches are keyed on the
+    files' path+size+mtime, as the shard cache is: an image rewritten at
+    the same path is decoded anew, not replayed from the device."""
+    rng = np.random.default_rng(5)
+    uris = np.array([str(tmp_path / f"im{i}.jpg") for i in range(4)],
+                    dtype=object)
+    for u in uris:
+        Image.fromarray(rng.integers(0, 256, (20, 24, 3),
+                                     dtype=np.uint8)).save(u)
+    loader = imageIO.createNativeImageLoader(17, 15, scale=1 / 255,
+                                             output_dtype="uint8")
+    kw = dict(inputCol="uri", outputCol="out", modelFile=functional,
+              batchSize=4, device="cpu", imageLoader=loader)
+
+    def run(**extra):
+        return np.stack(list(KerasImageFileTransformer(**kw, **extra)
+                             .transform(Frame({"uri": uris}))["out"]))
+
+    first = run(deviceCache=True)
+    assert np.array_equal(run(deviceCache=True), first)
+    assert last_pipeline_report()["stage_calls"]["hbm_hits"] == 1
+    Image.fromarray(rng.integers(0, 256, (30, 24, 3),
+                                 dtype=np.uint8)).save(uris[0])
+    st = os.stat(uris[0])
+    os.utime(uris[0], ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    got = run(deviceCache=True)
+    assert not last_pipeline_report()["stage_calls"].get("hbm_hits")
+    assert np.array_equal(got, run())
+    assert not np.array_equal(got, first)
 
 
 @pytest.mark.parametrize("decoder", ["native", "PIL"])

@@ -132,6 +132,11 @@ def test_budget_without_a_card(monkeypatch):
     assert dc.DEFAULT_BUDGET_BYTES == jdc.DEFAULT_BUDGET_BYTES
     assert dc.DEFAULT_BUDGET_FRACTION == jdc.DEFAULT_BUDGET_FRACTION
     assert dc.run_key("abc") == jdc.run_key("abc", None)
+    # the port's key also names the device the entries live on
+    assert (dc.run_key("abc", device="cpu")
+            == jdc.run_key("abc", None) + "|dev=cpu")
+    assert (dc.run_key("abc", device="cuda:1")
+            != dc.run_key("abc", device="cuda:0"))
     with pytest.raises(NotImplementedError, match="Training, rest"):
         dc.run_key("abc", mesh=object())
 

@@ -33,6 +33,7 @@ from tpudl.udf import register_text_udfs as jax_text_udfs  # noqa: E402
 from tpudl.udf.keras_image_model import \
     registerKerasImageUDF as jax_keras_image_udf  # noqa: E402
 from tpudl.zoo.transformer import TinyCausalLM as JaxLM  # noqa: E402
+from tpudl_torch.data import BF16Codec  # noqa: E402
 from tpudl_torch.frame import Frame, sql  # noqa: E402
 from tpudl_torch.image import imageIO  # noqa: E402
 from tpudl_torch.ingest import TFInputGraph  # noqa: E402
@@ -128,16 +129,28 @@ def test_make_graph_udf_refusals(files):
     x = np.random.default_rng(0).normal(size=(6, 100)).astype(np.float32)
     want = makeGraphUDF(g, "plain", device="cpu", register=False)(
         Frame({"input_layer": x}))["plain_out"]
+    ref = np.stack(list(want))
+    # bf16 on the wire is lossy by design: held to tpudl's bf16 UDF on the
+    # same input within RTOL (the same restored inputs, f32 products in
+    # another order), and to the plain UDF within BF16Codec.RTOL of max |y|
+    theirs = jax_makeGraphUDF(JaxTFInputGraph.fromKeras(files["mlp"]),
+                              "knob", register=False, batch_size=4,
+                              wire_codec="bf16")
+    theirs_bf16 = _stack(theirs(JaxFrame({theirs.input_col: x}))
+                         [theirs.output_col])
     with tempfile.TemporaryDirectory() as d:
         for knob, value in (("cache_dir", d), ("device_cache", True),
                             ("wire_codec", "bf16")):
             udf = makeGraphUDF(g, "knob", device="cpu", register=False,
                                batch_size=4, **{knob: value})
             for _ in range(2):
-                got = udf(Frame({"input_layer": x}))["knob_out"]
-                got, ref = np.stack(list(got)), np.stack(list(want))
-                if knob == "wire_codec":   # bf16 inputs: lossy by design
+                got = np.stack(list(
+                    udf(Frame({"input_layer": x}))["knob_out"]))
+                if knob == "wire_codec":
                     assert got.shape == ref.shape
+                    assert _rel(got, theirs_bf16) <= RTOL
+                    assert _rel(got, ref) <= BF16Codec.RTOL
+                    assert not np.array_equal(got, ref)   # it was restored
                 else:
                     assert np.array_equal(got, ref)
     with pytest.raises(RuntimeError, match="cuda"):   # default: the card

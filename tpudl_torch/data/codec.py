@@ -505,15 +505,13 @@ class CodecPlan:
             self._report.gauge("wire_batch_bytes", shipped)
 
     # -- device side -------------------------------------------------------
-    def wrap(self, fn, donate: bool = False):
+    def wrap(self, fn):
         """``fn`` with the per-column prologues in front: the returned
         function restores its LAST ``n_cols`` positional arguments (the
         columns) and passes any leading ones through, so a loss
         ``loss_fn(model, tokens)`` wraps as well as a batch function.
-        Identity-only plans return ``fn`` itself. ``donate`` is accepted
-        for tpudl's signature; a torch function holds no buffers to
-        donate."""
-        del donate
+        Identity-only plans return ``fn`` itself. tpudl's ``donate`` is
+        not taken: a torch function holds no buffers to donate."""
         codecs = list(self._codecs)
         if any(c is None for c in codecs):
             raise CodecError("codec plan not resolved (no batch encoded "

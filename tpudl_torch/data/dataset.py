@@ -21,11 +21,96 @@ estimator's bulk load rides :func:`cached_uri_load`).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 
 from tpudl_torch.image.imageIO import _callable_token, _uri_fingerprint
 
-__all__ = ["Dataset", "cached_uri_load"]
+__all__ = ["Dataset", "cached_uri_load", "fetch_batch"]
+
+
+def fetch_batch(index: int, prepare, *, plan=None, shard_cache=None,
+                device_cache=None, run=None, device=None, pad=None,
+                report=None, ship: bool = True):
+    """One batch through the data layer's lookup chain: the device cache
+    (resident tensors; nothing crosses the wire) → the shard cache (a
+    memory-mapped read) → ``prepare()`` (pack and encode; persisted when
+    a shard cache is set) → resident on ``device`` when the device cache
+    admits it, so the bytes cross once. ``Frame.map_batches`` and
+    :class:`Dataset` both fetch through here.
+
+    Returns ``(arrays, n_pad, pin)``. ``pin`` is the device cache's
+    :class:`~tpudl_torch.data.device_cache.Pin` on the entry whose
+    tensors ``arrays`` are, which the caller releases once it is done
+    with them; None means ``arrays`` are host numpy. ``run`` is the
+    entry's :func:`~tpudl_torch.data.device_cache.run_key`. ``pad(arrays)
+    -> (arrays, n_pad)`` runs on a host batch before it is placed (the
+    executor's bucket pad). ``report`` (a ``PipelineReport``) gets the
+    hit, miss and byte counts. ``ship=False`` is a probe: no wire
+    accounting and no placement."""
+    from tpudl_torch.data import device_cache as _dc
+    from tpudl_torch.data.codec import host_tensor
+
+    def count(name, value=1):
+        if report is not None:
+            report.count(name, value)
+
+    if device_cache is not None:
+        hit = device_cache.get((run, index))
+        if hit is not None and (plan is None or plan.resolved()
+                                or hit.codecs):
+            if plan is not None and not plan.resolved():
+                plan.adopt(hit.codecs)
+            # resident replay: nothing crosses the wire, so
+            # record_shipped is deliberately not called
+            count("bytes_hbm_hit", hit.nbytes)
+            count("hbm_hits")
+            return list(hit.arrays), hit.n_pad, hit
+        if hit is not None:
+            hit.release()  # unusable hit: its codecs are unknown
+    arrays = None
+    if shard_cache is not None:
+        hit = shard_cache.get(index)
+        # an all-hits replay still needs resolved codecs; a cache whose
+        # writer died before persisting them re-prepares
+        if hit is not None and (plan is None or plan.resolved()):
+            count("cache_hits")
+            arrays = list(hit)
+        else:
+            count("cache_misses")
+    if arrays is None:
+        arrays = list(prepare())
+        if shard_cache is not None:
+            shard_cache.put(index, arrays)
+            if (plan is not None and plan.resolved()
+                    and not shard_cache.meta.get("codecs")):
+                shard_cache.set_meta({"codecs": plan.keys()})
+    if not ship:
+        return arrays, 0, None
+    if plan is not None:
+        plan.record_shipped(arrays)
+    count("bytes_prepared", int(sum(int(a.nbytes) for a in arrays)))
+    n_pad = 0
+    if pad is not None:
+        arrays, n_pad = pad(arrays)
+    if device_cache is not None and device_cache.would_fit(
+            sum(int(a.nbytes) for a in arrays), run=run):
+        import torch
+
+        dev = torch.device(device)
+        with (report.stage("h2d") if report is not None
+              else contextlib.nullcontext()):
+            placed = _dc.place([host_tensor(a, pin=dev.type == "cuda")
+                                for a in arrays], dev)
+        if placed is not None:
+            codecs = (plan.keys() if plan is not None and plan.resolved()
+                      else None)
+            pin = device_cache.put((run, index), placed, n_pad=n_pad,
+                                   codecs=codecs)
+            if pin is not None:
+                return list(pin.arrays), n_pad, pin
+    return arrays, n_pad, None
 
 
 # copied from tpudl/data/dataset.py:_loader_token
@@ -141,7 +226,7 @@ class Dataset:
             from tpudl_torch.device import resolve_device
 
             self._device = resolve_device(device)
-            self._dkey = _dc.run_key(key)
+            self._dkey = _dc.run_key(key, device=self._device)
             self._dcache = _dc.get_device_cache()
 
     # -- shape -------------------------------------------------------------
@@ -179,72 +264,24 @@ class Dataset:
     def get_batch(self, index: int) -> tuple:
         """One prepared (encoded) batch by index: device cache (zero wire
         bytes) → shard cache → memory → prepare (+persist
-        +make-resident)."""
-        if self._dcache is not None:
-            pin = self._dcache.get((self._dkey, index))
-            if pin is not None and (self._plan is None
-                                    or self._plan.resolved()
-                                    or pin.codecs):
-                if self._plan is not None and not self._plan.resolved():
-                    self._plan.adopt(pin.codecs)
-                # resident replay: nothing crosses the wire, so
-                # record_shipped is deliberately not called; the pin
-                # releases at once — the consumer's own reference keeps
-                # the tensors alive
-                pin.release()
-                return pin.arrays
-            if pin is not None:
-                pin.release()  # unusable hit (codec resolution lost)
-        if self._cache is not None:
-            hit = self._cache.get(index)
-            if hit is not None and (self._plan is None
-                                    or self._plan.resolved()):
-                if self._plan is not None and not self._resolving:
-                    self._plan.record_shipped(hit)
-                return self._make_resident(index, tuple(hit))
-        elif index in self._memory:
-            batch = self._memory[index]
-            if self._plan is not None and not self._resolving:
-                self._plan.record_shipped(batch)
-            return self._make_resident(index, batch)
-        batch = self._prepare(index)
-        if self._plan is not None and not self._resolving:
-            self._plan.record_shipped(batch)
-        if self._cache is not None:
-            self._cache.put(index, batch)
-            if self._plan is not None and self._plan.resolved() \
-                    and not self._cache.meta.get("codecs"):
-                self._cache.set_meta({"codecs": self._plan.keys()})
-        elif self._retain:
-            self._memory[index] = batch
-        return self._make_resident(index, batch)
+        +make-resident), through :func:`fetch_batch`."""
+        def prepare():
+            if index in self._memory:
+                return self._memory[index]
+            batch = self._prepare(index)
+            if self._retain:
+                self._memory[index] = batch
+            return batch
 
-    def _make_resident(self, index: int, batch: tuple) -> tuple:
-        """Place one prepared batch on the device cache's device (the
-        bytes cross the wire exactly once, here) and return the resident
-        tensors, so the consumer's step feeds on them directly. Returns
-        the host batch when the device cache is off, the budget is
-        exhausted or the card runs out of memory. The wrap() probe never
-        places."""
-        from tpudl_torch.data import device_cache as _dc
-        from tpudl_torch.data.codec import host_tensor
-
-        if self._dcache is None or self._resolving:
-            return batch
-        nbytes = sum(int(getattr(a, "nbytes", 0)) for a in batch)
-        if not self._dcache.would_fit(nbytes, run=self._dkey):
-            return batch
-        placed = _dc.place([host_tensor(a, pin=self._device.type == "cuda")
-                            for a in batch], self._device)
-        if placed is None:
-            return batch
-        codecs = (self._plan.keys()
-                  if self._plan is not None and self._plan.resolved()
-                  else None)
-        pin = self._dcache.put((self._dkey, index), placed, codecs=codecs)
+        arrays, _, pin = fetch_batch(
+            index, prepare, plan=self._plan, shard_cache=self._cache,
+            device_cache=self._dcache, run=self._dkey, device=self._device,
+            ship=not self._resolving)
         if pin is not None:
+            # the consumer's own reference keeps the resident tensors
+            # alive; the pin only guards an in-flight dispatch
             pin.release()
-        return placed
+        return tuple(arrays)
 
     def iter_epoch(self, epoch: int = 0):
         """Yield every prepared batch in order. ``epoch`` is a label only:

@@ -10,8 +10,10 @@ Contracts, as in tpudl:
 
 - **identity** — entries are keyed by the shard cache's key material
   (fingerprint or cache_key + input columns + batch size + codec spec +
-  pack token) via :func:`run_key`; the port runs one card per process
-  here, and ``mesh=`` waits for ROADMAP Queue 1's 'Training, rest';
+  pack token) plus the device the batches live on, via :func:`run_key`,
+  so a run on another card (or on the host) misses instead of being
+  handed tensors on the wrong device; ``mesh=`` waits for ROADMAP
+  Queue 1's 'Training, rest';
 - **budget** — ``TPUDL_DATA_HBM_BUDGET_MB`` caps total resident bytes
   (``0`` means none), else :data:`DEFAULT_BUDGET_FRACTION` of the card's
   memory (``torch.cuda.get_device_properties(d).total_memory``), else
@@ -27,7 +29,8 @@ Contracts, as in tpudl:
 
 Counters and gauges are tpudl's: ``data.hbm.bytes_resident`` /
 ``budget_bytes``, ``hits`` / ``misses`` / ``puts`` / ``evictions`` /
-``bytes_served`` / ``put_failed`` / ``donation_blocked``. tpudl's
+``bytes_served`` / ``put_failed`` (a torch function donates nothing, so
+tpudl's ``donation_blocked`` has no counterpart). tpudl's
 attribution ledger is not ported (ROADMAP Queue 1, 'The rest of
 observability'), nor is the supervisor's ``evict_unpinned`` on OOM
 ('Jobs, faults and the supervisor').
@@ -47,8 +50,8 @@ from tpudl_torch.obs import metrics as _m
 
 __all__ = ["DeviceBatchCache", "Pin", "get_device_cache",
            "reset_device_cache", "run_key", "budget_bytes",
-           "bulk_resident", "array_token", "count_donation_blocked",
-           "count_put_failed", "place",
+           "bulk_resident", "array_token", "count_put_failed",
+           "device_token", "place",
            "DEFAULT_BUDGET_BYTES", "DEFAULT_BUDGET_FRACTION"]
 
 # when no card reports its memory (the CPU), stay conservative: enough
@@ -87,14 +90,29 @@ def budget_bytes(allow_device: bool = True) -> int | None:
     return derived
 
 
-def run_key(material_key: str, mesh=None) -> str:
+def device_token(device) -> str:
+    """``device`` as the device cache names it: a card without an index
+    is the current one, so ``"cuda"`` and ``"cuda:0"`` share entries."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def run_key(material_key: str, mesh=None, device=None) -> str:
     """One run's device-cache namespace: the shard-cache key string
-    extended with the topology, as in tpudl (``|mesh=single``)."""
+    extended with the topology (``|mesh=single``, as in tpudl) and the
+    device the entries live on (``|dev=cuda:0``). tpudl puts its mesh's
+    device ids there; without the device, a run on one card would replay
+    the tensors another run left on a different card or on the host."""
     if mesh is not None:
         raise NotImplementedError(
             "the device cache under mesh= is not ported to tpudl_torch yet "
             "(ROADMAP Queue 1, 'Training, rest')")
-    return f"{material_key}|mesh=single"
+    key = f"{material_key}|mesh=single"
+    if device is not None:
+        key += f"|dev={device_token(device)}"
+    return key
 
 
 _TOKEN_MEMO: dict = {}
@@ -425,13 +443,6 @@ def count_put_failed() -> None:
     of device memory; the batch fell back to the plain wire path. This
     counter is the operator's evidence that residency is degrading."""
     _m.counter("data.hbm.put_failed").inc()
-
-
-def count_donation_blocked() -> None:
-    """One resident batch was routed away from a donating program. A torch
-    function donates nothing, so the port never counts it; the name stays
-    for tpudl's counter set."""
-    _m.counter("data.hbm.donation_blocked").inc()
 
 
 def place(tensors, device) -> tuple | None:

@@ -799,7 +799,7 @@ class Frame:
             if dc_flag:
                 from tpudl_torch.data import device_cache as _dc
 
-                dkey = _dc.run_key(key_str)
+                dkey = _dc.run_key(key_str, device=dev)
                 dcache = _dc.get_device_cache()
                 # residency replaces fusion: a fused replay copies host
                 # microbatches into its graph's static input
@@ -831,94 +831,58 @@ class Frame:
         _pipeline.set_last_pipeline(report)
         pin_host = dev.type == "cuda"
 
+        def pack_encode(start, stop):
+            """Pack, check and encode one batch's columns (host numpy)."""
+            packed = []
+            for ci, c in enumerate(input_cols):
+                sl = self._cols[c][start:stop]
+                arr = pack(sl) if pack is not None else _default_pack(sl)
+                if check_finite and np.issubdtype(arr.dtype, np.floating):
+                    bad = ~np.isfinite(arr).reshape(arr.shape[0], -1).all(1)
+                    if bad.any():
+                        rows = (np.nonzero(bad)[0][:8] + start).tolist()
+                        raise ValueError(
+                            f"non-finite values in column {c!r}, "
+                            f"rows {rows} (batch {start}:{stop})")
+                if plan is not None:
+                    arr = plan.encode(ci, arr)
+                packed.append(arr)
+            return packed
+
+        def bucket_pad(packed):
+            """Pad one batch up to its bucket: ``(arrays, n_pad)``."""
+            if not packed:
+                return packed, 0
+            rows_b = int(packed[0].shape[0])
+            target = ladder.pick(rows_b)
+            if target <= rows_b:
+                return packed, 0
+            n_pad = target - rows_b
+            report.count("bucket_pad_rows", n_pad)
+            _bk.count_pad_rows(n_pad)
+            return [_bk.pad_to(a, target) for a in packed], n_pad
+
         def prepare(start, stop):
-            """Pack, check, encode, bucket-pad and pin one batch: on a
-            prepare-pool thread when prefetching. Returns ``(tensors,
-            n_pad, pin)``. A device-cache hit skips everything (its
-            tensors are already on the device; ``pin`` marks it); a
-            shard-cache hit replaces pack, check and encode by a
-            memory-mapped read; a batch that becomes resident is copied
-            to the device here, once."""
+            """Bring one batch through the data layer's lookup chain
+            (:func:`tpudl_torch.data.dataset.fetch_batch`) and pin its
+            host tensors: on a prepare-pool thread when prefetching.
+            Returns ``(tensors, n_pad, pin)``; ``pin`` marks a batch that
+            is resident on the device, held until its dispatch is done."""
             from tpudl_torch.data.codec import host_tensor
+            from tpudl_torch.data.dataset import fetch_batch
 
             with report.stage("prepare"):
-                bidx = start // batch_size
-                if dcache is not None:
-                    hit = dcache.get((dkey, bidx))
-                    if hit is not None and (plan is None or plan.resolved()
-                                            or hit.codecs):
-                        if plan is not None and not plan.resolved():
-                            plan.adopt(hit.codecs)
-                        pins.add(hit)
-                        report.count("bytes_hbm_hit", hit.nbytes)
-                        report.count("hbm_hits")
-                        return list(hit.arrays), hit.n_pad, hit
-                    if hit is not None:
-                        hit.release()  # unusable hit: codecs unknown
-                packed = None
-                if cache is not None:
-                    hit = cache.get(bidx)
-                    # an all-hits replay still needs resolved codecs; a
-                    # cache whose writer died before persisting them
-                    # re-prepares
-                    if hit is not None and (plan is None or plan.resolved()):
-                        report.count("cache_hits")
-                        packed = list(hit)
-                if packed is None:
-                    if cache is not None:
-                        report.count("cache_misses")
-                    packed = []
-                    for ci, c in enumerate(input_cols):
-                        sl = self._cols[c][start:stop]
-                        arr = (pack(sl) if pack is not None
-                               else _default_pack(sl))
-                        if check_finite and np.issubdtype(arr.dtype,
-                                                          np.floating):
-                            bad = ~np.isfinite(arr).reshape(
-                                arr.shape[0], -1).all(1)
-                            if bad.any():
-                                rows = (np.nonzero(bad)[0][:8]
-                                        + start).tolist()
-                                raise ValueError(
-                                    f"non-finite values in column {c!r}, "
-                                    f"rows {rows} (batch {start}:{stop})")
-                        if plan is not None:
-                            arr = plan.encode(ci, arr)
-                        packed.append(arr)
-                    if cache is not None:
-                        cache.put(bidx, packed)
-                        if (plan is not None and plan.resolved()
-                                and not cache.meta.get("codecs")):
-                            cache.set_meta({"codecs": plan.keys()})
-                if plan is not None:
-                    plan.record_shipped(packed)
-                report.count("bytes_prepared",
-                             int(sum(int(a.nbytes) for a in packed)))
-                n_pad = 0
-                if ladder is not None and packed:
-                    rows_b = int(packed[0].shape[0])
-                    target = ladder.pick(rows_b)
-                    if target > rows_b:
-                        packed = [_bk.pad_to(a, target) for a in packed]
-                        n_pad = target - rows_b
-                        report.count("bucket_pad_rows", n_pad)
-                        _bk.count_pad_rows(n_pad)
-                tensors = [host_tensor(a, pin=pin_host) for a in packed]
-                if dcache is not None and dcache.would_fit(
-                        sum(int(t.nbytes) for t in tensors), run=dkey):
-                    # the batch becomes resident now, and the resident
-                    # tensors feed this dispatch: the bytes cross once
-                    with report.stage("h2d"):
-                        placed = _dc.place(tensors, dev)
-                    if placed is not None:
-                        codecs = (plan.keys() if plan is not None
-                                  and plan.resolved() else None)
-                        put = dcache.put((dkey, bidx), placed, n_pad=n_pad,
-                                         codecs=codecs)
-                        if put is not None:
-                            pins.add(put)
-                            return list(put.arrays), n_pad, put
-                return tensors, n_pad, None
+                arrays, n_pad, pin = fetch_batch(
+                    start // batch_size, lambda: pack_encode(start, stop),
+                    plan=plan, shard_cache=cache, device_cache=dcache,
+                    run=dkey, device=dev,
+                    pad=bucket_pad if ladder is not None else None,
+                    report=report)
+                if pin is not None:
+                    pins.add(pin)
+                    return arrays, n_pad, pin
+                return ([host_tensor(a, pin=pin_host) for a in arrays],
+                        n_pad, None)
 
         # device-cache pins outstanding (hits and fresh entries awaiting
         # their dispatch): each is released when its batch is done, and

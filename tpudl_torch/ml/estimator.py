@@ -168,7 +168,7 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         # content tokens in the RUN component (key[0]), so a new
         # dataset's bulk can evict a finished one's
         key = (f"estimator-bulk|{_dc.array_token(X)}|"
-               f"{_dc.array_token(y)}|{dev}", 0)
+               f"{_dc.array_token(y)}|{_dc.device_token(dev)}", 0)
         return _dc.bulk_resident(key, (X, y), device=dev)
 
     def _train_one(self, gin, X, y, device=None):

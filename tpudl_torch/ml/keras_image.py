@@ -108,9 +108,15 @@ class KerasImageFileTransformer(Transformer, HasInputCol, HasOutputCol,
                     f"but wireCodec={opts['wire_codec']!r} would skip it; "
                     "drop wireCodec (the matching u8 codec installs "
                     "automatically) or pass U8Codec(scale=...) explicitly")
-        if opts.get("cache_dir") or os.environ.get("TPUDL_DATA_CACHE_DIR"):
+        dc_on = (bool(opts["device_cache"])
+                 if opts.get("device_cache") is not None
+                 else os.environ.get("TPUDL_DATA_DEVICE_CACHE", "0") == "1")
+        if (opts.get("cache_dir") or os.environ.get("TPUDL_DATA_CACHE_DIR")
+                or dc_on):
             # URI columns name files the frame fingerprint cannot see
-            # into: key the cache on path+size+mtime
+            # into: key the shard cache AND the device cache on
+            # path+size+mtime, so a file rewritten in place re-keys
+            # (tpudl keys residency on the URI strings alone)
             opts["cache_key"] = _uri_fingerprint(frame[self.getInputCol()])
         with torch.inference_mode():
             out = frame.map_batches(
