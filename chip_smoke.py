@@ -205,6 +205,25 @@ Phases (any failure exits non-zero before the final line):
    tokenization warm, 12 launches a batch, features bit for bit); the
    phase's seconds.
 
+14. Drive the data-parallel mesh (``tpudl_torch.mesh``) at full width: a
+   one-card mesh (``build_mesh(devices=["cuda:0"])``), the one-card
+   rehearsal of two entries (``["cuda:0", "cuda:0"]``: two replicas, each
+   on half of every batch) and, where more than one card is visible, the
+   mesh of every card. ``DeepImageFeaturizer("InceptionV3")`` over 512
+   structs at 299x299, f32 and bf16, each mesh and its ``fuseSteps=4`` arm
+   beside the stage without a mesh (the one-card mesh bit for bit, the
+   others within 2e-5 of max |y| in f32 and 1e-2 in bf16), images/s of every arm over 5 windows
+   with the arms in turn; ``LMFeaturizer`` at phase 4's width over 69
+   texts (the one-card mesh bit for bit, the others within 1e-4 of max
+   |y|; 12 forward launches a batch on every entry; the report's mesh and
+   pad rows on the ragged tail; the fused arm); configs[2]'s
+   ``KerasImageFileEstimator.fit`` over each mesh of two or more entries
+   against the fit on one card (losses within 2e-5) and its first-step
+   gradients against float64 (1e-2 of the largest), ``fitMultiple`` with
+   2 trials over 2 entries; ``Dataset(mesh=)`` with its second epoch
+   resident and 0 bytes shipped; with several cards, the forward kernel
+   against its plain version on every card; the phase's seconds.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
@@ -216,7 +235,8 @@ alone. ``python3 chip_smoke.py --keras-only`` runs phase 1 and then phase 9
 alone. ``python3 chip_smoke.py --surface-only`` runs phase 1 and then
 phase 10 alone. ``python3 chip_smoke.py --graph-only`` runs phase 1 and then phase 11
 alone. ``python3 chip_smoke.py --keras2-only`` runs phase 1 and then
-phase 12 alone, and ``--data-only`` phase 1 and then phase 13.
+phase 12 alone, ``--data-only`` phase 1 and then phase 13, and
+``--mesh-only`` phase 1 and then phase 14.
 ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -5029,6 +5049,484 @@ def run_data_layer(card):
             "lm_featurize_cached": feat_counts}
 
 
+# -- phase 14: the data-parallel mesh (PR 15) --------------------------------
+MESH_DEVICE = "cuda:0"        # the card of the one-card mesh and rehearsal
+MESH_FUSE = 4
+MESH_LM_ROWS = 69             # 5 batches of 16: the tail of 5 pads to 2
+# of max |y|: f32 as phase 6 holds images; a bf16 shard at half the batch
+# runs other cuDNN bf16 algorithms, each product rounded to 8 bits (one
+# bf16 ulp is 2^-8 = 3.9e-3), so bf16 is held to ~2.5 ulps
+MESH_IMAGE_RTOL = {"float32": IMAGE_CPU_RTOL, "bfloat16": 1e-2}
+MESH_LM_RTOL = 1e-4                # of max |y|, phase 4's 1e-4
+MESH_TRIAL_JPEGS = 32
+MESH_DATASET_ROWS = 512
+
+
+def mesh_cases():
+    """The meshes of phase 14: ``(label, mesh, exact)``. A one-card mesh
+    (held bit for bit to the run without a mesh), the one-card rehearsal
+    of two entries, and, where more than one card is visible, the mesh of
+    every card."""
+    from tpudl_torch import mesh as M
+
+    cases = [("one-card mesh", M.build_mesh(devices=[MESH_DEVICE]), True),
+             ("2 entries of one card",
+              M.build_mesh(devices=[MESH_DEVICE, MESH_DEVICE]), False)]
+    n = torch.cuda.device_count()
+    if n > 1:
+        cases.append((f"{n}-card mesh", M.build_mesh(
+            devices=[f"cuda:{i}" for i in range(n)]), False))
+    return cases
+
+
+def mesh_image_leg(card, cases, problems):
+    """``DeepImageFeaturizer("InceptionV3")`` over IMAGE_ROWS structs at
+    299x299 in f32 and bf16: each mesh's stage (and its fuseSteps arm)
+    against the stage without a mesh, and images/s of every arm over
+    IMAGE_WINDOWS windows with the arms in turn. Returns {dtype: {arm:
+    median images/s}}."""
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer
+    from tpudl_torch.obs import last_pipeline_report
+
+    frame = Frame({"image": image_structs(IMAGE_ROWS, (299, 299, 3), SEED)})
+    common = dict(inputCol="image", outputCol="f", modelName=IMAGE_MODEL,
+                  weights="random", batchSize=IMAGE_BATCH)
+    medians = {}
+    for dtype_name in ("float32", "bfloat16"):
+        stages = {"mesh=None": DeepImageFeaturizer(
+            computeDtype=dtype_name, device=MESH_DEVICE, **common),
+            "mesh=None, fused": DeepImageFeaturizer(
+                computeDtype=dtype_name, device=MESH_DEVICE,
+                fuseSteps=MESH_FUSE, **common)}
+        for label, mesh, _exact in cases:
+            stages[label] = DeepImageFeaturizer(
+                computeDtype=dtype_name, mesh=mesh, **common)
+            if label != "2 entries of one card":
+                stages[f"{label}, fused"] = DeepImageFeaturizer(
+                    computeDtype=dtype_name, mesh=mesh, fuseSteps=MESH_FUSE,
+                    **common)
+        ys, reports = {}, {}
+        for arm, stage in stages.items():
+            t0 = time.perf_counter()
+            ys[arm] = np.stack(list(stage.transform(frame)["f"]))
+            torch.cuda.synchronize()
+            reports[arm] = last_pipeline_report()
+            print(f"  {IMAGE_MODEL} {dtype_name} {arm}: first transform "
+                  f"(loads, replicates, captures) "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        with executor_arm("serial"):
+            serial = np.stack(list(stages["one-card mesh"].transform(
+                frame)["f"]))
+        want = ys["mesh=None"]
+        for arm, y in ys.items():
+            if y.shape != want.shape or not np.isfinite(y).all():
+                problems.append(f"image {dtype_name} {arm}: output "
+                                f"{y.shape}")
+                continue
+            if arm.startswith("mesh=None"):
+                continue
+            if arm in ("one-card mesh", "one-card mesh, fused"):
+                ref = "mesh=None" + arm[len("one-card mesh"):]
+                same = np.array_equal(y, ys[ref])
+                print(f"  {dtype_name} {arm} bit for bit {ref}: {same}")
+                if not same:
+                    problems.append(f"image {dtype_name} {arm} differs from "
+                                    f"{ref} by {rel_err(y, ys[ref]):.3e}")
+                continue
+            err = rel_err(y, want)
+            print(f"  {dtype_name} {arm} against mesh=None: {err:.3e} of max"
+                  f" |y| (limit {MESH_IMAGE_RTOL[dtype_name]:g})")
+            if not err <= MESH_IMAGE_RTOL[dtype_name]:
+                problems.append(f"image {dtype_name} {arm} {err:.3e}")
+        print(f"  {dtype_name} one-card mesh, fused against its serial arm: "
+              + check_arm_output(f"image {dtype_name} one-card mesh, fused",
+                                 ys["one-card mesh, fused"], serial, card))
+        for arm, rep in reports.items():
+            if "fused" in arm and not rep["stage_calls"].get(
+                    "fused_dispatches"):
+                problems.append(f"image {dtype_name} {arm} fused nothing")
+        rates, _, _ = interleaved_windows(
+            stages, lambda st: np.stack(list(st.transform(frame)["f"])),
+            IMAGE_ROWS)
+        medians[dtype_name] = {}
+        for arm, r in rates.items():
+            medians[dtype_name][arm] = median(r)
+            print(f"  {IMAGE_MODEL} {dtype_name} {arm}: {len(r)} windows "
+                  f"(arms in turn): median {median(r):.1f} images/s (least "
+                  f"{min(r):.1f}, most {max(r):.1f}); mesh "
+                  f"{reports[arm]['mesh']}; card {card}")
+    return medians
+
+
+def mesh_lm_leg(card, cases, problems):
+    """``LMFeaturizer`` at phase 4's width over MESH_LM_ROWS texts, batch
+    BATCH: each mesh against the stage without a mesh, the flash forward
+    launches of a counted run (LAYERS a batch on every entry), the
+    fused arm on the one-card mesh, and the report's pad rows on the
+    ragged tail. Returns {path: launch counts} of the counted runs."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.obs import last_pipeline_report
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    frame = Frame({"text": make_texts(MESH_LM_ROWS, SEED)})
+    n_batches = -(-MESH_LM_ROWS // BATCH)
+    common = dict(inputCol="text", outputCol="v", model=spec,
+                  weights=weights, tokenizer=ByteTokenizer(),
+                  batchSize=BATCH)
+    arms = [("mesh=None", None, {}), ("one-card mesh, fused", cases[0][1],
+                                     {"fuseSteps": MESH_FUSE})]
+    arms += [(label, mesh, {}) for label, mesh, _ in cases]
+    ys, counts = {}, {}
+    for arm, mesh, knobs in arms:
+        where = {"mesh": mesh} if mesh is not None else \
+            {"device": MESH_DEVICE}
+        stage = LMFeaturizer(**common, **where, **knobs)
+        stage.transform(frame)             # loads, replicates, captures
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ys[arm] = y = np.stack(list(stage.transform(frame)["v"]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rep = last_pipeline_report()
+        counts[arm] = dict(cuda_ops.launch_counts)
+        entries = 1 if mesh is None else mesh.size
+        want = LAYERS * n_batches * entries
+        pad = 0 if mesh is None else (-(MESH_LM_ROWS % BATCH)) % mesh.size
+        print(f"  LMFeaturizer {arm}: {MESH_LM_ROWS / dt:.1f} rows/s; flash "
+              f"forward launches {counts[arm]['flash_attn_fwd']} (want "
+              f"{LAYERS} x {n_batches} batches x {entries} entries); report "
+              f"mesh {rep['mesh']}, mesh_pad_rows_max "
+              f"{rep.get('mesh_pad_rows_max')} (want {pad if mesh else None})"
+              f", fused {rep['stage_calls'].get('fused_dispatches', 0)}; "
+              f"card {card}", flush=True)
+        if counts[arm]["flash_attn_fwd"] != want or \
+                counts[arm]["flash_attn_bwd_dq"] or \
+                counts[arm]["flash_attn_bwd_dkv"]:
+            problems.append(f"LMFeaturizer {arm} launches {counts[arm]}")
+        if mesh is not None and (rep["mesh"] != mesh.shape
+                                 or rep["mesh_pad_rows_max"] != pad):
+            problems.append(f"LMFeaturizer {arm} report {rep['mesh']} "
+                            f"{rep.get('mesh_pad_rows_max')}")
+        if "fused" in arm and not rep["stage_calls"].get("fused_dispatches"):
+            problems.append(f"LMFeaturizer {arm} fused nothing")
+        if y.shape != (MESH_LM_ROWS, DIM) or not np.isfinite(y).all():
+            problems.append(f"LMFeaturizer {arm} output {y.shape}")
+    want = ys["mesh=None"]
+    for arm, y in ys.items():
+        if arm == "mesh=None":
+            continue
+        if arm == "one-card mesh":
+            same = np.array_equal(y, want)
+            print(f"  LMFeaturizer one-card mesh bit for bit mesh=None: "
+                  f"{same}")
+            if not same:
+                problems.append(f"LMFeaturizer one-card mesh differs by "
+                                f"{rel_err(y, want):.3e}")
+            continue
+        if arm == "one-card mesh, fused":
+            print("  LMFeaturizer one-card mesh, fused: " + check_arm_output(
+                "LMFeaturizer one-card mesh, fused", y, ys["one-card mesh"],
+                card))
+            continue
+        err = rel_err(y, want)
+        print(f"  LMFeaturizer {arm} against mesh=None: {err:.3e} of max "
+              f"|y| (limit {MESH_LM_RTOL:g})")
+        if not err <= MESH_LM_RTOL:
+            problems.append(f"LMFeaturizer {arm} {err:.3e}")
+    return {"mesh_one_card": counts["one-card mesh"],
+            "mesh_two_entries": counts["2 entries of one card"]}
+
+
+def mesh_gradient_check(path, X, y, mesh, card, problems, label):
+    """The first step's gradients of the data-parallel step over ``mesh``
+    (each entry's weighted shard loss backpropagated into its replica,
+    summed onto the first entry: the estimator's ``sharded_backward``) on
+    the rows ``X, y``, against a float64 run of the whole batch on one
+    card."""
+    from tpudl_torch import mesh as M
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.ml.estimator import sharded_backward
+    from tpudl_torch.ml.losses import get_loss
+
+    gin = keras_estimator(path, None, device=MESH_DEVICE)._ingest()
+    loss_fn = get_loss("categorical_crossentropy")
+    p64 = {k: torch.tensor(v, device=MESH_DEVICE, dtype=torch.float64,
+                           requires_grad=True) for k, v in gin.params.items()}
+    with torch.enable_grad(), full_f32():
+        loss64 = loss_fn(gin.make_fn()(p64, torch.tensor(
+            X, device=MESH_DEVICE, dtype=torch.float64)), torch.tensor(
+                y, device=MESH_DEVICE, dtype=torch.float64))
+        loss64.backward()
+    ref_loss = float(loss64.detach())
+    ref = {k: t.grad.cpu().numpy() for k, t in p64.items()}
+    replicas = [{k: torch.tensor(v, device=d, requires_grad=True)
+                 for k, v in gin.params.items()} for d in mesh.devices]
+    with torch.enable_grad(), full_f32():
+        grads, loss = sharded_backward(
+            gin.make_fn(), loss_fn, replicas, M.shard_batch((X, y), mesh),
+            mesh.devices)
+    top = max(np.abs(v).max() for v in ref.values())
+    errs = {k: float(np.abs(grads[k].double().cpu().numpy() - ref[k]).max()
+                     / top) for k in ref}
+    worst = max(errs, key=errs.get)
+    print(f"  {label}: first-step gradients of the data-parallel step "
+          f"against float64 on one card ({len(ref)} variables, largest |g| "
+          f"{top:.4e}): loss {float(loss) - ref_loss:+.3e} off, gradients "
+          f"{errs[worst]:.3e} of the largest at worst ({worst}) (limit "
+          f"{KERAS_GRAD_RTOL:g}); card {card}")
+    if not errs[worst] <= KERAS_GRAD_RTOL:
+        problems.append(f"{label} first-step gradients {errs[worst]:.3e}")
+
+
+def mesh_fit_leg(directory, card, cases, problems):
+    """configs[2]'s ``KerasImageFileEstimator.fit`` (KERAS_JPEGS JPEGs,
+    batch KERAS_BATCH, adam) over each mesh of two or more entries
+    against the fit on one card (losses within KERAS_LOSS_ATOL), its
+    first-step gradients against float64, and ``fitMultiple`` with 2
+    trials over the 2-entry mesh. Over several cards the adam fit's
+    losses are printed and an sgd fit's are held: adam's first steps
+    move every variable by ~lr·sign(g), so a gradient near 0 summed in
+    another order (four shards of 4 rows, NCCL's reduce) can move the
+    other way, as phase 9 found for adam between card and CPU."""
+    from tpudl_torch.image.imageIO import createNativeImageLoader
+    from tpudl_torch.ingest.kerasfile import save_keras_file
+    from tpudl_torch.ml import KerasImageFileEstimator
+
+    config = keras_inception_config()
+    path = save_keras_file(os.path.join(directory, "inception_mesh.keras"),
+                           config, keras_weights(config, SEED))
+    uris, labels = keras_jpegs(directory, KERAS_JPEGS, SEED)
+    frame = keras_frame(uris, labels)
+    loader = createNativeImageLoader(KERAS_SIDE, KERAS_SIDE, scale=1 / 255)
+    written = []
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def estimator(optimizer="adam", **kw):
+        return KerasImageFileEstimator(
+            inputCol="uri", outputCol="out", labelCol="label",
+            imageLoader=loader, modelFile=path, kerasOptimizer=optimizer,
+            kerasLoss="categorical_crossentropy",
+            kerasFitParams={"epochs": 1, "batch_size": KERAS_BATCH}, **kw)
+
+    def where(mesh):
+        return {"mesh": mesh} if mesh is not None else \
+            {"device": MESH_DEVICE}
+
+    try:
+        fits = {}
+        for label, mesh, _exact in [("one card", None, True)] + cases[1:]:
+            est = estimator(**where(mesh))
+            for what in ("cold", "warm"):
+                t0 = time.perf_counter()
+                model = est.fit(frame)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                written.append(model.getModelFile())
+            fits[label] = model.history["step_loss"]
+            print(f"  configs[2] fit over {label} ({KERAS_JPEGS} JPEGs, batch"
+                  f" {KERAS_BATCH}, adam): warm {dt:.3f} s; step losses "
+                  f"{[round(v, 6) for v in fits[label]]}; card {card}",
+                  flush=True)
+            if not np.isfinite(fits[label]).all():
+                problems.append(f"fit over {label}: losses not finite")
+            if mesh is None:
+                continue
+            err = float(np.abs(np.subtract(fits[label],
+                                           fits["one card"])).max())
+            held = len(mesh.distinct_devices()) == 1
+            limit = (f"limit {KERAS_LOSS_ATOL:g}" if held
+                     else "printed: adam")
+            print(f"  fit over {label} against one card: losses {err:.3e} "
+                  f"off at most ({limit})")
+            if held and not err <= KERAS_LOSS_ATOL:
+                problems.append(f"fit over {label} losses {err:.3e}")
+            if not held:
+                sgd = {}
+                for who, m in (("one card", None), (label, mesh)):
+                    fit = estimator("sgd", **where(m)).fit(frame)
+                    written.append(fit.getModelFile())
+                    sgd[who] = fit.history["step_loss"]
+                err = float(np.abs(np.subtract(sgd[label],
+                                               sgd["one card"])).max())
+                print(f"  sgd fit over {label} against one card: losses "
+                      f"{err:.3e} off at most (limit {KERAS_LOSS_ATOL:g})")
+                if not err <= KERAS_LOSS_ATOL:
+                    problems.append(f"sgd fit over {label} losses {err:.3e}")
+            # KERAS_CPU_BATCH rows, rounded up to split over the mesh
+            rows = -(-KERAS_CPU_BATCH // mesh.size) * mesh.size
+            X, y = est._getNumpyFeaturesAndLabels(frame.head(rows))
+            mesh_gradient_check(path, X, y, mesh, card, problems, label)
+        mesh2 = cases[1][1]
+        est = estimator(mesh=mesh2)
+        small = keras_frame(uris[:MESH_TRIAL_JPEGS],
+                            labels[:MESH_TRIAL_JPEGS])
+        maps = [{est.kerasFitParams: {"epochs": 1, "batch_size": KERAS_BATCH,
+                                      "learning_rate": lr}}
+                for lr in SURFACE_LRS]
+        t0 = time.perf_counter()
+        trials = dict(est.fitMultiple(small, maps))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        written += [m.getModelFile() for m in trials.values()]
+        for i, pm in enumerate(maps):
+            solo = estimator(device=MESH_DEVICE).copy(pm).fit(small)
+            written.append(solo.getModelFile())
+            err = float(np.abs(np.subtract(trials[i].history["step_loss"],
+                                           solo.history["step_loss"])).max())
+            print(f"  fitMultiple over 2 entries, trial {i} (lr "
+                  f"{SURFACE_LRS[i]:g}, a 1-entry slice): losses "
+                  f"{trials[i].history['step_loss']}, {err:.3e} off a plain "
+                  f"fit (limit {KERAS_LOSS_ATOL:g}); mesh of its model "
+                  f"{trials[i].mesh.shape}", flush=True)
+            if not err <= KERAS_LOSS_ATOL or trials[i].mesh is not mesh2:
+                problems.append(f"fitMultiple trial {i}: {err:.3e}")
+        print(f"  fitMultiple: 2 trials in {dt:.2f} s; card {card}")
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = saved_det
+        remove_files(written)
+
+
+def mesh_dataset_leg(card, cases, problems):
+    """``Dataset(mesh=, device_cache=True)`` over MESH_DATASET_ROWS uint8
+    rows at 299x299x3, batch IMAGE_BATCH, the u8 codec, over each mesh of
+    two or more entries: epoch 1 places each batch as its shards, epoch 2
+    replays them on the card with 0 bytes shipped, every shard's rows bit
+    for bit the host batch's."""
+    from tpudl_torch import mesh as M
+    from tpudl_torch.data import Dataset
+    from tpudl_torch.data import device_cache as dc
+    from tpudl_torch.frame import Frame
+
+    x = np.random.default_rng(SEED).integers(
+        0, 256, (MESH_DATASET_ROWS, 299, 299, 3), dtype=np.uint8)
+    n_batches = MESH_DATASET_ROWS // IMAGE_BATCH
+    for label, mesh, _exact in cases[1:]:
+        dc.reset_device_cache()
+        ds = Dataset(Frame({"x": x}), ["x"], batch_size=IMAGE_BATCH,
+                     wire_codec="u8", device_cache=True, mesh=mesh)
+        before = data_counters()
+        list(ds.iter_epoch(0))
+        first = data_delta(before)
+        before = data_counters()
+        again = [b[0] for b in ds.iter_epoch(1)]
+        torch.cuda.synchronize()
+        second = data_delta(before)
+        on_card = all(isinstance(b, M.Sharded) and b.devices == list(
+            mesh.devices) for b in again)
+        same = all(np.array_equal(torch.cat([t.cpu() for t in b]).numpy(),
+                                  x[i * IMAGE_BATCH:(i + 1) * IMAGE_BATCH])
+                   for i, b in enumerate(again))
+        print(f"  Dataset over {label}: epoch 1 shipped "
+              f"{first['data.wire.bytes_shipped']:.0f} bytes, puts "
+              f"{first['data.hbm.puts']:.0f}; epoch 2 shipped "
+              f"{second['data.wire.bytes_shipped']:.0f} bytes, hits "
+              f"{second['data.hbm.hits']:.0f} (want 0 and {n_batches}); "
+              f"batches as per-entry shards on the mesh's cards: {on_card};"
+              f" rows bit for bit the host's: {same}; card {card}")
+        if second["data.wire.bytes_shipped"] or \
+                second["data.hbm.hits"] != n_batches or not on_card \
+                or not same:
+            problems.append(f"Dataset over {label}: {second}, on card "
+                            f"{on_card}, same {same}")
+    dc.reset_device_cache()
+
+
+def mesh_kernel_cards(card, problems):
+    """The forward kernel against its plain version on every visible card
+    at the serving shape, f32 and bf16, with phase 3's limits."""
+    from tpudl_torch import cuda_ops
+
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        gen = torch.Generator().manual_seed(SEED + i)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL[str(dtype).split(".")[1]]
+            q, k, v = (torch.randn(*SLICE_SHAPE, generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            with torch.cuda.device(dev):
+                o, lse = cuda_ops.flash_attention(q, k, v, causal=True,
+                                                  return_lse=True)
+                po, plse = cuda_ops.flash_attention_plain(
+                    q, k, v, causal=True, return_lse=True)
+                torch.cuda.synchronize()
+            diff = (o.float() - po.float()).abs()
+            lse_abs = float((lse - plse).abs().max())
+            ok = (bool((diff <= tol["o_abs"]
+                        + tol["o_rel"] * po.float().abs()).all())
+                  and lse_abs <= tol["lse_abs"])
+            print(f"  flash forward on {dev} {str(dtype)[6:]}: O max abs "
+                  f"{float(diff.max()):.3e}, lse {lse_abs:.3e} "
+                  f"{'ok' if ok else 'MISS'}")
+            if not ok:
+                problems.append(f"flash forward on {dev} ({dtype})")
+
+
+def run_mesh(card):
+    """Phase 14: the data-parallel mesh at full width. Every check runs
+    and prints; the phase fails at its end if any did not hold. Returns
+    the kernel launches of its LM paths."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch import cuda_ops
+
+    t_phase = time.perf_counter()
+    problems = []
+    cases = mesh_cases()
+    print(f"  meshes: {[(label, [str(d) for d in m.devices]) for label, m, _ in cases]}")
+    directory = tempfile.mkdtemp(prefix="tpudl_mesh_smoke_")
+    try:
+        if torch.cuda.device_count() > 1:
+            mesh_kernel_cards(card, problems)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        medians = mesh_image_leg(card, cases, problems)
+        image_counts = dict(cuda_ops.launch_counts)
+        print(f"  mesh_image_leg: {time.perf_counter() - t0:.1f} s; "
+              f"attention kernel launches {image_counts} (want 0)",
+              flush=True)
+        if any(image_counts.values()):
+            problems.append(f"the image leg launched {image_counts}")
+        for dtype_name, m in medians.items():
+            base = m["mesh=None"]
+            for arm, rate in m.items():
+                print(f"  {dtype_name} {arm}: {rate / base:.3f}x the median "
+                      f"of mesh=None")
+            if len(cases) > 2:    # the mesh of every card against one card
+                many = cases[2][0]
+                for suffix in ("", ", fused"):
+                    print(f"  {dtype_name} scaling{suffix or ', unfused'}: "
+                          f"{many}{suffix} {m[many + suffix]:.1f} images/s, "
+                          f"{m[many + suffix] / m['one-card mesh' + suffix]:.3f}"
+                          f"x the one-card mesh{suffix}; card {card}")
+        t0 = time.perf_counter()
+        lm_counts = mesh_lm_leg(card, cases, problems)
+        print(f"  mesh_lm_leg: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        mesh_fit_leg(directory, card, cases, problems)
+        print(f"  mesh_fit_leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        mesh_dataset_leg(card, cases, problems)
+        print(f"  mesh_dataset_leg: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 14: " + "; ".join(problems))
+    return lm_counts
+
+
 
 def main(argv) -> int:
     card = card_line()
@@ -5105,6 +5603,14 @@ def main(argv) -> int:
         print(f"data-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--mesh-only"]:
+        print(f"phase 14 alone: the data-parallel mesh at full width on "
+              f"{card}", flush=True)
+        run_mesh(card)
+        print(f"card: {card}")
+        print(f"mesh-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -5123,8 +5629,8 @@ def main(argv) -> int:
     if argv:
         fail(f"unknown arguments {argv}; the options are --image-only, "
              "--executor-only, --train-only, --keras-only, --surface-only, "
-             "--graph-only, --keras2-only, --data-only, --ranks N and "
-             "--pool-study")
+             "--graph-only, --keras2-only, --data-only, --mesh-only, "
+             "--ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -5229,6 +5735,9 @@ def main(argv) -> int:
     keras2_counts = run_keras2_files(card)
     print(f"phase 13: the data layer at full width on {card}", flush=True)
     data_counts = run_data_layer(card)
+    print(f"phase 14: the data-parallel mesh at full width on {card}",
+          flush=True)
+    mesh_counts = run_mesh(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -5242,7 +5751,7 @@ def main(argv) -> int:
             graph_counts[entry["name"]]
         entry["launches_by_path"]["keras2_files"] = \
             keras2_counts[entry["name"]]
-        for path, counts in data_counts.items():
+        for path, counts in {**data_counts, **mesh_counts}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "

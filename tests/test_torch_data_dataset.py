@@ -154,8 +154,17 @@ def test_device_cache_epoch2_ships_zero(codec):
     restored = np.asarray(ds.device_restore((again[0],))[0])
     assert restored.dtype == (np.float32 if codec else np.uint8)
     assert np.array_equal(restored, jds.device_restore((want[0],))[0])
-    with pytest.raises(NotImplementedError, match="Training, rest"):
-        Dataset(Frame(_cols()), ["u8"], mesh=object())
+    # under a mesh (once refused, 'Training, rest') the resident batch is
+    # its per-entry shards, whose rows are the same batch
+    from tpudl_torch import mesh as M
+
+    sharded = Dataset(Frame(_cols(n=24)), ["u8"], batch_size=8,
+                      wire_codec=codec, device_cache=True,
+                      mesh=M.build_mesh(devices=["cpu"] * 2))
+    got = [b[0] for b in sharded.iter_epoch(1)]
+    assert all(isinstance(b, M.Sharded) and len(b) == 2 for b in got)
+    assert all(np.array_equal(torch.cat(list(b)).numpy(), w)
+               for b, w in zip(got, want))
     with pytest.raises(RuntimeError, match="cuda"):   # the default: a card
         Dataset(Frame(_cols()), ["u8"], device_cache=True)
 

@@ -137,8 +137,18 @@ def test_budget_without_a_card(monkeypatch):
             == jdc.run_key("abc", None) + "|dev=cpu")
     assert (dc.run_key("abc", device="cuda:1")
             != dc.run_key("abc", device="cuda:0"))
-    with pytest.raises(NotImplementedError, match="Training, rest"):
-        dc.run_key("abc", mesh=object())
+    # under a mesh (once refused, 'Training, rest'): tpudl's topology,
+    # then the mesh's devices in order
+    import jax
+
+    from tpudl import mesh as jax_mesh
+    from tpudl_torch import mesh as M
+
+    mesh = M.build_mesh(devices=["cpu"] * 2)
+    jmesh = jax_mesh.build_mesh(devices=jax.devices()[:2])
+    assert dc.run_key("abc", mesh) == "abc|mesh=data=2,model=1|dev=cpu,cpu"
+    assert (dc.run_key("abc", mesh).split("|dev=")[0]
+            == jdc.run_key("abc", jmesh).split("|dev=")[0])
 
 
 @pytest.mark.parametrize("name", PKGS)

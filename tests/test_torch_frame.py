@@ -161,5 +161,9 @@ def test_from_files_is_lazy_and_carries_num_partitions(image_dir):
     assert got.num_partitions == want.num_partitions == 2
     assert got["fileData"].reads == 0
     assert got.fingerprint() == want.fingerprint()
-    with pytest.raises(NotImplementedError, match="Training, rest"):
-        Frame.from_files(image_dir, host_sharded=True)
+    # host_sharded (once refused, 'Training, rest'): outside a process
+    # group this process's share is every file, as in tpudl
+    shard = Frame.from_files(image_dir, host_sharded=True)
+    jshard = JaxFrame.from_files(image_dir, host_sharded=True)
+    assert list(shard["filePath"]) == list(jshard["filePath"])
+    assert shard.fingerprint() == jshard.fingerprint()

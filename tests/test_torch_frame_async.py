@@ -293,7 +293,6 @@ def test_env_variables_set_the_knobs(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("mesh", object(), "Training, rest"),
     ("aot", True, "Compile"),
     ("supervise", True, "Jobs, faults and the supervisor"),
     ("autotune", True, "The rest of observability"),
@@ -305,7 +304,7 @@ def test_unported_knobs_raise_by_name(knob, value, item):
                                       device="cpu", **{knob: value})
     out = Frame(_columns()).map_batches(
         tfn, ["x", "i"], ["y", "g"], device="cpu",
-        **{knob: None if knob == "mesh" else False})
+        **{knob: False})
     assert last_pipeline_report()["autotune"] is False
     assert len(out) == ROWS
 

@@ -305,12 +305,33 @@ def test_files_to_frame_and_eager_reads_match_tpudl(image_dir):
         jio.readImages(paths)["image"])
 
 
-@pytest.mark.parametrize("kwargs,item", [({"host_sharded": True},
-                                          "Training, rest")])
-def test_read_options_not_ported_raise(image_dir, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        imageIO.readImagesWithCustomFn(str(image_dir),
-                                       imageIO.default_decode, **kwargs)
+def _as_process(monkeypatch, index, count):
+    """This test process as process ``index`` of ``count`` in both
+    packages (the port's process group, jax's process count)."""
+    import jax
+
+    from tpudl_torch import distributed
+
+    monkeypatch.setattr(distributed, "process_count", lambda: count)
+    monkeypatch.setattr(distributed, "process_index", lambda: index)
+    monkeypatch.setattr(jax, "process_count", lambda: count)
+    monkeypatch.setattr(jax, "process_index", lambda: index)
+
+
+@pytest.mark.parametrize("index", [0, 1, 2])
+def test_read_images_host_sharded_keeps_this_process_share(
+        image_dir, monkeypatch, index):
+    """``host_sharded=True`` (once refused, 'Training, rest'): process
+    ``index`` of 3 reads tpudl's ``host_shard`` of the sorted file list,
+    the last share wrapping to the first file."""
+    _as_process(monkeypatch, index, 3)
+    got = imageIO.readImagesWithCustomFn(str(image_dir),
+                                         imageIO.default_decode,
+                                         host_sharded=True)
+    want = jio.readImagesWithCustomFn(str(image_dir), jio.default_decode,
+                                      host_sharded=True)
+    assert len(got) == len(want) >= 1
+    assert list(got["image"]) == list(want["image"])
 
 
 def test_frame_row_filters_match_tpudl():

@@ -160,7 +160,22 @@ def test_default_decode_is_marked_and_keyed_as_tpudl():
         imageIO._callable_token(imageIO.default_decode)
 
 
-def test_host_sharded_still_refused(image_dir):
-    with pytest.raises(NotImplementedError, match="Training, rest"):
-        imageIO.filesToFrame(image_dir, host_sharded=True)
-    assert isinstance(Frame.from_files(image_dir), Frame)
+@pytest.mark.parametrize("index,count", [(0, 2), (1, 2), (3, 4)])
+def test_host_sharded_files_are_tpudls_share(image_dir, monkeypatch, index,
+                                             count):
+    """``filesToFrame(host_sharded=True)`` (once refused, 'Training,
+    rest') keeps process ``index`` of ``count``'s share of the file list,
+    as tpudl's does; ``Frame.from_files`` passes it on."""
+    import jax
+
+    from tpudl_torch import distributed
+
+    monkeypatch.setattr(distributed, "process_count", lambda: count)
+    monkeypatch.setattr(distributed, "process_index", lambda: index)
+    monkeypatch.setattr(jax, "process_count", lambda: count)
+    monkeypatch.setattr(jax, "process_index", lambda: index)
+    got = imageIO.filesToFrame(image_dir, host_sharded=True)
+    want = jio.filesToFrame(image_dir, host_sharded=True)
+    assert list(got["filePath"]) == list(want["filePath"])
+    assert list(Frame.from_files(image_dir, host_sharded=True)[
+        "filePath"]) == list(want["filePath"])

@@ -142,14 +142,59 @@ def test_uint8_loaders_are_refused_by_name(jpegs, files):
                 Frame({"uri": jpegs}))
 
 
-@pytest.mark.parametrize("stage,knob,item", [
-    (KerasTransformer, "mesh", "Training, rest"),
-    (TFTransformer, "mesh", "Training, rest"),
-    (KerasImageFileTransformer, "mesh", "Training, rest"),
-])
-def test_unported_stage_knobs_are_refused_by_name(stage, knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        stage(**{knob: object()})
+@pytest.mark.parametrize("stage", ["KerasTransformer", "TFTransformer",
+                                   "KerasImageFileTransformer"])
+def test_stages_run_over_a_mesh_like_tpudls(files, jpegs, stage):
+    """``mesh=`` (once refused, 'Training, rest'): the port over a mesh of
+    4 host entries (each running its shard on its own per-batch function;
+    the trainable graph's weights placed for it) against tpudl over 4 of
+    its devices, and against the port without a mesh, within RTOL."""
+    import jax
+
+    from tpudl import mesh as jax_mesh
+    from tpudl.ingest import TFInputGraph as JaxTFInputGraph
+    from tpudl.ml import TFTransformer as JaxTT
+    from tpudl_torch import mesh as port_mesh
+
+    ours_mesh = port_mesh.build_mesh(devices=["cpu"] * 4)
+    theirs_mesh = jax_mesh.build_mesh(devices=jax.devices()[:4])
+    rng = np.random.default_rng(2)
+    if stage == "KerasTransformer":
+        cols = {"x": rng.normal(size=(30, 100)).astype(np.float32)}
+        kw = dict(inputCol="x", outputCol="y", modelFile=files["mlp"],
+                  batchSize=8)
+        ours, theirs = KerasTransformer, JaxKT
+    elif stage == "TFTransformer":
+        cols = {"x": rng.normal(size=(10, 32, 32, 3)).astype(np.float32)}
+
+        def graph_stage(cls, gin):
+            return lambda **k: cls(  # noqa: E731
+                tfInputGraph=gin, inputMapping={"x": gin.input_names[0]},
+                outputMapping={gin.output_names[0]: "y"}, **k)
+
+        ours = graph_stage(TFTransformer,
+                           TFInputGraph.fromKerasTrainable(files["cnn"]))
+        theirs = graph_stage(JaxTT, JaxTFInputGraph.fromKerasTrainable(
+            files["cnn"]))
+        kw = dict(batchSize=4)
+    else:
+        def loader(uri):
+            img = Image.open(uri).convert("RGB").resize((15, 17))
+            return np.asarray(img, dtype=np.float32) / 255.0
+
+        cols = {"uri": jpegs}
+        kw = dict(inputCol="uri", outputCol="y",
+                  modelFile=files["functional"], imageLoader=loader,
+                  batchSize=4)
+        ours, theirs = KerasImageFileTransformer, JaxKIFT
+    got = np.stack(list(ours(mesh=ours_mesh, **kw).transform(
+        Frame(cols))["y"]))
+    plain = np.stack(list(ours(device="cpu", **kw).transform(
+        Frame(cols))["y"]))
+    want = np.stack(list(theirs(mesh=theirs_mesh, **kw).transform(
+        JaxFrame(cols))["y"]))
+    assert got.shape == plain.shape == want.shape
+    assert _rel(got, want) <= RTOL and _rel(got, plain) <= RTOL
 
 
 @pytest.mark.parametrize("knob", ["cacheDir", "deviceCache", "wireCodec"])

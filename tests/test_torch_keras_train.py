@@ -210,8 +210,7 @@ def test_fit_params_are_validated(fit_set):
 
 
 @pytest.mark.parametrize("knob,item", [
-    ("mesh", "Training, rest"), ("modelAxis", "LM parallelism"),
-    ("paramShardings", "LM parallelism")])
+    ("modelAxis", "LM parallelism"), ("paramShardings", "LM parallelism")])
 def test_unported_knobs_are_refused_by_name(fit_set, knob, item):
     with pytest.raises(NotImplementedError, match=item):
         KerasImageFileEstimator(device="cpu", **{knob: object()},
@@ -257,12 +256,26 @@ def test_data_layer_knobs_fit_and_pass_on(fit_set, tmp_path, knob):
 
 def test_fit_multiple_is_refused_by_name(fit_set):
     """fitMultiple and fit over a list of maps run (tests/
-    test_torch_tuning.py holds them to tpudl); what is still refused by
-    name is a mesh-wide trial, and the default device without a card."""
+    test_torch_tuning.py holds them to tpudl), over a mesh too (once
+    refused, 'Training, rest': two trials on a 2-entry mesh train one on
+    each entry, as a plain fit does); what is still refused is the
+    default device without a card."""
+    from tpudl_torch import mesh as port_mesh
+
     path, uris, labels = fit_set
     frame = Frame({"uri": uris, "label": labels})
-    with pytest.raises(NotImplementedError, match="Training, rest"):
-        KerasImageFileEstimator(device="cpu", mesh=object(), **_kw(path))
+    meshed = KerasImageFileEstimator(
+        mesh=port_mesh.build_mesh(devices=["cpu"] * 2), **_kw(path,
+                                                              epochs=1))
+    trials = dict(meshed.fitMultiple(frame, [{}, {}]))
+    plain = KerasImageFileEstimator(device="cpu", **_kw(path, epochs=1)
+                                    ).fit(frame)
+    assert sorted(trials) == [0, 1]
+    for m in trials.values():
+        assert m.history == plain.history
+        assert m.mesh is meshed.mesh
+        os.remove(m.getModelFile())
+    os.remove(plain.getModelFile())
     est = KerasImageFileEstimator(**_kw(path))            # device="cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         dict(est.fitMultiple(frame, [{}]))

@@ -170,13 +170,32 @@ def test_stages_count_rows(lm):
             - before["ml.LMFeaturizer.transforms"]) == 1
 
 
-@pytest.mark.parametrize("knob", ["mesh", "tp"])
+@pytest.mark.parametrize("knob", ["tp"])
 def test_unported_executor_knobs_raise(lm, knob):
     _, params, _, spec = lm
-    value = {"tp": True, "mesh": object()}[knob]
+    value = {"tp": True}[knob]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMFeaturizer(outputCol="v", **{knob: value},
                      **_stage_kw(spec, params))
+
+
+def test_generator_under_a_mesh_runs_on_its_first_entry(lm):
+    """``mesh`` (once refused, 'Training, rest') without ``tp`` shards
+    batches only; the generator, which runs no batches through the
+    executor, decodes on the mesh's first entry as tpudl's does on its
+    default device: the same completions."""
+    from tpudl_torch import mesh as port_mesh
+
+    _, params, _, spec = lm
+    kw = _stage_kw(spec, params)
+    kw.pop("device")
+    texts = Frame({"text": TEXTS[:3]})
+    got = LMGenerator(outputCol="gen", maxNew=5,
+                      mesh=port_mesh.build_mesh(devices=["cpu"] * 2),
+                      **kw).transform(texts)
+    want = LMGenerator(outputCol="gen", maxNew=5, device="cpu",
+                       **kw).transform(texts)
+    assert list(got["gen"]) == list(want["gen"])
 
 
 @pytest.mark.parametrize("knob", ["cacheDir", "deviceCache", "wireCodec"])

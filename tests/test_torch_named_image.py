@@ -37,6 +37,7 @@ from tpudl_torch.frame import Frame
 from tpudl_torch.image import imageIO
 from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
 from tpudl_torch.ml.named_image import load_named_params
+from tpudl_torch.obs import last_pipeline_report
 from tpudl_torch.zoo import convert, preprocessing, registry
 from tpudl_torch.zoo.registry import ImageModel
 
@@ -423,14 +424,32 @@ def test_featurizer_reuses_loaded_weights_and_warms(port_features):
     assert _rel_err(out["g"][0][None], f32[:1]) <= TOL
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "Training, rest"),
-])
-@pytest.mark.parametrize("stage", [DeepImageFeaturizer, DeepImagePredictor])
-def test_unported_options_raise(stage, kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, '{item}'"):
-        stage(inputCol="image", outputCol="y", modelName="InceptionV3",
-              device="cpu", **kwargs)
+@pytest.mark.parametrize("head", ["featurizer", "predictor"])
+def test_stage_over_a_mesh_matches_tpudl(image_dir, tpudl_stage_outputs,
+                                         port_features, head):
+    """``mesh=`` (once refused, 'Training, rest'): the stage over a mesh of
+    2 host entries (a batch of 2 splits one row an entry; the tail of 1
+    pads to 2) holds tpudl's outputs and the run without a mesh within
+    TOL of max |y|."""
+    from tpudl_torch import mesh as port_mesh
+
+    mesh = port_mesh.build_mesh(devices=["cpu"] * 2)
+    want_f, want_p = tpudl_stage_outputs
+    feat, frame, f32 = port_features
+    if head == "featurizer":
+        meshed = feat.copy()
+        meshed.mesh = mesh
+        got = np.stack(list(meshed.transform(frame)["f"]))
+        assert _rel_err(got, want_f) <= TOL and _rel_err(got, f32) <= TOL
+        assert last_pipeline_report()["mesh"] == {"data": 2, "model": 1}
+        return
+    out = DeepImagePredictor(inputCol="image", outputCol="p",
+                             modelName="InceptionV3", decodePredictions=True,
+                             topK=3, batchSize=2, mesh=mesh).transform(frame)
+    scale = max(s for row in want_p for _, _, s in row)
+    for g, w in zip(list(out["p"]), want_p):
+        assert [e[:2] for e in g] == [e[:2] for e in w]
+        assert max(abs(a[2] - b[2]) for a, b in zip(g, w)) <= TOL * scale
 
 
 @pytest.mark.parametrize("kwargs,opt", [
@@ -451,7 +470,6 @@ def test_data_layer_options_reach_the_executor(stage, kwargs, opt):
                  device="cpu", **kwargs)._pipeline_opts()
     theirs = jstage(inputCol="image", outputCol="y",
                     modelName="InceptionV3", **kwargs)._pipeline_opts()
-    theirs.pop("mesh")
     assert ours == theirs and ours[opt] == next(iter(kwargs.values()))
 
 

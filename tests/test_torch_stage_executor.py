@@ -83,14 +83,30 @@ def test_rewritten_weights_free_the_old_model(frame, tmp_path):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "Training, rest"),
-])
-def test_unported_stage_knobs_still_raise(kwargs, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, '{item}'"):
-        DeepImageFeaturizer(inputCol="image", outputCol="y",
-                            modelName=MODEL, device="cpu", **kwargs)
+@pytest.mark.parametrize("fuse", [1, 2])
+def test_mesh_stage_runs_each_entry_on_its_replica(frame, fuse):
+    """``mesh`` (once refused, 'Training, rest'): over a 2-entry host mesh
+    the stage builds one per-batch function a distinct device, over the
+    loaded model's replica, once, and its features hold the plain stage's
+    (each entry's shard runs at half the batch)."""
+    from tpudl_torch import mesh as port_mesh
+
+    mesh = port_mesh.build_mesh(devices=["cpu"] * 2)
+    common = dict(inputCol="image", outputCol="y", modelName=MODEL,
+                  batchSize=2)
+    want, _ = _run(DeepImageFeaturizer(device="cpu", **common), frame)
+    stage = DeepImageFeaturizer(mesh=mesh, fuseSteps=fuse, **common)
+    got, rep = _run(stage, frame)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= 2e-5 * scale
+    assert rep["mesh"] == {"data": 2, "model": 1}
+    assert rep["fuse_steps"] == fuse
+    assert rep["stage_calls"]["pad_rows"] == 1      # the tail of 1 row
+    fn = stage._batch_fn()
+    assert isinstance(fn, port_mesh.PerDevice)
+    assert fn.devices == [torch.device("cpu")]
+    again, _ = _run(stage, frame)
+    assert stage._batch_fn() is fn and np.array_equal(again, got)
 
 
 @pytest.mark.parametrize("knob", ["cacheDir", "deviceCache"])

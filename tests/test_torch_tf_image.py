@@ -189,9 +189,24 @@ def test_mixed_shapes_and_unported_knobs_are_refused(files):
     with pytest.raises(TypeError, match="channelOrder"):
         TFImageTransformer(inputCol="image", outputCol="o", graph=g,
                            channelOrder="HSV")
-    with pytest.raises(NotImplementedError, match="Training, rest"):
-        TFImageTransformer(inputCol="image", outputCol="o", graph=g,
-                           mesh="x")
+    # mesh (once refused, 'Training, rest') runs over the mesh's entries,
+    # as tpudl's stage runs over 2 of its devices
+    import jax
+
+    from tpudl import mesh as jax_mesh
+    from tpudl_torch import mesh as port_mesh
+
+    five = [SHAPE] * 5
+    got = TFImageTransformer(
+        inputCol="image", outputCol="o", graph=g, batchSize=4,
+        mesh=port_mesh.build_mesh(devices=["cpu"] * 2)).transform(
+            Frame({"image": _structs(imageIO, five)}))
+    want = JaxTFImage(
+        inputCol="image", outputCol="o", batchSize=4,
+        graph=JaxTFInputGraph.fromKeras(files["conv_image"]),
+        mesh=jax_mesh.build_mesh(devices=jax.devices()[:2])).transform(
+            JaxFrame({"image": _structs(jax_imageIO, five)}))
+    assert _rel(np.stack(list(got["o"])), np.stack(list(want["o"]))) <= RTOL
     # the data layer's knobs (once refused, 'Data layer') pass to the
     # executor, as tpudl's stage passes them
     for knob, value in (("cacheDir", "/tmp/x"), ("deviceCache", True),
@@ -202,7 +217,6 @@ def test_mixed_shapes_and_unported_knobs_are_refused(files):
                             graph=JaxTFInputGraph.fromKeras(
                                 files["conv_image"]),
                             **{knob: value})._pipeline_opts()
-        theirs.pop("mesh")
         assert ours == theirs
     with pytest.raises(RuntimeError, match="cuda"):     # default: the card
         TFImageTransformer(inputCol="image", outputCol="o",

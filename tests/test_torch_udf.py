@@ -122,14 +122,20 @@ def test_make_graph_udf_refusals(files):
         makeGraphUDF(g, "bad", fetches="dense_2:0", device="cpu")
     with pytest.raises(TypeError, match="GraphFunction"):
         makeGraphUDF(lambda x: x, "bad", device="cpu")
-    with pytest.raises(NotImplementedError, match="Training, rest"):
-        makeGraphUDF(g, "bad", device="cpu", mesh=object())
     # the data layer's knobs (once refused, 'Data layer') run: the same
     # bits as the plain UDF, twice
     x = np.random.default_rng(0).normal(size=(6, 100)).astype(np.float32)
     want = makeGraphUDF(g, "plain", device="cpu", register=False)(
         Frame({"input_layer": x}))["plain_out"]
     ref = np.stack(list(want))
+    # so does a mesh (once refused, 'Training, rest'): 3 host entries,
+    # one row of each block of 3 an entry, held within RTOL
+    from tpudl_torch import mesh as port_mesh
+
+    meshed = makeGraphUDF(g, "meshed", register=False, batch_size=3,
+                          mesh=port_mesh.build_mesh(devices=["cpu"] * 3))
+    assert _rel(np.stack(list(meshed(Frame({"input_layer": x}))[
+        "meshed_out"])), ref) <= RTOL
     # bf16 on the wire is lossy by design: held to tpudl's bf16 UDF on the
     # same input within RTOL (the same restored inputs, f32 products in
     # another order), and to the plain UDF within BF16Codec.RTOL of max |y|

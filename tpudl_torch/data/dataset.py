@@ -31,8 +31,8 @@ __all__ = ["Dataset", "cached_uri_load", "fetch_batch"]
 
 
 def fetch_batch(index: int, prepare, *, plan=None, shard_cache=None,
-                device_cache=None, run=None, device=None, pad=None,
-                report=None, ship: bool = True):
+                device_cache=None, run=None, device=None, mesh=None,
+                pad=None, report=None, ship: bool = True):
     """One batch through the data layer's lookup chain: the device cache
     (resident tensors; nothing crosses the wire) → the shard cache (a
     memory-mapped read) → ``prepare()`` (pack and encode; persisted when
@@ -48,7 +48,10 @@ def fetch_batch(index: int, prepare, *, plan=None, shard_cache=None,
     -> (arrays, n_pad)`` runs on a host batch before it is placed (the
     executor's bucket pad). ``report`` (a ``PipelineReport``) gets the
     hit, miss and byte counts. ``ship=False`` is a probe: no wire
-    accounting and no placement."""
+    accounting and no placement. With a local ``mesh`` a resident batch
+    is held as its per-card shards (one
+    :class:`~tpudl_torch.mesh.Sharded` a column); a batch whose rows do
+    not split over the mesh stays on the host."""
     from tpudl_torch.data import device_cache as _dc
     from tpudl_torch.data.codec import host_tensor
 
@@ -94,15 +97,18 @@ def fetch_batch(index: int, prepare, *, plan=None, shard_cache=None,
     n_pad = 0
     if pad is not None:
         arrays, n_pad = pad(arrays)
-    if device_cache is not None and device_cache.would_fit(
+    splits = (mesh is None or not arrays
+              or int(arrays[0].shape[0]) % mesh.size == 0)
+    if device_cache is not None and splits and device_cache.would_fit(
             sum(int(a.nbytes) for a in arrays), run=run):
         import torch
 
-        dev = torch.device(device)
+        dev = torch.device(device) if mesh is None else mesh.device
         with (report.stage("h2d") if report is not None
               else contextlib.nullcontext()):
-            placed = _dc.place([host_tensor(a, pin=dev.type == "cuda")
-                                for a in arrays], dev)
+            host = [host_tensor(a, pin=dev.type == "cuda") for a in arrays]
+            placed = (_dc.place(host, dev) if mesh is None
+                      else _dc.place_sharded(host, mesh))
         if placed is not None:
             codecs = (plan.keys() if plan is not None and plan.resolved()
                       else None)
@@ -174,8 +180,13 @@ class Dataset:
     replays from memory when ``retain=True`` (default: re-prepare).
     ``device_cache`` is an explicit argument only (a process-wide
     variable must not change what ``get_batch`` returns under host
-    consumers), as in tpudl. ``mesh=`` waits for ROADMAP Queue 1's
-    'Training, rest'."""
+    consumers), as in tpudl. With ``mesh=`` (a local
+    :class:`~tpudl_torch.mesh.Mesh`) a resident batch is held as its
+    per-card shards, and ``get_batch`` hands out one
+    :class:`~tpudl_torch.mesh.Sharded` a column (the mesh's entries, in
+    order; a device consumer runs each entry's shards on its card); the
+    key carries the topology, so no other mesh replays them. A ragged tail
+    that does not split over the mesh stays a host batch, as in tpudl."""
 
     def __init__(self, frame, input_cols, *, batch_size: int = 256,
                  wire_codec=None, cache_dir: str | None = None,
@@ -184,10 +195,11 @@ class Dataset:
                  mesh=None, device="cuda"):
         from tpudl_torch.data import codec as _codec
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "Dataset(mesh=...) is not ported to tpudl_torch yet "
-                "(ROADMAP Queue 1, 'Training, rest')")
+        if mesh is not None and not mesh.local:
+            raise ValueError(
+                "Dataset(mesh=) takes a mesh of this process's cards "
+                "(tpudl_torch.mesh.build_mesh(devices=[...]))")
+        self._mesh = mesh
         self._frame = frame
         self._cols = list(input_cols)
         missing = [c for c in self._cols if c not in frame]
@@ -225,8 +237,9 @@ class Dataset:
             from tpudl_torch.data import device_cache as _dc
             from tpudl_torch.device import resolve_device
 
-            self._device = resolve_device(device)
-            self._dkey = _dc.run_key(key, device=self._device)
+            self._device = resolve_device(
+                device if mesh is None else mesh.device)
+            self._dkey = _dc.run_key(key, mesh, device=self._device)
             self._dcache = _dc.get_device_cache()
 
     # -- shape -------------------------------------------------------------
@@ -276,7 +289,7 @@ class Dataset:
         arrays, _, pin = fetch_batch(
             index, prepare, plan=self._plan, shard_cache=self._cache,
             device_cache=self._dcache, run=self._dkey, device=self._device,
-            ship=not self._resolving)
+            mesh=self._mesh, ship=not self._resolving)
         if pin is not None:
             # the consumer's own reference keeps the resident tensors
             # alive; the pin only guards an in-flight dispatch
@@ -330,12 +343,15 @@ class Dataset:
 
 
 def _as_numpy(a) -> np.ndarray:
-    """A batch array as numpy (a resident tensor is copied to the host;
-    bfloat16 comes back as its bits)."""
+    """A batch array as numpy (a resident tensor, or a column's per-card
+    shards, is copied to the host; bfloat16 comes back as its bits)."""
     import torch
 
     from tpudl_torch.data.codec import BF16_BITS
+    from tpudl_torch.mesh import Sharded
 
+    if isinstance(a, Sharded):
+        return np.concatenate([_as_numpy(t) for t in a], axis=0)
     if isinstance(a, torch.Tensor):
         t = a.detach().cpu()
         if t.dtype == torch.bfloat16:

@@ -12,8 +12,9 @@ Contracts, as in tpudl:
   (fingerprint or cache_key + input columns + batch size + codec spec +
   pack token) plus the device the batches live on, via :func:`run_key`,
   so a run on another card (or on the host) misses instead of being
-  handed tensors on the wrong device; ``mesh=`` waits for ROADMAP
-  Queue 1's 'Training, rest';
+  handed tensors on the wrong device; under a mesh the key carries the
+  topology and its devices, and a resident batch is held as its per-card
+  shards (:func:`place_sharded`);
 - **budget** — ``TPUDL_DATA_HBM_BUDGET_MB`` caps total resident bytes
   (``0`` means none), else :data:`DEFAULT_BUDGET_FRACTION` of the card's
   memory (``torch.cuda.get_device_properties(d).total_memory``), else
@@ -51,7 +52,7 @@ from tpudl_torch.obs import metrics as _m
 __all__ = ["DeviceBatchCache", "Pin", "get_device_cache",
            "reset_device_cache", "run_key", "budget_bytes",
            "bulk_resident", "array_token", "count_put_failed",
-           "device_token", "place",
+           "device_token", "place", "place_sharded",
            "DEFAULT_BUDGET_BYTES", "DEFAULT_BUDGET_FRACTION"]
 
 # when no card reports its memory (the CPU), stay conservative: enough
@@ -101,14 +102,18 @@ def device_token(device) -> str:
 
 def run_key(material_key: str, mesh=None, device=None) -> str:
     """One run's device-cache namespace: the shard-cache key string
-    extended with the topology (``|mesh=single``, as in tpudl) and the
-    device the entries live on (``|dev=cuda:0``). tpudl puts its mesh's
-    device ids there; without the device, a run on one card would replay
-    the tensors another run left on a different card or on the host."""
+    extended with the topology and the devices the entries live on, so
+    an entry made for one mesh (or card) is a miss on any other, never
+    resharded in place. Without a mesh this is tpudl's ``|mesh=single``
+    plus the port's ``|dev=cuda:0`` (the port's stages and trials take a
+    device per call: without it a run on one card would replay the
+    tensors another run left on a different card or on the host). With a
+    mesh it is tpudl's ``|mesh=data=N,model=1|dev=...`` over the mesh's
+    devices, in order."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the device cache under mesh= is not ported to tpudl_torch yet "
-            "(ROADMAP Queue 1, 'Training, rest')")
+        topo = ",".join(f"{k}={v}" for k, v in sorted(mesh.shape.items()))
+        return (f"{material_key}|mesh={topo}|dev="
+                + ",".join(device_token(d) for d in mesh.devices))
     key = f"{material_key}|mesh=single"
     if device is not None:
         key += f"|dev={device_token(device)}"
@@ -455,6 +460,23 @@ def place(tensors, device) -> tuple | None:
     except torch.cuda.OutOfMemoryError:
         count_put_failed()
         return None
+
+
+def place_sharded(tensors, mesh) -> tuple | None:
+    """``tensors`` (CPU tensors, rows a multiple of the mesh's data axis)
+    split over a local ``mesh``: one :class:`~tpudl_torch.mesh.Sharded`
+    a column, each shard on its card (:func:`tpudl_torch.mesh.
+    transfer_batch`), or None when a card runs out of memory on the way
+    (counted ``data.hbm.put_failed``)."""
+    from tpudl_torch import mesh as M
+
+    try:
+        shards = M.transfer_batch(tensors, mesh)
+    except torch.cuda.OutOfMemoryError:
+        count_put_failed()
+        return None
+    return tuple(M.Sharded(entry[j] for entry in shards)
+                 for j in range(len(tensors)))
 
 
 def bulk_resident(key, arrays, device=None) -> Pin | None:

@@ -6,9 +6,9 @@ port runs one process per rank, joined by ``torch.distributed``:
 
 - :func:`initialize` is ``torch.distributed.init_process_group`` with a
   bounded timeout (NCCL on the card, gloo on the CPU). With no arguments
-  it is a no-op, as tpudl's. Ranks on one machine rendezvous through a
-  ``file://`` path or a ``tcp://localhost`` address; a coordinator on
-  another machine is refused (ROADMAP Queue 1, 'Training, rest').
+  it is a no-op, as tpudl's. The rendezvous is a ``tcp://<host>:<port>``
+  coordinator on any machine (tpudl's ``coordinator_address``), a
+  ``file://`` path shared by the ranks, or ``env://``.
 - :func:`process_count`, :func:`process_index`, :func:`is_primary` read
   the default group (1, 0 and True before it is joined).
 - :func:`host_shard` is tpudl's.
@@ -34,33 +34,39 @@ __all__ = ["initialize", "process_count", "process_index", "is_primary",
 # torch's 30-minute default
 COLLECTIVE_TIMEOUT_S = 60.0
 
-_LOCAL_HOSTS = ("localhost", "127.0.0.1", "::1")
-
-
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None, *,
                backend: str | None = None) -> None:
     """Join the process group: ``coordinator_address`` is the rendezvous
-    (``file:///path`` or ``tcp://localhost:<port>``), ``num_processes``
-    the world size and ``process_id`` this rank. ``backend`` defaults to
-    NCCL when the card is available and gloo otherwise. With no
-    arguments this is a documented no-op."""
+    (``tcp://<host>:<port>`` on this machine or another, as tpudl's
+    ``host:port``; ``file:///path`` on a file system every rank sees; or
+    ``env://``, which reads ``MASTER_ADDR``, ``MASTER_PORT``,
+    ``WORLD_SIZE`` and ``RANK``), ``num_processes`` the world size and
+    ``process_id`` this rank (under ``env://`` either may be left to the
+    variables). A bare ``host:port`` is taken as ``tcp://host:port``.
+    ``backend`` defaults to NCCL when the card is available and gloo
+    otherwise. With no arguments this is a documented no-op."""
     if coordinator_address is None and num_processes is None:
         return
-    url = urllib.parse.urlparse(str(coordinator_address))
-    if url.scheme != "file" and url.hostname not in _LOCAL_HOSTS:
-        raise NotImplementedError(
-            f"initialize({coordinator_address!r}): a coordinator on another "
-            "machine (multi-machine training) is not ported to tpudl_torch "
-            "yet (ROADMAP Queue 1, 'Training, rest'); ranks of one machine "
-            "rendezvous through file:// or tcp://localhost")
+    address = str(coordinator_address)
+    if "://" not in address:
+        address = f"tcp://{address}"
+    scheme = urllib.parse.urlparse(address).scheme
+    if scheme not in ("tcp", "file", "env"):
+        raise ValueError(
+            f"initialize({coordinator_address!r}): the rendezvous is "
+            "tcp://<host>:<port>, file:///<path> or env://")
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    sizes = {}
+    if num_processes is not None:
+        sizes["world_size"] = int(num_processes)
+    if process_id is not None:
+        sizes["rank"] = int(process_id)
     dist.init_process_group(
-        backend, init_method=coordinator_address,
-        world_size=int(num_processes), rank=int(process_id),
-        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        backend, init_method=address,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S), **sizes)
 
 
 def process_count() -> int:

@@ -184,46 +184,68 @@ class _PipelineInfeed:
 
 class _Dispatched:
     """One dispatched batch or fused group: the host copies of its
-    outputs, the event recorded after them (None on the CPU, where the
-    copies are the outputs themselves), its pad rows, and the pinned
-    inputs, kept alive until the event has passed."""
+    outputs (for each output, its parts in row order: one part a mesh
+    entry, or one), the events recorded after them (none on the CPU,
+    where the copies are the outputs themselves), its pad rows, and the
+    pinned inputs, kept alive until the events have passed."""
 
-    __slots__ = ("host", "event", "n_pad", "keep", "pin")
+    __slots__ = ("host", "events", "n_pad", "keep", "pin")
 
-    def __init__(self, host, event, n_pad, keep, pin=None):
+    def __init__(self, host, events, n_pad, keep, pin=None):
         self.host = host
-        self.event = event
+        self.events = events
         self.n_pad = n_pad
         self.keep = keep
         self.pin = pin  # a device-cache pin, released once the batch is done
 
     def wait(self):
-        if self.event is not None:
-            self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
         self.keep = None
         if self.pin is not None:
             self.pin.release()
             self.pin = None
 
 
-def _start_host_copies(result, n_pad: int, keep, pin=None) -> _Dispatched:
+def _start_host_copies(results, n_pad: int, keep, pin=None,
+                       interleave: int = 1) -> _Dispatched:
     """Start the device→host copy of every output of one dispatch, at
     dispatch, into pinned host memory, and record an event after them on
-    the current stream: batch N's copies then overlap the dispatch of
-    N+1..N+D. CPU outputs need no copy."""
-    host, on_card = [], False
-    for r in result:
-        r = r.detach()
-        if r.device.type == "cuda":
-            h = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
-            h.copy_(r, non_blocking=True)
-            r, on_card = h, True
-        host.append(r)
-    event = None
-    if on_card:
-        event = torch.cuda.Event()
-        event.record()
-    return _Dispatched(host, event, n_pad, keep, pin)
+    the device's current stream: batch N's copies then overlap the
+    dispatch of N+1..N+D. ``results`` holds one ``(device, outputs)``
+    pair a mesh entry (one without a mesh), each copied under its own
+    card. CPU outputs need no copy. A fused mesh group
+    (``interleave`` M > 1) holds M microbatches in each entry's outputs:
+    the parts come back microbatch by microbatch, entry by entry, which
+    is row order."""
+    from tpudl_torch.mesh import on_device
+
+    per_entry, events = [], []
+    for dev, outs in results:
+        host, on_card = [], False
+        with on_device(dev):
+            for r in outs:
+                r = r.detach()
+                if r.device.type == "cuda":
+                    h = torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                    h.copy_(r, non_blocking=True)
+                    r, on_card = h, True
+                host.append(r)
+            if on_card:
+                event = torch.cuda.Event()
+                event.record()
+                events.append(event)
+        per_entry.append(host)
+    n_out = len(per_entry[0])
+    if interleave == 1:
+        host = [[h[j] for h in per_entry] for j in range(n_out)]
+    else:
+        host = []
+        for j in range(n_out):
+            rows = int(per_entry[0][j].shape[0]) // interleave
+            host.append([h[j][m * rows:(m + 1) * rows]
+                         for m in range(interleave) for h in per_entry])
+    return _Dispatched(host, events, n_pad, keep, pin)
 
 
 class _DispatchWindow:
@@ -269,12 +291,24 @@ class _DispatchWindow:
 
 
 def _as_outputs(result, n_out: int) -> tuple:
+    """``fn``'s result as a tuple of ``n_out`` tensors (a host function's
+    numpy outputs are wrapped without a copy)."""
     if not isinstance(result, (tuple, list)):
         result = (result,)
     if len(result) != n_out:
         raise ValueError(f"fn returned {len(result)} outputs, expected "
                          f"{n_out}")
-    return tuple(result)
+    return tuple(torch.from_numpy(np.asarray(r))
+                 if isinstance(r, np.ndarray) else r for r in result)
+
+
+def _host_outputs(result) -> bool:
+    """Whether ``fn`` answered with numpy arrays: a host function, which
+    the executor keeps serial and unfused under a mesh, as tpudl keeps a
+    function it cannot jit."""
+    if not isinstance(result, (tuple, list)):
+        result = (result,)
+    return any(isinstance(r, np.ndarray) for r in result)
 
 
 # one lock over the graphs cached on every fn and over captures: two
@@ -325,9 +359,14 @@ class _FusedGraph:
             self._run_fn(*(x[0] for x in self.static_in))
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        # a capture stream of this graph's card: torch's default capture
+        # stream is one stream, made on the card of the first capture, and
+        # a capture on another card through it records nothing of its own
+        capture_stream = torch.cuda.Stream(dev)
 
         def capture():
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, stream=capture_stream,
+                                  capture_error_mode="thread_local"):
                 outs = [_as_outputs(self._run_fn(
                     *(x[i] for x in self.static_in)), self._n_out)
                     for i in range(self._m)]
@@ -422,6 +461,23 @@ def _stackable(group) -> bool:
                        for t, f in zip(g[0], first)) for g in group[1:])
 
 
+# copied from tpudl/frame/frame.py:mesh_fuse_ok
+def mesh_fuse_ok(batch_size: int, mesh) -> bool:
+    """Can a fused group run under ``mesh`` at this batch geometry? The
+    one rule, shared by the executor's fuse gate and the stages' warm-up:
+    the mesh fast path must be armed (``TPUDL_MESH_FAST_PATH`` not
+    ``0``) and full batches must shard evenly over the data axis, since
+    per-microbatch padding would leave pad rows interleaved in a fused
+    group's outputs. ``mesh=None`` imposes no constraint."""
+    if mesh is None:
+        return True
+    if os.environ.get("TPUDL_MESH_FAST_PATH", "1") == "0":
+        return False
+    from tpudl_torch import mesh as M
+
+    return int(batch_size) % mesh.shape[M.DATA_AXIS] == 0
+
+
 def _as_column(values) -> np.ndarray:
     if isinstance(values, LazyColumn):
         return values  # deferred source; materializes per access
@@ -442,7 +498,7 @@ def _as_column(values) -> np.ndarray:
 
 # map_batches knobs of tpudl with no counterpart yet → their ROADMAP
 # Queue 1 item
-_REFUSED = {"mesh": "Training, rest", "aot": "Compile",
+_REFUSED = {"aot": "Compile",
             "supervise": "Jobs, faults and the supervisor",
             "autotune": "The rest of observability"}
 
@@ -683,8 +739,7 @@ class Frame:
         from tpudl_torch.compile import buckets as _bk
         from tpudl_torch.obs import pipeline as _pipeline
 
-        refused = dict(mesh=mesh, aot=aot, supervise=supervise,
-                       autotune=autotune)
+        refused = dict(aot=aot, supervise=supervise, autotune=autotune)
         for k, v in refused.items():
             if v not in (None, False):
                 raise NotImplementedError(
@@ -699,7 +754,25 @@ class Frame:
         batch_size = int(batch_size)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        dev = resolve_device(device)
+        mesh_devs = None
+        if mesh is not None:
+            from tpudl_torch import mesh as M
+
+            if not mesh.local:
+                raise ValueError(
+                    "map_batches(mesh=) runs over a mesh of this process's "
+                    "cards (tpudl_torch.mesh.build_mesh() or "
+                    "build_mesh(devices=[...])); a process group's mesh "
+                    "holds one card a process")
+            mesh_devs = [resolve_device(d) for d in mesh.devices]
+            dev = mesh_devs[0]
+        else:
+            dev = resolve_device(device)
+        multiple = mesh.size if mesh is not None else 1
+        # the conservative mesh arm: serial, blocking transfers, no
+        # fusion and no residency (tpudl's pre-fast-path mesh executor)
+        mesh_slow = (mesh is not None and os.environ.get(
+            "TPUDL_MESH_FAST_PATH", "1") == "0")
 
         # -- knobs, resolved as tpudl resolves them (every torch fn is a
         # device fn) --------------------------------------------------------
@@ -715,13 +788,17 @@ class Frame:
         depth = _resolve(prefetch_depth, "TPUDL_FRAME_PREFETCH_DEPTH", 2)
         workers = (int(prepare_workers) if prepare_workers is not None
                    else _env_int("TPUDL_FRAME_PREPARE_WORKERS", 2))
-        d_depth = 1 if killed else max(1, _resolve(
+        d_depth = 1 if killed or mesh_slow else max(1, _resolve(
             dispatch_depth, "TPUDL_FRAME_DISPATCH_DEPTH", 2))
         donate_flag = (bool(donate) if donate is not None
                        else os.environ.get("TPUDL_FRAME_DONATE", "1") != "0")
-        donate_flag = donate_flag and not killed
-        fuse = 1 if killed else max(1, _resolve(
+        donate_flag = donate_flag and not killed and not mesh_slow
+        fuse = 1 if killed or mesh_slow else max(1, _resolve(
             fuse_steps, "TPUDL_FRAME_FUSE_STEPS", 1))
+        if fuse > 1 and not mesh_fuse_ok(batch_size, mesh):
+            # a full batch that pads to the data axis would interleave its
+            # pad rows in a fused group's outputs
+            fuse = 1
         if (prepare_workers is None
                 and "TPUDL_FRAME_PREPARE_WORKERS" not in os.environ
                 and pack is not None
@@ -730,7 +807,15 @@ class Frame:
             # the caller opted in (first-party packs are marked)
             workers = 1
         ladder = None if killed else _bk.resolve_ladder(buckets)
-        if ladder is not None and ladder.pick(batch_size) != batch_size \
+
+        def rung(rows: int) -> int:
+            """The dispatch rows of a batch of ``rows``: its bucket, then
+            (under a mesh) the data axis's multiple, so a mesh batch never
+            pads twice."""
+            target = ladder.pick(rows) if ladder is not None else rows
+            return -(-target // multiple) * multiple
+
+        if ladder is not None and rung(batch_size) != batch_size \
                 and fuse > 1:
             # every full batch would carry pad rows, and a fused group
             # would interleave them in its outputs
@@ -752,9 +837,9 @@ class Frame:
         dc_flag = (bool(device_cache) if device_cache is not None
                    else os.environ.get("TPUDL_DATA_DEVICE_CACHE", "0")
                    == "1")
-        # the serial kill switch stays residency-free (its A/B role is
-        # the uncached wire)
-        dc_flag = dc_flag and not killed
+        # the serial kill switch and the conservative mesh arm stay
+        # residency-free (their A/B role is the uncached wire)
+        dc_flag = dc_flag and not killed and not mesh_slow
         plan = cache = dcache = dkey = None
         if wire_codec is not None or cache_dir is not None or dc_flag:
             from tpudl_torch.data import codec as _codec
@@ -799,7 +884,10 @@ class Frame:
             if dc_flag:
                 from tpudl_torch.data import device_cache as _dc
 
-                dkey = _dc.run_key(key_str, device=dev)
+                # the same key material as the shard cache plus the
+                # topology: an entry made for one mesh (or device) is a
+                # miss on any other, never resharded in place
+                dkey = _dc.run_key(key_str, mesh, device=dev)
                 dcache = _dc.get_device_cache()
                 # residency replaces fusion: a fused replay copies host
                 # microbatches into its graph's static input
@@ -819,14 +907,17 @@ class Frame:
             "autotuned": [],
             "batch_size": batch_size,
             "rows": self._n,
-            "mesh": None,
+            # the topology (None without a mesh): the gauges of finish()
+            # and the report's readers key on it
+            "mesh": dict(mesh.shape) if mesh is not None else None,
             "wire_codec": (plan.names()[0] if plan is not None
                            else "off"),
             "batch_cache": bool(cache is not None),
             "device_cache": bool(dcache is not None),
             "buckets": ladder.spec if ladder is not None else "off",
             "aot": False,
-            "device": str(dev),
+            "device": (",".join(map(str, mesh_devs)) if mesh is not None
+                       else str(dev)),
         }
         _pipeline.set_last_pipeline(report)
         pin_host = dev.type == "cuda"
@@ -849,25 +940,39 @@ class Frame:
                 packed.append(arr)
             return packed
 
-        def bucket_pad(packed):
-            """Pad one batch up to its bucket: ``(arrays, n_pad)``."""
+        def pad(packed):
+            """Pad one host batch up to its bucket and, under a mesh, to a
+            multiple of the data axis: ``(arrays, n_pad)``. Pad rows
+            repeat row 0 and are stripped from the outputs."""
             if not packed:
                 return packed, 0
             rows_b = int(packed[0].shape[0])
-            target = ladder.pick(rows_b)
-            if target <= rows_b:
-                return packed, 0
-            n_pad = target - rows_b
-            report.count("bucket_pad_rows", n_pad)
-            _bk.count_pad_rows(n_pad)
-            return [_bk.pad_to(a, target) for a in packed], n_pad
+            n_pad = 0
+            if ladder is not None:
+                target = rung(rows_b)
+                if target > rows_b:
+                    n_pad = target - rows_b
+                    report.count("bucket_pad_rows", n_pad)
+                    _bk.count_pad_rows(n_pad)
+                    packed = [_bk.pad_to(a, target) for a in packed]
+            if mesh is not None:
+                # every column slices the same rows: one pad count serves
+                padded = [M.pad_batch(a, multiple) for a in packed]
+                mesh_pad = padded[0][1]
+                packed = [a for a, _ in padded]
+                if mesh_pad:
+                    report.count("pad_rows", mesh_pad)
+                report.gauge("mesh_pad_rows", mesh_pad)
+                n_pad += mesh_pad
+            return packed, n_pad
 
         def prepare(start, stop):
             """Bring one batch through the data layer's lookup chain
             (:func:`tpudl_torch.data.dataset.fetch_batch`) and pin its
             host tensors: on a prepare-pool thread when prefetching.
             Returns ``(tensors, n_pad, pin)``; ``pin`` marks a batch that
-            is resident on the device, held until its dispatch is done."""
+            is resident on the device (under a mesh, one ``Sharded`` a
+            column), held until its dispatch is done."""
             from tpudl_torch.data.codec import host_tensor
             from tpudl_torch.data.dataset import fetch_batch
 
@@ -875,8 +980,9 @@ class Frame:
                 arrays, n_pad, pin = fetch_batch(
                     start // batch_size, lambda: pack_encode(start, stop),
                     plan=plan, shard_cache=cache, device_cache=dcache,
-                    run=dkey, device=dev,
-                    pad=bucket_pad if ladder is not None else None,
+                    run=dkey, device=dev, mesh=mesh,
+                    pad=pad if (ladder is not None or mesh is not None)
+                    else None,
                     report=report)
                 if pin is not None:
                     pins.add(pin)
@@ -904,56 +1010,108 @@ class Frame:
         acc: list[list] = [[] for _ in output_cols]  # host copies, joined at end
         segs: list[tuple[int, int]] = []  # (padded rows, n_pad) per dispatch
         graphs: dict = {}  # a fn that takes no attributes keeps them here
+        host_fn = False   # set by the first mesh dispatch (a numpy fn)
+        # a stage's per-device function is a torch function; any other
+        # function's first mesh dispatch tells
+        probe_first = mesh is not None and not isinstance(fn, M.PerDevice)
 
         def handle(entry: _Dispatched):
             """Keep one finished dispatch's host copies for the join."""
-            h0 = entry.host[0]
-            done_rows = int(h0.shape[0]) if h0.ndim else 1
+            done_rows = sum(int(h.shape[0]) if h.ndim else 1
+                            for h in entry.host[0])
             report.progress(max(0, done_rows - entry.n_pad))
-            for i, h in enumerate(entry.host):
-                acc[i].append(h)
+            for i, parts in enumerate(entry.host):
+                acc[i].extend(parts)
             segs.append((done_rows, entry.n_pad))
 
-        def run_batch(tensors, n_pad, pin):
-            if pin is None:
-                with report.stage("h2d"):
-                    args = [t.to(dev, non_blocking=True) for t in tensors]
-            else:   # resident on the device: nothing to copy
-                args = tensors
-            t0 = time.perf_counter()
-            with report.stage("dispatch"):
-                result = _as_outputs(_run_fn()(*args), n_out)
-            return result, n_pad, tensors, t0, pin
+        def call(args):
+            """``fn`` on one batch (or one mesh entry's shard)."""
+            nonlocal host_fn
+            raw = _run_fn()(*args)
+            if mesh is not None and _host_outputs(raw):
+                host_fn = True
+            return _as_outputs(raw, n_out)
 
-        def run_fused(group):
-            if dev.type != "cuda":
+        def run_batch(tensors, n_pad, pin):
+            if mesh is None:
+                if pin is None:
+                    with report.stage("h2d"):
+                        args = [t.to(dev, non_blocking=True)
+                                for t in tensors]
+                else:   # resident on the device: nothing to copy
+                    args = tensors
                 t0 = time.perf_counter()
                 with report.stage("dispatch"):
-                    result = _fused_plain(_run_fn(), group, n_out)
-                return result, 0, None, t0, None
-            graph = _fused_graph(
-                fn, _run_fn(), group,
-                None if plan is None else tuple(map(tuple, plan.keys())),
-                n_out, dev, graphs)
+                    result = [(dev, call(args))]
+                return result, n_pad, tensors, t0, pin, 1
+            if pin is None:
+                with report.stage("h2d"):
+                    shards = M.transfer_batch(tensors, mesh,
+                                              block=mesh_slow)
+            else:   # resident as per-card shards: nothing to copy
+                shards = [[col[i] for col in tensors]
+                          for i in range(multiple)]
             t0 = time.perf_counter()
-            result = graph.run(group, report)
-            return result, 0, [g[0] for g in group], t0, None
+            result = []
+            with report.stage("dispatch"):
+                for card, args in zip(mesh_devs, shards):
+                    with M.on_device(card):
+                        result.append((card, call(args)))
+            return result, n_pad, (tensors, shards), t0, pin, 1
+
+        def run_fused(group):
+            from tpudl_torch.mesh import on_device
+
+            codecs = None if plan is None else tuple(map(tuple, plan.keys()))
+            if mesh is None:
+                entries = [(dev, group)]
+            else:
+                # each card fuses its shards of the group's microbatches
+                cut = [M.shard_rows(g[0], multiple) for g in group]
+                entries = [(card, [(c[i],) for c in cut])
+                           for i, card in enumerate(mesh_devs)]
+            t0 = time.perf_counter()
+            result = []
+            for card, card_group in entries:
+                with on_device(card):
+                    if card.type != "cuda":
+                        with report.stage("dispatch"):
+                            out = _fused_plain(_run_fn(), card_group, n_out)
+                    else:
+                        out = _fused_graph(
+                            fn, _run_fn(), card_group, codecs, n_out, card,
+                            graphs).run(card_group, report)
+                result.append((card, out))
+            keep = [g[0] for g in group]
+            return result, 0, keep, t0, None, len(group)
 
         first_dispatch = True
 
         def dispatch(run, *args):
             """Issue one dispatch on the consumer thread, after the window
-            has room; with D=1 wait for its outputs at once."""
-            nonlocal first_dispatch
+            has room; with D=1 wait for its outputs at once. Under a mesh
+            the first dispatch of a function that is not a stage's
+            (:class:`~tpudl_torch.mesh.PerDevice`) runs alone, and a host
+            function (numpy outputs) turns the window and fusion off for
+            the rest of the run, as tpudl keeps such a function serial."""
+            nonlocal first_dispatch, window, fuse
             if window is not None:
                 while window.full():
                     handle(window.pop())
-            result, n_pad, keep, t0, pin = run(*args)
+            result, n_pad, keep, t0, pin, interleave = run(*args)
             pins.discard(pin)   # the entry releases it from here on
-            entry = _start_host_copies(result, n_pad, keep, pin)
+            entry = _start_host_copies(result, n_pad, keep, pin, interleave)
             if first_dispatch:
                 first_dispatch = False
                 report.count("first_dispatch_s", time.perf_counter() - t0)
+                if host_fn:
+                    fuse = 1
+                    report.config.update(fuse_steps=1, dispatch_depth=1,
+                                         donate=False)
+                    if window is not None:
+                        while len(window):
+                            handle(window.pop())
+                        window = None
             if window is None:
                 with report.stage("d2h"):
                     entry.wait()
@@ -979,7 +1137,11 @@ class Frame:
         t_wall = time.perf_counter()
         try:
             while consumed < len(spans):
-                if fuse > 1 and consumed + fuse <= n_full:
+                # under a mesh the first dispatch of a function not known
+                # to run on the device runs alone: it tells a host
+                # function, which must not fuse, from a torch one
+                if (fuse > 1 and consumed + fuse <= n_full
+                        and not (probe_first and first_dispatch)):
                     group = [next_prepared() for _ in range(fuse)]
                     if not _stackable(group):
                         # shapes drifted between microbatches (a ragged

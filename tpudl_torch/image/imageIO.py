@@ -10,11 +10,12 @@ model) lives in :mod:`tpudl_torch.image.ops`.
 ``LazyFileColumn`` reads the files of a batch on ``io_workers`` threads
 and decodes on ``decode_workers``, and the executor's prepare pool may
 read several batches at once; a decoder not marked ``thread_safe`` runs
-under a column-wide lock. Not ported yet, and refused where they are
-options: ``host_sharded`` (Queue 1, 'Training, rest', multi-host), the
-read retry policy and fault points (Queue 1, 'Jobs, faults and the
-supervisor') and the flight-recorder samples of decode errors (Queue 1,
-'The rest of observability').
+under a column-wide lock. ``host_sharded=True`` keeps this process's
+share of the file list (:func:`tpudl_torch.distributed.host_shard`, the
+multi-machine input plane that replaces Spark's partition assignment).
+Not ported yet: the read retry policy and fault points (Queue 1, 'Jobs,
+faults and the supervisor') and the flight-recorder samples of decode
+errors (Queue 1, 'The rest of observability').
 """
 
 from __future__ import annotations
@@ -57,12 +58,6 @@ __all__ = [
     "createNativeImageLoader",
     "SPARK_MODE",
 ]
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to tpudl_torch yet (ROADMAP Queue 1, "
-        f"{item!r})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -614,20 +609,20 @@ def _listFiles(path: str | Iterable[str]) -> list[str]:
     return [path]
 
 
-def _refuse_host_sharded(host_sharded):
-    if host_sharded:
-        _not_ported("host_sharded=True (multi-host file sharding)",
-                    "Training, rest")
-
-
 def filesToFrame(path, numPartitions: int | None = None,
                  host_sharded: bool = False, lazy: bool = True) -> Frame:
     """A Frame with columns (filePath, fileData) over raw file bytes;
     ``fileData`` is a :class:`LazyFileColumn` unless ``lazy=False``.
     ``numPartitions`` is the frame's partition hint (``map_batches``'s
-    default batch is ``ceil(rows / numPartitions)``)."""
-    _refuse_host_sharded(host_sharded)
+    default batch is ``ceil(rows / numPartitions)``). ``host_sharded=True``
+    keeps only this process's contiguous share of the sorted file list
+    (:func:`tpudl_torch.distributed.host_shard` over the joined process
+    group; the whole list outside one)."""
     paths = _listFiles(path)
+    if host_sharded:
+        from tpudl_torch import distributed as D
+
+        paths = D.host_shard(paths)
     if lazy:
         data = LazyFileColumn(paths)
     else:
@@ -672,9 +667,9 @@ def readImagesWithCustomFn(path, decode_f, numPartition: int | None = None,
     prepare pool. ``decode_f`` runs concurrently only when it is marked
     ``thread_safe = True``. ``probe_f`` (raw → bool, True iff the decode
     would succeed) lets ``dropna`` classify rows without decoding them.
-    ``numPartition`` is the frame's partition hint."""
-    _refuse_host_sharded(host_sharded)
-    files = filesToFrame(path, lazy=lazy)
+    ``numPartition`` is the frame's partition hint; ``host_sharded`` is
+    :func:`filesToFrame`'s."""
+    files = filesToFrame(path, host_sharded=host_sharded, lazy=lazy)
     if lazy:
         def tr(p, raw):
             return _decode_row(decode_f, p, raw)

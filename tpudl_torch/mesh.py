@@ -1,32 +1,53 @@
-"""The data-parallel group — the port's counterpart of tpudl's mesh.
+"""The data-parallel mesh — the port's counterpart of tpudl's mesh.
 
-Port of ``tpudl/mesh.py`` for data parallelism over ``torch.distributed``
-(one process per rank): tpudl lays a ``(data, model)`` grid of devices
-under one SPMD program; here a :class:`Mesh` is this process's place in
-the group — its size, rank, device and process group.
+Port of ``tpudl/mesh.py`` for data parallelism. tpudl lays a ``(data,
+model)`` grid of devices under one SPMD program; the port has two forms
+of :class:`Mesh` with the same ``shape``:
 
-- :func:`build_mesh` spans the joined process group's ranks on the
-  ``data`` axis. A ``model`` axis above 1 (``n_model`` or
-  ``TPUDL_MESH_MODEL``) is refused (ROADMAP Queue 1, 'LM parallelism').
-- :func:`replicate` broadcasts rank 0's tensors (a tree of tensors or a
-  module's parameters and buffers) in place: tpudl's replicated
-  placement.
-- :func:`shard_batch` moves this rank's rows of a global batch to the
-  rank's device (:func:`tpudl_torch.distributed.global_batch`).
+- a **local mesh**: the cards this process drives on the data axis
+  (``devices``), tpudl's ``build_mesh()`` over ``jax.devices()``. One
+  thread launches every card's work: a batch is padded to a multiple of
+  the data axis and split into one contiguous shard a card
+  (:func:`transfer_batch`), each card runs its shard on its own replica
+  of the model (:func:`replicate`, :class:`PerDevice`), and the outputs
+  come back in row order. ``Frame.map_batches(mesh=)``, the stages, the
+  UDFs, ``Dataset(mesh=)`` and the estimator's data-parallel fit take it;
+- a **process-group mesh**: one rank's place in a ``torch.distributed``
+  group, one card a process — what ``HorovodRunner`` hands its
+  ``train_fn``.
+
+- :func:`build_mesh` builds a local mesh over ``devices=`` (a device may
+  repeat: ``["cpu"] * 8`` on the host, ``["cuda:0", "cuda:0"]`` as a
+  one-card rehearsal of two), else spans the joined process group's
+  ranks, else every visible card. A ``model`` axis above 1 (``n_model``
+  or ``TPUDL_MESH_MODEL``) is refused (ROADMAP Queue 1, 'LM
+  parallelism').
+- :func:`replicate` broadcasts rank 0's tensors in place over a group,
+  and over a local mesh returns one copy a distinct device, made once.
+- :func:`transfer_batch` copies a padded host batch's shards to their
+  cards, each on its card's copy stream; :func:`shard_batch` is this
+  rank's rows of a global batch on a group, the same as
+  :func:`transfer_batch` on a local mesh.
 - :func:`all_reduce_mean` averages tensors over the group in one
   flattened all-reduce per dtype (the gradient reduction of
   :func:`tpudl_torch.train.make_train_step`); it counts its calls and
   bytes in ``mesh.allreduce.calls`` and ``mesh.allreduce.bytes``.
+  :func:`reduce_add` and :func:`broadcast` are the local mesh's
+  collectives (``torch.cuda.comm`` across distinct cards, plain sums and
+  copies elsewhere).
 - :func:`pad_batch` / :func:`unpad_batch` are tpudl's.
-- :func:`use_mesh` makes the rank's card the current CUDA device.
+- :func:`use_mesh` makes the mesh's (first) card the current CUDA device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy as _copy
 import dataclasses
 import math
 import os
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -36,8 +57,10 @@ from tpudl_torch import distributed as D
 from tpudl_torch.obs import metrics as _metrics
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "model_axis_size",
-           "build_mesh", "replicate", "shard_batch", "all_reduce_mean",
-           "barrier", "pad_batch", "unpad_batch", "use_mesh"]
+           "build_mesh", "replicate", "PerDevice", "Sharded", "shard_rows",
+           "transfer_batch", "shard_batch", "all_reduce_mean", "reduce_add",
+           "broadcast", "barrier", "pad_batch", "unpad_batch", "use_mesh",
+           "on_device"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -45,17 +68,36 @@ MODEL_AXIS = "model"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a data-parallel group of ``size`` ranks."""
+    """A data-parallel mesh of ``size`` entries on the ``data`` axis.
+
+    A process-group mesh is this rank's place in ``group``: ``device`` is
+    the rank's card and ``devices`` is ``(device,)``. A local mesh has no
+    group (``group is None``, ``rank`` 0): ``devices`` are the cards this
+    process drives, in shard order, and ``device`` is the first."""
 
     size: int
     rank: int
     device: torch.device
-    group: object  # the torch.distributed ProcessGroup of the ranks
+    group: object  # the torch.distributed ProcessGroup; None on a local mesh
+    devices: tuple = ()
+
+    def __post_init__(self):
+        if not self.devices:
+            object.__setattr__(self, "devices", (self.device,))
 
     @property
     def shape(self) -> dict:
         """tpudl's ``mesh.shape``: ``{"data": size, "model": 1}``."""
         return {DATA_AXIS: self.size, MODEL_AXIS: 1}
+
+    @property
+    def local(self) -> bool:
+        """True for a mesh of this process's own cards (no group)."""
+        return self.group is None
+
+    def distinct_devices(self) -> list:
+        """The mesh's devices once each, in order of first appearance."""
+        return list(dict.fromkeys(self.devices))
 
 
 # copied from tpudl/mesh.py:model_axis_size
@@ -68,12 +110,39 @@ def model_axis_size() -> int:
         return 1
 
 
+def _canonical(device) -> torch.device:
+    """A mesh entry as a ``torch.device``: a card without an index is the
+    current one, so that every shard names the card it runs on."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"mesh device {str(device)!r} but torch.cuda.is_available() "
+                "is False; build the mesh over CPU devices "
+                "(build_mesh(devices=['cpu'] * n)) to run on the host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def build_mesh(n_data: int | None = None, n_model: int | None = None, *,
-               device=None) -> Mesh:
-    """The mesh of the joined process group (:func:`tpudl_torch.
-    distributed.initialize`): ``n_data`` must be its world size (the
-    default). ``device`` defaults to ``cuda:<rank>`` when the group runs
-    NCCL, else the CPU."""
+               devices=None, device=None) -> Mesh:
+    """A mesh of ``n_data`` entries on the ``data`` axis.
+
+    - ``devices=[...]``: a local mesh over that list (its first
+      ``n_data`` entries; all by default). A device may repeat:
+      ``["cpu"] * 8`` runs eight shards on the host, and
+      ``["cuda:0", "cuda:0"]`` runs two shards, each on its own replica,
+      on one card.
+    - Otherwise, inside a joined process group
+      (:func:`tpudl_torch.distributed.initialize`, ``HorovodRunner``):
+      this rank's place in it; ``n_data`` must be its world size (the
+      default) and ``device`` defaults to ``cuda:<rank>`` when the group
+      runs NCCL, else the CPU.
+    - Otherwise a local mesh over the first ``n_data`` visible cards
+      (all by default), tpudl's ``build_mesh()`` over ``jax.devices()``.
+      Without a card this raises: the port never drops to the CPU
+      unasked."""
     if n_model is None:
         n_model = model_axis_size()
     if n_model > 1:
@@ -81,18 +150,83 @@ def build_mesh(n_data: int | None = None, n_model: int | None = None, *,
             f"a model axis of {n_model} (TPUDL_MESH_MODEL / n_model, tensor "
             "parallelism) is not ported to tpudl_torch yet (ROADMAP Queue 1, "
             "'LM parallelism')")
-    if not dist.is_initialized():
-        raise RuntimeError(
-            "build_mesh needs the process group: run under HorovodRunner "
-            "or call tpudl_torch.distributed.initialize first")
-    size, rank = dist.get_world_size(), dist.get_rank()
-    if n_data is not None and n_data != size:
-        raise ValueError(f"mesh of {n_data} ranks, but the process group "
-                         f"has {size}")
-    if device is None:
-        device = (torch.device("cuda", rank)
-                  if dist.get_backend() == "nccl" else torch.device("cpu"))
-    return Mesh(size, rank, torch.device(device), dist.group.WORLD)
+    if devices is None and dist.is_initialized():
+        size, rank = dist.get_world_size(), dist.get_rank()
+        if n_data is not None and n_data != size:
+            raise ValueError(f"mesh of {n_data} ranks, but the process "
+                             f"group has {size}")
+        if device is None:
+            device = (torch.device("cuda", rank)
+                      if dist.get_backend() == "nccl"
+                      else torch.device("cpu"))
+        return Mesh(size, rank, torch.device(device), dist.group.WORLD)
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_mesh() found no CUDA card (torch.cuda.is_available() "
+                "is False); name the devices to run on the host: "
+                "build_mesh(devices=['cpu'] * n)")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = [_canonical(d) for d in devices]
+    if n_data is None:
+        n_data = len(devs)
+    if not 1 <= n_data <= len(devs):
+        raise ValueError(f"mesh {n_data}x1 needs {n_data} devices, have "
+                         f"{len(devs)}")
+    devs = devs[:n_data]
+    return Mesh(n_data, 0, devs[0], None, tuple(devs))
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Make ``device`` the current CUDA device for the block (nothing for
+    a CPU device): its kernels, events and default stream are then that
+    card's."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            yield
+    else:
+        yield
+
+
+class PerDevice:
+    """One callable per device, as one function: a call runs the callable
+    of its first tensor argument's device. A stage builds one from its
+    per-device replicas (:func:`replicate`), so that the executor can hand
+    every card's shard to the same function."""
+
+    def __init__(self, fns: dict):
+        self._fns = {torch.device(d): f for d, f in fns.items()}
+
+    def __call__(self, *args):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        try:
+            fn = self._fns[dev]
+        except KeyError:
+            raise ValueError(
+                f"no replica on {dev}; this function has replicas on "
+                f"{sorted(map(str, self._fns))}") from None
+        return fn(*args)
+
+    @property
+    def devices(self) -> list:
+        return list(self._fns)
+
+
+class Sharded(tuple):
+    """One column of a batch as its per-card shards, in mesh order (a
+    batch resident on a local mesh: ``Dataset(mesh=)`` and the device
+    cache hold it so)."""
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(t.numel() * t.element_size() for t in self))
+
+    @property
+    def devices(self) -> list:
+        return [t.device for t in self]
 
 
 def _tensors(tree) -> list:
@@ -125,14 +259,154 @@ def _coalesced(tensors, collective, device) -> tuple[int, int]:
     return len(groups), nbytes
 
 
+# replicas of a module on a local mesh, made once a (module, device)
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_REPLICAS_LOCK = threading.Lock()
+
+
+def _copy_to(tree, dev: torch.device):
+    """``tree`` on ``dev``: a module deep-copied there (itself when all its
+    tensors are there already), tensors moved, containers rebuilt."""
+    if isinstance(tree, torch.nn.Module):
+        if all(t.device == dev for t in _tensors(tree)):
+            return tree
+        with _REPLICAS_LOCK:
+            cached = _REPLICAS.get(tree, {}).get(dev)
+        if cached is not None:
+            return cached
+        with torch.no_grad():
+            rep = _copy.deepcopy(tree).to(dev)
+        with _REPLICAS_LOCK:
+            return _REPLICAS.setdefault(tree, {}).setdefault(dev, rep)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(dev)
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_to(v, dev) for v in tree)
+    return tree
+
+
 def replicate(tree, mesh: Mesh):
-    """Broadcast rank 0's tensors of ``tree`` (a module, a tensor, or
-    dicts and sequences of tensors) to every rank, in place; returns
-    ``tree``."""
+    """tpudl's replicated placement of ``tree`` (a module, a tensor, or
+    dicts and sequences of tensors) over ``mesh``.
+
+    Over a process group, rank 0's tensors are broadcast to every rank in
+    place and ``tree`` is returned. Over a local mesh the result is
+    ``{device: copy}`` with one copy a distinct device of the mesh: a
+    module's copy is made once and cached by device (a snapshot of its
+    weights then), the source itself serves its own device, and tensors
+    are moved."""
+    if mesh.local:
+        return {dev: _copy_to(tree, dev) for dev in mesh.distinct_devices()}
     _coalesced(_tensors(tree),
                lambda flat: dist.broadcast(flat, src=0, group=mesh.group),
                mesh.device)
     return tree
+
+
+# one host→card copy stream a card, shared by every transfer to it
+_COPY_STREAMS: dict = {}
+
+
+def _copy_stream(dev: torch.device):
+    with _REPLICAS_LOCK:
+        stream = _COPY_STREAMS.get(dev)
+        if stream is None:
+            stream = _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
+        return stream
+
+
+def shard_rows(tensors, count: int) -> list:
+    """The ``count`` contiguous row blocks of a batch (one list of views a
+    block); the batch's rows must be a multiple of ``count``
+    (:func:`pad_batch`)."""
+    tensors = list(tensors)
+    rows = int(tensors[0].shape[0]) if tensors else 0
+    if rows % count:
+        raise ValueError(
+            f"a batch of {rows} rows does not split over {count} mesh "
+            "entries; pad it to a multiple (tpudl_torch.mesh.pad_batch)")
+    per = rows // count
+    return [[t[i * per:(i + 1) * per] for t in tensors]
+            for i in range(count)]
+
+
+def transfer_batch(tensors, mesh: Mesh, *, block: bool = False) -> list:
+    """The local mesh's infeed edge: a padded host batch (one tensor a
+    column, rows a multiple of the data axis) split into one contiguous
+    shard a mesh entry, each shard on its device. On a card each copy
+    runs from pinned memory on that card's own copy stream, and the
+    card's current stream waits for it, so the copies overlap the other
+    cards' work; ``block=True`` waits for them (the conservative arm,
+    ``TPUDL_MESH_FAST_PATH=0``). A shard already on its device is passed
+    through. Returns one list of tensors a mesh entry."""
+    out = []
+    for dev, part in zip(mesh.devices, shard_rows(tensors, mesh.size)):
+        if dev.type != "cuda":
+            out.append([t.to(dev) for t in part])
+            continue
+        with torch.cuda.device(dev):
+            current = torch.cuda.current_stream()
+            side = _copy_stream(dev)
+            with torch.cuda.stream(side):
+                moved = [t.to(dev, non_blocking=True) for t in part]
+            current.wait_stream(side)
+            for t in moved:
+                # allocated on the copy stream, read on the current one
+                t.record_stream(current)
+            if block:
+                side.synchronize()
+        out.append(moved)
+    return out
+
+
+def reduce_add(parts, devices) -> list:
+    """Sum tensors across mesh entries onto the first: ``parts[i]`` is
+    entry ``i``'s list of tensors (``devices[i]``), and the result is the
+    list of their sums on ``devices[0]``. Across distinct cards this is
+    ``torch.cuda.comm.reduce_add_coalesced``; where a device repeats (or
+    on the CPU) it is plain sums in entry order."""
+    devs = [torch.device(d) for d in devices]
+    if (len(devs) > 1 and len(set(devs)) == len(devs)
+            and all(d.type == "cuda" for d in devs)):
+        from torch.cuda import comm
+
+        return list(comm.reduce_add_coalesced(
+            [list(p) for p in parts], destination=devs[0].index))
+    out = [t.clone() for t in parts[0]]
+    for p in parts[1:]:
+        for o, t in zip(out, p):
+            o.add_(t.to(o.device))
+    return out
+
+
+def broadcast(tensors, replicas, devices) -> None:
+    """Copy the first entry's ``tensors`` into every other entry's list
+    ``replicas[i]`` (same order; ``replicas[0]`` is the first entry's own
+    and is left alone), in place: one ``torch.cuda.comm.
+    broadcast_coalesced`` to the other distinct cards, plain copies where
+    a device repeats or on the CPU."""
+    devs = [torch.device(d) for d in devices]
+    src = devs[0]
+    far = [i for i in range(1, len(devs))
+           if src.type == "cuda" and devs[i].type == "cuda"
+           and devs[i] != src]
+    if len({devs[i] for i in far}) != len(far):
+        far = []
+    with torch.no_grad():
+        if far:
+            from torch.cuda import comm
+
+            copies = comm.broadcast_coalesced(
+                list(tensors), [src.index] + [devs[i].index for i in far])
+            for i, got in zip(far, copies[1:]):
+                for dst, t in zip(replicas[i], got):
+                    dst.copy_(t)
+        for i in range(1, len(devs)):
+            if i not in far:
+                for dst, t in zip(replicas[i], tensors):
+                    dst.copy_(t)
 
 
 def all_reduce_mean(tensors, mesh: Mesh) -> None:
@@ -159,9 +433,17 @@ def barrier(mesh: Mesh) -> None:
 
 
 def shard_batch(tree, mesh: Mesh):
-    """This rank's rows of every leaf of a global batch (numpy arrays or
-    tensors; a tuple, list or dict of them), as tensors on the rank's
-    device."""
+    """On a process-group mesh, this rank's rows of every leaf of a global
+    batch (numpy arrays or tensors; a tuple, list or dict of them), as
+    tensors on the rank's device. On a local mesh, one such tree a mesh
+    entry, each holding that entry's contiguous block of rows on its
+    device (:func:`transfer_batch`; the rows must split evenly)."""
+    if mesh.local:
+        leaves, rebuild = _flatten(tree)
+        tensors = [x if isinstance(x, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(x))
+                   for x in leaves]
+        return [rebuild(part) for part in transfer_batch(tensors, mesh)]
     if isinstance(tree, dict):
         return {k: shard_batch(v, mesh) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -170,6 +452,19 @@ def shard_batch(tree, mesh: Mesh):
     if not isinstance(rows, torch.Tensor):
         rows = torch.from_numpy(np.ascontiguousarray(rows))
     return rows.to(mesh.device)
+
+
+def _flatten(tree):
+    """The leaves of a tuple, list or dict of arrays (or one array) and
+    the function that rebuilds the tree from new leaves."""
+    if isinstance(tree, dict):
+        keys = list(tree)
+        return ([tree[k] for k in keys],
+                lambda leaves: dict(zip(keys, leaves)))
+    if isinstance(tree, (list, tuple)):
+        kind = type(tree)
+        return list(tree), lambda leaves: kind(leaves)
+    return [tree], lambda leaves: leaves[0]
 
 
 # copied from tpudl/mesh.py:pad_batch
@@ -192,10 +487,8 @@ def unpad_batch(arr, n_pad: int):
 
 @contextlib.contextmanager
 def use_mesh(mesh: Mesh):
-    """Run the block with the rank's card as the current CUDA device, so
-    that ``device="cuda"`` inside it means this rank's card."""
-    if mesh.device.type == "cuda":
-        with torch.cuda.device(mesh.device):
-            yield mesh
-    else:
+    """Run the block with the mesh's card (a rank's card; a local mesh's
+    first) as the current CUDA device, so that ``device="cuda"`` inside
+    it means that card."""
+    with on_device(mesh.device):
         yield mesh

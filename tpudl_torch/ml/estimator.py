@@ -29,11 +29,27 @@ batches'. The returned transformer carries ``history``:
 ``fitMultiple`` (and ``fit`` over a list of param maps) is tpudl's: one
 shared ``(X, y)`` and one ingested graph for every map that tunes only
 training knobs, the trials scheduled by
-:class:`~tpudl_torch.ml.hpo.TrialScheduler` (one in flight a card,
-yielded in completion order, each re-attempted under
-``trialRetryPolicy`` when its failure is transient), and a private
-``_fit`` for a map that overrides ``modelFile``, ``inputCol``,
-``labelCol`` or ``imageLoader`` (compared by value).
+:class:`~tpudl_torch.ml.hpo.TrialScheduler` over the mesh's cards (or
+every visible card; one trial in flight a slice, yielded in completion
+order, each re-attempted under ``trialRetryPolicy`` when its failure is
+transient), and a private ``_fit`` for a map that overrides
+``modelFile``, ``inputCol``, ``labelCol`` or ``imageLoader`` (compared by
+value).
+
+Data-parallel training, as tpudl's sub-mesh trials: ``fit`` on an
+estimator with a ``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`)
+trains over the whole mesh, and a trial slice of several cards trains
+over its slice. The batch rounds up to a multiple of the slice's width
+and batches stride by it (fresh rows, as tpudl draws them); each card
+holds a replica of the variables and runs the step on its contiguous
+shard; the gradients, each weighted by its shard's share of the rows,
+are summed onto the first card (:func:`tpudl_torch.mesh.reduce_add`),
+one optimizer step runs there, and the new variables are copied back to
+the other cards (:func:`tpudl_torch.mesh.broadcast`). BatchNormalization
+normalizes with its moving statistics in this step (the inference call,
+as tpudl's), so a replica's shard computes exactly what its rows
+contribute to tpudl's global SPMD step, and no cross-card statistics
+are needed.
 
 The data layer, as in tpudl: ``cacheDir`` (default
 ``TPUDL_DATA_CACHE_DIR``) shards the bulk image load, so a re-fit over
@@ -44,9 +60,9 @@ restores them inside the step; ``deviceCache`` (default
 once (``bulk_resident``), and every step gathers its batch there — the
 pin is released when the trial ends, failed or not, and trials over the
 same data share the entry. The three knobs pass into the returned
-transformer. Refused by name: ``mesh`` and with it mesh-wide trials
-('Training, rest'), ``modelAxis`` and ``paramShardings`` ('LM
-parallelism').
+transformer, as does the ``mesh``. The bulk residency stays on one card,
+as in tpudl: a data-parallel trial ships its shards every step. Refused
+by name: ``modelAxis`` and ``paramShardings`` ('LM parallelism').
 """
 
 from __future__ import annotations
@@ -70,13 +86,44 @@ from tpudl_torch.ml.params import (HasInputCol, HasKerasLoss, HasKerasModel,
 from tpudl_torch.ml.pipeline import Estimator
 from tpudl_torch.obs import metrics as _obs_metrics
 
-__all__ = ["KerasImageFileEstimator"]
+__all__ = ["KerasImageFileEstimator", "sharded_backward"]
 
 _ALLOWED_FIT_PARAMS = {"batch_size", "epochs", "verbose", "shuffle",
                        "learning_rate", "seed"}
 
-_UNPORTED = {"mesh": "Training, rest", "modelAxis": "LM parallelism",
+_UNPORTED = {"modelAxis": "LM parallelism",
              "paramShardings": "LM parallelism"}
+
+
+def sharded_backward(apply_fn, loss_fn, replicas, shards, devices,
+                     codec=None) -> tuple[dict, torch.Tensor]:
+    """The backward of one data-parallel step: entry ``i`` of the mesh
+    runs ``loss_fn(apply_fn(replicas[i], x_i), y_i)`` on its shard
+    ``shards[i] = (x_i, y_i)`` (restored by ``codec`` first), weighted by
+    the shard's share of the batch's rows, and backpropagates it into its
+    replica; the gradients of every variable that requires one are then
+    summed onto the first entry (:func:`tpudl_torch.mesh.reduce_add`).
+    Returns ``({name: gradient on devices[0]}, the batch's mean loss on
+    devices[0])``: what one device computes on the whole batch, in
+    another order of sums."""
+    from tpudl_torch import mesh as M
+
+    rows = sum(int(x.shape[0]) for x, _ in shards)
+    first = torch.device(devices[0])
+    losses = []
+    for dev, rep, (xs, ys) in zip(devices, replicas, shards):
+        with M.on_device(dev):
+            for t in rep.values():
+                t.grad = None
+            if codec is not None:
+                xs = codec.prologue(xs)
+            loss = loss_fn(apply_fn(rep, xs), ys) * (xs.shape[0] / rows)
+            loss.backward()
+            losses.append(loss.detach().to(first))
+    names = [k for k, t in replicas[0].items() if t.requires_grad]
+    grads = M.reduce_add([[rep[k].grad for k in names] for rep in replicas],
+                         devices)
+    return dict(zip(names, grads)), torch.stack(losses).sum()
 
 
 class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
@@ -96,6 +143,10 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         kwargs = dict(self._input_kwargs)
         refuse_unported(type(self).__name__, kwargs, _UNPORTED)
         self.device = kwargs.pop("device", device)
+        # the data-parallel mesh: fit trains over it, fitMultiple carves
+        # its cards into trial slices, and the returned transformer runs
+        # over it
+        self.mesh = kwargs.pop("mesh", None)
         # executor knobs, handed to the transformer that fit returns
         self.prefetchDepth = kwargs.pop("prefetchDepth", None)
         self.prepareWorkers = kwargs.pop("prepareWorkers", None)
@@ -171,10 +222,23 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
                f"{_dc.array_token(y)}|{_dc.device_token(dev)}", 0)
         return _dc.bulk_resident(key, (X, y), device=dev)
 
-    def _train_one(self, gin, X, y, device=None):
-        """Train on ``(X, y)`` from ``gin.params`` on ``device`` (default
-        the estimator's): ``(params, epoch losses, step losses)``,
-        ``params`` as torch tensors on that device in Keras's layout."""
+    def _devices(self, devices) -> list:
+        """A trial's slice as a list of devices: ``devices`` (one device or
+        a list), else the mesh's cards, else the estimator's device."""
+        if devices is None:
+            devices = (list(self.mesh.devices) if self.mesh is not None
+                       else [self.device])
+        elif isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        return [resolve_device(d) for d in devices]
+
+    def _train_one(self, gin, X, y, devices=None):
+        """Train on ``(X, y)`` from ``gin.params`` on a slice of
+        ``devices`` (default: the mesh's cards, else the estimator's
+        device; one device may be passed alone): ``(params, epoch losses,
+        step losses)``, ``params`` as torch tensors on the slice's first
+        device in Keras's layout. A slice of several entries trains
+        data-parallel (see the module docstring)."""
         fit_params = self._validateFitParams(self.getKerasFitParams())
         batch_size = int(fit_params.get("batch_size", 32))
         epochs = int(fit_params.get("epochs", 1))
@@ -184,7 +248,12 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         n = len(X)
         if n == 0:
             raise ValueError("cannot fit on an empty frame (0 images)")
-        dev = resolve_device(self.device if device is None else device)
+        devs = self._devices(devices)
+        dev, width = devs[0], len(devs)
+        # batches split evenly over the slice: the batch rounds up to a
+        # multiple of its width and batches stride by that many fresh
+        # rows, as tpudl's sub-mesh trials draw them
+        target = math.ceil(batch_size / width) * width
         codec = self._train_codec(X)
         loss_fn = get_loss(self.getKerasLoss())
         factory, default_lr = get_optimizer_dynamic(self.getKerasOptimizer())
@@ -195,13 +264,50 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
                                   requires_grad=np.asarray(v).dtype.kind
                                   == "f")
                   for k, v in gin.params.items()}
-        opt = factory([t for t in params.values() if t.requires_grad])
+        trained = [k for k, t in params.items() if t.requires_grad]
+        opt = factory([params[k] for k in trained])
         set_learning_rate(opt, lr if lr is not None else default_lr)
         apply_fn = gin.make_fn()
+        # one replica of the variables an entry of the slice after the
+        # first, which trains the originals
+        replicas = [params] + [
+            {k: t.detach().to(d, copy=True).requires_grad_(t.requires_grad)
+             for k, t in params.items()} for d in devs[1:]]
+        if width > 1:
+            from tpudl_torch import mesh as M
+
+            mesh = M.build_mesh(devices=devs)
+
+        def step(xb, yb):
+            """One optimizer step on the batch ``(xb, yb)`` (host numpy;
+            device tensors when resident): its loss, on ``dev``."""
+            if width == 1:
+                if not isinstance(xb, torch.Tensor):
+                    xb = torch.from_numpy(xb).to(dev, non_blocking=True)
+                    yb = torch.from_numpy(yb).to(dev, non_blocking=True)
+                if codec is not None:
+                    xb = codec.prologue(xb)
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(apply_fn(params, xb), yb)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+            grads, loss = sharded_backward(
+                apply_fn, loss_fn, replicas, M.shard_batch((xb, yb), mesh),
+                devs, codec)
+            for k, g in grads.items():
+                params[k].grad = g
+            opt.step()
+            M.broadcast([params[k] for k in trained],
+                        [[rep[k] for k in trained] for rep in replicas],
+                        devs)
+            return loss
 
         rng = np.random.default_rng(seed)
         epoch_losses, step_losses = [], []
-        bulk = self._bulk_pin(X, y, dev)
+        # the bulk residency stays on one card, as in tpudl: a
+        # data-parallel slice ships its shards every step
+        bulk = self._bulk_pin(X, y, dev) if width == 1 else None
         # everything past the bulk acquisition runs under the releasing
         # finally: a failed trial must not strand its pin in the budget
         try:
@@ -210,30 +316,19 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
                 for _epoch in range(epochs):
                     order = rng.permutation(n) if shuffle else np.arange(n)
                     batch_losses = []     # on the device; one fetch an epoch
-                    for start in range(0, n, batch_size):
-                        idx = order[start:start + batch_size]
-                        if len(idx) < batch_size:   # the ragged tail wraps
-                            reps = math.ceil((batch_size - len(idx)) / n)
+                    for start in range(0, n, target):
+                        idx = order[start:start + target]
+                        if len(idx) < target:   # the ragged tail wraps
+                            reps = math.ceil((target - len(idx)) / n)
                             fill = np.concatenate(
-                                [order] * reps)[: batch_size - len(idx)]
+                                [order] * reps)[: target - len(idx)]
                             idx = np.concatenate([idx, fill])
                         if bulk is not None:
                             # X/y live on the card: gather there
                             sel = torch.from_numpy(idx).to(dev)
-                            xb, yb = Xr[sel], yr[sel]
+                            batch_losses.append(step(Xr[sel], yr[sel]))
                         else:
-                            xb = torch.from_numpy(X[idx]).to(
-                                dev, non_blocking=True)
-                            yb = torch.from_numpy(y[idx]).to(
-                                dev, non_blocking=True)
-                        if codec is not None:
-                            xb = codec.prologue(xb)
-                        opt.zero_grad(set_to_none=True)
-                        pred = apply_fn(params, xb)
-                        loss = loss_fn(pred, yb)
-                        loss.backward()
-                        opt.step()
-                        batch_losses.append(loss.detach())
+                            batch_losses.append(step(X[idx], y[idx]))
                     losses = torch.stack(batch_losses).cpu()
                     step_losses += losses.tolist()
                     epoch_losses.append(float(losses.mean()))
@@ -249,8 +344,8 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
             # the float32 the prologue reconstitutes (a resident trial
             # ships its dataset once, counted by the data.hbm counters)
             row = int(X.nbytes) / max(1, len(X))
-            shipped = int(n_steps * batch_size * row)
-            dense = int(n_steps * batch_size * (X.size / max(1, len(X))) * 4)
+            shipped = int(n_steps * target * row)
+            dense = int(n_steps * target * (X.size / max(1, len(X))) * 4)
             _obs_metrics.counter("data.wire.bytes_shipped").inc(shipped)
             _obs_metrics.counter("data.wire.bytes_dense").inc(dense)
             if dense > shipped:
@@ -277,24 +372,27 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
             inputCol=self.getInputCol(), outputCol=self.getOutputCol(),
             modelFile=model_path, imageLoader=self.getImageLoader(),
             device=self.device if device is None else device,
-            prefetchDepth=self.prefetchDepth,
+            mesh=self.mesh, prefetchDepth=self.prefetchDepth,
             prepareWorkers=self.prepareWorkers, fuseSteps=self.fuseSteps,
             dispatchDepth=self.dispatchDepth, wireCodec=self.wireCodec,
             cacheDir=self.cacheDir, deviceCache=self.deviceCache)
 
-    def _trained_model(self, gin, X, y, device=None):
-        """Train, write the trained file and return its transformer, with
-        the losses as its ``history``."""
-        params, epoch_losses, step_losses = self._train_one(gin, X, y, device)
-        model = self._make_transformer(self._save_trained(gin, params),
-                                       device)
+    def _trained_model(self, gin, X, y, devices=None):
+        """Train on ``devices`` (a device, or a trial's slice), write the
+        trained file and return its transformer (on the slice's first
+        device, or over the mesh), with the losses as its ``history``."""
+        params, epoch_losses, step_losses = self._train_one(gin, X, y,
+                                                            devices)
+        model = self._make_transformer(
+            self._save_trained(gin, params),
+            None if devices is None else self._devices(devices)[0])
         model.history = {"epoch_loss": epoch_losses,
                          "step_loss": step_losses}
         return model
 
-    def _fit(self, frame, device=None):
+    def _fit(self, frame, devices=None):
         X, y = self._getNumpyFeaturesAndLabels(frame)
-        return self._trained_model(self._ingest(), X, y, device)
+        return self._trained_model(self._ingest(), X, y, devices)
 
     # copied from tpudl/ml/estimator.py:_overrides_shared
     def _overrides_shared(self, conf):
@@ -320,8 +418,10 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         """Iterator of ``(index, model)`` as each trial finishes: one
         shared dataset and one ingested graph for the maps that tune
         training knobs, a private ``_fit`` for a map that overrides the
-        data or the model file. Trials run one a card (on the CPU, one
-        at a time)."""
+        data or the model file. The mesh's cards (else every visible
+        card; on the CPU, the one device) are carved into one slice a
+        trial in flight (:func:`tpudl_torch.ml.hpo.device_slices`), and a
+        trial trains data-parallel over its slice."""
         from tpudl_torch.ml.hpo import TrialScheduler
 
         paramMaps = list(paramMaps)
@@ -334,14 +434,15 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
             if len(private) < len(confs):
                 X, y = self._getNumpyFeaturesAndLabels(frame)
                 gin = self._ingest()
-            sched = TrialScheduler(device=self.device)
+            sched = TrialScheduler(
+                devices=(list(self.mesh.devices) if self.mesh is not None
+                         else None), device=self.device)
 
             def trial(i, _pm, slice_devs):
-                # a wider slice trains on its first card (mesh-wide
-                # trials wait for mesh=, 'Training, rest')
+                # a slice of several entries trains data-parallel over it
                 if i in private:
-                    return confs[i]._fit(frame, slice_devs[0])
-                return confs[i]._trained_model(gin, X, y, slice_devs[0])
+                    return confs[i]._fit(frame, slice_devs)
+                return confs[i]._trained_model(gin, X, y, slice_devs)
 
             yield from sched.run(paramMaps, trial,
                                  retry=self.trialRetryPolicy)

@@ -6,12 +6,13 @@ per in-flight trial (:func:`device_slices`, tpudl's carving: 8 devices /
 one in flight per slice, and results are yielded in COMPLETION order
 (the CrossValidator contract). Devices are ``torch.device``\\ s: by
 default every visible CUDA device, ``[cpu]`` when the caller asks for
-the CPU (``device="cpu"``). The trials share host RAM; torch releases
+the CPU (``device="cpu"``); an estimator with a mesh passes the mesh's
+devices. The trials share host RAM; torch releases
 the GIL in its kernels and copies, so trials on distinct cards overlap.
 
-A slice wider than one card trains its trial on its first card:
-data-parallel trials wait for the estimator's ``mesh=`` (ROADMAP Queue
-1, 'Training, rest'). The per-trial metrics are tpudl's
+A slice wider than one card is a data-parallel sub-mesh: the
+estimator's trial trains over every card of it
+(``KerasImageFileEstimator``). The per-trial metrics are tpudl's
 (``hpo.trials_started``/``_completed``/``_failed``, ``hpo.trial_retries``
 and the ``hpo.trial_seconds`` histogram); its watchdog heartbeat, tracer
 span, flight recorder and attribution carry are not ported yet ('The

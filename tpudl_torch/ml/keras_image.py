@@ -15,8 +15,9 @@ loader that declares raw uint8 output installs ``U8Codec(scale=
 loader.wire_scale)``, whose prologue applies the deferred normalize on
 the card (a ``wireCodec`` that would skip it is refused); with
 ``cacheDir`` the shards are keyed on the files' paths, sizes and mtimes;
-``deviceCache`` keeps the prepared batches on the card. ``mesh`` is
-refused by name (ROADMAP Queue 1, 'Training, rest').
+``deviceCache`` keeps the prepared batches on the card. ``mesh`` runs the
+model over the mesh's cards, the file ingested once and its weights
+placed on each card.
 """
 
 from __future__ import annotations
@@ -28,9 +29,8 @@ import torch
 
 from tpudl_torch.image import imageIO
 from tpudl_torch.ml.image_params import CanLoadImage, load_uri_batch
-from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol, HasKerasModel,
-                                   HasOutputCol, HasOutputMode, keyword_only,
-                                   refuse_unported)
+from tpudl_torch.ml.params import (HasInputCol, HasKerasModel, HasOutputCol,
+                                   HasOutputMode, keyword_only)
 from tpudl_torch.ml.pipeline import Transformer
 
 __all__ = ["KerasImageFileTransformer"]
@@ -47,7 +47,6 @@ class KerasImageFileTransformer(Transformer, HasInputCol, HasOutputCol,
         super().__init__()
         self._setDefault(outputMode="vector")
         kwargs = dict(self._input_kwargs)
-        refuse_unported(type(self).__name__, kwargs, EXECUTOR_KNOBS)
         self.batchSize = int(kwargs.pop("batchSize", batchSize))
         self.device = kwargs.pop("device", device)
         self._set_pipeline_opts(kwargs)
@@ -57,9 +56,12 @@ class KerasImageFileTransformer(Transformer, HasInputCol, HasOutputCol,
         from tpudl_torch.ingest import TFInputGraph
         from tpudl_torch.ml.tf_tensor import graph_batch_fn
 
-        def build():
-            model = graph_batch_fn(TFInputGraph.fromKeras(model_file),
-                                   self.device)
+        gin = []    # the file, ingested once for every card
+
+        def build(device):
+            if not gin:
+                gin.append(TFInputGraph.fromKeras(model_file))
+            model = graph_batch_fn(gin[0], device)
 
             def fn(batch):
                 y = model(batch)
@@ -67,7 +69,7 @@ class KerasImageFileTransformer(Transformer, HasInputCol, HasOutputCol,
 
             return fn
 
-        return self._cached_fn(
+        return self._device_fn(
             (model_file, os.path.getmtime(model_file), mode,
              str(self.device)), build)
 

@@ -6,16 +6,15 @@ ingested (``TFInputGraph.fromKeras``) and run by a
 :class:`~tpudl_torch.ml.tf_tensor.TFTransformer`, as tpudl delegates.
 The ingested graph and its per-batch function are kept while the file's
 path and mtime stay the same. ``device`` defaults to ``"cuda"``; ``mesh``
-is refused by name (ROADMAP Queue 1, 'Training, rest').
+passes to the delegate, which runs over the mesh's cards.
 """
 
 from __future__ import annotations
 
 import os
 
-from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol, HasKerasModel,
-                                   HasOutputCol, keyword_only,
-                                   refuse_unported)
+from tpudl_torch.ml.params import (HasInputCol, HasKerasModel, HasOutputCol,
+                                   keyword_only)
 from tpudl_torch.ml.pipeline import Transformer
 
 __all__ = ["KerasTransformer"]
@@ -29,7 +28,6 @@ class KerasTransformer(Transformer, HasInputCol, HasOutputCol,
                  prepareWorkers=None, fuseSteps=None, dispatchDepth=None):
         super().__init__()
         kwargs = dict(self._input_kwargs)
-        refuse_unported(type(self).__name__, kwargs, EXECUTOR_KNOBS)
         self.batchSize = int(kwargs.pop("batchSize", batchSize))
         self.device = kwargs.pop("device", device)
         self._set_pipeline_opts(kwargs)
@@ -53,7 +51,7 @@ class KerasTransformer(Transformer, HasInputCol, HasOutputCol,
                 inputMapping={in_col: gin.input_names[0]},
                 outputMapping={gin.output_names[0]: out_col},
                 batchSize=self.batchSize, device=self.device,
-                prefetchDepth=self.prefetchDepth,
+                mesh=self.mesh, prefetchDepth=self.prefetchDepth,
                 prepareWorkers=self.prepareWorkers,
                 fuseSteps=self.fuseSteps,
                 dispatchDepth=self.dispatchDepth))

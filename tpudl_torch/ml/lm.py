@@ -25,8 +25,14 @@ every later ``transform``. The data layer's knobs pass through as in
 tpudl: ``wireCodec`` (default a ``TokenCodec`` over the tokenizer's
 vocab; ``"tokens"`` by name), ``cacheDir`` (a warm run tokenizes nothing:
 the pack's ``cache_token`` carries the tokenizer's fingerprint) and
-``deviceCache``. tpudl's ``mesh`` and ``tp`` (ROADMAP Queue 1, 'Training,
-rest' and 'LM parallelism') are not ported yet and raise.
+``deviceCache``. ``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`,
+without ``tp``, as tpudl's ``mesh`` without ``tp`` only shards the
+batch) runs the featurizer and the classifier data-parallel: the module
+loads on the mesh's first card, is replicated to the others once, and
+each card's shard of a batch runs the dense forward on its replica, the
+flash kernel in every block on every card; the generator runs on the
+mesh's first card. tpudl's ``tp`` (ROADMAP Queue 1, 'LM parallelism') is
+not ported yet and raises.
 
 The model is float32, and each stage computes its products in full f32
 whatever TF32 setting the process holds (``device.full_f32``), as tpudl
@@ -78,14 +84,24 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
                 f"{type(self).__name__} needs {missing} — pass the "
                 "TinyCausalLM (model=), its param pytree (weights=), and "
                 "a tpudl_torch.text Tokenizer (tokenizer=)")
+        home = self._home_device()
         if self._loaded is None or self._loaded[0] is not self.weights \
-                or self._loaded[1] != self.device:
+                or self._loaded[1] != home:
             m = self.model
             net = TinyCausalLM.from_jax_params(
                 self.weights, vocab=m.vocab, dim=m.dim, heads=m.heads,
-                layers=m.layers, max_len=m.max_len, device=self.device)
-            self._loaded = (self.weights, self.device, net)
+                layers=m.layers, max_len=m.max_len, device=home)
+            self._loaded = (self.weights, home, net)
         return self._loaded[2], self.tokenizer
+
+    def _replica(self, net, device):
+        """``net`` on ``device``: itself without a mesh, else that card's
+        replica (made once)."""
+        if self.mesh is None:
+            return net
+        from tpudl_torch import mesh as M
+
+        return M.replicate(net, self.mesh)[torch.device(device)]
 
     def _codec_opts(self) -> dict:
         opts = self._pipeline_opts()
@@ -125,15 +141,17 @@ class LMFeaturizer(_LMStage):
         pack = tokenize_pack(tok, seq_len=self.maxLen,
                              buckets=self.promptBuckets, bos=True)
 
-        def build():
+        def build(device):
+            lm = self._replica(net, device)
+
             def fn(tokens):
                 mask = pad_mask(tokens)                    # [B, S]
-                h = net.hidden(tokens)
+                h = lm.hidden(tokens)
                 pooled = (h * mask[..., None]).sum(dim=1)
                 return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
             return fn
 
-        fn = self._cached_fn(self._fn_key(net, "featurize"), build)
+        fn = self._device_fn(self._fn_key(net, "featurize"), build)
         with torch.inference_mode(), full_f32():
             out = frame.map_batches(
                 fn, [self.getInputCol()], [self.getOutputCol()],
@@ -190,19 +208,20 @@ class LMClassifier(_LMStage):
         pack = tokenize_pack(tok, seq_len=self.maxLen,
                              buckets=self.promptBuckets, bos=True)
 
-        def build():
-            class_ids = torch.tensor(ids, device=net.device)
+        def build(device):
+            lm = self._replica(net, device)
+            class_ids = torch.tensor(ids, device=lm.device)
 
             def fn(tokens):
                 mask = pad_mask(tokens)
-                logits = net.apply(tokens)                 # [B, S, vocab]
+                logits = lm.apply(tokens)                  # [B, S, vocab]
                 last = (mask.sum(dim=1).to(torch.int64) - 1).clamp_min(0)
                 row = logits[torch.arange(tokens.shape[0],
-                                          device=net.device), last]
+                                          device=lm.device), last]
                 return row[:, class_ids].argmax(dim=-1).to(torch.int32)
             return fn
 
-        fn = self._cached_fn(self._fn_key(net, "classify", ids), build)
+        fn = self._device_fn(self._fn_key(net, "classify", ids), build)
         out_col = self.getOutputCol()
         with torch.inference_mode(), full_f32():
             out = frame.map_batches(

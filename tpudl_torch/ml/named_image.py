@@ -29,8 +29,11 @@ a name), ``cacheDir`` and ``deviceCache``, pass to ``Frame.map_batches``
 defaults). The per-batch function is built once per loaded model, so
 that a fused CUDA graph cached on it serves every later ``transform``.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh``
-(ROADMAP Queue 1, 'Training, rest').
+``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`) runs the stage
+data-parallel over the mesh's cards: the weights load on its first card
+and are replicated to the others once (:func:`tpudl_torch.mesh.
+replicate`, tpudl's replicated placement), and each card's shard of a
+batch runs on that card's replica; ``device`` is then unused.
 """
 
 from __future__ import annotations
@@ -41,9 +44,8 @@ import numpy as np
 import torch
 
 from tpudl_torch.image import ops as image_ops
-from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol, HasOutputCol,
-                                   Param, TypeConverters, keyword_only,
-                                   refuse_unported)
+from tpudl_torch.ml.params import (HasInputCol, HasOutputCol, Param,
+                                   TypeConverters, keyword_only)
 from tpudl_torch.ml.pipeline import Transformer
 from tpudl_torch.ml.tf_image import ImageBatchWarmup, _pack_image_structs
 from tpudl_torch.zoo.convert import load_params_npz, params_from_keras
@@ -103,7 +105,6 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
 
     def _init_stage(self, weights, batchSize, computeDtype, device):
         kwargs = dict(self._input_kwargs)
-        refuse_unported(type(self).__name__, kwargs, EXECUTOR_KNOBS)
         self._set_pipeline_opts(kwargs)
         self.weights = weights
         self.batchSize = int(batchSize)
@@ -119,7 +120,7 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
 
     def _net_key(self) -> tuple:
         key = (self.getModelName(), self.weights, self.computeDtype,
-               str(self.device))
+               str(self._home_device()))
         if self.weights not in ("random", "imagenet"):
             # a weights file may be rewritten between calls
             key += (os.path.getmtime(self.weights),)
@@ -131,16 +132,21 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
         if self._loaded is None or self._loaded[0] != key:
             net = ImageModel(getKerasApplicationModel(name),
                              load_named_params(name, self.weights),
-                             device=self.device,
+                             device=self._home_device(),
                              dtype=_COMPUTE_DTYPES[self.computeDtype])
             self._loaded = (key, net)
         return self._loaded[1]
 
     def _batch_fn(self):
         """The per-batch function: uint8 BGR (B, H, W, C) on the device →
-        float32 model outputs; built once per loaded model."""
-        def build():
+        float32 model outputs; built once per loaded model (under a mesh,
+        once a card, over that card's replica)."""
+        def build(device):
             net = self._net()
+            if self.mesh is not None:
+                from tpudl_torch import mesh as M
+
+                net = M.replicate(net, self.mesh)[torch.device(device)]
             model = net.model
             h, w = model.input_size
             head = self._head(net)
@@ -152,7 +158,7 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
 
             return fn
 
-        return self._cached_fn(self._net_key(), build)
+        return self._device_fn(self._net_key(), build)
 
     def _apply_batches(self, frame, out_col):
         fn = self._batch_fn()

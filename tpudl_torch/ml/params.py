@@ -8,7 +8,8 @@ with explicit and default maps) and its converters, the ingest ones over
 the port's :class:`~tpudl_torch.ingest.TFInputGraph` and the Keras ones
 over :mod:`tpudl_torch.ml.losses`. :func:`refuse_unported` is the port's
 own: the stages' shared refusal of tpudl's knobs that have no counterpart
-yet (``mesh``).
+yet (:data:`EXECUTOR_KNOBS`, empty now that ``mesh`` is ported; the LM
+stages refuse ``tp`` through it).
 """
 
 from __future__ import annotations
@@ -21,9 +22,9 @@ __all__ = ["Param", "Params", "TypeConverters", "keyword_only",
            "HasKerasModel", "HasKerasOptimizer", "HasKerasLoss",
            "EXECUTOR_KNOBS", "refuse_unported"]
 
-# tpudl's stage knobs with no counterpart in the port yet → the ROADMAP
-# Queue 1 item that brings them
-EXECUTOR_KNOBS = {"mesh": "Training, rest"}
+# tpudl's executor knobs of every stage with no counterpart in the port
+# yet → the ROADMAP Queue 1 item that brings them (none left)
+EXECUTOR_KNOBS: dict = {}
 
 
 def refuse_unported(stage: str, kwargs: dict, table: dict):

@@ -3,7 +3,9 @@
 Port of ``tpudl/ml/pipeline.py``: ``Transformer.transform`` with its
 per-class metrics (``ml.<Class>.transform_seconds``, ``.transforms``,
 ``.rows_in``, ``.rows_out``), the executor knobs every batch stage plumbs
-through (``_pipeline_opts``, ``_set_pipeline_opts``), and ``_cached_fn``,
+through (``_pipeline_opts``, ``_set_pipeline_opts``, the ``mesh`` among
+them), ``_device_fn`` (one per-batch function a card of the mesh), and
+``_cached_fn``,
 the counterpart of tpudl's ``_cached_jit``: torch compiles nothing per
 call, but the executor caches a fused CUDA graph on the per-batch
 function, so a stage builds that function once per configuration.
@@ -53,18 +55,42 @@ class Transformer(Params):
         self._fn_entry = (key, fn)
         return fn
 
+    def _home_device(self):
+        """Where the stage loads its model: the mesh's first device under
+        a mesh, else its ``device``."""
+        mesh = getattr(self, "mesh", None)
+        return mesh.device if mesh is not None else self.device
+
+    def _device_fn(self, key, build):
+        """The stage's per-batch function, cached as :meth:`_cached_fn`
+        caches it: ``build(device)`` is the function on one device.
+        Under a mesh one is built a distinct device of the mesh, each over
+        that device's replica of the model, and they run as one
+        :class:`~tpudl_torch.mesh.PerDevice` function, so the executor
+        hands every card's shard to its own replica."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None:
+            return self._cached_fn(key, lambda: build(self.device))
+        from tpudl_torch.mesh import PerDevice
+
+        return self._cached_fn(
+            (*key, "mesh", tuple(map(str, mesh.devices))),
+            lambda: PerDevice({d: build(d)
+                               for d in mesh.distinct_devices()}))
+
     # copied from tpudl/ml/pipeline.py:Transformer._pipeline_opts
     def _pipeline_opts(self) -> dict:
         """The ``Frame.map_batches`` executor knobs every batch stage
-        plumbs through: prefetch depth (K), prepare workers (N), fused
-        dispatch steps (M), the dispatch window depth (D), plus the data
-        layer's knobs — wire codec, shard-cache directory and device
-        cache (tpudl's mesh is refused by the stages' constructors, so it
-        never reaches here). None resolves inside map_batches from the
-        ``TPUDL_FRAME_*``/``TPUDL_WIRE_CODEC``/``TPUDL_DATA_*`` variables
-        or their defaults, so a stage that never sets them still rides
-        the pipeline."""
+        plumbs through: the ``mesh`` (data-parallel over its cards),
+        prefetch depth (K), prepare workers (N), fused dispatch steps (M),
+        the dispatch window depth (D), plus the data layer's knobs — wire
+        codec, shard-cache directory and device cache. None resolves
+        inside map_batches from the ``TPUDL_FRAME_*``/
+        ``TPUDL_WIRE_CODEC``/``TPUDL_DATA_*`` variables or their
+        defaults, so a stage that never sets them still rides the
+        pipeline."""
         return {
+            "mesh": getattr(self, "mesh", None),
             "prefetch_depth": getattr(self, "prefetchDepth", None),
             "prepare_workers": getattr(self, "prepareWorkers", None),
             "fuse_steps": getattr(self, "fuseSteps", None),
@@ -76,9 +102,11 @@ class Transformer(Params):
 
     # copied from tpudl/ml/pipeline.py:Transformer._set_pipeline_opts
     def _set_pipeline_opts(self, kwargs: dict):
-        """Pop the executor knobs out of an ``_input_kwargs`` dict and pin
-        them as plain attributes (they parameterize the executor, not the
+        """Pop the executor knobs (and the ``mesh``, which tpudl's stages
+        pop beside them) out of an ``_input_kwargs`` dict and pin them as
+        plain attributes (they parameterize the executor, not the
         model)."""
+        self.mesh = kwargs.pop("mesh", None)
         self.prefetchDepth = kwargs.pop("prefetchDepth", None)
         self.prepareWorkers = kwargs.pop("prepareWorkers", None)
         self.fuseSteps = kwargs.pop("fuseSteps", None)

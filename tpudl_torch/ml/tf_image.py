@@ -20,9 +20,9 @@ import torch
 from tpudl_torch.device import full_f32, resolve_device
 from tpudl_torch.image import imageIO
 from tpudl_torch.image import ops as image_ops
-from tpudl_torch.ml.params import (EXECUTOR_KNOBS, HasInputCol, HasOutputCol,
+from tpudl_torch.ml.params import (HasInputCol, HasOutputCol,
                                    HasOutputMode, Param, TypeConverters,
-                                   keyword_only, refuse_unported)
+                                   keyword_only)
 from tpudl_torch.ml.pipeline import Transformer
 
 __all__ = ["ImageBatchWarmup", "TFImageTransformer"]
@@ -32,20 +32,29 @@ class ImageBatchWarmup:
     """Mixin: warm an image stage without reading a result.
 
     Requires ``_batch_fn()`` (the stage's per-batch function),
-    ``batchSize`` and ``device`` on the host class."""
+    ``batchSize``, ``device`` and ``mesh`` on the host class."""
 
     def warmup(self, height, width, nChannels=3, dtype=np.uint8):
         """Run the stage's per-batch function once on a synthetic batch of
         ``batchSize`` images of (height, width, nChannels) on its device
-        and discard the result: loads the weights and wakes cuDNN. tpudl's
-        AOT program store has no counterpart yet (ROADMAP Queue 1,
-        'Compile'). Returns ``self``."""
+        (under a mesh, one shard's rows on each of its cards) and discard
+        the result: loads the weights and wakes cuDNN. tpudl's AOT program
+        store has no counterpart yet (ROADMAP Queue 1, 'Compile').
+        Returns ``self``."""
+        from tpudl_torch.mesh import on_device
+
         fn = self._batch_fn()
-        x = torch.from_numpy(np.zeros(
-            (self.batchSize, height, width, nChannels), dtype)).to(
-                resolve_device(self.device))
-        with torch.inference_mode():
-            fn(x)
+        mesh = getattr(self, "mesh", None)
+        if mesh is None:
+            devices, rows = [resolve_device(self.device)], self.batchSize
+        else:
+            devices = mesh.distinct_devices()
+            rows = -(-self.batchSize // mesh.size)
+        for dev in devices:
+            x = torch.from_numpy(np.zeros(
+                (rows, height, width, nChannels), dtype)).to(dev)
+            with torch.inference_mode(), on_device(dev):
+                fn(x)
         return self
 
 
@@ -64,8 +73,9 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
       'image' (an image struct a row).
 
     The data layer's ``wireCodec``, ``cacheDir`` and ``deviceCache`` pass
-    to ``Frame.map_batches``; ``mesh`` (ROADMAP Queue 1, 'Training, rest')
-    raises.
+    to ``Frame.map_batches``; ``mesh`` runs the stage over its cards, one
+    per-batch function a card (a callable ``graph`` is then called on each
+    card's shard, so it must compute on its input's device).
     """
 
     graph = Param(None, "graph", "TFInputGraph or torch-callable model")
@@ -87,13 +97,12 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
         super().__init__()
         self._setDefault(channelOrder="RGB", outputMode="vector")
         kwargs = dict(self._input_kwargs)
-        refuse_unported(type(self).__name__, kwargs, EXECUTOR_KNOBS)
         self.batchSize = int(kwargs.pop("batchSize", batchSize))
         self.device = kwargs.pop("device", device)
         self._set_pipeline_opts(kwargs)
         self._set(**kwargs)
 
-    def _model_fn(self):
+    def _model_fn(self, device):
         from tpudl_torch.ingest import TFInputGraph
         from tpudl_torch.ml.tf_tensor import graph_batch_fn
 
@@ -102,7 +111,7 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
             feeds = self._paramMap.get(self.inputTensor)
             fetches = self._paramMap.get(self.outputTensor)
 
-            return graph_batch_fn(g, self.device,
+            return graph_batch_fn(g, device,
                                   None if feeds is None else [feeds],
                                   None if fetches is None else [fetches])
         if callable(g):
@@ -114,8 +123,8 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
         order = self.getOrDefault(self.channelOrder)
         mode = self.getOutputMode()
 
-        def build():
-            model = self._model_fn()
+        def build(device):
+            model = self._model_fn(device)
 
             def fn(batch):
                 with full_f32():
@@ -128,7 +137,7 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
 
             return fn
 
-        return self._cached_fn(
+        return self._device_fn(
             (self.getOrDefault(self.graph),
              self._paramMap.get(self.inputTensor),
              self._paramMap.get(self.outputTensor), order, mode,

@@ -11,9 +11,10 @@ GraphDef, SavedModel or checkpoint graph may have several (one
 ``inputMapping`` column each), each cast to its
 placeholder's dtype (a float64 graph runs in float64). Signature logical
 names are accepted wherever tensor names are, as in tpudl.
-``mesh`` is refused by name (ROADMAP Queue 1, 'Training, rest'); like
-tpudl's, the stage takes no data-layer knobs of its own, and
-``Frame.map_batches`` reads ``TPUDL_WIRE_CODEC`` and ``TPUDL_DATA_*``.
+``mesh`` runs the graph over the mesh's cards, one per-batch function a
+card (a trainable graph's weights placed on each); like tpudl's, the
+stage takes no data-layer knobs of its own, and ``Frame.map_batches``
+reads ``TPUDL_WIRE_CODEC`` and ``TPUDL_DATA_*``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,7 @@ from __future__ import annotations
 import torch
 
 from tpudl_torch.device import full_f32, resolve_device
-from tpudl_torch.ml.params import (EXECUTOR_KNOBS, Param, TypeConverters,
-                                   keyword_only, refuse_unported)
+from tpudl_torch.ml.params import Param, TypeConverters, keyword_only
 from tpudl_torch.ml.pipeline import Transformer
 
 __all__ = ["TFTransformer", "graph_batch_fn", "function_batch_fn"]
@@ -79,7 +79,6 @@ class TFTransformer(Transformer):
                  dispatchDepth=None):
         super().__init__()
         kwargs = dict(self._input_kwargs)
-        refuse_unported(type(self).__name__, kwargs, EXECUTOR_KNOBS)
         self.batchSize = int(kwargs.pop("batchSize", batchSize))
         self.device = kwargs.pop("device", device)
         self._set_pipeline_opts(kwargs)
@@ -109,9 +108,9 @@ class TFTransformer(Transformer):
                  for t in in_map.values()]
         fetches = [resolve(t, gin.output_tensor_name_from_signature)
                    for t in out_map.keys()]
-        fn = self._cached_fn(
+        fn = self._device_fn(
             (gin, tuple(feeds), tuple(fetches), str(self.device)),
-            lambda: graph_batch_fn(gin, self.device, feeds, fetches))
+            lambda device: graph_batch_fn(gin, device, feeds, fetches))
         with torch.inference_mode():
             return frame.map_batches(fn, list(in_map), list(out_map.values()),
                                      batch_size=self.batchSize,

@@ -107,7 +107,8 @@ class CrossValidator(Estimator):
     ``fitMultiple`` — consumed AS TRIALS COMPLETE, so evaluation of
     early-finishing models overlaps the training of slow ones (and, for
     KerasImageFileEstimator on several cards, the trials themselves run
-    concurrently, one a card). Metrics are averaged across folds;
+    concurrently, one a slice of the cards, data-parallel over a slice
+    of several). Metrics are averaged across folds;
     the best paramMap is refit on the FULL dataset for the returned
     model, exactly as Spark does.
     """

@@ -2,8 +2,8 @@
 
 Copied from ``tpudl/obs/pipeline.py`` (``PipelineReport`` and the ring of
 recent reports), without the tracer spans, the lock sanitizer, the
-watchdog heartbeat and the mesh and serve branches of ``finish`` (ROADMAP
-Queue 1, 'The rest of observability', 'Training, rest' and 'Serving').
+watchdog heartbeat and the serve branch of ``finish`` (ROADMAP Queue 1,
+'The rest of observability' and 'Serving').
 ``PipelineReport`` is ONE ``Frame.map_batches`` run's stage accounting;
 on ``finish()`` it publishes its totals into the process-wide registry
 (:mod:`tpudl_torch.obs.metrics`) under tpudl's names. The ring is keyed
@@ -58,8 +58,10 @@ class PipelineReport:
     Gauges keep the last ``GAUGE_SAMPLE_CAP`` samples plus running
     count/sum/max: ``queue_depth`` (ready batches when the consumer takes
     one; at most K) and ``dispatch_inflight`` (batches in the window at
-    each submit; at most D). Counts (``count``): ``fused_dispatches``,
-    ``bytes_prepared``, ``bucket_pad_rows`` and ``first_dispatch_s``.
+    each submit; at most D), and under a mesh ``mesh_pad_rows`` (each
+    batch's pad rows to the data axis). Counts (``count``):
+    ``fused_dispatches``, ``bytes_prepared``, ``bucket_pad_rows``,
+    ``pad_rows`` (under a mesh) and ``first_dispatch_s``.
     Thread-safe: prepare workers and the consumer write concurrently."""
 
     def __init__(self):
@@ -128,8 +130,10 @@ class PipelineReport:
         """Close out the run: record wall time and publish totals into the
         process-wide registry (``frame.map_batches.{runs,rows,batches,
         wall_seconds}``, ``frame.stage.<name>.seconds``,
-        ``frame.overlap_efficiency``, ``frame.dispatch.overlap_s`` and
-        ``frame.dispatch.inflight``). The executor calls it once."""
+        ``frame.overlap_efficiency``, ``frame.dispatch.overlap_s``,
+        ``frame.dispatch.inflight`` and, under a mesh,
+        ``frame.mesh.pad_rows``, ``.pad_overhead_pct`` and
+        ``.model_axis``). The executor calls it once."""
         if wall_seconds is not None:
             self.wall_seconds = wall_seconds
         self.finished = True
@@ -156,6 +160,18 @@ class PipelineReport:
         if inflight is not None:
             _metrics.gauge("frame.dispatch.inflight").set(
                 inflight.to_dict()["mean"])
+        # copied from tpudl/obs/pipeline.py:PipelineReport.finish: the
+        # rows of mesh padding this run shipped and computed only to
+        # throw away, and the model axis it ran under
+        if self.config.get("mesh"):
+            with self._lock:
+                pad = int(self.calls.get("pad_rows", 0))
+            _metrics.gauge("frame.mesh.pad_rows").set(pad)
+            if rows:
+                _metrics.gauge("frame.mesh.pad_overhead_pct").set(
+                    100.0 * pad / (int(rows) + pad))
+            _metrics.gauge("frame.mesh.model_axis").set(
+                int(self.config["mesh"].get("model") or 1))
 
     def report(self) -> dict:
         with self._lock:

@@ -14,8 +14,9 @@ legacy ``.h5`` model file, read by :mod:`tpudl_torch.ingest`) → flatten, on ``
 
 Each call is counted as makeGraphUDF's are (``udf.<name>.calls``,
 ``.rows``, ``.seconds``; tpudl counts none for this UDF). A live keras
-model is refused (save it to ``.keras`` or ``.h5``); ``mesh`` raises (ROADMAP Queue
-1, 'Training, rest').
+model is refused (save it to ``.keras`` or ``.h5``). ``mesh`` (a local
+:class:`~tpudl_torch.mesh.Mesh`) runs each query's batches over the
+mesh's cards: the frozen graph places its weights on each card it meets.
 """
 
 from __future__ import annotations
@@ -36,10 +37,6 @@ def registerKerasImageUDF(udf_name: str, keras_model_or_file,
     from tpudl_torch.ingest import TFInputGraph
     from tpudl_torch.ml.tf_image import _pack_image_structs
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "registerKerasImageUDF(mesh=...) is not ported to tpudl_torch "
-            "yet (ROADMAP Queue 1, 'Training, rest')")
     model_fn = TFInputGraph.fromKeras(keras_model_or_file).make_fn()
 
     def fused(batch):
@@ -58,6 +55,7 @@ def registerKerasImageUDF(udf_name: str, keras_model_or_file,
     def run(frame):
         return frame.map_batches(fused, ["image"], [out_col],
                                  batch_size=batch_size,
-                                 pack=_pack_image_structs, device=device)
+                                 pack=_pack_image_structs, device=device,
+                                 mesh=mesh)
 
     return register_udf(udf_name, metered(udf_name, run), "image", out_col)

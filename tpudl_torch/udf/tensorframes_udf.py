@@ -16,8 +16,9 @@ knobs ``prefetch_depth``, ``prepare_workers``, ``fuse_steps`` and
 
 Each call counts ``udf.<name>.calls`` and ``.rows`` and times
 ``udf.<name>.seconds``. tpudl's watchdog heartbeat and tracer span around
-the call are not ported (ROADMAP Queue 1, 'The rest of observability');
-``mesh`` ('Training, rest') raises. ``blocked`` is
+the call are not ported (ROADMAP Queue 1, 'The rest of observability').
+``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`) runs each block over
+the mesh's cards, one per-batch function a card. ``blocked`` is
 accepted and ignored, as in tpudl: one call a block is the only
 execution model. SQL's ``fn(col)`` grammar binds one input; a graph with
 several feeds registers all the same and runs as ``udf(frame)`` with
@@ -28,13 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from tpudl_torch.ml.params import refuse_unported
 from tpudl_torch.udf.registry import UDF, metered, register_udf
 
 __all__ = ["makeGraphUDF"]
-
-_UNPORTED = {"mesh": "Training, rest"}
-
 
 def makeGraphUDF(graph, udf_name: str, fetches=None,
                  feeds_to_fields_map: dict[str, str] | None = None,
@@ -58,15 +55,22 @@ def makeGraphUDF(graph, udf_name: str, fetches=None,
     from tpudl_torch.ingest.input import TFInputGraph
     from tpudl_torch.ml.tf_tensor import function_batch_fn, graph_batch_fn
 
-    refuse_unported("makeGraphUDF", dict(mesh=mesh), _UNPORTED)
     if fetches is not None and isinstance(fetches, str):
         # a bare string would be list()-split into characters
         raise TypeError(
             f"fetches must be a sequence of tensor names, got the "
             f"string {fetches!r} — wrap it: fetches=[{fetches!r}]")
     if isinstance(graph, TFInputGraph):
-        fn = graph_batch_fn(graph, device,
-                            fetches=list(fetches) if fetches else None)
+        def build(dev):
+            return graph_batch_fn(graph, dev,
+                                  fetches=list(fetches) if fetches else None)
+
+        if mesh is None:
+            fn = build(device)
+        else:
+            from tpudl_torch.mesh import PerDevice
+
+            fn = PerDevice({d: build(d) for d in mesh.distinct_devices()})
     elif isinstance(graph, GraphFunction):
         if fetches is not None:
             raise ValueError(
@@ -94,7 +98,7 @@ def makeGraphUDF(graph, udf_name: str, fetches=None,
     def run(frame):
         return frame.map_batches(
             fn, in_cols, [out_col], batch_size=batch_size, device=device,
-            prefetch_depth=prefetch_depth, prepare_workers=prepare_workers,
+            mesh=mesh, prefetch_depth=prefetch_depth, prepare_workers=prepare_workers,
             fuse_steps=fuse_steps, dispatch_depth=dispatch_depth,
             wire_codec=wire_codec, cache_dir=cache_dir,
             device_cache=device_cache)

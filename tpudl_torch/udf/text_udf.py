@@ -15,8 +15,10 @@ On the card every full-sequence forward under ``embed`` and ``classify``
 runs the flash forward kernel (``csrc/flash_attn_fwd.cu``) in each
 decoder block; ``generate``'s KV-cache decode does not. Each call is
 counted as makeGraphUDF's are (``udf.<name>.calls``, ``.rows``,
-``.seconds``). ``mesh`` and ``tp=True`` raise through the stages
-(ROADMAP Queue 1, 'Training, rest' and 'LM parallelism').
+``.seconds``). ``mesh`` passes to the stages: ``embed`` and ``classify``
+run data-parallel over the mesh's cards (the flash forward on every
+card), and ``generate`` runs on its first card. ``tp=True`` raises
+through the stages (ROADMAP Queue 1, 'LM parallelism').
 """
 
 from __future__ import annotations
