@@ -224,6 +224,31 @@ Phases (any failure exits non-zero before the final line):
    resident and 0 bytes shipped; with several cards, the forward kernel
    against its plain version on every card; the phase's seconds.
 
+15. Drive serving (``tpudl_torch.serve``) at phase 4's width from seeded
+   weights: ``ModelRegistry.add_model`` with 8 slots of 1024 cache
+   positions, which captures the decode-step, prefill and insert CUDA
+   graphs (``warm_signatures``, ``warm_s``, the slot cache's bytes); 8
+   greedy requests of prompts 5–300 tokens × 32 new tokens through the
+   slots, each stream equal to the serial batch-1 ``generate`` on the
+   card (2 also to the CPU port's), and one step's graph replay against
+   the same step run eagerly on the same state (1e-4 of max |logit|); 24
+   requests of 6 prompt lengths through the server (3 cycles of insert,
+   complete and reuse), an eviction mid-decode whose neighbours and
+   successor stay equal to serial ``generate``, a sampled engine
+   (temperature 0.8) against ``generate(generator=)``, and no graph
+   captured after registration; ``run_closed_loop`` (64 requests, 8
+   clients, prompts 16–256 tokens, 32 new tokens) against the threaded
+   server: qps, p50/p99 ms, TTFT percentiles, tokens/s and slot occupancy
+   beside the serial eager ``generate`` over every 4th of the same
+   prompts, the time of one 256-token insert, one step's
+   replay against the eager step, the card's idle share over 10 steady
+   steps and the eager step's kernel time by op group, 0 flash launches;
+   a typed ``queue_full`` and ``slots_full`` and a deadline shed
+   mid-decode; ``RungBatcher`` over the LM embed function with payloads
+   of 3, 5 and 11 rows of 256 tokens (one dispatch of 24 rows, 12 flash
+   forward launches, within 1e-4 of max |y| of ``LMFeaturizer``); the
+   phase's seconds.
+
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 ``python3 chip_smoke.py --image-only`` runs phase 1 and then phase 6
@@ -236,7 +261,8 @@ alone. ``python3 chip_smoke.py --surface-only`` runs phase 1 and then
 phase 10 alone. ``python3 chip_smoke.py --graph-only`` runs phase 1 and then phase 11
 alone. ``python3 chip_smoke.py --keras2-only`` runs phase 1 and then
 phase 12 alone, ``--data-only`` phase 1 and then phase 13, and
-``--mesh-only`` phase 1 and then phase 14.
+``--mesh-only`` phase 1 and then phase 14, ``--serve-only`` phase 1 and
+then phase 15.
 ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -5528,6 +5554,507 @@ def run_mesh(card):
 
 
 
+# phase 15: serving (tpudl_torch.serve) at phase 4's width
+SERVE_SLOTS, SERVE_CACHE = 8, 1024
+SERVE_MAX_NEW = 32
+SERVE_PARITY_PLENS = (5, 9, 17, 33, 65, 100, 200, 300)
+SERVE_CPU_PROMPTS = 2              # of the parity prompts, against the CPU
+SERVE_CHURN_PLENS = (7, 12, 24, 48, 96, 150)   # x 4 = 24 requests, 3 cycles
+SERVE_CHURN_REPEATS = 4
+SERVE_TEMPERATURE, SERVE_SAMPLE_SEED = 0.8, 1234
+SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 64, 8
+SERVE_LOAD_PLEN = (16, 256)
+SERVE_SERIAL_EVERY = 4             # serial eager generate: every 4th prompt
+SERVE_LOGIT_RTOL = 1e-4            # of max |logit|: replay vs eager step
+SERVE_BATCHER_ROWS = (3, 5, 11)    # ragged payloads, 19 rows → rung 24
+SERVE_BATCHER_BYTES = 255          # + BOS = 256 tokens a row
+SERVE_TIMEOUT = 300                # every wait on a request or the loop
+SERVE_DEADLINE_S = 0.1             # < 960 decode steps, > a 16-token prefill
+_ATTN_OPS = {"aten::einsum", "aten::bmm", "aten::_softmax", "aten::softmax",
+             "aten::masked_fill", "aten::masked_fill_", "aten::index_put_",
+             "aten::_index_put_impl_", "aten::index_copy_", "aten::le",
+             "aten::bitwise_not", "aten::arange"}
+SERVE_OP_GROUPS = (  # (group, test on (ops from the launching one up, kernel))
+    ("weight GEMMs (q/k/v/o, MLP, head)",
+     lambda ops, k: bool({"aten::mm", "aten::addmm"} & set(ops))
+     and "aten::einsum" not in ops),
+    ("cached attention (write, scores, mask, softmax, P.V)",
+     lambda ops, k: bool(_ATTN_OPS & set(ops))),
+    ("other (embedding, norms, gelu, adds, copies)", lambda ops, k: True),
+)
+
+
+class _Probe:
+    """A request for the engine's own verbs (no queue): a prompt and its
+    new-token count."""
+
+    def __init__(self, prompt, max_new, rng=None):
+        self.prompt = np.asarray(prompt, dtype=np.int32)[None, :]
+        self.max_new = int(max_new)
+        self.rng = rng
+        self.trace = None
+
+
+def serve_prompts(lengths, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, VOCAB, size=int(n)).astype(np.int32)
+            for n in lengths]
+
+
+def serve_serial(net, prompt, max_new, **kw):
+    """The port's serial batch-1 ``generate`` of one prompt, as the LM
+    stages run it (full f32)."""
+    from tpudl_torch.device import full_f32
+
+    with full_f32():
+        return net.generate(np.asarray(prompt)[None, :], max_new,
+                            **kw).cpu().numpy()[0]
+
+
+def serve_drain(eng, probes):
+    """Insert ``probes`` into ``eng`` and step until all complete; their
+    token streams in order."""
+    for p in probes:
+        eng.insert(p)
+    done = {}
+    while len(done) < len(probes):
+        eng.step()
+        for req, toks in eng.pop_completed():
+            done[id(req)] = toks
+    return [done[id(p)] for p in probes]
+
+
+def serve_step_twin(eng):
+    """A copy of the engine's step state and the eager step program over
+    it: the same step the graph replays, run op by op."""
+    twin = ([{kv: c[kv].clone() for kv in c} for c in eng._cache],
+            eng._tok.clone(), eng._pos.clone(), eng._steps.clone(),
+            eng._live.clone(), eng._logits.clone())
+    return twin, eng.model._slot_step_program(eng.temperature)
+
+
+def serve_parity_leg(entry, weights, card, problems):
+    """8 greedy requests of ragged prompts through the slots against the
+    serial ``generate`` on the card (and 2 against the CPU port), with one
+    step's graph replay against the eager step on the same state."""
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    eng, net = entry.engine, entry.engine.model
+    prompts = serve_prompts(SERVE_PARITY_PLENS, SEED)
+    probes = [_Probe(p, SERVE_MAX_NEW) for p in prompts]
+    for p in probes:
+        eng.insert(p)
+    with torch.inference_mode(), full_f32():
+        twin, eager = serve_step_twin(eng)
+        eager(*twin)
+    eng.step()
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        want = twin[5]
+        err = float((eng._logits - want).abs().max())
+        scale = float(want.abs().max())
+    print(f"  one slot step, graph replay vs the eager step on the same "
+          f"state: max |dlogit| {err:.3e} ({err / scale:.3e} of max |logit| "
+          f"{scale:.3e}; tolerance {SERVE_LOGIT_RTOL}; the same kernels, so "
+          f"0 expected); card {card}")
+    if not err <= SERVE_LOGIT_RTOL * scale:
+        problems.append(f"slot step replay vs eager {err:.3e}")
+    done = {}
+    while len(done) < len(probes):
+        for req, toks in eng.pop_completed():
+            done[id(req)] = toks
+        if len(done) < len(probes):
+            eng.step()
+    slots = [done[id(p)] for p in probes]
+    t0 = time.perf_counter()
+    serial = [serve_serial(net, p, SERVE_MAX_NEW) for p in prompts]
+    t_serial = time.perf_counter() - t0
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(slots, serial)]
+    print(f"  parity: {len(prompts)} greedy requests, prompts "
+          f"{list(SERVE_PARITY_PLENS)}, max_new {SERVE_MAX_NEW}: slot streams "
+          f"equal to the serial generate on the card: {equal} (serial "
+          f"{t_serial:.2f} s)")
+    if not all(equal):
+        problems.append(f"slot streams differ from serial generate: {equal}")
+    cpu = TinyCausalLM.from_jax_params(
+        weights, vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+        max_len=MAX_LEN, device="cpu")
+    cpu_equal = [bool(np.array_equal(
+        serve_serial(cpu, p, SERVE_MAX_NEW), s))
+        for p, s in zip(prompts[:SERVE_CPU_PROMPTS], slots)]
+    print(f"  parity: the first {SERVE_CPU_PROMPTS} slot streams equal to the "
+          f"CPU port's generate: {cpu_equal}")
+    if not all(cpu_equal):
+        problems.append(f"slot streams differ from the CPU: {cpu_equal}")
+    del cpu
+
+
+def serve_churn_leg(reg, entry, warm_captures, card, problems):
+    """24 requests over 6 prompt lengths through the 8 slots (3 cycles of
+    insert, complete and reuse) through the server, an explicit mid-decode
+    eviction, and a sampled engine against ``generate(generator=)``; no
+    graph captured after warm-up."""
+    from tpudl_torch.serve import ModelRegistry, RequestQueue, Server
+
+    eng, net = entry.engine, entry.engine.model
+    srv = Server(reg, RequestQueue(cap=64))
+    prompts = serve_prompts(SERVE_CHURN_PLENS * SERVE_CHURN_REPEATS, SEED + 1)
+    reqs = [srv.submit(p, SERVE_MAX_NEW, model="lm") for p in prompts]
+    srv._stop.set()
+    t0 = time.perf_counter()
+    summary = srv.run()
+    t_run = time.perf_counter() - t0
+    got = [r.result(timeout=SERVE_TIMEOUT) for r in reqs]
+    equal = sum(bool(np.array_equal(g, serve_serial(net, p, SERVE_MAX_NEW)))
+                for g, p in zip(got, prompts))
+    print(f"  churn: {len(reqs)} requests of {len(SERVE_CHURN_PLENS)} prompt "
+          f"lengths through {eng.slots} slots in {summary['ticks']} ticks, "
+          f"{t_run:.2f} s; {equal}/{len(reqs)} streams equal to serial "
+          f"generate")
+    if equal != len(reqs):
+        problems.append(f"churn: {len(reqs) - equal} streams differ")
+    # an explicit eviction mid-decode, its slot reused at once
+    a, b, c, d = [_Probe(p, SERVE_MAX_NEW)
+                  for p in serve_prompts((20, 30, 40, 50), SEED + 2)]
+    for p in (a, b, c):
+        eng.insert(p)
+    for _ in range(4):
+        eng.step()
+    slot_b = next(s for s, r in eng.occupants() if r is b)
+    eng.evict(slot_b)
+    reused = eng.insert(d)
+    done = {}
+    while len(done) < 3:
+        eng.step()
+        for req, toks in eng.pop_completed():
+            done[id(req)] = toks
+    kept = [bool(np.array_equal(done[id(p)], serve_serial(
+        net, p.prompt[0], SERVE_MAX_NEW))) for p in (a, c, d)]
+    print(f"  eviction: slot {slot_b} evicted after 4 steps and reused "
+          f"(slot {reused}); its neighbours and the new occupant equal "
+          f"serial generate: {kept}")
+    if not all(kept) or reused != slot_b:
+        problems.append(f"eviction leg: {kept}, slot {reused} vs {slot_b}")
+    # a sampled engine over the same module, in a registry of its own (the
+    # load leg's occupancy counts the greedy engine's slots alone)
+    sreg = ModelRegistry()
+    sampled = sreg.add_model("lm_sampled", net, slots=2,
+                             cache_len=SERVE_CACHE,
+                             temperature=SERVE_TEMPERATURE)
+    seng = sampled.engine
+    s_warm = seng.captures
+    prompt = serve_prompts((40,), SEED + 3)[0]
+    srv = Server(sreg, RequestQueue(cap=8))
+    req = srv.submit(prompt, SERVE_MAX_NEW, model="lm_sampled",
+                     rng=SERVE_SAMPLE_SEED)
+    peer = srv.submit(prompt, SERVE_MAX_NEW, model="lm_sampled",
+                      rng=SERVE_SAMPLE_SEED + 1)
+    srv._stop.set()
+    srv.run()
+    gen = torch.Generator(device=net.device)
+    gen.manual_seed(SERVE_SAMPLE_SEED)
+    want = serve_serial(net, prompt, SERVE_MAX_NEW,
+                        temperature=SERVE_TEMPERATURE, generator=gen)
+    got = req.result(timeout=SERVE_TIMEOUT)
+    other = peer.result(timeout=SERVE_TIMEOUT)
+    print(f"  sampled (temperature {SERVE_TEMPERATURE}, rng "
+          f"{SERVE_SAMPLE_SEED}): stream equal to generate(generator=): "
+          f"{bool(np.array_equal(got, want))}; its neighbour (rng "
+          f"{SERVE_SAMPLE_SEED + 1}) differs: "
+          f"{not np.array_equal(got, other)}")
+    if not np.array_equal(got, want):
+        problems.append("sampled slot differs from generate(generator=)")
+    new = eng.captures - warm_captures
+    print(f"  graphs: {warm_captures} captured at registration; {new} "
+          f"captured since, through parity and churn (want 0); the sampled "
+          f"engine's {s_warm} at its registration, {seng.captures - s_warm} "
+          f"after")
+    if new or seng.captures != s_warm:
+        problems.append(f"{new} graphs captured after warm-up")
+
+
+def serve_load_leg(reg, entry, card, problems):
+    """``run_closed_loop`` against the threaded server over ragged prompts,
+    beside the serial eager ``generate`` over every 4th of the same
+   prompts, the time of one 256-token insert, one step's
+    replay against the eager step, a profile of steady decode steps, and
+    the slot decode's flash launches. Returns the launch counts."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.serve import RequestQueue, Server, run_closed_loop
+
+    eng, net = entry.engine, entry.engine.model
+    rng = np.random.default_rng(SEED + 4)
+    lengths = rng.integers(SERVE_LOAD_PLEN[0], SERVE_LOAD_PLEN[1] + 1,
+                           size=SERVE_LOAD_REQUESTS)
+    prompts = serve_prompts(lengths, SEED + 5)
+    reset_launch_counts()
+    srv = Server(reg, RequestQueue(cap=SERVE_LOAD_REQUESTS)).start_async()
+    try:
+        out = run_closed_loop(srv, lambda i: prompts[i],
+                              requests=SERVE_LOAD_REQUESTS,
+                              clients=SERVE_CLIENTS, max_new=SERVE_MAX_NEW,
+                              model="lm", timeout=SERVE_TIMEOUT)
+    finally:
+        summary = srv.close(timeout=SERVE_TIMEOUT)
+    torch.cuda.synchronize()
+    counts = dict(cuda_ops.launch_counts)
+    tok_s = metrics.gauge("serve.tokens_per_s").value
+    occ = metrics.gauge("serve.batch_occupancy").value
+    serial = prompts[::SERVE_SERIAL_EVERY]
+    t0 = time.perf_counter()
+    n_serial = 0
+    for p in serial:
+        n_serial += len(serve_serial(net, p, SERVE_MAX_NEW))
+    t_serial = time.perf_counter() - t0
+    print(f"  closed loop: {SERVE_LOAD_REQUESTS} requests, {SERVE_CLIENTS} "
+          f"clients, prompts {SERVE_LOAD_PLEN[0]}-{SERVE_LOAD_PLEN[1]} tokens "
+          f"(mean {lengths.mean():.1f}), max_new {SERVE_MAX_NEW}: "
+          f"{json.dumps(out)}; session {summary['ticks']} ticks, "
+          f"{summary['wall_s']} s; card {card}")
+    print(f"  serving: {out['qps']} qps, p50 {out['p50_ms']} ms, p99 "
+          f"{out['p99_ms']} ms, TTFT p50 {out['ttft_p50_s']} s, p99 "
+          f"{out['ttft_p99_s']} s, "
+          f"{out['completed'] * SERVE_MAX_NEW / out['wall_s']:.1f} tokens/s "
+          f"end to end (serve.tokens_per_s {tok_s:.1f}: the loop's decode "
+          f"steps over its session), slot occupancy {occ:.3f}; "
+          f"serial eager generate over {len(serial)} of the same prompts "
+          f"(every {SERVE_SERIAL_EVERY}th, mean "
+          f"{np.mean([len(p) for p in serial]):.1f} tokens): "
+          f"{n_serial / t_serial:.1f} tokens/s ({t_serial:.2f} s, "
+          f"{len(serial) / t_serial:.3f} requests/s); card {card}")
+    if out["completed"] != SERVE_LOAD_REQUESTS or out["rejected"]:
+        problems.append(f"closed loop completed {out['completed']}, "
+                        f"rejected {out['rejected']}")
+    print(f"  flash kernel launches in the slot decode: {counts} (want 0)")
+    if any(counts.values()):
+        problems.append(f"the slot decode launched {counts}")
+    # one insert of the longest load prompt, then one step with every
+    # slot live: graph replay vs the eager step
+    probes = [_Probe(p, SERVE_CACHE - 400) for p in
+              serve_prompts([SERVE_LOAD_PLEN[1]] + [100] * (eng.slots - 1),
+                            SEED + 6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.insert(probes[0])
+    insert_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  one insert of a {SERVE_LOAD_PLEN[1]}-token prompt (first token "
+          f"on the host): {insert_ms:.2f} ms, "
+          f"{insert_ms / SERVE_LOAD_PLEN[1]:.3f} ms a prompt token; card "
+          f"{card}")
+    for p in probes[1:]:
+        eng.insert(p)
+    with torch.inference_mode(), full_f32():
+        twin, eager = serve_step_twin(eng)
+        eager_ms = cuda_ms(lambda: eager(*twin), reps=20)
+        prog = eng._program("step")
+        replay_ms = cuda_ms(prog, reps=20)
+    print(f"  one decode step of {eng.slots} live slots at cache "
+          f"{SERVE_CACHE}: graph replay {replay_ms:.4f} ms, the same step "
+          f"eager {eager_ms:.4f} ms ({eager_ms / replay_ms:.2f}x); card "
+          f"{card}")
+    wall, busy, n_events = idle_profile(lambda: [eng.step()
+                                                 for _ in range(10)])
+    print(idle_text("10 steady decode steps (replay + next tokens to "
+                    "host)", wall, busy, n_events, card).replace(
+                        "one transform", "10 steps"))
+    with torch.inference_mode(), full_f32():
+        profile_train_step("one eager decode step (the kernels the graph "
+                           "replays)", lambda: eager(*twin), card,
+                           SERVE_OP_GROUPS)
+    eng.evict_all()
+    return counts
+
+
+def serve_admission_leg(reg, entry, card, problems):
+    """A typed queue_full reject, a typed slots_full on a direct insert,
+    and a deadline shed mid-decode; every wait bounded."""
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.serve import (AdmissionError, DeadlineExceeded,
+                                   RequestQueue, Server)
+
+    eng, net = entry.engine, entry.engine.model
+    prompt = serve_prompts((16,), SEED + 7)[0]
+    srv = Server(reg, RequestQueue(cap=2))
+    srv.submit(prompt, 4, model="lm")
+    srv.submit(prompt, 4, model="lm")
+    t0 = time.perf_counter()
+    try:
+        srv.submit(prompt, 4, model="lm")
+        reason = None
+    except AdmissionError as e:
+        reason = e.reason
+    t_reject = (time.perf_counter() - t0) * 1e3
+    srv.queue.fail_all(RuntimeError("drained by the smoke test"))
+    for _ in range(eng.slots):
+        eng.insert(_Probe(prompt, 4))
+    try:
+        eng.insert(_Probe(prompt, 4))
+        slots_reason = None
+    except AdmissionError as e:
+        slots_reason = e.reason
+    eng.evict_all()
+    sheds = metrics.counter("serve.deadline_sheds").value
+    srv = Server(reg, RequestQueue(cap=8)).start_async()
+    try:
+        doomed = srv.submit(prompt, SERVE_CACHE - 64, model="lm",
+                            deadline_s=SERVE_DEADLINE_S)
+        peer = srv.submit(prompt, SERVE_MAX_NEW, model="lm")
+        try:
+            doomed.result(timeout=SERVE_TIMEOUT)
+            shed = None
+        except DeadlineExceeded as e:
+            shed = str(e)
+        peer_ok = bool(np.array_equal(peer.result(timeout=SERVE_TIMEOUT),
+                                      serve_serial(net, prompt,
+                                                   SERVE_MAX_NEW)))
+    finally:
+        srv.close(timeout=SERVE_TIMEOUT)
+    sheds = metrics.counter("serve.deadline_sheds").value - sheds
+    print(f"  admission: a 3rd submit to a cap-2 queue: {reason!r} in "
+          f"{t_reject:.3f} ms; a 9th insert into {eng.slots} slots: "
+          f"{slots_reason!r}; a {SERVE_DEADLINE_S} s deadline on "
+          f"{SERVE_CACHE - 64} new "
+          f"tokens: DeadlineExceeded {shed!r} ({sheds:.0f} shed), its peer "
+          f"equal to serial generate: {peer_ok}")
+    if reason != "queue_full" or slots_reason != "slots_full":
+        problems.append(f"admission rejects {reason!r}, {slots_reason!r}")
+    if shed is None or "mid-decode" not in shed or sheds != 1 or not peer_ok:
+        problems.append(f"deadline shed {shed!r}, {sheds} sheds, peer "
+                        f"{peer_ok}")
+
+
+def serve_batcher_leg(weights, card, problems):
+    """``RungBatcher`` over the LM embed function (``LMFeaturizer``'s
+    per-batch function) with ragged payloads: one padded dispatch, 12
+    flash forward launches, the split rows against ``LMFeaturizer`` on
+    the same texts. Returns the launch counts of the timed dispatches."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.serve import RungBatcher
+    from tpudl_torch.text import ByteTokenizer, pad_mask, tokenize_pack
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(SEED + 8)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ,.",
+                            dtype=np.uint8)
+    texts = np.array([rng.choice(letters, size=SERVE_BATCHER_BYTES).tobytes()
+                      .decode() for _ in range(sum(SERVE_BATCHER_ROWS))],
+                     dtype=object)
+    rows = tokenize_pack(tok, bos=True)(texts)
+    cuts = np.cumsum(SERVE_BATCHER_ROWS)[:-1]
+    payloads = np.split(rows, cuts)
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    net = TinyCausalLM.from_jax_params(
+        weights, vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+        max_len=MAX_LEN, device="cuda")
+
+    def embed(tokens):
+        with torch.inference_mode(), full_f32():
+            t = torch.from_numpy(tokens).to(net.device)
+            mask = pad_mask(t)
+            h = net.hidden(t)
+            pooled = (h * mask[..., None]).sum(dim=1)
+            return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+
+    batcher = RungBatcher(embed)
+    batcher.run(payloads)                     # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        outs = batcher.run(payloads)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    counts = dict(cuda_ops.launch_counts)
+    occ = metrics.gauge("serve.batch_occupancy").value
+    want = np.stack(list(LMFeaturizer(
+        inputCol="text", outputCol="v", model=spec, weights=weights,
+        tokenizer=tok, batchSize=len(texts), device="cuda").transform(
+        Frame({"text": texts}))["v"]))
+    got = np.concatenate(outs)
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    n = len(texts)
+    print(f"  RungBatcher over the LM embed function: payloads "
+          f"{list(SERVE_BATCHER_ROWS)} rows x {rows.shape[1]} tokens -> one "
+          f"dispatch of {batcher.rung_for(n)} rows, {ms:.2f} ms "
+          f"({n / ms * 1e3:.1f} rows/s); flash launches over {reps} "
+          f"dispatches {counts} (want {LAYERS * reps} forward); "
+          f"serve.batch_occupancy {occ:.4f}; against LMFeaturizer on the "
+          f"same {n} rows: max abs {err:.3e} ({err / scale:.3e} of max |y| "
+          f"{scale:.3e}; tolerance {FEATURE_ATOL} of max |y|); card {card}")
+    if counts["flash_attn_fwd"] != LAYERS * reps or \
+            counts["flash_attn_bwd_dq"] or counts["flash_attn_bwd_dkv"]:
+        problems.append(f"the batcher's dispatches launched {counts}")
+    if [len(o) for o in outs] != list(SERVE_BATCHER_ROWS):
+        problems.append(f"the batcher split {[len(o) for o in outs]}")
+    if not err <= FEATURE_ATOL * scale:
+        problems.append(f"batcher vs LMFeaturizer {err:.3e}")
+    return counts
+
+
+def run_serve(card):
+    """Phase 15: serving at phase 4's width. Every check runs and prints;
+    the phase fails at its end if any did not hold. Returns the kernel
+    launches of its paths."""
+    from tpudl_torch.serve import ModelRegistry
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    t_phase = time.perf_counter()
+    problems = []
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    reg = ModelRegistry()
+    t0 = time.perf_counter()
+    entry = reg.add_model("lm", spec, weights, slots=SERVE_SLOTS,
+                          cache_len=SERVE_CACHE, warm=True)
+    eng = entry.engine
+    cache_bytes = sum(c[kv].numel() * c[kv].element_size()
+                      for c in eng._cache for kv in c)
+    print(f"  registration: {time.perf_counter() - t0:.2f} s (weights to the "
+          f"card and warm-up); warm_signatures {entry.warm_signatures} "
+          f"(the step, prefill and insert graphs), warm_s "
+          f"{entry.warm_s:.3f} s; slot cache {SERVE_SLOTS} x {SERVE_CACHE} "
+          f"x {LAYERS} layers: {cache_bytes / 1e9:.3f} GB f32; card {card}",
+          flush=True)
+    warm_captures = eng.captures      # 3 on the card; 0 on the CPU
+    if entry.warm_signatures != 3:
+        problems.append(f"warm-up made {entry.warm_signatures} programs")
+    legs = (("serve_parity_leg", lambda: serve_parity_leg(
+                entry, weights, card, problems)),
+            ("serve_churn_leg", lambda: serve_churn_leg(
+                reg, entry, warm_captures, card, problems)),
+            ("serve_load_leg", lambda: serve_load_leg(
+                reg, entry, card, problems)),
+            ("serve_admission_leg", lambda: serve_admission_leg(
+                reg, entry, card, problems)),
+            ("serve_batcher_leg", lambda: serve_batcher_leg(
+                weights, card, problems)))
+    counts = {}
+    for name, leg in legs:
+        t0 = time.perf_counter()
+        out = leg()
+        if out is not None:
+            counts[name] = out
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    if eng.captures != warm_captures:
+        problems.append(f"{eng.captures - warm_captures} graphs captured "
+                        "after warm-up")
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s; graphs "
+          f"captured {eng.captures} (all at registration); card {card}")
+    if problems:
+        fail("phase 15: " + "; ".join(problems))
+    return {"serve_slot_decode": counts["serve_load_leg"],
+            "serve_rung_batcher": counts["serve_batcher_leg"]}
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -5611,6 +6138,13 @@ def main(argv) -> int:
         print(f"mesh-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--serve-only"]:
+        print(f"phase 15 alone: serving at full width on {card}", flush=True)
+        run_serve(card)
+        print(f"card: {card}")
+        print(f"serve-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -5630,7 +6164,7 @@ def main(argv) -> int:
         fail(f"unknown arguments {argv}; the options are --image-only, "
              "--executor-only, --train-only, --keras-only, --surface-only, "
              "--graph-only, --keras2-only, --data-only, --mesh-only, "
-             "--ranks N and --pool-study")
+             "--serve-only, --ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -5738,6 +6272,8 @@ def main(argv) -> int:
     print(f"phase 14: the data-parallel mesh at full width on {card}",
           flush=True)
     mesh_counts = run_mesh(card)
+    print(f"phase 15: serving at full width on {card}", flush=True)
+    serve_counts = run_serve(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -5751,7 +6287,8 @@ def main(argv) -> int:
             graph_counts[entry["name"]]
         entry["launches_by_path"]["keras2_files"] = \
             keras2_counts[entry["name"]]
-        for path, counts in {**data_counts, **mesh_counts}.items():
+        for path, counts in {**data_counts, **mesh_counts,
+                             **serve_counts}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "

@@ -363,6 +363,53 @@ print("BLOCKED_OK")
 """
 
 
+_BLOCKED_SERVE = r"""
+import sys
+for name in ("jax", "tpudl", "ml_dtypes"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from tpudl_torch.serve import (AdmissionError, ModelRegistry, RequestQueue,
+                               RungBatcher, Server, run_closed_loop)
+from tpudl_torch.zoo.transformer import TinyCausalLM
+
+torch.set_num_threads(1)
+spec = TinyCausalLM(vocab=64, dim=32, heads=4, layers=2, max_len=64,
+                    device="meta")
+reg = ModelRegistry()
+entry = reg.add_model("default", spec, spec.init(0), slots=2, cache_len=32,
+                      device="cpu")
+assert entry.warm_signatures == 3
+queue = RequestQueue(cap=4)
+srv = Server(reg, queue).start_async()
+out = run_closed_loop(srv, lambda i: np.arange(1, 3 + i % 5, dtype=np.int32),
+                      requests=8, clients=2, max_new=3, timeout=60)
+req = srv.submit([5, 6, 7], 4)
+assert req.result(timeout=60).shape == (4,)
+summary = srv.close(timeout=60)
+assert out["completed"] == 8 and summary["completed"] == 9
+try:
+    reg.get("default").engine.insert(type("R", (), {
+        "prompt": np.ones((1, 40), np.int32), "max_new": 4})())
+except ValueError as e:
+    assert "exceeds the" in str(e)
+(y,) = RungBatcher(lambda x: x * 2).run([np.ones((3, 2), np.float32)])
+assert y.shape == (3, 2) and AdmissionError("x", reason="queue_full").reason
+assert not any(m == b or m.startswith(b + ".")
+               for m, mod in sys.modules.items() if mod is not None
+               for b in ("jax", "tpudl", "ml_dtypes"))
+print("BLOCKED_OK")
+"""
+
+
+def test_serve_session_runs_with_jax_tpudl_and_ml_dtypes_blocked():
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_SERVE], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "BLOCKED_OK" in res.stdout
+
+
 def test_graph_routes_run_with_jax_keras_tf_and_protobuf_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_GRAPH], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -465,7 +512,10 @@ def test_no_source_imports_jax_or_tpudl():
                 "ingest/graphdef.py", "ingest/savedmodel.py",
                 "ingest/builder.py", "native/crc.py", "__init__.py",
                 "data/__init__.py", "data/codec.py", "data/shards.py",
-                "data/device_cache.py", "data/dataset.py", "text/data.py"):
+                "data/device_cache.py", "data/dataset.py", "text/data.py",
+                "serve/__init__.py", "serve/reqtrace.py", "serve/queue.py",
+                "serve/batching.py", "serve/slots.py", "serve/registry.py",
+                "serve/server.py", "serve/loadgen.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
@@ -473,20 +523,52 @@ def test_no_source_imports_jax_or_tpudl():
 
 
 _COPIED = re.compile(
-    r"^[ \t]*# copied from (tpudl/[\w/]+\.py):([\w.]+)[ \t]*$", re.MULTILINE)
-# the data slice's modules (every block) and the blocks it copied into
-# older ones
+    r"^[ \t]*# copied from (tpudl/[\w/]+\.py):([\w.]+)(?:\[(\w+)\])?[ \t]*$",
+    re.MULTILINE)
+# the data and serve slices' modules (every block) and the blocks they
+# copied into older ones
 _COPY_CHECKED = {"data/codec.py": None, "data/shards.py": None,
                  "data/device_cache.py": None, "data/dataset.py": None,
                  "text/data.py": None,
                  "text/codec.py": {"_wire_dtype", "lengths"},
                  "jobs/retry.py": {"_env_float", "io_policy"},
                  "ml/image_params.py": {"load_uri_batch"},
-                 "ml/estimator.py": {"_train_codec"}}
+                 "ml/estimator.py": {"_train_codec"},
+                 "serve/reqtrace.py": None, "serve/queue.py": None,
+                 "serve/slots.py": None, "serve/registry.py": None,
+                 "serve/server.py": None, "serve/loadgen.py": None,
+                 "obs/pipeline.py": {"PipelineReport.finish"}}
 
 
-def _code_of(tree, qualname):
-    """The def or class ``qualname`` of a parsed module, with docstrings
+class _ServeHooks(ast.NodeTransformer):
+    """tpudl's serve code with the two hooks the port changes: the lock
+    sanitizer's ``_tsan.named_lock(...)`` is a plain ``threading.Lock()``,
+    and the attribution hooks (``_attr.*`` calls) are gone — a charge
+    statement dropped, a captured scope ``None``."""
+
+    @staticmethod
+    def _call_of(node, owner):
+        return (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == owner)
+
+    def visit_Expr(self, node):
+        return None if self._call_of(node.value, "_attr") else node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        if self._call_of(node, "_tsan"):
+            return ast.Call(ast.Attribute(ast.Name("threading", ast.Load()),
+                                          "Lock", ast.Load()), [], [])
+        if self._call_of(node, "_attr"):
+            return ast.Constant(None)
+        return node
+
+
+def _code_of(tree, qualname, branch=None):
+    """The def or class ``qualname`` of a parsed module (with ``branch``,
+    its ``if`` statement whose test names that string), with docstrings
     dropped and the port's imports spelled as tpudl's: what a copy must
     keep identical."""
     def named(body, name):
@@ -501,6 +583,9 @@ def _code_of(tree, qualname):
             m for c in node.body if isinstance(c, ast.ClassDef)
             for m in named(c.body, part)]
         node = found[0]
+    if branch is not None:
+        node = next(n for n in ast.walk(node) if isinstance(n, ast.If)
+                    and repr(branch) in ast.unparse(n.test))
     node = ast.parse(ast.unparse(node)).body[0]     # a private copy
     for n in ast.walk(node):
         body = getattr(n, "body", None)
@@ -516,20 +601,27 @@ def _code_of(tree, qualname):
 
 
 def test_copied_blocks_equal_their_tpudl_source():
-    """Every ``# copied from tpudl/<file>:<name>`` block of the data slice
-    is its source's code, docstrings aside."""
+    """Every ``# copied from tpudl/<file>:<name>`` block of the data and
+    serve slices is its source's code, docstrings aside (``<name>[key]``:
+    the branch of ``<name>`` on that key). The serve blocks are held with
+    tpudl's lock sanitizer and attribution hooks swapped out
+    (``_ServeHooks``)."""
     checked = []
     for sub, names in _COPY_CHECKED.items():
         text = (REPO / "tpudl_torch" / sub).read_text()
         ours = ast.parse(text)
-        for src, qual in _COPIED.findall(text):
+        for src, qual, branch in _COPIED.findall(text):
             if names is not None and qual not in names:
                 continue
             theirs = ast.parse((REPO / src).read_text())
-            assert _code_of(ours, qual) == _code_of(theirs, qual), \
+            if sub.startswith("serve/"):
+                theirs = _ServeHooks().visit(theirs)
+            branch = branch or None
+            assert _code_of(ours, qual, branch) == _code_of(
+                theirs, qual, branch), \
                 f"tpudl_torch/{sub}:{qual} drifted from {src}"
             checked.append(f"{sub}:{qual}")
-    assert len(checked) == 30, checked
+    assert len(checked) == 30 + 35, checked
 
 
 def test_a_spawned_rank_imports_neither_jax_nor_tpudl():

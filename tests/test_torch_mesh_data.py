@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 import torch
 
 from tpudl import distributed as jax_distributed
@@ -279,6 +280,69 @@ def test_first_step_gradients_sum_the_shards(fit_set):
     for k in start:
         err = float((meshed[k].detach() - single[k].detach()).abs().max())
         assert err <= 1e-4 * top, k
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_adam_sharded_gradients_hold_float64_like_tpudls(fit_set, n):
+    """An adam fit over ``n`` entries, checked where a fault would sit:
+    before each of 3 optimizer steps, the gradients of ``sharded_backward``
+    over the mesh and of tpudl's step differentiated over ``n`` of its
+    devices, both at the port's current weights, within phase 14's 1e-2
+    of the largest gradient of a float64 run of the whole batch on one
+    device. Losses after adam steps drift further apart than gradients
+    do (its first steps are ~lr·sign(g)), so they are not what is held."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from tpudl.ml.losses import get_loss as jax_get_loss
+    from tpudl_torch.ml.estimator import sharded_backward
+    from tpudl_torch.ml.losses import (get_loss, get_optimizer_dynamic,
+                                       set_learning_rate)
+
+    path, uris, labels = fit_set
+    kw = _kw(path, epochs=1, batch_size=8, shuffle=False)
+    frame = Frame({"uri": uris, "label": labels})
+    est = KerasImageFileEstimator(mesh=_cpu(n), **kw)
+    X, y = est._getNumpyFeaturesAndLabels(frame)
+    gin = est._ingest()
+    _model, jgin, _keys = JaxEstimator(**kw)._ingest()
+    assert sorted(jgin.params) == sorted(gin.params)
+    jmesh = jax_mesh.build_mesh(devices=jax.devices()[:n])
+    data = NamedSharding(jmesh, PartitionSpec(jmesh.axis_names[0]))
+    jloss, japply = jax_get_loss("categorical_crossentropy"), jgin.make_fn()
+    jgrad = jax.jit(jax.grad(lambda p, xb, yb: jloss(japply(p, xb), yb)))
+    loss_fn, apply_fn = get_loss("categorical_crossentropy"), gin.make_fn()
+    mesh = _cpu(n)
+    params = {k: torch.tensor(np.asarray(v), requires_grad=True)
+              for k, v in gin.params.items()}
+    factory, lr = get_optimizer_dynamic("adam")
+    opt = factory(list(params.values()))
+    set_learning_rate(opt, lr)
+    replicas = [params] + [{k: t.detach().clone().requires_grad_()
+                            for k, t in params.items()}
+                           for _ in range(n - 1)]
+    for step in range(3):
+        xb, yb = X[8 * step:8 * step + 8], y[8 * step:8 * step + 8]
+        grads, _ = sharded_backward(apply_fn, loss_fn, replicas,
+                                    M.shard_batch((xb, yb), mesh),
+                                    mesh.devices)
+        p64 = {k: t.detach().double().requires_grad_()
+               for k, t in params.items()}
+        loss_fn(apply_fn(p64, torch.from_numpy(xb).double()),
+                torch.from_numpy(yb).double()).backward()
+        ref = {k: t.grad.numpy() for k, t in p64.items()}
+        top = max(float(np.abs(g).max()) for g in ref.values())
+        theirs = jgrad({k: jnp.asarray(t.detach().numpy())
+                        for k, t in params.items()},
+                       jax.device_put(xb, data), jax.device_put(yb, data))
+        for k, g in ref.items():
+            ours = np.abs(grads[k].double().numpy() - g).max() / top
+            tpudls = np.abs(np.asarray(theirs[k], np.float64) - g).max() / top
+            assert ours <= 1e-2 and tpudls <= 1e-2, (step, k, ours, tpudls)
+        for k, g in grads.items():
+            params[k].grad = g
+        opt.step()
+        M.broadcast(list(params.values()),
+                    [list(rep.values()) for rep in replicas], mesh.devices)
 
 
 def test_fit_multiple_trains_each_trial_over_its_slice(fit_set,

@@ -1,10 +1,10 @@
 """Per-run pipeline reports: stage times, gauges, and the report ring.
 
 Copied from ``tpudl/obs/pipeline.py`` (``PipelineReport`` and the ring of
-recent reports), without the tracer spans, the lock sanitizer, the
-watchdog heartbeat and the serve branch of ``finish`` (ROADMAP Queue 1,
-'The rest of observability' and 'Serving').
-``PipelineReport`` is ONE ``Frame.map_batches`` run's stage accounting;
+recent reports), without the tracer spans, the lock sanitizer and the
+watchdog heartbeat (ROADMAP Queue 1, 'The rest of observability').
+``PipelineReport`` is ONE ``Frame.map_batches`` run's (or one serve
+session's) stage accounting;
 on ``finish()`` it publishes its totals into the process-wide registry
 (:mod:`tpudl_torch.obs.metrics`) under tpudl's names. The ring is keyed
 by run id and bounded at ``TPUDL_PIPELINE_RING`` (default 16), so two
@@ -131,9 +131,11 @@ class PipelineReport:
         process-wide registry (``frame.map_batches.{runs,rows,batches,
         wall_seconds}``, ``frame.stage.<name>.seconds``,
         ``frame.overlap_efficiency``, ``frame.dispatch.overlap_s``,
-        ``frame.dispatch.inflight`` and, under a mesh,
+        ``frame.dispatch.inflight``; under a mesh
         ``frame.mesh.pad_rows``, ``.pad_overhead_pct`` and
-        ``.model_axis``). The executor calls it once."""
+        ``.model_axis``; for a serve session ``serve.batch_occupancy``, the
+        mean of its ``slot_occupancy`` gauge, and ``serve.tokens_per_s``).
+        The executor and the serve loop call it once."""
         if wall_seconds is not None:
             self.wall_seconds = wall_seconds
         self.finished = True
@@ -172,6 +174,19 @@ class PipelineReport:
                     100.0 * pad / (int(rows) + pad))
             _metrics.gauge("frame.mesh.model_axis").set(
                 int(self.config["mesh"].get("model") or 1))
+        # the session-mean slot occupancy and the token rate of a serve
+        # session:
+        # copied from tpudl/obs/pipeline.py:PipelineReport.finish[serve]
+        if self.config.get("serve"):
+            with self._lock:
+                occ = self.gauges.get("slot_occupancy")
+                toks = int(self.calls.get("tokens", 0))
+            if occ is not None and occ.to_dict()["mean"] is not None:
+                _metrics.gauge("serve.batch_occupancy").set(
+                    occ.to_dict()["mean"])
+            if toks and self.wall_seconds:
+                _metrics.gauge("serve.tokens_per_s").set(
+                    toks / self.wall_seconds)
 
     def report(self) -> dict:
         with self._lock:

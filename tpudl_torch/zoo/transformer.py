@@ -2,8 +2,9 @@
 
 Port of ``tpudl/zoo/transformer.py`` (``TinyCausalLM``: ``init``,
 ``hidden``/``apply``, ``_decoder_block``, ``init_cache``/``decode_step``/
-``generate``). The math and the public layouts are tpudl's: weights are
-kept in its ``x @ W`` orientation under its names (``embed.table``,
+``decode_step_slots``/``generate`` and the slot programs that
+``tpudl_torch.serve`` runs). The math and the public layouts are tpudl's:
+weights are kept in its ``x @ W`` orientation under its names (``embed.table``,
 ``blocks.<i>.wq``, …), attention works on ``[B, S, H, D]``, and
 :func:`load_jax_params` fills the module from tpudl's numpy param pytree,
 so both packages run the same model from the same ``init(seed)``.
@@ -12,10 +13,12 @@ The full-sequence forward (:meth:`TinyCausalLM.hidden`) runs attention
 through :func:`tpudl_torch.cuda_ops.flash_attention` (the hand-written
 CUDA kernels on the card, forward and, under autograd, backward), and
 :meth:`TinyCausalLM.loss_fn` is tpudl's next-token training loss. The
-KV-cache decode step keeps tpudl's dense masked attention over the cache.
-The cache is updated in place (``decode_step`` returns the same list it
-was given) — JAX had to return a new one. :func:`to_jax_params` carries
-the module's weights back to tpudl's numpy param pytree.
+KV-cache decode step keeps tpudl's dense masked attention over the cache,
+with the position as a device tensor, so that one captured CUDA graph
+serves every position. The cache is updated in place (``decode_step``
+returns the same list it was given) — JAX had to return a new one.
+:func:`to_jax_params` carries the module's weights back to tpudl's numpy
+param pytree.
 
 Not ported yet, and refused with ``NotImplementedError``: mixture of
 experts, tensor parallelism, ring attention over a mesh, the pipelined
@@ -211,21 +214,116 @@ class TinyCausalLM(nn.Module):
                  "v": torch.zeros(shape, dtype=dtype, device=self.device)}
                 for _ in range(self.layers)]
 
-    def decode_step(self, tok, cache, pos: int):
+    def decode_step(self, tok, cache, pos):
         """One incremental step: token ids ``tok`` ``[B]`` at position
         ``pos`` → (logits ``[B, vocab]``, cache). Each block's K/V for the
         token are written into ``cache`` at ``pos`` (in place) and
-        attention reads the cache masked to positions ``0..pos``."""
+        attention reads the cache masked to positions ``0..pos``.
+
+        ``pos`` is an int (checked against the cache length) or a 0-d
+        integer tensor on the model's device, which is not checked: the
+        check would wait for the device, and a captured graph replays with
+        whatever position the tensor holds."""
+        x = self._decode_hidden(tok, cache, self._pos_tensor(pos, cache))
+        return self._logits(x), cache
+
+    def decode_step_slots(self, tok, cache, pos):
+        """One decode step across ``S`` independent slots: token ids
+        ``tok`` ``[S]`` at per-slot positions ``pos`` ``[S]`` (an integer
+        tensor on the model's device) → (logits ``[S, vocab]``, cache) over
+        a fixed ``[S, L, heads, head_dim]`` KV cache. tpudl's
+        ``decode_step_slots``: each slot writes its K/V at its own
+        position and attends to keys ``<= pos[s]`` (an ``[S, L]`` mask), so
+        rows never mix and a slot decodes as a batch-1 ``decode_step`` at
+        the same position would. Slots nobody occupies ride along: their
+        write lands in a row that the next insert overwrites whole."""
+        return self._logits(self._decode_hidden(tok, cache, pos)), cache
+
+    def _pos_tensor(self, pos, cache):
+        if isinstance(pos, torch.Tensor):
+            return pos
         cache_len = cache[0]["k"].shape[1]
         pos = int(pos)
         if not 0 <= pos < cache_len:
             raise ValueError(
                 f"pos {pos} out of range for cache length {cache_len}")
+        return torch.full((), pos, dtype=torch.int64, device=self.device)
+
+    def _decode_hidden(self, tok, cache, pos):
+        """The decoder blocks of one cached step, before the final norm:
+        ``[B, D]``."""
         x = F.embedding(tok, self.embed["table"])[:, None]   # [B, 1, D]
         for p, layer_cache in zip(self.blocks, cache):
             x = self._decoder_block(x, p, _cached_attn(layer_cache, pos))
-        x = _layer_norm(x[:, 0], self.final_norm)
-        return x @ self.embed["table"].T, cache
+        return x[:, 0]
+
+    def _logits(self, x):
+        """Final norm and tied head of ``_decode_hidden``'s output."""
+        return _layer_norm(x, self.final_norm) @ self.embed["table"].T
+
+    # -- the serving programs (tpudl_torch.serve.SlotDecoder) --------------
+    def _slot_step_program(self, temperature: float, *, mesh=None,
+                           tp: bool = False):
+        """tpudl's ``_slot_step_program``, as a function over the engine's
+        state tensors ``(cache, tok [S], pos [S], steps [S], live [S],
+        logits [S, vocab])`` — whose shapes are the geometry ``(slots,
+        cache_len)`` — that updates them in place: one decode step of every
+        slot into ``logits``, then ``pos`` and ``steps`` advance on live
+        slots. Greedy (``temperature == 0``) also writes each slot's argmax
+        into ``tok``; a sampling engine draws the next tokens from
+        ``logits`` itself, one generator a slot. It reads no host value,
+        so the engine captures it as one CUDA graph."""
+        self._single_device(mesh, tp)
+
+        def run(cache, tok, pos, steps, live, logits):
+            logits.copy_(self.decode_step_slots(tok, cache, pos)[0])
+            if temperature <= 0:
+                tok.copy_(logits.argmax(dim=-1))
+            pos.add_(live)
+            steps.add_(live)
+
+        return run
+
+    def _slot_prefill_program(self, *, mesh=None, tp: bool = False):
+        """The insert program of tpudl's ``_slot_prefill_program``, in two
+        parts over the engine's state tensors, both free of host values:
+
+        - ``step(row, prompt, ppos, hidden)``: one prompt token — the
+          token ``prompt[ppos]`` through the decoder blocks on the batch-1
+          ``row`` cache, its hidden state into ``hidden``, ``ppos`` on by
+          one. Run ``real_plen`` times, it is tpudl's scan over the prompt
+          stopped at the real length; the pad steps it leaves out only
+          wrote cache positions that decoding overwrites before any step
+          attends them, so the tokens are the same;
+        - ``finish(row, cache, hidden, ppos, slot, tok, pos, steps, live,
+          logits)``: the logits at ``real_plen - 1`` into ``logits`` (the
+          head runs once, not at every prompt token), the greedy first
+          token into ``tok[slot]``, the whole row into the slot cache at
+          the device index ``slot`` (which also wipes the slot's previous
+          occupant), ``pos[slot] = real_plen``, ``steps[slot] = 1`` and
+          ``live[slot] = 1``."""
+        self._single_device(mesh, tp)
+
+        def step(row, prompt, ppos, hidden):
+            tok = prompt.index_select(0, ppos.view(1))
+            hidden.copy_(self._decode_hidden(tok, row, ppos))
+            ppos.add_(1)
+
+        def finish(row, cache, hidden, ppos, slot, tok, pos, steps, live,
+                   logits):
+            logits.copy_(self._logits(hidden))
+            tok.index_copy_(0, slot, logits.argmax(dim=-1))
+            for r, c in zip(row, cache):
+                c["k"].index_copy_(0, slot, r["k"])
+                c["v"].index_copy_(0, slot, r["v"])
+            pos.index_copy_(0, slot, ppos.view(1))
+            steps.index_fill_(0, slot, 1)
+            live.index_fill_(0, slot, 1)
+
+        return step, finish
+
+    def precompile_serve(self, *args, **kwargs):
+        _not_ported("AOT precompilation of the serve programs", "Compile")
 
     def _gen_bucket(self, plen: int, max_new: int, prompt_buckets) -> int:
         """Padded prompt length: the smallest ladder rung ≥ plen that
@@ -267,11 +365,13 @@ class TinyCausalLM(nn.Module):
             raise ValueError("sampling (temperature > 0) needs generator=")
         padded = self._gen_bucket(plen, max_new, prompt_buckets)
         cache = self.init_cache(b, padded + max_new)
+        # the positions as device scalars: views into one tensor
+        at = torch.arange(padded + max_new, device=self.device)
         for pos in range(plen):
-            logits, cache = self.decode_step(prompt[:, pos], cache, pos)
+            logits, cache = self.decode_step(prompt[:, pos], cache, at[pos])
         out = [_pick(logits, temperature, generator)]
         for i in range(1, max_new):
-            logits, cache = self.decode_step(out[-1], cache, plen + i - 1)
+            logits, cache = self.decode_step(out[-1], cache, at[plen + i - 1])
             out.append(_pick(logits, temperature, generator))
         return torch.stack(out, dim=1)
 
@@ -301,16 +401,25 @@ class TinyCausalLM(nn.Module):
         return loss
 
 
-def _cached_attn(layer_cache: dict, pos: int):
+def _cached_attn(layer_cache: dict, pos):
     """Attention for one decode step: write this token's K/V at ``pos``,
-    then dense softmax over the cache masked to keys ``<= pos``."""
+    then dense softmax over the cache masked to keys ``<= pos``. ``pos`` is
+    a device tensor: 0-d (every row at one position, ``decode_step``) or
+    ``[B]`` (a position a row, ``decode_step_slots``)."""
     def attn(q, k_t, v_t):                   # all [B, 1, H, Dh]
         kc, vc = layer_cache["k"], layer_cache["v"]
-        kc[:, pos] = k_t[:, 0].to(kc.dtype)
-        vc[:, pos] = v_t[:, 0].to(vc.dtype)
+        keys = torch.arange(kc.shape[1], device=q.device)
+        if pos.dim() == 0:
+            kc.index_copy_(1, pos.view(1), k_t.to(kc.dtype))
+            vc.index_copy_(1, pos.view(1), v_t.to(vc.dtype))
+            live = keys <= pos                               # [L]
+        else:
+            rows = torch.arange(kc.shape[0], device=q.device)
+            kc.index_put_((rows, pos), k_t[:, 0].to(kc.dtype))
+            vc.index_put_((rows, pos), v_t[:, 0].to(vc.dtype))
+            live = (keys[None, :] <= pos[:, None])[:, None, None, :]
         scores = (torch.einsum("bqhd,bshd->bhqs", q, kc)
                   * (1.0 / math.sqrt(q.shape[-1])))
-        live = torch.arange(kc.shape[1], device=q.device) <= pos
         scores = scores.masked_fill(~live, float("-inf"))
         w = torch.softmax(scores, dim=-1)
         return torch.einsum("bhqs,bshd->bqhd", w, vc)
