@@ -593,7 +593,9 @@ def check_flash():
              ("D=128", (2, 130, 3, 128), 77, False, 0, 0),
              ("large scores", (2, 130, 3, 64), 130, True, 0, 0),
              ("unaligned rows", (2, 70, 2, 32), 70, True, 0, 0),
-             ("serving", SLICE_SHAPE, SLICE_SHAPE[1], True, 0, 0)]
+             ("serving", SLICE_SHAPE, SLICE_SHAPE[1], True, 0, 0),
+             ("serve batcher", SERVE_BATCHER_SHAPE, SERVE_BATCHER_SHAPE[1],
+              True, 0, 0)]
     slice_err = None
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
@@ -5086,6 +5088,7 @@ MESH_IMAGE_RTOL = {"float32": IMAGE_CPU_RTOL, "bfloat16": 1e-2}
 MESH_LM_RTOL = 1e-4                # of max |y|, phase 4's 1e-4
 MESH_TRIAL_JPEGS = 32
 MESH_DATASET_ROWS = 512
+MESH_GRAD_STEPS = 3           # adam steps whose gradients are held
 
 
 def mesh_cases():
@@ -5271,44 +5274,60 @@ def mesh_lm_leg(card, cases, problems):
 
 
 def mesh_gradient_check(path, X, y, mesh, card, problems, label):
-    """The first step's gradients of the data-parallel step over ``mesh``
-    (each entry's weighted shard loss backpropagated into its replica,
-    summed onto the first entry: the estimator's ``sharded_backward``) on
-    the rows ``X, y``, against a float64 run of the whole batch on one
-    card."""
+    """The gradients of the data-parallel step over ``mesh`` (each entry's
+    weighted shard loss backpropagated into its replica, summed onto the
+    first entry: the estimator's ``sharded_backward``) on the rows ``X,
+    y``, before each of MESH_GRAD_STEPS adam steps (the fit's: the step on
+    the first entry, the weights broadcast to the others), against a
+    float64 run of the whole batch on one card at the same weights. Over
+    several cards this is where the cross-card sums and broadcasts would
+    show a fault in an adam fit."""
     from tpudl_torch import mesh as M
     from tpudl_torch.device import full_f32
     from tpudl_torch.ml.estimator import sharded_backward
-    from tpudl_torch.ml.losses import get_loss
+    from tpudl_torch.ml.losses import (get_loss, get_optimizer_dynamic,
+                                       set_learning_rate)
 
     gin = keras_estimator(path, None, device=MESH_DEVICE)._ingest()
-    loss_fn = get_loss("categorical_crossentropy")
-    p64 = {k: torch.tensor(v, device=MESH_DEVICE, dtype=torch.float64,
-                           requires_grad=True) for k, v in gin.params.items()}
-    with torch.enable_grad(), full_f32():
-        loss64 = loss_fn(gin.make_fn()(p64, torch.tensor(
-            X, device=MESH_DEVICE, dtype=torch.float64)), torch.tensor(
-                y, device=MESH_DEVICE, dtype=torch.float64))
-        loss64.backward()
-    ref_loss = float(loss64.detach())
-    ref = {k: t.grad.cpu().numpy() for k, t in p64.items()}
-    replicas = [{k: torch.tensor(v, device=d, requires_grad=True)
-                 for k, v in gin.params.items()} for d in mesh.devices]
-    with torch.enable_grad(), full_f32():
-        grads, loss = sharded_backward(
-            gin.make_fn(), loss_fn, replicas, M.shard_batch((X, y), mesh),
-            mesh.devices)
-    top = max(np.abs(v).max() for v in ref.values())
-    errs = {k: float(np.abs(grads[k].double().cpu().numpy() - ref[k]).max()
-                     / top) for k in ref}
-    worst = max(errs, key=errs.get)
-    print(f"  {label}: first-step gradients of the data-parallel step "
-          f"against float64 on one card ({len(ref)} variables, largest |g| "
-          f"{top:.4e}): loss {float(loss) - ref_loss:+.3e} off, gradients "
-          f"{errs[worst]:.3e} of the largest at worst ({worst}) (limit "
-          f"{KERAS_GRAD_RTOL:g}); card {card}")
-    if not errs[worst] <= KERAS_GRAD_RTOL:
-        problems.append(f"{label} first-step gradients {errs[worst]:.3e}")
+    loss_fn, apply_fn = get_loss("categorical_crossentropy"), gin.make_fn()
+    devices = mesh.devices
+    params = {k: torch.tensor(v, device=devices[0], requires_grad=True)
+              for k, v in gin.params.items()}
+    factory, lr = get_optimizer_dynamic("adam")
+    opt = factory(list(params.values()))
+    set_learning_rate(opt, lr)
+    replicas = [params] + [{k: t.detach().to(d, copy=True).requires_grad_()
+                            for k, t in params.items()} for d in devices[1:]]
+    x64 = torch.tensor(X, device=MESH_DEVICE, dtype=torch.float64)
+    y64 = torch.tensor(y, device=MESH_DEVICE, dtype=torch.float64)
+    for step in range(MESH_GRAD_STEPS):
+        p64 = {k: t.detach().to(MESH_DEVICE, torch.float64)
+               .requires_grad_() for k, t in params.items()}
+        with torch.enable_grad(), full_f32():
+            loss64 = loss_fn(apply_fn(p64, x64), y64)
+            loss64.backward()
+            grads, loss = sharded_backward(
+                apply_fn, loss_fn, replicas, M.shard_batch((X, y), mesh),
+                devices)
+        ref = {k: t.grad.cpu().numpy() for k, t in p64.items()}
+        top = max(np.abs(v).max() for v in ref.values())
+        errs = {k: float(np.abs(grads[k].double().cpu().numpy() - ref[k])
+                         .max() / top) for k in ref}
+        worst = max(errs, key=errs.get)
+        print(f"  {label}: gradients of the data-parallel step before adam "
+              f"step {step + 1} against float64 on one card ({len(ref)} "
+              f"variables, largest |g| {top:.4e}): loss "
+              f"{float(loss) - float(loss64.detach()):+.3e} off, gradients "
+              f"{errs[worst]:.3e} of the largest at worst ({worst}) (limit "
+              f"{KERAS_GRAD_RTOL:g}); card {card}")
+        if not errs[worst] <= KERAS_GRAD_RTOL:
+            problems.append(f"{label} step {step + 1} gradients "
+                            f"{errs[worst]:.3e}")
+        for k, g in grads.items():
+            params[k].grad = g
+        opt.step()
+        M.broadcast(list(params.values()),
+                    [list(rep.values()) for rep in replicas], devices)
 
 
 def mesh_fit_leg(directory, card, cases, problems):
@@ -5568,6 +5587,9 @@ SERVE_SERIAL_EVERY = 4             # serial eager generate: every 4th prompt
 SERVE_LOGIT_RTOL = 1e-4            # of max |logit|: replay vs eager step
 SERVE_BATCHER_ROWS = (3, 5, 11)    # ragged payloads, 19 rows → rung 24
 SERVE_BATCHER_BYTES = 255          # + BOS = 256 tokens a row
+# [B, S, H, D] the batcher's dispatch gives every decoder block (phase 3
+# holds the kernel there)
+SERVE_BATCHER_SHAPE = (24, SERVE_BATCHER_BYTES + 1, 16, 64)
 SERVE_TIMEOUT = 300                # every wait on a request or the loop
 SERVE_DEADLINE_S = 0.1             # < 960 decode steps, > a 16-token prefill
 _ATTN_OPS = {"aten::einsum", "aten::bmm", "aten::_softmax", "aten::softmax",
@@ -5930,7 +5952,9 @@ def serve_batcher_leg(weights, card, problems):
     """``RungBatcher`` over the LM embed function (``LMFeaturizer``'s
     per-batch function) with ragged payloads: one padded dispatch, 12
     flash forward launches, the split rows against ``LMFeaturizer`` on
-    the same texts. Returns the launch counts of the timed dispatches."""
+    the same texts, on the card (the same kernel: padding and splitting)
+    and on the CPU (the plain attention). Returns the launch counts of the
+    timed dispatches."""
     from tpudl_torch import cuda_ops
     from tpudl_torch.device import full_f32
     from tpudl_torch.frame import Frame
@@ -5974,29 +5998,46 @@ def serve_batcher_leg(weights, card, problems):
     ms = (time.perf_counter() - t0) * 1e3 / reps
     counts = dict(cuda_ops.launch_counts)
     occ = metrics.gauge("serve.batch_occupancy").value
-    want = np.stack(list(LMFeaturizer(
-        inputCol="text", outputCol="v", model=spec, weights=weights,
-        tokenizer=tok, batchSize=len(texts), device="cuda").transform(
-        Frame({"text": texts}))["v"]))
+    def featurizer(device):
+        return np.stack(list(LMFeaturizer(
+            inputCol="text", outputCol="v", model=spec, weights=weights,
+            tokenizer=tok, batchSize=len(texts), device=device).transform(
+            Frame({"text": texts}))["v"]))
+
     got = np.concatenate(outs)
-    err = float(np.abs(got - want).max())
-    scale = float(np.abs(want).max())
     n = len(texts)
+    # the same kernel on the card, unpadded: padding to the rung and the
+    # split are exact up to the GEMMs' other M
+    card_feat = featurizer("cuda")
+    err = float(np.abs(got - card_feat).max())
+    scale = float(np.abs(card_feat).max())
+    # the plain attention on the CPU: the batch through the kernel at the
+    # shape this path gives it, against its plain version (phase 4's limit)
+    cpu_err = float(np.abs(got - featurizer("cpu")).max())
     print(f"  RungBatcher over the LM embed function: payloads "
           f"{list(SERVE_BATCHER_ROWS)} rows x {rows.shape[1]} tokens -> one "
           f"dispatch of {batcher.rung_for(n)} rows, {ms:.2f} ms "
           f"({n / ms * 1e3:.1f} rows/s); flash launches over {reps} "
           f"dispatches {counts} (want {LAYERS * reps} forward); "
-          f"serve.batch_occupancy {occ:.4f}; against LMFeaturizer on the "
-          f"same {n} rows: max abs {err:.3e} ({err / scale:.3e} of max |y| "
-          f"{scale:.3e}; tolerance {FEATURE_ATOL} of max |y|); card {card}")
+          f"serve.batch_occupancy {occ:.4f}; card {card}")
+    print(f"  the batcher's {n} rows against LMFeaturizer on the card "
+          f"(unpadded): max abs {err:.3e} ({err / scale:.3e} of max |y| "
+          f"{scale:.3e}; tolerance {FEATURE_ATOL} of max |y|); against "
+          f"LMFeaturizer on the CPU (plain attention): max abs "
+          f"{cpu_err:.3e} (tolerance {FEATURE_ATOL}); card {card}")
     if counts["flash_attn_fwd"] != LAYERS * reps or \
             counts["flash_attn_bwd_dq"] or counts["flash_attn_bwd_dkv"]:
         problems.append(f"the batcher's dispatches launched {counts}")
     if [len(o) for o in outs] != list(SERVE_BATCHER_ROWS):
         problems.append(f"the batcher split {[len(o) for o in outs]}")
+    if (batcher.rung_for(n), rows.shape[1], HEADS, DIM // HEADS) != \
+            SERVE_BATCHER_SHAPE:
+        problems.append(f"the batcher's blocks ran at another shape than "
+                        f"phase 3's {SERVE_BATCHER_SHAPE}")
     if not err <= FEATURE_ATOL * scale:
-        problems.append(f"batcher vs LMFeaturizer {err:.3e}")
+        problems.append(f"batcher vs LMFeaturizer on the card {err:.3e}")
+    if not cpu_err <= FEATURE_ATOL:
+        problems.append(f"batcher vs LMFeaturizer on the CPU {cpu_err:.3e}")
     return counts
 
 

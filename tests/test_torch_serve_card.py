@@ -8,7 +8,9 @@ The model is the serving width of ``chip_smoke.py`` phase 15 (vocab
 32000, dim 1024, 16 heads) cut to 2 layers. A replay of the step graph
 must equal the same step run eagerly bit for bit (same kernels, same
 inputs), and a churning request mix after warm-up must capture no new
-graph while every stream equals the serial batch-1 ``generate``."""
+graph while every stream equals the serial batch-1 ``generate``.
+``warm()`` with every slot occupied must leave the live slots' caches as
+they were."""
 
 import numpy as np
 import pytest
@@ -83,3 +85,34 @@ def test_churn_captures_no_graph_after_warmup(served):
         with torch.inference_mode(), full_f32():
             want = net.generate(req.prompt, 12).cpu().numpy()[0]
         np.testing.assert_array_equal(req.result(timeout=1), want)
+
+
+@pytest.mark.cuda
+def test_warm_with_every_slot_occupied_spares_the_live_caches(served):
+    _, entry = served
+    spec = TinyCausalLM(device="meta", **ARCH)
+    eng = ModelRegistry().add_model(
+        "cold", spec, entry.params, slots=2, cache_len=CACHE_LEN,
+        warm=False, device="cuda").engine
+    net = eng.model
+    reqs = [type("R", (), {"prompt": p[None, :], "max_new": 10, "rng": None,
+                           "trace": None})()
+            for p in _prompts(2, (6, 21, 13))]
+    for req in reqs[:2]:
+        eng.insert(req)          # captures the prefill and insert graphs
+    eng._program("insert").graph = None   # as if the insert were cold
+    with torch.inference_mode():
+        eng._slot.fill_(0)                # a live slot
+    assert eng.warm() == 1                # the step graph only
+    assert eng._program("insert").graph is None
+    done = {}
+    while len(done) < 3:
+        eng.step()
+        for req, toks in eng.pop_completed():
+            done[id(req)] = toks
+        if eng.free() and len(eng.active()) + len(done) < 3:
+            eng.insert(reqs[2])
+    for req in reqs:
+        with torch.inference_mode(), full_f32():
+            want = net.generate(req.prompt, 10).cpu().numpy()[0]
+        np.testing.assert_array_equal(done[id(req)], want)

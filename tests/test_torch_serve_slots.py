@@ -413,6 +413,35 @@ def test_warm_registration_builds_every_program(lm):
     assert entry.engine.captures == 0      # no graphs on the CPU
 
 
+def test_warm_with_every_slot_occupied_leaves_the_insert_to_later(lm):
+    """``warm()`` while every slot is occupied readies the step and
+    prefill programs only: the insert program's warm-up would write the
+    row cache into a slot, which must be a free one. The next insert
+    builds it, and every stream still equals the serial ``generate``."""
+    _, _, params, spec, tlm = lm
+    eng = tserve.ModelRegistry().add_model(
+        "cold", spec, params, slots=2, cache_len=CACHE_LEN, warm=False,
+        device="cpu").engine
+    rng = np.random.default_rng(11)
+    reqs = [tserve.ServeRequest(_prompt(rng, n), 5) for n in (4, 9, 6)]
+    for req in reqs[:2]:
+        eng.insert(req)              # builds the prefill and insert programs
+    del eng.programs[eng._key("insert")]   # as if the insert were cold
+    assert eng.warm() == 1           # the step program only
+    assert sorted(k[0] for k in eng.programs) == ["slot_prefill",
+                                                  "slot_step"]
+    done = {}
+    while len(done) < 3:
+        eng.step()
+        for req, toks in eng.pop_completed():
+            done[id(req)] = toks.tolist()
+        if eng.free() and len(eng.active()) + len(done) < 3:
+            eng.insert(reqs[2])
+    assert len(eng.programs) == 3
+    for req in reqs:
+        assert done[id(req)] == _serial(tlm, req.prompt[0], 5).tolist()
+
+
 def test_churn_builds_no_program_after_warmup(lm):
     """The counterpart of tpudl's zero-retrace pin: 6 ragged prompt
     lengths through 2 slots, 3 insert/complete cycles a slot, after a

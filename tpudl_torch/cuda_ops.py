@@ -23,8 +23,9 @@ kernels against on the card); CUDA tensors launch the kernels or raise.
 its main path went through the kernels. A launch inside a CUDA-graph
 capture runs nothing then: :func:`capture_launches` records the
 capturing thread's launches apart from the counts and returns them, and
-:func:`count_replay` adds them at every replay of the graph (the
-executor's fused dispatch).
+:func:`count_replay` adds them at every replay of the graph.
+:func:`capture_graph` is the one way the port captures a graph (the
+executor's fused dispatch, the serving engine's programs).
 
 The TPU version's ``block_q``/``block_k`` (Mosaic tiling), ``interpret``
 (the CPU emulation of Pallas) and ``precision`` (the MXU's bf16 passes)
@@ -42,7 +43,7 @@ import torch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "launch_counts", "capture_launches",
-           "count_replay", "HEAD_DIMS"]
+           "count_replay", "capture_graph", "HEAD_DIMS"]
 
 NEG_INF = -1e30  # finite -inf stand-in, as in the TPU kernel
 HEAD_DIMS = (16, 32, 64, 128)  # template instances in csrc/flash_attn_*.cu
@@ -86,6 +87,40 @@ def count_replay(launches: dict) -> None:
     :func:`capture_launches`)."""
     for name, n in launches.items():
         _count(name, n)
+
+
+# one capture at a time in the process
+_CAPTURE_LOCK = threading.Lock()
+
+
+def capture_graph(run, device, warmup=None):
+    """Capture ``run()`` on ``device`` as one CUDA graph; returns ``(graph,
+    launches)``, the second from :func:`capture_launches`.
+
+    ``warmup()`` (default ``run``) runs first on a side stream, outside the
+    capture, so that cuBLAS and cuDNN set up and the kernels set their
+    attributes; the current stream then waits for it. The capture runs on a
+    stream of ``device`` itself (torch's default capture stream is one
+    stream, made on the card of the process's first capture, and a capture
+    on another card through it records nothing of its own), in
+    ``thread_local`` mode, so that other threads may pin host memory
+    meanwhile, and under one process-wide lock. A failure raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        (warmup or run)()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(device)
+
+    def capture():
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            run()
+
+    with _CAPTURE_LOCK:
+        launches = capture_launches(capture)
+    return graph, launches
 
 
 def _check(q, k, v):

@@ -311,8 +311,8 @@ def _host_outputs(result) -> bool:
     return any(isinstance(r, np.ndarray) for r in result)
 
 
-# one lock over the graphs cached on every fn and over captures: two
-# threads never capture at once, nor build one key's graph twice
+# one lock over the graphs cached on every fn: two threads never build one
+# key's graph twice (captures take ``cuda_ops.capture_graph``'s lock)
 _FUSED_LOCK = threading.Lock()
 _FUSED_CACHE_SIZE = 8  # graphs kept per fn, least recently used out
 
@@ -327,13 +327,13 @@ class _FusedGraph:
     graph's lock and after the last run's clones on any stream, so that
     two threads transforming with one stage never share a static buffer.
 
-    The first run captures: ``fn`` runs once on a side stream first,
-    outside the capture, so that cuBLAS and cuDNN set up and the kernels
-    set their attributes; the capture runs in ``thread_local`` mode, so
-    that the prepare pool may pin host memory meanwhile. A capture or
-    replay that fails raises. Launch counts of the port's kernels are
-    recorded at capture and added at every replay. Capture and replay run
-    under ``torch.inference_mode``."""
+    The first run captures through ``cuda_ops.capture_graph``, which runs
+    ``fn`` once on one microbatch outside the capture first, and captures
+    in ``thread_local`` mode, so that the prepare pool may pin host memory
+    meanwhile. A capture or replay that
+    fails raises. Launch counts of the port's kernels are recorded at
+    capture and added at every replay. Capture and replay run under
+    ``torch.inference_mode``."""
 
     def __init__(self, run_fn: Callable, m: int, like, n_out: int, device):
         self._run_fn = run_fn
@@ -352,31 +352,16 @@ class _FusedGraph:
     def _capture(self):
         from tpudl_torch import cuda_ops
 
-        dev = self.static_in[0].device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._run_fn(*(x[0] for x in self.static_in))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # a capture stream of this graph's card: torch's default capture
-        # stream is one stream, made on the card of the first capture, and
-        # a capture on another card through it records nothing of its own
-        capture_stream = torch.cuda.Stream(dev)
+        def run():
+            outs = [_as_outputs(self._run_fn(
+                *(x[i] for x in self.static_in)), self._n_out)
+                for i in range(self._m)]
+            self.static_out = tuple(torch.cat([o[j] for o in outs])
+                                    for j in range(self._n_out))
 
-        def capture():
-            with torch.cuda.graph(graph, stream=capture_stream,
-                                  capture_error_mode="thread_local"):
-                outs = [_as_outputs(self._run_fn(
-                    *(x[i] for x in self.static_in)), self._n_out)
-                    for i in range(self._m)]
-                self.static_out = tuple(
-                    torch.cat([o[j] for o in outs])
-                    for j in range(self._n_out))
-
-        with _FUSED_LOCK:
-            self.launches = cuda_ops.capture_launches(capture)
-        self.graph = graph
+        self.graph, self.launches = cuda_ops.capture_graph(
+            run, self.static_in[0].device,
+            warmup=lambda: self._run_fn(*(x[0] for x in self.static_in)))
         self._run_fn = None  # captured: the graph no longer calls fn
 
     def run(self, group, report) -> tuple:

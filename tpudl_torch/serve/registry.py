@@ -62,7 +62,9 @@ class ModelRegistry:
                   tokenizer=None, device=None) -> ModelEntry:
         """Build the engine for ``model`` (with ``params``, tpudl's param
         pytree, loaded on ``device``; see :class:`SlotDecoder`) and, with
-        ``warm=True``, make its serve programs ready now."""
+        ``warm=True``, make its serve programs ready now.
+        ``prompt_buckets`` only shapes what ``SlotDecoder.rung_for``
+        reports; the prefill ignores it (see :class:`SlotDecoder`)."""
         engine = SlotDecoder(model, params, slots=slots,
                              cache_len=cache_len, temperature=temperature,
                              prompt_buckets=prompt_buckets, mesh=mesh,

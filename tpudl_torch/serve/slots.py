@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 
 import numpy as np
 import torch
@@ -48,10 +47,6 @@ from tpudl_torch.zoo.transformer import TinyCausalLM, _pick
 
 __all__ = ["SlotDecoder"]
 
-# one capture at a time in the process (as the executor's fused graphs)
-_CAPTURE_LOCK = threading.Lock()
-
-
 # copied from tpudl/serve/slots.py:_env_int
 def _env_int(name: str, default: int) -> int:
     try:
@@ -63,12 +58,12 @@ def _env_int(name: str, default: int) -> int:
 class _Program:
     """One serve program: ``fn(*state)`` run eagerly on the CPU, and on the
     card captured at its first call as one CUDA graph that every later
-    call replays. The capture follows the executor's fused graphs
-    (``frame.frame._FusedGraph._capture``): one run on a side stream first,
-    so that cuBLAS sets up, then the capture on a stream of the state's own
-    card. That run changes state the graph also changes; the small
-    tensors in ``restore`` are put back after it, and what it wrote into
-    the caches the first replay writes again, value for value."""
+    call replays, through ``cuda_ops.capture_graph`` (as the executor's
+    fused graphs). Its warm-up run changes state the graph also changes;
+    the small tensors in ``restore`` are put back after it, and what it
+    wrote into the caches the first replay writes again, value for value
+    (so the insert program is readied only with ``_slot`` on a free
+    slot)."""
 
     def __init__(self, fn, state, restore):
         self._fn = fn
@@ -84,26 +79,15 @@ class _Program:
             return
         from tpudl_torch import cuda_ops
 
-        dev = self.device
         saved = [t.clone() for t in self._restore]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+
+        def warmup():
             self._fn(*self._state)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        for t, s in zip(self._restore, saved):
-            t.copy_(s)
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(dev)
+            for t, s in zip(self._restore, saved):
+                t.copy_(s)
 
-        def capture():
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self._fn(*self._state)
-
-        with _CAPTURE_LOCK:
-            self.launches = cuda_ops.capture_launches(capture)
-        self.graph = graph
+        self.graph, self.launches = cuda_ops.capture_graph(
+            lambda: self._fn(*self._state), self.device, warmup=warmup)
 
     def __call__(self):
         if self.device.type != "cuda":
@@ -124,8 +108,12 @@ class SlotDecoder:
     module of ``model``'s architecture on ``device`` (default ``"cuda"``);
     without, it decodes with ``model`` itself, on its device. ``slots``
     defaults to ``TPUDL_SERVE_SLOTS`` (8); ``cache_len`` (the fixed
-    per-slot KV length) to the model's ``max_len``; ``prompt_buckets``
-    resolves the ladder that :meth:`rung_for` reads. ``mesh=`` and
+    per-slot KV length) to the model's ``max_len``. ``prompt_buckets``
+    resolves the ladder that :meth:`rung_for` reads, kept for parity with
+    tpudl: it shapes only the rung that method reports, since the prefill
+    runs the real prompt length through the one batch-1 graph, so it
+    changes no program and no result here (ROADMAP Queue 1, 'Compile',
+    gives it a use or removes it). ``mesh=`` and
     ``tp=True`` are refused (ROADMAP Queue 1, 'LM parallelism').
 
     ``programs`` maps each program's key to it and ``captures`` counts the
@@ -265,16 +253,20 @@ class SlotDecoder:
         """Build every program now; on the card, capture each one's graph.
         Returns the number of programs made ready (the graphs captured on
         the card; the programs built on the CPU) — the in-process
-        counterpart of tpudl's ``precompile_serve``."""
+        counterpart of tpudl's ``precompile_serve``. With every slot
+        occupied the insert program is left to the next insert: its
+        warm-up run writes the row cache into slot ``_slot``, which must
+        then be a free one."""
         def ready():
             return (self.captures if self.device.type == "cuda"
                     else len(self.programs))
 
         before = ready()
+        free = self.free()
         with self._running():
-            if self.free():   # the insert's warm-up run writes the row here
-                self._slot.fill_(self.free()[0])
-            for name in ("step", "prefill", "insert"):
+            for name in ("step", "prefill") + (("insert",) if free else ()):
+                if name == "insert":
+                    self._slot.fill_(free[0])
                 self._program(name).ready()
         return ready() - before
 
