@@ -248,6 +248,29 @@ Phases (any failure exits non-zero before the final line):
    of 3, 5 and 11 rows of 256 tokens (one dispatch of 24 rows, 12 flash
    forward launches, within 1e-4 of max |y| of ``LMFeaturizer``); the
    phase's seconds.
+16. Drive LM parallelism on local meshes — 4 entries of one card always,
+   and every visible card where there are two or more: the flash-kernel
+   ring (``ring_attention(use_pallas=True)``) at ``[1, 32768, 16, 64]``
+   causal in f32 and bf16 against one flash call on the whole sequence
+   (forward, and q/k/v gradients under autograd), 10 launches of each
+   kernel a ring call over 4 entries, each arm's ms beside the one
+   call's, and the plain ring at 8192 tokens; ``TinyCausalLM(32000,
+   1024, 16, 12, max_len=16384)`` over the ring on one 16384-token row
+   against ``apply`` without a mesh (120 forward launches, each card's
+   idle share); README's long-context recipe ``Trainer(lm.loss_fn(mesh=,
+   use_pallas=True), adamw(3e-4), mesh=)`` for ``TinyCausalLM(50257, 512,
+   8, 12)`` on one 8192-token row (first loss against the one-card
+   loss, first-step gradients against float64 at 1024 tokens, 120
+   launches of each kernel a step, steps/s and tokens/s); tensor
+   parallelism on a ``(1, N)`` mesh (2 entries of one card, or every
+   card): ``apply(tp=True)`` logits, greedy ``generate(tp=True)``, 8
+   ``SlotDecoder(tp=True)`` streams against serial ``generate``,
+   ``LMFeaturizer(mesh=, tp=True)``, each card's 1/N of the split
+   leaves, two ``param_shardings`` sgd steps; ``experts=8`` under
+   ``tp=True`` against the unsplit model (routing equal, the share of
+   tokens dropped, two sgd steps); ``apply_pipelined`` over 4 stages with
+   8 microbatches against ``apply``, and two sgd steps through it; the
+   phase's seconds.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -262,7 +285,7 @@ phase 10 alone. ``python3 chip_smoke.py --graph-only`` runs phase 1 and then pha
 alone. ``python3 chip_smoke.py --keras2-only`` runs phase 1 and then
 phase 12 alone, ``--data-only`` phase 1 and then phase 13, and
 ``--mesh-only`` phase 1 and then phase 14, ``--serve-only`` phase 1 and
-then phase 15.
+then phase 15, ``--parallel-only`` phase 1 and then phase 16.
 ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -348,6 +371,12 @@ SCORE_ATOL = 1e-4
 TRAIN_LOSS_ATOL = 2e-5
 TRAIN_GRAD_RTOL = 2e-5
 TRAIN_STEPS_ATOL = 5e-5
+# phase 3's ring hops at phase 16's shape: one causal ring over 4 entries
+# of a 32768-token sequence, a hop wholly in the past (Q block 3 against K
+# block 1) and a diagonal one (Q and K block 2)
+RING_HOP_CASES = [("ring hop", (1, 8192, 16, 64), 8192, True, 24576, 8192),
+                  ("ring diagonal", (1, 8192, 16, 64), 8192, True, 16384,
+                   16384)]
 
 # image slice: README's first example, sparkdl's flagship
 IMAGE_MODEL = "InceptionV3"
@@ -595,7 +624,8 @@ def check_flash():
              ("unaligned rows", (2, 70, 2, 32), 70, True, 0, 0),
              ("serving", SLICE_SHAPE, SLICE_SHAPE[1], True, 0, 0),
              ("serve batcher", SERVE_BATCHER_SHAPE, SERVE_BATCHER_SHAPE[1],
-              True, 0, 0)]
+              True, 0, 0),
+             *RING_HOP_CASES]
     slice_err = None
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype).split(".")[1]]
@@ -690,7 +720,8 @@ def check_flash_bwd():
              ("strided dO", (2, 96, 3, 64), 96, True, 0, 0),
              ("training", TRAIN_SHAPE, TRAIN_SHAPE[1], True, 0, 0),
              ("large scores", (2, 130, 3, 64), 130, True, 0, 0),
-             ("unaligned rows", (2, 70, 2, 32), 70, True, 0, 0)]
+             ("unaligned rows", (2, 70, 2, 32), 70, True, 0, 0),
+             *RING_HOP_CASES]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = GRAD_TOL[str(dtype).split(".")[1]]
@@ -6096,6 +6127,674 @@ def run_serve(card):
             "serve_rung_batcher": counts["serve_batcher_leg"]}
 
 
+
+# phase 16: LM parallelism on a local mesh (tpudl_torch.attention,
+# tpudl_torch.pipeline, TinyCausalLM(mesh=, tp=True), experts)
+PAR_DEVICE = "cuda:0"              # the card of the one-card meshes
+RING_SHAPE = (1, 32768, 16, 64)    # [B, S, H, D], causal, over 4 entries
+RING_ENTRIES = 4
+RING_PLAIN_SEQ = 8192              # the plain ring: 2048² f32 hop scores
+RING_REPS = 3
+# ring vs one flash call on the whole sequence: f32 as phase 3 holds the
+# forward (2e-5), relative to max |O|; bf16 rounds each hop's O to bf16
+# before the f32 merge, so 1e-2 of max |O| (~2.5 bf16 ulps)
+RING_O_RTOL = {"float32": 2e-5, "bfloat16": 1e-2}
+RING_LM_SEQ = 16384
+LC_ARCH = dict(TRAIN_ARCH, max_len=8192)   # README's long-context recipe
+LC_SEQ = 8193                      # 8192 tokens in, 8192 targets
+LC_STEPS = 3                       # timed, after one warm-up step
+LC_F64_SEQ = 1025                  # the float64 gradient check's row
+LC_GRAD_RTOL = 1e-2                # of the largest float64 gradient
+PAR_LOGIT_RTOL = 1e-4              # of max |logit| (or |feature|)
+PAR_LOSS_ATOL = 2e-5
+TP_TOKENS = (4, 1024)
+TP_PROMPT, TP_NEW = 64, 32         # greedy generate: 4 prompts
+TP_SLOT_PLENS = (5, 9, 17, 33, 40, 50, 64, 100)
+TP_SLOT_CACHE = 256
+TP_FEATURE_ROWS, TP_FEATURE_BATCH = 16, 8
+TP_STEP_TOKENS = (2, 513)
+MOE_EXPERTS = 8
+MOE_TOKENS = (2, 1024)
+PP_STAGES, PP_MICRO = 4, 8
+PP_TOKENS = (16, 1024)
+PP_STEP_TOKENS = (16, 257)
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def wall_ms(fn, reps=RING_REPS) -> float:
+    """Host wall time of one ``fn()`` (the mean of ``reps``), every card
+    synchronised at both ends: a mesh's work spans cards, which one
+    card's events cannot time."""
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def card_idle(fn):
+    """(wall ms, {card: busy ms}) of one ``fn()`` under torch.profiler,
+    tracing the cards alone: each card's busy time sums the kernels and
+    copies it ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.device_index] = (busy.get(e.device_index, 0.0)
+                                    + e.self_device_time_total / 1e3)
+    return wall, busy
+
+
+def host_profile(what, fn, top=8):
+    """Where one ``fn()`` spends the host's time: the ops with the most
+    self CPU time under torch.profiler (CPU activity only), beside the
+    run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print(f"  {what}: host profile, wall {wall:.1f} ms; the ops with the "
+          "most self CPU time:")
+    for e in ops[:top]:
+        print(f"    {e.self_cpu_time_total / 1e3:8.2f} ms x{e.count:<5d} "
+              f"{e.key[:80]}")
+
+
+def idle_line(what, wall, busy, card) -> str:
+    if not busy:
+        return f"  {what}: card idle share not measured (no device events)"
+    shares = ", ".join(f"cuda:{d} {100 * (1 - b / wall):.1f}% idle "
+                       f"({b:.1f} ms busy)" for d, b in sorted(busy.items()))
+    return f"  {what}: wall {wall:.1f} ms; {shares}; card {card}"
+
+
+def parallel_cases(n_entries, tp=False):
+    """The meshes of a phase-16 leg: ``(label, mesh)``. ``n_entries``
+    entries of one card always, and, where two or more cards are visible,
+    one entry a card; on the data axis (``(n, 1)``), or under ``tp`` on
+    the model axis (``(1, n)``)."""
+    from tpudl_torch import mesh as M
+
+    def grid(n, devices):
+        return M.build_mesh(*((1, n) if tp else (n, 1)), devices=devices)
+
+    cases = [(f"{n_entries} entries of one card",
+              grid(n_entries, [PAR_DEVICE] * n_entries))]
+    n = torch.cuda.device_count()
+    if n > 1:
+        cases.append((f"{n} cards", grid(n, [f"cuda:{i}"
+                                             for i in range(n)])))
+    return cases
+
+
+def grad_err(got, want):
+    """max |got - want| over tensors, and the largest |want|."""
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    return err, max(w.float().abs().max().item() for w in want)
+
+
+def ring_kernel_leg(card, problems):
+    """The ring over the flash kernels at ``RING_SHAPE``: forward and
+    gradients against one flash call on the whole sequence, launches a
+    call, times; then the plain ring. Returns the f32 ring call's
+    launches."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.attention import ring_attention
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    counts = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v, do = ((torch.randn(*RING_SHAPE, generator=gen))
+                       .to(PAR_DEVICE, dtype) for _ in range(4))
+        one = lambda *t: cuda_ops.flash_attention(*t, causal=True)  # noqa
+        with torch.no_grad():
+            want = one(q, k, v)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        one(qg, kg, vg).backward(do)
+        want_g = tuple(t.grad.clone() for t in (qg, kg, vg))
+        one_ms = wall_ms(lambda: one(q, k, v))
+        one_bwd_ms = wall_ms(lambda: one(qg, kg, vg).backward(do))
+        for label, mesh in parallel_cases(RING_ENTRIES):
+            n = mesh.size
+
+            def ring(*t):
+                return ring_attention(*t, mesh, causal=True, use_pallas=True)
+
+            reset_launch_counts()
+            with torch.no_grad():
+                got = ring(q, k, v)
+            sync_all()
+            fwd = dict(cuda_ops.launch_counts)
+            for t in (qg, kg, vg):
+                t.grad = None
+            reset_launch_counts()
+            ring(qg, kg, vg).backward(do)
+            sync_all()
+            train = dict(cuda_ops.launch_counts)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            g_err, g_scale = grad_err((qg.grad, kg.grad, vg.grad), want_g)
+            tol = GRAD_TOL[name]
+            g_lim = (tol["abs"] + tol["rel"]) * g_scale
+            ms = wall_ms(lambda: ring(q, k, v))
+            bwd_ms = wall_ms(lambda: ring(qg, kg, vg).backward(do))
+            tri = n * (n + 1) // 2
+            ok = (err <= RING_O_RTOL[name] * scale and g_err <= g_lim
+                  and fwd["flash_attn_fwd"] == tri
+                  and train == {"flash_attn_fwd": tri,
+                                "flash_attn_bwd_dq": tri,
+                                "flash_attn_bwd_dkv": tri})
+            print(f"  ring {name} {label}: O max abs {err:.3e} (limit "
+                  f"{RING_O_RTOL[name]:g} x max |O| {scale:.3f}), grads max "
+                  f"abs {g_err:.3e} (limit {g_lim:.3e} = "
+                  f"{tol['abs'] + tol['rel']:.3g} x max |grad| "
+                  f"{g_scale:.3f}); launches a call: forward {fwd}, "
+                  f"training {train} (want {tri} each); forward {ms:.2f} ms"
+                  f" (one flash call {one_ms:.2f} ms), forward+backward "
+                  f"{bwd_ms:.2f} ms (one call {one_bwd_ms:.2f} ms); "
+                  f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+            if not ok:
+                problems.append(f"ring {name} {label}")
+            if dtype == torch.float32 and counts is None:
+                counts = train
+        del q, k, v, do, qg, kg, vg, want, want_g
+    # the plain ring: online softmax in f32 over hop scores
+    q, k, v = (torch.randn(1, RING_PLAIN_SEQ, *RING_SHAPE[2:], generator=gen)
+               .to(PAR_DEVICE) for _ in range(3))
+    with torch.no_grad():
+        want = cuda_ops.flash_attention(q, k, v, causal=True)
+        for label, mesh in parallel_cases(RING_ENTRIES):
+            reset_launch_counts()
+            got = ring_attention(q, k, v, mesh, causal=True)
+            sync_all()
+            launched = sum(cuda_ops.launch_counts.values())
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            ms = wall_ms(lambda: ring_attention(q, k, v, mesh, causal=True))
+            ok = err <= RING_O_RTOL["float32"] * scale and launched == 0
+            print(f"  plain ring float32 {label} [1, {RING_PLAIN_SEQ}, 16, "
+                  f"64]: O max abs {err:.3e} (limit 2e-5 x {scale:.3f}), "
+                  f"{launched} kernel launches (want 0), {ms:.2f} ms; "
+                  f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+            if not ok:
+                problems.append(f"plain ring {label}")
+    return counts
+
+
+def ring_lm_leg(card, problems):
+    """``TinyCausalLM(32000, 1024, 16, 12, max_len=16384)`` over the ring
+    on one ``[1, 16384]`` row against ``apply`` without a mesh. Returns
+    the 4-entry forward's launches."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.zoo.transformer import TinyCausalLM, arch_of
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, RING_LM_SEQ,
+                        device="meta")
+    net = TinyCausalLM.from_jax_params(spec.init(SEED), **arch_of(spec),
+                                       device=PAR_DEVICE)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 16).integers(
+        0, VOCAB, size=(1, RING_LM_SEQ))).to(PAR_DEVICE)
+    counts = None
+    with torch.no_grad():
+        want = net.apply(toks)
+        one_ms = wall_ms(lambda: net.apply(toks), reps=1)
+        scale = want.abs().max().item()
+        for label, mesh in parallel_cases(RING_ENTRIES):
+            reset_launch_counts()
+            got = net.apply(toks, mesh=mesh, use_pallas=True)
+            sync_all()
+            launched = dict(cuda_ops.launch_counts)
+            err = (got - want).abs().max().item()
+            del got
+            ms = wall_ms(lambda: net.apply(toks, mesh=mesh), reps=1)
+            wall, busy = card_idle(lambda: net.apply(toks, mesh=mesh))
+            n = mesh.size
+            ok = (err <= PAR_LOGIT_RTOL * scale
+                  and launched["flash_attn_fwd"] == LAYERS * n * (n + 1) // 2)
+            print(f"  LM over the ring {label} [1, {RING_LM_SEQ}]: logits "
+                  f"max abs {err:.3e} (limit 1e-4 x {scale:.3f}), launches "
+                  f"{launched} (want {LAYERS * n * (n + 1) // 2} forward), "
+                  f"{ms:.1f} ms (no mesh {one_ms:.1f} ms); "
+                  f"{'ok' if ok else 'MISS'}", flush=True)
+            print(idle_line(f"LM over the ring {label}, idle share", wall,
+                            busy, card))
+            if not ok:
+                problems.append(f"LM over the ring {label}")
+            if counts is None:
+                counts = launched
+    return counts
+
+
+def lm_loss_f64(params, tokens, heads):
+    """The LM's next-token loss in float64, dense attention, plain torch:
+    the yardstick of the long-context gradients."""
+    import torch.nn.functional as F
+
+    def norm(x, g, b):
+        return F.layer_norm(x, (x.shape[-1],), g, b, eps=1e-5)
+
+    x = F.embedding(tokens[:, :-1], params["embed"]["table"])
+    b, s, d = x.shape
+    mask = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    for i in range(len(params) - 2):
+        p = params[f"block_{i}"]
+        h = norm(x, p["norm1_gamma"], p["norm1_beta"])
+        q, k, v = ((h @ p[w]).view(b, s, heads, d // heads)
+                   for w in ("wq", "wk", "wv"))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / (d // heads) ** 0.5
+        w = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        x = x + torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, s, d) \
+            @ p["wo"]
+        h = norm(x, p["norm2_gamma"], p["norm2_beta"])
+        x = x + F.gelu(h @ p["w_up"] + p["b_up"], approximate="tanh") \
+            @ p["w_down"] + p["b_down"]
+    x = norm(x, params["final_norm"]["gamma"], params["final_norm"]["beta"])
+    logits = x @ params["embed"]["table"].T
+    return F.cross_entropy(logits.flatten(0, 1),
+                           tokens[:, 1:].flatten().long())
+
+
+def long_context_leg(card, problems):
+    """README's long-context recipe: ``Trainer(lm.loss_fn(mesh=mesh,
+    use_pallas=True), adamw(3e-4), mesh=mesh)`` on one row of 8192
+    tokens; the first loss against the one-card loss, the first step's
+    gradients (at 1024 tokens) against float64, launches a step, rates.
+    Returns the 4-entry mesh's launches of one step."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.train import Trainer, adamw
+    from tpudl_torch.zoo.transformer import (TinyCausalLM, _leaf_groups,
+                                             _param_groups)
+
+    spec = TinyCausalLM(**LC_ARCH, device="meta")
+    weights = spec.init(SEED)
+    rng = np.random.default_rng(SEED + 17)
+    rows = rng.integers(0, LC_ARCH["vocab"], size=(1, LC_SEQ)).astype(
+        np.int32)
+    short = torch.from_numpy(rows[:, :LC_F64_SEQ]).to(PAR_DEVICE)
+    counts = None
+    for label, mesh in parallel_cases(RING_ENTRIES):
+        net = TinyCausalLM.from_jax_params(weights, **LC_ARCH,
+                                           device=PAR_DEVICE)
+        with torch.no_grad(), full_f32():
+            one_loss = net.loss_fn()(net, torch.from_numpy(rows).to(
+                PAR_DEVICE)).item()
+        # the first step's gradients at LC_F64_SEQ tokens against float64
+        with full_f32():
+            net.loss_fn(mesh=mesh, use_pallas=True)(net, short).backward()
+        got_g = {f"{g}.{k}": t.grad.detach().clone()
+                 for g, grp in _param_groups(net).items()
+                 for k, t in grp.items()}
+        net.zero_grad(set_to_none=True)
+        p64 = {g: {k: t.detach().double().requires_grad_()
+                   for k, t in grp.items()}
+               for g, grp in _leaf_groups(net).items()}
+        lm_loss_f64(p64, short, LC_ARCH["heads"]).backward()
+        want_g = {f"{g}.{k}": t.grad for g, grp in p64.items()
+                  for k, t in grp.items()}
+        g_scale = max(t.abs().max().item() for t in want_g.values())
+        g_err = max((got_g[n].double() - want_g[n]).abs().max().item()
+                    for n in want_g)
+        del p64, want_g, got_g
+        trainer = Trainer(net.loss_fn(mesh=mesh, use_pallas=True),
+                          adamw(LR), mesh=mesh, log_every=1)
+        data = lambda step: rows  # noqa: E731
+        _, opt, hist = trainer.fit(net, data, 1)
+        first = hist[0]["loss"]
+        reset_launch_counts()
+        sync_all()
+        t0 = time.perf_counter()
+        trainer.fit(net, data, LC_STEPS, opt_state=opt)
+        sync_all()
+        secs = time.perf_counter() - t0
+        launched = dict(cuda_ops.launch_counts)
+        wall, busy = card_idle(lambda: trainer.fit(net, data, 1,
+                                                   opt_state=opt))
+        n = mesh.size
+        want_n = LC_ARCH["layers"] * n * (n + 1) // 2 * LC_STEPS
+        ok = (abs(first - one_loss) <= PAR_LOSS_ATOL
+              and g_err <= LC_GRAD_RTOL * g_scale
+              and all(v == want_n for v in launched.values()))
+        print(f"  long-context training {label} 1x{LC_SEQ - 1} tokens: first"
+              f" loss {first:.6f}, one card {one_loss:.6f} (|diff| "
+              f"{abs(first - one_loss):.2e}, limit {PAR_LOSS_ATOL:g}); "
+              f"first-step gradients at 1x{LC_F64_SEQ - 1} tokens: max abs "
+              f"{g_err:.3e} vs float64 (limit {LC_GRAD_RTOL:g} x "
+              f"{g_scale:.3e}); {LC_STEPS} steps: launches {launched} "
+              f"(want {want_n} each), {LC_STEPS / secs:.3f} steps/s, "
+              f"{LC_STEPS * (LC_SEQ - 1) / secs:.0f} tokens/s; "
+              f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        print(idle_line(f"long-context training {label}, one step's idle "
+                        "share", wall, busy, card))
+        host_profile(f"long-context training {label}, one step",
+                     lambda: trainer.fit(net, data, 1, opt_state=opt))
+        if not ok:
+            problems.append(f"long-context training {label}")
+        if counts is None:
+            counts = {k: v // LC_STEPS for k, v in launched.items()}
+        del net, trainer, opt
+    return counts
+
+
+def sgd_losses(net, loss_fn, batches, **step_kw):
+    """The losses of ``len(batches)`` sgd steps of ``net`` (in place)."""
+    from tpudl_torch.train import make_train_step, sgd
+
+    step = make_train_step(loss_fn, **step_kw)
+    if "param_shardings" in step_kw:
+        net.shard_params(step_kw["mesh"])
+    opt = sgd(0.1)(net.parameters())
+    return [step(net, opt, b).item() for b in batches]
+
+
+def tp_leg(card, problems):
+    """Tensor parallelism at serving width over a ``(1, N)`` mesh: logits,
+    greedy generate, 8 slot streams, the featurizer, each card's share of
+    the split leaves and two ``param_shardings`` sgd steps. Returns the
+    one-card mesh's launches of one ``apply(tp=True)``."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.serve import ModelRegistry, ServeRequest
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM, arch_of
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    net = TinyCausalLM.from_jax_params(weights, **arch_of(spec),
+                                       device=PAR_DEVICE)
+    rng = np.random.default_rng(SEED + 18)
+    toks = torch.from_numpy(rng.integers(0, VOCAB, size=TP_TOKENS)).to(
+        PAR_DEVICE)
+    prompts = torch.from_numpy(rng.integers(0, VOCAB, size=(4, TP_PROMPT)))
+    slot_prompts = [rng.integers(0, VOCAB, size=n).astype(np.int32)
+                    for n in TP_SLOT_PLENS]
+    texts = make_texts(TP_FEATURE_ROWS, SEED + 18)
+    step_rows = [torch.from_numpy(rng.integers(0, VOCAB, size=TP_STEP_TOKENS))
+                 .to(PAR_DEVICE) for _ in range(2)]
+    with torch.no_grad():
+        want = net.apply(toks)
+        one_ms = wall_ms(lambda: net.apply(toks), reps=1)
+        want_gen = net.generate(prompts, TP_NEW).cpu()
+        serial = [net.generate(p[None], TP_NEW)[0].cpu().tolist()
+                  for p in slot_prompts]
+    scale = want.abs().max().item()
+    feat_kw = dict(inputCol="text", outputCol="v", model=spec,
+                   weights=weights, tokenizer=ByteTokenizer(),
+                   batchSize=TP_FEATURE_BATCH)
+    want_feat = np.stack(list(LMFeaturizer(device=PAR_DEVICE, **feat_kw)
+                              .transform(Frame({"text": texts}))["v"]))
+    want_steps = sgd_losses(TinyCausalLM.from_jax_params(
+        weights, **arch_of(spec), device=PAR_DEVICE), net.loss_fn(),
+        step_rows)
+    counts = None
+    for label, mesh in parallel_cases(2, tp=True):
+        n = mesh.shape["model"]
+        lay = TinyCausalLM.from_jax_params(weights, **arch_of(spec),
+                                           device=PAR_DEVICE)
+        lay.shard_params(mesh)
+        per_card = [sum(t.numel() * t.element_size()
+                        for t in lay.tp_shards[j].parameters())
+                    for j in range(n)]
+        total = sum(t.nbytes for i in range(LAYERS)
+                    for k, t in weights[f"block_{i}"].items()
+                    if k in lay.tp_shards[0][0])
+        with torch.no_grad():
+            reset_launch_counts()
+            got = lay.apply(toks, mesh=mesh, tp=True)
+            sync_all()
+            launched = dict(cuda_ops.launch_counts)
+            err = (got - want).abs().max().item()
+            del got
+            ms = wall_ms(lambda: lay.apply(toks, mesh=mesh, tp=True), reps=1)
+            gen = lay.generate(prompts, TP_NEW, mesh=mesh, tp=True).cpu()
+        eng = ModelRegistry().add_model("lm", lay, slots=len(slot_prompts),
+                                        cache_len=TP_SLOT_CACHE, mesh=mesh,
+                                        tp=True).engine
+        reqs = [ServeRequest(p, TP_NEW) for p in slot_prompts]
+        for r in reqs:
+            eng.insert(r)
+        done = {}
+        while eng.active():
+            eng.step()
+            done.update({id(r): t.tolist() for r, t in eng.pop_completed()})
+        streams_ok = [done[id(r)] for r in reqs] == serial
+        feat = np.stack(list(LMFeaturizer(mesh=mesh, tp=True,
+                                          device=PAR_DEVICE, **feat_kw)
+                             .transform(Frame({"text": texts}))["v"]))
+        f_err = float(np.abs(feat - want_feat).max())
+        f_lim = PAR_LOGIT_RTOL * float(np.abs(want_feat).max())
+        shardings = lay.param_shardings(mesh)
+        steps = sgd_losses(TinyCausalLM.from_jax_params(
+            weights, **arch_of(spec), device=PAR_DEVICE),
+            lay.loss_fn(mesh=mesh, tp=True), step_rows, mesh=mesh,
+            param_shardings=shardings)
+        s_err = max(abs(a - b) for a, b in zip(steps, want_steps))
+        even = all(b * n == total for b in per_card)
+        ok = (err <= PAR_LOGIT_RTOL * scale and torch.equal(gen, want_gen)
+              and streams_ok and f_err <= f_lim and even
+              and s_err <= PAR_LOSS_ATOL
+              and launched["flash_attn_fwd"] == LAYERS * n)
+        print(f"  TP {label} (1, {n}): apply(tp=True) {list(TP_TOKENS)} "
+              f"logits max abs {err:.3e} (limit 1e-4 x {scale:.3f}), "
+              f"launches {launched} (want {LAYERS * n} forward), {ms:.1f} "
+              f"ms (unsplit {one_ms:.1f} ms); generate(tp=True) 4x{TP_NEW} "
+              f"{'equal' if torch.equal(gen, want_gen) else 'DIFFERENT'}; "
+              f"{len(reqs)} SlotDecoder(tp=True) streams "
+              f"{'equal' if streams_ok else 'DIFFERENT'} to serial generate "
+              f"({eng.captures} graphs); LMFeaturizer(mesh=, tp=True) "
+              f"{TP_FEATURE_ROWS} rows max abs {f_err:.3e} (limit "
+              f"{f_lim:.3e}); split leaves {per_card} bytes a card of "
+              f"{total} ({'1/' + str(n) if even else 'NOT 1/N'});"
+              f" 2 param_shardings sgd steps' losses {steps} vs {want_steps}"
+              f" (max |diff| {s_err:.2e}, limit {PAR_LOSS_ATOL:g}); "
+              f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        if not ok:
+            problems.append(f"TP {label}")
+        if counts is None:
+            counts = launched
+        del lay, eng
+    return counts
+
+
+def card_moe_weights(model, seed):
+    """Seeded weights for ``model``, drawn on its card (tpudl's ``init``
+    scales: 1/√fan_in, the gate and embedding 0.02, norms 1 and 0, biases
+    0) — the host draws of ``init`` would take seconds at this size."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key = name.rsplit(".", 1)[-1]
+            if "gamma" in key:
+                p.fill_(1.0)
+            elif key.startswith("b") or "beta" in key:
+                p.zero_()
+            else:
+                fan_in = p.shape[-2] if p.dim() == 3 else p.shape[0]
+                scale = 0.02 if key in ("table", "w_gate") else fan_in ** -0.5
+                p.normal_(0.0, scale, generator=gen)
+
+
+def moe_leg(card, problems):
+    """``TinyCausalLM(32000, 1024, 16, 12, experts=8)``: ``apply(tp=True)``
+    with the experts split over the model axis against the unsplit model,
+    routing equal, the share of tokens dropped, and two sgd steps. Returns
+    the one-card mesh's launches of one ``apply(tp=True)``."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.zoo.transformer import TinyCausalLM, to_jax_params
+
+    arch = dict(vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+                max_len=MAX_LEN, experts=MOE_EXPERTS)
+    net = TinyCausalLM(**arch, device=PAR_DEVICE)
+    card_moe_weights(net, SEED)
+    rng = np.random.default_rng(SEED + 19)
+    toks = torch.from_numpy(rng.integers(0, VOCAB, size=MOE_TOKENS)).to(
+        PAR_DEVICE)
+    step_rows = [torch.from_numpy(rng.integers(0, VOCAB, size=TP_STEP_TOKENS))
+                 .to(PAR_DEVICE) for _ in range(2)]
+    with torch.no_grad():
+        net.moe_routes = []
+        want = net.apply(toks)
+        want_routes, net.moe_routes = net.moe_routes, None
+        one_ms = wall_ms(lambda: net.apply(toks), reps=1)
+    scale = want.abs().max().item()
+    dropped = 1.0 - torch.stack([k for _, k in want_routes]).float().mean()
+    weights = to_jax_params(net)
+    want_steps = sgd_losses(net, net.loss_fn(), step_rows)
+    del net
+    counts = None
+    for label, mesh in parallel_cases(2, tp=True):
+        n = mesh.shape["model"]
+        lay = TinyCausalLM.from_jax_params(weights, **arch,
+                                           device=PAR_DEVICE)
+        lay.shard_params(mesh)
+        with torch.no_grad():
+            lay.moe_routes = []
+            reset_launch_counts()
+            got = lay.apply(toks, mesh=mesh, tp=True)
+            sync_all()
+            launched = dict(cuda_ops.launch_counts)
+            routes, lay.moe_routes = lay.moe_routes, None
+            err = (got - want).abs().max().item()
+            del got
+            ms = wall_ms(lambda: lay.apply(toks, mesh=mesh, tp=True), reps=1)
+        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(routes, want_routes))
+        steps = sgd_losses(lay, lay.loss_fn(mesh=mesh, tp=True), step_rows,
+                           mesh=mesh,
+                           param_shardings=lay.param_shardings(mesh))
+        s_err = max(abs(a - b) for a, b in zip(steps, want_steps))
+        ok = (err <= PAR_LOGIT_RTOL * scale and same
+              and len(routes) == LAYERS and s_err <= PAR_LOSS_ATOL)
+        print(f"  MoE experts={MOE_EXPERTS} {label} (1, {n}): apply(tp=True) "
+              f"{list(MOE_TOKENS)} logits max abs {err:.3e} (limit 1e-4 x "
+              f"{scale:.3f}), {ms:.1f} ms (unsplit {one_ms:.1f} ms), "
+              f"launches {launched}; routing "
+              f"{'equal' if same else 'DIFFERENT'} over {len(routes)} "
+              f"layers, {100 * float(dropped):.2f}% of tokens dropped (over "
+              f"capacity); 2 sgd steps' losses {steps} vs {want_steps} (max "
+              f"|diff| {s_err:.2e}, limit {PAR_LOSS_ATOL:g}); "
+              f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        if not ok:
+            problems.append(f"MoE {label}")
+        if counts is None:
+            counts = launched
+        del lay
+    return counts
+
+
+def pp_leg(card, problems):
+    """``apply_pipelined`` at serving width over 4 stages, 8 microbatches,
+    against ``apply``; two sgd steps through each."""
+    import torch.nn.functional as F
+
+    from tpudl_torch import mesh as M
+    from tpudl_torch.zoo.transformer import TinyCausalLM, arch_of
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    rng = np.random.default_rng(SEED + 20)
+    toks = torch.from_numpy(rng.integers(0, VOCAB, size=PP_TOKENS)).to(
+        PAR_DEVICE)
+    step_rows = [torch.from_numpy(rng.integers(0, VOCAB, size=PP_STEP_TOKENS))
+                 .to(PAR_DEVICE) for _ in range(2)]
+    n = torch.cuda.device_count()
+    cases = [(f"{PP_STAGES} stages on one card",
+              M.build_mesh(1, PP_STAGES, devices=[PAR_DEVICE] * PP_STAGES))]
+    if n > 1:
+        cases.append((f"{PP_STAGES} stages on {n} cards", M.build_mesh(
+            1, PP_STAGES, devices=[f"cuda:{i % n}"
+                                   for i in range(PP_STAGES)])))
+    net = TinyCausalLM.from_jax_params(weights, **arch_of(spec),
+                                       device=PAR_DEVICE)
+    with torch.no_grad():
+        want = net.apply(toks)
+        one_ms = wall_ms(lambda: net.apply(toks), reps=1)
+    scale = want.abs().max().item()
+    want_steps = sgd_losses(net, net.loss_fn(), step_rows)
+
+    def pp_loss(mesh):
+        def loss(model, tokens):
+            logits = model.apply_pipelined(tokens[:, :-1], mesh,
+                                           n_micro=PP_MICRO)
+            return F.cross_entropy(logits.float().flatten(0, 1),
+                                   tokens[:, 1:].flatten().long())
+        return loss
+
+    for label, mesh in cases:
+        net = TinyCausalLM.from_jax_params(weights, **arch_of(spec),
+                                           device=PAR_DEVICE)
+        with torch.no_grad():
+            got = net.apply_pipelined(toks, mesh, n_micro=PP_MICRO)
+            err = (got - want).abs().max().item()
+            del got
+            ms = wall_ms(lambda: net.apply_pipelined(toks, mesh,
+                                                     n_micro=PP_MICRO),
+                         reps=1)
+        steps = sgd_losses(net, pp_loss(mesh), step_rows)
+        s_err = max(abs(a - b) for a, b in zip(steps, want_steps))
+        ok = err <= PAR_LOGIT_RTOL * scale and s_err <= PAR_LOSS_ATOL
+        print(f"  PP {label}: apply_pipelined {list(PP_TOKENS)} n_micro="
+              f"{PP_MICRO} logits max abs {err:.3e} (limit 1e-4 x "
+              f"{scale:.3f}), {ms:.1f} ms (apply {one_ms:.1f} ms); 2 sgd "
+              f"steps' losses at "
+              f"{list(PP_STEP_TOKENS)} {steps} vs apply's {want_steps} (max "
+              f"|diff| {s_err:.2e}, limit {PAR_LOSS_ATOL:g}); "
+              f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        if not ok:
+            problems.append(f"PP {label}")
+        del net
+
+
+def run_parallel(card):
+    """Phase 16: LM parallelism on local meshes at full width. Every check
+    runs and prints; the phase fails at its end if any did not hold.
+    Returns the kernel launches of its paths."""
+    from tpudl_torch.device import full_f32
+
+    t_phase = time.perf_counter()
+    problems = []
+    counts = {}
+    legs = (("parallel_ring_call", ring_kernel_leg),
+            ("parallel_ring_lm", ring_lm_leg),
+            ("parallel_long_context_step", long_context_leg),
+            ("parallel_tp_apply", tp_leg),
+            ("parallel_moe_apply", moe_leg),
+            ("parallel_pp", pp_leg))
+    with full_f32():
+        for name, leg in legs:
+            t0 = time.perf_counter()
+            out = leg(card, problems)
+            if out is not None:
+                counts[name] = out
+            print(f"  {leg.__name__}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            torch.cuda.empty_cache()
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 16: " + "; ".join(problems))
+    return counts
+
+
 def main(argv) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -6186,6 +6885,14 @@ def main(argv) -> int:
         print(f"serve-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--parallel-only"]:
+        print(f"phase 16 alone: LM parallelism at full width on {card}",
+              flush=True)
+        run_parallel(card)
+        print(f"card: {card}")
+        print(f"parallel-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -6205,7 +6912,7 @@ def main(argv) -> int:
         fail(f"unknown arguments {argv}; the options are --image-only, "
              "--executor-only, --train-only, --keras-only, --surface-only, "
              "--graph-only, --keras2-only, --data-only, --mesh-only, "
-             "--serve-only, --ranks N and --pool-study")
+             "--serve-only, --parallel-only, --ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -6315,6 +7022,8 @@ def main(argv) -> int:
     mesh_counts = run_mesh(card)
     print(f"phase 15: serving at full width on {card}", flush=True)
     serve_counts = run_serve(card)
+    print(f"phase 16: LM parallelism at full width on {card}", flush=True)
+    parallel_counts = run_parallel(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -6329,7 +7038,7 @@ def main(argv) -> int:
         entry["launches_by_path"]["keras2_files"] = \
             keras2_counts[entry["name"]]
         for path, counts in {**data_counts, **mesh_counts,
-                             **serve_counts}.items():
+                             **serve_counts, **parallel_counts}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "

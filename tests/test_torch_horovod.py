@@ -173,11 +173,16 @@ def test_a_batch_that_does_not_split_raises():
 
 
 def test_a_model_axis_is_refused(monkeypatch):
+    """A model axis stays refused over ranks (one card a rank; 'LM
+    parallelism'); build_mesh() is a local grid of the visible cards
+    now, which raises on a host with none."""
     monkeypatch.setenv("TPUDL_MESH_MODEL", "2")
     with pytest.raises(NotImplementedError, match="'LM parallelism'"):
         HorovodRunner(np=-2, device="cpu").run(rank_report, a=0)
-    with pytest.raises(NotImplementedError, match="'LM parallelism'"):
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         M.build_mesh()
+    assert M.build_mesh(devices=["cpu"] * 4).shape == {"data": 2,
+                                                       "model": 2}
 
 
 def test_initialize_refuses_another_machine_and_no_args_is_a_no_op():

@@ -172,11 +172,15 @@ def test_stages_count_rows(lm):
 
 @pytest.mark.parametrize("knob", ["tp"])
 def test_unported_executor_knobs_raise(lm, knob):
+    """``tp`` (once refused, 'LM parallelism') is ported: without a mesh
+    it raises tpudl's ValueError at transform, as tpudl's forward does
+    (tests/test_torch_parallel_stages.py runs it over a mesh)."""
     _, params, _, spec = lm
     value = {"tp": True}[knob]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LMFeaturizer(outputCol="v", **{knob: value},
-                     **_stage_kw(spec, params))
+    stage = LMFeaturizer(outputCol="v", **{knob: value},
+                         **_stage_kw(spec, params))
+    with pytest.raises(ValueError, match="'model' axis"):
+        stage.transform(Frame({"text": TEXTS[:2]}))
 
 
 def test_generator_under_a_mesh_runs_on_its_first_entry(lm):

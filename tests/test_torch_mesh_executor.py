@@ -279,9 +279,14 @@ def test_build_mesh_local_forms_and_refusals(monkeypatch):
         M.build_mesh()          # no silent drop to the host
     with pytest.raises(RuntimeError, match="is_available"):
         M.build_mesh(devices=["cuda:0"])
+    # a model axis (once refused, 'LM parallelism'): tpudl's row-major
+    # (data, model) grid; a row's first card is its data-axis entry
     monkeypatch.setenv("TPUDL_MESH_MODEL", "2")
-    with pytest.raises(NotImplementedError, match="'LM parallelism'"):
-        M.build_mesh(devices=["cpu"] * 4)
+    grid = M.build_mesh(devices=["cpu:0", "cpu:1", "cpu:2", "cpu:3"])
+    assert grid.shape == {"data": 2, "model": 2}
+    assert [[d.index for d in row] for row in grid.grid] == [[0, 1], [2, 3]]
+    assert [d.index for d in grid.devices] == [0, 2]
+    assert grid.row(1).grid == (grid.grid[1],)
 
 
 def test_a_process_group_mesh_is_refused_by_the_executor():

@@ -23,6 +23,7 @@ from tpudl.obs import metrics as jmetrics
 from tpudl.zoo.transformer import TinyCausalLM as JaxLM
 
 import tpudl_torch.serve as tserve
+from tpudl_torch import mesh as M
 from tpudl_torch.obs import metrics as tmetrics
 from tpudl_torch.obs import pipeline as tpipeline
 from tpudl_torch.zoo.transformer import TinyCausalLM
@@ -411,9 +412,37 @@ def test_closed_loop_tenant_is_refused():
 @pytest.mark.parametrize("kw,item", [({"tp": True}, "LM parallelism"),
                                      ({"mesh": object()}, "LM parallelism")])
 def test_parallel_engines_are_refused(spec, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tserve.ModelRegistry().add_model("m", spec, spec.init(0),
-                                         device="cpu", **kw)
+    """Once refused ('LM parallelism'): ``tp=True`` over a local mesh now
+    decodes tensor-parallel with its cache split over heads, and greedy
+    streams equal the one-device engine's; ``tp=True`` without a mesh
+    raises tpudl's ValueError, and a mesh that is no local mesh is
+    refused."""
+    params = spec.init(0)
+    mesh = M.build_mesh(1, 2, devices=["cpu"] * 2)
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="local mesh"):
+            tserve.ModelRegistry().add_model("m", spec, params,
+                                             device="cpu", **kw)
+        return
+    with pytest.raises(ValueError, match="'model' axis"):
+        tserve.ModelRegistry().add_model("m", spec, params, device="cpu",
+                                         **kw)
+    streams = []
+    for extra in ({}, dict(mesh=mesh, **kw)):
+        eng = tserve.ModelRegistry().add_model(
+            "m", spec, params, device="cpu", slots=2, cache_len=32,
+            **extra).engine
+        reqs = [tserve.ServeRequest(p, 6) for p in ([3, 5, 7, 9], [11, 2])]
+        for r in reqs:
+            eng.insert(r)
+        done = {}
+        while eng.active():
+            eng.step()
+            done.update({id(r): t.tolist() for r, t in eng.pop_completed()})
+        streams.append([done[id(r)] for r in reqs])
+    assert isinstance(eng._cache[0]["k"], tuple)
+    assert eng._cache[0]["k"][0].shape[2] == spec.heads // 2
+    assert streams[0] == streams[1]
 
 
 def test_precompile_serve_is_refused(spec):

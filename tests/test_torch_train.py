@@ -28,6 +28,7 @@ import torch
 from tpudl.train import Trainer as JaxTrainer
 from tpudl.zoo.transformer import TinyCausalLM as JaxLM
 from tpudl_torch import cuda_ops
+from tpudl_torch import mesh as M
 from tpudl_torch.obs import metrics
 from tpudl_torch.train import (Preempted, Trainer, adam, adamw,
                                make_train_step, sgd)
@@ -276,15 +277,41 @@ def test_to_jax_params_inverts_load(params):
     ("loss_tp", "LM parallelism"),
     ("loss_mesh", "LM parallelism")])
 def test_unported_training_options_raise(params, call, item):
+    """These options, once refused ('LM parallelism'), now train: two sgd
+    steps over a local CPU mesh give the one-device losses (2e-5) and
+    weights (1e-5). tests/test_torch_parallel_train.py holds them to
+    tpudl."""
+    mesh = M.build_mesh(1, 2, devices=["cpu"] * 2)
+    ref = _model(params)
+    opt = sgd(0.1)(ref.parameters())
+    step = make_train_step(ref.loss_fn())
+    want = [float(step(ref, opt, torch.from_numpy(_tokens(s))))
+            for s in (0, 1)]
     model = _model(params)
-    loss = model.loss_fn()
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, '{item}'"):
-        if call.startswith("trainer_"):
-            Trainer(loss, sgd(0.1), **{call[8:]: object()})
-        elif call.startswith("step_"):
-            make_train_step(loss, **{call[5:]: object()})
-        elif call == "loss_tp":
-            model.loss_fn(tp=True)
+    shardings = model.param_shardings(mesh)
+    if call == "trainer_param_shardings":
+        _, _, hist = Trainer(model.loss_fn(mesh=mesh, tp=True), sgd(0.1),
+                             mesh=mesh, log_every=1,
+                             param_shardings=shardings).fit(
+            model, _tokens, 2)
+        got = [h["loss"] for h in hist]
+    else:
+        if call == "step_param_shardings":
+            loss = model.loss_fn(mesh=mesh, tp=True)
+            step = make_train_step(loss, mesh=mesh,
+                                   param_shardings=shardings)
+            model.shard_params(mesh)
         else:
-            model.loss_fn(mesh=object())
+            loss = (model.loss_fn(mesh=mesh, tp=True) if call == "loss_tp"
+                    else model.loss_fn(mesh=M.build_mesh(
+                        devices=["cpu"] * 2)))
+            step = make_train_step(loss, mesh=mesh)
+        opt = sgd(0.1)(model.parameters())
+        got = [float(step(model, opt, torch.from_numpy(_tokens(s))))
+               for s in (0, 1)]
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    ref_w, got_w = to_jax_params(ref), to_jax_params(model)
+    for group in ref_w:
+        for key in ref_w[group]:
+            np.testing.assert_allclose(got_w[group][key], ref_w[group][key],
+                                       rtol=0, atol=1e-5)

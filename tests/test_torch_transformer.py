@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import torch
 
 from tpudl.zoo.transformer import TinyCausalLM as JaxLM
+from tpudl_torch import mesh as M
 from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
 
 # the suite runs several pytest workers on the same cores: one torch
@@ -110,22 +111,36 @@ def test_sampled_generate_follows_its_generator(pair):
 @pytest.mark.parametrize("call", ["experts", "mesh", "tp", "pipelined",
                                   "aot", "shard"])
 def test_unported_parallelism_raises(pair, call):
-    *_, tlm = pair
-    toks = torch.from_numpy(_tokens(5, 1, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"), \
-            torch.no_grad():
+    """Of these once-refused options only AOT precompilation still raises
+    (ROADMAP Queue 1, 'Compile'); the LM parallelism ones run, each held
+    here to the port's one-device forward (tests/test_torch_parallel_*.py
+    hold them to tpudl)."""
+    *_, params, tlm = pair
+    toks = torch.from_numpy(_tokens(5, 2, 8))
+    mesh = M.build_mesh(2, 2, devices=["cpu"] * 4)
+    with torch.no_grad():
+        if call == "aot":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tlm.precompile_generate(1, 4, 2)
+            return
+        want = tlm.apply(toks).numpy()
         if call == "experts":
-            TinyCausalLM(experts=2, device="cpu", **ARCH)
-        elif call == "mesh":
-            tlm.hidden(toks, mesh=object())
+            moe = TinyCausalLM(experts=2, device="cpu", **ARCH)
+            load_jax_params(moe, moe.init(0))
+            assert moe.apply(toks).shape == (2, 8, ARCH["vocab"])
+            return
+        if call == "mesh":
+            got = tlm.apply(toks, mesh=mesh)
         elif call == "tp":
-            tlm.apply(toks, tp=True)
+            got = tlm.apply(toks, mesh=mesh, tp=True)
         elif call == "pipelined":
-            tlm.apply_pipelined(toks)
-        elif call == "aot":
-            tlm.precompile_generate(1, 4, 2)
+            got = tlm.apply_pipelined(toks, mesh, n_micro=2)
         else:
-            tlm.shard_params()
+            lay = TinyCausalLM.from_jax_params(params, device="cpu", **ARCH)
+            lay.shard_params(mesh)
+            assert lay.tp_shards[1][0]["wq"].shape == (32, 16)
+            got = lay.apply(toks, mesh=mesh, tp=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
 
 
 def test_load_jax_params_checks_names_and_shapes(pair):

@@ -33,6 +33,7 @@ from tpudl.udf import register_text_udfs as jax_text_udfs  # noqa: E402
 from tpudl.udf.keras_image_model import \
     registerKerasImageUDF as jax_keras_image_udf  # noqa: E402
 from tpudl.zoo.transformer import TinyCausalLM as JaxLM  # noqa: E402
+from tpudl_torch import mesh as port_mesh  # noqa: E402
 from tpudl_torch.data import BF16Codec  # noqa: E402
 from tpudl_torch.frame import Frame, sql  # noqa: E402
 from tpudl_torch.image import imageIO  # noqa: E402
@@ -254,7 +255,12 @@ def test_text_udfs_unregistered_and_refusals(lm):
         get_udf("tr_embed")
     out = udfs[1](Frame({"text": TEXTS[:2]}))
     assert np.stack(list(out["tr_embed_out"])).shape == (2, ARCH["dim"])
-    with pytest.raises(NotImplementedError, match="LM parallelism"):
-        register_text_udfs(model=spec, weights=params,
-                           tokenizer=ByteTokenizer(), tp=True,
-                           register=False, device="cpu")
+    # tp=True, once refused ('LM parallelism'), embeds tensor-parallel
+    # over a local mesh's model axis: the rows of the one-device UDF
+    tp_udfs = register_text_udfs(
+        model=spec, weights=params, tokenizer=ByteTokenizer(), prefix="tr_",
+        tp=True, mesh=port_mesh.build_mesh(1, 2, devices=["cpu"] * 2),
+        register=False, device="cpu")
+    np.testing.assert_allclose(
+        np.stack(list(tp_udfs[1](Frame({"text": TEXTS[:2]}))["tr_embed_out"])),
+        np.stack(list(out["tr_embed_out"])), rtol=0, atol=LM_TOL)

@@ -1,27 +1,33 @@
-"""The data-parallel mesh — the port's counterpart of tpudl's mesh.
+"""The device mesh — the port's counterpart of tpudl's mesh.
 
-Port of ``tpudl/mesh.py`` for data parallelism. tpudl lays a ``(data,
-model)`` grid of devices under one SPMD program; the port has two forms
-of :class:`Mesh` with the same ``shape``:
+Port of ``tpudl/mesh.py``. tpudl lays a ``(data, model)`` grid of devices
+under one SPMD program; the port has two forms of :class:`Mesh` with the
+same ``shape``:
 
-- a **local mesh**: the cards this process drives on the data axis
-  (``devices``), tpudl's ``build_mesh()`` over ``jax.devices()``. One
-  thread launches every card's work: a batch is padded to a multiple of
-  the data axis and split into one contiguous shard a card
-  (:func:`transfer_batch`), each card runs its shard on its own replica
-  of the model (:func:`replicate`, :class:`PerDevice`), and the outputs
-  come back in row order. ``Frame.map_batches(mesh=)``, the stages, the
-  UDFs, ``Dataset(mesh=)`` and the estimator's data-parallel fit take it;
+- a **local mesh**: a ``(data, model)`` grid of the cards this process
+  drives (``grid``, row-major over ``devices=`` as tpudl lays out
+  ``jax.devices()``), tpudl's ``build_mesh()``. One thread launches every
+  card's work. On the data axis a batch is padded to a multiple of the
+  axis and split into one contiguous shard a row (:func:`transfer_batch`;
+  ``devices`` are the rows' first cards), each row runs its shard on its
+  own replica of the model (:func:`replicate`, :class:`PerDevice`), and
+  the outputs come back in row order. ``Frame.map_batches(mesh=)``, the
+  stages, the UDFs, ``Dataset(mesh=)`` and the estimator's data-parallel
+  fit take it. The model axis carries the LM's tensor and expert
+  parallelism and its pipeline stages, and the data axis its ring
+  attention (:mod:`tpudl_torch.attention`, :mod:`tpudl_torch.pipeline`,
+  ``TinyCausalLM(mesh=, tp=True)``), through the differentiable
+  :func:`sum_to` and :func:`all_sum`;
 - a **process-group mesh**: one rank's place in a ``torch.distributed``
   group, one card a process — what ``HorovodRunner`` hands its
   ``train_fn``.
 
 - :func:`build_mesh` builds a local mesh over ``devices=`` (a device may
-  repeat: ``["cpu"] * 8`` on the host, ``["cuda:0", "cuda:0"]`` as a
-  one-card rehearsal of two), else spans the joined process group's
-  ranks, else every visible card. A ``model`` axis above 1 (``n_model``
-  or ``TPUDL_MESH_MODEL``) is refused (ROADMAP Queue 1, 'LM
-  parallelism').
+  repeat: ``["cpu"] * 8`` on the host, ``["cuda:0"] * 4`` as a one-card
+  rehearsal of a 2×2 grid), else spans the joined process group's ranks,
+  else every visible card. A process group's mesh with a ``model`` axis
+  above 1 (``n_model`` or ``TPUDL_MESH_MODEL``) is refused (ROADMAP
+  Queue 1, 'LM parallelism').
 - :func:`replicate` broadcasts rank 0's tensors in place over a group,
   and over a local mesh returns one copy a distinct device, made once.
 - :func:`transfer_batch` copies a padded host batch's shards to their
@@ -56,11 +62,11 @@ import torch.distributed as dist
 from tpudl_torch import distributed as D
 from tpudl_torch.obs import metrics as _metrics
 
-__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "model_axis_size",
-           "build_mesh", "replicate", "PerDevice", "Sharded", "shard_rows",
-           "transfer_batch", "shard_batch", "all_reduce_mean", "reduce_add",
-           "broadcast", "barrier", "pad_batch", "unpad_batch", "use_mesh",
-           "on_device"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "NamedSharding",
+           "model_axis_size", "build_mesh", "replicate", "PerDevice",
+           "Sharded", "shard_rows", "transfer_batch", "shard_batch",
+           "all_reduce_mean", "reduce_add", "broadcast", "sum_to", "all_sum",
+           "barrier", "pad_batch", "unpad_batch", "use_mesh", "on_device"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -68,27 +74,32 @@ MODEL_AXIS = "model"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A data-parallel mesh of ``size`` entries on the ``data`` axis.
+    """A mesh of ``size`` entries on the ``data`` axis.
 
     A process-group mesh is this rank's place in ``group``: ``device`` is
     the rank's card and ``devices`` is ``(device,)``. A local mesh has no
-    group (``group is None``, ``rank`` 0): ``devices`` are the cards this
-    process drives, in shard order, and ``device`` is the first."""
+    group (``group is None``, ``rank`` 0): ``grid`` holds its ``(data,
+    model)`` rows of cards, ``devices`` are the rows' first cards, in
+    shard order, and ``device`` is the first of them."""
 
     size: int
     rank: int
     device: torch.device
     group: object  # the torch.distributed ProcessGroup; None on a local mesh
     devices: tuple = ()
+    grid: tuple = ()  # one tuple of cards a data row; () = one a device
 
     def __post_init__(self):
         if not self.devices:
             object.__setattr__(self, "devices", (self.device,))
+        if not self.grid:
+            object.__setattr__(self, "grid",
+                               tuple((d,) for d in self.devices))
 
     @property
     def shape(self) -> dict:
-        """tpudl's ``mesh.shape``: ``{"data": size, "model": 1}``."""
-        return {DATA_AXIS: self.size, MODEL_AXIS: 1}
+        """tpudl's ``mesh.shape``: ``{"data": rows, "model": columns}``."""
+        return {DATA_AXIS: self.size, MODEL_AXIS: len(self.grid[0])}
 
     @property
     def local(self) -> bool:
@@ -98,6 +109,36 @@ class Mesh:
     def distinct_devices(self) -> list:
         """The mesh's devices once each, in order of first appearance."""
         return list(dict.fromkeys(self.devices))
+
+    def entry(self, axis: str, index: int, other: int = 0) -> torch.device:
+        """The card at ``index`` on ``axis`` and ``other`` on the other
+        axis."""
+        if axis == DATA_AXIS:
+            return self.grid[index][other]
+        if axis == MODEL_AXIS:
+            return self.grid[other][index]
+        raise ValueError(f"unknown mesh axis {axis!r}; the axes are "
+                         f"{DATA_AXIS!r} and {MODEL_AXIS!r}")
+
+    def row(self, index: int) -> "Mesh":
+        """Data row ``index`` as a local ``(1, model)`` mesh."""
+        cards = self.grid[index]
+        return Mesh(1, 0, cards[0], None, (cards[0],), (cards,))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """tpudl's ``NamedSharding(mesh, PartitionSpec(...))``: ``spec`` names
+    the mesh axis each dim of a tensor is split over (None: whole).
+    ``TinyCausalLM.param_shardings`` gives one a leaf."""
+
+    mesh: Mesh
+    spec: tuple = ()
+
+    def dim(self, axis: str = MODEL_AXIS):
+        """The dim split over ``axis``, or None when the leaf is whole on
+        every card of it."""
+        return self.spec.index(axis) if axis in self.spec else None
 
 
 # copied from tpudl/mesh.py:model_axis_size
@@ -127,30 +168,32 @@ def _canonical(device) -> torch.device:
 
 def build_mesh(n_data: int | None = None, n_model: int | None = None, *,
                devices=None, device=None) -> Mesh:
-    """A mesh of ``n_data`` entries on the ``data`` axis.
+    """A mesh of ``n_data`` entries on the ``data`` axis by ``n_model``
+    on the ``model`` axis (``TPUDL_MESH_MODEL``, 1 by default).
 
-    - ``devices=[...]``: a local mesh over that list (its first
-      ``n_data`` entries; all by default). A device may repeat:
+    - ``devices=[...]``: a local ``(n_data, n_model)`` grid over that
+      list, row-major (its first ``n_data * n_model`` entries; ``n_data``
+      defaults to ``len(devices) // n_model``). A device may repeat:
       ``["cpu"] * 8`` runs eight shards on the host, and
-      ``["cuda:0", "cuda:0"]`` runs two shards, each on its own replica,
-      on one card.
+      ``["cuda:0"] * 4`` with ``n_model=2`` runs a 2×2 grid on one card.
     - Otherwise, inside a joined process group
       (:func:`tpudl_torch.distributed.initialize`, ``HorovodRunner``):
       this rank's place in it; ``n_data`` must be its world size (the
       default) and ``device`` defaults to ``cuda:<rank>`` when the group
-      runs NCCL, else the CPU.
-    - Otherwise a local mesh over the first ``n_data`` visible cards
-      (all by default), tpudl's ``build_mesh()`` over ``jax.devices()``.
-      Without a card this raises: the port never drops to the CPU
-      unasked."""
+      runs NCCL, else the CPU. A model axis above 1 is refused there.
+    - Otherwise a local grid over the visible cards, tpudl's
+      ``build_mesh()`` over ``jax.devices()``. Without a card this
+      raises: the port never drops to the CPU unasked."""
     if n_model is None:
         n_model = model_axis_size()
-    if n_model > 1:
-        raise NotImplementedError(
-            f"a model axis of {n_model} (TPUDL_MESH_MODEL / n_model, tensor "
-            "parallelism) is not ported to tpudl_torch yet (ROADMAP Queue 1, "
-            "'LM parallelism')")
     if devices is None and dist.is_initialized():
+        if n_model > 1:
+            raise NotImplementedError(
+                f"a model axis of {n_model} (TPUDL_MESH_MODEL / n_model) "
+                "over a process group (one card a rank) is not ported to "
+                "tpudl_torch yet (ROADMAP Queue 1, 'LM parallelism'); a "
+                "local mesh (build_mesh(n_data, n_model, devices=[...])) "
+                "carries it")
         size, rank = dist.get_world_size(), dist.get_rank()
         if n_data is not None and n_data != size:
             raise ValueError(f"mesh of {n_data} ranks, but the process "
@@ -169,13 +212,17 @@ def build_mesh(n_data: int | None = None, n_model: int | None = None, *,
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devs = [_canonical(d) for d in devices]
+    n_model = max(1, int(n_model))
     if n_data is None:
-        n_data = len(devs)
-    if not 1 <= n_data <= len(devs):
-        raise ValueError(f"mesh {n_data}x1 needs {n_data} devices, have "
-                         f"{len(devs)}")
-    devs = devs[:n_data]
-    return Mesh(n_data, 0, devs[0], None, tuple(devs))
+        n_data = len(devs) // n_model
+    want = n_data * n_model
+    if n_data < 1 or want > len(devs):
+        raise ValueError(f"mesh {n_data}x{n_model} needs {want} devices, "
+                         f"have {len(devs)}")
+    grid = tuple(tuple(devs[r * n_model:(r + 1) * n_model])
+                 for r in range(n_data))
+    rows = tuple(row[0] for row in grid)
+    return Mesh(n_data, 0, rows[0], None, rows, grid)
 
 
 @contextlib.contextmanager
@@ -407,6 +454,26 @@ def broadcast(tensors, replicas, devices) -> None:
             if i not in far:
                 for dst, t in zip(replicas[i], tensors):
                     dst.copy_(t)
+
+
+def sum_to(parts, device) -> torch.Tensor:
+    """The sum of ``parts`` (one tensor a mesh entry), on ``device``, in
+    entry order: differentiable (autograd sends each part its share of
+    the gradient back to its own card). A part already on ``device``
+    moves nothing, so entries that repeat a card take plain sums."""
+    total = parts[0].to(device)
+    for part in parts[1:]:
+        total = total + part.to(device)
+    return total
+
+
+def all_sum(parts, devices) -> list:
+    """tpudl's ``psum`` over a local mesh axis, differentiable: the sum of
+    ``parts[i]`` (on ``devices[i]``), one copy on each device. Each
+    cross-card copy is a device-to-device copy that PyTorch orders after
+    the source card's work and before the destination's use."""
+    total = sum_to(parts, devices[0])
+    return [total] + [total.to(d) for d in devices[1:]]
 
 
 def all_reduce_mean(tensors, mesh: Mesh) -> None:

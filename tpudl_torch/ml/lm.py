@@ -25,14 +25,17 @@ every later ``transform``. The data layer's knobs pass through as in
 tpudl: ``wireCodec`` (default a ``TokenCodec`` over the tokenizer's
 vocab; ``"tokens"`` by name), ``cacheDir`` (a warm run tokenizes nothing:
 the pack's ``cache_token`` carries the tokenizer's fingerprint) and
-``deviceCache``. ``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`,
-without ``tp``, as tpudl's ``mesh`` without ``tp`` only shards the
-batch) runs the featurizer and the classifier data-parallel: the module
-loads on the mesh's first card, is replicated to the others once, and
-each card's shard of a batch runs the dense forward on its replica, the
-flash kernel in every block on every card; the generator runs on the
-mesh's first card. tpudl's ``tp`` (ROADMAP Queue 1, 'LM parallelism') is
-not ported yet and raises.
+``deviceCache``. ``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`)
+runs the featurizer and the classifier data-parallel over its data axis:
+without ``tp`` (tpudl's ``mesh`` without ``tp`` only shards the batch)
+the module loads on the mesh's first card, is replicated to the other
+rows' first cards once, and each row's shard of a batch runs the dense
+forward on its replica, the flash kernel in every block on every card.
+With ``tp=True`` (tpudl's ``_hidden_mesh``) each data row's module is
+laid out over that row's model-axis cards (``shard_params``) and its
+shard runs tensor-parallel there; the generator then decodes
+tensor-parallel over the first row. Without ``tp`` the generator runs on
+the mesh's first card.
 
 The model is float32, and each stage computes its products in full f32
 whatever TF32 setting the process holds (``device.full_f32``), as tpudl
@@ -53,14 +56,13 @@ from tpudl_torch.ml.pipeline import Transformer
 from tpudl_torch.obs import metrics as _obs_metrics
 from tpudl_torch.text.codec import TokenCodec, pad_mask, tokenize_pack
 from tpudl_torch.text.tokenizer import EOS_ID
-from tpudl_torch.zoo.transformer import TinyCausalLM
+from tpudl_torch.zoo.transformer import TinyCausalLM, arch_of
 
 __all__ = ["LMFeaturizer", "LMGenerator", "LMClassifier"]
 
 _LM_ATTRS = ("model", "weights", "tokenizer", "maxLen", "maxNew",
              "temperature", "seed", "classes", "promptBuckets",
-             "batchSize", "device")
-_NOT_PORTED = {**EXECUTOR_KNOBS, "tp": "LM parallelism"}
+             "batchSize", "device", "tp")
 
 
 class _LMStage(Transformer, HasInputCol, HasOutputCol):
@@ -69,12 +71,13 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
 
     def _init_lm(self):
         kwargs = dict(self._input_kwargs)
-        refuse_unported(type(self).__name__, kwargs, _NOT_PORTED)
+        refuse_unported(type(self).__name__, kwargs, EXECUTOR_KNOBS)
         self._set_pipeline_opts(kwargs)
         for k in _LM_ATTRS:
             kwargs.pop(k, None)
         self._set(**kwargs)
         self._loaded = None  # (weights, device, module) of the last load
+        self._tp_nets: dict = {}  # row's first card → its laid-out module
 
     def _require(self):
         missing = [k for k in ("model", "weights", "tokenizer")
@@ -87,21 +90,51 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
         home = self._home_device()
         if self._loaded is None or self._loaded[0] is not self.weights \
                 or self._loaded[1] != home:
-            m = self.model
-            net = TinyCausalLM.from_jax_params(
-                self.weights, vocab=m.vocab, dim=m.dim, heads=m.heads,
-                layers=m.layers, max_len=m.max_len, device=home)
+            self._tp_nets = {}
+            net = (self._tp_net(home) if self.tp else
+                   TinyCausalLM.from_jax_params(
+                       self.weights, **arch_of(self.model), device=home))
             self._loaded = (self.weights, home, net)
         return self._loaded[2], self.tokenizer
 
     def _replica(self, net, device):
         """``net`` on ``device``: itself without a mesh, else that card's
-        replica (made once)."""
+        replica (made once); under ``tp`` the module of the data row that
+        starts at ``device``, laid out over the row's cards."""
+        if self.tp:
+            return self._tp_net(device)
         if self.mesh is None:
             return net
         from tpudl_torch import mesh as M
 
         return M.replicate(net, self.mesh)[torch.device(device)]
+
+    def _row_mesh(self, device):
+        """The data row of ``self.mesh`` whose first card is ``device``."""
+        if self.mesh is None:
+            raise ValueError(
+                "tp=True needs a mesh with a 'model' axis "
+                "(tpudl_torch.mesh.build_mesh(n_data=..., n_model=..., "
+                "devices=[...]))")
+        dev = torch.device(device)
+        return self.mesh.row(next(r for r, row in enumerate(self.mesh.grid)
+                                  if row[0] == dev))
+
+    def _tp_net(self, device):
+        """Under ``tp``: the module of the data row starting at ``device``,
+        loaded there and laid out over the row (made once)."""
+        dev = torch.device(device)
+        net = self._tp_nets.get(dev)
+        if net is None:
+            net = TinyCausalLM.from_jax_params(
+                self.weights, **arch_of(self.model), device=dev)
+            net = self._tp_nets[dev] = net.shard_params(self._row_mesh(dev))
+        return net
+
+    def _forward_kw(self, device) -> dict:
+        """What the forward of the row at ``device`` takes: its row mesh
+        under ``tp``, nothing otherwise."""
+        return dict(mesh=self._row_mesh(device), tp=True) if self.tp else {}
 
     def _codec_opts(self) -> dict:
         opts = self._pipeline_opts()
@@ -113,7 +146,7 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
     def _fn_key(self, net, *extra) -> tuple:
         """What a per-batch function closes over: the loaded module, the
         stage's geometry, and ``extra``."""
-        return (id(net), self.maxLen, self.promptBuckets, *extra)
+        return (id(net), self.maxLen, self.promptBuckets, self.tp, *extra)
 
 
 class LMFeaturizer(_LMStage):
@@ -134,6 +167,7 @@ class LMFeaturizer(_LMStage):
         self.promptBuckets = promptBuckets
         self.batchSize = int(batchSize)
         self.device = device
+        self.tp = bool(tp)
         self._init_lm()
 
     def _transform(self, frame):
@@ -143,10 +177,11 @@ class LMFeaturizer(_LMStage):
 
         def build(device):
             lm = self._replica(net, device)
+            kw = self._forward_kw(device)
 
             def fn(tokens):
                 mask = pad_mask(tokens)                    # [B, S]
-                h = lm.hidden(tokens)
+                h = lm.hidden(tokens, **kw)
                 pooled = (h * mask[..., None]).sum(dim=1)
                 return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
             return fn
@@ -182,6 +217,7 @@ class LMClassifier(_LMStage):
         self.promptBuckets = promptBuckets
         self.batchSize = int(batchSize)
         self.device = device
+        self.tp = bool(tp)
         self._init_lm()
 
     def _class_ids(self, tok) -> list:
@@ -210,11 +246,12 @@ class LMClassifier(_LMStage):
 
         def build(device):
             lm = self._replica(net, device)
+            kw = self._forward_kw(device)
             class_ids = torch.tensor(ids, device=lm.device)
 
             def fn(tokens):
                 mask = pad_mask(tokens)
-                logits = lm.apply(tokens)                  # [B, S, vocab]
+                logits = lm.apply(tokens, **kw)            # [B, S, vocab]
                 last = (mask.sum(dim=1).to(torch.int64) - 1).clamp_min(0)
                 row = logits[torch.arange(tokens.shape[0],
                                           device=lm.device), last]
@@ -258,10 +295,12 @@ class LMGenerator(_LMStage):
         self.promptBuckets = promptBuckets
         self.batchSize = max(1, int(batchSize))
         self.device = device
+        self.tp = bool(tp)
         self._init_lm()
 
     def _transform(self, frame):
         net, tok = self._require()
+        kw = self._forward_kw(net.device)
         texts = list(frame[self.getInputCol()])
         # bos=True guarantees every prompt holds >= 1 token
         prompts = tok.encode_batch(texts, bos=True)
@@ -287,7 +326,7 @@ class LMGenerator(_LMStage):
                     toks = net.generate(
                         np.stack([prompts[i] for i in chunk]), self.maxNew,
                         temperature=self.temperature, generator=gen,
-                        prompt_buckets=ladder).cpu().numpy()
+                        prompt_buckets=ladder, **kw).cpu().numpy()
                 for row, i in zip(toks, chunk):
                     stop = np.flatnonzero(row == EOS_ID)
                     if stop.size:

@@ -27,6 +27,13 @@ generator on the engine's device), in the order ``generate(generator=)``
 draws, outside the graph on the graph's logits; tpudl's JAX key streams
 are not reproduced. Decoding runs in full f32 (``device.full_f32``).
 
+``tp=True`` over a local mesh decodes tensor-parallel (tpudl's
+``mesh``/``tp``): the module is laid out over the mesh's first row of
+cards (``shard_params``), the slot and row caches are split over heads,
+and every program runs over that row. Where the row holds more than one
+distinct card the programs run eagerly: one CUDA graph is captured on one
+card.
+
 The engine is single-consumer (the server thread); no lock.
 """
 
@@ -43,7 +50,7 @@ from tpudl_torch.device import full_f32, resolve_device
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.serve import reqtrace as _reqtrace
 from tpudl_torch.serve.queue import AdmissionError, Evicted
-from tpudl_torch.zoo.transformer import TinyCausalLM, _pick
+from tpudl_torch.zoo.transformer import TinyCausalLM, _pick, _shards, arch_of
 
 __all__ = ["SlotDecoder"]
 
@@ -63,19 +70,20 @@ class _Program:
     the small tensors in ``restore`` are put back after it, and what it
     wrote into the caches the first replay writes again, value for value
     (so the insert program is readied only with ``_slot`` on a free
-    slot)."""
+    slot). ``graphs=False`` runs it eagerly on the card too."""
 
-    def __init__(self, fn, state, restore):
+    def __init__(self, fn, state, restore, graphs: bool = True):
         self._fn = fn
         self._state = state
         self._restore = restore
         self.device = state[-1].device
+        self.graphs = graphs and self.device.type == "cuda"
         self.graph = None
         self.launches: dict = {}
 
     def ready(self) -> None:
         """Capture the graph now, if this program is due one."""
-        if self.device.type != "cuda" or self.graph is not None:
+        if not self.graphs or self.graph is not None:
             return
         from tpudl_torch import cuda_ops
 
@@ -90,7 +98,7 @@ class _Program:
             lambda: self._fn(*self._state), self.device, warmup=warmup)
 
     def __call__(self):
-        if self.device.type != "cuda":
+        if not self.graphs:
             self._fn(*self._state)
             return
         from tpudl_torch import cuda_ops
@@ -113,8 +121,11 @@ class SlotDecoder:
     tpudl: it shapes only the rung that method reports, since the prefill
     runs the real prompt length through the one batch-1 graph, so it
     changes no program and no result here (ROADMAP Queue 1, 'Compile',
-    gives it a use or removes it). ``mesh=`` and
-    ``tp=True`` are refused (ROADMAP Queue 1, 'LM parallelism').
+    gives it a use or removes it). ``tp=True`` with a local ``mesh``
+    decodes tensor-parallel over the mesh's first row (the module given
+    with ``params`` loads on its first card; a module given alone is laid
+    out in place); ``mesh`` without ``tp`` changes nothing, as in tpudl,
+    whose slot programs take the mesh only for ``tp``.
 
     ``programs`` maps each program's key to it and ``captures`` counts the
     CUDA graphs captured (0 on the CPU)."""
@@ -123,17 +134,21 @@ class SlotDecoder:
                  cache_len: int | None = None, temperature: float = 0.0,
                  prompt_buckets=True, mesh=None, tp: bool = False,
                  device=None):
-        model._single_device(mesh, tp)
+        cards = model._decode_cards(mesh, tp)
         if params is not None:
+            home = cards[0] if cards else resolve_device(device or "cuda")
             model = TinyCausalLM.from_jax_params(
-                params, vocab=model.vocab, dim=model.dim, heads=model.heads,
-                layers=model.layers, max_len=model.max_len,
-                device=resolve_device(device or "cuda"))
+                params, **arch_of(model), device=home)
         elif device is not None and resolve_device(device) != model.device:
             raise ValueError(
                 f"device={device!r} but the model lives on {model.device}; "
                 "pass params= to load it there")
+        if cards:
+            model.shard_params(mesh.row(0))
         self.model = model
+        self.mesh, self.tp = mesh, bool(tp)
+        # one CUDA graph runs on one card
+        self._graphs = len(set(cards or [model.device])) == 1
         self.device = model.device
         self.slots = (int(slots) if slots is not None
                       else _env_int("TPUDL_SERVE_SLOTS", 8))
@@ -143,8 +158,10 @@ class SlotDecoder:
         self._ladder = resolve_ladder(prompt_buckets)
         s, dev = self.slots, self.device
         with torch.inference_mode():
-            self._cache = model.init_cache(s, self.cache_len)
-            self._row = model.init_cache(1, self.cache_len)
+            self._cache = model.init_cache(s, self.cache_len, mesh=mesh,
+                                           tp=tp)
+            self._row = model.init_cache(1, self.cache_len, mesh=mesh,
+                                         tp=tp)
             ints = dict(dtype=torch.int64, device=dev)
             self._tok = torch.zeros(s, **ints)
             self._pos = torch.zeros(s, **ints)
@@ -218,12 +235,13 @@ class SlotDecoder:
             return prog
         m, small = self.model, (self._tok, self._pos, self._steps,
                                 self._live, self._ppos)
+        par = dict(mesh=self.mesh, tp=self.tp)
         if name == "step":
-            fn = m._slot_step_program(self.temperature)
+            fn = m._slot_step_program(self.temperature, **par)
             state = (self._cache, self._tok, self._pos, self._steps,
                      self._live, self._logits)
         else:
-            step, finish = m._slot_prefill_program()
+            step, finish = m._slot_prefill_program(**par)
             if name == "prefill":
                 fn, state = step, (self._row, self._prompt, self._ppos,
                                    self._hidden)
@@ -232,7 +250,8 @@ class SlotDecoder:
                                      self._ppos, self._slot, self._tok,
                                      self._pos, self._steps, self._live,
                                      self._first)
-        prog = self.programs[key] = _Program(fn, state, small)
+        prog = self.programs[key] = _Program(fn, state, small,
+                                             graphs=self._graphs)
         return prog
 
     @contextlib.contextmanager
@@ -258,8 +277,8 @@ class SlotDecoder:
         warm-up run writes the row cache into slot ``_slot``, which must
         then be a free one."""
         def ready():
-            return (self.captures if self.device.type == "cuda"
-                    else len(self.programs))
+            return (self.captures if self._graphs
+                    and self.device.type == "cuda" else len(self.programs))
 
         before = ready()
         free = self.free()
@@ -314,8 +333,8 @@ class SlotDecoder:
                 request.prompt[0].astype(np.int64)))
             self._ppos.zero_()
             for layer in self._row:
-                layer["k"].zero_()
-                layer["v"].zero_()
+                for t in (*_shards(layer["k"]), *_shards(layer["v"])):
+                    t.zero_()
             self._slot.fill_(slot)
             prefill = self._program("prefill")
             for _ in range(plen):

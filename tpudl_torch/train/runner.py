@@ -44,7 +44,14 @@ valid checkpoint; ``RestartsExhausted`` (with ``__cause__``) ends it.
 tpudl's flight recorder, watchdog heartbeat, tracer spans, attribution
 and fault points are not ported yet (ROADMAP Queue 1, 'The rest of
 observability' and 'Jobs, faults and the supervisor').
-``param_shardings=`` is refused (ROADMAP Queue 1, 'LM parallelism').
+On a local mesh (the cards of this process, ``build_mesh(devices=...)``)
+``fit`` runs one step over the whole batch on the model's device: the
+model spreads its forward over the cards itself (README's long-context
+recipe, ``Trainer(lm.loss_fn(mesh=mesh), adamw(3e-4), mesh=mesh)``, puts
+the ring inside the loss), and nothing is averaged over a group.
+``param_shardings=`` lays the model out by it (``shard_params``) before
+``fit`` builds the optimizer; a model axis under ``HorovodRunner`` (one
+card a rank) is refused (ROADMAP Queue 1, 'LM parallelism').
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ from tpudl_torch.device import resolve_device
 from tpudl_torch.jobs.retry import RetryPolicy, is_fatal
 from tpudl_torch.obs import metrics as _obs_metrics
 from tpudl_torch.train.checkpoint import CheckpointManager
-from tpudl_torch.train.step import make_train_step
+from tpudl_torch.train.step import _layout_mesh, make_train_step
 
 __all__ = ["HorovodRunner", "TrainContext", "Trainer", "Preempted",
            "RestartsExhausted"]
@@ -379,10 +386,6 @@ class Trainer:
     def __init__(self, loss_fn, optimizer, *, mesh: M.Mesh | None = None,
                  checkpoint_dir=None, save_every: int = 100,
                  log_every: int = 0, param_shardings=None):
-        if param_shardings is not None:
-            raise NotImplementedError(
-                "Trainer(param_shardings=...) is not ported to tpudl_torch "
-                "yet (ROADMAP Queue 1, 'LM parallelism')")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.mesh = mesh
@@ -390,16 +393,23 @@ class Trainer:
         self.save_every = save_every
         self.log_every = log_every
         self.history: list[dict] = []
-        self._step_fn = make_train_step(loss_fn, mesh=mesh)
+        self.param_shardings = param_shardings
+        self._step_fn = make_train_step(loss_fn, mesh=mesh,
+                                        param_shardings=param_shardings)
 
     # -- the group ---------------------------------------------------------
     @property
+    def _group(self):
+        """The process-group mesh, or None (no mesh, or a local one)."""
+        return None if self.mesh is None or self.mesh.local else self.mesh
+
+    @property
     def _primary(self) -> bool:
-        return self.mesh is None or self.mesh.rank == 0
+        return self._group is None or self._group.rank == 0
 
     @property
     def _ranks(self) -> int:
-        return 1 if self.mesh is None else self.mesh.size
+        return 1 if self._group is None else self._group.size
 
     def _agreed(self, flag: bool, device) -> bool:
         """``flag`` if any rank raised it (ranks must stop together)."""
@@ -475,10 +485,12 @@ class Trainer:
         (when a ``checkpoint_dir`` is set) and raises
         :class:`Preempted`."""
         self.history = []  # per-fit; stale entries would misreport results
+        if self.param_shardings is not None and opt_state is None:
+            model.shard_params(_layout_mesh(self.param_shardings))
         optimizer = (opt_state if opt_state is not None
                      else self.optimizer(model.parameters()))
         device = next(model.parameters()).device
-        if self.mesh is not None:
+        if self._group is not None:
             if device != self.mesh.device:
                 raise ValueError(
                     f"the model is on {device}, this rank's device is "
@@ -514,7 +526,7 @@ class Trainer:
                 if not isinstance(batch, tuple):
                     batch = (batch,)
                 rows = int(np.shape(batch[0])[0])
-                if self.mesh is not None:
+                if self._group is not None:
                     batch = M.shard_batch(batch, self.mesh)
                 else:
                     batch = tuple(_as_tensor(b).to(device) for b in batch)

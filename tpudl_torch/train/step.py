@@ -13,8 +13,13 @@ rank's step on the global batch. The average is explicit
 ``TinyCausalLM.loss_fn()``, never ``model(...)``, so DDP's reducer would
 not see the iteration.
 
-``param_shardings=`` (tensor parallelism) is refused (ROADMAP Queue 1,
-'LM parallelism').
+On a local mesh (one process driving its cards) the step is one step
+over the whole batch: the model's forward spreads itself over the cards
+(``TinyCausalLM.loss_fn(mesh=)``'s ring, ``tp=True``), autograd sums the
+gradients of every card's copy of a weight back onto it, and there is no
+group to average over. ``param_shardings=`` (tensor parallelism) holds
+the model to ``TinyCausalLM.param_shardings``' layout: each split leaf is
+a parameter on its own card, and the optimizer steps it there.
 """
 
 from __future__ import annotations
@@ -79,31 +84,58 @@ def make_train_step(loss_fn, *, mesh: M.Mesh | None = None,
     ``torch.optim`` optimizer over the model's parameters. With a
     ``mesh`` (:func:`tpudl_torch.mesh.build_mesh`), ``batch`` is this
     rank's rows and the gradients are averaged over the group before the
-    update. The returned loss is this rank's, a detached device tensor:
+    update; on a local mesh the batch is the whole batch and nothing is
+    averaged. The returned loss is this rank's, a detached device tensor:
     the step forces no host sync. A model with float32 masters steps in
     full f32 whatever TF32 setting the process holds
     (:func:`tpudl_torch.device.full_f32`), as tpudl's step computes; that
     holds under :func:`with_compute_dtype` too, where it touches only the
-    f32 ops."""
-    if param_shardings is not None:
-        raise NotImplementedError(
-            "make_train_step(param_shardings=...) (tensor parallelism) is "
-            "not ported to tpudl_torch yet (ROADMAP Queue 1, "
-            "'LM parallelism')")
+    f32 ops.
+
+    ``param_shardings`` (a ``TinyCausalLM.param_shardings(mesh)`` pytree)
+    lays the model out so at its first step (``shard_params``) and
+    checks that ``optimizer`` holds the laid-out parameters: build the
+    optimizer after ``model.shard_params(mesh)``."""
+    layout = _layout_mesh(param_shardings)
 
     def step(model, optimizer, *batch):
+        if layout is not None:
+            model.shard_params(layout)
+            held = {id(p) for g in optimizer.param_groups
+                    for p in g["params"]}
+            if any(id(p) not in held for p in model.parameters()):
+                raise ValueError(
+                    "the optimizer does not hold the model's parameters as "
+                    "param_shardings lays them out; build it after "
+                    "model.shard_params(mesh)")
         f32 = next(model.parameters()).dtype == torch.float32
         with full_f32() if f32 else contextlib.nullcontext():
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(model, *batch)
             loss.backward()
-            if mesh is not None:
+            if mesh is not None and not mesh.local:
                 M.all_reduce_mean([p.grad for p in model.parameters()
                                    if p.grad is not None], mesh)
             optimizer.step()
         return loss.detach()
 
     return step
+
+
+def _layout_mesh(param_shardings):
+    """The mesh of a ``param_shardings`` pytree (its first
+    :class:`~tpudl_torch.mesh.NamedSharding`), or None."""
+    if param_shardings is None:
+        return None
+    stack = [param_shardings]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, M.NamedSharding):
+            return node.mesh
+        if isinstance(node, dict):
+            stack.extend(node.values())
+    raise ValueError("param_shardings holds no NamedSharding "
+                     "(TinyCausalLM.param_shardings(mesh) gives the layout)")
 
 
 def make_eval_step(apply_fn, *, mesh: M.Mesh | None = None):

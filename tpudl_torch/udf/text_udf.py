@@ -15,10 +15,11 @@ On the card every full-sequence forward under ``embed`` and ``classify``
 runs the flash forward kernel (``csrc/flash_attn_fwd.cu``) in each
 decoder block; ``generate``'s KV-cache decode does not. Each call is
 counted as makeGraphUDF's are (``udf.<name>.calls``, ``.rows``,
-``.seconds``). ``mesh`` passes to the stages: ``embed`` and ``classify``
-run data-parallel over the mesh's cards (the flash forward on every
-card), and ``generate`` runs on its first card. ``tp=True`` raises
-through the stages (ROADMAP Queue 1, 'LM parallelism').
+``.seconds``). ``mesh`` and ``tp`` pass to the stages: ``embed`` and
+``classify`` run data-parallel over the mesh's data axis (the flash
+forward on every card), each row tensor-parallel over its model-axis
+cards under ``tp=True``, and ``generate`` runs on the mesh's first card,
+or tensor-parallel over its first row under ``tp=True``.
 """
 
 from __future__ import annotations

@@ -20,9 +20,34 @@ returns the same list it was given) — JAX had to return a new one.
 :func:`to_jax_params` carries the module's weights back to tpudl's numpy
 param pytree.
 
-Not ported yet, and refused with ``NotImplementedError``: mixture of
-experts, tensor parallelism, ring attention over a mesh, the pipelined
-forward (ROADMAP Queue 1, "LM parallelism") and AOT precompilation
+tpudl's parallelism matrix, on a local :class:`~tpudl_torch.mesh.Mesh`
+(one process driving a ``(data, model)`` grid of cards):
+
+- SP: ``hidden``/``apply``/``loss_fn(mesh=)`` split the sequence over the
+  data axis, and each block's attention is the flash-kernel ring
+  (:func:`tpudl_torch.attention.ring`); every other op of a block runs on
+  the card that holds its sequence block;
+- TP: ``tp=True`` splits heads and the MLP's hidden dim over the model
+  axis (Megatron's column/row layout, :meth:`TinyCausalLM.
+  param_shardings`), with one differentiable sum over the axis after the
+  attention projection and one after the MLP
+  (:func:`tpudl_torch.mesh.all_sum`). :meth:`TinyCausalLM.shard_params`
+  lays the split leaves out on their cards, in place, so that each card
+  holds 1/N of them and the optimizer steps each shard where it lives;
+  the KV-cache decode, ``generate`` and the slot programs take
+  ``tp=True`` too, with the cache split over heads;
+- EP: ``experts=N`` swaps each block's MLP for tpudl's top-1 switch MoE
+  (capacity ``ceil(S·cf/N)`` a row, tokens over it pass on the
+  residual); under ``tp=True`` the experts are split over the model axis:
+  the tokens' dispatch buffers travel to their experts' cards and the
+  expert weights stay put;
+- PP: :meth:`TinyCausalLM.apply_pipelined`, tpudl's GPipe schedule
+  (:func:`tpudl_torch.pipeline.pipeline_blocks`) with dense attention in
+  the pipe.
+
+A weight that a card other than its own needs is copied there inside the
+autograd graph (``.to``), so its gradient sums back onto it. AOT
+precompilation is not ported yet and refused with ``NotImplementedError``
 (ROADMAP Queue 1, "Compile").
 """
 
@@ -37,10 +62,34 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpudl_torch import cuda_ops
+from tpudl_torch import mesh as M
+from tpudl_torch.attention import attention_reference, ring
 from tpudl_torch.compile.buckets import resolve_ladder
 from tpudl_torch.device import resolve_device
 
-__all__ = ["TinyCausalLM", "load_jax_params", "to_jax_params"]
+__all__ = ["TinyCausalLM", "load_jax_params", "to_jax_params", "arch_of"]
+
+# the dim a tensor-parallel leaf is split on over the model axis (tpudl's
+# param_shardings): wq/wk/wv/w_up column-parallel, wo/w_down row-parallel,
+# b_up with its columns, the experts' leaves on the expert dim
+_SHARD_DIM = {"wq": 1, "wk": 1, "wv": 1, "w_up": 1, "b_up": 0, "wo": 0,
+              "w_down": 0, "w_up_e": 0, "b_up_e": 0, "w_down_e": 0,
+              "b_down_e": 0}
+
+
+def arch_of(model) -> dict:
+    """The constructor arguments of ``model``'s architecture (a
+    :class:`TinyCausalLM`, or anything with its attributes)."""
+    return dict(vocab=model.vocab, dim=model.dim, heads=model.heads,
+                layers=model.layers, max_len=model.max_len,
+                experts=getattr(model, "experts", 0),
+                capacity_factor=getattr(model, "capacity_factor", 2.0))
+
+
+def _shards(t) -> tuple:
+    """A cache buffer's per-card shards: a tuple under ``tp=True`` over
+    more than one card, else the one tensor."""
+    return t if isinstance(t, tuple) else (t,)
 
 
 def _not_ported(what: str, item: str):
@@ -65,42 +114,59 @@ class TinyCausalLM(nn.Module):
 
     def __init__(self, vocab: int = 256, dim: int = 64, heads: int = 4,
                  layers: int = 2, max_len: int = 4096, experts: int = 0,
-                 *, device="cuda"):
+                 capacity_factor: float = 2.0, *, device="cuda"):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
-        if experts:
-            _not_ported("experts > 0 (top-1 mixture-of-experts blocks)",
-                        "LM parallelism")
         self.vocab = vocab
         self.dim = dim
         self.heads = heads
         self.layers = layers
         self.max_len = max_len
+        self.experts = experts
+        self.capacity_factor = capacity_factor
+        # the model-axis cards of shard_params' layout (None: one device)
+        self._tp_devices = None
+        # a list to record each MoE layer's (choice, kept) routing into
+        self.moe_routes = None
         dev = resolve_device(device)
 
         def zeros(*shape):
             return nn.Parameter(torch.zeros(shape, device=dev))
 
-        d = dim
+        d, e = dim, experts
+
+        def block():
+            leaves = {
+                "norm1_gamma": zeros(d), "norm1_beta": zeros(d),
+                "wq": zeros(d, d), "wk": zeros(d, d), "wv": zeros(d, d),
+                "wo": zeros(d, d),
+                "norm2_gamma": zeros(d), "norm2_beta": zeros(d)}
+            if e:
+                leaves.update({
+                    "w_gate": zeros(d, e), "w_up_e": zeros(e, d, 4 * d),
+                    "b_up_e": zeros(e, 4 * d), "w_down_e": zeros(e, 4 * d, d),
+                    "b_down_e": zeros(e, d)})
+            else:
+                leaves.update({
+                    "w_up": zeros(d, 4 * d), "b_up": zeros(4 * d),
+                    "w_down": zeros(4 * d, d), "b_down": zeros(d)})
+            return nn.ParameterDict(leaves)
+
         self.embed = nn.ParameterDict({"table": zeros(vocab, d)})
         self.final_norm = nn.ParameterDict({"gamma": zeros(d),
                                             "beta": zeros(d)})
-        self.blocks = nn.ModuleList(nn.ParameterDict({
-            "norm1_gamma": zeros(d), "norm1_beta": zeros(d),
-            "wq": zeros(d, d), "wk": zeros(d, d), "wv": zeros(d, d),
-            "wo": zeros(d, d),
-            "norm2_gamma": zeros(d), "norm2_beta": zeros(d),
-            "w_up": zeros(d, 4 * d), "b_up": zeros(4 * d),
-            "w_down": zeros(4 * d, d), "b_down": zeros(d),
-        }) for _ in range(layers))
+        self.blocks = nn.ModuleList(block() for _ in range(layers))
 
     @classmethod
     def from_jax_params(cls, params, *, vocab: int, dim: int, heads: int,
-                        layers: int, max_len: int = 4096,
+                        layers: int, max_len: int = 4096, experts: int = 0,
+                        capacity_factor: float = 2.0,
                         device="cuda") -> "TinyCausalLM":
-        """Build the module on ``device`` and load tpudl's param pytree."""
-        model = cls(vocab, dim, heads, layers, max_len, device=device)
+        """Build the module on ``device`` and load tpudl's param pytree
+        (numpy or jax arrays, whatever their shardings)."""
+        model = cls(vocab, dim, heads, layers, max_len, experts,
+                    capacity_factor, device=device)
         return load_jax_params(model, params)
 
     @property
@@ -125,48 +191,217 @@ class TinyCausalLM(nn.Module):
                            "beta": np.zeros(d, np.float32)},
         }
         for i in range(self.layers):
-            params[f"block_{i}"] = {
+            block = {
                 "norm1_gamma": np.ones(d, np.float32),
                 "norm1_beta": np.zeros(d, np.float32),
                 "wq": w(d, d), "wk": w(d, d), "wv": w(d, d), "wo": w(d, d),
                 "norm2_gamma": np.ones(d, np.float32),
                 "norm2_beta": np.zeros(d, np.float32),
-                "w_up": w(d, 4 * d), "b_up": np.zeros(4 * d, np.float32),
-                "w_down": w(4 * d, d),
-                "b_down": np.zeros(d, np.float32),
             }
+            if self.experts:
+                e = self.experts
+                block.update({
+                    "w_gate": w(d, e, scale=0.02),
+                    "w_up_e": np.stack([w(d, 4 * d) for _ in range(e)]),
+                    "b_up_e": np.zeros((e, 4 * d), np.float32),
+                    "w_down_e": np.stack([w(4 * d, d) for _ in range(e)]),
+                    "b_down_e": np.zeros((e, d), np.float32),
+                })
+            else:
+                block.update({
+                    "w_up": w(d, 4 * d), "b_up": np.zeros(4 * d, np.float32),
+                    "w_down": w(4 * d, d),
+                    "b_down": np.zeros(d, np.float32),
+                })
+            params[f"block_{i}"] = block
         return params
 
-    def shard_params(self, *args, **kwargs):
-        _not_ported("tensor-parallel param sharding", "LM parallelism")
+    # -- tensor parallelism ------------------------------------------------
+    def _split_names(self) -> tuple:
+        """The block leaves that tensor parallelism splits."""
+        return tuple(n for n in self.blocks[0].keys() if n in _SHARD_DIM) \
+            if self._tp_devices is None else tuple(self.tp_shards[0][0])
+
+    def param_shardings(self, mesh, model_axis: str = M.MODEL_AXIS) -> dict:
+        """tpudl's Megatron layout over ``mesh[model_axis]``, as a pytree of
+        :class:`~tpudl_torch.mesh.NamedSharding` shaped like the param
+        pytree: wq/wk/wv and w_up column-parallel (output dim split: each
+        card computes its own heads and hidden slice), wo and w_down
+        row-parallel (input dim split: one sum over the axis after each),
+        the experts' leaves split on the expert dim; embedding, norms,
+        ``w_gate`` and ``b_down`` whole on every card."""
+        self._check_split(mesh.shape[model_axis], model_axis)
+
+        def spec(t, dim=None):
+            axes = [None] * t.dim()
+            if dim is not None:
+                axes[dim] = model_axis
+            return M.NamedSharding(mesh, tuple(axes))
+
+        out = {"embed": {"table": spec(self.embed["table"])},
+               "final_norm": {k: spec(t)
+                              for k, t in self.final_norm.items()}}
+        for i in range(self.layers):
+            leaves = dict(self.blocks[i].items())
+            if self._tp_devices is not None:
+                leaves.update(self.tp_shards[0][i].items())
+            out[f"block_{i}"] = {k: spec(t, _SHARD_DIM.get(k))
+                                 for k, t in leaves.items()}
+        return out
+
+    def _check_split(self, n: int, model_axis: str = M.MODEL_AXIS):
+        """Raise unless heads, the MLP's hidden dim and the experts
+        divide over ``n`` model-axis entries."""
+        if self.heads % n or (4 * self.dim) % n:
+            raise ValueError(
+                f"heads {self.heads} and mlp hidden {4 * self.dim} must "
+                f"divide the {model_axis!r} axis size {n}")
+        if self.experts and self.experts % n:
+            raise ValueError(
+                f"experts {self.experts} must divide the {model_axis!r} "
+                f"axis size {n}")
+
+    def shard_params(self, mesh, model_axis: str = M.MODEL_AXIS):
+        """Lay the module out by :meth:`param_shardings`, in place: each
+        split leaf becomes one parameter a model-axis card (its 1/N slice,
+        on ``mesh``'s first row of cards, ``tp_shards.<card>.<block>.
+        <name>``), the whole leaves stay where they are. Build the
+        optimizer after this: it then steps every slice on its card. A
+        model axis of 1 puts the leaves back together. Returns the
+        module."""
+        n = mesh.shape[model_axis]
+        self._check_split(n, model_axis)
+        devs = tuple(mesh.entry(model_axis, j) for j in range(n))
+        if devs == self._tp_devices or (n == 1 and self._tp_devices is None):
+            return self
+        with torch.no_grad():
+            names = self._split_names()
+            whole = [{k: t.detach() for k, t in self._block_leaves(i).items()
+                      if k in names} for i in range(self.layers)]
+            if self._tp_devices is not None:
+                del self.tp_shards
+            for i, p in enumerate(self.blocks):
+                for k in names:
+                    if k in p:
+                        del p[k]
+            if n == 1:
+                for i, p in enumerate(self.blocks):
+                    for k in names:
+                        p[k] = nn.Parameter(whole[i][k].to(self.device))
+                self._tp_devices = None
+                return self
+
+            def part(t, k, j):
+                width = t.shape[_SHARD_DIM[k]] // n
+                return nn.Parameter(t.narrow(_SHARD_DIM[k], j * width, width)
+                                    .to(devs[j]).clone())
+
+            self.tp_shards = nn.ModuleList(
+                nn.ModuleList(nn.ParameterDict(
+                    {k: part(whole[i][k], k, j) for k in names})
+                    for i in range(self.layers))
+                for j in range(n))
+        self._tp_devices = devs
+        return self
+
+    def _block_leaves(self, i: int):
+        """Block ``i``'s leaves, whole: its ``ParameterDict`` itself, or
+        under a tensor-parallel layout a dict whose split leaves are put
+        back together on the module's device (differentiably)."""
+        p = self.blocks[i]
+        if self._tp_devices is None:
+            return p
+        leaves = dict(p.items())
+        for k, t in self.tp_shards[0][i].items():
+            leaves[k] = torch.cat([sh[i][k].to(self.device)
+                                   for sh in self.tp_shards],
+                                  dim=_SHARD_DIM[k])
+        return leaves
+
+    def _entry_params(self, i: int, j: int, cols: int, dev) -> dict:
+        """Block ``i``'s leaves as model-axis entry ``j`` of ``cols`` needs
+        them on ``dev``: the whole leaves, and slice ``j`` of the split
+        ones (the layout's own parameter where it matches)."""
+        p = self.blocks[i]
+        out = {k: t.to(dev) for k, t in p.items()
+               if cols == 1 or k not in _SHARD_DIM}
+        if cols == 1 and self._tp_devices is None:
+            return out
+        if self._tp_devices is not None and len(self._tp_devices) == cols:
+            out.update({k: t.to(dev)
+                        for k, t in self.tp_shards[j][i].items()})
+            return out
+        whole = self._block_leaves(i)
+        for k in self._split_names():
+            if cols == 1:
+                out[k] = whole[k].to(dev)
+                continue
+            dim = _SHARD_DIM[k]
+            width = whole[k].shape[dim] // cols
+            out[k] = whole[k].narrow(dim, j * width, width).to(dev)
+        return out
+
+    def _grid(self, mesh, tp):
+        """The ``[row][column]`` cards a forward over ``mesh`` runs on:
+        one row a data-axis entry (its sequence block) and, under ``tp``,
+        one column a model-axis entry (its heads, hidden slice and
+        experts); None without a mesh."""
+        if tp and (mesh is None or M.MODEL_AXIS not in mesh.shape):
+            raise ValueError(
+                "tp=True needs a mesh with a 'model' axis "
+                "(tpudl_torch.mesh.build_mesh(n_data=..., n_model=..., "
+                "devices=[...]))")
+        if mesh is None:
+            return None
+        if not getattr(mesh, "local", False):
+            raise ValueError(
+                "TinyCausalLM runs over a local mesh (build_mesh(devices="
+                "[...]) or build_mesh() over this process's cards); a "
+                "process group's mesh holds one card a process")
+        cols = mesh.shape[M.MODEL_AXIS] if tp else 1
+        self._check_split(cols)
+        return [[torch.device(mesh.grid[r][j]) for j in range(cols)]
+                for r in range(mesh.shape[M.DATA_AXIS])]
 
     # -- forward ----------------------------------------------------------
-    def _single_device(self, mesh, tp):
-        if mesh is not None:
-            _not_ported("attention over a mesh (ring attention)",
-                        "LM parallelism")
-        if tp:
-            _not_ported("tensor parallelism (tp=True)", "LM parallelism")
-
-    def apply(self, tokens, *, mesh=None, tp: bool = False,
-              remat: bool = False):
+    def apply(self, tokens, *, mesh=None, use_pallas: bool = False,
+              remat: bool = False, tp: bool = False):
         """tokens ``[B, S]`` int → logits ``[B, S, vocab]`` (tied head).
-        tpudl's name; it shadows ``nn.Module.apply(fn)``."""
-        x = self.hidden(tokens, mesh=mesh, tp=tp, remat=remat)
-        return x @ self.embed["table"].T
+        tpudl's name; it shadows ``nn.Module.apply(fn)``. ``mesh``,
+        ``tp`` and ``remat`` as :meth:`hidden` takes them."""
+        grid = self._grid(mesh, tp)
+        if grid is None:
+            x = self.hidden(tokens, remat=remat)
+            return x @ self.embed["table"].T
+        xs, tables = self._grid_hidden(tokens, grid, remat)
+        return torch.cat([(x @ t.T).to(self.device)
+                          for x, t in zip(xs, tables)], dim=1)
 
     forward = apply
 
-    def hidden(self, tokens, *, mesh=None, tp: bool = False,
-               remat: bool = False):
+    def hidden(self, tokens, *, mesh=None, use_pallas: bool = False,
+               remat: bool = False, tp: bool = False):
         """tokens ``[B, S]`` int → final-norm hidden states ``[B, S, D]``:
         :meth:`apply` minus the head. Causal attention runs the flash
         kernel (12 launches for a 12-layer model). ``remat=True``
         checkpoints each block (``torch.utils.checkpoint``, the
         counterpart of tpudl's ``jax.checkpoint``): its activations are
         recomputed in the backward, so the forward kernel runs twice per
-        block per training step."""
-        self._single_device(mesh, tp)
+        block per training step.
+
+        With a local ``mesh`` the sequence splits over its data axis (it
+        must divide by the axis) and each block's attention is the
+        flash-kernel ring: ``n(n+1)/2`` forward launches a block over
+        ``n`` entries. ``tp=True`` also splits every block over the
+        model axis (see the module docstring). The result comes back
+        whole on the module's device. ``use_pallas`` is accepted and
+        changes nothing: tpudl picks between its plain path and its
+        Pallas kernel, which it proves equal; here both run the flash
+        kernels."""
+        grid = self._grid(mesh, tp)
+        if grid is not None:
+            xs, _ = self._grid_hidden(tokens, grid, remat)
+            return torch.cat([x.to(self.device) for x in xs], dim=1)
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(
@@ -176,7 +411,8 @@ class TinyCausalLM(nn.Module):
         def attn(q, k, v):
             return cuda_ops.flash_attention(q, k, v, causal=True)
 
-        for p in self.blocks:
+        for i in range(self.layers):
+            p = self._block_leaves(i)
             if remat:
                 x = checkpoint(self._decoder_block, x, p, attn,
                                use_reentrant=False)
@@ -184,37 +420,270 @@ class TinyCausalLM(nn.Module):
                 x = self._decoder_block(x, p, attn)
         return _layer_norm(x, self.final_norm)
 
-    def apply_pipelined(self, *args, **kwargs):
-        _not_ported("the pipelined forward (apply_pipelined)",
-                    "LM parallelism")
+    def _grid_hidden(self, tokens, grid, remat):
+        """The forward over ``grid``: each row's final-norm hidden states
+        (its sequence block, on the row's first card) and the embedding
+        table on that card."""
+        b, s = tokens.shape
+        if s > self.max_len:
+            raise ValueError(
+                f"sequence length {s} exceeds max_len {self.max_len}")
+        rows, cols = len(grid), len(grid[0])
+        if s % rows:
+            raise ValueError(
+                f"sequence length {s} not divisible by ring size {rows}")
+        tables = [self.embed["table"].to(row[0]) for row in grid]
+        xs = []
+        for r, tok in enumerate(tokens.chunk(rows, dim=1)):
+            x = F.embedding(tok.to(grid[r][0]), tables[r])
+            xs.append([x.to(d) for d in grid[r]])
+        attend = _ring_attend(grid)
+        for i in range(self.layers):
+            if not remat:
+                xs = self._grid_block(xs, self._grid_params(i, grid), grid,
+                                      attend)
+                continue
 
-    def _decoder_block(self, x, p, attn):
-        """One pre-norm decoder block, shared by the full forward (flash
-        ``attn``) and the KV-cache step (cached ``attn``). The MLP's gelu
-        is the tanh approximation, jax.nn.gelu's default."""
+            def run(*flat, i=i):
+                grid_xs = [list(flat[r * cols:(r + 1) * cols])
+                           for r in range(rows)]
+                out = self._grid_block(grid_xs, self._grid_params(i, grid),
+                                       grid, attend)
+                return tuple(t for row in out for t in row)
+
+            flat = checkpoint(run, *(t for row in xs for t in row),
+                              use_reentrant=False)
+            xs = [list(flat[r * cols:(r + 1) * cols]) for r in range(rows)]
+        out = []
+        for r, row in enumerate(grid):
+            norm = {k: t.to(row[0]) for k, t in self.final_norm.items()}
+            out.append(_layer_norm(xs[r][0], norm))
+        return out, tables
+
+    def _grid_params(self, i: int, grid) -> list:
+        """Block ``i``'s leaves for every entry of ``grid``
+        (:meth:`_entry_params`), ``[row][column]``."""
+        cols = len(grid[0])
+        return [[self._entry_params(i, j, cols, dev)
+                 for j, dev in enumerate(row)] for row in grid]
+
+    def _grid_block(self, xs, ps, grid, attend):
+        """ONE pre-norm decoder block over ``grid``, the single definition
+        of the block math: ``xs[r][j]`` is row ``r``'s activations on card
+        ``grid[r][j]`` (whole on every card of the row), ``ps[r][j]`` that
+        entry's leaves. Each card projects its heads, ``attend`` runs the
+        attention of every entry, and the row-parallel products (``wo``,
+        ``w_down``, the experts' combine) sum over the row
+        (:func:`~tpudl_torch.mesh.all_sum`): Megatron's split, which on a
+        one-card grid is the plain block. The MLP's gelu is the tanh
+        approximation, jax.nn.gelu's default."""
+        rows, cols = len(grid), len(grid[0])
+        heads = self.heads // cols
+        qkv = [[self._qkv(xs[r][j], ps[r][j], heads) for j in range(cols)]
+               for r in range(rows)]
+        att = attend(*([[e[n] for e in row] for row in qkv]
+                       for n in range(3)))
+        x2, h2 = [], []
+        for r in range(rows):
+            b, s = xs[r][0].shape[:2]
+            parts = [att[r][j].reshape(b, s, self.dim // cols) @ ps[r][j]["wo"]
+                     for j in range(cols)]
+            x2.append([x + t for x, t in
+                       zip(xs[r], M.all_sum(parts, grid[r]))])
+            h2.append([_layer_norm(x2[r][j], ps[r][j], "norm2_")
+                       for j in range(cols)])
+        if self.experts:
+            moe = self._grid_moe(h2, ps, grid)
+            return [[x + t for x, t in zip(x2[r], moe[r])]
+                    for r in range(rows)]
+        out = []
+        for r in range(rows):
+            sums = M.all_sum([self._ffn(h2[r][j], ps[r][j])
+                              for j in range(cols)], grid[r])
+            out.append([x2[r][j] + sums[j] + ps[r][j]["b_down"]
+                        for j in range(cols)])
+        return out
+
+    def apply_pipelined(self, tokens, mesh, *, pipe_axis: str = M.MODEL_AXIS,
+                        n_micro: int = 2, data_axis: str | None = None,
+                        remat: bool = False):
+        """Forward pass with the decoder blocks PIPELINED over
+        ``mesh[pipe_axis]`` (tpudl's GPipe schedule,
+        :func:`tpudl_torch.pipeline.pipeline_blocks`): stage ``i`` runs
+        blocks ``[i·L/n, (i+1)·L/n)`` on its card, and activations hop
+        stage to stage. Embed and head run on the module's device, outside
+        the pipe. ``data_axis`` also splits each microbatch over that
+        axis (DP×PP). Attention inside the pipe is dense
+        (:func:`~tpudl_torch.attention.attention_reference`), as in
+        tpudl. ``batch % n_micro == 0``; MoE blocks are refused."""
+        from tpudl_torch.pipeline import pipeline_blocks
+
+        if self.experts:
+            raise NotImplementedError(
+                "pipelined MoE blocks not supported; use apply(tp=True) "
+                "for expert parallelism")
+        b, s = tokens.shape
+        if b % n_micro:
+            raise ValueError(f"batch {b} not divisible by {n_micro} "
+                             "microbatches")
+
+        def block(x, p):
+            return self._decoder_block(
+                x, p, lambda q, k, v: attention_reference(q, k, v,
+                                                          causal=True))
+
+        x = F.embedding(tokens, self.embed["table"])          # [B, S, D]
+        xm = x.reshape(n_micro, b // n_micro, s, self.dim)
+        leaves = [self._block_leaves(i) for i in range(self.layers)]
+        stacked = {k: torch.stack([p[k] for p in leaves])
+                   for k in leaves[0].keys()}
+        ym = pipeline_blocks(block, stacked, xm, mesh, axis=pipe_axis,
+                             data_axis=data_axis, remat=remat)
+        x = _layer_norm(ym.reshape(b, s, self.dim), self.final_norm)
+        return x @ self.embed["table"].T
+
+    def _qkv(self, x, p, heads: int):
+        """The pre-norm and the q, k, v projections of ``heads`` heads,
+        each ``[B, S, heads, head_dim]``."""
         b, s = x.shape[0], x.shape[1]
         h = _layer_norm(x, p, "norm1_")
-        shape = (b, s, self.heads, self.dim // self.heads)
-        q, k, v = (h @ p[w] for w in ("wq", "wk", "wv"))
-        att = attn(q.reshape(shape), k.reshape(shape), v.reshape(shape))
-        x = x + att.reshape(b, s, self.dim) @ p["wo"]
-        h = _layer_norm(x, p, "norm2_")
-        h = F.gelu(h @ p["w_up"] + p["b_up"], approximate="tanh")
-        return x + h @ p["w_down"] + p["b_down"]
+        shape = (b, s, heads, self.dim // self.heads)
+        return tuple((h @ p[w]).reshape(shape) for w in ("wq", "wk", "wv"))
+
+    @staticmethod
+    def _ffn(h, p):
+        """The dense MLP before its output bias. The gelu is the tanh
+        approximation, jax.nn.gelu's default."""
+        return F.gelu(h @ p["w_up"] + p["b_up"], approximate="tanh") \
+            @ p["w_down"]
+
+    def _decoder_block(self, x, p, attn):
+        """:meth:`_grid_block` on ``x``'s own device with the leaves ``p``:
+        the full forward (flash ``attn``), the pipelined forward (dense
+        ``attn``) and the KV-cache step (cached ``attn``)."""
+        def attend(qs, ks, vs):
+            return [[attn(qs[0][0], ks[0][0], vs[0][0])]]
+
+        return self._grid_block([[x]], [[p]], [[x.device]], attend)[0][0]
+
+    def _route(self, h, w_gate, offset=None):
+        """tpudl's top-1 routing of ``h`` ``[B, S, D]``: (gate ``[B, S]``,
+        expert choice ``[B, S]``, each token's place in its expert's
+        buffer ``[B, S, E]``, −1 off its expert). ``offset`` ``[B, E]``
+        counts the tokens routed to each expert in earlier sequence
+        blocks."""
+        probs = torch.softmax((h @ w_gate).float(), dim=-1)     # [B,S,E]
+        gate, choice = probs.max(dim=-1)
+        onehot = F.one_hot(choice, self.experts).float()
+        count = torch.cumsum(onehot, dim=1)
+        if offset is not None:
+            count = count + offset[:, None, :]
+        return gate, choice, count * onehot - 1.0
+
+    def _capacity(self, s: int) -> int:
+        return max(1, int(math.ceil(s * self.capacity_factor
+                                    / self.experts)))
+
+    @staticmethod
+    def _dispatch(pos, gate, cap: int):
+        """The one-hot dispatch ``[B, S, E, C]`` of tokens into their
+        experts' buffers (0 past capacity) and the gate-weighted combine."""
+        keep = ((pos >= 0) & (pos < cap)).float()
+        slot = F.one_hot(pos.clamp(0, cap - 1).long(), cap).float()
+        dispatch = slot * keep[..., None]
+        return dispatch, dispatch * gate[..., None, None]
+
+    @staticmethod
+    def _experts(xe, p):
+        """The experts' FFNs over their buffers ``[E, B, C, D]``."""
+        u = F.gelu(torch.einsum("ebcd,edh->ebch", xe, p["w_up_e"].float())
+                   + p["b_up_e"][:, None, None, :], approximate="tanh")
+        return (torch.einsum("ebch,ehd->ebcd", u, p["w_down_e"].float())
+                + p["b_down_e"][:, None, None, :])
+
+    def _record_route(self, choice, pos, cap):
+        if self.moe_routes is not None:
+            kept = (pos.amax(dim=-1) < cap)
+            self.moe_routes.append((choice.detach(), kept.detach()))
+
+    def _grid_moe(self, hs, ps, grid):
+        """tpudl's top-1-routed (switch) mixture-of-experts FFN over
+        ``grid`` (``hs[r][j]`` the normed activations): the softmax gate
+        picks ONE expert a token; tokens are packed into per-expert
+        capacity buffers (``ceil(S·cf/E)`` a row, counted over the whole
+        sequence, so each row's routing adds the earlier rows' counts) by
+        a one-hot dispatch einsum, each expert's FFN runs on its buffer,
+        and a combine einsum scatters the results back weighted by the
+        gate. Tokens over capacity get nothing (the residual passes them
+        on). Each card's buffers for its experts travel to the card that
+        holds those experts (the row-0 card of its column), their FFNs run
+        there, the outputs travel back and combine, and one sum over the
+        row joins the experts."""
+        rows, cols = len(grid), len(grid[0])
+        per = self.experts // cols
+        cap = self._capacity(sum(h[0].shape[1] for h in hs))
+        combine, xe = {}, {}
+        for j in range(cols):
+            offset = None
+            for r in range(rows):
+                h = hs[r][j]
+                gate, choice, pos = self._route(h, ps[r][j]["w_gate"],
+                                                offset)
+                if j == 0:
+                    self._record_route(choice, pos, cap)
+                counts = (pos >= 0).float().sum(dim=1)           # [B, E]
+                offset = counts if offset is None else \
+                    offset.to(h.device) + counts
+                offset = offset.to(grid[(r + 1) % rows][j])
+                d, c = self._dispatch(pos[..., j * per:(j + 1) * per],
+                                      gate, cap)
+                combine[r, j] = c
+                xe[r, j] = torch.einsum("bsec,bsd->ebcd", d, h.float())
+        out = [[None] * cols for _ in range(rows)]
+        for j in range(cols):
+            home = grid[0][j]
+            ye = self._experts(M.sum_to([xe[r, j] for r in range(rows)],
+                                        home), ps[0][j])
+            for r in range(rows):
+                out[r][j] = torch.einsum("bsec,ebcd->bsd", combine[r, j],
+                                         ye.to(grid[r][j]))
+        return [[t.to(hs[r][0].dtype) for t in M.all_sum(out[r], grid[r])]
+                for r in range(rows)]
 
     # -- autoregressive decode (KV cache) ----------------------------------
+    def _decode_cards(self, mesh, tp):
+        """The model-axis cards a ``tp=True`` decode splits its heads over
+        (the mesh's first row), or None for a one-device decode."""
+        grid = self._grid(mesh, tp)
+        if grid is not None and self.experts:
+            raise NotImplementedError(
+                "KV-cache decode for MoE blocks not supported")
+        if grid is None or len(grid[0]) == 1:
+            return None
+        return grid[0]
+
     def init_cache(self, batch: int, max_len: int | None = None,
-                   dtype=None) -> list:
+                   dtype=None, *, mesh=None, tp: bool = False) -> list:
         """Per-layer K/V buffers ``[B, max_len, heads, head_dim]`` of zeros
-        (dtype follows the params unless given)."""
+        (dtype follows the params unless given). ``tp=True`` over a mesh
+        whose model axis is above 1 splits each buffer over heads: a tuple
+        of ``[B, max_len, heads/N, head_dim]`` buffers, one on each
+        model-axis card, so the cache's memory also scales by 1/N."""
         length = max_len or self.max_len
         dtype = dtype or self.embed["table"].dtype
-        shape = (batch, length, self.heads, self.dim // self.heads)
-        return [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-                for _ in range(self.layers)]
+        cards = self._decode_cards(mesh, tp)
+        devs = cards or [self.device]
+        shape = (batch, length, self.heads // len(devs),
+                 self.dim // self.heads)
 
-    def decode_step(self, tok, cache, pos):
+        def buf():
+            bufs = tuple(torch.zeros(shape, dtype=dtype, device=d)
+                         for d in devs)
+            return bufs if cards else bufs[0]
+
+        return [{"k": buf(), "v": buf()} for _ in range(self.layers)]
+
+    def decode_step(self, tok, cache, pos, *, mesh=None, tp: bool = False):
         """One incremental step: token ids ``tok`` ``[B]`` at position
         ``pos`` → (logits ``[B, vocab]``, cache). Each block's K/V for the
         token are written into ``cache`` at ``pos`` (in place) and
@@ -223,11 +692,15 @@ class TinyCausalLM(nn.Module):
         ``pos`` is an int (checked against the cache length) or a 0-d
         integer tensor on the model's device, which is not checked: the
         check would wait for the device, and a captured graph replays with
-        whatever position the tensor holds."""
-        x = self._decode_hidden(tok, cache, self._pos_tensor(pos, cache))
+        whatever position the tensor holds. ``tp=True`` runs the step over
+        the mesh's model axis, on a cache from ``init_cache(tp=True)``."""
+        cards = self._decode_cards(mesh, tp)
+        x = self._decode_hidden(tok, cache, self._pos_tensor(pos, cache),
+                                cards)
         return self._logits(x), cache
 
-    def decode_step_slots(self, tok, cache, pos):
+    def decode_step_slots(self, tok, cache, pos, *, mesh=None,
+                          tp: bool = False):
         """One decode step across ``S`` independent slots: token ids
         ``tok`` ``[S]`` at per-slot positions ``pos`` ``[S]`` (an integer
         tensor on the model's device) → (logits ``[S, vocab]``, cache) over
@@ -236,26 +709,49 @@ class TinyCausalLM(nn.Module):
         position and attends to keys ``<= pos[s]`` (an ``[S, L]`` mask), so
         rows never mix and a slot decodes as a batch-1 ``decode_step`` at
         the same position would. Slots nobody occupies ride along: their
-        write lands in a row that the next insert overwrites whole."""
-        return self._logits(self._decode_hidden(tok, cache, pos)), cache
+        write lands in a row that the next insert overwrites whole.
+        ``tp=True`` as :meth:`decode_step` takes it."""
+        cards = self._decode_cards(mesh, tp)
+        return self._logits(self._decode_hidden(tok, cache, pos,
+                                                cards)), cache
 
     def _pos_tensor(self, pos, cache):
         if isinstance(pos, torch.Tensor):
             return pos
-        cache_len = cache[0]["k"].shape[1]
+        cache_len = _shards(cache[0]["k"])[0].shape[1]
         pos = int(pos)
         if not 0 <= pos < cache_len:
             raise ValueError(
                 f"pos {pos} out of range for cache length {cache_len}")
         return torch.full((), pos, dtype=torch.int64, device=self.device)
 
-    def _decode_hidden(self, tok, cache, pos):
+    def _decode_hidden(self, tok, cache, pos, cards=None):
         """The decoder blocks of one cached step, before the final norm:
-        ``[B, D]``."""
+        ``[B, D]`` on the module's device. With ``cards`` (a ``tp=True``
+        decode), each card attends over its heads' cache shard and the
+        block runs as :meth:`_grid_block` over that one row."""
+        if self.experts:
+            raise NotImplementedError(
+                "KV-cache decode for MoE blocks not supported")
         x = F.embedding(tok, self.embed["table"])[:, None]   # [B, 1, D]
-        for p, layer_cache in zip(self.blocks, cache):
-            x = self._decoder_block(x, p, _cached_attn(layer_cache, pos))
-        return x[:, 0]
+        if cards is None:
+            for i, layer_cache in enumerate(cache):
+                x = self._decoder_block(x, self._block_leaves(i),
+                                        _cached_attn(layer_cache, pos))
+            return x[:, 0]
+        at = [pos.to(d) for d in cards]
+        xs = [[x.to(d) for d in cards]]
+        for i, layer_cache in enumerate(cache):
+            shards = [{"k": k, "v": v} for k, v in
+                      zip(layer_cache["k"], layer_cache["v"])]
+
+            def attend(qs, ks, vs, shards=shards):
+                return [[_cached_attn(c, p)(q, k, v) for c, p, q, k, v in
+                         zip(shards, at, qs[0], ks[0], vs[0])]]
+
+            xs = self._grid_block(xs, self._grid_params(i, [cards]),
+                                  [cards], attend)
+        return xs[0][0][:, 0].to(self.device)
 
     def _logits(self, x):
         """Final norm and tied head of ``_decode_hidden``'s output."""
@@ -272,11 +768,13 @@ class TinyCausalLM(nn.Module):
         slots. Greedy (``temperature == 0``) also writes each slot's argmax
         into ``tok``; a sampling engine draws the next tokens from
         ``logits`` itself, one generator a slot. It reads no host value,
-        so the engine captures it as one CUDA graph."""
-        self._single_device(mesh, tp)
+        so the engine captures it as one CUDA graph. ``tp=True`` runs the
+        step over the mesh's model axis, on a cache split over heads."""
+        self._decode_cards(mesh, tp)
 
         def run(cache, tok, pos, steps, live, logits):
-            logits.copy_(self.decode_step_slots(tok, cache, pos)[0])
+            logits.copy_(self.decode_step_slots(tok, cache, pos, mesh=mesh,
+                                                tp=tp)[0])
             if temperature <= 0:
                 tok.copy_(logits.argmax(dim=-1))
             pos.add_(live)
@@ -301,12 +799,15 @@ class TinyCausalLM(nn.Module):
           token into ``tok[slot]``, the whole row into the slot cache at
           the device index ``slot`` (which also wipes the slot's previous
           occupant), ``pos[slot] = real_plen``, ``steps[slot] = 1`` and
-          ``live[slot] = 1``."""
-        self._single_device(mesh, tp)
+          ``live[slot] = 1``.
+
+        ``tp=True`` runs both over the mesh's model axis, on caches split
+        over heads (each card writes its own shard)."""
+        cards = self._decode_cards(mesh, tp)
 
         def step(row, prompt, ppos, hidden):
             tok = prompt.index_select(0, ppos.view(1))
-            hidden.copy_(self._decode_hidden(tok, row, ppos))
+            hidden.copy_(self._decode_hidden(tok, row, ppos, cards))
             ppos.add_(1)
 
         def finish(row, cache, hidden, ppos, slot, tok, pos, steps, live,
@@ -314,8 +815,9 @@ class TinyCausalLM(nn.Module):
             logits.copy_(self._logits(hidden))
             tok.index_copy_(0, slot, logits.argmax(dim=-1))
             for r, c in zip(row, cache):
-                c["k"].index_copy_(0, slot, r["k"])
-                c["v"].index_copy_(0, slot, r["v"])
+                for key in ("k", "v"):
+                    for rs, cs in zip(_shards(r[key]), _shards(c[key])):
+                        cs.index_copy_(0, slot.to(cs.device), rs)
             pos.index_copy_(0, slot, ppos.view(1))
             steps.index_fill_(0, slot, 1)
             live.index_fill_(0, slot, 1)
@@ -348,8 +850,9 @@ class TinyCausalLM(nn.Module):
         ladder rung + ``max_new``). The prefill stops at the real prompt
         length: tpudl's extra steps over pad tokens only wrote cache slots
         that generation overwrites before any step attends them, so the
-        tokens are the same."""
-        self._single_device(mesh, tp)
+        tokens are the same. ``tp=True`` decodes over the mesh's model
+        axis, heads and KV cache split over its cards."""
+        self._decode_cards(mesh, tp)
         prompt = torch.as_tensor(prompt, dtype=torch.int32,
                                  device=self.device)
         b, plen = prompt.shape
@@ -364,14 +867,16 @@ class TinyCausalLM(nn.Module):
         if temperature > 0 and generator is None:
             raise ValueError("sampling (temperature > 0) needs generator=")
         padded = self._gen_bucket(plen, max_new, prompt_buckets)
-        cache = self.init_cache(b, padded + max_new)
+        cache = self.init_cache(b, padded + max_new, mesh=mesh, tp=tp)
         # the positions as device scalars: views into one tensor
         at = torch.arange(padded + max_new, device=self.device)
         for pos in range(plen):
-            logits, cache = self.decode_step(prompt[:, pos], cache, at[pos])
+            logits, cache = self.decode_step(prompt[:, pos], cache, at[pos],
+                                             mesh=mesh, tp=tp)
         out = [_pick(logits, temperature, generator)]
         for i in range(1, max_new):
-            logits, cache = self.decode_step(out[-1], cache, at[plen + i - 1])
+            logits, cache = self.decode_step(out[-1], cache, at[plen + i - 1],
+                                             mesh=mesh, tp=tp)
             out.append(_pick(logits, temperature, generator))
         return torch.stack(out, dim=1)
 
@@ -390,15 +895,48 @@ class TinyCausalLM(nn.Module):
         ``use_pallas`` is accepted and changes nothing: tpudl picks
         between dense attention and its Pallas kernel, which it proves
         equal; here both run the flash op (the CUDA kernels on the card).
-        ``mesh=`` and ``tp=True`` are refused."""
-        self._single_device(mesh, tp)
+        With a local ``mesh`` the forward runs as :meth:`hidden` runs it
+        there (the ring over the data axis, ``tp=True`` over the model
+        axis; ``S - 1`` must divide by the data axis), and each sequence
+        block's logits and summed cross-entropy stay on its card: only the
+        sums travel."""
+        self._grid(mesh, tp)
 
         def loss(model, tokens):
-            logits = model.apply(tokens[:, :-1], remat=remat)
-            return F.cross_entropy(logits.float().flatten(0, 1),
-                                   tokens[:, 1:].flatten().long())
+            grid = model._grid(mesh, tp)
+            if grid is None:
+                logits = model.apply(tokens[:, :-1], remat=remat)
+                return F.cross_entropy(logits.float().flatten(0, 1),
+                                       tokens[:, 1:].flatten().long())
+            xs, tables = model._grid_hidden(tokens[:, :-1], grid, remat)
+            targets = tokens[:, 1:].chunk(len(grid), dim=1)
+            parts = [F.cross_entropy((x @ t.T).float().flatten(0, 1),
+                                     y.to(x.device).flatten().long(),
+                                     reduction="sum")
+                     for x, t, y in zip(xs, tables, targets)]
+            return M.sum_to(parts, model.device) / targets[0].shape[0] / (
+                tokens.shape[1] - 1)
 
         return loss
+
+
+def _ring_attend(grid):
+    """Attention of every entry of ``grid`` (``[row][column]`` lists of q,
+    k, v): one causal flash-kernel ring a column, over its rows."""
+    def attend(qs, ks, vs):
+        rows, cols = len(grid), len(grid[0])
+        out = [[None] * cols for _ in range(rows)]
+        for j in range(cols):
+            col = ring([qs[r][j] for r in range(rows)],
+                       [ks[r][j] for r in range(rows)],
+                       [vs[r][j] for r in range(rows)],
+                       [grid[r][j] for r in range(rows)],
+                       causal=True, use_pallas=True)
+            for r in range(rows):
+                out[r][j] = col[r]
+        return out
+
+    return attend
 
 
 def _cached_attn(layer_cache: dict, pos):
@@ -442,32 +980,55 @@ def _param_groups(model: TinyCausalLM) -> dict:
     return groups
 
 
+def _leaf_groups(model: TinyCausalLM) -> dict:
+    """tpudl's param group name → ``{leaf name: whole tensor}`` (split
+    leaves of a tensor-parallel layout put back together)."""
+    groups = {"embed": dict(model.embed.items()),
+              "final_norm": dict(model.final_norm.items())}
+    groups.update({f"block_{i}": dict(model._block_leaves(i).items())
+                   for i in range(model.layers)})
+    return groups
+
+
 def to_jax_params(model: TinyCausalLM) -> dict:
     """The module's weights as tpudl's param pytree of numpy arrays (host
-    copies): the inverse of :func:`load_jax_params`."""
-    return {name: {key: t.detach().cpu().numpy().copy()
-                   for key, t in group.items()}
-            for name, group in _param_groups(model).items()}
+    copies), whatever the module's layout: the inverse of
+    :func:`load_jax_params`."""
+    with torch.no_grad():
+        return {name: {key: t.detach().cpu().numpy().copy()
+                       for key, t in group.items()}
+                for name, group in _leaf_groups(model).items()}
 
 
 def load_jax_params(model: TinyCausalLM, params) -> TinyCausalLM:
     """Copy tpudl's param pytree (``{"embed": {"table"}, "final_norm":
-    {...}, "block_<i>": {...}}`` of numpy or jax arrays) into ``model``.
-    Names and shapes must match exactly; returns ``model``."""
-    groups = _param_groups(model)
+    {...}, "block_<i>": {...}}`` of numpy or jax arrays, whatever their
+    shardings) into ``model``, whatever its layout (a split leaf is
+    copied slice by slice into its cards). Names and shapes must match
+    exactly; returns ``model``."""
+    groups = _leaf_groups(model)
     if set(params) != set(groups):
         raise KeyError(f"param groups {sorted(params)} do not match the "
                        f"model's {sorted(groups)}")
     with torch.no_grad():
         for name, group in groups.items():
             src = params[name]
-            if set(src) != set(group.keys()):
+            if set(src) != set(group):
                 raise KeyError(f"{name}: params {sorted(src)} do not match "
-                               f"the model's {sorted(group.keys())}")
-            for key, dst in group.items():
+                               f"the model's {sorted(group)}")
+            for key, whole in group.items():
                 arr = np.asarray(src[key])
-                if arr.shape != tuple(dst.shape):
+                if arr.shape != tuple(whole.shape):
                     raise ValueError(f"{name}.{key}: shape {arr.shape} != "
-                                     f"model {tuple(dst.shape)}")
-                dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                                     f"model {tuple(whole.shape)}")
+                t = torch.from_numpy(np.ascontiguousarray(arr))
+                split = (model._tp_devices is not None
+                         and name.startswith("block_")
+                         and key in model.tp_shards[0][0])
+                if not split:
+                    _param_groups(model)[name][key].copy_(t)
+                    continue
+                i, n = int(name[6:]), len(model._tp_devices)
+                for j, part in enumerate(t.chunk(n, dim=_SHARD_DIM[key])):
+                    model.tp_shards[j][i][key].copy_(part)
     return model
