@@ -271,6 +271,29 @@ Phases (any failure exits non-zero before the final line):
    tokens dropped, two sgd steps); ``apply_pipelined`` over 4 stages with
    8 microbatches against ``apply``, and two sgd steps through it; the
    phase's seconds.
+17. Drive the compile subsystem (``tpudl_torch.compile``: the program
+   store over CUDA graphs, armed with ``TPUDL_COMPILE_AOT``) at phase 4's
+   width: ``LMFeaturizer`` over 128 texts armed against unarmed (the
+   first armed run misses on its first batch only, 12 flash forward
+   launches a batch in both, graph replays counted, features bit for bit
+   or within 2e-5 of max |y|, rows/s over 5 windows with the arms in
+   turn); InceptionV3 bf16 ``DeepImageFeaturizer`` unfused over 512
+   structs armed against unarmed (``warmup(299, 299)`` then ``transform``
+   misses nothing, features within 1e-2 of max |y|, images/s over 5
+   windows and each arm's card idle share); greedy ``generate`` through
+   one graph for 4 prompts of one pow2 rung (tokens equal to eager on the
+   card and 2 to the CPU port's, one graph, new tokens/s of graph and
+   eager, the card memory the capture reserved); ``precompile_serve``
+   through the registry then 8 greedy slot streams equal to serial
+   ``generate`` with no capture after registration, and ``RungBatcher``
+   over the embed function through the store (12 forward launches a
+   replay); cold start in child processes (``--compile-child``), two an
+   arm, timed from process start and from ``warm_start`` returning to
+   the first result — arm A on an empty store, arm B on A's manifest
+   (its first dispatch a hit) — for ``LMFeaturizer`` and for
+   ``generate``, and one child on an empty kernel directory
+   (``TPUDL_COMPILE_CACHE_DIR``) that prints the nvcc build seconds; the
+   phase's seconds.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -285,7 +308,8 @@ phase 10 alone. ``python3 chip_smoke.py --graph-only`` runs phase 1 and then pha
 alone. ``python3 chip_smoke.py --keras2-only`` runs phase 1 and then
 phase 12 alone, ``--data-only`` phase 1 and then phase 13, and
 ``--mesh-only`` phase 1 and then phase 14, ``--serve-only`` phase 1 and
-then phase 15, ``--parallel-only`` phase 1 and then phase 16.
+then phase 15, ``--parallel-only`` phase 1 and then phase 16, and
+``--compile-only`` phase 1 and then phase 17.
 ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -6795,8 +6819,561 @@ def run_parallel(card):
     return counts
 
 
+# phase 17: the compile subsystem (tpudl_torch.compile: the program store
+# over CUDA graphs, the kernel-build cache, buckets from the environment)
+COMPILE_ROWS = 64                  # LMFeaturizer: 4 batches of [16, 1024]
+COMPILE_IMAGE_ROWS = 512           # InceptionV3 bf16, unfused, batch 64
+COMPILE_IMAGE_RTOL = {"float32": IMAGE_CPU_RTOL, "bfloat16": 1e-2}
+COMPILE_LM_RTOL = 2e-5             # of max |y|, where the graph's kernels differ
+COMPILE_GEN_PLENS = (17, 20, 25, 31)   # one pow2 rung: 32
+COMPILE_GEN_NEW = 16
+COMPILE_GEN_CPU = 2                # of the generate prompts, against the CPU
+COMPILE_SERVE_PLENS = (5, 9, 17, 33, 40, 50, 64, 100)
+COMPILE_SERVE_NEW = 16
+COMPILE_SERVE_CACHE = 256
+COMPILE_CHILD_ROWS = BATCH         # a cold-start child featurizes one batch
+COMPILE_CHILD_TIMEOUT = 300
+
+
+@contextlib.contextmanager
+def aot_env(path):
+    """The program store armed at ``path`` (``TPUDL_COMPILE_AOT``), or
+    unarmed for None; the variable is put back after."""
+    saved = os.environ.get("TPUDL_COMPILE_AOT")
+    if path is None:
+        os.environ.pop("TPUDL_COMPILE_AOT", None)
+    else:
+        os.environ["TPUDL_COMPILE_AOT"] = str(path)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("TPUDL_COMPILE_AOT", None)
+        else:
+            os.environ["TPUDL_COMPILE_AOT"] = saved
+
+
+def compile_counts() -> dict:
+    from tpudl_torch.obs import metrics
+
+    return {k: metrics.counter(f"compile.{k}").value
+            for k in ("hits", "misses", "programs_restored",
+                      "programs_compiled", "observed")}
+
+
+def compile_delta(before) -> dict:
+    now = compile_counts()
+    return {k: int(now[k] - before[k]) for k in now}
+
+
+def held(what, got, want, rtol, card, problems) -> str:
+    """``got`` against ``want``: bitwise, or within ``rtol`` of max |y|
+    where a captured graph runs other kernels than the eager calls."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        problems.append(f"{what}: shape {got.shape}, finite "
+                        f"{bool(np.isfinite(got).all())}")
+        return "MISS"
+    if np.array_equal(got, want):
+        return "bit for bit"
+    err = rel_err(got, want)
+    if not err <= rtol:
+        problems.append(f"{what}: {err:.3e} of max |y| (limit {rtol})")
+    return f"{err:.3e} of max |y| (limit {rtol})"
+
+
+def compile_lm_leg(weights, store, card, problems):
+    """LMFeaturizer at phase 4's width with the store armed against
+    unarmed: the first armed transform misses on its first batch only,
+    the rest replay; 12 forward launches a batch in both; features equal;
+    rows/s over IMAGE_WINDOWS windows, the arms in turn. Returns the
+    armed counted run's launches."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.obs import last_pipeline_report
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    frame = Frame({"text": make_texts(COMPILE_ROWS, SEED + 40)})
+    n_batches = -(-COMPILE_ROWS // BATCH)
+    # one stage: armed or not, its function is the same; only the
+    # executor's dispatch through the store differs
+    st = LMFeaturizer(inputCol="text", outputCol="vec", model=spec,
+                      weights=weights, tokenizer=ByteTokenizer(),
+                      batchSize=BATCH)
+    paths = {"unarmed": None, "armed": store}
+    ys, counted = {}, {}
+    for arm in ("unarmed", "armed", "armed again"):
+        with aot_env(paths[arm.split()[0]]):
+            if arm == "unarmed":
+                st.transform(frame)            # loads and warms cuBLAS
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            before = compile_counts()
+            t0 = time.perf_counter()
+            y = np.stack(list(st.transform(frame)["vec"]))
+            torch.cuda.synchronize()
+            rate = COMPILE_ROWS / (time.perf_counter() - t0)
+            rep = last_pipeline_report()
+        n = dict(cuda_ops.launch_counts)
+        d = compile_delta(before)
+        counted[arm] = (rate, rep, n, d)
+        ys[arm] = y
+        calls = rep["stage_calls"]
+        want = {"unarmed": (0, 0), "armed": (n_batches - 1, 1),
+                "armed again": (n_batches, 0)}[arm]
+        got = (calls.get("aot_hits", 0), calls.get("aot_misses", 0))
+        print(f"  LMFeaturizer {arm}: {COMPILE_ROWS} rows in {n_batches} "
+              f"batches, {rate:.1f} rows/s (this run); report aot "
+              f"{rep['aot']}, aot_hits/aot_misses {got} (want {want}); "
+              f"compile.* {d}; flash forward launches "
+              f"{n['flash_attn_fwd']} (want {LAYERS} x {n_batches}"
+              f"{', graph replays' if arm != 'unarmed' else ''}); card "
+              f"{card}", flush=True)
+        if got != want or rep["aot"] != (arm != "unarmed"):
+            problems.append(f"LMFeaturizer {arm}: hits/misses {got}")
+        if n["flash_attn_fwd"] != LAYERS * n_batches:
+            problems.append(f"LMFeaturizer {arm}: launches {n}")
+    for arm in ("armed", "armed again"):
+        print(f"  LMFeaturizer {arm} features against unarmed: "
+              f"{held('LMFeaturizer ' + arm, ys[arm], ys['unarmed'], COMPILE_LM_RTOL, card, problems)}")
+    rates = {arm: [] for arm in paths}
+    for _ in range(IMAGE_WINDOWS):
+        for arm, path in paths.items():
+            with aot_env(path):
+                t0 = time.perf_counter()
+                st.transform(frame)
+                torch.cuda.synchronize()
+                rates[arm].append(COMPILE_ROWS / (time.perf_counter() - t0))
+    for arm, r in rates.items():
+        print(f"  LMFeaturizer {arm}: {len(r)} windows (arms in turn): "
+              f"median {median(r):.1f} rows/s (least {min(r):.1f}, most "
+              f"{max(r):.1f}); card {card}")
+    print(f"    armed report: {report_text(counted['armed again'][1])}")
+    return counted["armed again"][2]
+
+
+def compile_image_leg(store, card, problems):
+    """InceptionV3 bf16 ``DeepImageFeaturizer``, unfused, over 512 structs
+    with the store armed against without: ``warmup(299, 299)`` then
+    ``transform`` misses nothing; features equal; images/s over
+    IMAGE_WINDOWS windows and each arm's card idle share. The host-bound
+    path per-batch graphs are for (no claim)."""
+    from tpudl_torch.compile.store import PROGRAM_CACHE_SIZE
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer
+
+    frame = Frame({"image": image_structs(COMPILE_IMAGE_ROWS, (299, 299, 3),
+                                          SEED + 41)})
+    n_batches = -(-COMPILE_IMAGE_ROWS // IMAGE_BATCH)
+    feat = DeepImageFeaturizer(
+        inputCol="image", outputCol="f", modelName="InceptionV3",
+        computeDtype="bfloat16", batchSize=IMAGE_BATCH, fuseSteps=1)
+    paths = {"unarmed": None, "armed": store}
+
+    def run():
+        return np.stack(list(feat.transform(frame)["f"]))
+
+    with aot_env(None):
+        run()                                       # loads, warms cuDNN
+        y0 = run()
+    with aot_env(store):
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        feat.warmup(299, 299)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        reserved1 = torch.cuda.memory_reserved()
+        before = compile_counts()
+        y1 = run()
+        d = compile_delta(before)
+    print(f"  InceptionV3 bf16 unfused: warmup(299, 299) captured the "
+          f"executor's key in {warm_s:.2f} s; card memory reserved "
+          f"{reserved0 / 2**20:.1f} -> {reserved1 / 2**20:.1f} MiB at the "
+          f"capture (+{(reserved1 - reserved0) / 2**20:.1f}; the store "
+          f"holds {PROGRAM_CACHE_SIZE} graphs at most); the transform after "
+          f"it: "
+          f"compile.* {d} (want {n_batches} hits, 0 misses); features "
+          f"{held('InceptionV3 bf16 armed', y1, y0, COMPILE_IMAGE_RTOL['bfloat16'], card, problems)}"
+          f" against unarmed; card {card}", flush=True)
+    if d["misses"] or d["hits"] != n_batches:
+        problems.append(f"InceptionV3 warmup then transform: {d}")
+    rates = {arm: [] for arm in paths}
+    for _ in range(IMAGE_WINDOWS):
+        for arm, path in paths.items():
+            with aot_env(path):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                rates[arm].append(COMPILE_IMAGE_ROWS
+                                  / (time.perf_counter() - t0))
+    for arm, r in rates.items():
+        with aot_env(paths[arm]):
+            wall, busy, ev = idle_profile(run)
+        print(f"  InceptionV3 bf16 {arm}: {len(r)} windows (arms in turn): "
+              f"median {median(r):.1f} images/s (least {min(r):.1f}, most "
+              f"{max(r):.1f}); card {card}")
+        print(idle_text(f"InceptionV3 bf16 {arm}", wall, busy, ev, card))
+
+
+def compile_generate_leg(weights, net, store, card, problems):
+    """``generate`` through its graph: 4 prompts of ragged lengths in one
+    pow2 rung, 16 new tokens each; tokens equal to eager ``generate`` on
+    the card and 2 to the CPU port's; one graph for the rung; new tokens/s
+    of the graph and of eager; the graph's memory."""
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    prompts = serve_prompts(COMPILE_GEN_PLENS, SEED + 42)
+
+    def gen(p):
+        return net.generate(p[None, :], COMPILE_GEN_NEW,
+                            prompt_buckets="pow2").cpu().numpy()[0]
+
+    with aot_env(None):
+        gen(prompts[0])                                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = [gen(p) for p in prompts]
+        eager_s = time.perf_counter() - t0
+    with aot_env(store):
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        before = compile_counts()
+        t0 = time.perf_counter()
+        first = gen(prompts[0])                           # eager + capture
+        first_s = time.perf_counter() - t0
+        reserved1 = torch.cuda.memory_reserved()
+        graph = [first] + [gen(p) for p in prompts[1:]]
+        d = compile_delta(before)
+        programs = len(net._gen_fns)     # the rung's one graph function
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = [gen(p) for p in prompts]
+        graph_s = time.perf_counter() - t0
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(graph, eager)]
+    equal_again = [bool(np.array_equal(a, b)) for a, b in zip(again, eager)]
+    cpu = TinyCausalLM.from_jax_params(
+        weights, vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+        max_len=MAX_LEN, device="cpu")
+    cpu_equal = [bool(np.array_equal(
+        cpu.generate(p[None, :], COMPILE_GEN_NEW).numpy()[0], g))
+        for p, g in zip(prompts[:COMPILE_GEN_CPU], graph)]
+    del cpu
+    n_new = len(prompts) * COMPILE_GEN_NEW
+    print(f"  generate, prompts {list(COMPILE_GEN_PLENS)} (pow2 rung 32), "
+          f"{COMPILE_GEN_NEW} new tokens: graph tokens equal to eager on the "
+          f"card {equal} and on replay {equal_again}; the first "
+          f"{COMPILE_GEN_CPU} equal to the CPU port's {cpu_equal}; graph "
+          f"functions {programs}, graphs captured {d['programs_compiled']} "
+          f"(want 1 and 1); compile.* {d}; first call "
+          f"(eager + capture) {first_s:.3f} s; new tokens/s: graph "
+          f"{n_new / graph_s:.1f}, eager {n_new / eager_s:.1f}; card memory "
+          f"reserved {reserved0 / 2**20:.1f} -> {reserved1 / 2**20:.1f} MiB "
+          f"at the capture (+{(reserved1 - reserved0) / 2**20:.1f}); card "
+          f"{card}", flush=True)
+    if not all(equal + equal_again + cpu_equal) or programs != 1 \
+            or d["programs_compiled"] != 1 or d["misses"] != 1 \
+            or d["hits"] != len(prompts) - 1:
+        problems.append(f"generate graph: equal {equal} {equal_again} "
+                        f"{cpu_equal}, programs {programs}, {d}")
+
+
+def compile_serve_leg(net, store, card, problems):
+    """``precompile_serve`` through the registry with the store armed, then
+    8 greedy slot streams equal to serial ``generate``, 0 captures after
+    registration; and ``RungBatcher`` over the embed function through the
+    store (one graph a rung, 12 forward launches a replay). Returns the
+    batcher's launches."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.compile import get_program_store
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.serve import ModelRegistry, RungBatcher
+    from tpudl_torch.text import pad_mask
+
+    with aot_env(store):
+        t0 = time.perf_counter()
+        entry = ModelRegistry().add_model(
+            "lm", net, slots=SERVE_SLOTS, cache_len=COMPILE_SERVE_CACHE,
+            warm=True)
+        reg_s = time.perf_counter() - t0
+        eng = entry.engine
+        bound = sum(e["bound"] for e in get_program_store().entries()
+                    .values())
+        captures = eng.captures
+        prompts = serve_prompts(COMPILE_SERVE_PLENS, SEED + 43)
+        before = compile_counts()
+        streams = serve_drain(eng, [_Probe(p, COMPILE_SERVE_NEW)
+                                    for p in prompts])
+        d = compile_delta(before)
+    with aot_env(None):
+        serial = [serve_serial(net, p, COMPILE_SERVE_NEW) for p in prompts]
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(streams, serial)]
+    print(f"  precompile_serve through the registry: {reg_s:.2f} s, "
+          f"warm_signatures {entry.warm_signatures} (want 3), {bound} serve "
+          f"entries in the manifest, {captures} graphs; 8 greedy streams "
+          f"(prompts {list(COMPILE_SERVE_PLENS)}, {COMPILE_SERVE_NEW} new) "
+          f"equal to serial generate: {equal}; graphs captured after "
+          f"registration {eng.captures - captures}; compile.* of the drain "
+          f"{d}; card {card}", flush=True)
+    if entry.warm_signatures != 3 or bound < 3 or not all(equal) \
+            or eng.captures != captures or d["misses"]:
+        problems.append(f"precompile_serve: {entry.warm_signatures}, "
+                        f"{bound}, {equal}, {d}")
+
+    def embed(tokens):
+        with full_f32():
+            t = torch.as_tensor(tokens, device=net.device)
+            mask = pad_mask(t)
+            h = net.hidden(t)
+            pooled = (h * mask[..., None]).sum(dim=1)
+            return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+
+    rng = np.random.default_rng(SEED + 44)
+    payloads = [rng.integers(1, VOCAB, (n, SERVE_BATCHER_BYTES + 1))
+                for n in SERVE_BATCHER_ROWS]
+    with torch.inference_mode():
+        with aot_env(None):
+            want = np.concatenate(RungBatcher(embed).run(payloads))
+        with aot_env(store):
+            batcher = RungBatcher(embed, device=net.device)
+            batcher.run(payloads)                        # miss: captures
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            before = compile_counts()
+            got = np.concatenate(batcher.run(payloads))
+            torch.cuda.synchronize()
+            d = compile_delta(before)
+            launched = dict(cuda_ops.launch_counts)
+    print(f"  RungBatcher over the embed function through the store: "
+          f"compile.* {d} (want 1 hit), flash forward launches "
+          f"{launched['flash_attn_fwd']} (want {LAYERS}, a replay); rows "
+          f"{held('RungBatcher armed', got, want, COMPILE_LM_RTOL, card, problems)}"
+          f" against unarmed; card {card}", flush=True)
+    if d["hits"] != 1 or launched["flash_attn_fwd"] != LAYERS:
+        problems.append(f"RungBatcher through the store: {d}, {launched}")
+    return launched
+
+
+def save_weights(weights, path):
+    np.savez(path, **{f"{g}/{k}": a for g, leaves in weights.items()
+                      for k, a in leaves.items()})
+
+
+def load_weights(path) -> dict:
+    out: dict = {}
+    with np.load(path) as z:
+        for name in z.files:
+            g, k = name.split("/")
+            out.setdefault(g, {})[k] = z[name]
+    return out
+
+
+def compile_child(kind, weights_path):
+    """One cold-start child (``--compile-child``): from process start to
+    the first result of ``kind`` — ``lm`` (LMFeaturizer over one batch)
+    or ``gen`` (one greedy generate), with ``warm_start`` between building
+    the model and the traffic — or, for ``kernels``, to the end of the
+    nvcc build into an empty kernel directory. Prints one JSON line."""
+    from tpudl_torch import compile as C
+    from tpudl_torch.obs import last_pipeline_report
+
+    out = {"kind": kind}
+    if kind == "kernels":
+        from tpudl_torch import _build
+
+        out["t_warm"] = time.time()
+        t0 = time.perf_counter()
+        logs = _build.build()
+        out["build_s"] = time.perf_counter() - t0
+        out["t_first"] = time.time()
+        out["built"] = sorted(logs)
+        out["kernel_dir"] = str(_build.build_dir())
+        print(json.dumps(out), flush=True)
+        return
+    weights = load_weights(weights_path)
+    before = compile_counts()
+    if kind == "lm":
+        from tpudl_torch.frame import Frame
+        from tpudl_torch.ml import LMFeaturizer
+        from tpudl_torch.text import ByteTokenizer
+        from tpudl_torch.zoo.transformer import TinyCausalLM
+
+        spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN,
+                            device="meta")
+        stage = LMFeaturizer(inputCol="text", outputCol="vec", model=spec,
+                             weights=weights, tokenizer=ByteTokenizer(),
+                             batchSize=BATCH)
+        frame = Frame({"text": make_texts(COMPILE_CHILD_ROWS, SEED + 40)})
+        out["restored"] = C.warm_start(block=True)
+        out["t_warm"] = time.time()
+        y = np.stack(list(stage.transform(frame)["vec"]))
+        out["t_first"] = time.time()
+        calls = last_pipeline_report()["stage_calls"]
+        out["first_dispatch"] = ("hit" if calls.get("aot_hits") else "miss")
+    else:
+        from tpudl_torch.zoo.transformer import TinyCausalLM
+
+        net = TinyCausalLM.from_jax_params(
+            weights, vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+            max_len=MAX_LEN, device="cuda")
+        prompt = serve_prompts(COMPILE_GEN_PLENS[:1], SEED + 42)[0]
+        out["restored"] = C.warm_start(block=True)
+        out["t_warm"] = time.time()
+        y = net.generate(prompt[None, :], COMPILE_GEN_NEW,
+                         prompt_buckets="pow2").cpu().numpy()
+        out["t_first"] = time.time()
+        out["tokens"] = y[0].tolist()
+    d = compile_delta(before)
+    out["compile"] = d
+    if kind == "gen":
+        out["first_dispatch"] = "hit" if d["hits"] else "miss"
+    out["finite"] = bool(np.isfinite(y).all())
+    print(json.dumps(out), flush=True)
+
+
+def compile_cold_start_leg(weights, tmp, card, problems):
+    """Two child processes per arm, started together, each timed from its
+    start to its first result and from ``warm_start`` returning to it —
+    arm A on an empty store each, arm B both on the manifest arm A's first
+    child left — for LMFeaturizer and for generate; and one child on an
+    empty kernel directory, which prints the nvcc build seconds."""
+    import shutil
+
+    wpath = os.path.join(tmp, "weights.npz")
+    t0 = time.perf_counter()
+    save_weights(weights, wpath)
+    print(f"  cold start: the seeded weights written for the children in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    script = os.path.abspath(__file__)
+
+    def children(kind, stores, cache_dir=None):
+        """One child a store, all started together (the two of an arm run
+        side by side); each one's result with its two times."""
+        env = dict(os.environ)
+        if cache_dir is not None:
+            env["TPUDL_COMPILE_CACHE_DIR"] = cache_dir
+        procs = []
+        for store in stores:
+            procs.append((time.time(), subprocess.Popen(
+                [sys.executable, script, "--compile-child", kind, wpath],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=dict(env, TPUDL_COMPILE_AOT=store), cwd=os.getcwd())))
+        outs = []
+        for t_spawn, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=COMPILE_CHILD_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("{\"kind\"")]
+            if proc.returncode or not lines:
+                problems.append(f"cold-start child {kind}: rc "
+                                f"{proc.returncode}")
+                print(f"  child {kind} failed rc {proc.returncode}:\n"
+                      f"{stdout[-2000:]}\n{stderr[-3000:]}", flush=True)
+                outs.append(None)
+                continue
+            out = json.loads(lines[-1])
+            out["start_to_first_s"] = out["t_first"] - t_spawn
+            out["warm_to_first_s"] = out["t_first"] - out["t_warm"]
+            outs.append(out)
+        return outs
+
+    results = {}
+    for kind in ("lm", "gen"):
+        a_dirs = [os.path.join(tmp, f"{kind}-A{i}") for i in (1, 2)]
+        for arm, dirs in (("A", a_dirs), ("B", [a_dirs[0]] * 2)):
+            for i, r in enumerate(children(kind, dirs)):
+                results[(kind, arm, i)] = r
+                if r is None:
+                    continue
+                want = "miss" if arm == "A" else "hit"
+                print(f"  cold start {kind} arm {arm} child {i + 1}: process "
+                      f"start to first result {r['start_to_first_s']:.2f} s, "
+                      f"warm_start returning to it "
+                      f"{r['warm_to_first_s']:.3f} s; restored "
+                      f"{r['restored']}; first dispatch "
+                      f"{r['first_dispatch']} (want {want}); compile.* "
+                      f"{r['compile']}; card {card}", flush=True)
+                if r["first_dispatch"] != want or not r["finite"]:
+                    problems.append(f"cold start {kind} arm {arm}: {r}")
+    gens = [results[("gen", a, i)] for a in "AB" for i in (0, 1)]
+    if all(gens) and len({tuple(g["tokens"]) for g in gens}) != 1:
+        problems.append("cold-start generate tokens differ by arm")
+    kdir = os.path.join(tmp, "kernel-cache")
+    r, = children("kernels", [os.path.join(tmp, "kernels-store")],
+                  cache_dir=kdir)
+    if r is not None:
+        print(f"  cold start with an empty kernel directory "
+              f"(TPUDL_COMPILE_CACHE_DIR={kdir}): nvcc built {r['built']} "
+              f"into {r['kernel_dir']} in {r['build_s']:.1f} s; process "
+              f"start to the built kernels {r['start_to_first_s']:.2f} s; "
+              f"card {card}", flush=True)
+        if not r["built"] or not r["kernel_dir"].startswith(kdir):
+            problems.append(f"kernel-cache child: {r}")
+    shutil.rmtree(kdir, ignore_errors=True)
+
+
+def run_compile(card):
+    """Phase 17: the compile subsystem at phase 4's width. Every check runs
+    and prints; the phase fails at its end if any did not hold. Returns
+    the kernel launches of its paths."""
+    import shutil
+    import tempfile
+
+    from tpudl_torch.compile import reset_program_store
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    t_phase = time.perf_counter()
+    problems = []
+    tmp = tempfile.mkdtemp(prefix="tpudl-compile-")
+    store = os.path.join(tmp, "programs")
+    try:
+        spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN,
+                            device="meta")
+        weights = spec.init(SEED)
+        counts = {}
+        legs = (("compile_lm_leg", lambda: compile_lm_leg(
+                    weights, store, card, problems)),
+                ("compile_image_leg", lambda: compile_image_leg(
+                    store, card, problems)),
+                ("compile_generate_and_serve_legs", None),
+                ("compile_cold_start_leg", lambda: compile_cold_start_leg(
+                    weights, tmp, card, problems)))
+        for name, leg in legs:
+            t0 = time.perf_counter()
+            if leg is None:
+                with aot_env(None):
+                    net = TinyCausalLM.from_jax_params(
+                        weights, vocab=VOCAB, dim=DIM, heads=HEADS,
+                        layers=LAYERS, max_len=MAX_LEN, device="cuda")
+                compile_generate_leg(weights, net, store, card, problems)
+                counts["compile_rung_batcher"] = compile_serve_leg(
+                    net, store, card, problems)
+                del net
+            else:
+                out = leg()
+                if out is not None:
+                    counts["compile_lm_featurizer"] = out
+            print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        reset_program_store()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 17: " + "; ".join(problems))
+    return counts
+
+
+
 def main(argv) -> int:
-    card = card_line()
+    # a cold-start child's clock starts at its process start: no nvidia-smi
+    card = "" if argv[:1] == ["--compile-child"] else card_line()
     print(f"card: {card}", flush=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script measures "
@@ -6893,6 +7470,17 @@ def main(argv) -> int:
         print(f"parallel-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--compile-only"]:
+        print(f"phase 17 alone: the compile subsystem at full width on "
+              f"{card}", flush=True)
+        run_compile(card)
+        print(f"card: {card}")
+        print(f"compile-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
+    if len(argv) == 3 and argv[0] == "--compile-child":
+        compile_child(argv[1], argv[2])   # phase 17's cold-start child
+        return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
               f"{card}", flush=True)
@@ -6912,7 +7500,8 @@ def main(argv) -> int:
         fail(f"unknown arguments {argv}; the options are --image-only, "
              "--executor-only, --train-only, --keras-only, --surface-only, "
              "--graph-only, --keras2-only, --data-only, --mesh-only, "
-             "--serve-only, --parallel-only, --ranks N and --pool-study")
+             "--serve-only, --parallel-only, --compile-only, --ranks N and "
+             "--pool-study")
 
     from tpudl_torch import _build
 
@@ -7024,6 +7613,9 @@ def main(argv) -> int:
     serve_counts = run_serve(card)
     print(f"phase 16: LM parallelism at full width on {card}", flush=True)
     parallel_counts = run_parallel(card)
+    print(f"phase 17: the compile subsystem at full width on {card}",
+          flush=True)
+    compile_counts_ = run_compile(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -7038,7 +7630,8 @@ def main(argv) -> int:
         entry["launches_by_path"]["keras2_files"] = \
             keras2_counts[entry["name"]]
         for path, counts in {**data_counts, **mesh_counts,
-                             **serve_counts, **parallel_counts}.items():
+                             **serve_counts, **parallel_counts,
+                             **compile_counts_}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "

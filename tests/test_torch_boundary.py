@@ -515,7 +515,10 @@ def test_no_source_imports_jax_or_tpudl():
                 "data/device_cache.py", "data/dataset.py", "text/data.py",
                 "serve/__init__.py", "serve/reqtrace.py", "serve/queue.py",
                 "serve/batching.py", "serve/slots.py", "serve/registry.py",
-                "serve/server.py", "serve/loadgen.py"):
+                "serve/server.py", "serve/loadgen.py",
+                "compile/__init__.py", "compile/buckets.py",
+                "compile/cache.py", "compile/store.py",
+                "compile/graphs.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]

@@ -293,7 +293,6 @@ def test_env_variables_set_the_knobs(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("aot", True, "Compile"),
     ("supervise", True, "Jobs, faults and the supervisor"),
     ("autotune", True, "The rest of observability"),
 ])
@@ -307,6 +306,26 @@ def test_unported_knobs_raise_by_name(knob, value, item):
         **{knob: False})
     assert last_pipeline_report()["autotune"] is False
     assert len(out) == ROWS
+
+
+def test_aot_knob_runs_through_the_program_store(tmp_path, monkeypatch):
+    """``aot=True`` (once refused, 'Compile') runs: outputs bit for bit the
+    unarmed run, the report says so and counts the store's hits and
+    misses."""
+    monkeypatch.setenv("TPUDL_COMPILE_AOT", str(tmp_path / "programs"))
+    want = Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
+                                         device="cpu", aot=False)
+    assert last_pipeline_report()["aot"] is False
+    got = Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
+                                        device="cpu", aot=True)
+    rep = last_pipeline_report()
+    assert rep["aot"] is True
+    calls = rep["stage_calls"]
+    assert calls.get("aot_hits", 0) + calls["aot_misses"] == \
+        calls["dispatch"]
+    for c in ("y", "g"):
+        np.testing.assert_array_equal(np.stack(list(got[c])),
+                                      np.stack(list(want[c])))
 
 
 @pytest.mark.parametrize("knob,value", [

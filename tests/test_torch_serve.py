@@ -445,9 +445,19 @@ def test_parallel_engines_are_refused(spec, kw, item):
     assert streams[0] == streams[1]
 
 
-def test_precompile_serve_is_refused(spec):
-    with pytest.raises(NotImplementedError, match="Compile"):
-        spec.precompile_serve(slots=2, cache_len=32, prompt_rungs=[8])
+def test_precompile_serve_is_refused(spec, tmp_path, monkeypatch):
+    """Once refused ('Compile'), ``precompile_serve`` now runs as tpudl's:
+    0 unarmed; armed, it readies the step, prefill and insert programs
+    through the program store (their signatures in its manifest)."""
+    from tpudl_torch.compile import store as cstore
+
+    monkeypatch.delenv("TPUDL_COMPILE_AOT", raising=False)
+    lm = TinyCausalLM.from_jax_params(spec.init(0), device="cpu", **ARCH)
+    assert lm.precompile_serve(slots=2, cache_len=32, prompt_rungs=[8]) == 0
+    monkeypatch.setenv("TPUDL_COMPILE_AOT", str(tmp_path / "programs"))
+    assert lm.precompile_serve(slots=2, cache_len=32, prompt_rungs=[8]) == 3
+    entries = cstore.get_program_store().entries().values()
+    assert sum(e["bound"] for e in entries) == 3
 
 
 def test_exports_tpudls_names():

@@ -60,12 +60,17 @@ def test_ladders_match(spec):
 @pytest.mark.parametrize("var,value", [("TPUDL_COMPILE_BUCKETS", "pow2"),
                                        ("TPUDL_TEXT_WIRE_DTYPE", "i32")])
 def test_port_reads_no_tpudl_env(monkeypatch, var, value):
-    """tpudl's bucket variable leaves the port alone (no ladder unless the
-    caller names one); ``TPUDL_TEXT_WIRE_DTYPE`` picks ``TokenCodec``'s
-    wire type as it does in tpudl, since a shard manifest persists the
-    codec key it gives."""
+    """Each of tpudl's variables acts on the port as on tpudl:
+    ``TPUDL_COMPILE_BUCKETS`` is the ladder ``resolve_ladder(None)``
+    reads (COMPILE.md's knob; the port once ignored it), and
+    ``TPUDL_TEXT_WIRE_DTYPE`` picks ``TokenCodec``'s wire type, since a
+    shard manifest persists the codec key it gives."""
     monkeypatch.setenv(var, value)
-    assert buckets.resolve_ladder(None) is None
+    want = jax_buckets.resolve_ladder(None)
+    got = buckets.resolve_ladder(None)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert got.spec == want.spec == value
     for vocab in (260, 70000):
         assert codec.TokenCodec(vocab_size=vocab).key() == \
             jax_codec.TokenCodec(vocab_size=vocab).key()

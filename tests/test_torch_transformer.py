@@ -110,18 +110,23 @@ def test_sampled_generate_follows_its_generator(pair):
 
 @pytest.mark.parametrize("call", ["experts", "mesh", "tp", "pipelined",
                                   "aot", "shard"])
-def test_unported_parallelism_raises(pair, call):
-    """Of these once-refused options only AOT precompilation still raises
-    (ROADMAP Queue 1, 'Compile'); the LM parallelism ones run, each held
-    here to the port's one-device forward (tests/test_torch_parallel_*.py
-    hold them to tpudl)."""
+def test_unported_parallelism_raises(pair, call, tmp_path, monkeypatch):
+    """These once-refused options run. AOT precompilation (ROADMAP Queue
+    1, 'Compile') returns False unarmed and True armed, and still raises
+    for sampled decoding, which stays eager; the LM parallelism ones are
+    each held here to the port's one-device forward
+    (tests/test_torch_parallel_*.py hold them to tpudl)."""
     *_, params, tlm = pair
     toks = torch.from_numpy(_tokens(5, 2, 8))
     mesh = M.build_mesh(2, 2, devices=["cpu"] * 4)
     with torch.no_grad():
         if call == "aot":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tlm.precompile_generate(1, 4, 2)
+            monkeypatch.delenv("TPUDL_COMPILE_AOT", raising=False)
+            assert tlm.precompile_generate(1, 4, 2) is False
+            monkeypatch.setenv("TPUDL_COMPILE_AOT", str(tmp_path / "p"))
+            assert tlm.precompile_generate(1, 4, 2) is True
+            with pytest.raises(NotImplementedError, match="'Compile'"):
+                tlm.precompile_generate(1, 4, 2, temperature=0.5)
             return
         want = tlm.apply(toks).numpy()
         if call == "experts":

@@ -4,11 +4,12 @@ rungs.
 Copied from ``tpudl/compile/buckets.py`` (``BucketLadder``,
 ``resolve_ladder``, ``pad_to``, ``count_pad_rows``; host logic). In the
 port the rungs fix the padded sequence width of a packed text batch, the
-KV-cache length of a generate call and, under ``Frame.map_batches(
-buckets=)``, the padded row count of a ragged batch, exactly as in tpudl,
-so both packages run the same shapes.
-The ladder specs mean the same as there; the port reads no environment
-variable, so a spec is always passed by the caller:
+padded prompt of a generate call (one CUDA graph a rung under the program
+store) and, under ``Frame.map_batches(buckets=)``, the padded row count of
+a ragged batch, exactly as in tpudl, so both packages run the same shapes.
+The ladder specs mean the same as there, passed by the caller or, for
+``resolve_ladder(None)``, read from ``TPUDL_COMPILE_BUCKETS`` (unset: no
+bucketing):
 
 - ``pow2ish`` (also ``1``/``auto``): powers of two plus the 3·2^k
   midpoints — 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, …;
@@ -21,6 +22,7 @@ variable, so a spec is always passed by the caller:
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
@@ -68,18 +70,38 @@ class BucketLadder:
             return (3 * p) // 4
         return p
 
+    def is_rung(self, n: int) -> bool:
+        return int(n) > 0 and self.pick(int(n)) == int(n)
+
+    def rungs_up_to(self, n: int) -> list[int]:
+        """Every distinct rung the ladder can emit for sizes 1..n."""
+        out, seen = [], set()
+        for i in range(1, int(n) + 1):
+            r = self.pick(i)
+            if r not in seen:
+                seen.add(r)
+                out.append(r)
+        return out
+
+    def to_meta(self) -> dict:
+        """JSON identity (the program manifest records it)."""
+        return {"spec": self.spec,
+                "rungs": list(self.rungs) if self.rungs else None}
+
     def __repr__(self):
         return f"BucketLadder({self.spec!r})"
 
 
+# copied from tpudl/compile/buckets.py:resolve_ladder
 def resolve_ladder(value=None) -> BucketLadder | None:
-    """A :class:`BucketLadder` from a ladder, a spec string or ``True``
-    (the default ladder); ``None``, ``False`` and ``"off"`` mean no
-    bucketing."""
+    """The one resolution rule: an explicit value beats the
+    ``TPUDL_COMPILE_BUCKETS`` env, and ``None`` means *consult the env*
+    (unset env = bucketing off). Accepts a :class:`BucketLadder`, a spec
+    string, ``True`` (the default ladder) or ``False``/``"off"``."""
     if isinstance(value, BucketLadder):
         return value
     if value is None:
-        return None
+        value = os.environ.get("TPUDL_COMPILE_BUCKETS", "")
     if value is True:
         return BucketLadder(DEFAULT_SPEC)
     if value is False:
@@ -95,10 +117,9 @@ def resolve_ladder(value=None) -> BucketLadder | None:
         rungs = [int(s) for s in spec.split(",") if s.strip()]
     except ValueError:
         raise ValueError(
-            f"bucket spec {value!r} is neither a known ladder (pow2, "
-            f"pow2ish, 1, off) nor a comma list of rungs")
+            f"TPUDL_COMPILE_BUCKETS={value!r} is neither a known ladder "
+            f"spec (pow2, pow2ish, 1, off) nor a comma list of rungs")
     return BucketLadder(rungs=rungs)
-
 
 
 def pad_to(arr: np.ndarray, target: int) -> np.ndarray:

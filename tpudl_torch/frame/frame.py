@@ -19,15 +19,20 @@ The executor runs tpudl's stages, rebuilt for CUDA:
 3. a window of D such batches is in flight (:class:`_DispatchWindow`);
    the consumer waits only on the oldest batch's copies;
 4. with ``fuse_steps`` M > 1, M full batches run as one replay of a CUDA
-   graph (:class:`_FusedGraph`).
+   graph (:class:`tpudl_torch.compile.graphs.FusedGraph`).
 
-Rows come back in the same order and count as tpudl's. Mesh sharding,
-the AOT program store, the supervisor and autotune are refused by name
-(their ROADMAP Queue 1 items).
+Rows come back in the same order and count as tpudl's. With the program
+store armed (``aot=`` / ``TPUDL_COMPILE_AOT``) each per-batch dispatch
+goes through :class:`tpudl_torch.compile.ProgramStore`: a hit replays a
+CUDA graph captured for that signature (in this process, or at run setup
+from the manifest another process left), a miss runs ``fn`` and captures.
+The supervisor and autotune are refused by name (their ROADMAP Queue 1
+items).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -38,6 +43,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from tpudl_torch.compile.graphs import FusedGraph as _FusedGraph
+from tpudl_torch.compile.graphs import as_outputs as _as_outputs
+from tpudl_torch.compile.graphs import fused_plain as _fused_plain
 from tpudl_torch.device import resolve_device
 
 __all__ = ["Frame", "LazyColumn", "null_mask", "concat"]
@@ -290,18 +298,6 @@ class _DispatchWindow:
         self._q.clear()
 
 
-def _as_outputs(result, n_out: int) -> tuple:
-    """``fn``'s result as a tuple of ``n_out`` tensors (a host function's
-    numpy outputs are wrapped without a copy)."""
-    if not isinstance(result, (tuple, list)):
-        result = (result,)
-    if len(result) != n_out:
-        raise ValueError(f"fn returned {len(result)} outputs, expected "
-                         f"{n_out}")
-    return tuple(torch.from_numpy(np.asarray(r))
-                 if isinstance(r, np.ndarray) else r for r in result)
-
-
 def _host_outputs(result) -> bool:
     """Whether ``fn`` answered with numpy arrays: a host function, which
     the executor keeps serial and unfused under a mesh, as tpudl keeps a
@@ -315,84 +311,6 @@ def _host_outputs(result) -> bool:
 # key's graph twice (captures take ``cuda_ops.capture_graph``'s lock)
 _FUSED_LOCK = threading.Lock()
 _FUSED_CACHE_SIZE = 8  # graphs kept per fn, least recently used out
-
-
-class _FusedGraph:
-    """``fn`` over M microbatches as ONE CUDA graph — the port of tpudl's
-    ``_fused_wrapper``, whose ``lax.scan`` program runs M stacked
-    microbatches per dispatch. The graph reads a static ``(M, B, ...)``
-    input per column and writes ``(M·B, ...)`` outputs. A fused dispatch
-    (:meth:`run`) copies the group's pinned microbatches into the static
-    input, replays the graph and clones the outputs, all under the
-    graph's lock and after the last run's clones on any stream, so that
-    two threads transforming with one stage never share a static buffer.
-
-    The first run captures through ``cuda_ops.capture_graph``, which runs
-    ``fn`` once on one microbatch outside the capture first, and captures
-    in ``thread_local`` mode, so that the prepare pool may pin host memory
-    meanwhile. A capture or replay that
-    fails raises. Launch counts of the port's kernels are recorded at
-    capture and added at every replay. Capture and replay run under
-    ``torch.inference_mode``."""
-
-    def __init__(self, run_fn: Callable, m: int, like, n_out: int, device):
-        self._run_fn = run_fn
-        self._m = int(m)
-        self._n_out = n_out
-        with torch.inference_mode():
-            self.static_in = [torch.empty((self._m, *t.shape),
-                                          dtype=t.dtype, device=device)
-                              for t in like]
-        self.static_out: tuple = ()
-        self.graph = None
-        self.launches: dict = {}
-        self._lock = threading.Lock()
-        self._done = None  # event after the last run's clones
-
-    def _capture(self):
-        from tpudl_torch import cuda_ops
-
-        def run():
-            outs = [_as_outputs(self._run_fn(
-                *(x[i] for x in self.static_in)), self._n_out)
-                for i in range(self._m)]
-            self.static_out = tuple(torch.cat([o[j] for o in outs])
-                                    for j in range(self._n_out))
-
-        self.graph, self.launches = cuda_ops.capture_graph(
-            run, self.static_in[0].device,
-            warmup=lambda: self._run_fn(*(x[0] for x in self.static_in)))
-        self._run_fn = None  # captured: the graph no longer calls fn
-
-    def run(self, group, report) -> tuple:
-        """One fused dispatch of ``group`` (M prepared microbatches) on
-        the current stream: its outputs, cloned off the graph's."""
-        from tpudl_torch import cuda_ops
-
-        stream = torch.cuda.current_stream(self.static_in[0].device)
-        with self._lock, torch.inference_mode():
-            if self._done is not None:
-                stream.wait_event(self._done)
-            with report.stage("h2d"):
-                for j, x in enumerate(self.static_in):
-                    for i, g in enumerate(group):
-                        x[i].copy_(g[0][j], non_blocking=True)
-            with report.stage("dispatch"):
-                if self.graph is None:
-                    self._capture()
-                self.graph.replay()
-                cuda_ops.count_replay(self.launches)
-                out = tuple(o.clone() for o in self.static_out)
-            self._done = torch.cuda.Event()
-            self._done.record(stream)
-            return out
-
-    def release(self):
-        """Wait until no replay of this graph is pending, so that its
-        memory pool can go back to the allocator."""
-        with self._lock:
-            if self._done is not None:
-                self._done.synchronize()
 
 
 def _fused_graph(fn: Callable, run_fn: Callable, group, codecs, n_out: int,
@@ -427,14 +345,6 @@ def _fused_graph(fn: Callable, run_fn: Callable, group, codecs, n_out: int,
     if evicted is not None:
         evicted.release()
     return graph
-
-
-def _fused_plain(run_fn: Callable, group, n_out: int) -> tuple:
-    """What a fused dispatch computes, on the CPU: M plain calls and a
-    concatenation per output (the plain version the graph is held
-    against)."""
-    outs = [_as_outputs(run_fn(*g[0]), n_out) for g in group]
-    return tuple(torch.cat([o[j] for o in outs]) for j in range(n_out))
 
 
 def _stackable(group) -> bool:
@@ -483,8 +393,7 @@ def _as_column(values) -> np.ndarray:
 
 # map_batches knobs of tpudl with no counterpart yet → their ROADMAP
 # Queue 1 item
-_REFUSED = {"aot": "Compile",
-            "supervise": "Jobs, faults and the supervisor",
+_REFUSED = {"supervise": "Jobs, faults and the supervisor",
             "autotune": "The rest of observability"}
 
 
@@ -709,22 +618,31 @@ class Frame:
           In torch it means only that a fused replay reuses its graph's
           static input buffers, which it always does;
         - ``buckets`` (a ladder spec or :class:`~tpudl_torch.compile.
-          BucketLadder`; default off): a ragged batch pads up to its rung
-          by repeating row 0, and the pad rows are stripped from the
-          outputs.
+          BucketLadder`; default ``TPUDL_COMPILE_BUCKETS``, unset = off):
+          a ragged batch pads up to its rung by repeating row 0, and the
+          pad rows are stripped from the outputs;
+        - ``aot`` (``TPUDL_COMPILE_AOT``, default off): dispatch through
+          the program store. Run setup captures the manifest's entries of
+          ``fn`` (this backend, this mesh's topology) before the first
+          batch; at dispatch a hit copies the batch into its graph's
+          static input, replays and clones the outputs, and a miss runs
+          ``fn``, records the signature and captures. Under ``fuse_steps``
+          the fused graph stays the program and the store records and
+          counts it; under a mesh each card has its graph. The report
+          counts ``aot_hits`` and ``aot_misses``.
 
         Each batch's outputs are copied to pinned host memory at dispatch
         and joined once at the end. Each run files a
         :class:`~tpudl_torch.obs.PipelineReport`
         (``tpudl_torch.obs.last_pipeline_report()``); a batch resident on
         the device adds nothing to its ``bytes_prepared`` or ``h2d``.
-        tpudl's ``mesh``, ``aot``, ``supervise`` and ``autotune=True`` are
-        not ported yet and raise ``NotImplementedError`` naming their
-        ROADMAP Queue 1 item."""
+        tpudl's ``supervise`` and ``autotune=True`` are not ported yet and
+        raise ``NotImplementedError`` naming their ROADMAP Queue 1
+        item."""
         from tpudl_torch.compile import buckets as _bk
         from tpudl_torch.obs import pipeline as _pipeline
 
-        refused = dict(aot=aot, supervise=supervise, autotune=autotune)
+        refused = dict(supervise=supervise, autotune=autotune)
         for k, v in refused.items():
             if v not in (None, False):
                 raise NotImplementedError(
@@ -792,6 +710,13 @@ class Frame:
             # the caller opted in (first-party packs are marked)
             workers = 1
         ladder = None if killed else _bk.resolve_ladder(buckets)
+        store = None
+        if not killed:
+            from tpudl_torch.compile import store as _aot_store
+
+            if _aot_store.aot_enabled(aot):
+                store = _aot_store.get_program_store()
+                store.note_ladder(ladder)
 
         def rung(rows: int) -> int:
             """The dispatch rows of a batch of ``rows``: its bucket, then
@@ -900,7 +825,7 @@ class Frame:
             "batch_cache": bool(cache is not None),
             "device_cache": bool(dcache is not None),
             "buckets": ladder.spec if ladder is not None else "off",
-            "aot": False,
+            "aot": store is not None,
             "device": (",".join(map(str, mesh_devs)) if mesh is not None
                        else str(dev)),
         }
@@ -1010,9 +935,15 @@ class Frame:
             segs.append((done_rows, entry.n_pad))
 
         def call(args):
-            """``fn`` on one batch (or one mesh entry's shard)."""
+            """``fn`` on one batch (or one mesh entry's shard), through the
+            program store when it is armed."""
             nonlocal host_fn
-            raw = _run_fn()(*args)
+            if store is not None:
+                raw = store.call(_run_fn(), args, owner=fn, mesh=mesh,
+                                 bucketed=ladder is not None and mesh is None,
+                                 report=report)
+            else:
+                raw = _run_fn()(*args)
             if mesh is not None and _host_outputs(raw):
                 host_fn = True
             return _as_outputs(raw, n_out)
@@ -1059,7 +990,16 @@ class Frame:
             result = []
             for card, card_group in entries:
                 with on_device(card):
-                    if card.type != "cuda":
+                    if store is not None:
+                        # the fused graph stays the program; the store
+                        # keys, records and counts it
+                        prog = store.fused(_run_fn(), fn, card_group, n_out,
+                                           card, mesh=mesh, report=report)
+                        with (report.stage("dispatch")
+                              if card.type != "cuda"
+                              else contextlib.nullcontext()):
+                            out = prog.run(card_group, report)
+                    elif card.type != "cuda":
                         with report.stage("dispatch"):
                             out = _fused_plain(_run_fn(), card_group, n_out)
                     else:
@@ -1069,6 +1009,12 @@ class Frame:
                 result.append((card, out))
             keep = [g[0] for g in group]
             return result, 0, keep, t0, None, len(group)
+
+        if store is not None and (plan is None or plan.resolved()):
+            # a fresh process captures what the manifest holds for this
+            # fn before its first batch, so that the first dispatch hits
+            store.ensure_restored(_run_fn(), True, owner=fn,
+                                  devices=mesh_devs or [dev], mesh=mesh)
 
         first_dispatch = True
 

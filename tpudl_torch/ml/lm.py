@@ -40,6 +40,14 @@ the mesh's first card.
 The model is float32, and each stage computes its products in full f32
 whatever TF32 setting the process holds (``device.full_f32``), as tpudl
 computes them.
+
+With the program store armed (``TPUDL_COMPILE_AOT``) the featurizer's and
+the classifier's per-batch functions dispatch through it (one CUDA graph
+a batch shape; the flash forward's 12 launches are counted at every
+replay), keyed across processes by an ``aot_token`` of the stage, the
+architecture and a content hash of ``weights`` taken on the host; the
+generator's greedy ``generate`` calls run one graph a (chunk, prompt
+rung) geometry.
 """
 
 from __future__ import annotations
@@ -78,6 +86,7 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
         self._set(**kwargs)
         self._loaded = None  # (weights, device, module) of the last load
         self._tp_nets: dict = {}  # row's first card → its laid-out module
+        self._weights_token = None  # content identity of the loaded weights
 
     def _require(self):
         missing = [k for k in ("model", "weights", "tokenizer")
@@ -95,6 +104,9 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
                    TinyCausalLM.from_jax_params(
                        self.weights, **arch_of(self.model), device=home))
             self._loaded = (self.weights, home, net)
+            from tpudl_torch.compile.store import content_token
+
+            self._weights_token = content_token(self.weights)
         return self._loaded[2], self.tokenizer
 
     def _replica(self, net, device):
@@ -148,6 +160,15 @@ class _LMStage(Transformer, HasInputCol, HasOutputCol):
         stage's geometry, and ``extra``."""
         return (id(net), self.maxLen, self.promptBuckets, self.tp, *extra)
 
+    def _aot_token(self, net, *extra) -> str | None:
+        """The program store's identity of a per-batch function: the
+        stage, the architecture, the weights' content (hashed on the host
+        at load) and ``extra``; None when the weights have none."""
+        if self._weights_token is None:
+            return None
+        return (f"{type(self).__name__}:{net.aot_token}:"
+                f"w{self._weights_token}:tp{self.tp}:{extra!r}")
+
 
 class LMFeaturizer(_LMStage):
     """String column → pooled hidden-state feature vectors ``[dim]``."""
@@ -184,6 +205,7 @@ class LMFeaturizer(_LMStage):
                 h = lm.hidden(tokens, **kw)
                 pooled = (h * mask[..., None]).sum(dim=1)
                 return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+            fn.aot_token = self._aot_token(net, "featurize")
             return fn
 
         fn = self._device_fn(self._fn_key(net, "featurize"), build)
@@ -256,6 +278,7 @@ class LMClassifier(_LMStage):
                 row = logits[torch.arange(tokens.shape[0],
                                           device=lm.device), last]
                 return row[:, class_ids].argmax(dim=-1).to(torch.int32)
+            fn.aot_token = self._aot_token(net, "classify", ids)
             return fn
 
         fn = self._device_fn(self._fn_key(net, "classify", ids), build)

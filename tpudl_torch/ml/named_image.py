@@ -29,6 +29,13 @@ a name), ``cacheDir`` and ``deviceCache``, pass to ``Frame.map_batches``
 defaults). The per-batch function is built once per loaded model, so
 that a fused CUDA graph cached on it serves every later ``transform``.
 
+With the program store armed (``TPUDL_COMPILE_AOT``) each batch dispatches
+through it (one CUDA graph a batch shape; ``warmup`` captures the
+executor's key ahead of traffic), keyed across processes by the per-batch
+function's ``aot_token``: the stage, the model name, the weights' host
+identity (``init(0)`` for ``"random"``, else the file's path, size and
+mtime), ``computeDtype`` and the BGR→RGB channel order.
+
 ``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`) runs the stage
 data-parallel over the mesh's cards: the weights load on its first card
 and are replicated to the others once (:func:`tpudl_torch.mesh.
@@ -126,6 +133,21 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
             key += (os.path.getmtime(self.weights),)
         return key
 
+    def _weights_id(self) -> str | None:
+        """The weights' identity taken on the host: ``init(0)``, or the
+        file's absolute path, size and mtime (None if it cannot be read)."""
+        if self.weights == "random":
+            return "init0"
+        path = self.weights
+        if self.weights == "imagenet":
+            path = os.path.join(os.environ.get("TPUDL_WEIGHTS_DIR", ""),
+                                f"{self.getModelName()}.npz")
+        try:
+            st = os.stat(path)
+        except OSError:
+            return None
+        return f"{os.path.abspath(path)}:{st.st_size}:{st.st_mtime_ns}"
+
     def _net(self) -> ImageModel:
         name = self.getModelName()
         key = self._net_key()
@@ -156,6 +178,10 @@ class _NamedImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
                 x = model.preprocess(x)
                 return head(x.to(net.dtype)).to(torch.float32)
 
+            wid = self._weights_id()
+            if wid is not None:
+                fn.aot_token = (f"{type(self).__name__}:{self.getModelName()}"
+                                f":{wid}:{self.computeDtype}:BGR>RGB")
             return fn
 
         return self._device_fn(self._net_key(), build)

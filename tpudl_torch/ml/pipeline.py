@@ -66,17 +66,25 @@ class Transformer(Params):
         caches it: ``build(device)`` is the function on one device.
         Under a mesh one is built a distinct device of the mesh, each over
         that device's replica of the model, and they run as one
-        :class:`~tpudl_torch.mesh.PerDevice` function, so the executor
-        hands every card's shard to its own replica."""
+        :class:`~tpudl_torch.mesh.PerDevice` function (carrying their
+        shared ``aot_token``), so the executor hands every card's shard to
+        its own replica."""
         mesh = getattr(self, "mesh", None)
         if mesh is None:
             return self._cached_fn(key, lambda: build(self.device))
         from tpudl_torch.mesh import PerDevice
 
+        def per_device():
+            fns = {d: build(d) for d in mesh.distinct_devices()}
+            out = PerDevice(fns)
+            tokens = {getattr(f, "aot_token", None) for f in fns.values()}
+            if len(tokens) == 1 and None not in tokens:
+                # the program store's identity: the replicas' shared one
+                out.aot_token = tokens.pop()
+            return out
+
         return self._cached_fn(
-            (*key, "mesh", tuple(map(str, mesh.devices))),
-            lambda: PerDevice({d: build(d)
-                               for d in mesh.distinct_devices()}))
+            (*key, "mesh", tuple(map(str, mesh.devices))), per_device)
 
     # copied from tpudl/ml/pipeline.py:Transformer._pipeline_opts
     def _pipeline_opts(self) -> dict:

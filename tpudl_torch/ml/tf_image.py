@@ -9,7 +9,13 @@ composition, ``sp_image_converter`` → the graph → flatten (``outputMode=
 structs), run by ``Frame.map_batches`` on ``device`` (default
 ``"cuda"``) in f32 (``device.full_f32``). It is built once per ``(graph,
 inputTensor, outputTensor, channelOrder, outputMode, device)``
-(``Transformer._cached_fn``).
+(``Transformer._cached_fn``). With the program store armed
+(``TPUDL_COMPILE_AOT``) each batch dispatches through it, keyed across
+processes by the function's ``aot_token``: a content hash of a
+``TFInputGraph``'s config and weights (or GraphDef) taken on the host,
+its tensor names, the channel order and the output mode (a plain torch
+callable has no host identity: its signatures are recorded but not
+restored in another process).
 """
 
 from __future__ import annotations
@@ -35,21 +41,67 @@ class ImageBatchWarmup:
     ``batchSize``, ``device`` and ``mesh`` on the host class."""
 
     def warmup(self, height, width, nChannels=3, dtype=np.uint8):
-        """Run the stage's per-batch function once on a synthetic batch of
-        ``batchSize`` images of (height, width, nChannels) on its device
-        (under a mesh, one shard's rows on each of its cards) and discard
-        the result: loads the weights and wakes cuDNN. tpudl's AOT program
-        store has no counterpart yet (ROADMAP Queue 1, 'Compile').
-        Returns ``self``."""
+        """Make the stage's first ``transform`` of (height, width,
+        nChannels) images fast, reading no result to the host: loads the
+        weights and wakes cuDNN. Returns ``self``.
+
+        With the program store armed (``TPUDL_COMPILE_AOT``) this captures
+        the exact program the executor's dispatch will hit, as tpudl's
+        warm-up compiles it: the rung the batch pads to under
+        ``TPUDL_COMPILE_BUCKETS`` (under a mesh, rounded up to the data
+        axis and cut into one shard a card), and the fused graph of
+        ``fuseSteps`` batches unless the batch size is no rung or the
+        device cache disarms fusion. Otherwise it runs the per-batch
+        function once on a synthetic batch of ``batchSize`` images on its
+        device (under a mesh, one shard's rows on each of its cards) and
+        discards the result."""
+        import os
+
+        from tpudl_torch.compile import store as _store
         from tpudl_torch.mesh import on_device
 
         fn = self._batch_fn()
         mesh = getattr(self, "mesh", None)
         if mesh is None:
-            devices, rows = [resolve_device(self.device)], self.batchSize
+            devices, multiple = [resolve_device(self.device)], 1
         else:
-            devices = mesh.distinct_devices()
-            rows = -(-self.batchSize // mesh.size)
+            devices, multiple = mesh.distinct_devices(), mesh.size
+        killed = os.environ.get("TPUDL_FRAME_PREFETCH", "1") == "0"
+        if _store.aot_enabled() and not killed:
+            from tpudl_torch.compile.buckets import resolve_ladder
+            from tpudl_torch.frame import frame as _frame
+
+            store = _store.get_program_store()
+            fuse = getattr(self, "fuseSteps", None)
+            if fuse is None:
+                fuse = _frame._env_int("TPUDL_FRAME_FUSE_STEPS", 1)
+            dcache = getattr(self, "deviceCache", None)
+            if dcache is None:
+                dcache = os.environ.get("TPUDL_DATA_DEVICE_CACHE",
+                                        "0") == "1"
+            warm_fused = (int(fuse) > 1 and not dcache
+                          and _frame.mesh_fuse_ok(self.batchSize, mesh))
+            ladder = resolve_ladder(None)
+            rows = int(self.batchSize)
+            if ladder is not None:
+                rows = ladder.pick(rows)
+            rows = -(-rows // multiple) * multiple
+            if rows != int(self.batchSize):
+                warm_fused = False   # every full batch pads: no fusion
+            for dev in devices:
+                x = torch.zeros((rows // multiple, height, width, nChannels),
+                                dtype=getattr(torch, np.dtype(dtype).name),
+                                device=dev)
+                with torch.inference_mode(), on_device(dev):
+                    store.compile_signature(
+                        fn, (x,), mesh=mesh,
+                        bucketed=ladder is not None and mesh is None)
+                    if warm_fused:
+                        store.compile_signature(fn, (x,), mesh=mesh,
+                                                micro=int(fuse),
+                                                single=False)
+            return self
+        rows = -(-self.batchSize // multiple)
         for dev in devices:
             x = torch.from_numpy(np.zeros(
                 (rows, height, width, nChannels), dtype)).to(dev)
@@ -119,6 +171,20 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
         raise TypeError(f"graph param must be TFInputGraph or callable, got "
                         f"{type(g).__name__}")
 
+    def _graph_identity(self) -> str | None:
+        """A host-side content hash of the ``graph`` param: a
+        ``TFInputGraph``'s config, weights, GraphDef and tensor names;
+        None for anything else (a torch callable's weights sit on the
+        card)."""
+        from tpudl_torch.compile.store import content_token
+        from tpudl_torch.ingest import TFInputGraph
+
+        g = self.getOrDefault(self.graph)
+        if not isinstance(g, TFInputGraph):
+            return None
+        return content_token((g.config, getattr(g, "_weights", None),
+                              g.graph_def, g.input_names, g.output_names))
+
     def _batch_fn(self):
         order = self.getOrDefault(self.channelOrder)
         mode = self.getOutputMode()
@@ -135,6 +201,12 @@ class TFImageTransformer(ImageBatchWarmup, Transformer, HasInputCol,
                     y = y[0]
                 return image_ops.flattener(y) if mode == "vector" else y
 
+            ident = self._graph_identity()
+            if ident is not None:
+                fn.aot_token = (f"TFImageTransformer:{ident}:"
+                                f"{self._paramMap.get(self.inputTensor)}:"
+                                f"{self._paramMap.get(self.outputTensor)}:"
+                                f"{order}:{mode}")
             return fn
 
         return self._device_fn(

@@ -9,10 +9,12 @@ dispatches ONE ``fn`` call, so a handful of rungs serves every mix.
 
 ``serve.batches`` counts dispatches; ``serve.batch_occupancy`` gauges
 real rows over rung rows; padding lands on the shared
-``compile.bucket_pad_rows`` counter. tpudl routes a jittable ``fn``
-through its AOT program store when that is armed; the store is not
-ported yet (ROADMAP Queue 1, 'Compile'), so ``fn`` is always called
-directly.
+``compile.bucket_pad_rows`` counter. As tpudl routes a jittable ``fn``
+through its program store when that is armed, the port routes a ``fn``
+that declares its ``device``: with ``TPUDL_COMPILE_AOT`` set, the padded
+batch goes onto that device as a tensor and dispatches through
+:class:`~tpudl_torch.compile.ProgramStore` (one CUDA graph a rung on the
+card). Otherwise ``fn`` is called directly on the host batch.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 from tpudl_torch.compile.buckets import count_pad_rows, pad_to, \
     resolve_ladder
+from tpudl_torch.compile.store import aot_enabled, get_program_store
+from tpudl_torch.device import resolve_device
 from tpudl_torch.obs import metrics as _metrics
 
 __all__ = ["RungBatcher"]
@@ -43,11 +47,15 @@ class RungBatcher:
     UDF/featurize/embed contract). ``buckets`` resolves through
     :func:`tpudl_torch.compile.buckets.resolve_ladder` (``True``, the
     default, is the pow2ish ladder; ``None``/``False`` dispatch the exact
-    row count)."""
+    row count). ``device`` (default None) is where ``fn`` computes: given,
+    and with the program store armed, ``fn`` receives the padded batch as
+    a tensor there, through the store; it must then take a tensor as well
+    as a host array."""
 
-    def __init__(self, fn, *, buckets=True):
+    def __init__(self, fn, *, buckets=True, device=None):
         self._fn = fn
         self._ladder = resolve_ladder(buckets)
+        self._device = device
 
     def rung_for(self, n: int) -> int:
         return self._ladder.pick(int(n)) if self._ladder else int(n)
@@ -66,7 +74,12 @@ class RungBatcher:
         rung = self.rung_for(n)
         padded = pad_to(batch, rung)
         count_pad_rows(rung - n)
-        out = _host(self._fn(padded))[:n]
+        if self._device is not None and aot_enabled():
+            x = torch.from_numpy(np.ascontiguousarray(padded)).to(
+                resolve_device(self._device))
+            out = _host(get_program_store().call(self._fn, (x,)))[:n]
+        else:
+            out = _host(self._fn(padded))[:n]
         _metrics.counter("serve.batches").inc()
         _metrics.gauge("serve.batch_occupancy").set(n / max(rung, 1))
         cuts = np.cumsum(sizes)[:-1]

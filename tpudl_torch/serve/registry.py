@@ -5,11 +5,12 @@ token is won: ``add_model`` builds the model's
 :class:`~tpudl_torch.serve.slots.SlotDecoder` and, with ``warm=True``,
 makes every program of its serve loop ready at once — on the card it
 captures the decode-step graph, the batch-1 prefill graph and the insert
-graph (``warm_signatures`` counts them, ``warm_s`` times them). That is the
-in-process counterpart of tpudl's ``precompile_serve`` through its AOT
-program store, which is not ported yet (ROADMAP Queue 1, 'Compile').
-Every prompt length shares the one prefill graph, so tpudl's
-``prompt_rungs=`` (which prefill programs to compile) has no counterpart.
+graph (``warm_signatures`` counts them, ``warm_s`` times them). With the
+program store armed (``TPUDL_COMPILE_AOT``) it does so through
+``TinyCausalLM.precompile_serve``, as tpudl's registry does: the graphs
+land in the store's table and their signatures in its manifest. Every
+prompt length shares the one prefill graph, so ``prompt_rungs=`` (which
+prefill programs tpudl compiles) is accepted and changes nothing.
 
 One instance lock guards the name→entry map; the ``serve.models`` gauge
 publishes outside it.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import threading
 import time
 
+from tpudl_torch.compile.store import aot_enabled
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.serve.slots import SlotDecoder
 
@@ -58,11 +60,13 @@ class ModelRegistry:
                   slots: int | None = None,
                   cache_len: int | None = None,
                   temperature: float = 0.0, prompt_buckets=True,
-                  mesh=None, tp: bool = False, warm: bool = True,
-                  tokenizer=None, device=None) -> ModelEntry:
+                  prompt_rungs=None, mesh=None, tp: bool = False,
+                  warm: bool = True, tokenizer=None,
+                  device=None) -> ModelEntry:
         """Build the engine for ``model`` (with ``params``, tpudl's param
         pytree, loaded on ``device``; see :class:`SlotDecoder`) and, with
-        ``warm=True``, make its serve programs ready now.
+        ``warm=True``, make its serve programs ready now (through
+        ``precompile_serve`` and the program store when it is armed).
         ``prompt_buckets`` only shapes what ``SlotDecoder.rung_for``
         reports; the prefill ignores it (see :class:`SlotDecoder`)."""
         engine = SlotDecoder(model, params, slots=slots,
@@ -72,7 +76,14 @@ class ModelRegistry:
         warm_n, warm_s = 0, 0.0
         if warm:
             t0 = time.perf_counter()
-            warm_n = engine.warm()
+            if aot_enabled():
+                warm_n = engine.model.precompile_serve(
+                    slots=engine.slots, cache_len=engine.cache_len,
+                    prompt_rungs=prompt_rungs,
+                    temperature=engine.temperature, mesh=mesh, tp=tp,
+                    engine=engine)
+            else:
+                warm_n = engine.warm()
             warm_s = time.perf_counter() - t0
         entry = ModelEntry(str(name), model, params, engine, warm_n,
                            warm_s, tokenizer=tokenizer)

@@ -11,13 +11,17 @@ bookkeeping plus one device flag, so the programs never change shape.
 Each program is a function over the engine's state tensors (the cache,
 ``tok``, ``pos``, ``steps`` and the live flags all stay on the device;
 see ``TinyCausalLM._slot_step_program`` and ``_slot_prefill_program``).
-On the card each is captured once as a CUDA graph: a :meth:`SlotDecoder.
+On the card each is captured once as a CUDA graph
+(:class:`~tpudl_torch.compile.graphs.BoundGraph`): a :meth:`SlotDecoder.
 step` is one graph replay and one device→host copy of the ``[S]`` next
 tokens, and an insert replays the batch-1 prefill graph once per prompt
 token, then the insert graph. After warm-up, churn captures no new graph
 (``SlotDecoder.captures``; the counterpart of tpudl's zero-retrace pin).
 On the CPU the same functions run eagerly. A capture or replay that fails
-on the card raises; nothing falls back.
+on the card raises; nothing falls back. With the program store armed
+(``TPUDL_COMPILE_AOT``) every program runs through it, as tpudl's
+``_call`` does: the store records each signature in its manifest and
+counts hits and misses.
 
 Each slot's greedy stream equals a serial batch-1 ``generate`` of the
 same prompt: rows are independent in every product and the per-slot mask
@@ -45,7 +49,9 @@ import os
 import numpy as np
 import torch
 
+from tpudl_torch.compile import store as _store
 from tpudl_torch.compile.buckets import resolve_ladder
+from tpudl_torch.compile.graphs import BoundGraph
 from tpudl_torch.device import full_f32, resolve_device
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.serve import reqtrace as _reqtrace
@@ -62,52 +68,6 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
-class _Program:
-    """One serve program: ``fn(*state)`` run eagerly on the CPU, and on the
-    card captured at its first call as one CUDA graph that every later
-    call replays, through ``cuda_ops.capture_graph`` (as the executor's
-    fused graphs). Its warm-up run changes state the graph also changes;
-    the small tensors in ``restore`` are put back after it, and what it
-    wrote into the caches the first replay writes again, value for value
-    (so the insert program is readied only with ``_slot`` on a free
-    slot). ``graphs=False`` runs it eagerly on the card too."""
-
-    def __init__(self, fn, state, restore, graphs: bool = True):
-        self._fn = fn
-        self._state = state
-        self._restore = restore
-        self.device = state[-1].device
-        self.graphs = graphs and self.device.type == "cuda"
-        self.graph = None
-        self.launches: dict = {}
-
-    def ready(self) -> None:
-        """Capture the graph now, if this program is due one."""
-        if not self.graphs or self.graph is not None:
-            return
-        from tpudl_torch import cuda_ops
-
-        saved = [t.clone() for t in self._restore]
-
-        def warmup():
-            self._fn(*self._state)
-            for t, s in zip(self._restore, saved):
-                t.copy_(s)
-
-        self.graph, self.launches = cuda_ops.capture_graph(
-            lambda: self._fn(*self._state), self.device, warmup=warmup)
-
-    def __call__(self):
-        if not self.graphs:
-            self._fn(*self._state)
-            return
-        from tpudl_torch import cuda_ops
-
-        self.ready()
-        self.graph.replay()
-        cuda_ops.count_replay(self.launches)
-
-
 class SlotDecoder:
     """Continuous-batching decode engine for one model.
 
@@ -120,8 +80,8 @@ class SlotDecoder:
     resolves the ladder that :meth:`rung_for` reads, kept for parity with
     tpudl: it shapes only the rung that method reports, since the prefill
     runs the real prompt length through the one batch-1 graph, so it
-    changes no program and no result here (ROADMAP Queue 1, 'Compile',
-    gives it a use or removes it). ``tp=True`` with a local ``mesh``
+    changes no program and no result here (nor, with the program store
+    armed, any key). ``tp=True`` with a local ``mesh``
     decodes tensor-parallel over the mesh's first row (the module given
     with ``params`` loads on its first card; a module given alone is laid
     out in place); ``mesh`` without ``tp`` changes nothing, as in tpudl,
@@ -227,7 +187,7 @@ class SlotDecoder:
                 "prefill": ("slot_prefill", self.cache_len),
                 "insert": ("slot_insert", self.slots, self.cache_len)}[name]
 
-    def _program(self, name: str) -> _Program:
+    def _program(self, name: str) -> BoundGraph:
         """The engine's program ``name``, built at its first use."""
         key = self._key(name)
         prog = self.programs.get(key)
@@ -250,9 +210,18 @@ class SlotDecoder:
                                      self._ppos, self._slot, self._tok,
                                      self._pos, self._steps, self._live,
                                      self._first)
-        prog = self.programs[key] = _Program(fn, state, small,
-                                             graphs=self._graphs)
+        prog = self.programs[key] = BoundGraph(fn, state, small,
+                                               graphs=self._graphs)
         return prog
+
+    def _call(self, name: str) -> None:
+        """Run program ``name``: through the program store when it is
+        armed (tpudl's ``_call``), else directly."""
+        prog = self._program(name)
+        if _store.aot_enabled():
+            _store.get_program_store().run_bound(prog)
+        else:
+            prog()
 
     @contextlib.contextmanager
     def _running(self):
@@ -272,21 +241,28 @@ class SlotDecoder:
         """Build every program now; on the card, capture each one's graph.
         Returns the number of programs made ready (the graphs captured on
         the card; the programs built on the CPU) — the in-process
-        counterpart of tpudl's ``precompile_serve``. With every slot
-        occupied the insert program is left to the next insert: its
-        warm-up run writes the row cache into slot ``_slot``, which must
-        then be a free one."""
+        counterpart of tpudl's ``precompile_serve``, which calls it; with
+        the store armed each program is readied through it (recorded in
+        its manifest; the engine holds it). With every slot occupied the
+        insert program is left to the next insert: its warm-up run writes
+        the row cache into slot ``_slot``, which must then be a free
+        one."""
         def ready():
             return (self.captures if self._graphs
                     and self.device.type == "cuda" else len(self.programs))
 
         before = ready()
         free = self.free()
+        store = (_store.get_program_store() if _store.aot_enabled()
+                 else None)
         with self._running():
             for name in ("step", "prefill") + (("insert",) if free else ()):
                 if name == "insert":
                     self._slot.fill_(free[0])
-                self._program(name).ready()
+                if store is not None:
+                    store.ready_bound(self._program(name))
+                else:
+                    self._program(name).ready()
         return ready() - before
 
     def _generator(self, rng) -> torch.Generator:
@@ -336,10 +312,9 @@ class SlotDecoder:
                 for t in (*_shards(layer["k"]), *_shards(layer["v"])):
                     t.zero_()
             self._slot.fill_(slot)
-            prefill = self._program("prefill")
             for _ in range(plen):
-                prefill()
-            self._program("insert")()
+                self._call("prefill")
+            self._call("insert")
             if gen is not None:
                 self._tok[slot:slot + 1].copy_(
                     _pick(self._first, self.temperature, gen))
@@ -362,7 +337,7 @@ class SlotDecoder:
         if not active:
             return 0
         with self._running():
-            self._program("step")()
+            self._call("step")
             if self.temperature > 0:
                 for s in active:
                     self._tok[s:s + 1].copy_(_pick(

@@ -46,9 +46,18 @@ tpudl's parallelism matrix, on a local :class:`~tpudl_torch.mesh.Mesh`
   the pipe.
 
 A weight that a card other than its own needs is copied there inside the
-autograd graph (``.to``), so its gradient sums back onto it. AOT
-precompilation is not ported yet and refused with ``NotImplementedError``
-(ROADMAP Queue 1, "Compile").
+autograd graph (``.to``), so its gradient sums back onto it.
+
+The program store (:mod:`tpudl_torch.compile`, ``TPUDL_COMPILE_AOT``):
+armed, greedy ``generate`` runs as ONE CUDA graph per geometry (batch,
+padded prompt rung, ``max_new``, the tensor-parallel topology, dtype) —
+the prefill over the padded rung, the logits of the real last position
+picked on the card, decoding from device-tensor positions — so every
+prompt of a rung shares one graph, as tpudl's ``_gen_program`` shares
+one program; ``precompile_generate`` and ``precompile_serve`` capture
+ahead of traffic; ``aot_token`` is tpudl's architecture identity. Sampled
+decoding stays eager (a miss): drawing ``generate(generator=)``'s stream
+inside a graph is not ported.
 """
 
 from __future__ import annotations
@@ -125,6 +134,15 @@ class TinyCausalLM(nn.Module):
         self.max_len = max_len
         self.experts = experts
         self.capacity_factor = capacity_factor
+        # the program store's identity of the architecture (tpudl's): a
+        # graph is always captured from this live module, so the weights
+        # it reads are this module's
+        self.aot_token = (f"TinyCausalLM:v{vocab}:d{dim}:h{heads}:"
+                          f"l{layers}:m{max_len}:e{experts}:"
+                          f"c{capacity_factor}")
+        # generate's graph functions, one per geometry (the store's table
+        # holds their graphs)
+        self._gen_fns: dict = {}
         # the model-axis cards of shard_params' layout (None: one device)
         self._tp_devices = None
         # a list to record each MoE layer's (choice, kept) routing into
@@ -157,6 +175,35 @@ class TinyCausalLM(nn.Module):
         self.final_norm = nn.ParameterDict({"gamma": zeros(d),
                                             "beta": zeros(d)})
         self.blocks = nn.ModuleList(block() for _ in range(layers))
+        if dev.type != "meta":
+            self._program_store()   # armed: warm_start may rebuild ours
+
+    # -- the program store ---------------------------------------------------
+    def _program_store(self):
+        """The process's program store with this module registered as an
+        owner of its generate graphs, or None when the store is unarmed."""
+        from tpudl_torch.compile import store as S
+
+        if not S.aot_enabled():
+            return None
+        store = S.get_program_store()
+        store.register_owner(self)
+        return store
+
+    def _drop_programs(self) -> None:
+        """Forget this module's graphs: they read parameter memory that is
+        about to be replaced."""
+        from tpudl_torch.compile import store as S
+
+        # a deep copy shares the dict's functions, which are the original's
+        S.forget(*(f for f in self._gen_fns.values()
+                   if f.module_id == id(self)))
+        self._gen_fns.clear()
+
+    def _apply(self, fn, recurse=True):
+        # .to(), .cuda(), .half(), ... swap every parameter's storage
+        self._drop_programs()
+        return super()._apply(fn, recurse)
 
     @classmethod
     def from_jax_params(cls, params, *, vocab: int, dim: int, heads: int,
@@ -274,6 +321,7 @@ class TinyCausalLM(nn.Module):
         devs = tuple(mesh.entry(model_axis, j) for j in range(n))
         if devs == self._tp_devices or (n == 1 and self._tp_devices is None):
             return self
+        self._drop_programs()   # their graphs read the leaves that move
         with torch.no_grad():
             names = self._split_names()
             whole = [{k: t.detach() for k, t in self._block_leaves(i).items()
@@ -824,8 +872,31 @@ class TinyCausalLM(nn.Module):
 
         return step, finish
 
-    def precompile_serve(self, *args, **kwargs):
-        _not_ported("AOT precompilation of the serve programs", "Compile")
+    def precompile_serve(self, *, slots: int, cache_len: int,
+                         prompt_rungs=None, temperature: float = 0.0,
+                         mesh=None, tp: bool = False, block: bool = True,
+                         engine=None) -> int:
+        """Ready the serve loop's programs through the program store (on
+        the card, capture their CUDA graphs: the decode step, the batch-1
+        prefill step and the insert), so that a serving process's first
+        request replays. Returns how many programs it made ready; 0 when
+        the store is unarmed (tpudl's ``precompile_serve``). The programs
+        run in place over an engine's state: ``engine`` is the
+        :class:`~tpudl_torch.serve.SlotDecoder` to ready (the registry
+        passes its own), else one is built over this module.
+        ``prompt_rungs`` is accepted: one batch-1 prefill graph serves
+        every prompt length, so there is no program a rung. ``block`` is
+        accepted; the captures run now."""
+        from tpudl_torch.compile import store as S
+
+        if not S.aot_enabled():
+            return 0
+        if engine is None:
+            from tpudl_torch.serve.slots import SlotDecoder
+
+            engine = SlotDecoder(self, slots=slots, cache_len=cache_len,
+                                 temperature=temperature, mesh=mesh, tp=tp)
+        return engine.warm()
 
     def _gen_bucket(self, plen: int, max_new: int, prompt_buckets) -> int:
         """Padded prompt length: the smallest ladder rung ≥ plen that
@@ -834,6 +905,90 @@ class TinyCausalLM(nn.Module):
         if ladder is None:
             return plen
         return max(plen, min(ladder.pick(plen), self.max_len - max_new))
+
+    def _one_card(self, mesh, tp) -> bool:
+        """Whether a decode runs on one device (what one graph can hold)."""
+        cards = self._decode_cards(mesh, tp)
+        return cards is None or len(set(map(str, cards))) == 1
+
+    def _gen_program(self, b: int, padded: int, max_new: int, *, mesh=None,
+                     tp: bool = False):
+        """The greedy generate function of one geometry ``(batch, PADDED
+        prompt length, max_new)``: ``run(prompt [b, padded] int32,
+        real_plen 0-d int64)`` → ``[b, max_new]`` int32, reading no host
+        value, so that one CUDA graph serves every prompt of the rung
+        (tpudl's ``_gen_program``). The prefill runs over the padded rung;
+        the logits of position ``real_plen - 1`` are picked on the card
+        (``torch.where``); decoding writes at ``real_plen + i`` from device
+        tensors, overwriting each pad slot before any step attends it, so
+        the tokens are eager ``generate``'s. Cached per geometry; the
+        program store's table bounds the graphs."""
+        topo = (tuple(sorted((str(k), int(v))
+                             for k, v in mesh.shape.items()))
+                if tp and mesh is not None else None)
+        dtype = self.embed["table"].dtype
+        key = (int(b), int(padded), int(max_new), topo, dtype)
+        fn = self._gen_fns.get(key)
+        if fn is not None and fn.module_id == id(self):
+            return fn
+        b, padded, max_new = key[:3]
+
+        def run(prompt, real_plen):
+            cache = self.init_cache(b, padded + max_new, mesh=mesh, tp=tp)
+            at = torch.arange(padded + max_new, device=self.device)
+            last = real_plen - 1
+            best = None
+            for pos in range(padded):
+                logits, cache = self.decode_step(prompt[:, pos], cache,
+                                                 at[pos], mesh=mesh, tp=tp)
+                best = logits if best is None else torch.where(
+                    at[pos] == last, logits, best)
+            out = [_pick(best, 0.0, None)]
+            for i in range(1, max_new):
+                logits, cache = self.decode_step(out[-1], cache,
+                                                 real_plen + (i - 1),
+                                                 mesh=mesh, tp=tp)
+                out.append(_pick(logits, 0.0, None))
+            return torch.stack(out, dim=1)
+
+        run.aot_token = (f"{self.aot_token}:generate:b{b}:p{padded}:"
+                         f"n{max_new}:tp{topo}:{str(dtype)[6:]}")
+        run.module_id = id(self)
+        self._gen_fns[key] = run
+        return run
+
+    def _gen_args(self, b: int, padded: int, plen: int, prompt=None):
+        """A generate graph's arguments: the prompt padded to ``padded``
+        with zeros (zeros when None) and the real length on the card."""
+        dev = self.device
+        if prompt is None:
+            prompt = torch.zeros((b, padded), dtype=torch.int32, device=dev)
+        elif prompt.shape[1] < padded:
+            prompt = F.pad(prompt, (0, padded - prompt.shape[1]))
+        return prompt, torch.full((), int(plen), dtype=torch.int64,
+                                  device=dev)
+
+    def _gen_spec(self, b: int, padded: int, max_new: int, mesh) -> dict:
+        """The manifest's descriptor of a generate graph, from which
+        :meth:`_aot_rebuild` makes it again in another process (None under
+        a mesh, which that process would have to hold too)."""
+        if mesh is not None:
+            return None
+        return {"owner": self.aot_token, "kind": "generate", "batch": b,
+                "padded": padded, "max_new": max_new}
+
+    def _aot_rebuild(self, spec):
+        """The program store's rebuild of a manifest entry this module
+        owns: ``(fn, example args)`` of a generate geometry, or None."""
+        if not isinstance(spec, dict) or spec.get("kind") != "generate" \
+                or self.device.type == "meta":
+            return None
+        b, padded, max_new = (int(spec[k]) for k in ("batch", "padded",
+                                                     "max_new"))
+        if padded + max_new > self.max_len:
+            return None
+        return (self._gen_program(b, padded, max_new),
+                self._gen_args(b, padded, padded))
 
     @torch.inference_mode()
     def generate(self, prompt, max_new: int, *, temperature: float = 0.0,
@@ -851,7 +1006,12 @@ class TinyCausalLM(nn.Module):
         length: tpudl's extra steps over pad tokens only wrote cache slots
         that generation overwrites before any step attends them, so the
         tokens are the same. ``tp=True`` decodes over the mesh's model
-        axis, heads and KV cache split over its cards."""
+        axis, heads and KV cache split over its cards.
+
+        With the program store armed (``TPUDL_COMPILE_AOT``) a greedy call
+        on one device runs through it: the geometry's graph
+        (:meth:`_gen_program`) replays, or the call runs it eagerly and
+        captures it. A sampled call stays eager and counts a miss."""
         self._decode_cards(mesh, tp)
         prompt = torch.as_tensor(prompt, dtype=torch.int32,
                                  device=self.device)
@@ -867,6 +1027,14 @@ class TinyCausalLM(nn.Module):
         if temperature > 0 and generator is None:
             raise ValueError("sampling (temperature > 0) needs generator=")
         padded = self._gen_bucket(plen, max_new, prompt_buckets)
+        store = self._program_store() if self._one_card(mesh, tp) else None
+        if store is not None:
+            if temperature <= 0:
+                fn = self._gen_program(b, padded, max_new, mesh=mesh, tp=tp)
+                return store.call(fn, self._gen_args(b, padded, plen, prompt),
+                                  program=self._gen_spec(b, padded, max_new,
+                                                         mesh))
+            store.count_miss()   # sampled: eager, see precompile_generate
         cache = self.init_cache(b, padded + max_new, mesh=mesh, tp=tp)
         # the positions as device scalars: views into one tensor
         at = torch.arange(padded + max_new, device=self.device)
@@ -880,8 +1048,39 @@ class TinyCausalLM(nn.Module):
             out.append(_pick(logits, temperature, generator))
         return torch.stack(out, dim=1)
 
-    def precompile_generate(self, *args, **kwargs):
-        _not_ported("AOT precompilation of generate", "Compile")
+    def precompile_generate(self, batch: int, prompt_len: int, max_new: int,
+                            *, temperature: float = 0.0,
+                            prompt_buckets=None, mesh=None, tp: bool = False,
+                            block: bool = True) -> bool:
+        """Capture the generate graph of one declared serving geometry
+        through the program store, ahead of traffic (tpudl's
+        ``precompile_generate``): with ``prompt_buckets`` the declared
+        length snaps to its rung, so one capture covers every prompt of
+        the rung. Returns True when the graph is ready, False when the
+        store is unarmed or the decode spans several cards (one graph runs
+        on one card). Sampled decoding (``temperature > 0``) is not
+        captured: it raises ``NotImplementedError``."""
+        from tpudl_torch.compile import store as S
+
+        if not S.aot_enabled():
+            return False
+        if temperature > 0:
+            _not_ported("precompile_generate(temperature > 0): sampled "
+                        "decoding in a CUDA graph (sampled generate runs "
+                        "eagerly)", "Compile")
+        if not self._one_card(mesh, tp):
+            return False
+        store = self._program_store()
+        padded = self._gen_bucket(int(prompt_len), int(max_new),
+                                  prompt_buckets)
+        fn = self._gen_program(int(batch), padded, int(max_new), mesh=mesh,
+                               tp=tp)
+        with torch.inference_mode():   # the zeros of the capture's warm-up
+            args = self._gen_args(int(batch), padded, padded)
+        return store.compile_signature(
+            fn, args, program=self._gen_spec(int(batch), padded,
+                                             int(max_new), mesh),
+            block=block)
 
     # -- training loss -----------------------------------------------------
     def loss_fn(self, *, mesh=None, use_pallas: bool = False,
