@@ -294,6 +294,29 @@ Phases (any failure exits non-zero before the final line):
    ``generate``, and one child on an empty kernel directory
    (``TPUDL_COMPILE_CACHE_DIR``) that prints the nvcc build seconds; the
    phase's seconds.
+18. The model axis over a process group (``tpudl_torch.collectives``):
+   NCCL ranks spawned by ``HorovodRunner`` under ``TPUDL_MESH_MODEL``,
+   one card each, over every visible card. First the three kernels
+   against their plain versions at the per-rank shapes of a 2- and a
+   4-way split (``[4, 1024, 8, 64]``, ``[4, 1024, 4, 64]``) and at a ring
+   rank's hop offsets. With N >= 2 cards: a ``(1, N)`` grid (TP on
+   ``TinyCausalLM(32000, 1024, 16, 12)``: logits within 1e-4 of max
+   |logit| of the unsplit model, 12 forward launches a rank, two
+   ``param_shardings`` sgd steps' losses within 2e-5 of one card's, each
+   rank's 1/N of the split leaves); ``experts=8`` on an ``(N/2, 2)`` grid
+   (each rank's block and routing against the unsplit model, two sgd
+   steps); an ``(N, 1)`` grid (the ring on README's long-context model at
+   8192 tokens: the first loss within 2e-5 of one card's, first-step
+   gradients within 1e-2 of float64's largest at 1024 tokens, ``i + 1``
+   launches of each kernel a block on rank ``i``); a save, a gang restart
+   (every rank failing once) and a resume equal to the uninterrupted run
+   (losses and a digest of the params). Each leg prints ms or steps/s,
+   each rank's idle share of a step and the bytes each collective moves a
+   step, reckoned from the shapes, beside phase 16's local-mesh figures of
+   the same call. With one card (NCCL refuses two ranks on one card) the
+   legs run on a ``(1, 1)`` grid, a world of one, against the run without
+   a mesh (logits within 1e-5 of max |logit|, losses within 2e-5). The
+   phase's seconds.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -308,8 +331,10 @@ phase 10 alone. ``python3 chip_smoke.py --graph-only`` runs phase 1 and then pha
 alone. ``python3 chip_smoke.py --keras2-only`` runs phase 1 and then
 phase 12 alone, ``--data-only`` phase 1 and then phase 13, and
 ``--mesh-only`` phase 1 and then phase 14, ``--serve-only`` phase 1 and
-then phase 15, ``--parallel-only`` phase 1 and then phase 16, and
-``--compile-only`` phase 1 and then phase 17.
+then phase 15, ``--parallel-only`` phase 1 and then phase 16,
+``--compile-only`` phase 1 and then phase 17, and ``--group-only`` phase 1,
+phase 16 (whose local-mesh figures phase 18 prints beside its own) and
+then phase 18, over every visible card.
 ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -6182,6 +6207,8 @@ MOE_TOKENS = (2, 1024)
 PP_STAGES, PP_MICRO = 4, 8
 PP_TOKENS = (16, 1024)
 PP_STEP_TOKENS = (16, 257)
+# phase 16's local-mesh figures, which phase 18 prints beside its own
+LOCAL_FIGURES: dict = {}
 
 
 def sync_all():
@@ -6509,6 +6536,10 @@ def long_context_leg(card, problems):
               f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
         print(idle_line(f"long-context training {label}, one step's idle "
                         "share", wall, busy, card))
+        LOCAL_FIGURES[f"long-context training {label}"] = (
+            f"{LC_STEPS / secs:.3f} steps/s, one step idle "
+            + ", ".join(f"cuda:{d} {100 * (1 - b / wall):.1f}%"
+                        for d, b in sorted(busy.items())))
         host_profile(f"long-context training {label}, one step",
                      lambda: trainer.fit(net, data, 1, opt_state=opt))
         if not ok:
@@ -6632,6 +6663,8 @@ def tp_leg(card, problems):
               f" 2 param_shardings sgd steps' losses {steps} vs {want_steps}"
               f" (max |diff| {s_err:.2e}, limit {PAR_LOSS_ATOL:g}); "
               f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        LOCAL_FIGURES[f"TP {label}"] = (f"apply(tp=True) {list(TP_TOKENS)} "
+                                        f"{ms:.1f} ms (unsplit {one_ms:.1f})")
         if not ok:
             problems.append(f"TP {label}")
         if counts is None:
@@ -6718,6 +6751,9 @@ def moe_leg(card, problems):
               f"capacity); 2 sgd steps' losses {steps} vs {want_steps} (max "
               f"|diff| {s_err:.2e}, limit {PAR_LOSS_ATOL:g}); "
               f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        LOCAL_FIGURES[f"MoE {label}"] = (
+            f"apply(tp=True) {list(MOE_TOKENS)} {ms:.1f} ms (unsplit "
+            f"{one_ms:.1f})")
         if not ok:
             problems.append(f"MoE {label}")
         if counts is None:
@@ -7371,6 +7407,604 @@ def run_compile(card):
 
 
 
+# phase 18: the model axis over a process group — one card a rank, NCCL,
+# the ranks spawned by HorovodRunner (tpudl_torch.collectives)
+GROUP_ONE_RTOL = 1e-5              # a (1, 1) grid against no mesh
+GROUP_RATE_STEPS = 5               # timed train steps after the checked ones
+GROUP_RESTART_LAYERS = 2           # the restart leg's depth, at full width
+GROUP_RESTART_STEPS, GROUP_FAIL_AT = 4, 2
+# the kernels at the per-rank shapes of phase 18's grids: the heads of a 2-
+# and a 4-way TP split at [4, 1024], and a ring rank's hops over 8192 tokens
+# (name, q shape, Sk, causal, q_offset, k_offset)
+GROUP_KERNEL_CASES = [
+    ("2-way TP rank", (4, 1024, 8, 64), 1024, True, 0, 0),
+    ("4-way TP rank", (4, 1024, 4, 64), 1024, True, 0, 0),
+    ("ring rank 1 of 2, past", (1, 4096, 8, 64), 4096, True, 4096, 0),
+    ("ring rank 3 of 4, past", (1, 2048, 8, 64), 2048, True, 6144, 2048),
+    ("ring rank 3 of 4, diagonal", (1, 2048, 8, 64), 2048, True, 6144,
+     6144)]
+
+
+def group_kernel_leg(card, problems):
+    """The three kernels against their plain versions at
+    ``GROUP_KERNEL_CASES``, f32: the forward's O and lse (phase 3's
+    tolerance), then dq, dk and dv under random dO and dlse cotangents
+    (phase 3's, of max(1, max |grad|))."""
+    from tpudl_torch import cuda_ops
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda")
+
+    tol, gtol = TOL["float32"], GRAD_TOL["float32"]
+    for name, (b, s_q, h, d), s_k, causal, q_off, k_off in GROUP_KERNEL_CASES:
+        q, k, v = rand(b, s_q, h, d), rand(b, s_k, h, d), rand(b, s_k, h, d)
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+        o, lse = cuda_ops.flash_attention(q, k, v, return_lse=True, **kw)
+        po, plse = cuda_ops.flash_attention_plain(q, k, v, return_lse=True,
+                                                  **kw)
+        o_err = (o - po).abs().max().item()
+        l_err = (lse - plse).abs().max().item()
+        do, dlse = rand(b, s_q, h, d), rand(b, s_q, h)
+        got = cuda_ops.flash_attention_bwd(q, k, v, o, lse, do, dlse, **kw)
+        want = cuda_ops.flash_attention_bwd_plain(q, k, v, o, lse, do, dlse,
+                                                  **kw)
+        errs = {n: ((g - w).abs().max().item(),
+                    max(1.0, w.abs().max().item()))
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        ok = (o_err <= tol["o_abs"] and l_err <= tol["lse_abs"]
+              and all(e <= gtol["abs"] * sc for e, sc in errs.values()))
+        print(f"  kernels at {name} q{(b, s_q, h, d)} Sk={s_k} offsets "
+              f"{q_off}/{k_off}: O max abs {o_err:.3e}, lse {l_err:.3e}; "
+              + ", ".join(f"{n} {e:.3e}/{sc:.2e}" for n, (e, sc)
+                          in errs.items())
+              + f" {'ok' if ok else 'MISS'}; card {card}", flush=True)
+        if not ok:
+            problems.append(f"kernels at {name}")
+        del q, k, v, o, lse, po, plse, do, dlse, got, want
+
+
+def rank_ms(fn, dev, reps=1) -> float:
+    """Host wall time of ``fn()`` on this rank, its card synchronised."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def rank_idle(fn, dev):
+    """(wall ms, busy ms, NCCL ms) of one ``fn()`` on this rank's card,
+    under torch.profiler tracing the card: busy sums the kernels and
+    copies it ran, NCCL's part of it the collectives' kernels, which spin
+    while a peer is late (so busy minus NCCL is the card's own work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = rank_ms(fn, dev)
+    mine = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_index == dev.index]
+    busy = sum(e.self_device_time_total for e in mine) / 1e3
+    nccl = sum(e.self_device_time_total for e in mine
+               if "nccl" in e.name.lower()) / 1e3
+    return wall, busy, nccl
+
+
+def rank_host_ops(fn, dev, top=8):
+    """(wall ms, [(self CPU ms, calls, op)]) of one ``fn()`` on this rank:
+    the ops with the most self CPU time under torch.profiler (CPU
+    activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        wall = rank_ms(fn, dev)
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return wall, [(e.self_cpu_time_total / 1e3, e.count, e.key[:80])
+                  for e in ops[:top]]
+
+
+def host_ops_text(what, host) -> str:
+    wall, ops = host
+    return (f"  {what}: host profile, wall {wall:.1f} ms; the ops with the "
+            "most self CPU time:\n" + "\n".join(
+                f"    {ms:8.2f} ms x{n:<5d} {key}" for ms, n, key in ops))
+
+
+def rank_gathered(obj):
+    """``obj`` of every rank of the world, in rank order."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def split_bytes(net) -> tuple[int, int]:
+    """(bytes of this rank's split leaves, bytes of those leaves whole)."""
+    mine = sum(p.numel() * p.element_size() for p, _ in net.split_parameters())
+    m = net._tp_group.shape["model"] if net._tp_group is not None else 1
+    return mine, mine * m
+
+
+def group_bytes(arch, b, s, n_data, n_model, rank):
+    """The bytes each collective hands NCCL on ``rank`` of an ``(n_data,
+    n_model)`` grid in one training step of ``loss_fn(mesh=, tp=)`` on
+    ``[b, s]`` tokens, reckoned from the shapes (f32; a ring all-reduce
+    moves about 2(m-1)/m of its payload over the links). The row
+    collectives run under tp; the ring's hops, the loss's psum and the
+    gradients' mean over the data axis under a data axis above 1."""
+    L, D, H, E = arch["layers"], arch["dim"], arch["heads"], \
+        arch.get("experts", 0)
+    s_loc = s // n_data
+    act = b * s_loc * D * 4                  # a block's [B, S/n, D]
+    out = {}
+    if n_model > 1:
+        if E:
+            cap = max(1, int(np.ceil(s * 2.0 / E)))
+            buf = E * (b // n_model) * cap * D * 4
+            out["reduce_sum (row)"] = L * act
+            out["copy_in (row, backward)"] = L * (2 * act + D * E * 4)
+            out["all_to_all (row)"] = L * 4 * buf
+            out["gather (row)"] = L * act // n_model
+        else:
+            out["reduce_sum (row)"] = 2 * L * act
+            out["copy_in (row, backward)"] = 2 * L * act
+    if n_data > 1:
+        i = rank // n_model
+        kv = 2 * b * s_loc * (H // n_model) * (D // H) * 4
+        sends = (i + 1 if i < n_data - 1 else 0) + i   # forward + backward
+        out["ring hops (column)"] = L * sends * kv
+        out["loss psum (column, both ways)"] = 8
+    return out
+
+
+def bytes_text(b: dict) -> str:
+    return ", ".join(f"{k} {v / 2 ** 20:.1f} MiB" for k, v in b.items()) \
+        or "none"
+
+
+def group_tp_fn(ctx):
+    """Phase 18 on a ``(1, m)`` grid: ``TinyCausalLM`` at phase 4's width,
+    the heads and the MLP split over the model axis (``shard_params``):
+    ``apply(tp=True)`` on ``TP_TOKENS`` (launches, ms), two sgd steps of
+    ``make_train_step(param_shardings=)`` on ``TP_STEP_TOKENS`` and the
+    step rate and idle share; then, on the rank's card, the unsplit model
+    (logits, two sgd steps). Every rank's figures, gathered."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.train import make_train_step, sgd
+    from tpudl_torch.zoo.transformer import TinyCausalLM, arch_of
+
+    mesh, dev = ctx.mesh, ctx.device
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    rng = np.random.default_rng(SEED + 22)
+    toks = torch.from_numpy(rng.integers(0, VOCAB, size=TP_TOKENS)).to(dev)
+    rows = [torch.from_numpy(rng.integers(0, VOCAB, size=TP_STEP_TOKENS))
+            .to(dev) for _ in range(2)]
+    out = {"coords": mesh.coords}
+    with full_f32():
+        net = TinyCausalLM.from_jax_params(weights, **arch_of(spec),
+                                           device=dev)
+        net.shard_params(mesh)
+        out["split"] = split_bytes(net)
+        loss_fn = net.loss_fn(mesh=mesh, tp=True)
+        step = make_train_step(loss_fn, mesh=mesh,
+                               param_shardings=net.param_shardings(mesh))
+        with torch.no_grad():
+            reset_launch_counts()
+            got = net.apply(toks, mesh=mesh, tp=True)
+            torch.cuda.synchronize(dev)
+            out["launches"] = dict(cuda_ops.launch_counts)
+            out["ms"] = rank_ms(lambda: net.apply(toks, mesh=mesh, tp=True),
+                                dev)
+        opt = sgd(0.1)(net.parameters())
+        out["steps"] = [step(net, opt, r).item() for r in rows]
+        ms = rank_ms(lambda: step(net, opt, rows[0]), dev, GROUP_RATE_STEPS)
+        out["steps_per_s"] = 1e3 / ms
+        out["idle"] = rank_idle(lambda: step(net, opt, rows[0]), dev)
+        # every rank profiles (the step's collectives need them all)
+        out["host"] = rank_host_ops(lambda: step(net, opt, rows[0]), dev)
+        del net, opt
+        one = TinyCausalLM.from_jax_params(weights, **arch_of(spec),
+                                           device=dev)
+        with torch.no_grad():
+            want = one.apply(toks)
+            out["one_ms"] = rank_ms(lambda: one.apply(toks), dev)
+        out["err"] = (got - want).abs().max().item()
+        out["scale"] = want.abs().max().item()
+        del got, want
+        step1 = make_train_step(one.loss_fn())
+        opt = sgd(0.1)(one.parameters())
+        out["one_steps"] = [step1(one, opt, r).item() for r in rows]
+        del one, opt
+    return rank_gathered(out)
+
+
+def group_moe_fn(ctx):
+    """Phase 18's ``experts=8`` leg on an ``(n, m)`` grid: phase 16's MoE
+    model (its seeded card weights on every rank), the experts split over
+    the model axis and the sequence over the data axis: ``apply(tp=True)``
+    on ``MOE_TOKENS`` (the rank's block, its routing, ms), two sgd steps
+    of ``make_train_step(param_shardings=)``; then the unsplit model on
+    the rank's card (its block of the logits and of the routing, two sgd
+    steps). Every rank's figures, gathered."""
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.train import make_train_step, sgd
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    mesh, dev = ctx.mesh, ctx.device
+    arch = dict(vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+                max_len=MAX_LEN, experts=MOE_EXPERTS)
+    rng = np.random.default_rng(SEED + 19)
+    toks = torch.from_numpy(rng.integers(0, VOCAB, size=MOE_TOKENS)).to(dev)
+    rows = [torch.from_numpy(rng.integers(0, VOCAB, size=TP_STEP_TOKENS))
+            .to(dev) for _ in range(2)]
+    r, s = mesh.axis_index("data"), MOE_TOKENS[1] // mesh.size
+    out = {"coords": mesh.coords}
+    with full_f32():
+        net = TinyCausalLM(**arch, device=dev)
+        card_moe_weights(net, SEED)
+        net.shard_params(mesh)
+        out["split"] = split_bytes(net)
+        with torch.no_grad():
+            net.moe_routes = []
+            got = net.apply(toks, mesh=mesh, tp=True)
+            routes, net.moe_routes = net.moe_routes, None
+            out["ms"] = rank_ms(lambda: net.apply(toks, mesh=mesh, tp=True),
+                                dev)
+        step = make_train_step(net.loss_fn(mesh=mesh, tp=True), mesh=mesh,
+                               param_shardings=net.param_shardings(mesh))
+        opt = sgd(0.1)(net.parameters())
+        out["steps"] = [step(net, opt, x).item() for x in rows]
+        out["idle"] = rank_idle(lambda: step(net, opt, rows[0]), dev)
+        del net, opt
+        one = TinyCausalLM(**arch, device=dev)
+        card_moe_weights(one, SEED)
+        with torch.no_grad():
+            one.moe_routes = []
+            want = one.apply(toks)[:, r * s:(r + 1) * s]
+            want_routes, one.moe_routes = one.moe_routes, None
+            out["one_ms"] = rank_ms(lambda: one.apply(toks), dev)
+        out["err"] = (got - want).abs().max().item()
+        out["scale"] = want.abs().max().item()
+        out["routing_equal"] = len(routes) == LAYERS and all(
+            torch.equal(c, w[:, r * s:(r + 1) * s])
+            for (c, _), (w, _) in zip(routes, want_routes))
+        out["dropped"] = 1.0 - float(torch.stack(
+            [k for _, k in want_routes]).float().mean())
+        del got, want
+        step1 = make_train_step(one.loss_fn())
+        opt = sgd(0.1)(one.parameters())
+        out["one_steps"] = [step1(one, opt, x).item() for x in rows]
+        del one, opt
+    return rank_gathered(out)
+
+
+def group_ring_fn(ctx):
+    """Phase 18's ring on an ``(n, 1)`` grid: README's long-context model
+    (phase 16's ``LC_ARCH`` and row) through ``ctx.trainer(lm.loss_fn(
+    mesh=), adamw(3e-4))``, every rank the whole row and its sequence
+    block: the first-step gradients at ``LC_F64_SEQ`` tokens (after the
+    data-axis mean) and, on rank 0, float64's; the first loss and, on rank
+    0, the one-card loss; one step's launches, ``LC_STEPS`` timed steps
+    and one step's idle share. Every rank's figures, gathered."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.train import adamw, make_train_step, sgd
+    from tpudl_torch.zoo.transformer import (TinyCausalLM, _leaf_groups,
+                                             _param_groups)
+
+    mesh, dev = ctx.mesh, ctx.device
+    spec = TinyCausalLM(**LC_ARCH, device="meta")
+    weights = spec.init(SEED)
+    rows = np.random.default_rng(SEED + 17).integers(
+        0, LC_ARCH["vocab"], size=(1, LC_SEQ)).astype(np.int32)
+    short = torch.from_numpy(rows[:, :LC_F64_SEQ]).to(dev)
+    out = {"coords": mesh.coords}
+    with full_f32():
+        net = TinyCausalLM.from_jax_params(weights, **LC_ARCH, device=dev)
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in net.parameters())
+        loss_fn = net.loss_fn(mesh=mesh, use_pallas=True)
+        make_train_step(loss_fn, mesh=mesh)(
+            net, sgd(0.0)(net.parameters()), short)
+        got_g = {f"{g}.{k}": t.grad.detach().clone()
+                 for g, grp in _param_groups(net).items()
+                 for k, t in grp.items()}
+        net.zero_grad(set_to_none=True)
+        trainer = ctx.trainer(loss_fn, adamw(LR), log_every=1)
+
+        def data(step):
+            return rows
+
+        _, opt, hist = trainer.fit(net, data, 1)
+        out["first"] = hist[0]["loss"]
+        reset_launch_counts()
+        trainer.fit(net, data, 1, opt_state=opt)
+        torch.cuda.synchronize(dev)
+        out["launches"] = dict(cuda_ops.launch_counts)
+        ms = rank_ms(lambda: trainer.fit(net, data, LC_STEPS,
+                                         opt_state=opt), dev)
+        out["steps_per_s"] = LC_STEPS * 1e3 / ms
+        out["idle"] = rank_idle(lambda: trainer.fit(net, data, 1,
+                                                    opt_state=opt), dev)
+        # every rank profiles (the step's collectives need them all)
+        out["host"] = rank_host_ops(
+            lambda: trainer.fit(net, data, 1, opt_state=opt), dev)
+        del net, trainer, opt
+        if ctx.rank == 0:
+            one = TinyCausalLM.from_jax_params(weights, **LC_ARCH,
+                                               device=dev)
+            with torch.no_grad():
+                out["one_loss"] = one.loss_fn()(one, torch.from_numpy(
+                    rows).to(dev)).item()
+            p64 = {g: {k: t.detach().double().requires_grad_()
+                       for k, t in grp.items()}
+                   for g, grp in _leaf_groups(one).items()}
+            del one
+            lm_loss_f64(p64, short, LC_ARCH["heads"]).backward()
+            want_g = {f"{g}.{k}": t.grad for g, grp in p64.items()
+                      for k, t in grp.items()}
+            out["g_scale"] = max(t.abs().max().item()
+                                 for t in want_g.values())
+            out["g_err"] = max((got_g[n].double() - want_g[n]).abs().max()
+                               .item() for n in want_g)
+            del p64, want_g
+        del got_g
+    return rank_gathered(out)
+
+
+def group_restart_fn(ctx, steps, fail_at=None):
+    """The restart leg on the rank's grid: phase 4's width at
+    ``GROUP_RESTART_LAYERS`` layers, ``Trainer(param_shardings=)`` sgd over
+    ``TP_STEP_TOKENS`` rows with a checkpoint every step (under
+    HorovodRunner's ``checkpoint_dir``); ``fail_at`` raises on every rank
+    at that step of the first attempt. Rank 0's losses and a digest of
+    the whole params after the run (gathered over the row)."""
+    import hashlib
+
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.train import sgd
+    from tpudl_torch.zoo.transformer import (TinyCausalLM, arch_of,
+                                             to_jax_params)
+
+    mesh, dev = ctx.mesh, ctx.device
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, GROUP_RESTART_LAYERS, MAX_LEN,
+                        device="meta")
+    net = TinyCausalLM.from_jax_params(spec.init(SEED), **arch_of(spec),
+                                       device=dev)
+
+    def data(step):
+        if fail_at is not None and step == fail_at and ctx.attempt == 0:
+            raise RuntimeError(f"injected failure at step {step}")
+        return np.random.default_rng(SEED + 23 + step).integers(
+            0, VOCAB, size=TP_STEP_TOKENS)
+
+    trainer = ctx.trainer(net.loss_fn(mesh=mesh, tp=True), sgd(0.1),
+                          log_every=1, save_every=1,
+                          param_shardings=net.param_shardings(mesh))
+    with full_f32():
+        _, _, hist = trainer.fit(net, data, steps)
+    params = to_jax_params(net)
+    digest = hashlib.sha256(b"".join(params[g][k].tobytes()
+                                     for g in sorted(params)
+                                     for k in sorted(params[g])))
+    return {"losses": [h["loss"] for h in hist],
+            "digest": digest.hexdigest(), "attempt": ctx.attempt}
+
+
+@contextlib.contextmanager
+def mesh_model_env(m: int):
+    """``TPUDL_MESH_MODEL=m`` for the block (HorovodRunner's ranks read
+    it)."""
+    old = os.environ.get("TPUDL_MESH_MODEL")
+    os.environ["TPUDL_MESH_MODEL"] = str(m)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["TPUDL_MESH_MODEL"]
+        else:
+            os.environ["TPUDL_MESH_MODEL"] = old
+
+
+def group_run(n_data, n_model, fn, runner=None, **kwargs):
+    """``HorovodRunner(np=n_data * n_model, **runner).run(fn, **kwargs)``
+    under ``TPUDL_MESH_MODEL=n_model``: rank 0's result."""
+    from tpudl_torch.train import HorovodRunner
+
+    with mesh_model_env(n_model):
+        return HorovodRunner(np=n_data * n_model, **(runner or {})).run(
+            fn, **kwargs)
+
+
+def group_idle_text(ranks) -> str:
+    return ", ".join(f"rank {i} {100 * (1 - b / w):.1f}% idle, "
+                     f"{100 * (1 - (b - c) / w):.1f}% without NCCL's kernels"
+                     f" ({b:.1f} of {w:.1f} ms busy, {c:.1f} in NCCL)"
+                     for i, (w, b, c) in enumerate(r["idle"] for r in ranks))
+
+
+def group_tp_leg(card, grid, problems):
+    """The ``(1, m)`` grid's TP leg; returns rank 0's launches of one
+    ``apply(tp=True)``."""
+    n_data, m = grid
+    ranks = group_run(n_data, m, group_tp_fn)
+    rtol = GROUP_ONE_RTOL if m == 1 else PAR_LOGIT_RTOL
+    err = max(r["err"] for r in ranks)
+    scale = ranks[0]["scale"]
+    s_err = max(abs(a - b) for r in ranks
+                for a, b in zip(r["steps"], r["one_steps"]))
+    even = m == 1 or all(0 < mine and mine * m == whole
+                         for mine, whole in (r["split"] for r in ranks))
+    launched = [r["launches"] for r in ranks]
+    ok = (err <= rtol * scale and s_err <= PAR_LOSS_ATOL and even
+          and all(c["flash_attn_fwd"] == LAYERS for c in launched))
+    b = group_bytes(dict(layers=LAYERS, dim=DIM, heads=HEADS),
+                    TP_STEP_TOKENS[0], TP_STEP_TOKENS[1] - 1, n_data, m, 0)
+    print(f"  TP {grid}: apply(tp=True) {list(TP_TOKENS)} logits max abs "
+          f"{err:.3e} (limit {rtol:g} x {scale:.3f}) of the unsplit model "
+          f"on each rank's card; launches a rank {launched} (want "
+          f"{LAYERS} forward); {ranks[0]['ms']:.1f} ms (unsplit "
+          f"{ranks[0]['one_ms']:.1f} ms); split leaves "
+          f"{[r['split'][0] for r in ranks]} bytes a rank of "
+          f"{ranks[0]['split'][1]} "
+          f"({'1/' + str(m) if even else 'NOT 1/m'}); 2 param_shardings sgd "
+          f"steps {list(TP_STEP_TOKENS)}: losses {ranks[0]['steps']} vs one "
+          f"card {ranks[0]['one_steps']} (max |diff| {s_err:.2e}, limit "
+          f"{PAR_LOSS_ATOL:g}); {ranks[0]['steps_per_s']:.3f} steps/s; a "
+          f"step's collectives on rank 0: {bytes_text(b)}; "
+          f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+    print(f"  TP {grid}: one step's idle share: {group_idle_text(ranks)}")
+    print(host_ops_text(f"TP {grid}, one step on rank 0", ranks[0]["host"]))
+    if not ok:
+        problems.append(f"TP {grid}")
+    return launched[0]
+
+
+def group_moe_leg(card, grid, problems):
+    """The ``experts=8`` leg over ``grid``: each rank's block and routing
+    against the unsplit model, two sgd steps."""
+    n_data, m = grid
+    ranks = group_run(n_data, m, group_moe_fn)
+    rtol = GROUP_ONE_RTOL if n_data * m == 1 else PAR_LOGIT_RTOL
+    err = max(r["err"] / r["scale"] for r in ranks)
+    s_err = max(abs(a - b) for r in ranks
+                for a, b in zip(r["steps"], r["one_steps"]))
+    same = all(r["routing_equal"] for r in ranks)
+    ok = err <= rtol and same and s_err <= PAR_LOSS_ATOL
+    b = group_bytes(dict(layers=LAYERS, dim=DIM, heads=HEADS,
+                         experts=MOE_EXPERTS), TP_STEP_TOKENS[0],
+                    TP_STEP_TOKENS[1] - 1, n_data, m, 0)
+    print(f"  MoE experts={MOE_EXPERTS} {grid}: apply(tp=True) "
+          f"{list(MOE_TOKENS)} each rank's block max abs err {err:.3e} of "
+          f"its max |logit| (limit {rtol:g}) against the unsplit model on "
+          f"its card, routing {'equal' if same else 'DIFFERENT'} on every "
+          f"rank ({100 * ranks[0]['dropped']:.2f}% of tokens over "
+          f"capacity); {ranks[0]['ms']:.1f} ms (unsplit "
+          f"{ranks[0]['one_ms']:.1f} ms); split leaves "
+          f"{[r['split'][0] for r in ranks]} bytes a rank of "
+          f"{ranks[0]['split'][1]}; 2 sgd steps' losses {ranks[0]['steps']} "
+          f"vs one card {ranks[0]['one_steps']} (max |diff| {s_err:.2e}, "
+          f"limit {PAR_LOSS_ATOL:g}); a step's collectives on rank 0: "
+          f"{bytes_text(b)}; {'ok' if ok else 'MISS'}; card {card}",
+          flush=True)
+    print(f"  MoE {grid}: one step's idle share: {group_idle_text(ranks)}")
+    if not ok:
+        problems.append(f"MoE {grid}")
+
+
+def group_ring_leg(card, grid, problems):
+    """The ring leg; returns each rank's launches of one step."""
+    n_data, m = grid
+    ranks = group_run(n_data, m, group_ring_fn)
+    lead = ranks[0]
+    l_err = abs(lead["first"] - lead["one_loss"])
+    launched = [r["launches"] for r in ranks]
+    want = [LC_ARCH["layers"] * (i + 1) for i in range(n_data)]
+    counts_ok = all(all(v == w for v in c.values())
+                    for c, w in zip(launched, want))
+    ok = (l_err <= PAR_LOSS_ATOL and counts_ok
+          and lead["g_err"] <= LC_GRAD_RTOL * lead["g_scale"])
+    print(f"  ring {grid}: long-context training 1x{LC_SEQ - 1} tokens, "
+          f"first loss {lead['first']:.6f}, one card {lead['one_loss']:.6f} "
+          f"(|diff| {l_err:.2e}, limit {PAR_LOSS_ATOL:g}); first-step "
+          f"gradients at 1x{LC_F64_SEQ - 1} tokens (the data-axis mean) max "
+          f"abs {lead['g_err']:.3e} vs float64 (limit {LC_GRAD_RTOL:g} x "
+          f"{lead['g_scale']:.3e}); one step's launches a rank {launched} "
+          f"(want {want} each: i+1 a block on rank i); "
+          f"{lead['steps_per_s']:.3f} steps/s, "
+          f"{lead['steps_per_s'] * (LC_SEQ - 1):.0f} tokens/s; "
+          f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+    for i in range(n_data):
+        b = group_bytes(LC_ARCH, 1, LC_SEQ - 1, n_data, m, i * m)
+        if n_data > 1:
+            b["gradients' mean (column)"] = lead["param_bytes"]
+        print(f"    rank {i}: a step's collectives {bytes_text(b)}")
+    print(f"  ring {grid}: one step's idle share: {group_idle_text(ranks)}")
+    print(host_ops_text(f"ring {grid}, one step on rank {n_data - 1} (the "
+                        "most hops)", ranks[-1]["host"]))
+    if not ok:
+        problems.append(f"ring {grid}")
+    return launched
+
+
+def group_restart_leg(card, grid, problems):
+    """A save, a gang restart and a resume against the uninterrupted run,
+    on the ``(1, m)`` grid."""
+    import tempfile
+
+    n_data, m = grid
+    straight = group_run(n_data, m, group_restart_fn,
+                         steps=GROUP_RESTART_STEPS)
+    with tempfile.TemporaryDirectory(prefix="tpudl-group-ck-") as tmp:
+        resumed = group_run(n_data, m, group_restart_fn,
+                            dict(checkpoint_dir=tmp, max_restarts=1),
+                            steps=GROUP_RESTART_STEPS, fail_at=GROUP_FAIL_AT)
+        saved = sorted(os.listdir(tmp))
+    ok = (resumed["attempt"] == 1
+          and resumed["losses"] == straight["losses"][GROUP_FAIL_AT:]
+          and resumed["digest"] == straight["digest"])
+    print(f"  restart {grid}: {GROUP_RESTART_LAYERS} layers at phase 4's "
+          f"width, sgd with a checkpoint a step, every rank failing at "
+          f"step {GROUP_FAIL_AT} of the first attempt: resumed on attempt "
+          f"{resumed['attempt']}, losses {resumed['losses']} vs the "
+          f"uninterrupted {straight['losses']}, params' sha256 "
+          f"{'equal' if resumed['digest'] == straight['digest'] else 'DIFFERENT'}"
+          f" ({resumed['digest'][:12]}); files {saved}; "
+          f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+    if not ok:
+        problems.append(f"restart {grid}")
+
+
+def run_group(card):
+    """Phase 18: the model axis over a process group, one card a rank.
+    Every check runs and prints; the phase fails at its end if any did
+    not hold. Returns the kernel launches of its paths."""
+    t_phase = time.perf_counter()
+    problems = []
+    n = torch.cuda.device_count()
+    group_kernel_leg(card, problems)
+    if n == 1:
+        print("  one visible card: NCCL refuses two ranks on one card, so "
+              "phase 18 runs its legs on a (1, 1) grid over NCCL (a world "
+              "of one) against the run without a mesh, and held the "
+              "kernels above at the per-rank shapes of a 2- and a 4-way "
+              "split and at a ring rank's hop offsets", flush=True)
+        tp_grid = ring_grid = moe_grid = (1, 1)
+    else:
+        tp_grid, ring_grid = (1, n), (n, 1)
+        moe_grid = (n // 2, 2) if n % 2 == 0 else (1, 1)
+    counts = {}
+    legs = ((tp_grid, group_tp_leg, "group_tp_apply"),
+            (moe_grid, group_moe_leg, None),
+            (ring_grid, group_ring_leg, "group_ring_step"),
+            (tp_grid, group_restart_leg, None))
+    for grid, leg, path in legs:
+        t0 = time.perf_counter()
+        got = leg(card, grid, problems)
+        if path == "group_ring_step":
+            for i, c in enumerate(got):
+                counts[f"{path}_rank{i}"] = c
+        elif path is not None:
+            counts[path] = got
+        print(f"  {leg.__name__} {grid}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        torch.cuda.empty_cache()
+    if LOCAL_FIGURES:
+        print("  phase 16's local-mesh figures from this call, beside "
+              "these: " + "; ".join(f"{k}: {v}" for k, v in
+                                     LOCAL_FIGURES.items()))
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 18: " + "; ".join(problems))
+    return counts
+
+
 def main(argv) -> int:
     # a cold-start child's clock starts at its process start: no nvidia-smi
     card = "" if argv[:1] == ["--compile-child"] else card_line()
@@ -7478,6 +8112,17 @@ def main(argv) -> int:
         print(f"compile-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--group-only"]:
+        print(f"phases 16 and 18 alone: the model axis, local and over a "
+              f"process group, at full width on {card}", flush=True)
+        run_parallel(card)
+        print(f"phase 18: the model axis over a process group on {card}",
+              flush=True)
+        run_group(card)
+        print(f"card: {card}")
+        print(f"group-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 3 and argv[0] == "--compile-child":
         compile_child(argv[1], argv[2])   # phase 17's cold-start child
         return 0
@@ -7500,8 +8145,8 @@ def main(argv) -> int:
         fail(f"unknown arguments {argv}; the options are --image-only, "
              "--executor-only, --train-only, --keras-only, --surface-only, "
              "--graph-only, --keras2-only, --data-only, --mesh-only, "
-             "--serve-only, --parallel-only, --compile-only, --ranks N and "
-             "--pool-study")
+             "--serve-only, --parallel-only, --compile-only, --group-only, "
+             "--ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -7616,6 +8261,9 @@ def main(argv) -> int:
     print(f"phase 17: the compile subsystem at full width on {card}",
           flush=True)
     compile_counts_ = run_compile(card)
+    print(f"phase 18: the model axis over a process group on {card}",
+          flush=True)
+    group_counts = run_group(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -7631,7 +8279,7 @@ def main(argv) -> int:
             keras2_counts[entry["name"]]
         for path, counts in {**data_counts, **mesh_counts,
                              **serve_counts, **parallel_counts,
-                             **compile_counts_}.items():
+                             **compile_counts_, **group_counts}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "

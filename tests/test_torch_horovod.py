@@ -173,12 +173,22 @@ def test_a_batch_that_does_not_split_raises():
 
 
 def test_a_model_axis_is_refused(monkeypatch):
-    """A model axis stays refused over ranks (one card a rank; 'LM
-    parallelism'); build_mesh() is a local grid of the visible cards
-    now, which raises on a host with none."""
+    """A model axis over ranks (once refused, 'LM parallelism') folds the
+    ranks into a ``(np/m, m)`` grid, tpudl's ``_build_mesh``: ``np=-4``
+    under ``TPUDL_MESH_MODEL=2`` runs four ranks at the entries ``(r, j)``
+    of rank ``2r + j``, ``ctx.size`` the data axis. What stays refused is
+    an ``np`` the model axis does not divide (tpudl's ``ValueError``); and
+    ``build_mesh()`` outside a group is a local grid of the visible cards,
+    which raises on a host with none."""
+    from torch_group_fns import grid_report
+
     monkeypatch.setenv("TPUDL_MESH_MODEL", "2")
-    with pytest.raises(NotImplementedError, match="'LM parallelism'"):
-        HorovodRunner(np=-2, device="cpu").run(rank_report, a=0)
+    assert HorovodRunner(np=-4, device="cpu").run(grid_report) == [
+        (2 * r + j, 2, (r, j), {"data": 2, "model": 2}, "cpu")
+        for r in range(2) for j in range(2)]
+    with pytest.raises(ValueError, match="3 devices do not divide into "
+                       "TPUDL_MESH_MODEL=2 model shards"):
+        HorovodRunner(np=-3, device="cpu").run(rank_report, a=0)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         M.build_mesh()
     assert M.build_mesh(devices=["cpu"] * 4).shape == {"data": 2,

@@ -1,4 +1,4 @@
-"""Ring attention — sequence parallelism over a local mesh.
+"""Ring attention — sequence parallelism over a mesh.
 
 Port of ``tpudl/attention.py``: ``attention_reference``, ``shard_sequence``
 and ``ring_attention``. Each entry of the ring axis holds one contiguous
@@ -29,6 +29,15 @@ Two ways of computing a hop, as in tpudl:
 
 Everything is differentiable: the gradients of K and V come back along
 the hops they took.
+
+Over a process group's mesh (one card a rank) each rank runs only its own
+entry (:func:`ring_group`): rank ``i`` of the axis holds block ``i``, and
+its K/V blocks travel through
+:func:`tpudl_torch.collectives.ring_hop`, one send/recv pair a step whose
+backward sends the gradients back the other way. Under ``causal`` rank
+``i`` runs ``i + 1`` hops and receives only the blocks it or a later rank
+reads; a rank still passes on what later ranks read, so every send has
+its receive.
 """
 
 from __future__ import annotations
@@ -37,10 +46,12 @@ import math
 
 import torch
 
+from tpudl_torch import collectives as C
 from tpudl_torch import cuda_ops
 from tpudl_torch import mesh as M
 
-__all__ = ["ring_attention", "attention_reference", "shard_sequence"]
+__all__ = ["ring_attention", "attention_reference", "shard_sequence",
+           "ring_group"]
 
 
 def attention_reference(q, k, v, causal: bool = False):
@@ -91,7 +102,16 @@ def ring_attention(q, k, v, mesh, *, axis: str = M.DATA_AXIS,
     parallelism): heads are independent in attention, so each of its
     entries runs its own ring over its head group; ``heads`` must divide
     by the axis size. ``use_pallas`` picks the flash-kernel hop (see the
-    module docstring)."""
+    module docstring).
+
+    Over a process group's mesh, q, k, v are this rank's sequence block
+    (block ``i`` for data-axis index ``i``) and so is the result; under
+    ``head_axis`` the rank runs the ring of its own heads, and the heads
+    come back together over that axis."""
+    if not mesh.local:
+        return _ring_attention_group(q, k, v, mesh, axis=axis,
+                                     head_axis=head_axis, causal=causal,
+                                     use_pallas=use_pallas)
     n = mesh.shape[axis]
     blocks = isinstance(q, M.Sharded)
     seq = sum(t.shape[1] for t in q) if blocks else q.shape[1]
@@ -162,6 +182,68 @@ def ring(qs, ks, vs, devices, *, causal: bool, use_pallas: bool) -> list:
                   if not causal or i - s - 1 >= 0 else None
                   for i in range(n)]
     return [finish(st, q) for st, q in zip(state, qs)]
+
+
+def _ring_attention_group(q, k, v, mesh, *, axis, head_axis, causal,
+                          use_pallas):
+    """:func:`ring_attention` on this rank's blocks over a group mesh."""
+    m = 1 if head_axis is None else mesh.shape[head_axis]
+    heads = q.shape[2]
+    if heads % m:
+        raise ValueError(
+            f"heads {heads} not divisible by mesh axis {head_axis!r} size "
+            f"{m}")
+    if m > 1:
+        hl, j = heads // m, mesh.axis_index(head_axis)
+        q, k, v = (t[:, :, j * hl:(j + 1) * hl] for t in (q, k, v))
+    out = ring_group(q, k, v, mesh, axis=axis, causal=causal,
+                     use_pallas=use_pallas)
+    if m > 1:
+        out = C.gather(out, mesh.axis_group(head_axis), dim=2)
+    return out
+
+
+def ring_group(q, k, v, mesh, *, axis: str = M.DATA_AXIS, causal: bool,
+               use_pallas: bool):
+    """This rank's entry of a ring over ``axis`` of a process group's
+    ``mesh``: ``q``, ``k``, ``v`` are its block ``i`` (``[B, S/n, H, D]``,
+    ``i`` its index on the axis); returns its attention output.
+
+    Step ``s`` runs the hop against the K/V block that originated on
+    entry ``(i - s) mod n`` at offsets ``i·S/n`` and ``src·S/n``, then
+    (but after the last step) sends the block held to entry ``i + 1``
+    and receives entry ``i - 1``'s. Under ``causal`` the hops of strictly
+    future blocks are left out (``i + 1`` of them run), a block is sent
+    only while it is not one of them for the receiver, and nothing wraps
+    from the last entry to the first."""
+    n, i = mesh.shape[axis], mesh.axis_index(axis)
+    group = mesh.axis_group(axis)
+    s_loc = q.shape[1]
+    hop, finish = (_flash_hop, _flash_finish) if use_pallas else \
+        (_plain_hop, _plain_finish)
+    nxt, prv = (mesh.axis_rank(axis, (i + 1) % n),
+                mesh.axis_rank(axis, (i - 1) % n))
+    state, kv, tokens = None, (k, v), []
+    for s in range(n):
+        src = (i - s) % n
+        if kv is not None and not (causal and src > i):
+            state = hop(state, q, *kv, causal=causal, q_offset=i * s_loc,
+                        k_offset=src * s_loc)
+        if s == n - 1:
+            break
+        send = kv is not None and (not causal or i + 1 < n)
+        recv = not causal or i - s - 1 >= 0
+        if not (send or recv):
+            continue
+        kv, token = C.ring_hop(kv if send else None, (k, v), group,
+                               to=nxt if send else None,
+                               frm=prv if recv else None)
+        tokens.append(token)
+    out = finish(state, q)
+    if out.requires_grad:
+        for token in tokens:   # 0: ties every hop's backward to the output
+            out = out + token
+    return out
 
 
 def _flash_hop(state, q, k, v, *, causal, q_offset, k_offset):

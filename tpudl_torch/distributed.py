@@ -8,7 +8,13 @@ port runs one process per rank, joined by ``torch.distributed``:
   bounded timeout (NCCL on the card, gloo on the CPU). With no arguments
   it is a no-op, as tpudl's. The rendezvous is a ``tcp://<host>:<port>``
   coordinator on any machine (tpudl's ``coordinator_address``), a
-  ``file://`` path shared by the ranks, or ``env://``.
+  ``file://`` path shared by the ranks, or ``env://``. Users who start
+  their ranks themselves then call
+  ``tpudl_torch.mesh.build_mesh(n_data, n_model)`` on every rank: it
+  lays the group's ranks out as tpudl's ``(data, model)`` grid (rank
+  ``r * n_model + j`` at entry ``(r, j)``, one card a rank) and makes the
+  sub-groups of its rows and columns, over which ``TinyCausalLM(mesh=,
+  tp=True)`` runs its tensor and expert parallelism and its ring.
 - :func:`process_count`, :func:`process_index`, :func:`is_primary` read
   the default group (1, 0 and True before it is joined).
 - :func:`host_shard` is tpudl's.
@@ -46,7 +52,13 @@ def initialize(coordinator_address: str | None = None,
     ``process_id`` this rank (under ``env://`` either may be left to the
     variables). A bare ``host:port`` is taken as ``tcp://host:port``.
     ``backend`` defaults to NCCL when the card is available and gloo
-    otherwise. With no arguments this is a documented no-op."""
+    otherwise. With no arguments this is a documented no-op.
+
+    Then ``build_mesh(n_data, n_model)`` on every rank gives each its
+    place in the ``(n_data, n_model)`` grid of the group (``n_data *
+    n_model`` must be ``num_processes``); under NCCL set each rank's card
+    first (``torch.cuda.set_device``), rank ``r`` on ``cuda:r`` of its
+    machine by default."""
     if coordinator_address is None and num_processes is None:
         return
     address = str(coordinator_address)

@@ -20,24 +20,30 @@ same ``shape``:
   :func:`sum_to` and :func:`all_sum`;
 - a **process-group mesh**: one rank's place in a ``torch.distributed``
   group, one card a process — what ``HorovodRunner`` hands its
-  ``train_fn``.
+  ``train_fn``. The group's ranks lay out a ``(data, model)`` grid
+  row-major (rank ``r * n_model + j`` is entry ``(r, j)``, as tpudl lays
+  out ``jax.devices()``), with one sub-group a row (the model axis) and
+  one a column (the data axis); :mod:`tpudl_torch.collectives` runs the
+  LM's tensor and expert parallelism over the rows and its ring over the
+  columns (``TinyCausalLM(mesh=, tp=True)``).
 
 - :func:`build_mesh` builds a local mesh over ``devices=`` (a device may
   repeat: ``["cpu"] * 8`` on the host, ``["cuda:0"] * 4`` as a one-card
-  rehearsal of a 2×2 grid), else spans the joined process group's ranks,
-  else every visible card. A process group's mesh with a ``model`` axis
-  above 1 (``n_model`` or ``TPUDL_MESH_MODEL``) is refused (ROADMAP
-  Queue 1, 'LM parallelism').
-- :func:`replicate` broadcasts rank 0's tensors in place over a group,
-  and over a local mesh returns one copy a distinct device, made once.
+  rehearsal of a 2×2 grid), else this rank's place in the joined process
+  group's ``(n_data, n_model)`` grid (``n_model`` or
+  ``TPUDL_MESH_MODEL``), else every visible card.
+- :func:`replicate` broadcasts rank 0's tensors in place over a group
+  (or the first entry's over one axis of it), and over a local mesh
+  returns one copy a distinct device, made once.
 - :func:`transfer_batch` copies a padded host batch's shards to their
   cards, each on its card's copy stream; :func:`shard_batch` is this
   rank's rows of a global batch on a group, the same as
   :func:`transfer_batch` on a local mesh.
-- :func:`all_reduce_mean` averages tensors over the group in one
-  flattened all-reduce per dtype (the gradient reduction of
-  :func:`tpudl_torch.train.make_train_step`); it counts its calls and
-  bytes in ``mesh.allreduce.calls`` and ``mesh.allreduce.bytes``.
+- :func:`all_reduce_mean` averages tensors over one axis of the group
+  (the data axis by default) in one flattened all-reduce per dtype (the
+  gradient reduction of :func:`tpudl_torch.train.make_train_step`), and
+  counts its calls and bytes in ``mesh.allreduce.calls`` and
+  ``mesh.allreduce.bytes``.
   :func:`reduce_add` and :func:`broadcast` are the local mesh's
   collectives (``torch.cuda.comm`` across distinct cards, plain sums and
   copies elsewhere).
@@ -76,9 +82,12 @@ MODEL_AXIS = "model"
 class Mesh:
     """A mesh of ``size`` entries on the ``data`` axis.
 
-    A process-group mesh is this rank's place in ``group``: ``device`` is
-    the rank's card and ``devices`` is ``(device,)``. A local mesh has no
-    group (``group is None``, ``rank`` 0): ``grid`` holds its ``(data,
+    A process-group mesh is this rank's place in ``group`` (the world):
+    ``device`` is the rank's card, ``devices`` is ``(device,)``, ``rank``
+    the process rank, ``coords`` its ``(data, model)`` entry of the
+    ``(size, n_model)`` grid and ``axis_groups`` the sub-groups of its
+    column (the data axis) and its row (the model axis). A local mesh has
+    no group (``group is None``, ``rank`` 0): ``grid`` holds its ``(data,
     model)`` rows of cards, ``devices`` are the rows' first cards, in
     shard order, and ``device`` is the first of them."""
 
@@ -88,6 +97,9 @@ class Mesh:
     group: object  # the torch.distributed ProcessGroup; None on a local mesh
     devices: tuple = ()
     grid: tuple = ()  # one tuple of cards a data row; () = one a device
+    n_model: int = 1  # a group mesh's model axis
+    coords: tuple = (0, 0)  # a group mesh: this rank's (data, model) entry
+    axis_groups: tuple = (None, None)  # a group mesh: (column, row) groups
 
     def __post_init__(self):
         if not self.devices:
@@ -99,12 +111,41 @@ class Mesh:
     @property
     def shape(self) -> dict:
         """tpudl's ``mesh.shape``: ``{"data": rows, "model": columns}``."""
-        return {DATA_AXIS: self.size, MODEL_AXIS: len(self.grid[0])}
+        cols = len(self.grid[0]) if self.local else self.n_model
+        return {DATA_AXIS: self.size, MODEL_AXIS: cols}
 
     @property
     def local(self) -> bool:
         """True for a mesh of this process's own cards (no group)."""
         return self.group is None
+
+    @property
+    def world(self) -> int:
+        """The processes of the mesh: every entry of a group's grid, 1 for
+        a local mesh."""
+        return 1 if self.local else self.size * self.n_model
+
+    def _axis(self, axis: str) -> int:
+        if axis not in (DATA_AXIS, MODEL_AXIS):
+            raise ValueError(f"unknown mesh axis {axis!r}; the axes are "
+                             f"{DATA_AXIS!r} and {MODEL_AXIS!r}")
+        return 0 if axis == DATA_AXIS else 1
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 on a local mesh)."""
+        return self.coords[self._axis(axis)]
+
+    def axis_group(self, axis: str):
+        """The sub-group of the ranks that share this rank's place on the
+        other axis: its column for ``data``, its row for ``model``."""
+        return self.axis_groups[self._axis(axis)]
+
+    def axis_rank(self, axis: str, index: int) -> int:
+        """The process rank of entry ``index`` along ``axis`` in this
+        rank's column (``data``) or row (``model``)."""
+        r, j = self.coords
+        return (index * self.n_model + j if self._axis(axis) == 0
+                else r * self.n_model + index)
 
     def distinct_devices(self) -> list:
         """The mesh's devices once each, in order of first appearance."""
@@ -113,12 +154,8 @@ class Mesh:
     def entry(self, axis: str, index: int, other: int = 0) -> torch.device:
         """The card at ``index`` on ``axis`` and ``other`` on the other
         axis."""
-        if axis == DATA_AXIS:
-            return self.grid[index][other]
-        if axis == MODEL_AXIS:
-            return self.grid[other][index]
-        raise ValueError(f"unknown mesh axis {axis!r}; the axes are "
-                         f"{DATA_AXIS!r} and {MODEL_AXIS!r}")
+        return (self.grid[index][other] if self._axis(axis) == 0
+                else self.grid[other][index])
 
     def row(self, index: int) -> "Mesh":
         """Data row ``index`` as a local ``(1, model)`` mesh."""
@@ -178,31 +215,21 @@ def build_mesh(n_data: int | None = None, n_model: int | None = None, *,
       ``["cuda:0"] * 4`` with ``n_model=2`` runs a 2×2 grid on one card.
     - Otherwise, inside a joined process group
       (:func:`tpudl_torch.distributed.initialize`, ``HorovodRunner``):
-      this rank's place in it; ``n_data`` must be its world size (the
-      default) and ``device`` defaults to ``cuda:<rank>`` when the group
-      runs NCCL, else the CPU. A model axis above 1 is refused there.
+      this rank's place in the group's ``(n_data, n_model)`` grid, whose
+      entries must be the group's ranks (``n_data`` defaults to the world
+      size over ``n_model``). Rank ``r * n_model + j`` is entry ``(r,
+      j)``. Every rank must call it, with the same sizes: it creates one
+      sub-group a row and one a column on every rank, in one order.
+      ``device`` defaults to ``cuda:<rank>`` when the group runs NCCL,
+      else the CPU.
     - Otherwise a local grid over the visible cards, tpudl's
       ``build_mesh()`` over ``jax.devices()``. Without a card this
       raises: the port never drops to the CPU unasked."""
     if n_model is None:
         n_model = model_axis_size()
+    n_model = max(1, int(n_model))
     if devices is None and dist.is_initialized():
-        if n_model > 1:
-            raise NotImplementedError(
-                f"a model axis of {n_model} (TPUDL_MESH_MODEL / n_model) "
-                "over a process group (one card a rank) is not ported to "
-                "tpudl_torch yet (ROADMAP Queue 1, 'LM parallelism'); a "
-                "local mesh (build_mesh(n_data, n_model, devices=[...])) "
-                "carries it")
-        size, rank = dist.get_world_size(), dist.get_rank()
-        if n_data is not None and n_data != size:
-            raise ValueError(f"mesh of {n_data} ranks, but the process "
-                             f"group has {size}")
-        if device is None:
-            device = (torch.device("cuda", rank)
-                      if dist.get_backend() == "nccl"
-                      else torch.device("cpu"))
-        return Mesh(size, rank, torch.device(device), dist.group.WORLD)
+        return _group_mesh(n_data, n_model, device)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -212,7 +239,6 @@ def build_mesh(n_data: int | None = None, n_model: int | None = None, *,
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devs = [_canonical(d) for d in devices]
-    n_model = max(1, int(n_model))
     if n_data is None:
         n_data = len(devs) // n_model
     want = n_data * n_model
@@ -223,6 +249,49 @@ def build_mesh(n_data: int | None = None, n_model: int | None = None, *,
                  for r in range(n_data))
     rows = tuple(row[0] for row in grid)
     return Mesh(n_data, 0, rows[0], None, rows, grid)
+
+
+def _group_mesh(n_data, n_model: int, device) -> Mesh:
+    """This rank's place in the joined group's ``(n_data, n_model)`` grid
+    (see :func:`build_mesh`)."""
+    size, rank = dist.get_world_size(), dist.get_rank()
+    if n_data is None:
+        n_data = size // n_model
+    want = n_data * n_model
+    if n_data < 1 or want != size:
+        raise ValueError(f"mesh {n_data}x{n_model} needs {want} devices, "
+                         f"have {size} (the process group's ranks, one an "
+                         "entry)")
+    if device is None:
+        device = (torch.device("cuda", rank) if dist.get_backend() == "nccl"
+                  else torch.device("cpu"))
+    device = torch.device(device)
+    rows = _new_groups([range(r * n_model, (r + 1) * n_model)
+                        for r in range(n_data)])
+    cols = _new_groups([range(j, size, n_model) for j in range(n_model)])
+    r, j = divmod(rank, n_model)
+    groups = (cols[j], rows[r])
+    for g in groups:   # each communicator made now, by all of its ranks
+        if g is not None:
+            dist.all_reduce(torch.zeros(1, device=device), group=g)
+    return Mesh(n_data, rank, device, dist.group.WORLD, n_model=n_model,
+                coords=(r, j), axis_groups=groups)
+
+
+def _new_groups(rank_lists) -> list:
+    """One process group a list of ranks, made on every rank in the same
+    order, as ``new_group`` needs (None for one rank, the world group for
+    all of them)."""
+    world = dist.get_world_size()
+    out = []
+    for ranks in map(list, rank_lists):
+        if len(ranks) == world:
+            out.append(dist.group.WORLD)
+        elif len(ranks) == 1:
+            out.append(None)
+        else:
+            out.append(dist.new_group(ranks))
+    return out
 
 
 @contextlib.contextmanager
@@ -334,21 +403,28 @@ def _copy_to(tree, dev: torch.device):
     return tree
 
 
-def replicate(tree, mesh: Mesh):
+def replicate(tree, mesh: Mesh, axis: str | None = None):
     """tpudl's replicated placement of ``tree`` (a module, a tensor, or
     dicts and sequences of tensors) over ``mesh``.
 
     Over a process group, rank 0's tensors are broadcast to every rank in
-    place and ``tree`` is returned. Over a local mesh the result is
+    place and ``tree`` is returned; with ``axis``, the tensors of the
+    entry at index 0 of this rank's column (``data``) or row (``model``)
+    go to the other ranks of it (a leaf split over the model axis is
+    replicated over the data axis only). Over a local mesh the result is
     ``{device: copy}`` with one copy a distinct device of the mesh: a
     module's copy is made once and cached by device (a snapshot of its
     weights then), the source itself serves its own device, and tensors
     are moved."""
     if mesh.local:
         return {dev: _copy_to(tree, dev) for dev in mesh.distinct_devices()}
-    _coalesced(_tensors(tree),
-               lambda flat: dist.broadcast(flat, src=0, group=mesh.group),
-               mesh.device)
+    group, src = mesh.group, 0
+    if axis is not None:
+        group, src = mesh.axis_group(axis), mesh.axis_rank(axis, 0)
+    if group is not None:
+        _coalesced(_tensors(tree),
+                   lambda flat: dist.broadcast(flat, src=src, group=group),
+                   mesh.device)
     return tree
 
 
@@ -476,13 +552,19 @@ def all_sum(parts, devices) -> list:
     return [total] + [total.to(d) for d in devices[1:]]
 
 
-def all_reduce_mean(tensors, mesh: Mesh) -> None:
-    """Replace each tensor by its mean over the group: one all-reduce (a
-    sum) per dtype of a flat copy, then a division by the group size."""
+def all_reduce_mean(tensors, mesh: Mesh, axis: str = DATA_AXIS) -> None:
+    """Replace each tensor by its mean over ``axis`` of the group (this
+    rank's column for ``data``, its row for ``model``): one all-reduce (a
+    sum) per dtype of a flat copy, then a division by the axis size."""
+    group = mesh.axis_group(axis)
+    if group is None:      # an axis of one rank: each tensor is its mean
+        return
+    n = mesh.shape[axis]
+
     def reduce(flat):
-        dist.all_reduce(flat, group=mesh.group)
-        if mesh.size > 1:
-            flat.div_(mesh.size)
+        dist.all_reduce(flat, group=group)
+        if n > 1:
+            flat.div_(n)
 
     # a named span, so that a profile can attribute the flatten, the
     # collective and the copy-back to the reduction
@@ -502,7 +584,8 @@ def barrier(mesh: Mesh) -> None:
 def shard_batch(tree, mesh: Mesh):
     """On a process-group mesh, this rank's rows of every leaf of a global
     batch (numpy arrays or tensors; a tuple, list or dict of them), as
-    tensors on the rank's device. On a local mesh, one such tree a mesh
+    tensors on the rank's device: the block of its data-axis index, so
+    every rank of one row gets the same rows. On a local mesh, one such tree a mesh
     entry, each holding that entry's contiguous block of rows on its
     device (:func:`transfer_batch`; the rows must split evenly)."""
     if mesh.local:
@@ -515,7 +598,8 @@ def shard_batch(tree, mesh: Mesh):
         return {k: shard_batch(v, mesh) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(shard_batch(v, mesh) for v in tree)
-    rows = D.global_batch(tree, index=mesh.rank, count=mesh.size)
+    rows = D.global_batch(tree, index=mesh.axis_index(DATA_AXIS),
+                          count=mesh.size)
     if not isinstance(rows, torch.Tensor):
         rows = torch.from_numpy(np.ascontiguousarray(rows))
     return rows.to(mesh.device)

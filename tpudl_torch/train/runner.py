@@ -15,8 +15,14 @@ Horovod's and torch's own idiom:
   on ``cuda:r`` with NCCL, or on the CPU with gloo under
   ``device="cpu"``. ``np`` above the device count raises ``ValueError``.
   The default device is the card; without one, ``run`` raises.
-- ``ctx.rank`` and ``ctx.size`` are the real rank and world size, and
-  ``run`` returns rank 0's return value. A spawned rank imports
+- ``ctx.rank`` is the process rank and ``ctx.size`` the data axis's
+  size (the world size without a model axis, tpudl's ``ctx.size``), and
+  ``run`` returns rank 0's return value. Under ``TPUDL_MESH_MODEL=m``
+  (which must divide the rank count, as tpudl's) the ranks fold into an
+  ``(np/m, m)`` grid, tpudl's ``_build_mesh``: ``ctx.mesh`` carries this
+  rank's entry and the sub-groups of its row and column, over which
+  ``TinyCausalLM(mesh=, tp=True)`` runs its tensor and expert
+  parallelism and its ring. A spawned rank imports
   ``train_fn`` by name, so it must be defined at the top level of an
   importable module, and its arguments and return value are pickled.
 - A rank's result or exception comes back pickled over a queue, so
@@ -50,8 +56,14 @@ model spreads its forward over the cards itself (README's long-context
 recipe, ``Trainer(lm.loss_fn(mesh=mesh), adamw(3e-4), mesh=mesh)``, puts
 the ring inside the loss), and nothing is averaged over a group.
 ``param_shardings=`` lays the model out by it (``shard_params``) before
-``fit`` builds the optimizer; a model axis under ``HorovodRunner`` (one
-card a rank) is refused (ROADMAP Queue 1, 'LM parallelism').
+``fit`` builds the optimizer. Over a process group's grid with a model
+axis, ``fit`` broadcasts rank 0's whole leaves over the world and each
+split leaf's slice over its column; a checkpoint gathers the split leaves
+(``split_parameters``) and their optimizer state over each row, so rank 0
+writes the whole arrays, the file an unsplit run writes, and a resume
+gives each rank its slice back. A loss whose ``whole_batch`` is True
+(``TinyCausalLM.loss_fn(mesh=)``'s ring over the data axis) takes the
+whole global batch on every rank.
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpudl_torch import collectives as C
 from tpudl_torch import distributed as D
 from tpudl_torch import mesh as M
 from tpudl_torch.device import resolve_device
@@ -137,10 +150,12 @@ class TrainContext:
 
     @property
     def size(self) -> int:
+        """The data axis's size (tpudl's ``mesh.shape['data']``)."""
         return self.mesh.size
 
     @property
     def rank(self) -> int:
+        """The process rank."""
         return self.mesh.rank
 
     @property
@@ -186,7 +201,7 @@ class HorovodRunner:
             backoff_s=_restart_backoff_base_s(), max_backoff_s=30.0,
             transient="all")
 
-    def _ranks(self) -> tuple[int, torch.device]:
+    def _ranks(self) -> tuple[int, torch.device, int]:
         if dist.is_initialized():
             raise RuntimeError(
                 "HorovodRunner.run creates and destroys its own process "
@@ -199,26 +214,27 @@ class HorovodRunner:
             raise ValueError(
                 f"HorovodRunner(np={self._np}) needs {n} devices, have "
                 f"{have} ({dev.type})")
+        # TPUDL_MESH_MODEL folds the n ranks into a (data, model) grid:
+        # np keeps meaning every card, the model axis comes out of it
         n_model = M.model_axis_size()
-        if n_model > 1:
-            raise NotImplementedError(
-                f"HorovodRunner under TPUDL_MESH_MODEL={n_model}: a model "
-                "axis (tensor parallelism) is not ported to tpudl_torch yet "
-                "(ROADMAP Queue 1, 'LM parallelism')")
+        if n % n_model:
+            raise ValueError(
+                f"HorovodRunner(np={self._np}): {n} devices do not "
+                f"divide into TPUDL_MESH_MODEL={n_model} model shards")
         if dev.type == "cuda" and n == 1 and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        return n, dev
+        return n, dev, n_model
 
     def run(self, main, **kwargs):
         """Run ``main(ctx, **kwargs)`` on every rank and return rank 0's
         result; on a transient exception, relaunch every rank up to
         ``max_restarts`` times (gang restart — ``main`` resumes from its
         checkpoints; ``Trainer`` does)."""
-        n, dev = self._ranks()
+        n, dev, n_model = self._ranks()
         attempt = 0
         while True:
             try:
-                return self._launch(n, dev, main, kwargs, attempt)
+                return self._launch(n, dev, n_model, main, kwargs, attempt)
             except Exception as e:
                 if is_fatal(e) or not self.retry_policy.is_transient(e):
                     # a Preempted unwind, or a permanent failure, is an
@@ -240,9 +256,9 @@ class HorovodRunner:
                 if delay > 0:
                     time.sleep(delay)
 
-    def _launch(self, n, dev, main, kwargs, attempt):
+    def _launch(self, n, dev, n_model, main, kwargs, attempt):
         with tempfile.TemporaryDirectory(prefix="tpudl-rdzv-") as tmp:
-            spec = {"world": n, "device": dev,
+            spec = {"world": n, "model": n_model, "device": dev,
                     "init": "file://" + os.path.join(tmp, "rendezvous"),
                     "checkpoint_dir": self.checkpoint_dir,
                     "save_every": self.save_every, "attempt": attempt}
@@ -256,15 +272,17 @@ class HorovodRunner:
 
 
 def _run_rank(rank: int, spec: dict, main, kwargs):
-    """One rank: join the group and run ``main(ctx, **kwargs)``; the
-    caller leaves the group."""
+    """One rank: join the group, build its grid (every launch makes its
+    sub-groups anew) and run ``main(ctx, **kwargs)``; the caller leaves
+    the group."""
     dev = spec["device"]
     if dev.type == "cuda" and spec["world"] > 1:
         dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
     D.initialize(spec["init"], spec["world"], rank,
                  backend="nccl" if dev.type == "cuda" else "gloo")
-    mesh = M.build_mesh(device=dev)
+    mesh = M.build_mesh(spec["world"] // spec["model"], spec["model"],
+                        device=dev)
     ctx = TrainContext(mesh, spec["checkpoint_dir"], spec["save_every"])
     ctx.attempt = spec["attempt"]
     with M.use_mesh(mesh):
@@ -409,7 +427,12 @@ class Trainer:
 
     @property
     def _ranks(self) -> int:
-        return 1 if self._group is None else self._group.size
+        return 1 if self._group is None else self._group.world
+
+    @property
+    def _whole_batch(self) -> bool:
+        """Whether every rank takes the whole batch (a ring loss)."""
+        return getattr(self.loss_fn, "whole_batch", False)
 
     def _agreed(self, flag: bool, device) -> bool:
         """``flag`` if any rank raised it (ranks must stop together)."""
@@ -430,7 +453,7 @@ class Trainer:
             state = mgr.restore()
             if state is None:
                 return mgr, 0
-            _load_state(model, optimizer, state)
+            _load_state(model, optimizer, state, self.mesh)
             _obs_metrics.histogram(
                 "train.checkpoint_restore_seconds").observe(
                     time.perf_counter() - t_ck)
@@ -459,11 +482,15 @@ class Trainer:
     def _save(self, mgr, step, model, optimizer, *, force=False) -> bool:
         if not force and (mgr.save_every <= 0 or step % mgr.save_every):
             return False
-        if self._primary:
+        # split leaves are gathered over each row: all its ranks take part
+        if self._primary or _split_parameters(model):
             t_ck = time.perf_counter()
-            mgr.save(step, _state(model, optimizer, step), force=True)
-            _obs_metrics.histogram("train.checkpoint_save_seconds").observe(
-                time.perf_counter() - t_ck)
+            state = _state(model, optimizer, step, self.mesh)
+            if self._primary:
+                mgr.save(step, state, force=True)
+                _obs_metrics.histogram(
+                    "train.checkpoint_save_seconds").observe(
+                        time.perf_counter() - t_ck)
         if self._ranks > 1:
             M.barrier(self.mesh)  # the step is on disk for every rank
         return True
@@ -495,12 +522,17 @@ class Trainer:
                 raise ValueError(
                     f"the model is on {device}, this rank's device is "
                     f"{self.mesh.device} (build it on ctx.device)")
-            M.replicate(model, self.mesh)
-            if opt_state is not None:
-                M.replicate([optimizer.state[p]
-                             for g in optimizer.param_groups
-                             for p in g["params"] if p in optimizer.state],
-                            self.mesh)
+            split = {id(p) for p, _ in _split_parameters(model)}
+            held = [p for g in optimizer.param_groups for p in g["params"]
+                    if opt_state is not None and p in optimizer.state]
+            for axis, keep in ((None, False), (M.DATA_AXIS, True)):
+                # whole leaves from rank 0; split ones down their column
+                if axis is None or split:
+                    M.replicate(
+                        [t for t in (*model.parameters(), *model.buffers())
+                         if (id(t) in split) == keep]
+                        + [optimizer.state[p] for p in held
+                           if (id(p) in split) == keep], self.mesh, axis)
         start, mgr = 0, None
         if self.checkpoint_dir is not None:
             mgr, start = self._restore(model, optimizer)
@@ -526,7 +558,7 @@ class Trainer:
                 if not isinstance(batch, tuple):
                     batch = (batch,)
                 rows = int(np.shape(batch[0])[0])
-                if self._group is not None:
+                if self._group is not None and not self._whole_batch:
                     batch = M.shard_batch(batch, self.mesh)
                 else:
                     batch = tuple(_as_tensor(b).to(device) for b in batch)
@@ -571,19 +603,65 @@ def _as_tensor(b) -> torch.Tensor:
     return host_tensor(np.asarray(b))
 
 
-def _state(model, optimizer, step: int) -> dict:
+def _state(model, optimizer, step: int, mesh=None) -> dict:
     """The checkpointed state: the module's ``state_dict``, the tensors of
-    the optimizer's per-parameter state, and the step."""
-    opt = {str(i): {k: v for k, v in s.items() if isinstance(v, torch.Tensor)}
+    the optimizer's per-parameter state, and the step. The leaves that a
+    process group's layout splits over the model axis
+    (``split_parameters``), and the optimizer's tensors shaped like them,
+    come whole, gathered over ``mesh``'s row: every rank of it calls
+    this, as tpudl's single-host save gathers its sharded arrays."""
+    whole = _Split(model, mesh).whole
+    order = [p for g in optimizer.param_groups for p in g["params"]]
+    named = dict(model.named_parameters())
+    opt = {str(i): {k: whole(v, order[i]) for k, v in s.items()
+                    if isinstance(v, torch.Tensor)}
            for i, s in optimizer.state_dict()["state"].items()}
-    return {"params": model.state_dict(), "opt_state": {"state": opt},
+    return {"params": {n: whole(t, named.get(n))
+                       for n, t in model.state_dict().items()},
+            "opt_state": {"state": opt},
             "step": np.asarray(step, np.int64)}
 
 
-def _load_state(model, optimizer, state: dict) -> None:
+def _split_parameters(model) -> list:
+    """``[(param, dim)]`` of a model laid out over a process group's model
+    axis (``TinyCausalLM.split_parameters``); empty for any other."""
+    return getattr(model, "split_parameters", list)()
+
+
+class _Split:
+    """A model's split leaves over ``mesh``'s model axis: :meth:`whole`
+    gathers a tensor shaped like a split parameter over the row,
+    :meth:`mine` takes this rank's slice of one shaped like the whole
+    parameter; anything else passes as it is."""
+
+    def __init__(self, model, mesh):
+        self.dims = {id(p): d for p, d in _split_parameters(model)}
+        if self.dims:
+            self.row = mesh.axis_group(M.MODEL_AXIS)
+            self.m = mesh.shape[M.MODEL_AXIS]
+            self.j = mesh.axis_index(M.MODEL_AXIS)
+
+    def whole(self, t, p):
+        d = self.dims.get(id(p))
+        if d is None or t.shape != p.shape:
+            return t
+        return C.all_gather(t.detach(), self.row, d)
+
+    def mine(self, t, p):
+        d = self.dims.get(id(p))
+        if d is None or t.dim() != p.dim() or t.shape[d] == p.shape[d]:
+            return t
+        return t.chunk(self.m, dim=d)[self.j].contiguous()
+
+
+def _load_state(model, optimizer, state: dict, mesh=None) -> None:
     """Load a restored :func:`_state` tree into ``model`` and
-    ``optimizer`` (bit for bit: every tensor keeps its saved dtype)."""
+    ``optimizer`` (bit for bit: every tensor keeps its saved dtype; a
+    split leaf and its optimizer state take this rank's slice on
+    ``mesh``)."""
+    mine = _Split(model, mesh).mine
     own = model.state_dict()
+    named = dict(model.named_parameters())
     params = state.get("params", {})
     if sorted(params) != sorted(own):
         raise ValueError(
@@ -591,8 +669,10 @@ def _load_state(model, optimizer, state: dict) -> None:
             f"model's {sorted(own)[:4]}...")
     with torch.no_grad():
         for name, t in own.items():
-            t.copy_(params[name])
+            t.copy_(mine(params[name], named.get(name)))
+    order = [p for g in optimizer.param_groups for p in g["params"]]
     saved = state.get("opt_state", {}).get("state", {})
     optimizer.load_state_dict({
-        "state": {int(i): dict(s) for i, s in saved.items()},
+        "state": {int(i): {k: mine(v, order[int(i)]) for k, v in s.items()}
+                  for i, s in saved.items()},
         "param_groups": optimizer.state_dict()["param_groups"]})

@@ -20,11 +20,33 @@ gradients of every card's copy of a weight back onto it, and there is no
 group to average over. ``param_shardings=`` (tensor parallelism) holds
 the model to ``TinyCausalLM.param_shardings``' layout: each split leaf is
 a parameter on its own card, and the optimizer steps it there.
+
+Over a process group's ``(data, model)`` grid (one card a rank) the
+gradients are reduced over the DATA axis only — this rank's column, the
+ranks that hold the same slice of every leaf — and never over its row:
+
+- a leaf split over the model axis is a different slice on each rank of
+  the row, and each rank's backward holds its slice's whole gradient;
+- a leaf whole on every rank of the row gets equal gradients there,
+  because the model's collectives (:mod:`tpudl_torch.collectives`) sum
+  what each rank's backward holds of a shared input.
+
+Over the column the gradients are averaged, the gradient of the
+global-batch mean whatever the ranks hold. Data parallel (``loss_fn`` the
+mean over this rank's rows, ``shard_batch``): each rank's gradient is its
+rows' mean's. Sequence parallel (``TinyCausalLM.loss_fn(mesh=)``'s ring:
+every rank of the column holds blocks of the same rows, and its loss is
+the global loss): the loss's sum over the column is JAX's ``psum``
+(:func:`tpudl_torch.collectives.psum`), whose backward sums the ranks'
+seeds, so each rank's gradient is ``n`` times its blocks' share, and the
+mean is the sum of the shares. Either way the update is the one-card
+update on the same global batch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 
 import torch
@@ -74,7 +96,7 @@ def with_compute_dtype(loss_fn, dtype: torch.dtype):
         return torch.func.functional_call(_Bound(loss_fn, model), cast,
                                           batch)
 
-    return wrapped
+    return functools.update_wrapper(wrapped, loss_fn)
 
 
 def make_train_step(loss_fn, *, mesh: M.Mesh | None = None,
@@ -83,9 +105,11 @@ def make_train_step(loss_fn, *, mesh: M.Mesh | None = None,
     *batch)`` returns the batch-mean scalar loss; ``optimizer`` is a
     ``torch.optim`` optimizer over the model's parameters. With a
     ``mesh`` (:func:`tpudl_torch.mesh.build_mesh`), ``batch`` is this
-    rank's rows and the gradients are averaged over the group before the
-    update; on a local mesh the batch is the whole batch and nothing is
-    averaged. The returned loss is this rank's, a detached device tensor:
+    rank's rows (the whole batch for a loss whose ``whole_batch`` is
+    True, a ring) and the gradients are averaged over the group's data
+    axis before the update (see the module docstring); on a local mesh
+    the batch is the whole batch and nothing is averaged. The returned
+    loss is this rank's, a detached device tensor:
     the step forces no host sync. A model with float32 masters steps in
     full f32 whatever TF32 setting the process holds
     (:func:`tpudl_torch.device.full_f32`), as tpudl's step computes; that
@@ -115,7 +139,7 @@ def make_train_step(loss_fn, *, mesh: M.Mesh | None = None,
             loss.backward()
             if mesh is not None and not mesh.local:
                 M.all_reduce_mean([p.grad for p in model.parameters()
-                                   if p.grad is not None], mesh)
+                                   if p.grad is not None], mesh, M.DATA_AXIS)
             optimizer.step()
         return loss.detach()
 

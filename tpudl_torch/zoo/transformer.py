@@ -48,6 +48,23 @@ tpudl's parallelism matrix, on a local :class:`~tpudl_torch.mesh.Mesh`
 A weight that a card other than its own needs is copied there inside the
 autograd graph (``.to``), so its gradient sums back onto it.
 
+Over a process group's mesh (``build_mesh(n_data, n_model)`` inside a
+joined group, ``HorovodRunner`` under ``TPUDL_MESH_MODEL``; one card a
+rank) each rank runs only its own entry of the grid, Megatron's way:
+``hidden``/``apply``/``loss_fn(mesh=)`` take the whole batch on every rank
+and run the rank's sequence block (block ``r`` for data-axis index ``r``;
+the ring over the data axis, :func:`tpudl_torch.attention.ring_group`);
+under ``tp=True`` the rank projects its ``heads/m`` heads and its slice of
+the MLP, or runs its ``experts/m`` experts, and the row-parallel sums are
+the collectives of :mod:`tpudl_torch.collectives` over its row (an
+all-reduce whose backward is the identity, entered through the identity
+whose backward is an all-reduce), so the leaves whole on every rank of a
+row get equal gradients there. MoE's buffers travel to their experts'
+ranks by ``all_to_all``. ``shard_params`` keeps only the rank's 1/m of
+each split leaf. ``loss_fn`` returns the global loss on every rank.
+Decoding, serving and ``apply_pipelined`` over a group are not ported
+(ROADMAP Queue 1, 'LM parallelism').
+
 The program store (:mod:`tpudl_torch.compile`, ``TPUDL_COMPILE_AOT``):
 armed, greedy ``generate`` runs as ONE CUDA graph per geometry (batch,
 padded prompt rung, ``max_new``, the tensor-parallel topology, dtype) —
@@ -70,9 +87,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tpudl_torch import collectives as C
 from tpudl_torch import cuda_ops
 from tpudl_torch import mesh as M
-from tpudl_torch.attention import attention_reference, ring
+from tpudl_torch.attention import attention_reference, ring, ring_group
 from tpudl_torch.compile.buckets import resolve_ladder
 from tpudl_torch.device import resolve_device
 
@@ -145,6 +163,8 @@ class TinyCausalLM(nn.Module):
         self._gen_fns: dict = {}
         # the model-axis cards of shard_params' layout (None: one device)
         self._tp_devices = None
+        # the process group's mesh of shard_params' layout (None: whole)
+        self._tp_group = None
         # a list to record each MoE layer's (choice, kept) routing into
         self.moe_routes = None
         dev = resolve_device(device)
@@ -316,6 +336,11 @@ class TinyCausalLM(nn.Module):
         optimizer after this: it then steps every slice on its card. A
         model axis of 1 puts the leaves back together. Returns the
         module."""
+        if not mesh.local:
+            return self._shard_over_group(mesh, model_axis)
+        if self._tp_group is not None:
+            raise ValueError("the module is laid out over a process group's "
+                             "mesh; it keeps that layout")
         n = mesh.shape[model_axis]
         self._check_split(n, model_axis)
         devs = tuple(mesh.entry(model_axis, j) for j in range(n))
@@ -352,11 +377,56 @@ class TinyCausalLM(nn.Module):
         self._tp_devices = devs
         return self
 
+    def _shard_over_group(self, mesh, model_axis: str):
+        """:meth:`shard_params` over a process group's mesh: this rank keeps
+        slice ``j`` (its index on the model axis) of each split leaf, in
+        place of the leaf."""
+        n = mesh.shape[model_axis]
+        self._check_split(n, model_axis)
+        if self._tp_devices is not None:
+            raise ValueError(
+                "the module is laid out over a local mesh; put it back "
+                "together first (shard_params over a model axis of 1)")
+        if self._tp_group is not None:
+            if _same_entry(self._tp_group, mesh):
+                return self
+            raise ValueError("the module is laid out over another process "
+                             "group's mesh")
+        if n == 1:
+            return self
+        j = mesh.axis_index(model_axis)
+        self._drop_programs()   # their graphs read the leaves that change
+        with torch.no_grad():
+            for p in self.blocks:
+                for k in self._split_names():
+                    dim = _SHARD_DIM[k]
+                    width = p[k].shape[dim] // n
+                    p[k] = nn.Parameter(
+                        p[k].detach().narrow(dim, j * width, width).clone())
+        self._tp_group = mesh
+        return self
+
+    def split_parameters(self) -> list:
+        """The parameters that a process group's layout
+        (:meth:`shard_params`) split over the model axis, each with its
+        split dim: ``[(param, dim)]``; empty for any other layout."""
+        if self._tp_group is None:
+            return []
+        names = self._split_names()
+        return [(p[k], _SHARD_DIM[k]) for p in self.blocks for k in names]
+
     def _block_leaves(self, i: int):
         """Block ``i``'s leaves, whole: its ``ParameterDict`` itself, or
         under a tensor-parallel layout a dict whose split leaves are put
-        back together on the module's device (differentiably)."""
+        back together on the module's device (differentiably; over a
+        process group by a gather over the row, which every rank of it
+        must call)."""
         p = self.blocks[i]
+        if self._tp_group is not None:
+            row = self._tp_group.axis_group(M.MODEL_AXIS)
+            names = self._split_names()
+            return {k: C.gather(t, row, dim=_SHARD_DIM[k]) if k in names
+                    else t for k, t in p.items()}
         if self._tp_devices is None:
             return p
         leaves = dict(p.items())
@@ -401,12 +471,15 @@ class TinyCausalLM(nn.Module):
                 "devices=[...]))")
         if mesh is None:
             return None
-        if not getattr(mesh, "local", False):
+        if not isinstance(mesh, M.Mesh):
             raise ValueError(
-                "TinyCausalLM runs over a local mesh (build_mesh(devices="
-                "[...]) or build_mesh() over this process's cards); a "
-                "process group's mesh holds one card a process")
+                f"mesh={mesh!r}: TinyCausalLM runs over a local mesh "
+                "(build_mesh(devices=[...])) or a process group's "
+                "(build_mesh(n_data, n_model) inside a joined group)")
         cols = mesh.shape[M.MODEL_AXIS] if tp else 1
+        if not mesh.local:      # this rank's own entry
+            self._check_split(cols)
+            return [[self.device]]
         self._check_split(cols)
         return [[torch.device(mesh.grid[r][j]) for j in range(cols)]
                 for r in range(mesh.shape[M.DATA_AXIS])]
@@ -418,8 +491,8 @@ class TinyCausalLM(nn.Module):
         tpudl's name; it shadows ``nn.Module.apply(fn)``. ``mesh``,
         ``tp`` and ``remat`` as :meth:`hidden` takes them."""
         grid = self._grid(mesh, tp)
-        if grid is None:
-            x = self.hidden(tokens, remat=remat)
+        if grid is None or not mesh.local:
+            x = self.hidden(tokens, mesh=mesh, remat=remat, tp=tp)
             return x @ self.embed["table"].T
         xs, tables = self._grid_hidden(tokens, grid, remat)
         return torch.cat([(x @ t.T).to(self.device)
@@ -442,11 +515,18 @@ class TinyCausalLM(nn.Module):
         flash-kernel ring: ``n(n+1)/2`` forward launches a block over
         ``n`` entries. ``tp=True`` also splits every block over the
         model axis (see the module docstring). The result comes back
-        whole on the module's device. ``use_pallas`` is accepted and
+        whole on the module's device. Over a process group's mesh
+        ``tokens`` is the whole batch on every rank and the result is the
+        rank's sequence block (block ``r`` for data-axis index ``r``): the
+        ring of ``r + 1`` hops a block over the data axis, the rank's
+        heads, MLP slice and experts under ``tp``. ``use_pallas`` is
+        accepted and
         changes nothing: tpudl picks between its plain path and its
         Pallas kernel, which it proves equal; here both run the flash
         kernels."""
         grid = self._grid(mesh, tp)
+        if grid is not None and not mesh.local:
+            return self._group_hidden(tokens, mesh, tp, remat)
         if grid is not None:
             xs, _ = self._grid_hidden(tokens, grid, remat)
             return torch.cat([x.to(self.device) for x in xs], dim=1)
@@ -508,6 +588,57 @@ class TinyCausalLM(nn.Module):
             out.append(_layer_norm(xs[r][0], norm))
         return out, tables
 
+    def _group_hidden(self, tokens, mesh, tp, remat):
+        """:meth:`hidden` over a process group's mesh: this rank's sequence
+        block of the final-norm hidden states."""
+        b, s = tokens.shape
+        if s > self.max_len:
+            raise ValueError(
+                f"sequence length {s} exceeds max_len {self.max_len}")
+        n, r = mesh.shape[M.DATA_AXIS], mesh.axis_index(M.DATA_AXIS)
+        if s % n:
+            raise ValueError(
+                f"sequence length {s} not divisible by ring size {n}")
+        s_loc = s // n
+        tok = torch.as_tensor(tokens)[:, r * s_loc:(r + 1) * s_loc]
+        x = F.embedding(tok.to(self.device), self.embed["table"])
+        grid = [[x.device]]
+
+        def attend(qs, ks, vs):
+            return [[ring_group(qs[0][0], ks[0][0], vs[0][0], mesh,
+                                causal=True, use_pallas=True)]]
+
+        for i in range(self.layers):
+            def run(x, p=self._rank_params(i, mesh, tp)):
+                return self._grid_block([[x]], [[p]], grid, attend,
+                                        (mesh, tp))[0][0]
+
+            x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        return _layer_norm(x, self.final_norm)
+
+    def _rank_params(self, i: int, mesh, tp) -> dict:
+        """Block ``i``'s leaves as this rank of a process group's mesh needs
+        them: the whole leaves and, under ``tp``, its slice of the split
+        ones (the layout's own parameters where :meth:`shard_params` laid
+        the module out over this mesh)."""
+        m = mesh.shape[M.MODEL_AXIS] if tp else 1
+        if (self._tp_group is not None and m > 1
+                and _same_entry(self._tp_group, mesh)):
+            return self.blocks[i]
+        whole = self._block_leaves(i)
+        if m == 1:
+            return whole
+        j, names = mesh.axis_index(M.MODEL_AXIS), self._split_names()
+        row = mesh.axis_group(M.MODEL_AXIS)
+        out = dict(whole.items())
+        for k in names:
+            # every rank of the row holds the whole leaf: entered through
+            # copy_in, each gets the gradient of all the row's slices
+            width = out[k].shape[_SHARD_DIM[k]] // m
+            out[k] = C.copy_in(out[k], row).narrow(_SHARD_DIM[k],
+                                                   j * width, width)
+        return out
+
     def _grid_params(self, i: int, grid) -> list:
         """Block ``i``'s leaves for every entry of ``grid``
         (:meth:`_entry_params`), ``[row][column]``."""
@@ -515,7 +646,7 @@ class TinyCausalLM(nn.Module):
         return [[self._entry_params(i, j, cols, dev)
                  for j, dev in enumerate(row)] for row in grid]
 
-    def _grid_block(self, xs, ps, grid, attend):
+    def _grid_block(self, xs, ps, grid, attend, group=None):
         """ONE pre-norm decoder block over ``grid``, the single definition
         of the block math: ``xs[r][j]`` is row ``r``'s activations on card
         ``grid[r][j]`` (whole on every card of the row), ``ps[r][j]`` that
@@ -523,31 +654,40 @@ class TinyCausalLM(nn.Module):
         attention of every entry, and the row-parallel products (``wo``,
         ``w_down``, the experts' combine) sum over the row
         (:func:`~tpudl_torch.mesh.all_sum`): Megatron's split, which on a
-        one-card grid is the plain block. The MLP's gelu is the tanh
-        approximation, jax.nn.gelu's default."""
+        one-card grid is the plain block. ``group`` is ``(mesh, tp)`` for
+        this rank's entry of a process group's mesh (``grid`` its one
+        card): under ``tp`` the row is the mesh's model axis, and its sums
+        are :func:`tpudl_torch.collectives.reduce_sum`, entered through
+        :func:`~tpudl_torch.collectives.copy_in`. The MLP's gelu is the
+        tanh approximation, jax.nn.gelu's default."""
         rows, cols = len(grid), len(grid[0])
-        heads = self.heads // cols
-        qkv = [[self._qkv(xs[r][j], ps[r][j], heads) for j in range(cols)]
-               for r in range(rows)]
-        att = attend(*([[e[n] for e in row] for row in qkv]
+        row = None
+        if group is not None and group[1]:
+            row = group[0].axis_group(M.MODEL_AXIS)
+        split = cols * C.group_size(row)
+        heads = self.heads // split
+        qkv = [[self._qkv(xs[r][j], ps[r][j], heads, row)
+                for j in range(cols)] for r in range(rows)]
+        att = attend(*([[e[n] for e in row_] for row_ in qkv]
                        for n in range(3)))
         x2, h2 = [], []
         for r in range(rows):
             b, s = xs[r][0].shape[:2]
-            parts = [att[r][j].reshape(b, s, self.dim // cols) @ ps[r][j]["wo"]
-                     for j in range(cols)]
+            parts = [att[r][j].reshape(b, s, self.dim // split)
+                     @ ps[r][j]["wo"] for j in range(cols)]
             x2.append([x + t for x, t in
-                       zip(xs[r], M.all_sum(parts, grid[r]))])
+                       zip(xs[r], _row_sum(parts, grid[r], row))])
             h2.append([_layer_norm(x2[r][j], ps[r][j], "norm2_")
                        for j in range(cols)])
         if self.experts:
-            moe = self._grid_moe(h2, ps, grid)
+            moe = (self._grid_moe(h2, ps, grid) if group is None
+                   else [[self._group_moe(h2[0][0], ps[0][0], *group)]])
             return [[x + t for x, t in zip(x2[r], moe[r])]
                     for r in range(rows)]
         out = []
         for r in range(rows):
-            sums = M.all_sum([self._ffn(h2[r][j], ps[r][j])
-                              for j in range(cols)], grid[r])
+            sums = _row_sum([self._ffn(C.copy_in(h2[r][j], row), ps[r][j])
+                             for j in range(cols)], grid[r], row)
             out.append([x2[r][j] + sums[j] + ps[r][j]["b_down"]
                         for j in range(cols)])
         return out
@@ -566,6 +706,9 @@ class TinyCausalLM(nn.Module):
         tpudl. ``batch % n_micro == 0``; MoE blocks are refused."""
         from tpudl_torch.pipeline import pipeline_blocks
 
+        if not mesh.local:
+            _not_ported("apply_pipelined over a process group's mesh",
+                        "LM parallelism")
         if self.experts:
             raise NotImplementedError(
                 "pipelined MoE blocks not supported; use apply(tp=True) "
@@ -590,11 +733,12 @@ class TinyCausalLM(nn.Module):
         x = _layer_norm(ym.reshape(b, s, self.dim), self.final_norm)
         return x @ self.embed["table"].T
 
-    def _qkv(self, x, p, heads: int):
+    def _qkv(self, x, p, heads: int, row=None):
         """The pre-norm and the q, k, v projections of ``heads`` heads,
-        each ``[B, S, heads, head_dim]``."""
+        each ``[B, S, heads, head_dim]`` (entered over the process group
+        ``row`` where a row splits the heads)."""
         b, s = x.shape[0], x.shape[1]
-        h = _layer_norm(x, p, "norm1_")
+        h = C.copy_in(_layer_norm(x, p, "norm1_"), row)
         shape = (b, s, heads, self.dim // self.heads)
         return tuple((h @ p[w]).reshape(shape) for w in ("wq", "wk", "wv"))
 
@@ -698,11 +842,58 @@ class TinyCausalLM(nn.Module):
         return [[t.to(hs[r][0].dtype) for t in M.all_sum(out[r], grid[r])]
                 for r in range(rows)]
 
+    def _group_moe(self, h, p, mesh, tp):
+        """:meth:`_grid_moe` on this rank's entry of a process group's mesh
+        (``h`` its sequence block's normed activations). The capacity and
+        the routing count over the whole sequence: the earlier data-axis
+        blocks' counts come over the data axis. Under ``tp`` each rank of
+        the row packs the buffers of its ``1/m`` of the batch rows for
+        every expert; ``all_to_all`` takes each expert's buffers to the rank
+        that holds it (``experts/m`` a rank) and its outputs back, the rank
+        combines its rows, and the rows join over the row. The batch must
+        divide by the model axis."""
+        row = mesh.axis_group(M.MODEL_AXIS) if tp else None
+        m = C.group_size(row)
+        n, r = mesh.shape[M.DATA_AXIS], mesh.axis_index(M.DATA_AXIS)
+        b, s, d = h.shape
+        cap = self._capacity(s * n)
+        h = C.copy_in(h, row)
+        gate, choice, pos = self._route(h, C.copy_in(p["w_gate"], row))
+        if n > 1:
+            # tokens routed to each expert in this row's earlier blocks
+            onehot = (pos >= 0).float()
+            counts = C.all_gather(onehot.sum(dim=1)[None],
+                                  mesh.axis_group(M.DATA_AXIS))
+            pos = pos + counts[:r].sum(dim=0)[:, None, :] * onehot
+        self._record_route(choice, pos, cap)
+        if m == 1:
+            disp, comb = self._dispatch(pos, gate, cap)
+            ye = self._experts(torch.einsum("bsec,bsd->ebcd", disp,
+                                            h.float()), p)
+            return torch.einsum("bsec,ebcd->bsd", comb, ye).to(h.dtype)
+        if b % m:
+            raise ValueError(f"batch {b} must divide over the model axis "
+                             f"({m}) for the experts' all_to_all")
+        bl, per, j = b // m, self.experts // m, mesh.axis_index(M.MODEL_AXIS)
+        mine = slice(j * bl, (j + 1) * bl)
+        disp, comb = self._dispatch(pos[mine], gate[mine], cap)
+        xe = torch.einsum("bsec,bsd->ebcd", disp, h[mine].float())
+        # [m sources x per experts, bl, C, D] -> [per, m x bl = b, C, D]
+        xe = C.all_to_all(xe, row).view(m, per, bl, cap, d).transpose(0, 1)
+        ye = self._experts(xe.reshape(per, b, cap, d), p)
+        ye = ye.view(per, m, bl, cap, d).transpose(0, 1).reshape(
+            m * per, bl, cap, d)
+        out = torch.einsum("bsec,ebcd->bsd", comb, C.all_to_all(ye, row))
+        return C.gather(out, row, dim=0).to(h.dtype)
+
     # -- autoregressive decode (KV cache) ----------------------------------
     def _decode_cards(self, mesh, tp):
         """The model-axis cards a ``tp=True`` decode splits its heads over
         (the mesh's first row), or None for a one-device decode."""
         grid = self._grid(mesh, tp)
+        if mesh is not None and not mesh.local:
+            _not_ported("generate, decode_step and serving over a process "
+                        "group's mesh", "LM parallelism")
         if grid is not None and self.experts:
             raise NotImplementedError(
                 "KV-cache decode for MoE blocks not supported")
@@ -1098,11 +1289,40 @@ class TinyCausalLM(nn.Module):
         there (the ring over the data axis, ``tp=True`` over the model
         axis; ``S - 1`` must divide by the data axis), and each sequence
         block's logits and summed cross-entropy stay on its card: only the
-        sums travel."""
+        sums travel.
+
+        Over a process group's mesh every rank takes the whole batch and
+        computes its sequence block's summed cross-entropy; the sums meet
+        in :func:`tpudl_torch.collectives.psum` over the data axis, so
+        every rank returns the global loss, and a train step's mean of the
+        gradients over the data axis is the one-card gradient
+        (:mod:`tpudl_torch.train.step`). When the data axis holds more than
+        one rank, the returned function's ``whole_batch`` is True (the
+        ``Trainer`` then feeds it the whole batch on every rank), and its
+        first call checks that every rank of the column holds the same
+        tokens (one small all-gather and a host sync), raising
+        ``ValueError`` otherwise."""
         self._grid(mesh, tp)
+        whole_batch = (mesh is not None and not mesh.local
+                       and mesh.shape[M.DATA_AXIS] > 1)
+        checked = not whole_batch
 
         def loss(model, tokens):
+            nonlocal checked
             grid = model._grid(mesh, tp)
+            if grid is not None and not mesh.local:
+                if not checked:
+                    _check_whole_batch(tokens, mesh)
+                    checked = True
+                x = model._group_hidden(tokens[:, :-1], mesh, tp, remat)
+                s = x.shape[1]
+                r = mesh.axis_index(M.DATA_AXIS)
+                y = torch.as_tensor(tokens)[:, 1:][:, r * s:(r + 1) * s]
+                part = F.cross_entropy(
+                    (x @ model.embed["table"].T).float().flatten(0, 1),
+                    y.to(x.device).flatten().long(), reduction="sum")
+                total = C.psum(part, mesh.axis_group(M.DATA_AXIS))
+                return total / y.shape[0] / (tokens.shape[1] - 1)
             if grid is None:
                 logits = model.apply(tokens[:, :-1], remat=remat)
                 return F.cross_entropy(logits.float().flatten(0, 1),
@@ -1116,7 +1336,43 @@ class TinyCausalLM(nn.Module):
             return M.sum_to(parts, model.device) / targets[0].shape[0] / (
                 tokens.shape[1] - 1)
 
+        loss.whole_batch = whole_batch
         return loss
+
+
+def _check_whole_batch(tokens, mesh) -> None:
+    """Raise unless every rank of this rank's data column of a process
+    group's ``mesh`` holds the same ``tokens``: the ring's sequence blocks
+    must be blocks of the same rows."""
+    t = torch.as_tensor(tokens).to(mesh.device, torch.int64)
+    flat = t.flatten()
+    at = torch.arange(1, flat.numel() + 1, device=flat.device)
+    mine = torch.stack([torch.tensor(n, device=flat.device)
+                        for n in t.shape] + [flat.sum(), (flat * at).sum()])
+    seen = C.all_gather(mine[None], mesh.axis_group(M.DATA_AXIS))
+    if not bool((seen == seen[0]).all()):
+        raise ValueError(
+            "loss_fn(mesh=) over a process group's data axis runs its ring "
+            "over the sequence, so every rank of a column takes the whole "
+            "batch, but the ranks of this column hold different tokens. "
+            "Trainer feeds the whole batch to a loss function whose "
+            "whole_batch is True; a wrapper must keep that attribute "
+            "(functools.update_wrapper)")
+
+
+def _row_sum(parts, cards, row):
+    """The row-parallel sum of a block: over a local mesh's row of
+    ``cards`` one copy a card (:func:`~tpudl_torch.mesh.all_sum`), over a
+    process group's ``row`` the all-reduce of this rank's one part."""
+    if row is None:
+        return M.all_sum(parts, cards)
+    return [C.reduce_sum(parts[0], row)]
+
+
+def _same_entry(a, b) -> bool:
+    """Whether two process group's meshes put this rank at one entry of
+    one grid."""
+    return (a.size, a.n_model, a.coords) == (b.size, b.n_model, b.coords)
 
 
 def _ring_attend(grid):
@@ -1205,7 +1461,8 @@ def load_jax_params(model: TinyCausalLM, params) -> TinyCausalLM:
     shardings) into ``model``, whatever its layout (a split leaf is
     copied slice by slice into its cards). Names and shapes must match
     exactly; returns ``model``."""
-    groups = _leaf_groups(model)
+    grouped = model._tp_group is not None
+    groups = _param_groups(model) if grouped else _leaf_groups(model)
     if set(params) != set(groups):
         raise KeyError(f"param groups {sorted(params)} do not match the "
                        f"model's {sorted(groups)}")
@@ -1217,10 +1474,20 @@ def load_jax_params(model: TinyCausalLM, params) -> TinyCausalLM:
                                f"the model's {sorted(group)}")
             for key, whole in group.items():
                 arr = np.asarray(src[key])
-                if arr.shape != tuple(whole.shape):
+                shape = list(whole.shape)
+                part = grouped and name.startswith("block_") \
+                    and key in model._split_names()
+                if part:   # this rank's slice of the whole leaf
+                    m = model._tp_group.shape[M.MODEL_AXIS]
+                    shape[_SHARD_DIM[key]] *= m
+                if arr.shape != tuple(shape):
                     raise ValueError(f"{name}.{key}: shape {arr.shape} != "
-                                     f"model {tuple(whole.shape)}")
+                                     f"model {tuple(shape)}")
                 t = torch.from_numpy(np.ascontiguousarray(arr))
+                if part:
+                    j = model._tp_group.axis_index(M.MODEL_AXIS)
+                    whole.copy_(t.chunk(m, dim=_SHARD_DIM[key])[j])
+                    continue
                 split = (model._tp_devices is not None
                          and name.startswith("block_")
                          and key in model.tp_shards[0][0])
