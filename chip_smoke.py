@@ -62,7 +62,7 @@ Phases (any failure exits non-zero before the final line):
    (``TPUDL_FRAME_PREFETCH=0``), pipelined (the defaults K=2, N=2, D=2)
    and fused (``fuseSteps=4``). Image arms: InceptionV3 f32 and bf16,
    ResNet50 f32 and bf16 and MobileNetV2 bf16, each over 512 rows in
-   batches of 64: images/s (median and spread of 5 windows), the
+   batches of 64: images/s (median and spread of 3 windows), the
    ``PipelineReport`` stages and gauges, the per-batch function's own
    rate, and, last, the card's idle share from one profile over a whole
    8-batch transform of each arm. Pipelined and fused outputs must equal
@@ -317,6 +317,32 @@ Phases (any failure exits non-zero before the final line):
    legs run on a ``(1, 1)`` grid, a world of one, against the run without
    a mesh (logits within 1e-5 of max |logit|, losses within 2e-5). The
    phase's seconds.
+19. The job runtime, the fault harness and the supervisor (``tpudl_torch.jobs``,
+   ``tpudl_torch.testing.faults``, ``tpudl_torch.frame.supervisor``,
+   ``tpudl_torch.obs.flight``) at full width, under
+   ``cudnn.deterministic`` as phase 8's restart: phase 4b's
+   ``TinyCausalLM(50257, 512, 8, 12)`` (adamw, 8 x 1025 tokens, 12 steps,
+   a checkpoint every 4) as a ``JobSpec(kind="fit")`` through
+   ``JobRuntime.run_fit(exit_on_preempt=True)`` in a child process
+   (``--jobs-child``) that ``kill_at_step(7)`` SIGTERMs through
+   ``TPUDL_FAULT_PLAN`` (exit 75, a ``preempted`` manifest with the step
+   cursor, a flight dump in the workdir), then a relaunch of the same
+   spec that resumes and finishes (the steps reworked, at most 4; its
+   final ``state_dict`` bit for bit an uninterrupted run in this process;
+   12 launches of each kernel a step in both attempts), each child's wall
+   time, and a changed spec refused; phase 4's ``LMFeaturizer`` over 64
+   texts with ``fuseSteps=4`` and ``dispatchDepth=4`` under
+   ``TPUDL_FRAME_DEGRADE=1``: an injected OOM at ``frame.dispatch``
+   (``evict_hbm``, 256 MB of resident device-cache entries evicted),
+   three dispatch faults (depth 4 -> 2 -> 1, then ``fuseSteps`` -> 1), a
+   real allocator OOM (``fn``'s first call asks for more than
+   ``mem_get_info`` reports free) and ``TPUDL_FRAME_DEGRADE_MAX_RUNGS=1``
+   (the typed error and a dump), each recovered run bit for bit the
+   healthy run, 12 flash launches a batch, and each arm's seconds beside
+   the healthy arm's; phase 15's engine (8 slots x 1024, three graphs at
+   registration) behind a supervised ``Server`` with a fault at
+   ``serve.dispatch`` on tick 5: 8 greedy streams equal to serial
+   ``generate``, no capture after registration. The phase's seconds.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -332,9 +358,10 @@ alone. ``python3 chip_smoke.py --keras2-only`` runs phase 1 and then
 phase 12 alone, ``--data-only`` phase 1 and then phase 13, and
 ``--mesh-only`` phase 1 and then phase 14, ``--serve-only`` phase 1 and
 then phase 15, ``--parallel-only`` phase 1 and then phase 16,
-``--compile-only`` phase 1 and then phase 17, and ``--group-only`` phase 1,
+``--compile-only`` phase 1 and then phase 17, ``--group-only`` phase 1,
 phase 16 (whose local-mesh figures phase 18 prints beside its own) and
-then phase 18, over every visible card.
+then phase 18, over every visible card, and ``--jobs-only`` phase 1 and
+then phase 19.
 ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -470,6 +497,7 @@ EXEC_IMAGE = (("InceptionV3", "float32"), ("InceptionV3", "bfloat16"),
               ("ResNet50", "float32"), ("ResNet50", "bfloat16"),
               ("MobileNetV2", "bfloat16"))
 EXEC_FUSE = 4
+EXEC_WINDOWS = 3                   # timed windows of each executor arm
 EXEC_ARMS = {"serial": {}, "pipelined": {}, "fused": {"fuseSteps": EXEC_FUSE}}
 # the pool study (--pool-study): host-bound bf16 cells, arms in turn
 POOL_MODELS = ("ResNet50", "InceptionV3", "MobileNetV2")
@@ -1761,8 +1789,8 @@ def check_arm_output(what, y, y_serial, card):
     return f"{err:.3e} of max |y| off the serial arm"
 
 
-def interleaved_windows(stages, run, n):
-    """Each arm's transform timed IMAGE_WINDOWS times, the arms in turn
+def interleaved_windows(stages, run, n, windows=IMAGE_WINDOWS):
+    """Each arm's transform timed ``windows`` times, the arms in turn
     within each window, so that the host's noise falls on all of them
     alike; returns {arm: rates}, {arm: first output}, {arm: last
     report}."""
@@ -1770,7 +1798,7 @@ def interleaved_windows(stages, run, n):
 
     rates = {arm: [] for arm in stages}
     first, reports = {}, {}
-    for _ in range(IMAGE_WINDOWS):
+    for _ in range(windows):
         for arm, stage in stages.items():
             with executor_arm(arm):
                 t0 = time.perf_counter()
@@ -1784,7 +1812,7 @@ def interleaved_windows(stages, run, n):
 
 def executor_image_leg(name, dtype_name, card, profiles):
     """One (model, dtype) in the three arms: a warm transform each (which
-    captures the fused arm's graph), IMAGE_WINDOWS windows with the arms
+    captures the fused arm's graph), EXEC_WINDOWS windows with the arms
     in turn, the outputs held to the serial arm's, the reports, and the
     per-batch function's own rate; the profiles run later
     (``profiles``)."""
@@ -1807,7 +1835,7 @@ def executor_image_leg(name, dtype_name, card, profiles):
             warm[arm] = time.perf_counter() - t0
     rates, ys, reps = interleaved_windows(
         stages, lambda st: np.stack(list(st.transform(frame)["f"])),
-        IMAGE_ROWS)
+        IMAGE_ROWS, EXEC_WINDOWS)
     for arm in EXEC_ARMS:
         verdict = ("the yardstick" if arm == "serial" else
                    check_arm_output(f"{name} {dtype_name} {arm}", ys[arm],
@@ -1833,7 +1861,7 @@ def executor_lm_leg(card, profiles):
     """LMFeaturizer at serving width in the three arms: a counted run each
     (LAYERS flash forward launches a batch, the fused arm's graph replays
     included, after a warm transform that captures its graph), features
-    bitwise equal to the serial arm's, and rows/s over IMAGE_WINDOWS
+    bitwise equal to the serial arm's, and rows/s over EXEC_WINDOWS
     windows with the arms in turn. Returns the launches of each arm's
     counted run."""
     from tpudl_torch import cuda_ops
@@ -1877,7 +1905,7 @@ def executor_lm_leg(card, profiles):
             fail(f"LMFeaturizer {arm} features differ from the serial "
                  f"arm's by {float(np.abs(y - ys['serial']).max()):.3e}")
     rates, _, _ = interleaved_windows(stages, lambda st: st.transform(frame),
-                                      N_ROWS)
+                                      N_ROWS, EXEC_WINDOWS)
     for arm in EXEC_ARMS:
         r = rates[arm]
         print(f"  LMFeaturizer {arm}: counted run {counted[arm][0]:.1f} "
@@ -8005,9 +8033,488 @@ def run_group(card):
     return counts
 
 
+# phase 19: jobs, faults and the supervisor (tpudl_torch.jobs,
+# tpudl_torch.testing.faults, tpudl_torch.frame.supervisor,
+# tpudl_torch.obs.flight)
+JOB_STEPS, JOB_SAVE_EVERY, JOB_KILL_AT = 12, 4, 7
+JOB_CHILD_TIMEOUT = 300
+JOB_TEXTS = 64                     # the supervised LMFeaturizer: 4 batches
+JOB_FUSE, JOB_DEPTH = 4, 4
+JOB_STALE_MB = 256                 # resident device-cache entries at an OOM
+JOB_SERVE_FAULT_TICK = 5
+
+
+def job_material(lr: float) -> dict:
+    """The job's identity: its model, data and optimizer."""
+    return {"model": "TinyCausalLM:v50257:d512:h8:l12", "init_seed": SEED,
+            "rows": f"training_rows({TRAIN_BATCH * JOB_STEPS})",
+            "batch": TRAIN_BATCH, "optimizer": "adamw", "lr": lr}
+
+
+def job_model():
+    """Phase 4b's model from ``init(SEED)`` on the card."""
+    from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
+
+    lm = TinyCausalLM(**TRAIN_ARCH, device="cuda")
+    load_jax_params(lm, lm.init(SEED))
+    return lm
+
+
+def job_parts(workdir, lr=LR):
+    """The job's runtime (``JobSpec(kind="fit")``, a checkpoint every
+    ``JOB_SAVE_EVERY`` steps), its trainer and its model."""
+    from tpudl_torch.jobs import JobRuntime, JobSpec
+    from tpudl_torch.train import Trainer, adamw
+
+    lm = job_model()
+    spec = JobSpec("fit", str(workdir), material=job_material(lr),
+                   save_every=JOB_SAVE_EVERY)
+    return JobRuntime(spec), Trainer(lm.loss_fn(), adamw(lr),
+                                     log_every=1), lm
+
+
+def job_data(rows):
+    return lambda step: rows[step * TRAIN_BATCH:(step + 1) * TRAIN_BATCH]
+
+
+def jobs_child(workdir, out):
+    """One attempt of phase 19's job (``--jobs-child``): arms
+    ``TPUDL_FAULT_PLAN``, runs ``JobRuntime.run_fit(exit_on_preempt=True)``
+    and writes ``<out>.json`` (its seconds, steps run and kernel
+    launches) and, when the job finishes, ``<out>.pt`` (the final
+    ``state_dict``). A preempted attempt exits 75."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.obs import metrics
+    from tpudl_torch.testing import faults
+
+    faults.install_from_env()
+    torch.backends.cudnn.deterministic = True
+    rows = training_rows(TRAIN_BATCH * JOB_STEPS)
+    rt, trainer, lm = job_parts(workdir)
+    reset_launch_counts()
+    record = {"rc": None}
+    t0 = time.perf_counter()
+    try:
+        rt.run_fit(trainer, lm, job_data(rows), JOB_STEPS,
+                   exit_on_preempt=True)
+        torch.save({k: v.detach().cpu() for k, v in lm.state_dict().items()},
+                   f"{out}.pt")
+        record["rc"] = 0
+    except SystemExit as e:
+        record["rc"] = e.code
+        raise
+    finally:
+        torch.cuda.synchronize()
+        record.update(seconds=time.perf_counter() - t0,
+                      steps=int(metrics.counter("train.steps").value),
+                      launches=dict(cuda_ops.launch_counts))
+        with open(f"{out}.json", "w") as f:
+            json.dump(record, f)
+
+
+def jobs_resume_leg(tmp, card, problems):
+    """The preemption contract on phase 4b's model: an uninterrupted
+    12-step run here, then a child SIGTERMed at step 7 (exit 75, a
+    ``preempted`` manifest, a flight dump in the workdir) and a relaunch
+    that resumes and finishes, bit for bit the uninterrupted run; a
+    changed spec is refused. Returns the two attempts' kernel launches."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.jobs import JobRuntime, JobSpec, RC_PREEMPTED, \
+        load_manifest
+    from tpudl_torch.train import Trainer, adamw
+    from tpudl_torch.testing import faults
+
+    rows = training_rows(TRAIN_BATCH * JOB_STEPS)
+    lm = job_model()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, hist = Trainer(lm.loss_fn(), adamw(LR), log_every=1).fit(
+        lm, job_data(rows), JOB_STEPS)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    ref_launches = dict(cuda_ops.launch_counts)
+    want = {k: v.detach().cpu() for k, v in lm.state_dict().items()}
+    del lm
+    torch.cuda.empty_cache()
+    print(f"  uninterrupted: {JOB_STEPS} steps of adamw on "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens in this process, {t_ref:.2f} s, "
+          f"losses {[round(h['loss'], 5) for h in hist]}, launches "
+          f"{ref_launches}; card {card}", flush=True)
+
+    workdir = os.path.join(tmp, "job")
+    script = os.path.abspath(__file__)
+
+    def attempt(name, plan=None):
+        env = dict(os.environ)
+        env.pop(faults.PLAN_ENV, None)
+        if plan is not None:
+            env[faults.PLAN_ENV] = plan.to_env()
+        out = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, script, "--jobs-child", workdir, out],
+            capture_output=True, text=True, env=env, cwd=os.getcwd(),
+            timeout=JOB_CHILD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        try:
+            with open(f"{out}.json") as f:
+                rec = json.load(f)
+        except OSError:
+            rec = {}
+        rec.update(rc=proc.returncode, wall=wall)
+        if proc.returncode not in (0, RC_PREEMPTED):
+            print(f"  child {name} failed rc {proc.returncode}:\n"
+                  f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}",
+                  flush=True)
+        return rec, out
+
+    a, _ = attempt("killed", faults.FaultPlan.kill_at_step(JOB_KILL_AT))
+    m = load_manifest(workdir) or {}
+    dumps = sorted(n for n in os.listdir(workdir)
+                   if n.startswith("tpudl-dump-"))
+    reason = None
+    if dumps:
+        import gzip
+
+        with gzip.open(os.path.join(workdir, dumps[0]), "rt") as f:
+            reason = json.load(f).get("reason")
+    cursor = dict(m.get("cursor") or {})
+    ok_a = (a["rc"] == RC_PREEMPTED and m.get("status") == "preempted"
+            and cursor == {"step": JOB_KILL_AT + 1}
+            and (m.get("checkpoint") or {}).get("step") == JOB_KILL_AT + 1
+            and reason == "preempted_resumable")
+    print(f"  attempt 1 (kill_at_step({JOB_KILL_AT}) through "
+          f"TPUDL_FAULT_PLAN): exit {a['rc']} (want {RC_PREEMPTED}), wall "
+          f"{a['wall']:.1f} s (run_fit {a.get('seconds', float('nan')):.2f}"
+          f" s), {a.get('steps')} steps run, manifest status "
+          f"{m.get('status')!r}, cursor {cursor}, checkpoint "
+          f"{m.get('checkpoint')}, dumps {dumps} ({reason}); launches "
+          f"{a.get('launches')}; {'ok' if ok_a else 'MISS'}; card {card}",
+          flush=True)
+    if not ok_a:
+        problems.append("the SIGTERMed attempt")
+    b, out_b = attempt("resumed")
+    final = load_manifest(workdir) or {}
+    start_b = JOB_STEPS - int(b.get("steps") or 0)
+    rework = max(0, int(a.get("steps") or 0) - start_b)
+    same = False
+    if b["rc"] == 0 and os.path.exists(f"{out_b}.pt"):
+        got = torch.load(f"{out_b}.pt")
+        same = sorted(got) == sorted(want) and all(
+            torch.equal(got[k], want[k]) for k in want)
+    per_step = {name: [rec.get("launches", {}).get(name, 0)
+                       / max(1, int(rec.get("steps") or 0))
+                       for rec in (a, b)] for name in ref_launches}
+    ok_b = (b["rc"] == 0 and final.get("status") == "done"
+            and final.get("attempt") == 2 and rework <= JOB_SAVE_EVERY
+            and same and all(v == [TRAIN_ARCH["layers"]] * 2
+                             for v in per_step.values()))
+    print(f"  attempt 2 (the same spec): exit {b['rc']}, wall "
+          f"{b['wall']:.1f} s (run_fit {b.get('seconds', float('nan')):.2f}"
+          f" s), resumed at step {start_b}, {b.get('steps')} steps run, "
+          f"{rework} reworked (at most save_every={JOB_SAVE_EVERY}); "
+          f"manifest {final.get('status')!r} attempt {final.get('attempt')}"
+          f"; final state_dict bit for bit the uninterrupted run's: {same}; "
+          f"launches a step of each kernel in attempts 1 and 2 {per_step} "
+          f"(want {TRAIN_ARCH['layers']}); {'ok' if ok_b else 'MISS'}",
+          flush=True)
+    if not ok_b:
+        problems.append("the resumed attempt")
+    try:
+        JobRuntime(JobSpec("fit", workdir, material=job_material(2 * LR),
+                           save_every=JOB_SAVE_EVERY),
+                   install_signals=False)._begin()
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"  a relaunch with a changed spec (lr {2 * LR}): "
+          f"{'refused: ' + refused[:120] if refused else 'NOT refused'}")
+    if not refused or "refusing to resume foreign state" not in refused:
+        problems.append("a changed spec was not refused")
+    return {name: a.get("launches", {}).get(name, 0)
+            + b.get("launches", {}).get(name, 0) for name in ref_launches}
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Set (or, for None, unset) environment variables for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def jobs_frame_leg(spec, weights, tmp, card, problems):
+    """Phase 4's ``LMFeaturizer`` over 64 texts with ``fuseSteps=4`` and
+    ``dispatchDepth=4``, supervised (``TPUDL_FRAME_DEGRADE=1``): an
+    injected OOM, three dispatch faults, a real allocator OOM and an
+    exhausted ladder, each recovered run bit for bit the healthy one.
+    Returns the launches of the counted recovered runs."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.data import device_cache as dc
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.frame import supervisor as sup
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.obs import flight, last_pipeline_report
+    from tpudl_torch.testing import faults
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.text.codec import pad_mask, tokenize_pack
+
+    frame = Frame({"text": make_texts(JOB_TEXTS, SEED)})
+    n_batches = -(-JOB_TEXTS // BATCH)
+    feat = LMFeaturizer(inputCol="text", outputCol="vec", model=spec,
+                        weights=weights, tokenizer=ByteTokenizer(),
+                        batchSize=BATCH, fuseSteps=JOB_FUSE,
+                        dispatchDepth=JOB_DEPTH)
+    with env_vars(TPUDL_FRAME_DEGRADE=None):
+        feat.transform(frame)          # loads, warms, captures the graph
+    torch.cuda.synchronize()
+
+    def park():
+        """Resident, unpinned device-cache entries (another run's)."""
+        cache = dc.get_device_cache()
+        per = (JOB_STALE_MB << 20) // 4
+        for i in range(4):
+            pin = cache.put(("phase19-stale", i),
+                            [torch.zeros(per // 4, device="cuda")])
+            if pin is not None:
+                pin.release()
+        return cache.bytes_resident
+
+    def arm(run, plan=None, **env):
+        flight.get_recorder().reset()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with env_vars(**env), (plan.armed() if plan is not None
+                               else contextlib.nullcontext()):
+            y = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rungs = [e["rung"] for e in flight.get_recorder().snapshot()["errors"]
+                 if e["kind"] == "frame.degraded"]
+        return y, dt, rungs, last_pipeline_report(), \
+            dict(cuda_ops.launch_counts)
+
+    def stage_run():
+        return np.stack(list(feat.transform(frame)["vec"]))
+
+    want_launch = LAYERS * n_batches
+    y0, t_healthy, _, _, l0 = arm(stage_run, TPUDL_FRAME_DEGRADE=None)
+    print(f"  healthy (unsupervised) LMFeaturizer over {JOB_TEXTS} texts, "
+          f"fuseSteps={JOB_FUSE}, dispatchDepth={JOB_DEPTH}: "
+          f"{t_healthy:.3f} s, flash forward launches "
+          f"{l0['flash_attn_fwd']} (want {want_launch}); card {card}",
+          flush=True)
+    counts = {}
+    legs = [
+        ("injected_oom", "injected oom at frame.dispatch",
+         faults.FaultPlan.oom("frame.dispatch"), ["evict_hbm"]),
+        ("dispatch_faults", "three dispatch faults",
+         faults.FaultPlan([{"point": "frame.dispatch", "action": "raise",
+                            "first_calls": 3}]),
+         ["dispatch_depth=2", "dispatch_depth=1", "fuse_steps=1"]),
+    ]
+    for key, name, plan, want_rungs in legs:
+        resident = park()
+        y, dt, rungs, rep, launches = arm(stage_run, plan,
+                                          TPUDL_FRAME_DEGRADE=1)
+        left = dc.get_device_cache().bytes_resident
+        evicted = want_rungs[0] != "evict_hbm" or left == 0
+        ok = (rungs == want_rungs and np.array_equal(y, y0)
+              and rep.get("degraded_to") == want_rungs[-1]
+              and launches["flash_attn_fwd"] == want_launch and evicted)
+        print(f"  {name}: rungs {rungs}, degraded_to "
+              f"{rep.get('degraded_to')!r}, recovered_batches "
+              f"{rep.get('recovered_batches')}, {dt:.3f} s against the "
+              f"healthy {t_healthy:.3f} s, flash forward launches "
+              f"{launches['flash_attn_fwd']} (want {want_launch}), device "
+              f"cache {resident / 2**20:.0f} MB resident before, "
+              f"{left / 2**20:.0f} MB after; features bit for bit the "
+              f"healthy run's: {bool(np.array_equal(y, y0))}; "
+              f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        if not ok:
+            problems.append(name)
+        counts[f"jobs_featurizer_{key}"] = launches
+        dc.reset_device_cache()
+
+    # a real allocator OOM: fn's first call asks for more than is free
+    net, tok = feat._require()
+    pack = tokenize_pack(tok, seq_len=None, buckets="pow2", bos=True)
+    state = {"oom": False, "asked": 0}
+
+    def greedy(tokens):
+        if state["oom"]:
+            state["oom"] = False
+            free, _ = torch.cuda.mem_get_info()
+            state["asked"] = free + (1 << 30)
+            torch.empty(state["asked"], dtype=torch.uint8, device="cuda")
+        mask = pad_mask(tokens)
+        h = net.hidden(tokens)
+        pooled = (h * mask[..., None]).sum(dim=1)
+        return pooled / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+
+    def direct():
+        with torch.inference_mode(), full_f32():
+            out = frame.map_batches(greedy, ["text"], ["vec"],
+                                    batch_size=BATCH, pack=pack,
+                                    fuse_steps=1, dispatch_depth=JOB_DEPTH)
+        return np.stack(list(out["vec"]))
+
+    y1, t_direct, _, _, _ = arm(direct, TPUDL_FRAME_DEGRADE=None)
+    resident = park()
+    state["oom"] = True
+    y, dt, rungs, rep, launches = arm(direct, TPUDL_FRAME_DEGRADE=1)
+    left = dc.get_device_cache().bytes_resident
+    ok = (rungs == ["evict_hbm"] and np.array_equal(y, y1) and left == 0
+          and launches["flash_attn_fwd"] == want_launch)
+    print(f"  a real allocator OOM (fn's first call asked "
+          f"{state['asked'] / 2**30:.1f} GiB, more than mem_get_info's free)"
+          f": rungs {rungs}, {dt:.3f} s against the healthy run of the same "
+          f"fn {t_direct:.3f} s, flash forward launches "
+          f"{launches['flash_attn_fwd']}, device cache "
+          f"{resident / 2**20:.0f} -> {left / 2**20:.0f} MB; bit for bit "
+          f"the healthy run: {bool(np.array_equal(y, y1))} (and the stage's"
+          f": {bool(np.array_equal(y1, y0))}); {'ok' if ok else 'MISS'}",
+          flush=True)
+    if not ok:
+        problems.append("real OOM")
+    counts["jobs_featurizer_real_oom"] = launches
+    dc.reset_device_cache()
+
+    # exhaustion: every dispatch fails, one rung of budget
+    dump_dir = os.path.join(tmp, "dumps")
+    every = faults.FaultPlan([{"point": "frame.dispatch",
+                               "action": "raise"}])
+    t0 = time.perf_counter()
+    try:
+        arm(stage_run, every, TPUDL_FRAME_DEGRADE=1,
+            TPUDL_FRAME_DEGRADE_MAX_RUNGS=1, TPUDL_FLIGHT_DIR=dump_dir)
+        err = None
+    except sup.FaultError as e:
+        err = e
+    dumps = (sorted(os.listdir(dump_dir)) if os.path.isdir(dump_dir)
+             else [])
+    ok = (isinstance(err, sup.StageFault)
+          and err.rungs == ("dispatch_depth=2", "serial")
+          and isinstance(err.__cause__, faults.FaultInjected)
+          and len(dumps) == 1)
+    print(f"  TPUDL_FRAME_DEGRADE_MAX_RUNGS=1 under a fault at every "
+          f"dispatch: {type(err).__name__} after rungs "
+          f"{getattr(err, 'rungs', None)} in "
+          f"{time.perf_counter() - t0:.3f} s, dump {dumps}; "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        problems.append("exhaustion")
+    return counts
+
+
+def jobs_serve_leg(spec, weights, card, problems):
+    """Phase 15's engine: 8 greedy requests through a supervised server
+    with a fault at ``serve.dispatch`` on tick 5; the in-flight requests
+    are requeued, every stream equals serial ``generate``, and no graph
+    is captured after registration."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.serve import ModelRegistry, RequestQueue, Server
+    from tpudl_torch.testing import faults
+
+    reg = ModelRegistry()
+    t0 = time.perf_counter()
+    entry = reg.add_model("lm", spec, weights, slots=SERVE_SLOTS,
+                          cache_len=SERVE_CACHE, warm=True)
+    t_reg = time.perf_counter() - t0
+    eng = entry.engine
+    warm = eng.captures
+    prompts = serve_prompts(SERVE_PARITY_PLENS, SEED)
+    srv = Server(reg, RequestQueue(cap=64), supervise=True)
+    reqs = [srv.submit(p, SERVE_MAX_NEW, model="lm") for p in prompts]
+    srv._stop.set()
+    plan = faults.FaultPlan([{"point": "serve.dispatch", "action": "raise",
+                              "at_call": JOB_SERVE_FAULT_TICK}])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with plan.armed():
+        summary = srv.run()
+    t_run = time.perf_counter() - t0
+    launches = dict(cuda_ops.launch_counts)
+    streams = [np.asarray(r.result(timeout=SERVE_TIMEOUT)) for r in reqs]
+    serial = [serve_serial(eng.model, p, SERVE_MAX_NEW) for p in prompts]
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(streams, serial)]
+    ok = (all(equal) and eng.captures == warm and len(plan.fired) == 1
+          and summary["degraded_to"] == "dispatch_depth=4"
+          and summary["completed"] == len(prompts)
+          and not any(launches.values()))
+    print(f"  supervised server: registration {t_reg:.2f} s ({warm} graphs), "
+          f"{len(prompts)} greedy requests x {SERVE_MAX_NEW} tokens with a "
+          f"fault at serve.dispatch on tick {JOB_SERVE_FAULT_TICK}: "
+          f"{t_run:.2f} s, degraded_to {summary['degraded_to']!r} (admission "
+          f"width 8 -> 4), completed {summary['completed']}, streams equal "
+          f"to serial generate {equal}, graphs captured after registration "
+          f"{eng.captures - warm}, flash launches {launches}; "
+          f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+    if not ok:
+        problems.append("supervised serving")
+    del reg, entry, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_jobs(card):
+    """Phase 19: jobs, faults and the supervisor at full width. Every
+    check runs and prints; the phase fails at its end if any did not
+    hold. Returns the kernel launches of its paths."""
+    import tempfile
+
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    t_phase = time.perf_counter()
+    problems = []
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # phase 8's restart flags
+    counts = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="tpudl-jobs-") as tmp:
+            t0 = time.perf_counter()
+            counts["jobs_run_fit_resumed"] = jobs_resume_leg(tmp, card,
+                                                             problems)
+            print(f"  jobs_resume_leg: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN,
+                                device="meta")
+            weights = spec.init(SEED)
+            t0 = time.perf_counter()
+            counts.update(jobs_frame_leg(spec, weights, tmp, card,
+                                         problems))
+            print(f"  jobs_frame_leg: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            t0 = time.perf_counter()
+            counts["jobs_supervised_serving"] = jobs_serve_leg(
+                spec, weights, card, problems)
+            print(f"  jobs_serve_leg: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    torch.cuda.empty_cache()
+    print(f"  phase 19: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 19: " + "; ".join(problems))
+    return counts
+
+
 def main(argv) -> int:
     # a cold-start child's clock starts at its process start: no nvidia-smi
-    card = "" if argv[:1] == ["--compile-child"] else card_line()
+    card = ("" if argv[:1] in (["--compile-child"], ["--jobs-child"])
+            else card_line())
     print(f"card: {card}", flush=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script measures "
@@ -8123,8 +8630,19 @@ def main(argv) -> int:
         print(f"group-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--jobs-only"]:
+        print(f"phase 19 alone: jobs, faults and the supervisor at full "
+              f"width on {card}", flush=True)
+        run_jobs(card)
+        print(f"card: {card}")
+        print(f"jobs-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if len(argv) == 3 and argv[0] == "--compile-child":
         compile_child(argv[1], argv[2])   # phase 17's cold-start child
+        return 0
+    if len(argv) == 3 and argv[0] == "--jobs-child":
+        jobs_child(argv[1], argv[2])      # phase 19's job attempt
         return 0
     if len(argv) == 2 and argv[0] == "--ranks":
         print(f"data-parallel ResNet50 training over {argv[1]} ranks on "
@@ -8146,7 +8664,7 @@ def main(argv) -> int:
              "--executor-only, --train-only, --keras-only, --surface-only, "
              "--graph-only, --keras2-only, --data-only, --mesh-only, "
              "--serve-only, --parallel-only, --compile-only, --group-only, "
-             "--ranks N and --pool-study")
+             "--jobs-only, --ranks N and --pool-study")
 
     from tpudl_torch import _build
 
@@ -8264,6 +8782,9 @@ def main(argv) -> int:
     print(f"phase 18: the model axis over a process group on {card}",
           flush=True)
     group_counts = run_group(card)
+    print(f"phase 19: jobs, faults and the supervisor at full width on "
+          f"{card}", flush=True)
+    jobs_counts = run_jobs(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -8279,7 +8800,8 @@ def main(argv) -> int:
             keras2_counts[entry["name"]]
         for path, counts in {**data_counts, **mesh_counts,
                              **serve_counts, **parallel_counts,
-                             **compile_counts_, **group_counts}.items():
+                             **compile_counts_, **group_counts,
+                             **jobs_counts}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "

@@ -297,15 +297,34 @@ def test_env_variables_set_the_knobs(monkeypatch):
     ("autotune", True, "The rest of observability"),
 ])
 def test_unported_knobs_raise_by_name(knob, value, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"{knob}=.*ROADMAP Queue 1, '{item}'"):
-        Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
-                                      device="cpu", **{knob: value})
-    out = Frame(_columns()).map_batches(
-        tfn, ["x", "i"], ["y", "g"], device="cpu",
-        **{knob: False})
+    """``autotune=True`` stays refused by its ROADMAP item's name.
+    ``supervise=True`` (once refused, 'Jobs, faults and the supervisor')
+    runs: a fault injected into the first dispatch costs one rung of the
+    ladder, and the recovered outputs equal the unsupervised run's bit
+    for bit."""
+    want = Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
+                                         device="cpu", **{knob: False})
     assert last_pipeline_report()["autotune"] is False
-    assert len(out) == ROWS
+    assert len(want) == ROWS
+    if knob == "autotune":
+        with pytest.raises(NotImplementedError,
+                           match=f"{knob}=.*ROADMAP Queue 1, '{item}'"):
+            Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
+                                          device="cpu", **{knob: value})
+        return
+    from tpudl_torch.testing import faults
+
+    plan = faults.FaultPlan.raise_in_stage("dispatch")
+    with plan.armed():
+        got = Frame(_columns()).map_batches(
+            tfn, ["x", "i"], ["y", "g"], device="cpu", **{knob: value})
+    rep = last_pipeline_report()
+    assert [f["point"] for f in plan.fired] == ["frame.dispatch"]
+    assert rep["degraded_to"] == "dispatch_depth=1"
+    assert rep["recovered_batches"] == rep["stage_calls"]["dispatch"]
+    for col in ("y", "g"):
+        assert np.array_equal(np.stack(list(got[col])),
+                              np.stack(list(want[col])))
 
 
 def test_aot_knob_runs_through_the_program_store(tmp_path, monkeypatch):

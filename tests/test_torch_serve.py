@@ -391,15 +391,45 @@ def test_serve_session_report_publishes_occupancy_and_token_rate(spec):
 
 
 def test_supervised_sessions_are_refused(spec, monkeypatch):
-    reg = tserve.ModelRegistry()
-    with pytest.raises(NotImplementedError,
-                       match="Jobs, faults and the supervisor"):
-        tserve.Server(reg, supervise=True)
-    monkeypatch.setenv("TPUDL_FRAME_DEGRADE", "1")
-    with pytest.raises(NotImplementedError,
-                       match="Jobs, faults and the supervisor"):
-        tserve.Server(reg)
-    assert tserve.Server(reg, supervise=False).registry is reg
+    """A supervised session (once refused, 'Jobs, faults and the
+    supervisor'), by ``supervise=True`` and by ``TPUDL_FRAME_DEGRADE=1``:
+    a fault at the third tick's ``serve.dispatch`` requeues the in-flight
+    requests, the retry narrows the admission width by one rung, and
+    every stream equals the unsupervised session's. ``supervise=False``
+    wins over the variable."""
+    from tpudl_torch.testing import faults
+
+    params = spec.init(0)
+    prompts = [np.arange(1, n + 1, dtype=np.int32) for n in (3, 4, 5)]
+
+    def session(plan=None, **kw):
+        reg = tserve.ModelRegistry()
+        reg.add_model("default", spec, params, slots=2, cache_len=32,
+                      warm=False, device="cpu")
+        srv = tserve.Server(reg, tserve.RequestQueue(cap=8), **kw)
+        reqs = [srv.submit(p, 4) for p in prompts]
+        srv._stop.set()
+        if plan is None:
+            summary = srv.run()
+        else:
+            with plan.armed():
+                summary = srv.run()
+        return summary, [r.result(timeout=30).tolist() for r in reqs]
+
+    _, want = session(supervise=False)
+    for kw in ({"supervise": True}, {}):
+        if not kw:
+            monkeypatch.setenv("TPUDL_FRAME_DEGRADE", "1")
+        plan = faults.FaultPlan([{"point": "serve.dispatch",
+                                  "action": "raise", "at_call": 3}])
+        summary, got = session(plan, **kw)
+        assert [f["tick"] for f in plan.fired] == [3]
+        assert summary["degraded_to"] == "dispatch_depth=1"
+        assert got == want
+    with pytest.raises(faults.FaultInjected):
+        session(faults.FaultPlan([{"point": "serve.dispatch",
+                                   "action": "raise", "at_call": 2}]),
+                supervise=False)
 
 
 def test_closed_loop_tenant_is_refused():

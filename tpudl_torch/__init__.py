@@ -32,7 +32,13 @@ Ported so far, slice by slice:
   ``register_text_udfs``);
 - the data layer (:mod:`tpudl_torch.data`): wire codecs, the shard cache,
   the device-memory batch cache and ``Dataset``, under the executor, the
-  stages, the estimator and ``lm_dataset`` (:mod:`tpudl_torch.text`).
+  stages, the estimator and ``lm_dataset`` (:mod:`tpudl_torch.text`);
+- jobs, faults and the supervisor: ``JobSpec``/``JobRuntime``
+  (:mod:`tpudl_torch.jobs`; SIGTERM → checkpoint → exit 75 → resume), the
+  fault-injection harness (:mod:`tpudl_torch.testing.faults`), the
+  executor's and the server's degradation ladder
+  (:mod:`tpudl_torch.frame.supervisor`) and the flight recorder
+  (:mod:`tpudl_torch.obs.flight`).
 
 The names below load lazily, as tpudl's top-level names do (its
 ``_LAZY`` map, restricted to what the port has).
@@ -65,6 +71,8 @@ _LAZY = {
     "LogisticRegression": "tpudl_torch.ml",
     "registerKerasImageUDF": "tpudl_torch.udf.keras_image_model",
     "RetryPolicy": "tpudl_torch.jobs",
+    "JobSpec": "tpudl_torch.jobs",
+    "JobRuntime": "tpudl_torch.jobs",
     "ByteTokenizer": "tpudl_torch.text",
     "WordTokenizer": "tpudl_torch.text",
     "TokenCodec": "tpudl_torch.text",

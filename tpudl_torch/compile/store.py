@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from tpudl_torch.compile.graphs import BoundGraph, FusedGraph, PlainProgram
+from tpudl_torch.testing import faults as _faults
 
 __all__ = ["ProgramStore", "BoundGraph", "get_program_store",
            "reset_program_store", "aot_enabled", "store_dir", "warm_start",
@@ -694,7 +695,10 @@ class ProgramStore:
         the executor's fused graph on the card, the plain function on the
         CPU — capture it over ``group`` (``warm=False`` skips the warm-up
         run: the caller just ran ``fn`` eagerly on these shapes) and hold
-        it in the table. ``spec`` is an owner's rebuild descriptor."""
+        it in the table. ``spec`` is an owner's rebuild descriptor. The
+        ``compile.precompile`` fault point fires a program (a kill here
+        leaves a valid manifest: the entry is written before the
+        capture)."""
         m = len(group)
         if site.fp is not None:
             self._remember(site.fp, fn)
@@ -703,6 +707,7 @@ class ProgramStore:
                          backend=site.backend, mesh=site.mesh,
                          bucketed=bucketed, outputs=[int(n_out), bool(single)],
                          program=spec)
+        _faults.fire("compile.precompile", key=site.key[:12])
         if site.device.type == "cuda":
             program = FusedGraph(fn, m, tuple(group[0][0]), int(n_out),
                                  site.device)

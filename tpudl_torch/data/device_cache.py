@@ -33,8 +33,9 @@ Counters and gauges are tpudl's: ``data.hbm.bytes_resident`` /
 ``bytes_served`` / ``put_failed`` (a torch function donates nothing, so
 tpudl's ``donation_blocked`` has no counterpart). tpudl's
 attribution ledger is not ported (ROADMAP Queue 1, 'The rest of
-observability'), nor is the supervisor's ``evict_unpinned`` on OOM
-('Jobs, faults and the supervisor').
+observability'). On a device OOM the executor's supervisor
+(:mod:`tpudl_torch.frame.supervisor`, its ``evict_hbm`` rung) calls
+:meth:`DeviceBatchCache.evict_unpinned` before it retries the run.
 """
 
 from __future__ import annotations

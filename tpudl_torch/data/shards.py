@@ -29,9 +29,11 @@ failed write under the shared IO policy (``TPUDL_RETRY_IO_ATTEMPTS``,
 ``EAGER_FLUSH_MAX`` entries the manifest rewrite is throttled; the
 executor and ``Dataset`` call ``flush()`` at the end of a run. Two
 writers' disjoint entries merge (``put`` re-reads a manifest another
-process rewrote). tpudl's fault points and the flight-recorder samples of
-corrupt shards are not ported (ROADMAP Queue 1, 'Jobs, faults and the
-supervisor' and 'The rest of observability').
+process rewrote). tpudl's fault points are here: ``shards.read`` fires
+between a file's integrity check and its open (a file deleted in between
+is a plain miss, ``ShardEvicted``, with no corrupt count) and
+``shards.write`` before each file's write; each corrupt shard is sampled
+into the flight recorder's error ring (kind ``data.cache.corrupt``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import numpy as np
 
 from tpudl_torch.data.codec import BF16_BITS
 from tpudl_torch.obs import metrics as _m
+from tpudl_torch.testing import faults as _faults
 
 __all__ = ["ShardCache", "ShardCorruption", "ShardEvicted", "cache_key",
            "MANIFEST_NAME", "MANIFEST_VERSION"]
@@ -268,6 +271,9 @@ class ShardCache:
             arrays = []
             for fmeta in entry["files"]:
                 path = self._check_file(fmeta)
+                # the fault point between the integrity check and the
+                # open: a test corrupts or deletes the file exactly here
+                _faults.fire("shards.read", path=path, index=int(index))
                 try:
                     arr = np.load(path, mmap_mode="r", allow_pickle=False)
                 except FileNotFoundError as e:
@@ -288,6 +294,12 @@ class ShardCache:
         except (ShardCorruption, OSError, ValueError) as e:
             _m.counter("data.cache.corrupt").inc()
             _m.counter("data.cache.misses").inc()
+            # the black box keeps the corruption samples, not only the
+            # count
+            from tpudl_torch.obs import flight as _flight
+
+            _flight.record_error("data.cache.corrupt", e,
+                                 index=int(index), key=self.key)
             self._drop(index, reason=repr(e))
             return None
         _m.counter("data.cache.hits").inc()
@@ -348,6 +360,7 @@ class ShardCache:
             tmp = path + f".tmp.{os.getpid()}.{threading.get_ident()}"
 
             def _write_one(tmp=tmp, path=path, arr=arr):
+                _faults.fire("shards.write", path=path)
                 with open(tmp, "wb") as f:
                     _save_npy(f, arr)
                 crc = _crc32_file(tmp)

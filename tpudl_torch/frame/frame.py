@@ -26,8 +26,12 @@ store armed (``aot=`` / ``TPUDL_COMPILE_AOT``) each per-batch dispatch
 goes through :class:`tpudl_torch.compile.ProgramStore`: a hit replays a
 CUDA graph captured for that signature (in this process, or at run setup
 from the manifest another process left), a miss runs ``fn`` and captures.
-The supervisor and autotune are refused by name (their ROADMAP Queue 1
-items).
+Under ``supervise=`` (``TPUDL_FRAME_DEGRADE=1``) the run is a supervised
+attempt (:mod:`tpudl_torch.frame.supervisor`), retried down tpudl's
+degradation ladder; the stages carry tpudl's fault points
+(``frame.prepare``, ``frame.h2d``, ``frame.dispatch``, ``frame.d2h``) and
+file each prepared batch's descriptor in the flight recorder. Autotune
+is refused by name (ROADMAP Queue 1, 'The rest of observability').
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ from tpudl_torch.compile.graphs import FusedGraph as _FusedGraph
 from tpudl_torch.compile.graphs import as_outputs as _as_outputs
 from tpudl_torch.compile.graphs import fused_plain as _fused_plain
 from tpudl_torch.device import resolve_device
+from tpudl_torch.obs import flight as _flight
+from tpudl_torch.testing import faults as _faults
 
 __all__ = ["Frame", "LazyColumn", "null_mask", "concat"]
 
@@ -393,8 +399,22 @@ def _as_column(values) -> np.ndarray:
 
 # map_batches knobs of tpudl with no counterpart yet → their ROADMAP
 # Queue 1 item
-_REFUSED = {"supervise": "Jobs, faults and the supervisor",
-            "autotune": "The rest of observability"}
+_REFUSED = {"autotune": "The rest of observability"}
+
+
+def _fire_in(stage: str, point: str, **ctx):
+    """Fire ``point`` as part of the executor's ``stage``: an injected
+    fault carries the stage's tag, as one raised inside it would."""
+    try:
+        return _faults.fire(point, **ctx)
+    except BaseException as e:
+        if getattr(e, "tpudl_stage", None) is None:
+            try:
+                e.tpudl_stage = stage
+            # an exception with immutable attributes stays untagged
+            except Exception:
+                pass
+        raise
 
 
 class Frame:
@@ -636,18 +656,69 @@ class Frame:
         :class:`~tpudl_torch.obs.PipelineReport`
         (``tpudl_torch.obs.last_pipeline_report()``); a batch resident on
         the device adds nothing to its ``bytes_prepared`` or ``h2d``.
-        tpudl's ``supervise`` and ``autotune=True`` are not ported yet and
-        raise ``NotImplementedError`` naming their ROADMAP Queue 1
-        item."""
+
+        ``supervise`` (``TPUDL_FRAME_DEGRADE``, default off) arms the fault
+        supervisor (:mod:`tpudl_torch.frame.supervisor`): a classified
+        fault re-runs the whole run down tpudl's ladder — a device OOM
+        evicts the device cache's unpinned entries, a transient transfer
+        fault retries under the shared IO policy, repeated stage faults
+        halve ``dispatch_depth``, then drop ``fuse_steps`` to 1, then turn
+        donation off, then fall back to the serial arm. Every rung runs
+        the same kernels and returns the healthy run's bytes; the report
+        carries ``degraded_to`` and ``recovered_batches``. Exhaustion
+        (``TPUDL_FRAME_DEGRADE_MAX_RUNGS``) writes a flight dump and raises
+        the typed error (``DeviceOOM``, ``TransferError``,
+        ``RecompileStorm``, ``StageFault``) chained to the original.
+        ``autotune=True`` is not ported yet and raises
+        ``NotImplementedError`` naming its ROADMAP Queue 1 item."""
+        from tpudl_torch.frame import supervisor as _sup
+
+        if autotune not in (None, False):
+            raise NotImplementedError(
+                "map_batches(autotune=...) is not ported to tpudl_torch "
+                f"yet (ROADMAP Queue 1, {_REFUSED['autotune']!r})")
+        kwargs = dict(
+            batch_size=batch_size, pack=pack, check_finite=check_finite,
+            prefetch=prefetch, prefetch_depth=prefetch_depth,
+            prepare_workers=prepare_workers, fuse_steps=fuse_steps,
+            dispatch_depth=dispatch_depth, donate=donate,
+            wire_codec=wire_codec, buckets=buckets, device=device,
+            mesh=mesh, cache_dir=cache_dir, cache_key=cache_key,
+            device_cache=device_cache, aot=aot)
+        if not _sup.enabled(supervise):
+            # unarmed: one env read, straight into the executor
+            return self._map_batches_impl(fn, input_cols, output_cols,
+                                          **kwargs)
+        sup = _sup.Supervisor()
+
+        def attempt(overrides):
+            kw = dict(kwargs)
+            kw.update(overrides)  # rung knobs beat the caller's
+            return self._map_batches_impl(fn, input_cols, output_cols,
+                                          _supervisor=sup, **kw)
+
+        return sup.supervise(attempt)
+
+    def _map_batches_impl(self, fn: Callable, input_cols: Sequence[str],
+                          output_cols: Sequence[str], *,
+                          batch_size: int | None = None,
+                          pack: Callable | None = None,
+                          check_finite: bool = False,
+                          prefetch: bool | None = None,
+                          prefetch_depth: int | None = None,
+                          prepare_workers: int | None = None,
+                          fuse_steps: int | None = None,
+                          dispatch_depth: int | None = None,
+                          donate: bool | None = None,
+                          wire_codec=None, buckets=None, device="cuda",
+                          mesh=None, cache_dir=None, cache_key=None,
+                          device_cache=None, aot=None, autotune=None,
+                          _supervisor=None) -> "Frame":
+        """One run of :meth:`map_batches` (a supervised one's attempt,
+        with the ladder's overrides and its ``_supervisor``)."""
         from tpudl_torch.compile import buckets as _bk
         from tpudl_torch.obs import pipeline as _pipeline
 
-        refused = dict(supervise=supervise, autotune=autotune)
-        for k, v in refused.items():
-            if v not in (None, False):
-                raise NotImplementedError(
-                    f"map_batches({k}=...) is not ported to tpudl_torch yet "
-                    f"(ROADMAP Queue 1, {_REFUSED[k]!r})")
         missing = [c for c in input_cols if c not in self._cols]
         if missing:
             raise KeyError(f"unknown columns {missing}; have {self.columns}")
@@ -829,6 +900,10 @@ class Frame:
             "device": (",".join(map(str, mesh_devs)) if mesh is not None
                        else str(dev)),
         }
+        if _supervisor is not None:
+            # the ladder reads the resolved knobs to know what to halve,
+            # and recovery stamps its outcome onto this report
+            _supervisor.note_report(report)
         _pipeline.set_last_pipeline(report)
         pin_host = dev.type == "cuda"
 
@@ -887,13 +962,21 @@ class Frame:
             from tpudl_torch.data.dataset import fetch_batch
 
             with report.stage("prepare"):
+                bidx = start // batch_size
+                _faults.fire("frame.prepare", index=bidx)
                 arrays, n_pad, pin = fetch_batch(
-                    start // batch_size, lambda: pack_encode(start, stop),
+                    bidx, lambda: pack_encode(start, stop),
                     plan=plan, shard_cache=cache, device_cache=dcache,
                     run=dkey, device=dev, mesh=mesh,
                     pad=pad if (ladder is not None or mesh is not None)
                     else None,
                     report=report)
+                # the black box's descriptor: shapes, dtypes and a
+                # fingerprint, never the data
+                _flight.record_batch("prepare", bidx, arrays,
+                                     rows=stop - start,
+                                     hbm_hit=pin is not None,
+                                     run=report.run_id)
                 if pin is not None:
                     pins.add(pin)
                     return arrays, n_pad, pin
@@ -952,6 +1035,7 @@ class Frame:
             if mesh is None:
                 if pin is None:
                     with report.stage("h2d"):
+                        _faults.fire("frame.h2d", index=consumed - 1)
                         args = [t.to(dev, non_blocking=True)
                                 for t in tensors]
                 else:   # resident on the device: nothing to copy
@@ -962,6 +1046,7 @@ class Frame:
                 return result, n_pad, tensors, t0, pin, 1
             if pin is None:
                 with report.stage("h2d"):
+                    _faults.fire("frame.h2d", index=consumed - 1)
                     shards = M.transfer_batch(tensors, mesh,
                                               block=mesh_slow)
             else:   # resident as per-card shards: nothing to copy
@@ -1029,6 +1114,9 @@ class Frame:
             if window is not None:
                 while window.full():
                     handle(window.pop())
+            # tpudl's index: the batches consumed so far, this dispatch's
+            # included
+            _fire_in("dispatch", "frame.dispatch", index=consumed)
             result, n_pad, keep, t0, pin, interleave = run(*args)
             pins.discard(pin)   # the entry releases it from here on
             entry = _start_host_copies(result, n_pad, keep, pin, interleave)
@@ -1045,6 +1133,7 @@ class Frame:
                         window = None
             if window is None:
                 with report.stage("d2h"):
+                    _faults.fire("frame.d2h")
                     entry.wait()
                 handle(entry)
             else:
@@ -1097,6 +1186,7 @@ class Frame:
                 p.release()
         outputs: list[list[np.ndarray]] = [[] for _ in output_cols]
         with report.stage("d2h"):
+            _faults.fire("frame.d2h")
             _fetch_accumulated(acc, segs, outputs)
         report.finish(time.perf_counter() - t_wall)
         out = self

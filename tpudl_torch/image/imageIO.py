@@ -13,9 +13,11 @@ read several batches at once; a decoder not marked ``thread_safe`` runs
 under a column-wide lock. ``host_sharded=True`` keeps this process's
 share of the file list (:func:`tpudl_torch.distributed.host_shard`, the
 multi-machine input plane that replaces Spark's partition assignment).
-Not ported yet: the read retry policy and fault points (Queue 1, 'Jobs,
-faults and the supervisor') and the flight-recorder samples of decode
-errors (Queue 1, 'The rest of observability').
+Every file read fires tpudl's ``io.read`` fault point and retries a
+transient failure under the shared IO policy
+(:func:`tpudl_torch.jobs.retry.io_policy`, counted as
+``retry.imageio.read``). Not ported yet: the flight-recorder samples of
+decode errors (Queue 1, 'The rest of observability').
 """
 
 from __future__ import annotations
@@ -311,8 +313,16 @@ def createNativeImageLoader(height: int, width: int, scale: float = 1.0,
         return np.asarray(img, np.float32) * scale
 
     def _read(uri):
-        with open(uri, "rb") as f:
-            return f.read()
+        from tpudl_torch.jobs.retry import io_policy
+        from tpudl_torch.testing import faults as _faults
+
+        def _once():
+            _faults.fire("io.read", path=str(uri))
+            with open(uri, "rb") as f:
+                return f.read()
+
+        # the same transient-IO retry as LazyFileColumn._read_raw
+        return io_policy().call(_once, kind="imageio.read")
 
     def _read_all(uris: list) -> list:
         raws = _parallel_map(
@@ -458,8 +468,20 @@ class LazyFileColumn(LazyColumn):
         return len(self._paths)
 
     def _read_raw(self, i) -> bytes:
-        with open(self._paths[i], "rb") as f:
-            raw = f.read()
+        from tpudl_torch.jobs.retry import io_policy
+        from tpudl_torch.testing import faults as _faults
+
+        def _read():
+            # the fault point: a test injects transient IO errors
+            # (recovery after K) exactly here
+            _faults.fire("io.read", path=str(self._paths[i]))
+            with open(self._paths[i], "rb") as f:
+                return f.read()
+
+        # a flaky-storage read retries under the shared IO policy
+        # (bounded backoff, each attempt in the retry.* counters and the
+        # flight recorder) instead of poisoning the row at the first EIO
+        raw = io_policy().call(_read, kind="imageio.read")
         with self._reads_lock:
             self.reads += 1
         return raw

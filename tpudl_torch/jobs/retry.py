@@ -6,9 +6,11 @@ scheduler use: :func:`is_fatal`, and :class:`RetryPolicy`'s
 classification (:meth:`~RetryPolicy.is_transient`), backoff
 (:meth:`~RetryPolicy.backoff_s`), the retry loop (:meth:`~RetryPolicy.call`)
 and :meth:`~RetryPolicy.record`. ``record`` counts into
-:mod:`tpudl_torch.obs.metrics`; tpudl's flight recorder and attribution
-ledger are not ported yet (ROADMAP Queue 1, 'The rest of observability').
-:func:`io_policy` is the shared IO policy the shard cache writes under.
+:mod:`tpudl_torch.obs.metrics` and files the retry in the flight
+recorder's error ring; tpudl's attribution ledger is not ported yet
+(ROADMAP Queue 1, 'The rest of observability'). :func:`io_policy` is the
+shared IO policy the shard cache, the image reads and the supervisor's
+transfer retries run under.
 
 Classification contract, as in tpudl: exceptions carrying
 ``tpudl_fatal = True`` (:class:`tpudl_torch.train.Preempted`) are never
@@ -113,13 +115,20 @@ class RetryPolicy:
 
     def record(self, kind: str, exc: BaseException, *, attempt: int,
                backoff_s: float | None = None):
-        """Count one retry: ``retry.attempts``, ``retry.<kind>`` and the
-        ``retry.backoff_s`` histogram. ``exc`` and ``attempt`` are what
-        tpudl also files into its flight recorder."""
+        """Count one retry (``retry.attempts``, ``retry.<kind>`` and the
+        ``retry.backoff_s`` histogram) and file it in the flight
+        recorder's error ring (kind ``retry.<kind>``)."""
         _metrics.counter("retry.attempts").inc()
         _metrics.counter(f"retry.{kind}").inc()
         if backoff_s is not None:
             _metrics.histogram("retry.backoff_s").observe(float(backoff_s))
+        from tpudl_torch.obs import flight as _flight
+
+        _flight.record_error(
+            f"retry.{kind}", exc, attempt=int(attempt),
+            max_attempts=self.max_attempts,
+            backoff_s=round(float(backoff_s), 4)
+            if backoff_s is not None else None)
 
 
 # copied from tpudl/jobs/retry.py:_env_int

@@ -49,6 +49,12 @@ same ``shape``:
   copies elsewhere).
 - :func:`pad_batch` / :func:`unpad_batch` are tpudl's.
 - :func:`use_mesh` makes the mesh's (first) card the current CUDA device.
+- :func:`bytes_per_device` / :func:`require_hbm_fit` are tpudl's
+  placement gate: under an explicit ``TPUDL_DATA_HBM_BUDGET_MB``, a
+  placement whose bytes a card exceed the budget raises ``DeviceOOM``
+  before any copy (:func:`replicate` on a local mesh,
+  ``TinyCausalLM.shard_params``, the estimator's replicated trials).
+  :func:`transfer_batch` carries the ``mesh.transfer`` fault point.
 """
 
 from __future__ import annotations
@@ -67,12 +73,14 @@ import torch.distributed as dist
 
 from tpudl_torch import distributed as D
 from tpudl_torch.obs import metrics as _metrics
+from tpudl_torch.testing import faults as _faults
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "NamedSharding",
            "model_axis_size", "build_mesh", "replicate", "PerDevice",
            "Sharded", "shard_rows", "transfer_batch", "shard_batch",
            "all_reduce_mean", "reduce_add", "broadcast", "sum_to", "all_sum",
-           "barrier", "pad_batch", "unpad_batch", "use_mesh", "on_device"]
+           "barrier", "pad_batch", "unpad_batch", "use_mesh", "on_device",
+           "bytes_per_device", "require_hbm_fit"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -357,6 +365,82 @@ def _tensors(tree) -> list:
     return []
 
 
+def _flat_leaves(tree, path=()):
+    """``(path, leaf)`` of every leaf of a tree of dicts and sequences (a
+    module's parameters and buffers under their names)."""
+    if isinstance(tree, torch.nn.Module):
+        named = {**dict(tree.named_parameters()), **dict(tree.named_buffers())}
+        for name, t in named.items():
+            yield path + (name,), t
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat_leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _sharding_at(shardings, path):
+    node = shardings
+    for k in path:
+        try:
+            node = node[k]
+        except (KeyError, IndexError, TypeError):
+            return None
+    return node
+
+
+def bytes_per_device(tree, shardings=None) -> int:
+    """The bytes a card holds when ``tree`` is placed under ``shardings``
+    (a tree of :class:`NamedSharding` shaped like ``tree``, as
+    ``TinyCausalLM.param_shardings`` gives; ``None``: whole on every
+    card). A dim split over an axis holds ``1/size`` of its length, as
+    tpudl's ``shard_shape``."""
+    total = 0
+    for path, leaf in _flat_leaves(tree):
+        if leaf is None:
+            continue
+        shape = list(getattr(leaf, "shape", np.shape(leaf)))
+        itemsize = (leaf.element_size() if isinstance(leaf, torch.Tensor)
+                    else np.dtype(getattr(leaf, "dtype",
+                                          np.asarray(leaf).dtype)).itemsize)
+        sh = _sharding_at(shardings, path) if shardings is not None else None
+        if isinstance(sh, NamedSharding):
+            for d, axis in enumerate(sh.spec[:len(shape)]):
+                if axis is not None:
+                    shape[d] //= sh.mesh.shape[axis]
+        total += int(np.prod(shape, dtype=np.int64)) * int(itemsize)
+    return total
+
+
+def require_hbm_fit(tree, shardings=None, *, what: str = "params") -> None:
+    """tpudl's placement gate: refuse a placement whose bytes a card
+    (:func:`bytes_per_device`) exceed the declared
+    ``TPUDL_DATA_HBM_BUDGET_MB``, typed
+    (:class:`~tpudl_torch.frame.supervisor.DeviceOOM`), before any copy.
+    Armed only by an explicit budget (the device cache's derived default
+    is a cache policy, not a placement veto); an explicit 0 forbids
+    cache residency and leaves placements ungated."""
+    if not os.environ.get("TPUDL_DATA_HBM_BUDGET_MB"):
+        return
+    from tpudl_torch.data.device_cache import budget_bytes
+
+    budget = budget_bytes(allow_device=False)
+    if not budget:
+        return
+    need = bytes_per_device(tree, shardings)
+    if need > budget:
+        from tpudl_torch.frame.supervisor import DeviceOOM
+
+        raise DeviceOOM(
+            f"{what} need {need / 2**20:.1f} MB per device but "
+            f"TPUDL_DATA_HBM_BUDGET_MB grants {budget / 2**20:.1f} MB — "
+            f"shard over a wider 'model' axis (build_mesh(n_model=...), "
+            f"param_shardings) or raise the budget")
+
+
 def _coalesced(tensors, collective, device) -> tuple[int, int]:
     """Run ``collective(flat)`` on one flat copy, on ``device``, of the
     tensors of each dtype and copy the results back; returns the number
@@ -417,6 +501,7 @@ def replicate(tree, mesh: Mesh, axis: str | None = None):
     weights then), the source itself serves its own device, and tensors
     are moved."""
     if mesh.local:
+        require_hbm_fit(tree, None, what="replicated tree")
         return {dev: _copy_to(tree, dev) for dev in mesh.distinct_devices()}
     group, src = mesh.group, 0
     if axis is not None:
@@ -464,6 +549,8 @@ def transfer_batch(tensors, mesh: Mesh, *, block: bool = False) -> list:
     cards' work; ``block=True`` waits for them (the conservative arm,
     ``TPUDL_MESH_FAST_PATH=0``). A shard already on its device is passed
     through. Returns one list of tensors a mesh entry."""
+    # the transfer fault point: every mesh host→card copy crosses it
+    _faults.fire("mesh.transfer")
     out = []
     for dev, part in zip(mesh.devices, shard_rows(tensors, mesh.size)):
         if dev.type != "cuda":

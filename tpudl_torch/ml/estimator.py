@@ -260,6 +260,12 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         # every floating variable trains, as tpudl's step differentiates
         # them all (BN's moving statistics too); an integer one (a
         # Normalization's count) rides along
+        if width > 1:
+            from tpudl_torch import mesh as M
+
+            # every card of the slice holds the whole variables: tpudl's
+            # replicated placement gate, before any copy
+            M.require_hbm_fit(gin.params, None, what="replicated tree")
         params = {k: torch.tensor(np.asarray(v), device=dev,
                                   requires_grad=np.asarray(v).dtype.kind
                                   == "f")
@@ -274,8 +280,6 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
             {k: t.detach().to(d, copy=True).requires_grad_(t.requires_grad)
              for k, t in params.items()} for d in devs[1:]]
         if width > 1:
-            from tpudl_torch import mesh as M
-
             mesh = M.build_mesh(devices=devs)
 
         def step(xb, yb):

@@ -3,6 +3,9 @@
 Copied from ``tpudl/obs/pipeline.py`` (``PipelineReport`` and the ring of
 recent reports), without the tracer spans, the lock sanitizer and the
 watchdog heartbeat (ROADMAP Queue 1, 'The rest of observability').
+:meth:`PipelineReport.stage` tags an exception that escapes it with
+``tpudl_stage`` (the supervisor's taxonomy reads it), and a supervised
+run's report carries ``degraded_to`` and ``recovered_batches``.
 ``PipelineReport`` is ONE ``Frame.map_batches`` run's (or one serve
 session's) stage accounting;
 on ``finish()`` it publishes its totals into the process-wide registry
@@ -81,6 +84,18 @@ class PipelineReport:
         t0 = time.perf_counter()
         try:
             yield
+        except BaseException as e:
+            # the supervisor's taxonomy (tpudl_torch.frame.supervisor)
+            # reads the INNERMOST stage an exception left: outer stage
+            # blocks see the tag set and keep it, as in tpudl
+            if getattr(e, "tpudl_stage", None) is None:
+                try:
+                    e.tpudl_stage = name
+                # an exception with immutable attributes stays untagged;
+                # the classifier falls back to its type and message
+                except Exception:
+                    pass
+            raise
         finally:
             self.add(name, time.perf_counter() - t0)
 

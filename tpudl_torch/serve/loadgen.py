@@ -8,10 +8,11 @@ completions, typed rejects and deadline sheds. A rejected submit is an
 answer, recorded and moved past; every wait is bounded (``timeout``), so
 no client hangs on a dead server.
 
-tpudl's ``serve.tick`` (a burst of extra submits) and ``serve.client`` (a
-stalled client) fault points are not ported yet (ROADMAP Queue 1, 'Jobs,
-faults and the supervisor'), nor is ``tenant=`` (ROADMAP Queue 1, 'The
-rest of observability').
+Each client fires tpudl's ``serve.tick`` fault point before a submit (a
+``burst`` rule's count is that many extra fire-and-forget submits in the
+same tick) and ``serve.client`` (a ``slow_client`` rule stalls it).
+``tenant=`` is not ported yet (ROADMAP Queue 1, 'The rest of
+observability').
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 
 from tpudl_torch.obs.metrics import percentile
 from tpudl_torch.serve.queue import AdmissionError
+from tpudl_torch.testing import faults as _faults
 
 __all__ = ["run_closed_loop"]
 
@@ -67,7 +69,7 @@ def run_closed_loop(server, make_prompt, *, requests: int,
             counter[0] += 1
             return i
 
-    def _submit(i):
+    def _submit(i, wait: bool):
         try:
             req = server.submit(np.asarray(make_prompt(i),
                                            dtype=np.int32),
@@ -76,6 +78,8 @@ def run_closed_loop(server, make_prompt, *, requests: int,
         except AdmissionError:
             with lock:
                 rejected[0] += 1
+            return
+        if not wait:
             return
         try:
             req.result(timeout=timeout)
@@ -96,7 +100,15 @@ def run_closed_loop(server, make_prompt, *, requests: int,
             i = _next_index()
             if i >= int(requests):
                 return
-            _submit(i)
+            burst = _faults.fire("serve.tick", tick=i, client=cid)
+            if burst:
+                # the injected spike: that many extra submits in ONE
+                # tick, fire-and-forget — their fate (served or typed
+                # rejected) is what an overload test asserts on
+                for _ in range(int(burst)):
+                    _submit(i, wait=False)
+            _faults.fire("serve.client", client=cid, i=i)
+            _submit(i, wait=True)
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=_client, args=(c,),

@@ -16,16 +16,21 @@ session's :class:`~tpudl_torch.obs.pipeline.PipelineReport` (``config
 ``slot_occupancy`` gauges) publishes ``serve.batch_occupancy`` and
 ``serve.tokens_per_s`` when the session ends.
 
-Not ported yet, each with its ROADMAP Queue 1 item: ``supervise=True``
-and ``TPUDL_FRAME_DEGRADE=1`` (the degradation ladder) and the
-``serve.dispatch`` fault point ('Jobs, faults and the supervisor'); the
-SLO engine, the flight recorder's request ring, the watchdog heartbeat
-and the attribution charges ('The rest of observability').
+Under ``supervise=True`` (or ``TPUDL_FRAME_DEGRADE=1``) the whole session
+runs as a supervised attempt (:mod:`tpudl_torch.frame.supervisor`): a
+classified fault sends the in-flight requests back to the FRONT of the
+queue with their partial tokens dropped (the retry decodes them again
+from the prompt, so the streams are a healthy run's) and re-runs with the
+ladder's overrides, ``dispatch_depth`` narrowing the admission width.
+Each tick fires tpudl's ``serve.dispatch`` fault point.
+
+Not ported yet (ROADMAP Queue 1, 'The rest of observability'): the SLO
+engine, the flight recorder's request ring, the watchdog heartbeat and
+the attribution charges.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 
@@ -33,16 +38,9 @@ from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.obs import pipeline as _pipeline
 from tpudl_torch.serve.queue import DeadlineExceeded, RequestQueue, \
     ServeRequest
+from tpudl_torch.testing import faults as _faults
 
 __all__ = ["Server"]
-
-
-def _supervised(supervise) -> bool:
-    """tpudl's ``supervisor.enabled``: the ``supervise=`` argument wins,
-    else ``TPUDL_FRAME_DEGRADE=1``."""
-    if supervise is not None:
-        return bool(supervise)
-    return os.environ.get("TPUDL_FRAME_DEGRADE", "0") == "1"
 
 
 class Server:
@@ -52,18 +50,16 @@ class Server:
     tests' mode) or threaded (``start_async()`` + ``close()``, the load
     generator's mode)."""
 
+    # copied from tpudl/serve/server.py:Server.__init__
     def __init__(self, registry, queue: RequestQueue | None = None, *,
                  supervise=None):
-        if _supervised(supervise):
-            raise NotImplementedError(
-                "a supervised serve session (supervise=True or "
-                "TPUDL_FRAME_DEGRADE=1) is not ported to tpudl_torch yet "
-                "(ROADMAP Queue 1, 'Jobs, faults and the supervisor')")
         self.registry = registry
         self.queue = queue if queue is not None else RequestQueue()
+        self._supervise = supervise
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._sup = None
         self._max_ticks: int | None = None
         self.summary: dict | None = None
 
@@ -125,10 +121,21 @@ class Server:
             entry.engine.evict_all(error)
 
     # -- the session -------------------------------------------------------
+    # copied from tpudl/serve/server.py:Server.run
     def run(self, max_ticks: int | None = None) -> dict:
-        """Run the serve session to drain (or ``max_ticks``)."""
+        """Run the serve session to drain (or ``max_ticks``), under the
+        degradation ladder when armed."""
+        from tpudl_torch.frame import supervisor as _supmod
+
         self._max_ticks = max_ticks
-        return self._attempt()
+        if _supmod.enabled(self._supervise):
+            sup = _supmod.Supervisor()
+            self._sup = sup
+            try:
+                return sup.supervise(self._attempt)
+            finally:
+                self._sup = None
+        return self._attempt({})
 
     # copied from tpudl/serve/server.py:Server._requeue_inflight
     def _requeue_inflight(self):
@@ -143,12 +150,14 @@ class Server:
             if reqs:
                 self.queue.requeue_front(reqs)
 
-    def _attempt(self) -> dict:
-        """One serve session (tpudl's degradation ladder would narrow the
-        admission width on a retry; without it the width is every slot)."""
+    def _attempt(self, overrides: dict) -> dict:
+        """One serve session, or one supervised attempt of it: the
+        ladder's ``dispatch_depth`` override is the admission width (by
+        default every slot)."""
         entries = self.registry.entries()
         width_default = sum(e.engine.slots for e in entries) or 1
-        max_active = width_default
+        max_active = int(overrides.get("dispatch_depth")
+                         or width_default)
         report = _pipeline.PipelineReport()
         report.config.update({
             "serve": True,
@@ -156,12 +165,15 @@ class Server:
             "queue_cap": self.queue.cap,
             "models": len(entries),
         })
+        if self._sup is not None:
+            self._sup.note_report(report)
         _pipeline.set_last_pipeline(report)
         self._requeue_inflight()
         t0 = time.perf_counter()
         tick = completed = admitted = 0
         while True:
             tick += 1
+            _faults.fire("serve.dispatch", tick=tick)
             self._shed_expired(entries)
             admitted += self._admit(entries, max_active, report)
             stepped = 0
@@ -186,7 +198,8 @@ class Server:
         report.finish(wall)
         return {"ticks": tick, "completed": completed,
                 "admitted": admitted, "wall_s": round(wall, 4),
-                "models": len(entries), "degraded_to": None}
+                "models": len(entries),
+                "degraded_to": report.config.get("degraded_to")}
 
     # copied from tpudl/serve/server.py:Server._shed_expired
     def _shed_expired(self, entries) -> int:

@@ -47,9 +47,12 @@ Gang restart: on a transient failure ``run`` relaunches every rank, paced
 by :class:`~tpudl_torch.jobs.retry.RetryPolicy` (``train.restarts``,
 ``train.restart_backoff_s``), and ``Trainer.fit`` resumes from the newest
 valid checkpoint; ``RestartsExhausted`` (with ``__cause__``) ends it.
-tpudl's flight recorder, watchdog heartbeat, tracer spans, attribution
-and fault points are not ported yet (ROADMAP Queue 1, 'The rest of
-observability' and 'Jobs, faults and the supervisor').
+Each restart, with its cause and the step the gang died at, is filed in
+the flight recorder (``record_restart``), and ``Trainer.fit`` fires
+tpudl's ``train.step`` fault point before every step (a ``FaultPlan``'s
+``kill_at_step`` preempts there). tpudl's watchdog heartbeat, tracer
+spans and attribution are not ported yet (ROADMAP Queue 1, 'The rest of
+observability').
 On a local mesh (the cards of this process, ``build_mesh(devices=...)``)
 ``fit`` runs one step over the whole batch on the model's device: the
 model spreads its forward over the cards itself (README's long-context
@@ -85,7 +88,9 @@ from tpudl_torch import distributed as D
 from tpudl_torch import mesh as M
 from tpudl_torch.device import resolve_device
 from tpudl_torch.jobs.retry import RetryPolicy, is_fatal
+from tpudl_torch.obs import flight as _obs_flight
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.testing import faults as _faults
 from tpudl_torch.train.checkpoint import CheckpointManager
 from tpudl_torch.train.step import _layout_mesh, make_train_step
 
@@ -241,7 +246,16 @@ class HorovodRunner:
                     # orderly stop: restarting would fight the caller
                     raise
                 attempt += 1
+                # the cause and the step the gang died at go into the
+                # black box: exhaustion then explains why, not how often
+                last_step = _obs_metrics.gauge("train.last_step").value
+                _obs_flight.get_recorder().record_restart(
+                    attempt, e, step=last_step,
+                    max_restarts=self.max_restarts)
                 if attempt > self.max_restarts:
+                    _obs_flight.record_error(
+                        "train.exhausted", e, attempts=attempt,
+                        max_restarts=self.max_restarts, step=last_step)
                     raise RestartsExhausted(attempt, e) from e
                 _obs_metrics.counter("train.restarts").inc()
                 self.retry_policy.record("train.restart", e,
@@ -553,6 +567,9 @@ class Trainer:
                     if mgr is not None:
                         self._save(mgr, step, model, optimizer, force=True)
                     raise Preempted(step, saved=mgr is not None)
+                # the fault point of the preemption tests: a FaultPlan
+                # can send SIGTERM or raise at an exact step
+                _faults.fire("train.step", step=step)
                 t_step = time.perf_counter()
                 batch = data_fn(step)
                 if not isinstance(batch, tuple):

@@ -335,7 +335,12 @@ class TinyCausalLM(nn.Module):
         <name>``), the whole leaves stay where they are. Build the
         optimizer after this: it then steps every slice on its card. A
         model axis of 1 puts the leaves back together. Returns the
-        module."""
+        module. Under an explicit ``TPUDL_DATA_HBM_BUDGET_MB`` the layout
+        is checked first (:func:`~tpudl_torch.mesh.require_hbm_fit`): a
+        card's share over the budget raises ``DeviceOOM`` before any
+        leaf moves."""
+        M.require_hbm_fit(self._param_tree(), self.param_shardings(
+            mesh, model_axis), what=f"{self.aot_token} params")
         if not mesh.local:
             return self._shard_over_group(mesh, model_axis)
         if self._tp_group is not None:
@@ -376,6 +381,31 @@ class TinyCausalLM(nn.Module):
                 for j in range(n))
         self._tp_devices = devs
         return self
+
+    def _param_tree(self) -> dict:
+        """The whole leaves' shapes and dtypes, as meta tensors, in
+        :meth:`param_shardings`' layout: what a placement must hold,
+        with nothing gathered or copied."""
+        def whole(t, k=None, n=1):
+            shape = list(t.shape)
+            if k is not None:
+                shape[_SHARD_DIM[k]] *= n
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+
+        split = set(self._split_names()) if self._tp_group is not None \
+            else set()
+        n_group = (self._tp_group.shape[M.MODEL_AXIS] if split else 1)
+        tree = {"embed": {k: whole(t) for k, t in self.embed.items()},
+                "final_norm": {k: whole(t)
+                               for k, t in self.final_norm.items()}}
+        for i in range(self.layers):
+            leaves = {k: whole(t, k if k in split else None, n_group)
+                      for k, t in self.blocks[i].items()}
+            if self._tp_devices is not None:
+                leaves.update({k: whole(t, k, len(self._tp_devices))
+                               for k, t in self.tp_shards[0][i].items()})
+            tree[f"block_{i}"] = leaves
+        return tree
 
     def _shard_over_group(self, mesh, model_axis: str):
         """:meth:`shard_params` over a process group's mesh: this rank keeps
