@@ -102,7 +102,7 @@ Phases (any failure exits non-zero before the final line):
    writes itself (``save_keras_file``; the card's machine has no keras),
    from seeded weights: configs[4] (``bench.py``'s
    ``measure_keras_transformer``), ``KerasTransformer`` over 65,536 rows ×
-   100 at ``batchSize=8192`` (rows/s, median and spread of 5 windows; 64
+   100 at ``batchSize=8192`` (rows/s, median and spread of 3 windows; 64
    rows against the CPU); configs[2] (``measure_estimator_inception``),
    ``KerasImageFileEstimator`` fine-tuning Keras InceptionV3 + a Dense(2)
    softmax head (the committed ``config.json`` fixture) on 96 seeded
@@ -159,7 +159,7 @@ Phases (any failure exits non-zero before the final line):
    route), ``fromSavedModelWithSignature`` against ``fromKeras`` on the
    same weights and against the CPU (2e-5 of max |y|, 4 rows at
    299×299), ``TFImageTransformer`` over it and over the ``.keras`` graph
-   in turn (images/s, 256 structs, batch 64, f32, 5 windows), its
+   in turn (images/s, 256 structs, batch 64, f32, 3 windows), its
    ``fuseSteps=4`` arm bit for bit, ``makeGraphUDF`` over it through
    ``sql`` (WHERE, LIMIT 64) bit for bit against ``TFImageTransformer``;
    ``TFTransformer`` over the float64 checkpoint graph by signature
@@ -191,7 +191,7 @@ Phases (any failure exits non-zero before the final line):
    ``KerasImageFileTransformer`` over 512 JPEGs, batch 64, in four arms
    (the float32 loader; the uint8 loader and its u8 codec; that with
    ``cacheDir``, cold then warm; that with ``deviceCache``), images/s
-   over 5 windows, the decodes, shard hits, bytes prepared and h2d
+   over 3 windows, the decodes, shard hits, bytes prepared and h2d
    seconds of each, the card's idle share, every arm bit for bit the
    first and 2 rows against the CPU; ``budget_bytes()`` and arm (d) under
    a 64 MB budget (evictions, bit for bit); configs[2]'s fit with the
@@ -212,7 +212,7 @@ Phases (any failure exits non-zero before the final line):
    mesh of every card. ``DeepImageFeaturizer("InceptionV3")`` over 512
    structs at 299x299, f32 and bf16, each mesh and its ``fuseSteps=4`` arm
    beside the stage without a mesh (the one-card mesh bit for bit, the
-   others within 2e-5 of max |y| in f32 and 1e-2 in bf16), images/s of every arm over 5 windows
+   others within 2e-5 of max |y| in f32 and 1e-2 in bf16), images/s of every arm over 3 windows
    with the arms in turn; ``LMFeaturizer`` at phase 4's width over 69
    texts (the one-card mesh bit for bit, the others within 1e-4 of max
    |y|; 12 forward launches a batch on every entry; the report's mesh and
@@ -276,10 +276,10 @@ Phases (any failure exits non-zero before the final line):
    width: ``LMFeaturizer`` over 128 texts armed against unarmed (the
    first armed run misses on its first batch only, 12 flash forward
    launches a batch in both, graph replays counted, features bit for bit
-   or within 2e-5 of max |y|, rows/s over 5 windows with the arms in
+   or within 2e-5 of max |y|, rows/s over 3 windows with the arms in
    turn); InceptionV3 bf16 ``DeepImageFeaturizer`` unfused over 512
    structs armed against unarmed (``warmup(299, 299)`` then ``transform``
-   misses nothing, features within 1e-2 of max |y|, images/s over 5
+   misses nothing, features within 1e-2 of max |y|, images/s over 3
    windows and each arm's card idle share); greedy ``generate`` through
    one graph for 4 prompts of one pow2 rung (tokens equal to eager on the
    card and 2 to the CPU port's, one graph, new tokens/s of graph and
@@ -343,6 +343,23 @@ Phases (any failure exits non-zero before the final line):
    registration) behind a supervised ``Server`` with a fault at
    ``serve.dispatch`` on tick 5: 8 greedy streams equal to serial
    ``generate``, no capture after registration. The phase's seconds.
+20. The rest of observability (``tpudl_torch.obs``) at phase 4's width,
+   every executor run before it under ``TPUDL_FRAME_AUTOTUNE=0``:
+   ``LMFeaturizer`` over 64 texts, per batch and fused, under
+   ``obs.profile`` with the watchdog, a status directory and
+   ``obs.scope(tenant=)`` armed (the flash forward kernel on Kineto's
+   device lanes as often as the launch counter, 12 a batch; the
+   capture's marker record; features bit for bit; the status file
+   through ``tools/validate_status.py``; the ledger reconciled); one
+   phase-4b training step under ``obs.profile`` (dq and dk/dv 12 each);
+   a stall in a child (``--obs-stall-child``) that ``python -m
+   tpudl_torch.obs doctor`` classifies ``infeed_stall``;
+   ``map_batches(autotune=)`` on InceptionV3 bf16 unfused and on the LM
+   (the seeds, rates over 3 windows an arm, bit for bit); phase 15's
+   engine behind a ``Server`` under ``run_closed_loop(tenant=)`` with two
+   tenants (the SLO gauges, the ledger, ``obs top --once``); the armed
+   plane against unarmed on the LM and fused InceptionV3 bf16. The
+   phase's seconds.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -360,8 +377,15 @@ phase 12 alone, ``--data-only`` phase 1 and then phase 13, and
 then phase 15, ``--parallel-only`` phase 1 and then phase 16,
 ``--compile-only`` phase 1 and then phase 17, ``--group-only`` phase 1,
 phase 16 (whose local-mesh figures phase 18 prints beside its own) and
-then phase 18, over every visible card, and ``--jobs-only`` phase 1 and
-then phase 19.
+then phase 18, over every visible card, ``--jobs-only`` phase 1 and
+then phase 19, and ``--obs-only`` phase 1 and then phase 20.
+``python3 chip_smoke.py --profile-study`` profiles phase 20's
+``LMFeaturizer`` in a fresh process and again after each of several
+kinds of earlier profiler sessions, and prints what each capture lost.
+``python3 chip_smoke.py --parent-overhead TREE`` times phase 20's
+unarmed overhead arm on the ``tpudl_torch`` of ``TREE`` (a checkout of
+an earlier commit) and on this one, a child process each, in the order
+TREE, this, this, TREE.
 ``python3 chip_smoke.py --ranks N`` (N cards) runs phase 1 and
 then ``HorovodRunner(np=N)``: N spawned ranks, one card each, NCCL, held
 against one rank on the same global batch, and its rate against one
@@ -385,6 +409,7 @@ import time
 import numpy as np
 import torch
 
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()     # the script's own time, printed at the end
 SEED = 0
 VOCAB, DIM, HEADS, LAYERS, MAX_LEN = 32000, 1024, 16, 12, 4096
@@ -459,7 +484,7 @@ IMAGE_MODEL = "InceptionV3"
 IMAGE_ROWS, IMAGE_BATCH = 512, 64  # 8 batches at the model's 299×299
 IMAGE_BIG = (480, 640)             # through the antialiased resize
 IMAGE_BIG_ROWS = 256               # 4 batches at 480×640
-IMAGE_WINDOWS = 5                  # timed windows of each rate (median, spread)
+IMAGE_WINDOWS = 3                  # timed windows of each rate (median, spread)
 IMAGE_CPU_ROWS = 4                 # card vs CPU rows (and 2 of the big batch)
 # card vs CPU run of the f32 stage, relative to max |y| (init(0) features
 # are ~5e-3, so an absolute bound would prove nothing): 94 conv layers
@@ -2900,7 +2925,7 @@ def keras_frame(uris, labels=None):
 
 def keras_mlp_leg(directory, card, problems):
     """configs[4]: KerasTransformer over 65,536 seeded rows at batchSize
-    8192, rows/s over 5 windows, and 64 rows card vs CPU."""
+    8192, rows/s over IMAGE_WINDOWS windows, and 64 rows card vs CPU."""
     from tpudl_torch.frame import Frame
     from tpudl_torch.ingest.kerasfile import save_keras_file
     from tpudl_torch.ml import KerasTransformer
@@ -5689,7 +5714,7 @@ SERVE_CPU_PROMPTS = 2              # of the parity prompts, against the CPU
 SERVE_CHURN_PLENS = (7, 12, 24, 48, 96, 150)   # x 4 = 24 requests, 3 cycles
 SERVE_CHURN_REPEATS = 4
 SERVE_TEMPERATURE, SERVE_SAMPLE_SEED = 0.8, 1234
-SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 64, 8
+SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 32, 8
 SERVE_LOAD_PLEN = (16, 256)
 SERVE_SERIAL_EVERY = 4             # serial eager generate: every 4th prompt
 SERVE_LOGIT_RTOL = 1e-4            # of max |logit|: replay vs eager step
@@ -8511,9 +8536,809 @@ def run_jobs(card):
     return counts
 
 
+# -- phase 20: the rest of observability -----------------------------------
+
+OBS_TEXTS = 64                     # LMFeaturizer at phase 4's width: 4 batches
+OBS_FUSE = 4                       # the fused arm: the 4 batches as 1 replay
+OBS_IMAGE_ROWS = 512               # InceptionV3 bf16 at 299x299, batch 64
+OBS_WINDOWS = 3                    # timed windows of each arm, in turn
+OBS_OVERHEAD_ROUNDS = 3            # the overhead leg's rounds of its arms
+OBS_STALL_S = 0.5                  # TPUDL_WATCHDOG_STALL_S of the stall leg
+OBS_STALL_SLEEP_S = 1.5            # the frozen prepare of the stall leg
+OBS_SERVE_REQUESTS, OBS_SERVE_CLIENTS, OBS_SERVE_NEW = 16, 4, 8
+OBS_KERNELS = {"flash_attn_fwd": "flash_fwd_kernel",
+               "flash_attn_bwd_dq": "flash_bwd_dq_kernel",
+               "flash_attn_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def obs_kernel_events(events) -> dict:
+    """{launch counter name: kernel events on the trace's device lanes}
+    for the three flash kernels, by their demangled names."""
+    from tpudl_torch.obs import trace as T
+
+    out = {name: 0 for name in OBS_KERNELS}
+    for e in T.device_events(events):
+        for name, fn in OBS_KERNELS.items():
+            if fn + "<" in e["name"] or e["name"].startswith(fn):
+                out[name] += 1
+    return out
+
+
+def obs_profiled(what, fn, tmp, card, problems):
+    """Run ``fn`` once under ``obs.profile`` with the launch counters
+    reset: the merged host/device summary, the flash kernels the device
+    lanes name, and the launch counters. A capture without CUDA activity
+    fails the phase."""
+    from tpudl_torch import cuda_ops, obs
+    from tpudl_torch.obs import trace as T
+
+    d = os.path.join(tmp, what.replace(" ", "_"))
+    reset_launch_counts()
+    with obs.profile(d) as prof:
+        fn()
+    launches = dict(cuda_ops.launch_counts)
+    cap = prof.capture
+    host = obs.export_chrome_trace(os.path.join(d, "run.host.trace.json"),
+                                   window="profile")
+    events = T.load_trace_events(d)
+    s = T.summarize_merged(T.load_host_trace_events(host), events)
+    named = obs_kernel_events(events)
+    if not s["device"]["module_count"]:
+        problems.append(f"{what}: the profile recorded no CUDA activity")
+    if cap["truncated"]:
+        problems.append(f"{what}: a truncated capture {cap}")
+    top = ", ".join(f"{o['name'][:48]} {o['us'] / 1e3:.2f} ms x{o['count']}"
+                    for o in s["top_ops"][:3])
+    busy = s["device_busy_frac"]
+    print(f"  {what}: merged timeline: {s['device']['module_count']} device "
+          f"events, device busy {s['device_busy_us'] / 1e3:.1f} ms"
+          + (f" ({100 * busy:.1f}% of the device window)" if busy else "")
+          + f", host spans {sum(s['host_stage_calls'].values())} "
+          f"({', '.join(f'{k} x{v}' for k, v in sorted(s['host_stage_calls'].items()) if k.startswith('frame.'))}), "
+          f"host/device overlap {s['overlap_us'] / 1e3:.1f} ms; flash "
+          f"kernels on the device lanes {named}, launch counters "
+          f"{launches}; top device ops: {top}; capture: "
+          f"{cap['head_seen']} of {cap['head_marks']} head markers (device "
+          f"events lost at its head: {cap['head_lost']}), closing marker "
+          f"{'seen' if cap['tail_seen'] else 'MISSING'}, launches without "
+          f"a kernel {cap['launches_without_kernel']}"
+          f"{', TRUNCATED' if cap['truncated'] else ''}; process age "
+          f"{time.perf_counter() - T_START:.0f} s; card {card}", flush=True)
+    return s, named, launches
+
+
+def obs_timeline_leg(spec, weights, tmp, card, problems):
+    """Phase 4's ``LMFeaturizer`` over 64 texts armed: the tracer, the
+    watchdog daemon, a status directory and ``obs.scope(tenant=)``, under
+    ``obs.profile``. The merged timeline's device lanes name the flash
+    forward kernel as often as the launch counter counts it (12 a batch),
+    per-batch and under a fused graph replay; the device busy share
+    beside phase 7's idle-share method; the status file validates and
+    names the tenant; the ledger reconciles."""
+    import importlib.util
+
+    from tpudl_torch import obs
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.obs import live, watchdog
+    from tpudl_torch.text import ByteTokenizer
+
+    frame = Frame({"text": make_texts(OBS_TEXTS, SEED + 20)})
+    n_batches = -(-OBS_TEXTS // BATCH)
+    want = LAYERS * n_batches
+    stages = {arm: LMFeaturizer(inputCol="text", outputCol="vec",
+                                model=spec, weights=weights,
+                                tokenizer=ByteTokenizer(), batchSize=BATCH,
+                                fuseSteps=fuse)
+              for arm, fuse in (("per-batch", 1), ("fused", OBS_FUSE))}
+    outs = {arm: np.stack(list(st.transform(frame)["vec"]))
+            for arm, st in stages.items()}        # loads, warms, captures
+    status = os.path.join(tmp, "status")
+    counts = {}
+    with env_vars(TPUDL_STATUS_DIR=status, TPUDL_STATUS_INTERVAL_S="0.2"):
+        obs.start_watchdog(stall_s=30.0)
+        try:
+            for arm, st in stages.items():
+                with obs.scope(tenant="phase20-lm"):
+                    got = {}
+                    s, named, launches = obs_profiled(
+                        f"LMFeaturizer {arm}", lambda: got.update(
+                            y=np.stack(list(st.transform(frame)["vec"]))),
+                        tmp, card, problems)
+                counts[f"obs_lm_{arm}"] = launches
+                bitwise = np.array_equal(got["y"], outs[arm])
+                ok = (launches["flash_attn_fwd"] == want and bitwise
+                      and (named["flash_attn_fwd"] == want
+                           or arm == "fused"))
+                print(f"  LMFeaturizer {arm}: flash forward {named['flash_attn_fwd']} "
+                      f"kernel events on the device lanes, launch counter "
+                      f"{launches['flash_attn_fwd']} (want {LAYERS} a batch "
+                      f"x {n_batches} = {want}); features bit for bit the "
+                      f"unprofiled run: {bitwise}"
+                      + ("" if named["flash_attn_fwd"] == want or arm != "fused"
+                         else "; the replay's kernels are not traced one "
+                              "by one, so the per-batch arm is the count")
+                      + f"; {'ok' if ok else 'MISS'}; card {card}",
+                      flush=True)
+                if not ok:
+                    problems.append(f"LMFeaturizer {arm} timeline")
+                wall, busy, ev = idle_profile(
+                    lambda: st.transform(frame))
+                print(idle_text(f"LMFeaturizer {arm} (phase 7's method)",
+                                wall, busy, ev, card))
+            path = live.write_status()
+        finally:
+            watchdog.stop_watchdog()
+            live.stop_status_writer()
+    errs = ["no status file"]
+    if path is not None:
+        spec_v = importlib.util.spec_from_file_location(
+            "validate_status", os.path.join(REPO_DIR, "tools",
+                                            "validate_status.py"))
+        if spec_v is None:
+            errs = ["tools/validate_status.py missing"]
+        else:
+            sys.path.insert(0, os.path.join(REPO_DIR, "tools"))
+            try:
+                mod = importlib.util.module_from_spec(spec_v)
+                spec_v.loader.exec_module(mod)
+                errs = mod.validate_status(path)
+            finally:
+                sys.path.pop(0)
+    payload = json.load(open(path)) if path else {}
+    scopes = (payload.get("ledger") or {}).get("scopes") or {}
+    rec = obs.reconcile()
+    ok = (not errs and "tenant=phase20-lm" in scopes and rec["ok"]
+          and "card" in (payload.get("hbm") or {}))
+    print(f"  status file {path}: validate_status {errs or 'ok'}; tenants "
+          f"{sorted(scopes)}; hbm.card {(payload.get('hbm') or {}).get('card')}"
+          f"; ledger reconciled: {rec['ok']}; {'ok' if ok else 'MISS'}",
+          flush=True)
+    if not ok:
+        problems.append("status file / ledger")
+    return counts
+
+
+def obs_training_leg(tmp, card, problems):
+    """One step of phase 4b's model under ``obs.profile``: the device
+    lanes name dq and dk/dv as often as their launch counters (12 each)."""
+    from tpudl_torch.train import Trainer, adamw
+    from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
+
+    lm = TinyCausalLM(**TRAIN_ARCH, device="cuda")
+    load_jax_params(lm, lm.init(SEED))
+    rows = training_rows(TRAIN_BATCH * 2)
+    trainer = Trainer(lm.loss_fn(), adamw(LR))
+    _, opt, _ = trainer.fit(lm, lambda s: rows[:TRAIN_BATCH], 1)  # warm
+    s, named, launches = obs_profiled(
+        "training step", lambda: trainer.fit(
+            lm, lambda s: rows[TRAIN_BATCH:], 1, opt_state=opt),
+        tmp, card, problems)
+    want = TRAIN_ARCH["layers"]
+    ok = all(named[k] == launches[k] == want
+             for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"))
+    print(f"  training step: dq {named['flash_attn_bwd_dq']} and dk/dv "
+          f"{named['flash_attn_bwd_dkv']} kernel events, launch counters "
+          f"{launches} (want {want} each); {'ok' if ok else 'MISS'}; card "
+          f"{card}", flush=True)
+    if not ok:
+        problems.append("training step timeline")
+    del lm, opt, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def obs_autotune_leg(spec, weights, card, problems):
+    """``map_batches(autotune=)`` (``TPUDL_FRAME_AUTOTUNE``) on
+    InceptionV3 bf16 unfused and on ``LMFeaturizer``: each autotuned run
+    seeds from the run before it (the arms alternate, so from the other
+    arm's report); the seeds printed; rows/s of 3 interleaved windows an
+    arm; outputs bit for bit."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer, LMFeaturizer
+    from tpudl_torch.obs import last_pipeline_report, roofline
+    from tpudl_torch.text import ByteTokenizer
+
+    cases = {
+        "InceptionV3 bf16 unfused": (
+            DeepImageFeaturizer(inputCol="image", outputCol="y",
+                                modelName="InceptionV3",
+                                computeDtype="bfloat16",
+                                batchSize=IMAGE_BATCH, fuseSteps=1),
+            Frame({"image": image_structs(OBS_IMAGE_ROWS, (299, 299, 3),
+                                          SEED + 21)}), "images/s"),
+        "LMFeaturizer": (
+            LMFeaturizer(inputCol="text", outputCol="y", model=spec,
+                         weights=weights, tokenizer=ByteTokenizer(),
+                         batchSize=BATCH),
+            Frame({"text": make_texts(OBS_TEXTS, SEED + 20)}), "rows/s")}
+    counts = {}
+    for what, (stage, frame, unit) in cases.items():
+        def run():
+            return np.stack(list(stage.transform(frame)["y"]))
+
+        with env_vars(TPUDL_FRAME_AUTOTUNE="0"):
+            run()                                   # loads, warms
+            y0 = run()
+        # the advisor's device time: the card's busy time of an untuned
+        # run under the profiler, over its dispatches (CUDA events around
+        # a dispatch would also time the card's waits for the enqueue)
+        with env_vars(TPUDL_FRAME_AUTOTUNE="0"):
+            wall, busy, _ = idle_profile(run)
+            event_ms = cuda_ms(run, reps=1)
+        n_disp = last_pipeline_report()["stage_calls"]["dispatch"]
+        device_ms = busy / n_disp
+        rr = roofline.analyze(roofline.model_report(last_pipeline_report()),
+                              device_ms_per_dispatch=device_ms,
+                              publish=False, allow_probe=False)
+        print(f"  {what}: device {device_ms:.2f} ms a dispatch (busy "
+              f"{busy:.1f} ms of {wall:.1f} under the profiler, over "
+              f"{n_disp} dispatches; CUDA events around the whole run "
+              f"read {event_ms / n_disp:.2f} ms a dispatch); the advisor: "
+              f"{rr.verdict if rr else None}; advice "
+              f"{[(a['knob'], a['current'], a['recommended']) for a in (rr.advice if rr else [])]}",
+              flush=True)
+        rates = {"off": [], "autotune": []}
+        seeds, equal = [], []
+        reset_launch_counts()
+        for _ in range(OBS_WINDOWS):
+            for arm in rates:
+                with env_vars(TPUDL_FRAME_AUTOTUNE="1" if arm == "autotune"
+                              else "0", TPUDL_DEVICE_MS_PER_STEP=device_ms):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y = run()
+                    torch.cuda.synchronize()
+                    rates[arm].append(len(frame) / (time.perf_counter()
+                                                    - t0))
+                rep = last_pipeline_report()
+                equal.append(bool(np.array_equal(y, y0)))
+                if arm == "autotune":
+                    seeds.append({k: rep[k] for k in rep["autotuned"]})
+        counts[f"obs_autotune_{what.split()[0].lower()}"] = dict(
+            cuda_ops.launch_counts)
+        ok = all(equal) and rep["autotune"] is True
+        print(f"  {what}: autotune seeds by window {seeds}; "
+              + "; ".join(f"{arm} median {median(r):.1f} {unit} (least "
+                          f"{min(r):.1f}, most {max(r):.1f})"
+                          for arm, r in rates.items())
+              + f" over {OBS_WINDOWS} windows an arm in turn; outputs bit "
+              f"for bit: {all(equal)}; {'ok' if ok else 'MISS'}; card {card}",
+              flush=True)
+        if not ok:
+            problems.append(f"autotune {what}")
+        del stage
+    torch.cuda.empty_cache()
+    return counts
+
+
+def obs_stall_leg(tmp, card, problems):
+    """A stage whose prepare sleeps past ``TPUDL_WATCHDOG_STALL_S`` on the
+    card (in a child, whose process-wide counters hold no other run's
+    decode errors or rejects): one stall event, and
+    ``python -m tpudl_torch.obs doctor`` classifies its dump
+    ``infeed_stall``."""
+    from tpudl_torch import obs
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.obs import flight, watchdog
+
+    d = os.path.join(tmp, "stall")
+
+    def pack(col):
+        if int(col[0]) == 8:
+            time.sleep(OBS_STALL_SLEEP_S)
+        return np.asarray(col, dtype=np.float32)[:, None]
+
+    before = obs.counter("obs.watchdog.stalls").value
+    with env_vars(TPUDL_FLIGHT_DIR=d, TPUDL_WATCHDOG_STALL_S=OBS_STALL_S):
+        watchdog.stop_watchdog()       # the next heartbeat starts it anew
+        flight.get_recorder().reset()
+        try:
+            out = Frame({"x": np.arange(24)}).map_batches(
+                lambda t: t * 2, ["x"], ["y"], batch_size=8, pack=pack,
+                prefetch_depth=1, prepare_workers=1, dispatch_depth=1)
+        finally:
+            watchdog.stop_watchdog()
+        stalls = flight.get_recorder().snapshot()["stalls"]
+        flight.dump(reason="manual")
+    n = obs.counter("obs.watchdog.stalls").value - before
+    rows_ok = bool(np.array_equal(np.stack(list(out["y"])).ravel(),
+                                  2 * np.arange(24, dtype=np.float32)))
+    res = subprocess.run([sys.executable, "-m", "tpudl_torch.obs", "doctor",
+                          d], capture_output=True, text=True, timeout=120,
+                         cwd=REPO_DIR, env=dict(
+                             os.environ, PYTHONPATH=REPO_DIR + os.pathsep
+                             + os.environ.get("PYTHONPATH", "")))
+    diag = next((ln for ln in res.stdout.splitlines()
+                 if ln.startswith("DIAGNOSIS")), res.stderr[-300:])
+    ok = (len(stalls) == 1 and n == 1 and rows_ok and res.returncode == 0
+          and "infeed_stall" in diag)
+    print(f"  stall: prepare slept {OBS_STALL_SLEEP_S} s under "
+          f"TPUDL_WATCHDOG_STALL_S={OBS_STALL_S}: {len(stalls)} stall "
+          f"event(s) (obs.watchdog.stalls +{n:.0f}), in flight "
+          f"{[list(st['in_flight']) for st in stalls]}; `python -m "
+          f"tpudl_torch.obs doctor` rc {res.returncode}: {diag}; "
+          f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+    if not ok:
+        problems.append("stall -> infeed_stall")
+
+
+def obs_serve_leg(spec, weights, tmp, card, problems):
+    """Phase 15's engine behind a ``Server`` under
+    ``run_closed_loop(tenant=("a", "b"))``: the SLO gauges, each
+    tenant's completions and tokens, the ledger reconciled exactly, and
+    ``obs top --once`` rendered."""
+    import io
+
+    from tpudl_torch import cuda_ops, obs
+    from tpudl_torch.obs import live, slo
+    from tpudl_torch.serve import (ModelRegistry, RequestQueue, Server,
+                                   run_closed_loop)
+
+    slo.reset_slo_engine()
+    reg = ModelRegistry()
+    entry = reg.add_model("lm", spec, weights, slots=SERVE_SLOTS,
+                          cache_len=SERVE_CACHE, warm=True)
+    before = obs.ledger_snapshot()["scopes"]
+    prompts = serve_prompts([16 + 15 * i for i in range(OBS_SERVE_REQUESTS)],
+                            SEED + 22)
+    srv = Server(reg, RequestQueue(cap=64)).start_async()
+    reset_launch_counts()
+    try:
+        out = run_closed_loop(srv, lambda i: prompts[i],
+                              requests=OBS_SERVE_REQUESTS,
+                              clients=OBS_SERVE_CLIENTS,
+                              max_new=OBS_SERVE_NEW, model="lm",
+                              timeout=SERVE_TIMEOUT,
+                              tenant=("phase20-a", "phase20-b"))
+    finally:
+        srv.close(timeout=SERVE_TIMEOUT)
+    launches = dict(cuda_ops.launch_counts)
+    view = slo.get_slo_engine().publish(force=True)
+    gauges = {n.split("serve.slo.")[1]: round(v["value"], 3)
+              for n, v in obs.snapshot(prefix="serve.slo.").items()
+              if v.get("value") is not None}
+    rows = obs.ledger_snapshot()["scopes"]
+    done = {t: rows[f"tenant={t}"]["serve_completed"]
+            - before.get(f"tenant={t}", {}).get("serve_completed", 0)
+            for t in ("phase20-a", "phase20-b")}
+    rec = obs.reconcile()
+    d = os.path.join(tmp, "top")
+    live.write_status(d)
+    frame = io.StringIO()
+    rc = live.top_main(d, once=True, out=frame)
+    ok = (out["completed"] == OBS_SERVE_REQUESTS and rec["ok"]
+          and sum(done.values()) == OBS_SERVE_REQUESTS
+          and min(done.values()) >= 1 and rc == 0
+          and view["window_n"] >= OBS_SERVE_REQUESTS)
+    print(f"  serve: {OBS_SERVE_REQUESTS} requests, {OBS_SERVE_CLIENTS} "
+          f"clients over two tenants: qps {out['qps']}, p50 {out['p50_ms']} "
+          f"ms, p99 {out['p99_ms']} ms; serve.slo.* {gauges}; completions "
+          f"by tenant {done}; ledger reconciled: {rec['ok']}; flash "
+          f"launches {launches}; {'ok' if ok else 'MISS'}; card {card}",
+          flush=True)
+    print("  obs top --once:")
+    for line in frame.getvalue().splitlines():
+        print(f"    {line}")
+    if not ok:
+        problems.append("serve tenants / SLO / ledger")
+    del reg, entry, srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def obs_overhead_leg(spec, weights, tmp, card, problems):
+    """tracer + watchdog + status writer + scope armed against unarmed,
+    on ``LMFeaturizer`` and InceptionV3 bf16 fused, ``OBS_OVERHEAD_ROUNDS``
+    windows an arm in turn (each window one untimed run, then the timed
+    one, so every arm's timed run follows a run): median and spread of each
+    arm and its ratio to the unarmed arm (tpudl's contract is under 5%; a
+    reading over it is reported, not hidden). The executor's spans,
+    heartbeats and ledger charges run in both arms: ``--parent-overhead``
+    holds the unarmed arm against the tree before them."""
+    from tpudl_torch import obs
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer, LMFeaturizer
+    from tpudl_torch.obs import live, watchdog
+    from tpudl_torch.text import ByteTokenizer
+
+    everything = ("watchdog", "status", "scope")
+    cases = {
+        "LMFeaturizer": (
+            LMFeaturizer(inputCol="text", outputCol="y", model=spec,
+                         weights=weights, tokenizer=ByteTokenizer(),
+                         batchSize=BATCH),
+            Frame({"text": make_texts(OBS_TEXTS, SEED + 20)}),
+            {"unarmed": (), "armed": everything}),
+        "InceptionV3 bf16 fused": (
+            DeepImageFeaturizer(inputCol="image", outputCol="y",
+                                modelName="InceptionV3",
+                                computeDtype="bfloat16",
+                                batchSize=IMAGE_BATCH, fuseSteps=EXEC_FUSE),
+            Frame({"image": image_structs(OBS_IMAGE_ROWS, (299, 299, 3),
+                                          SEED + 21)}),
+            {"unarmed": (), "armed": everything})}
+    status = os.path.join(tmp, "overhead-status")
+    ratios = {}
+    for what, (stage, frame, arms) in cases.items():
+        def run():
+            stage.transform(frame)
+            torch.cuda.synchronize()
+
+        run()
+        run()
+        secs = {arm: [] for arm in arms}
+        for _ in range(OBS_OVERHEAD_ROUNDS):
+            for arm, parts in arms.items():
+                if "watchdog" in parts:
+                    obs.start_watchdog(stall_s=30.0)
+                if "status" in parts:
+                    if os.path.exists(live.status_path(status)):
+                        os.remove(live.status_path(status))
+                    live.start_status_writer(status, 1.0)
+                    # its first frame is written at its start
+                    while not os.path.exists(live.status_path(status)):
+                        time.sleep(0.01)
+                ctx = (obs.scope(tenant="phase20-overhead")
+                       if "scope" in parts else contextlib.nullcontext())
+                try:
+                    with ctx:
+                        run()                       # untimed
+                        t0 = time.perf_counter()
+                        run()
+                        secs[arm].append(time.perf_counter() - t0)
+                finally:
+                    watchdog.stop_watchdog()
+                    live.stop_status_writer()
+        base = median(secs["unarmed"])
+        ratios[what] = {arm: median(v) / base for arm, v in secs.items()
+                        if arm != "unarmed"}
+        print(f"  overhead {what}: "
+              + "; ".join(f"{arm} median {1e3 * median(v):.1f} ms (least "
+                          f"{1e3 * min(v):.1f}, most {1e3 * max(v):.1f})"
+                          + ("" if arm == "unarmed" else
+                             f", x{median(v) / base:.4f}")
+                          for arm, v in secs.items())
+              + f" over {OBS_OVERHEAD_ROUNDS} windows an arm in turn; "
+              f"armed/unarmed "
+              f"{ratios[what]['armed']:.4f} ("
+              f"{'within' if ratios[what]['armed'] <= 1.05 else 'OVER'} "
+              f"tpudl's 5%); card {card}", flush=True)
+    torch.cuda.empty_cache()
+    return ratios
+
+
+def obs_stall_child(tmp):
+    """Phase 20's stall leg in a fresh process: the doctor classifies a
+    dump by the process-wide counters in it, and the main process holds
+    the decode errors and rejects of phases 6-19. Prints the leg's lines,
+    then one JSON line of its problems."""
+    problems = []
+    obs_stall_leg(tmp, card_line(), problems)
+    print(json.dumps({"obs_child": {}, "problems": problems}))
+
+
+def obs_stall_in_child(tmp, problems):
+    """Run :func:`obs_stall_child` in a child process; its lines go to
+    this log, its problems to this phase."""
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO_DIR, "chip_smoke.py"),
+         "--obs-stall-child", tmp], capture_output=True, text=True,
+        timeout=300, cwd=REPO_DIR, env=dict(
+            os.environ, PYTHONPATH=REPO_DIR + os.pathsep
+            + os.environ.get("PYTHONPATH", "")))
+    got = None
+    for line in res.stdout.splitlines():
+        if line.startswith('{"obs_child"'):
+            got = json.loads(line)
+        elif not line.startswith("card:"):
+            print(line, flush=True)
+    if res.returncode != 0 or got is None:
+        print(res.stderr[-3000:])
+        problems.append(f"the stall leg's child (rc {res.returncode})")
+        return
+    problems.extend(got["problems"])
+
+
+# phase 20's studies: where a capture's lost device events go, and the
+# executor's always-on instrumentation against the tree before it
+STUDY_SESSIONS = 60                # profiler sessions of each kind a trigger
+STUDY_TEXTS = 16                   # one LMFeaturizer batch a session
+
+
+def raw_capture_stats(path):
+    """Of a raw torch.profiler export: its device events and marker
+    kernels, the runtime launches and those whose kernel is missing from
+    the device lanes, and the least and median (kernel start - launch
+    start) in µs over the launches whose kernel is there."""
+    from tpudl_torch.obs import trace as T
+
+    events = T.load_host_trace_events(path)
+    dev = T.device_events(events)
+    by_corr = {(e.get("args") or {}).get("correlation"): e for e in dev}
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in str(e.get("name", ""))]
+    corr = [(e, (e.get("args") or {}).get("correlation")) for e in launches]
+    orphans = [e for e, c in corr if c not in by_corr]
+    skews = sorted(float(by_corr[c]["ts"]) - float(e["ts"])
+                   for e, c in corr if c in by_corr)
+    return {"device": len(dev),
+            "markers": sum(T.MARK_KERNEL in e["name"] for e in dev),
+            "launches": len(launches),
+            "launches_without_kernel": len(orphans),
+            "orphans_first_ts_rank": (sorted(float(e["ts"])
+                                             for e in launches).index(
+                float(orphans[0]["ts"])) if orphans else None),
+            "min_kernel_minus_launch_us": (round(skews[0], 1)
+                                           if skews else None),
+            "median_kernel_minus_launch_us": (round(median(skews), 1)
+                                              if skews else None)}
+
+
+def profile_study(card):
+    """Where a capture's lost device events go: phase 20's profiled
+    ``LMFeaturizer`` (64 texts, 12 flash launches a batch) under
+    ``obs.profile`` in a fresh process, then again after each of these
+    triggers: ``STUDY_SESSIONS`` torch.profiler sessions tracing the card
+    alone (as phases 6-19's idle shares do), the host alone, and both;
+    sessions that start and stop while another thread keeps launching;
+    a CUDA graph captured under the profiler. Each capture prints the
+    flash kernels on its device lanes against the launch counter, its
+    marker record, and the raw export's launches without a kernel and
+    clock skew (:func:`raw_capture_stats`)."""
+    import tempfile
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudl_torch import cuda_ops, obs
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.obs import trace as T
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    st = LMFeaturizer(inputCol="text", outputCol="vec", model=spec,
+                      weights=spec.init(SEED), tokenizer=ByteTokenizer(),
+                      batchSize=BATCH)
+    frame = Frame({"text": make_texts(OBS_TEXTS, SEED + 20)})
+    small = Frame({"text": make_texts(STUDY_TEXTS, SEED + 23)})
+    st.transform(frame)                       # loads and warms
+    want = LAYERS * -(-OBS_TEXTS // BATCH)
+    failures = []
+
+    def one(fn):
+        fn()
+        torch.cuda.synchronize()
+
+    def capture(tag, tmp):
+        d = os.path.join(tmp, tag)
+        reset_launch_counts()
+        with obs.profile(d) as prof:
+            st.transform(frame)
+        launches = cuda_ops.launch_counts["flash_attn_fwd"]
+        raw = os.path.join(d, "raw.json")
+        try:
+            prof.export_chrome_trace(raw)
+            stats = raw_capture_stats(raw)
+        except Exception as e:                # noqa: BLE001 - report it
+            stats = f"raw export failed: {e!r}"
+        named = obs_kernel_events(T.load_trace_events(d))
+        ok = named["flash_attn_fwd"] == launches == want
+        print(f"  study capture after {tag}: flash forward "
+              f"{named['flash_attn_fwd']} kernel events, launch counter "
+              f"{launches} (want {want}); capture {prof.capture}; raw "
+              f"export {stats}; process age "
+              f"{time.perf_counter() - T_START:.0f} s; "
+              f"{'ok' if ok else 'MISS'}; card {card}", flush=True)
+        if not ok or prof.capture["truncated"]:
+            failures.append(tag)
+
+    def sessions(acts, n=STUDY_SESSIONS):
+        for _ in range(n):
+            with profile(activities=acts):
+                one(lambda: st.transform(small))
+
+    def with_launcher(fn):
+        stop = threading.Event()
+        x = torch.randn(512, 512, device="cuda")
+
+        def launch():
+            while not stop.is_set():
+                for _ in range(16):
+                    x.mul_(0.5).add_(0.5)
+                time.sleep(0.001)
+
+        th = threading.Thread(target=launch, daemon=True)
+        th.start()
+        try:
+            fn()
+        finally:
+            stop.set()
+            th.join()
+            torch.cuda.synchronize()
+
+    def graph_under_profiler():
+        x = torch.randn(256, 256, device="cuda")
+        g = torch.cuda.CUDAGraph()
+        s_ = torch.cuda.Stream()
+        s_.wait_stream(torch.cuda.current_stream())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            with torch.cuda.stream(s_):
+                y = x @ x
+                torch.cuda.synchronize()
+                with torch.cuda.graph(g):
+                    y = x @ x + 1
+            torch.cuda.current_stream().wait_stream(s_)
+            for _ in range(8):
+                g.replay()
+            torch.cuda.synchronize()
+        del y, g
+
+    CPU, CUDA = ProfilerActivity.CPU, ProfilerActivity.CUDA
+    with tempfile.TemporaryDirectory(prefix="tpudl-study-") as tmp:
+        capture("a fresh start", tmp)
+        capture("one capture", tmp)
+        for tag, trigger in (
+                (f"{STUDY_SESSIONS} card-only sessions",
+                 lambda: sessions([CUDA])),
+                (f"{STUDY_SESSIONS} host-only sessions",
+                 lambda: sessions([CPU])),
+                (f"{STUDY_SESSIONS} host+card sessions",
+                 lambda: sessions([CPU, CUDA])),
+                ("20 card-only sessions beside a launching thread",
+                 lambda: with_launcher(lambda: sessions([CUDA], 20))),
+                ("a CUDA graph captured under the profiler",
+                 graph_under_profiler),
+                ("one capture beside a launching thread", lambda: None)):
+            t0 = time.perf_counter()
+            if tag.startswith("one capture beside"):
+                with_launcher(lambda: capture(tag, tmp))
+                continue
+            try:
+                trigger()
+            except Exception as e:            # noqa: BLE001 - report it
+                print(f"  trigger {tag} raised {e!r}", flush=True)
+            print(f"  trigger {tag}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            capture(tag, tmp)
+    print(f"  profile study: captures that lost the block's events or "
+          f"were truncated: {failures or 'none'}; card {card}", flush=True)
+
+
+UNARMED_CHILD_ROUNDS = 3           # timed runs a stage in each child
+
+
+def unarmed_child(tree):
+    """In a process importing ``tpudl_torch`` from ``tree``: the overhead
+    leg's unarmed arm (``LMFeaturizer`` over 64 texts, InceptionV3 bf16
+    fused over 512 structs), two warm runs, then ``UNARMED_CHILD_ROUNDS``
+    rounds of an untimed and a timed run of each stage in turn. Prints
+    one JSON line of seconds by stage."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import tpudl_torch
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.ml import DeepImageFeaturizer, LMFeaturizer
+    from tpudl_torch.text import ByteTokenizer
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    cases = {
+        "LMFeaturizer": (
+            LMFeaturizer(inputCol="text", outputCol="y", model=spec,
+                         weights=spec.init(SEED), tokenizer=ByteTokenizer(),
+                         batchSize=BATCH),
+            Frame({"text": make_texts(OBS_TEXTS, SEED + 20)})),
+        "InceptionV3 bf16 fused": (
+            DeepImageFeaturizer(inputCol="image", outputCol="y",
+                                modelName="InceptionV3",
+                                computeDtype="bfloat16",
+                                batchSize=IMAGE_BATCH, fuseSteps=EXEC_FUSE),
+            Frame({"image": image_structs(OBS_IMAGE_ROWS, (299, 299, 3),
+                                          SEED + 21)}))}
+
+    def run(stage, frame):
+        stage.transform(frame)
+        torch.cuda.synchronize()
+
+    for stage, frame in cases.values():
+        run(stage, frame)
+        run(stage, frame)
+    secs = {what: [] for what in cases}
+    for _ in range(UNARMED_CHILD_ROUNDS):
+        for what, (stage, frame) in cases.items():
+            run(stage, frame)                    # untimed
+            t0 = time.perf_counter()
+            run(stage, frame)
+            secs[what].append(time.perf_counter() - t0)
+    print(json.dumps({"unarmed": secs,
+                      "package": os.path.dirname(tpudl_torch.__file__)}))
+
+
+def parent_overhead(tree, card):
+    """The unarmed arm of the overhead leg on the tree before this
+    package's always-on instrumentation (``tree``, a checkout of it) and
+    on this one, one child process each in the order parent, this, this,
+    parent: the median seconds of each stage by tree and their ratio."""
+    runs = []
+    for who in ("parent", "this", "this", "parent"):
+        pkg = os.path.abspath(tree) if who == "parent" else REPO_DIR
+        res = subprocess.run(
+            [sys.executable, os.path.join(REPO_DIR, "chip_smoke.py"),
+             "--unarmed-child", pkg], capture_output=True, text=True,
+            timeout=400, cwd=REPO_DIR)
+        got = next((json.loads(ln) for ln in res.stdout.splitlines()
+                    if ln.startswith('{"unarmed"')), None)
+        if res.returncode or got is None:
+            print(res.stdout[-2000:], res.stderr[-3000:])
+            fail(f"the unarmed child on {who} ({pkg}): rc {res.returncode}")
+        print(f"  unarmed child on {who} (tpudl_torch from {got['package']}):"
+              + "; ".join(f" {what} " + ", ".join(f"{1e3 * t:.1f}"
+                                                   for t in ts) + " ms"
+                          for what, ts in got["unarmed"].items())
+              + f"; card {card}", flush=True)
+        runs.append((who, got["unarmed"]))
+    for what in runs[0][1]:
+        by = {who: [t for w, r in runs if w == who for t in r[what]]
+              for who in ("parent", "this")}
+        print(f"  {what} unarmed: parent median {1e3 * median(by['parent']):.1f}"
+              f" ms (least {1e3 * min(by['parent']):.1f}, most "
+              f"{1e3 * max(by['parent']):.1f}), this tree median "
+              f"{1e3 * median(by['this']):.1f} ms (least "
+              f"{1e3 * min(by['this']):.1f}, most "
+              f"{1e3 * max(by['this']):.1f}), this/parent "
+              f"x{median(by['this']) / median(by['parent']):.4f} over "
+              f"{len(by['this'])} timed runs a tree; card {card}",
+              flush=True)
+
+
+def run_obs(card):
+    """Phase 20: the rest of observability at phase 4's width. Every check
+    runs and prints; the phase fails at its end if any did not hold.
+    Returns the kernel launches of its paths."""
+    import tempfile
+
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    t_phase = time.perf_counter()
+    problems = []
+    counts = {}
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    with tempfile.TemporaryDirectory(prefix="tpudl-obs-") as tmp:
+        for name, leg in (
+                ("obs_timeline_leg", lambda: counts.update(
+                    obs_timeline_leg(spec, weights, tmp, card, problems))),
+                ("obs_training_leg", lambda: counts.update(
+                    obs_training_step=obs_training_leg(tmp, card,
+                                                       problems))),
+                ("obs_stall_leg (a child)", lambda: obs_stall_in_child(
+                    tmp, problems)),
+                ("obs_autotune_leg", lambda: counts.update(
+                    obs_autotune_leg(spec, weights, card, problems))),
+                ("obs_serve_leg", lambda: counts.update(
+                    obs_serve_tenants=obs_serve_leg(spec, weights, tmp,
+                                                    card, problems))),
+                ("obs_overhead_leg", lambda: obs_overhead_leg(
+                    spec, weights, tmp, card, problems))):
+            t0 = time.perf_counter()
+            leg()
+            print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print(f"  phase 20: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    if problems:
+        fail("phase 20: " + "; ".join(problems))
+    return counts
+
+
 def main(argv) -> int:
     # a cold-start child's clock starts at its process start: no nvidia-smi
-    card = ("" if argv[:1] in (["--compile-child"], ["--jobs-child"])
+    card = ("" if argv[:1] in (["--compile-child"], ["--jobs-child"],
+                               ["--obs-stall-child"], ["--unarmed-child"])
             else card_line())
     print(f"card: {card}", flush=True)
     if not torch.cuda.is_available():
@@ -8521,6 +9346,9 @@ def main(argv) -> int:
              "the port on an NVIDIA GPU and has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phases 1-19 keep their arms' meaning: the executor's autotune (on by
+    # default) stays off there; phase 20 arms it where it measures it
+    os.environ["TPUDL_FRAME_AUTOTUNE"] = "0"
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN "
           "(f32 products run in full f32)", flush=True)
@@ -8638,6 +9466,35 @@ def main(argv) -> int:
         print(f"jobs-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--obs-only"]:
+        print(f"phase 20 alone: the rest of observability at full width on "
+              f"{card}", flush=True)
+        run_obs(card)
+        print(f"card: {card}")
+        print(f"obs-only run: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
+    if argv == ["--profile-study"]:
+        print(f"the profiler capture study on {card}", flush=True)
+        profile_study(card)
+        print(f"card: {card}")
+        print(f"profile study: done in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
+    if len(argv) == 2 and argv[0] == "--parent-overhead":
+        print(f"the executor's always-on instrumentation against "
+              f"{argv[1]} on {card}", flush=True)
+        parent_overhead(argv[1], card)
+        print(f"card: {card}")
+        print(f"parent overhead: done in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
+    if len(argv) == 2 and argv[0] == "--unarmed-child":
+        unarmed_child(argv[1])            # --parent-overhead's child
+        return 0
+    if len(argv) == 2 and argv[0] == "--obs-stall-child":
+        obs_stall_child(argv[1])          # phase 20's stall leg
+        return 0
     if len(argv) == 3 and argv[0] == "--compile-child":
         compile_child(argv[1], argv[2])   # phase 17's cold-start child
         return 0
@@ -8664,7 +9521,8 @@ def main(argv) -> int:
              "--executor-only, --train-only, --keras-only, --surface-only, "
              "--graph-only, --keras2-only, --data-only, --mesh-only, "
              "--serve-only, --parallel-only, --compile-only, --group-only, "
-             "--jobs-only, --ranks N and --pool-study")
+             "--jobs-only, --obs-only, --ranks N, --pool-study, "
+             "--profile-study and --parent-overhead TREE")
 
     from tpudl_torch import _build
 
@@ -8785,6 +9643,9 @@ def main(argv) -> int:
     print(f"phase 19: jobs, faults and the supervisor at full width on "
           f"{card}", flush=True)
     jobs_counts = run_jobs(card)
+    print(f"phase 20: the rest of observability at full width on {card}",
+          flush=True)
+    obs_counts = run_obs(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -8801,7 +9662,7 @@ def main(argv) -> int:
         for path, counts in {**data_counts, **mesh_counts,
                              **serve_counts, **parallel_counts,
                              **compile_counts_, **group_counts,
-                             **jobs_counts}.items():
+                             **jobs_counts, **obs_counts}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "

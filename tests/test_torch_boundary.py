@@ -518,7 +518,10 @@ def test_no_source_imports_jax_or_tpudl():
                 "serve/server.py", "serve/loadgen.py",
                 "compile/__init__.py", "compile/buckets.py",
                 "compile/cache.py", "compile/store.py",
-                "compile/graphs.py", "collectives.py"):
+                "compile/graphs.py", "collectives.py",
+                "obs/tracer.py", "obs/watchdog.py", "obs/attribution.py",
+                "obs/slo.py", "obs/trace.py", "obs/roofline.py",
+                "obs/live.py", "obs/doctor.py", "obs/__main__.py"):
         assert f"tpudl_torch/{sub}" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
@@ -540,14 +543,20 @@ _COPY_CHECKED = {"data/codec.py": None, "data/shards.py": None,
                  "serve/reqtrace.py": None, "serve/queue.py": None,
                  "serve/slots.py": None, "serve/registry.py": None,
                  "serve/server.py": None, "serve/loadgen.py": None,
-                 "obs/pipeline.py": {"PipelineReport.finish"}}
+                 "obs/pipeline.py": {"PipelineReport.finish"},
+                 "obs/flight.py": None, "obs/tracer.py": None,
+                 "obs/metrics.py": None, "obs/watchdog.py": None,
+                 "obs/attribution.py": None, "obs/slo.py": None,
+                 "obs/live.py": None, "obs/doctor.py": None,
+                 "obs/roofline.py": None, "obs/trace.py": None,
+                 "obs/__main__.py": None}
 
 
 class _ServeHooks(ast.NodeTransformer):
-    """tpudl's serve code with the two hooks the port changes: the lock
-    sanitizer's ``_tsan.named_lock(...)`` is a plain ``threading.Lock()``,
-    and the attribution hooks (``_attr.*`` calls) are gone — a charge
-    statement dropped, a captured scope ``None``."""
+    """tpudl's code with the one hook the port changes: the lock
+    sanitizer's ``_tsan.named_lock(...)`` is a plain ``threading.Lock()``
+    and its ``if _tsan.ENABLED:`` guard checks are gone (the sanitizer is
+    not ported)."""
 
     @staticmethod
     def _call_of(node, owner):
@@ -556,16 +565,19 @@ class _ServeHooks(ast.NodeTransformer):
                 and isinstance(node.func.value, ast.Name)
                 and node.func.value.id == owner)
 
-    def visit_Expr(self, node):
-        return None if self._call_of(node.value, "_attr") else node
+    def visit_If(self, node):
+        test = node.test
+        if (isinstance(test, ast.Attribute)
+                and isinstance(test.value, ast.Name)
+                and test.value.id == "_tsan" and not node.orelse):
+            return None
+        return self.generic_visit(node)
 
     def visit_Call(self, node):
         self.generic_visit(node)
         if self._call_of(node, "_tsan"):
             return ast.Call(ast.Attribute(ast.Name("threading", ast.Load()),
                                           "Lock", ast.Load()), [], [])
-        if self._call_of(node, "_attr"):
-            return ast.Constant(None)
         return node
 
 
@@ -604,10 +616,10 @@ def _code_of(tree, qualname, branch=None):
 
 
 def test_copied_blocks_equal_their_tpudl_source():
-    """Every ``# copied from tpudl/<file>:<name>`` block of the data and
-    serve slices is its source's code, docstrings aside (``<name>[key]``:
-    the branch of ``<name>`` on that key). The serve blocks are held with
-    tpudl's lock sanitizer and attribution hooks swapped out
+    """Every ``# copied from tpudl/<file>:<name>`` block of the data, serve
+    and observability slices is its source's code, docstrings aside
+    (``<name>[key]``: the branch of ``<name>`` on that key). The serve and
+    obs blocks are held with tpudl's lock sanitizer swapped out
     (``_ServeHooks``)."""
     checked = []
     for sub, names in _COPY_CHECKED.items():
@@ -617,15 +629,16 @@ def test_copied_blocks_equal_their_tpudl_source():
             if names is not None and qual not in names:
                 continue
             theirs = ast.parse((REPO / src).read_text())
-            if sub.startswith("serve/"):
+            if sub.startswith(("serve/", "obs/")):
                 theirs = _ServeHooks().visit(theirs)
             branch = branch or None
             assert _code_of(ours, qual, branch) == _code_of(
                 theirs, qual, branch), \
                 f"tpudl_torch/{sub}:{qual} drifted from {src}"
             checked.append(f"{sub}:{qual}")
-    # + Server.__init__ and Server.run, copied with supervised serving
-    assert len(checked) == 30 + 35 + 2, checked
+    # + Server.__init__ and Server.run, copied with supervised serving;
+    # + Server._harvest and obs/'s 115 blocks, with the observability slice
+    assert len(checked) == 30 + 35 + 2 + 1 + 115, checked
 
 
 def test_a_spawned_rank_imports_neither_jax_nor_tpudl():

@@ -29,6 +29,9 @@ from tpudl_torch.obs import metrics
 from tpudl_torch.text import ByteTokenizer, lm_dataset
 from tpudl_torch.train import Trainer, sgd
 from tpudl_torch.zoo.transformer import TinyCausalLM
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 LOSS_TOL = 2e-5

@@ -37,6 +37,9 @@ from tpudl_torch.ml import (KerasImageFileEstimator,  # noqa: E402
 from tpudl_torch.obs import last_pipeline_report, metrics  # noqa: E402
 from tpudl_torch.text import ByteTokenizer  # noqa: E402
 from tpudl_torch.zoo.transformer import TinyCausalLM  # noqa: E402
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 IMAGE_RTOL = 2e-5

@@ -1,7 +1,8 @@
 """The flight recorder (``tpudl_torch.obs.flight``) against tpudl's.
 
 - a dump is in tpudl's schema and version, passes tpudl's
-  ``tools/validate_dump.py``, names torch where tpudl names jax, and
+  ``tools/validate_dump.py``, names torch where tpudl names jax, carries
+  the tracer's tail, the live heartbeats and the attribution ledger, and
   lands under tpudl's file names;
 - batch descriptors carry tpudl's fingerprint, and ``map_batches`` files
   one a prepared batch (shapes and dtypes, never the data);
@@ -32,6 +33,8 @@ from tpudl.obs import doctor as jdoctor
 from tpudl.obs import flight as jflight
 
 from tpudl_torch.frame import Frame
+from tpudl_torch.obs import tracer as obs_tracer
+from tpudl_torch.obs import watchdog as obs_watchdog
 from tpudl_torch.obs import flight
 from tpudl_torch.testing import faults
 
@@ -79,7 +82,11 @@ def test_a_dump_is_in_tpudls_schema_and_passes_its_validator(clean):
                         "latency_ms": 1.5, "segments": {"queue_ms": 0.5}})
     rec.record_event("job.start", name="x")
     rec.record_metrics_tick()
-    path = flight.dump(reason="manual", error=RuntimeError("why"))
+    with obs_tracer.span("test.flight.span", k=1):
+        pass
+    with obs_watchdog.heartbeat("test.flight.beat", rows=4) as hb:
+        hb.beat(stage="prepare")
+        path = flight.dump(reason="manual", error=RuntimeError("why"))
     assert path == os.path.join(str(clean),
                                 f"tpudl-dump-{os.getpid()}.json.gz")
     assert _validator().validate_dump(path) == []
@@ -96,8 +103,14 @@ def test_a_dump_is_in_tpudls_schema_and_passes_its_validator(clean):
     assert [e["kind"] for e in payload["errors"]] == [
         "data.cache.corrupt", "train.restart"]
     assert payload["restarts"][0]["step"] == 5
-    assert payload["spans"] == [] and payload["heartbeats"] == {}
-    assert payload["ledger"] is None
+    # the tracer's tail, the live heartbeats and the attribution ledger
+    # with its verdict, as tpudl's dump carries them
+    assert payload["spans"][-1]["name"] == "test.flight.span"
+    assert payload["spans"][-1]["attrs"] == {"k": 1}
+    beat = payload["heartbeats"]["test.flight.beat"]
+    assert beat["info"] == {"rows": 4, "stage": "prepare"}
+    assert beat["beats"] == 1
+    assert {"scopes", "unattributed", "reconcile"} <= set(payload["ledger"])
     assert rec.dumped_paths == [path]
 
 

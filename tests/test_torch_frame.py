@@ -13,6 +13,9 @@ from tpudl.frame import concat as jconcat
 from tpudl.image import imageIO as jio
 from tpudl_torch.frame import Frame, concat
 from tpudl_torch.image import imageIO
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 
 def _cols():

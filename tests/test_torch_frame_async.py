@@ -7,8 +7,8 @@ tpudl runs a jitted ``jnp`` function, the port the torch function that
 computes the same thing with exact f32 ops (``2*x+1``) and an integer
 gather, so the outputs are held bitwise: to tpudl's, and within the port
 to the serial arm (``TPUDL_FRAME_PREFETCH=0``). ``report.config`` must
-equal tpudl's on every key both set (tpudl with ``autotune=False``: the
-port has no autotune yet). Raising ``fn`` and ``pack`` propagate their own
+equal tpudl's on every key both set (both with ``autotune=False``, which
+the report's keys are held under). Raising ``fn`` and ``pack`` propagate their own
 exception, and the prepare pool's threads exit; every wait for them has a
 timeout."""
 
@@ -110,7 +110,7 @@ def test_knob_matrix_matches_tpudl_and_serial(serial, k_depth, workers,
                                             autotune=False, **kw)
     jrep = jobs.last_pipeline_report()
     got = Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
-                                        device="cpu", **kw)
+                                        device="cpu", autotune=False, **kw)
     prep = last_pipeline_report()
     assert got.columns == want.columns == ["x", "i", "y", "g"]
     _assert_same(got, want)
@@ -297,27 +297,39 @@ def test_env_variables_set_the_knobs(monkeypatch):
     ("autotune", True, "The rest of observability"),
 ])
 def test_unported_knobs_raise_by_name(knob, value, item):
-    """``autotune=True`` stays refused by its ROADMAP item's name.
-    ``supervise=True`` (once refused, 'Jobs, faults and the supervisor')
-    runs: a fault injected into the first dispatch costs one rung of the
-    ladder, and the recovered outputs equal the unsupervised run's bit
-    for bit."""
+    """Both knobs were once refused by their ROADMAP items' names and now
+    run. ``autotune=True`` ('The rest of observability') seeds the knobs
+    left unset from the previous run's report at the same batch size: the
+    report says so, and the rows equal the untuned run's bit for bit.
+    ``supervise=True`` ('Jobs, faults and the supervisor'): a fault
+    injected into the first dispatch costs one rung of the ladder, and
+    the recovered outputs equal the unsupervised run's bit for bit."""
+    pin = ({"batch_size": BATCH} if knob == "autotune"
+           else {knob: False})
     want = Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
-                                         device="cpu", **{knob: False})
+                                         device="cpu", autotune=False,
+                                         **pin)
     assert last_pipeline_report()["autotune"] is False
     assert len(want) == ROWS
     if knob == "autotune":
-        with pytest.raises(NotImplementedError,
-                           match=f"{knob}=.*ROADMAP Queue 1, '{item}'"):
-            Frame(_columns()).map_batches(tfn, ["x", "i"], ["y", "g"],
-                                          device="cpu", **{knob: value})
+        for _ in range(2):   # the second run reads the first's report
+            got = Frame(_columns()).map_batches(
+                tfn, ["x", "i"], ["y", "g"], device="cpu",
+                batch_size=BATCH, **{knob: value})
+            rep = last_pipeline_report()
+            assert rep["autotune"] is True and rep["batch_size"] == BATCH
+            assert set(rep["autotuned"]) <= {"fuse_steps",
+                                             "dispatch_depth",
+                                             "prefetch_depth"}
+            _assert_same(got, want)
         return
     from tpudl_torch.testing import faults
 
     plan = faults.FaultPlan.raise_in_stage("dispatch")
     with plan.armed():
         got = Frame(_columns()).map_batches(
-            tfn, ["x", "i"], ["y", "g"], device="cpu", **{knob: value})
+            tfn, ["x", "i"], ["y", "g"], device="cpu", autotune=False,
+            **{knob: value})
     rep = last_pipeline_report()
     assert [f["point"] for f in plan.fired] == ["frame.dispatch"]
     assert rep["degraded_to"] == "dispatch_depth=1"

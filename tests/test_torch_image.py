@@ -28,6 +28,9 @@ from tpudl_torch.frame import Frame, LazyColumn
 from tpudl_torch.image import imageIO, ops
 from tpudl_torch.ml.tf_image import _pack_image_structs
 from tpudl_torch.obs import metrics
+from torch_native_fixture import private_tpudl_decoder  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 
@@ -174,21 +177,6 @@ def test_decoders_match_tpudl(blob):
         np.testing.assert_array_equal(
             imageIO.imageStructToArray(imageIO.PIL_decode(raw)),
             rgb[:, :, ::-1])
-
-
-@pytest.fixture(scope="module")
-def private_tpudl_decoder(tmp_path_factory):
-    """tpudl's decode code, built by tpudl's own ``build`` (its compiler
-    command and flags) into a library of this module's own: under pytest
-    workers, another process may be writing tpudl's shared
-    ``libtpudl_decode.so`` at the moment this one would load it, and a
-    half-written file fails every case here."""
-    lib = tmp_path_factory.mktemp("tpudl_native") / "libtpudl_decode.so"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jnative, "_LIB", str(lib))
-        mp.setattr(jnative, "_lib", None)
-        mp.setattr(jnative, "_build_failed", False)
-        yield lib
 
 
 @pytest.mark.parametrize("size", [None, (29, 31), (5, 80)])

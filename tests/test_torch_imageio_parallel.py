@@ -14,6 +14,9 @@ from tpudl.image import imageIO as jio
 from tpudl_torch.frame import Frame
 from tpudl_torch.image import imageIO
 from tpudl_torch.obs import last_pipeline_report
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 N_FILES = 12
 

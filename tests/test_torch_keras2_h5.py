@@ -57,6 +57,9 @@ from tpudl_torch.frame import Frame  # noqa: E402
 from tpudl_torch.ingest import TFInputGraph, hdf5  # noqa: E402
 from tpudl_torch.ingest.kerasfile import (load_keras_file,  # noqa: E402
                                           save_keras_file)
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "keras2"
 sys.path.insert(0, str(FIXTURES))     # make_keras2_fixtures

@@ -28,6 +28,9 @@ from tpudl_torch.ml import (DeepImageFeaturizer,  # noqa: E402
 from tpudl_torch.ml.image_params import load_uri_batch  # noqa: E402
 from tpudl_torch.zoo.convert import (load_keras_model,  # noqa: E402
                                      params_from_keras, save_named_params)
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 RTOL = 1e-5
 

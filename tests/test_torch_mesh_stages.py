@@ -31,6 +31,9 @@ from tpudl_torch.ml import DeepImageFeaturizer, LMClassifier, LMFeaturizer
 from tpudl_torch.obs import last_pipeline_report
 from tpudl_torch.text import ByteTokenizer
 from tpudl_torch.zoo.transformer import TinyCausalLM
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 

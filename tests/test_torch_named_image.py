@@ -40,6 +40,9 @@ from tpudl_torch.ml.named_image import load_named_params
 from tpudl_torch.obs import last_pipeline_report
 from tpudl_torch.zoo import convert, preprocessing, registry
 from tpudl_torch.zoo.registry import ImageModel
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,9 @@ from tpudl_torch.ml import (DeepImageFeaturizer,  # noqa: E402
                             DeepImagePredictor)
 from tpudl_torch.ml.named_image import load_named_params  # noqa: E402
 from tpudl_torch.zoo.convert import params_from_keras  # noqa: E402
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 TOL = 2e-5
 FILES = {"mobilenet_v2": ("MobileNetV2", "mobilenet_v2", 32, "keras"),

@@ -432,11 +432,39 @@ def test_supervised_sessions_are_refused(spec, monkeypatch):
                 supervise=False)
 
 
-def test_closed_loop_tenant_is_refused():
-    with pytest.raises(NotImplementedError,
-                       match="The rest of observability"):
-        tserve.run_closed_loop(None, lambda i: [1], requests=1,
-                               tenant="a")
+def test_closed_loop_tenant_is_refused(spec):
+    """Once refused ('The rest of observability'): ``tenant=("a", "b")``
+    round-robins the clients over two attribution scopes, as tpudl's does;
+    each tenant's ledger row counts its own completions and prompt tokens,
+    and the ledger reconciles exactly with the global counters."""
+    from tpudl_torch.obs import attribution as attr
+
+    reg = tserve.ModelRegistry()
+    reg.add_model("default", spec, spec.init(0), slots=2, cache_len=32,
+                  warm=False, device="cpu")
+    prompt = lambda i: np.arange(1, 3 + i % 4, dtype=np.int32)  # noqa: E731
+    before = attr.ledger_snapshot()["scopes"]
+    srv = tserve.Server(reg, tserve.RequestQueue(cap=8)).start_async()
+    try:
+        out = tserve.run_closed_loop(srv, prompt, requests=8, clients=2,
+                                     max_new=3, timeout=60,
+                                     tenant=("a", "b"))
+    finally:
+        srv.close(timeout=60)
+    assert out["completed"] == 8
+    rows = attr.ledger_snapshot()["scopes"]
+    # client c takes requests in turn, so the split of the 8 follows the
+    # clients' pace: count each tenant's delta against its own charges
+    done = {k: rows[k]["serve_completed"]
+            - before.get(k, {}).get("serve_completed", 0)
+            for k in ("tenant=a", "tenant=b")}
+    toks = {k: rows[k]["tokens_out"]
+            - before.get(k, {}).get("tokens_out", 0)
+            for k in ("tenant=a", "tenant=b")}
+    assert sum(done.values()) == 8 and min(done.values()) >= 1
+    assert toks == {k: 3 * v for k, v in done.items()}
+    assert all(c["ok"] for c in attr.reconcile()["checks"]
+               if c["field"] in ("serve_completed", "slo_samples"))
 
 
 @pytest.mark.parametrize("kw,item", [({"tp": True}, "LM parallelism"),

@@ -133,7 +133,25 @@ def test_data_layer_stage_knobs_replay_bitwise(frame, tmp_path, knob):
 
 
 def test_autotune_is_refused_by_the_executor(frame):
-    with pytest.raises(NotImplementedError,
-                       match="'The rest of observability'"):
-        frame.map_batches(lambda x: x, ["image"], ["y"], device="cpu",
-                          autotune=True)
+    """Once refused ('The rest of observability'): ``autotune=True`` on a
+    stage's frame runs, marks the report, seeds only tpudl's autotune
+    knobs, and returns the untuned run's rows bit for bit."""
+    from tpudl_torch.image import imageStructToArray
+
+    def pack(structs):
+        return np.stack([imageStructToArray(v) for v in structs]).astype(
+            np.float32)
+
+    kw = dict(device="cpu", batch_size=2, pack=pack)
+    want = frame.map_batches(lambda x: x * 2, ["image"], ["y"],
+                             autotune=False, **kw)
+    assert last_pipeline_report()["autotune"] is False
+    for _ in range(2):   # the second run reads the first's report
+        got = frame.map_batches(lambda x: x * 2, ["image"], ["y"],
+                                autotune=True, **kw)
+        rep = last_pipeline_report()
+        assert rep["autotune"] is True
+        assert set(rep["autotuned"]) <= {"fuse_steps", "dispatch_depth",
+                                         "prefetch_depth"}
+        assert np.array_equal(np.stack(list(got["y"])),
+                              np.stack(list(want["y"])))

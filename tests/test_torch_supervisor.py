@@ -157,7 +157,7 @@ def _rungs(recorder):
 
 def _port(plan=None, fn=tfn, **kw):
     kw = dict(batch_size=BATCH, device="cpu", fuse_steps=4,
-              dispatch_depth=4, **kw)
+              dispatch_depth=4, autotune=False, **kw)
     if plan is None:
         return Frame(_columns()).map_batches(fn, ["x"], ["y"], **kw)
     with plan.armed():
@@ -271,8 +271,15 @@ def test_exhaustion_raises_typed_with_a_dump_the_doctor_reads(
     monkeypatch.setenv("TPUDL_FRAME_DEGRADE_MAX_RUNGS", "1")
     before = metrics.counter("frame.degraded.exhausted").value
     every = [{"point": "frame.dispatch", "action": "raise"}]
+    # each package dumps into a directory of its own: both name their
+    # dump tpudl-dump-<pid>.json.gz, and in one directory tpudl's would
+    # overwrite the port's (carrying tpudl's process-wide counters, which
+    # other test files on this worker may have filled with decode errors)
+    port_dir, tpudl_dir = clean / "port", clean / "tpudl"
+    monkeypatch.setenv("TPUDL_FLIGHT_DIR", str(port_dir))
     with pytest.raises(sup.StageFault) as ours:
         _port(faults.FaultPlan(every))
+    monkeypatch.setenv("TPUDL_FLIGHT_DIR", str(tpudl_dir))
     with pytest.raises(jsup.StageFault) as theirs:
         _jax(jfaults.FaultPlan(every))
     assert ours.value.rungs == theirs.value.rungs == (
@@ -283,16 +290,71 @@ def test_exhaustion_raises_typed_with_a_dump_the_doctor_reads(
     ring = [e for e in flight.get_recorder().snapshot()["errors"]
             if e["kind"] == "frame.degraded.exhausted"]
     assert ring[-1]["fault_kind"] == "stage"
-    dumps = sorted(clean.glob("tpudl-dump-*.json.gz"))
+    dumps = sorted(port_dir.glob("tpudl-dump-*.json.gz"))
     assert len(dumps) >= 1
-    # tpudl's dump lands in the same directory; the doctor reads each
-    # package's alone
+    assert len(list(tpudl_dir.glob("tpudl-dump-*.json.gz"))) == 1
     port_dump = [d for d in dumps
                  if str(d) in flight.get_recorder().dumped_paths]
     assert len(port_dump) == 1
-    _, diag = jdoctor.diagnose(str(port_dump[0]))
+    merged, diag = jdoctor.diagnose(str(port_dump[0]))
+    # the doctor read the port's dump, not tpudl's
+    [host] = merged["hosts"].values()
+    assert host["backend"]["torch_loaded"] is True
     assert diag["classification"] == "degraded_run"
 
+
+
+def test_store_misses_on_another_thread_are_not_a_recompile_storm(clean):
+    """The storm signal is the attempt's own program-store misses: a
+    thread that misses the store all through a supervised run leaves a
+    stage fault's rungs tpudl's (a storm would have skipped to the
+    ``fuse_steps`` rung), and the outputs the healthy run's."""
+    import threading
+
+    from tpudl_torch.compile import store as cstore
+
+    healthy = _y(_port())
+    stop = threading.Event()
+
+    def miss():
+        while not stop.is_set():
+            cstore.get_program_store().count_miss()
+            stop.wait(0.0005)
+
+    storms = metrics.counter("compile.storms").value
+    t = threading.Thread(target=miss, daemon=True)
+    t.start()
+    try:
+        got = _port(faults.FaultPlan.raise_in_stage("dispatch"))
+    finally:
+        stop.set()
+        t.join(5)
+    _jax(jfaults.FaultPlan.raise_in_stage("dispatch"))
+    assert _rungs(flight) == _rungs(jflight) == ["dispatch_depth=2"]
+    assert metrics.counter("compile.storms").value == storms
+    assert np.array_equal(_y(got), healthy)
+
+
+def test_counting_misses_counts_this_context_only():
+    """``counting_misses`` sees the misses of its own thread, and not
+    those of a thread started inside it."""
+    import threading
+
+    from tpudl_torch.compile import store as cstore
+
+    st = cstore.get_program_store()
+    with cstore.counting_misses() as n:
+        st.count_miss()
+        t = threading.Thread(target=st.count_miss)
+        t.start()
+        t.join(5)
+        st.count_miss()
+    assert n == [2]
+    with cstore.counting_misses() as outer:
+        with cstore.counting_misses() as inner:
+            st.count_miss()
+        st.count_miss()
+    assert (outer, inner) == ([1], [1])
 
 # -- supervised serving --------------------------------------------------------
 

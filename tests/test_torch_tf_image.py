@@ -32,6 +32,9 @@ from tpudl_torch.frame import Frame  # noqa: E402
 from tpudl_torch.image import imageIO  # noqa: E402
 from tpudl_torch.ingest import TFInputGraph  # noqa: E402
 from tpudl_torch.ml import TFImageTransformer  # noqa: E402
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 RTOL = 1e-5

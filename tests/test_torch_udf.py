@@ -44,6 +44,9 @@ from tpudl_torch.udf import (get_udf, makeGraphUDF,  # noqa: E402
                              register_text_udfs, registerKerasImageUDF,
                              unregister_udf)
 from tpudl_torch.zoo.transformer import TinyCausalLM  # noqa: E402
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 RTOL = 1e-5

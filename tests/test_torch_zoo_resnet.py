@@ -28,6 +28,9 @@ from tpudl.ml import DeepImageFeaturizer as JaxFeaturizer
 from tpudl.ml import DeepImagePredictor as JaxPredictor
 from tpudl_torch.image import imageIO
 from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,9 @@ from tpudl_torch.ml import DeepImageFeaturizer, DeepImagePredictor
 from tpudl_torch.zoo import convert, registry
 from tpudl_torch.zoo import nn as zoo_nn
 from tpudl_torch.zoo.registry import ImageModel
+from torch_native_fixture import private_tpudl_decoder  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("private_tpudl_decoder")
 
 torch.set_num_threads(1)
 

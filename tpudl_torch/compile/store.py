@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import functools
 import hashlib
 import json
@@ -84,7 +85,7 @@ from tpudl_torch.testing import faults as _faults
 __all__ = ["ProgramStore", "BoundGraph", "get_program_store",
            "reset_program_store", "aot_enabled", "store_dir", "warm_start",
            "fn_fingerprint", "content_token", "backend_token",
-           "signature_of", "forget",
+           "signature_of", "forget", "counting_misses",
            "MANIFEST_NAME", "MANIFEST_SCHEMA", "MANIFEST_VERSION",
            "PROGRAM_CACHE_SIZE"]
 
@@ -438,6 +439,35 @@ def _metrics():
     return _m
 
 
+def _charge_compile_s(seconds: float) -> None:
+    """The attribution pairing of ``compile.aot_s``: the same seconds to
+    the calling scope (a background restore runs scope-free and lands in
+    ``unattributed``), so the ledger reconciles."""
+    from tpudl_torch.obs import attribution as _attr
+
+    _attr.charge("compile_s", seconds)
+
+
+# the capture misses of the context that set it (a supervised attempt):
+# a one-element list, or None where nobody counts
+_CONTEXT_MISSES: contextvars.ContextVar = contextvars.ContextVar(
+    "tpudl_torch_context_misses", default=None)
+
+
+@contextlib.contextmanager
+def counting_misses():
+    """Count the store's misses made in this context (the calling thread
+    and what it runs inline), not the process's: ``with counting_misses()
+    as n:`` leaves the count in ``n[0]``. Another thread missing the store
+    meanwhile does not move it."""
+    box = [0]
+    token = _CONTEXT_MISSES.set(box)
+    try:
+        yield box
+    finally:
+        _CONTEXT_MISSES.reset(token)
+
+
 def _live_ref(owner):
     """``(id, weakref)`` of a program's live owner (a bound method stands
     for its object and function; a fresh one is made at every access)."""
@@ -653,6 +683,7 @@ class ProgramStore:
         m = _metrics()
         m.counter("compile.programs_compiled").inc()
         m.counter("compile.aot_s").inc(seconds)
+        _charge_compile_s(seconds)
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None and entry.get("capture_s") is None:
@@ -669,6 +700,9 @@ class ProgramStore:
     @staticmethod
     def _miss(report) -> None:
         _metrics().counter("compile.misses").inc()
+        box = _CONTEXT_MISSES.get()
+        if box is not None:
+            box[0] += 1
         if report is not None:
             report.count("aot_misses")
 
@@ -902,7 +936,9 @@ class ProgramStore:
         if n:
             m = _metrics()
             m.counter("compile.programs_restored").inc(n)
-            m.counter("compile.aot_s").inc(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            m.counter("compile.aot_s").inc(dt)
+            _charge_compile_s(dt)
         return n
 
     def _candidates(self, entry) -> list:

@@ -41,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _m
 
 __all__ = [
@@ -498,6 +499,9 @@ class CodecPlan:
             shipped += int(np.asarray(arr).nbytes)
             dense += codec.dense_nbytes(np.asarray(arr))
         _m.counter("data.wire.bytes_shipped").inc(shipped)
+        # the attribution pairing: the same amount as the global counter,
+        # so per-scope sums + unattributed reconcile exactly
+        _attr.charge("wire_bytes", shipped)
         _m.counter("data.wire.bytes_dense").inc(dense)
         if dense > shipped:
             _m.counter("data.wire.bytes_saved").inc(dense - shipped)

@@ -297,16 +297,19 @@ class Dataset:
         return tuple(arrays)
 
     def iter_epoch(self, epoch: int = 0):
-        """Yield every prepared batch in order. ``epoch`` is a label only:
-        content and order are epoch-invariant (shuffling belongs to the
-        consumer)."""
-        del epoch
-        try:
-            for i in range(self.num_batches):
-                yield self.get_batch(i)
-        finally:
-            if self._cache is not None:  # persist throttled entries
-                self._cache.flush()
+        """Yield every prepared batch in order. ``epoch`` only labels the
+        ``data.epoch`` host span: content and order are epoch-invariant
+        (shuffling belongs to the consumer)."""
+        from tpudl_torch.obs import tracer as _tracer
+
+        with _tracer.span("data.epoch", epoch=int(epoch),
+                          batches=self.num_batches):
+            try:
+                for i in range(self.num_batches):
+                    yield self.get_batch(i)
+            finally:
+                if self._cache is not None:  # persist throttled entries
+                    self._cache.flush()
 
     def epochs(self, n: int):
         for e in range(int(n)):

@@ -31,9 +31,10 @@ Contracts, as in tpudl:
 Counters and gauges are tpudl's: ``data.hbm.bytes_resident`` /
 ``budget_bytes``, ``hits`` / ``misses`` / ``puts`` / ``evictions`` /
 ``bytes_served`` / ``put_failed`` (a torch function donates nothing, so
-tpudl's ``donation_blocked`` has no counterpart). tpudl's
-attribution ledger is not ported (ROADMAP Queue 1, 'The rest of
-observability'). On a device OOM the executor's supervisor
+tpudl's ``donation_blocked`` has no counterpart). Each entry's bytes are
+charged ``hbm_bytes`` to the attribution scope that put it, and credited
+back to that scope when it leaves, so the ledger mirrors the resident
+gauge. On a device OOM the executor's supervisor
 (:mod:`tpudl_torch.frame.supervisor`, its ``evict_hbm`` rung) calls
 :meth:`DeviceBatchCache.evict_unpinned` before it retries the run.
 """
@@ -48,6 +49,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _m
 
 __all__ = ["DeviceBatchCache", "Pin", "get_device_cache",
@@ -206,7 +208,7 @@ class Pin:
 
 class _Entry:
     __slots__ = ("key", "arrays", "n_pad", "codecs", "nbytes", "pins",
-                 "resident")
+                 "resident", "owner")
 
     def __init__(self, key, arrays, n_pad, codecs):
         self.key = key
@@ -219,6 +221,8 @@ class _Entry:
         # False once evicted/cleared: an outstanding Pin's late release
         # must not adjust tallies for an entry no longer in the map
         self.resident = False
+        # the attribution scope key charged for these bytes at put()
+        self.owner = None
 
     @property
     def run(self):
@@ -326,8 +330,13 @@ class DeviceBatchCache:
         bigger than the budget keeps its prefix resident instead of
         thrashing itself."""
         entry = _Entry(key, arrays, n_pad, codecs)
+        # the owner is resolved before the entry becomes visible, so a
+        # concurrent eviction always credits the right scope
+        sc = _attr.current_scope()
+        entry.owner = sc.key if sc is not None else None
         run = entry.run
         evicted = 0
+        victims: list = []
         stored = dedup = False
         with self._lock:
             old = self._entries.get(key)
@@ -344,6 +353,7 @@ class DeviceBatchCache:
                     victim.resident = False
                     self._bytes -= victim.nbytes
                     self._run_unpinned_locked(victim.run, -victim.nbytes)
+                    victims.append(victim)
                     evicted += 1
                 if self._bytes + entry.nbytes <= self._budget:
                     entry.resident = True
@@ -357,8 +367,15 @@ class DeviceBatchCache:
         if evicted:
             _m.counter("data.hbm.evictions").inc(evicted)
         _m.gauge("data.hbm.bytes_resident").set(resident)
+        # the attribution pairing: the ledger mirrors the resident gauge
+        # exactly — each victim's bytes credit its owner (create=False: a
+        # folded scope's credit lands in unattributed, where its debits
+        # went), the stored entry's bytes charge its owner
+        for v in victims:
+            _attr.charge("hbm_bytes", -v.nbytes, key=v.owner, create=False)
         if stored and not dedup:
             _m.counter("data.hbm.puts").inc()
+            _attr.charge("hbm_bytes", entry.nbytes, key=entry.owner)
         return pin
 
     # copied from tpudl/data/device_cache.py:DeviceBatchCache._evictable_locked
@@ -405,10 +422,13 @@ class DeviceBatchCache:
         if count:
             _m.counter("data.hbm.evictions").inc(count)
         _m.gauge("data.hbm.bytes_resident").set(resident)
+        for e in victims:
+            _attr.charge("hbm_bytes", -e.nbytes, key=e.owner, create=False)
         return count, freed
 
     def clear(self) -> None:
         with self._lock:
+            dropped = [(e.owner, e.nbytes) for e in self._entries.values()]
             for e in self._entries.values():
                 e.resident = False
             self._entries.clear()
@@ -416,6 +436,8 @@ class DeviceBatchCache:
             self._pinned_bytes = 0
             self._unpinned_by_run.clear()
         _m.gauge("data.hbm.bytes_resident").set(0)
+        for owner, nbytes in dropped:
+            _attr.charge("hbm_bytes", -nbytes, key=owner, create=False)
 
 
 _CACHE: DeviceBatchCache | None = None

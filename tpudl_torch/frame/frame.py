@@ -30,8 +30,14 @@ Under ``supervise=`` (``TPUDL_FRAME_DEGRADE=1``) the run is a supervised
 attempt (:mod:`tpudl_torch.frame.supervisor`), retried down tpudl's
 degradation ladder; the stages carry tpudl's fault points
 (``frame.prepare``, ``frame.h2d``, ``frame.dispatch``, ``frame.d2h``) and
-file each prepared batch's descriptor in the flight recorder. Autotune
-is refused by name (ROADMAP Queue 1, 'The rest of observability').
+file each prepared batch's descriptor in the flight recorder. Every
+stage is a host span on the tracer and beats the run's watchdog heartbeat
+(``frame.map_batches``), which also arms the live status writer; the
+prepare pool carries the caller's attribution scope, which is charged the
+run's rows in and out and its dispatch seconds. ``autotune`` (tpudl's
+default, on unless ``TPUDL_FRAME_AUTOTUNE=0``) seeds the knobs a caller
+left unset from the roofline advisor's reading of the previous run's
+report (:func:`tpudl_torch.obs.roofline.autotune_seed`).
 """
 
 from __future__ import annotations
@@ -51,7 +57,9 @@ from tpudl_torch.compile.graphs import FusedGraph as _FusedGraph
 from tpudl_torch.compile.graphs import as_outputs as _as_outputs
 from tpudl_torch.compile.graphs import fused_plain as _fused_plain
 from tpudl_torch.device import resolve_device
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import flight as _flight
+from tpudl_torch.obs import watchdog as _watchdog
 from tpudl_torch.testing import faults as _faults
 
 __all__ = ["Frame", "LazyColumn", "null_mask", "concat"]
@@ -135,8 +143,7 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
-# copied from tpudl/frame/frame.py:_PipelineInfeed (without the
-# attribution scope, ROADMAP Queue 1, 'The rest of observability')
+# copied from tpudl/frame/frame.py:_PipelineInfeed
 class _PipelineInfeed:
     """K-deep bounded infeed fed by an N-worker prepare pool: up to
     ``depth`` batches are prepared in flight, by up to ``workers``
@@ -160,8 +167,10 @@ class _PipelineInfeed:
             self._submit()
 
     def _submit(self):
-        self._futs.append(self._ex.submit(self._prepare,
-                                          *self._spans[self._next]))
+        # the submitter's attribution scope rides onto the worker: a
+        # contextvar does not cross a thread pool on its own
+        self._futs.append(self._ex.submit(
+            _attr.carry(self._prepare), *self._spans[self._next]))
         self._next += 1
 
     def get(self):
@@ -395,11 +404,6 @@ def _as_column(values) -> np.ndarray:
         col = np.empty(len(values), dtype=object)
         col[:] = values
         return col
-
-
-# map_batches knobs of tpudl with no counterpart yet → their ROADMAP
-# Queue 1 item
-_REFUSED = {"autotune": "The rest of observability"}
 
 
 def _fire_in(stage: str, point: str, **ctx):
@@ -669,14 +673,18 @@ class Frame:
         (``TPUDL_FRAME_DEGRADE_MAX_RUNGS``) writes a flight dump and raises
         the typed error (``DeviceOOM``, ``TransferError``,
         ``RecompileStorm``, ``StageFault``) chained to the original.
-        ``autotune=True`` is not ported yet and raises
-        ``NotImplementedError`` naming its ROADMAP Queue 1 item."""
+
+        ``autotune`` (``TPUDL_FRAME_AUTOTUNE``, default on): any of
+        ``fuse_steps``/``dispatch_depth``/``prefetch_depth`` left unset
+        (no kwarg, no env setting) is seeded from the roofline advisor's
+        recommendations over the previous run's report, when that report
+        ran at the same ``batch_size`` and mesh shape
+        (:func:`tpudl_torch.obs.roofline.autotune_seed`, which never
+        probes the card from here); the seeded knobs land in the report's
+        ``autotuned``. The serial kill switch and the conservative mesh
+        arm never autotune."""
         from tpudl_torch.frame import supervisor as _sup
 
-        if autotune not in (None, False):
-            raise NotImplementedError(
-                "map_batches(autotune=...) is not ported to tpudl_torch "
-                f"yet (ROADMAP Queue 1, {_REFUSED['autotune']!r})")
         kwargs = dict(
             batch_size=batch_size, pack=pack, check_finite=check_finite,
             prefetch=prefetch, prefetch_depth=prefetch_depth,
@@ -684,7 +692,7 @@ class Frame:
             dispatch_depth=dispatch_depth, donate=donate,
             wire_codec=wire_codec, buckets=buckets, device=device,
             mesh=mesh, cache_dir=cache_dir, cache_key=cache_key,
-            device_cache=device_cache, aot=aot)
+            device_cache=device_cache, aot=aot, autotune=autotune)
         if not _sup.enabled(supervise):
             # unarmed: one env read, straight into the executor
             return self._map_batches_impl(fn, input_cols, output_cols,
@@ -753,22 +761,56 @@ class Frame:
         killed = os.environ.get("TPUDL_FRAME_PREFETCH", "1") == "0"
         prefetch = (True if prefetch is None else bool(prefetch)) \
             and not killed
+        # -- autotune: seed unset executor knobs from the advisor's reading
+        # of the PREVIOUS run's report (explicit kwargs and env settings
+        # always win; the kill switches never autotune)
+        autotune_on = (
+            (bool(autotune) if autotune is not None
+             else os.environ.get("TPUDL_FRAME_AUTOTUNE", "1") != "0")
+            and not killed and not mesh_slow)
+        seeds: dict = {}
+        seeded: list[str] = []
 
-        def _resolve(kwarg, env_name, default):
+        def _resolve(kwarg, env_name, seed_key, default):
             if kwarg is not None:
                 return int(kwarg)
-            return _env_int(env_name, default)
+            if os.environ.get(env_name, "") != "":
+                return _env_int(env_name, default)
+            if seed_key in seeds:
+                seeded.append(seed_key)
+                return int(seeds[seed_key])
+            return default
 
-        depth = _resolve(prefetch_depth, "TPUDL_FRAME_PREFETCH_DEPTH", 2)
+        if autotune_on and any(
+                k is None and os.environ.get(e, "") == ""
+                for k, e in ((fuse_steps, "TPUDL_FRAME_FUSE_STEPS"),
+                             (dispatch_depth, "TPUDL_FRAME_DISPATCH_DEPTH"),
+                             (prefetch_depth, "TPUDL_FRAME_PREFETCH_DEPTH"))):
+            # read the previous run's report before this run files its
+            # own; batch size and mesh shape are the workload guard (the
+            # advisor's numbers are per-dispatch quantities at that
+            # geometry and topology); never probe the wire from here
+            from tpudl_torch.obs import pipeline as _pipeline
+            from tpudl_torch.obs import roofline as _roofline
+
+            seeds = _roofline.autotune_seed(
+                _roofline.model_report(_pipeline.last_pipeline_report()),
+                allow_probe=False,
+                match={"batch_size": batch_size,
+                       "mesh": (dict(mesh.shape) if mesh is not None
+                                else None)})
+        depth = _resolve(prefetch_depth, "TPUDL_FRAME_PREFETCH_DEPTH",
+                         "prefetch_depth", 2)
         workers = (int(prepare_workers) if prepare_workers is not None
                    else _env_int("TPUDL_FRAME_PREPARE_WORKERS", 2))
         d_depth = 1 if killed or mesh_slow else max(1, _resolve(
-            dispatch_depth, "TPUDL_FRAME_DISPATCH_DEPTH", 2))
+            dispatch_depth, "TPUDL_FRAME_DISPATCH_DEPTH", "dispatch_depth",
+            2))
         donate_flag = (bool(donate) if donate is not None
                        else os.environ.get("TPUDL_FRAME_DONATE", "1") != "0")
         donate_flag = donate_flag and not killed and not mesh_slow
         fuse = 1 if killed or mesh_slow else max(1, _resolve(
-            fuse_steps, "TPUDL_FRAME_FUSE_STEPS", 1))
+            fuse_steps, "TPUDL_FRAME_FUSE_STEPS", "fuse_steps", 1))
         if fuse > 1 and not mesh_fuse_ok(batch_size, mesh):
             # a full batch that pads to the data axis would interleave its
             # pad rows in a fused group's outputs
@@ -884,8 +926,8 @@ class Frame:
             "fuse_steps": fuse,
             "dispatch_depth": int(d_depth),
             "donate": bool(donate_flag),
-            "autotune": False,
-            "autotuned": [],
+            "autotune": bool(autotune_on),
+            "autotuned": sorted(seeded),
             "batch_size": batch_size,
             "rows": self._n,
             # the topology (None without a mesh): the gauges of finish()
@@ -964,6 +1006,9 @@ class Frame:
             with report.stage("prepare"):
                 bidx = start // batch_size
                 _faults.fire("frame.prepare", index=bidx)
+                # rows entering the pipeline, charged in the submitting
+                # run's scope (carried onto this pool thread)
+                _attr.charge("rows_in", stop - start)
                 arrays, n_pad, pin = fetch_batch(
                     bidx, lambda: pack_encode(start, stop),
                     plan=plan, shard_cache=cache, device_cache=dcache,
@@ -1013,6 +1058,7 @@ class Frame:
             done_rows = sum(int(h.shape[0]) if h.ndim else 1
                             for h in entry.host[0])
             report.progress(max(0, done_rows - entry.n_pad))
+            _attr.charge("rows_out", max(0, done_rows - entry.n_pad))
             for i, parts in enumerate(entry.host):
                 acc[i].extend(parts)
             segs.append((done_rows, entry.n_pad))
@@ -1118,6 +1164,8 @@ class Frame:
             # included
             _fire_in("dispatch", "frame.dispatch", index=consumed)
             result, n_pad, keep, t0, pin, interleave = run(*args)
+            # the host seconds this scope spent issuing the dispatch
+            _attr.charge("dispatch_s", time.perf_counter() - t0)
             pins.discard(pin)   # the entry releases it from here on
             entry = _start_host_copies(result, n_pad, keep, pin, interleave)
             if first_dispatch:
@@ -1142,6 +1190,14 @@ class Frame:
         spans = list(self.iter_batches(batch_size))
         # only the leading run of full-size batches can fuse
         n_full = sum(1 for s, e in spans if e - s == batch_size)
+        # one watchdog heartbeat for the whole run, beaten at every stage
+        # entry (PipelineReport.stage): a freeze inside prepare, h2d,
+        # dispatch or d2h surfaces as a stall naming that stage.
+        # Registered before the infeed, so the pool's first batches are
+        # watched; it leaves the scan list on every exit path below.
+        hb_run = _watchdog.heartbeat("frame.map_batches", run=report.run_id,
+                                     rows=self._n)
+        report.heartbeat = hb_run
         infeed = (_PipelineInfeed(prepare, spans, depth, workers, report)
                   if prefetch else None)
         window = (_DispatchWindow(d_depth, report) if d_depth > 1
@@ -1184,6 +1240,8 @@ class Frame:
                 cache.flush()  # persist throttled manifest entries
             for p in list(pins):
                 p.release()
+            hb_run.__exit__(None, None, None)
+            report.heartbeat = None
         outputs: list[list[np.ndarray]] = [[] for _ in output_cols]
         with report.stage("d2h"):
             _faults.fire("frame.d2h")

@@ -33,17 +33,26 @@ retry re-executes user code, so the owner of the process opts in.
 
 The recompile-storm signal: tpudl samples its trace sentinel's
 ``traceck.storms``. The port has no trace sentinel; its nearest
-observable is the program store's capture misses (``compile.misses``),
-so an attempt that failed after the store captured a new program counts
-as a storm. Without the store armed nothing moves that counter.
+observable is the program store's capture misses, so an attempt that
+failed after the store captured a new program for that attempt counts as
+a storm. The misses are the attempt's own
+(:func:`tpudl_torch.compile.store.counting_misses`, a context variable
+set around the attempt), never the process's ``compile.misses``: another
+thread missing the store meanwhile does not turn a stage fault into a
+storm. A storm counts ``compile.storms`` and files a ``compile.storm``
+event in the flight recorder's error ring, which the port's ``obs
+doctor`` reads. Without the store armed nothing misses.
 
 Every rung files a ``frame.degraded`` event in the flight recorder's
 error ring and counts ``frame.degraded.rungs``; recovery lands
 ``degraded_to`` and ``recovered_batches`` on the ``PipelineReport``;
 exhaustion counts ``frame.degraded.exhausted`` and leaves a
 ``tpudl-dump-*`` that tpudl's ``obs doctor`` classifies as
-``degraded_run``. tpudl's watchdog heartbeat around the ladder is not
-ported (ROADMAP Queue 1, 'The rest of observability'): a backoff sleeps.
+``degraded_run``. One watchdog heartbeat (``frame.supervisor``) spans the
+supervised run, the parent of each attempt's executor heartbeat: every
+attempt, rung and backoff slice beats it, so a deliberate retry pause
+never reads as a stall. Each rung charges the caller's attribution scope
+one ``degradations``.
 """
 
 from __future__ import annotations
@@ -194,14 +203,6 @@ def enabled(kwarg=None) -> bool:
     return os.environ.get("TPUDL_FRAME_DEGRADE", "0") == "1"
 
 
-def _storms() -> float:
-    """The program store's capture misses so far (0 while the store is
-    unarmed: nothing moves the counter)."""
-    from tpudl_torch.obs import metrics as _m
-
-    return float(_m.counter("compile.misses").value)
-
-
 class Supervisor:
     """One supervised run's ladder state. Single-consumer: the supervise
     loop, classification and rung bookkeeping all run on the thread that
@@ -219,6 +220,7 @@ class Supervisor:
         self.hbm_evicted = False        # the OOM evict rung fired
         self._ladder_pos = 0            # index into LADDER
         self._report = None             # current attempt's PipelineReport
+        self._hb = None                 # the supervised run's heartbeat
 
     # -- executor hooks ------------------------------------------------------
     # copied from tpudl/frame/supervisor.py:Supervisor.note_report
@@ -245,25 +247,60 @@ class Supervisor:
         recovery bit for bit: a failed attempt's partial outputs are
         dropped, and the surviving attempt's outputs are what a healthy
         run of that config produces."""
+        from tpudl_torch.compile import store as _store
+        from tpudl_torch.obs import watchdog as _watchdog
+
         attempt_no = 0
-        while True:
-            attempt_no += 1
-            storms0 = _storms()
-            try:
-                result = attempt(dict(self.overrides))
-            except BaseException as e:
-                kind = classify_exception(
-                    e, stage=getattr(e, "tpudl_stage", None),
-                    storm=_storms() > storms0)
-                if kind == "fatal":
-                    raise
-                self._on_fault(e, kind, attempt_no)  # raises typed
-                continue                             # ... or rung'd
-            if self.rungs:
-                # only a rung'd run records recovery: a transfer retry
-                # changed no knob and already left its retry.* trail
-                self._record_recovery()
-            return result
+        # one heartbeat for the whole supervised run, the parent of each
+        # attempt's executor heartbeat (nested registration): every
+        # attempt start, rung and backoff slice re-arms it, so a stage
+        # the supervisor is retrying is never double-flagged as a stall
+        with _watchdog.heartbeat("frame.supervisor",
+                                 max_rungs=self.max_rungs) as hb:
+            self._hb = hb
+            while True:
+                attempt_no += 1
+                hb.beat(attempt=attempt_no, rungs=len(self.rungs))
+                with _store.counting_misses() as misses:
+                    try:
+                        result = attempt(dict(self.overrides))
+                    except BaseException as e:
+                        failed = e
+                    else:
+                        failed = None
+                if failed is not None:
+                    stage = getattr(failed, "tpudl_stage", None)
+                    kind = classify_exception(failed, stage=stage,
+                                              storm=misses[0] > 0)
+                    if kind == "fatal":
+                        raise failed
+                    if kind == "recompile_storm":
+                        self._record_storm(failed, stage, misses[0])
+                    self._on_fault(failed, kind, attempt_no)  # raises
+                    continue                                 # or rung'd
+                if self.rungs:
+                    # only a rung'd run records recovery: a transfer
+                    # retry changed no knob and already left its
+                    # retry.* trail
+                    self._record_recovery()
+                return result
+
+    @staticmethod
+    def _record_storm(exc: BaseException, stage: str | None,
+                      misses: int) -> None:
+        """The port's storm evidence for ``obs doctor``:
+        ``compile.storms`` and a ``compile.storm`` error-ring event with
+        the attempt's own capture misses."""
+        try:
+            from tpudl_torch.obs import flight as _flight
+            from tpudl_torch.obs import metrics as _m
+
+            _m.counter("compile.storms").inc()
+            _flight.record_error("compile.storm", exc, stage=stage,
+                                 misses=int(misses))
+        # the observer must never take down the recovery it narrates
+        except Exception:
+            pass
 
     # -- fault handling ------------------------------------------------------
     # copied from tpudl/frame/supervisor.py:Supervisor._on_fault
@@ -377,8 +414,22 @@ class Supervisor:
             "%d/%d via the shared io_policy (backoff %.3fs)",
             type(exc).__name__, stage or "?", self.transfer_attempts,
             pol.max_attempts - 1, delay)
-        time.sleep(max(0.0, float(delay)))
+        self._sleep_with_beats(delay)
         return True
+
+    # copied from tpudl/frame/supervisor.py:Supervisor._sleep_with_beats
+    def _sleep_with_beats(self, seconds: float) -> None:
+        """Backoff that stays visibly alive: slept in slices with a
+        heartbeat beat per slice, so the watchdog never flags a
+        supervised retry's deliberate pause as a stall."""
+        deadline = time.monotonic() + max(0.0, float(seconds))
+        while True:
+            if self._hb is not None:
+                self._hb.beat(backing_off=True)
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return
+            time.sleep(min(0.05, remaining))
 
     def _evict_hbm(self) -> int:
         """The OOM rung's action: evict every unpinned device-cache
@@ -411,7 +462,11 @@ class Supervisor:
             from tpudl_torch.obs import flight as _flight
             from tpudl_torch.obs import metrics as _m
 
+            from tpudl_torch.obs import attribution as _attr
+
             _m.counter("frame.degraded.rungs").inc()
+            # the attribution pairing of frame.degraded.rungs
+            _attr.charge("degradations")
             _flight.record_error(
                 "frame.degraded", exc, rung=label, stage=stage,
                 rungs_applied=len(self.rungs), **extra)

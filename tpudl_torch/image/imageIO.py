@@ -16,8 +16,10 @@ multi-machine input plane that replaces Spark's partition assignment).
 Every file read fires tpudl's ``io.read`` fault point and retries a
 transient failure under the shared IO policy
 (:func:`tpudl_torch.jobs.retry.io_policy`, counted as
-``retry.imageio.read``). Not ported yet: the flight-recorder samples of
-decode errors (Queue 1, 'The rest of observability').
+``retry.imageio.read``). Every decode error is counted
+(``imageio.decode_errors``) and sampled into the flight recorder's error
+ring (kind ``imageio.decode_error``, with the file's origin), which
+``obs doctor``'s decode-error-storm rule reads.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Callable, Iterable
 import numpy as np
 
 from tpudl_torch.frame.frame import Frame, LazyColumn, _env_int
+from tpudl_torch.obs import flight as _flight
 from tpudl_torch.obs import metrics as _obs_metrics
 
 try:  # PIL is the decode substrate, as in tpudl
@@ -665,11 +668,16 @@ def _decode_row(decode_f, origin, raw):
     struct with the file's origin."""
     try:
         out = decode_f(raw)
-    except Exception:
+    except Exception as e:
         _obs_metrics.counter("imageio.decode_errors").inc()
+        # a sample lands in the flight recorder's bounded error ring, so a
+        # post-mortem shows which files went bad, not just how many
+        _flight.record_error("imageio.decode_error", e, origin=origin)
         return None
     if out is None:
         _obs_metrics.counter("imageio.decode_errors").inc()
+        _flight.record_error("imageio.decode_error",
+                             "decode_f returned None", origin=origin)
         return None
     if isinstance(out, dict):
         out = dict(out)

@@ -7,8 +7,8 @@ classification (:meth:`~RetryPolicy.is_transient`), backoff
 (:meth:`~RetryPolicy.backoff_s`), the retry loop (:meth:`~RetryPolicy.call`)
 and :meth:`~RetryPolicy.record`. ``record`` counts into
 :mod:`tpudl_torch.obs.metrics` and files the retry in the flight
-recorder's error ring; tpudl's attribution ledger is not ported yet
-(ROADMAP Queue 1, 'The rest of observability'). :func:`io_policy` is the
+recorder's error ring, and charges the caller's attribution scope one
+``retries`` beside ``retry.attempts``. :func:`io_policy` is the
 shared IO policy the shard cache, the image reads and the supervisor's
 transfer retries run under.
 
@@ -23,6 +23,7 @@ import os
 import random
 import time
 
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _metrics
 
 __all__ = ["RetryPolicy", "is_fatal", "io_policy", "PROGRAMMING_ERRORS"]
@@ -119,6 +120,8 @@ class RetryPolicy:
         ``retry.backoff_s`` histogram) and file it in the flight
         recorder's error ring (kind ``retry.<kind>``)."""
         _metrics.counter("retry.attempts").inc()
+        # the attribution pairing of retry.attempts
+        _attr.charge("retries")
         _metrics.counter(f"retry.{kind}").inc()
         if backoff_s is not None:
             _metrics.histogram("retry.backoff_s").observe(float(backoff_s))

@@ -84,7 +84,10 @@ from tpudl_torch.ml.params import (HasInputCol, HasKerasLoss, HasKerasModel,
                                    HasOutputCol, keyword_only,
                                    refuse_unported)
 from tpudl_torch.ml.pipeline import Estimator
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.obs import tracer as _obs_tracer
+from tpudl_torch.obs import watchdog as _obs_watchdog
 
 __all__ = ["KerasImageFileEstimator", "sharded_backward"]
 
@@ -316,11 +319,21 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
         # finally: a failed trial must not strand its pin in the budget
         try:
             Xr, yr = bulk.arrays if bulk is not None else (X, y)
-            with torch.enable_grad(), full_f32():
+            with torch.enable_grad(), full_f32(), \
+                    _obs_watchdog.heartbeat(
+                        "estimator.train_trial", epochs=epochs,
+                        steps_total=epochs * -(-n // target)) as hb, \
+                    _obs_tracer.span("estimator.train_trial",
+                                     epochs=epochs, batch_size=target,
+                                     slice_width=width):
                 for _epoch in range(epochs):
                     order = rng.permutation(n) if shuffle else np.arange(n)
                     batch_losses = []     # on the device; one fetch an epoch
                     for start in range(0, n, target):
+                        # one beat a step: a hung step flags a stall
+                        # naming the epoch and step it froze at
+                        hb.beat(epoch=_epoch, step=len(step_losses)
+                                + len(batch_losses))
                         idx = order[start:start + target]
                         if len(idx) < target:   # the ragged tail wraps
                             reps = math.ceil((target - len(idx)) / n)
@@ -351,6 +364,7 @@ class KerasImageFileEstimator(Estimator, HasInputCol, HasOutputCol,
             shipped = int(n_steps * target * row)
             dense = int(n_steps * target * (X.size / max(1, len(X))) * 4)
             _obs_metrics.counter("data.wire.bytes_shipped").inc(shipped)
+            _attr.charge("wire_bytes", shipped)
             _obs_metrics.counter("data.wire.bytes_dense").inc(dense)
             if dense > shipped:
                 _obs_metrics.counter("data.wire.bytes_saved").inc(

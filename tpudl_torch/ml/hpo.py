@@ -14,9 +14,10 @@ A slice wider than one card is a data-parallel sub-mesh: the
 estimator's trial trains over every card of it
 (``KerasImageFileEstimator``). The per-trial metrics are tpudl's
 (``hpo.trials_started``/``_completed``/``_failed``, ``hpo.trial_retries``
-and the ``hpo.trial_seconds`` histogram); its watchdog heartbeat, tracer
-span, flight recorder and attribution carry are not ported yet ('The
-rest of observability').
+and the ``hpo.trial_seconds`` histogram); each trial holds an
+``hpo.trial`` watchdog heartbeat and is an ``hpo.trial`` host span, a
+failed trial is filed in the flight recorder, and every trial thread
+carries the caller's attribution scope.
 """
 
 from __future__ import annotations
@@ -29,7 +30,11 @@ from typing import Callable, Iterator, Sequence
 import torch
 
 from tpudl_torch.device import resolve_device
+from tpudl_torch.obs import attribution as _attr
+from tpudl_torch.obs import flight as _obs_flight
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.obs import tracer as _obs_tracer
+from tpudl_torch.obs import watchdog as _obs_watchdog
 
 __all__ = ["TrialScheduler", "device_slices", "visible_devices"]
 
@@ -109,17 +114,25 @@ class TrialScheduler:
             _obs_metrics.counter("hpo.trials_started").inc()
             t0 = time.perf_counter()
             try:
-                if retry is not None:
-                    out = i, retry.call(
-                        trial_fn, i, item, slices[s], kind="hpo.trial",
-                        on_retry=lambda e, a: _obs_metrics.counter(
-                            "hpo.trial_retries").inc())
-                else:
-                    out = i, trial_fn(i, item, slices[s])
+                # a trial that wedges flags a stall naming its index; the
+                # inner fit/map_batches heartbeats beat underneath it
+                with _obs_watchdog.heartbeat("hpo.trial", index=i,
+                                             of=len(items)), \
+                        _obs_tracer.span("hpo.trial", index=i,
+                                         slice_width=len(slices[s])):
+                    if retry is not None:
+                        out = i, retry.call(
+                            trial_fn, i, item, slices[s],
+                            kind="hpo.trial",
+                            on_retry=lambda e, a: _obs_metrics.counter(
+                                "hpo.trial_retries").inc())
+                    else:
+                        out = i, trial_fn(i, item, slices[s])
                 _obs_metrics.counter("hpo.trials_completed").inc()
                 return out
-            except BaseException:
+            except BaseException as e:
                 _obs_metrics.counter("hpo.trials_failed").inc()
+                _obs_flight.record_error("hpo.trial_failed", e, index=i)
                 raise
             finally:
                 _obs_metrics.histogram("hpo.trial_seconds").observe(
@@ -129,7 +142,9 @@ class TrialScheduler:
                     ended.append(i)
 
         with ThreadPoolExecutor(max_workers=len(slices)) as pool:
-            index = {pool.submit(run_one, i, item): i
+            # the sweep caller's attribution scope rides onto every trial
+            # thread: the inner runs' charges land in its ledger row
+            index = {pool.submit(_attr.carry(run_one), i, item): i
                      for i, item in enumerate(items)}
             futures = set(index)
             while futures:

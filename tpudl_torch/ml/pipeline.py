@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from tpudl_torch.ml.params import Params
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.obs import tracer as _obs_tracer
 
 __all__ = ["Transformer", "Estimator", "Model", "Pipeline", "PipelineModel"]
 
@@ -27,7 +28,8 @@ class Transformer(Params):
         """Apply the stage; ``params`` ({Param → value}) overrides apply to
         a copy, as in Spark ML."""
         cls = type(self).__name__
-        with _obs_metrics.timed(f"ml.{cls}.transform_seconds"):
+        with _obs_metrics.timed(f"ml.{cls}.transform_seconds"), \
+                _obs_tracer.span(f"ml.{cls}.transform", rows=len(frame)):
             if params:
                 out = self.copy(params)._transform(frame)
             else:
@@ -132,7 +134,8 @@ class Model(Transformer):
 class Estimator(Params):
     def fit(self, frame, params=None):
         cls = type(self).__name__
-        with _obs_metrics.timed(f"ml.{cls}.fit_seconds"):
+        with _obs_metrics.timed(f"ml.{cls}.fit_seconds"), \
+                _obs_tracer.span(f"ml.{cls}.fit", rows=len(frame)):
             if isinstance(params, (list, tuple)):
                 models = [None] * len(params)
                 for i, m in self.fitMultiple(frame, list(params)):

@@ -8,8 +8,7 @@ whose folds come from ``np.random.default_rng(seed).permutation`` as
 tpudl's, which evaluates each model as ``Estimator.fitMultiple`` yields it
 (completion order) and refits the best map on all rows. Its metrics are
 tpudl's (``tuning.cv_evaluations``, ``.cv_folds``, ``.cv_last_metric``,
-``.cv_best_metric``); the per-fold tracer span is not ported yet (ROADMAP
-Queue 1, 'The rest of observability').
+``.cv_best_metric``), and each fold is a ``tuning.cv_fold`` host span.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import numpy as np
 from tpudl_torch.ml.params import Param, Params, keyword_only
 from tpudl_torch.ml.pipeline import Estimator, Model
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.obs import tracer as _obs_tracer
 
 __all__ = ["ParamGridBuilder", "CrossValidator", "CrossValidatorModel",
            "Evaluator", "FunctionEvaluator"]
@@ -157,11 +157,13 @@ class CrossValidator(Estimator):
             val = frame.filter_rows(val_mask)
             # completion-order consumption: evaluate each model the
             # moment its trial finishes
-            for i, model in est.fitMultiple(train, maps):
-                metrics[i, f] = ev.evaluate(model.transform(val))
-                _obs_metrics.counter("tuning.cv_evaluations").inc()
-                _obs_metrics.gauge("tuning.cv_last_metric").set(
-                    metrics[i, f])
+            with _obs_tracer.span("tuning.cv_fold", fold=f,
+                                  n_maps=len(maps)):
+                for i, model in est.fitMultiple(train, maps):
+                    metrics[i, f] = ev.evaluate(model.transform(val))
+                    _obs_metrics.counter("tuning.cv_evaluations").inc()
+                    _obs_metrics.gauge("tuning.cv_last_metric").set(
+                        metrics[i, f])
         _obs_metrics.counter("tuning.cv_folds").inc(len(folds))
         avg = metrics.mean(axis=1)
         best = int(np.argmax(avg) if ev.isLargerBetter()

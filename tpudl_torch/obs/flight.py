@@ -5,13 +5,17 @@ keeps bounded rings of recent evidence:
 
 - **batch descriptors** (shapes, dtypes, a cheap fingerprint, never the
   data) that the frame executor files for every prepared batch;
-- **errors** (injected faults, corrupt shards, retries, supervisor
-  rungs, any layer's ``record_error``) with type, message and context;
+- **errors** (injected faults, decode errors, corrupt shards, retries,
+  supervisor rungs, SLO tail exemplars, any layer's ``record_error``)
+  with type, message and context;
+- **stall events** from :mod:`tpudl_torch.obs.watchdog`, each with every
+  Python thread's stack at detection time;
 - **restarts** (gang restarts of ``HorovodRunner``), **requests**,
   lifecycle **events** and **metric ticks**.
 
 ``dump()`` writes those rings, the metrics snapshot, the pipeline-report
-ring and an env/backend snapshot into ONE self-contained
+ring, the host-span tracer's tail, the watchdog's live heartbeats, the
+attribution ledger with its reconciliation and an env/backend snapshot into ONE self-contained
 ``tpudl-dump-<pid>.json.gz`` (``tpudl-dump-host<idx>-<pid>.json.gz`` for
 a rank of a ``torch.distributed`` group), atomically (tmp +
 ``os.replace``), in tpudl's schema (:data:`DUMP_SCHEMA`, version
@@ -26,10 +30,6 @@ after the dump, default semantics kept), and with ``TPUDL_FAULTHANDLER=1``
 the stdlib ``faulthandler`` writing native-crash stacks to
 ``tpudl-fault-<pid>.log`` beside the dumps.
 
-Not ported yet (ROADMAP Queue 1, 'The rest of observability'): the
-watchdog (so the stall ring and ``heartbeats`` stay empty), the host-span
-tracer (``spans`` stays empty) and the attribution ledger (``ledger`` is
-``None``, the schema's mark of a missing section).
 """
 
 from __future__ import annotations
@@ -58,8 +58,10 @@ _DUMP_SEQ = itertools.count()  # tmp-name uniqueness across dump writers
 # ring bounds (env-overridable at recorder construction)
 _DEFAULT_BATCHES = 32
 _DEFAULT_ERRORS = 64
+_DEFAULT_STALLS = 16
 _DEFAULT_TICKS = 32
 _DEFAULT_REQUESTS = 64
+_DEFAULT_SPAN_TAIL = 512
 # env prefixes worth keeping in a dump — a full os.environ copy could
 # leak credentials into an artifact that gets attached to bug reports
 _ENV_PREFIXES = ("TPUDL_", "CUDA_", "NCCL_", "PYTORCH_", "TORCH_")
@@ -151,6 +153,8 @@ class FlightRecorder:
                                    _DEFAULT_BATCHES)))
         self._errors: deque = deque(
             maxlen=max(1, _env_int("TPUDL_FLIGHT_ERRORS", _DEFAULT_ERRORS)))
+        self._stalls: deque = deque(
+            maxlen=max(1, _env_int("TPUDL_FLIGHT_STALLS", _DEFAULT_STALLS)))
         self._ticks: deque = deque(
             maxlen=max(1, _env_int("TPUDL_FLIGHT_TICKS", _DEFAULT_TICKS)))
         self._requests: deque = deque(
@@ -230,6 +234,13 @@ class FlightRecorder:
         with self._lock:
             self._requests.append(rec)
 
+    # copied from tpudl/obs/flight.py:FlightRecorder.record_stall
+    def record_stall(self, stall: dict):
+        """Filed by the watchdog: one no-progress event with thread
+        stacks at detection time."""
+        with self._lock:
+            self._stalls.append(stall)
+
     # copied from tpudl/obs/flight.py:FlightRecorder.record_event
     def record_event(self, kind: str, **fields):
         """Small lifecycle breadcrumb (distributed init, install,
@@ -286,6 +297,7 @@ class FlightRecorder:
         with self._lock:
             payload["batches"] = list(self._batches)
             payload["errors"] = list(self._errors)
+            payload["stalls"] = list(self._stalls)
             payload["metric_ticks"] = list(self._ticks)
             payload["requests"] = list(self._requests)
             payload["restarts"] = list(self._restarts)
@@ -304,12 +316,36 @@ class FlightRecorder:
             payload["pipeline_reports"] = _p.pipeline_reports()
         except Exception:
             payload["pipeline_reports"] = {}
-        # the watchdog, the tracer and the attribution ledger are not
-        # ported: their sections are present and empty
-        payload["stalls"] = []
-        payload["spans"] = []
-        payload["heartbeats"] = {}
-        payload["ledger"] = None
+        try:
+            from tpudl_torch.obs import tracer as _t
+
+            spans = _t.get_tracer().spans()[-_env_int(
+                "TPUDL_FLIGHT_SPANS", _DEFAULT_SPAN_TAIL):]
+            payload["spans"] = [
+                {"name": s.name, "ts_us": s.ts_us, "dur_us": s.dur_us,
+                 "tid": s.tid, "thread": s.thread_name,
+                 "attrs": dict(s.attrs) if s.attrs else None}
+                for s in spans]
+        except Exception:
+            payload["spans"] = []
+        try:
+            from tpudl_torch.obs import watchdog as _w
+
+            payload["heartbeats"] = _w.get_registry().describe()
+        except Exception:
+            payload["heartbeats"] = {}
+        try:
+            from tpudl_torch.obs import attribution as _attr
+
+            led = _attr.ledger_snapshot()
+            # the verdict is computed against THIS dump's metrics copy,
+            # so the pair in the artifact is self-consistent even if
+            # counters kept moving after the snapshot above
+            led["reconcile"] = _attr.reconcile(payload.get("metrics")
+                                               or None)
+            payload["ledger"] = led
+        except Exception:
+            payload["ledger"] = None
         return payload
 
     # copied from tpudl/obs/flight.py:FlightRecorder.dump
@@ -439,8 +475,8 @@ class FlightRecorder:
         """Drop recorded evidence (tests; the trigger installation
         stays)."""
         with self._lock:
-            for ring in (self._batches, self._errors, self._ticks,
-                         self._requests, self._events):
+            for ring in (self._batches, self._errors, self._stalls,
+                         self._ticks, self._requests, self._events):
                 ring.clear()
             del self._restarts[:]
             del self.dumped_paths[:]

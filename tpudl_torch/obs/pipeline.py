@@ -1,11 +1,13 @@
 """Per-run pipeline reports: stage times, gauges, and the report ring.
 
 Copied from ``tpudl/obs/pipeline.py`` (``PipelineReport`` and the ring of
-recent reports), without the tracer spans, the lock sanitizer and the
-watchdog heartbeat (ROADMAP Queue 1, 'The rest of observability').
-:meth:`PipelineReport.stage` tags an exception that escapes it with
-``tpudl_stage`` (the supervisor's taxonomy reads it), and a supervised
-run's report carries ``degraded_to`` and ``recovered_batches``.
+recent reports), without the lock sanitizer. Each
+:meth:`PipelineReport.stage` block is a host span ``frame.<stage>`` on the
+tracer and enters and leaves the run's watchdog heartbeat (set by the
+executor), so a stall names the stage it froze in; it tags an exception
+that escapes it with ``tpudl_stage`` (the supervisor's taxonomy reads
+it), and a supervised run's report carries ``degraded_to`` and
+``recovered_batches``.
 ``PipelineReport`` is ONE ``Frame.map_batches`` run's (or one serve
 session's) stage accounting;
 on ``finish()`` it publishes its totals into the process-wide registry
@@ -24,6 +26,7 @@ import time
 from collections import deque
 
 from tpudl_torch.obs import metrics as _metrics
+from tpudl_torch.obs import tracer as _tracer
 
 __all__ = ["PipelineReport", "last_pipeline_report", "set_last_pipeline",
            "pipeline_reports", "get_pipeline_report"]
@@ -77,27 +80,40 @@ class PipelineReport:
         self.rows_done = 0
         self.finished = False
         self._t0 = time.perf_counter()
+        # the executor's watchdog heartbeat (set by map_batches): every
+        # stage entry beats it with the stage name
+        self.heartbeat = None
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        except BaseException as e:
-            # the supervisor's taxonomy (tpudl_torch.frame.supervisor)
-            # reads the INNERMOST stage an exception left: outer stage
-            # blocks see the tag set and keep it, as in tpudl
-            if getattr(e, "tpudl_stage", None) is None:
-                try:
-                    e.tpudl_stage = name
-                # an exception with immutable attributes stays untagged;
-                # the classifier falls back to its type and message
-                except Exception:
-                    pass
-            raise
-        finally:
-            self.add(name, time.perf_counter() - t0)
+        # enter/exit (not a bare beat): the stage stays in flight on the
+        # heartbeat until it returns, so a freeze inside dispatch is
+        # still the suspect after prepare workers beat afterwards
+        hb = self.heartbeat
+        if hb is not None:
+            hb.stage_enter(name)
+        with _tracer.span(f"frame.{name}", run=self.run_id):
+            t0 = time.perf_counter()
+            try:
+                yield
+            except BaseException as e:
+                # the supervisor's taxonomy (tpudl_torch.frame.supervisor)
+                # reads the INNERMOST stage an exception left: outer stage
+                # blocks see the tag set and keep it, as in tpudl
+                if getattr(e, "tpudl_stage", None) is None:
+                    try:
+                        e.tpudl_stage = name
+                    # an exception with immutable attributes stays
+                    # untagged; the classifier falls back to its type and
+                    # message
+                    except Exception:
+                        pass
+                raise
+            finally:
+                self.add(name, time.perf_counter() - t0)
+                if hb is not None:
+                    hb.stage_exit(name)
 
     def add(self, name: str, seconds: float):
         with self._lock:
@@ -202,6 +218,7 @@ class PipelineReport:
             if toks and self.wall_seconds:
                 _metrics.gauge("serve.tokens_per_s").set(
                     toks / self.wall_seconds)
+        _metrics.get_registry().maybe_flush()
 
     def report(self) -> dict:
         with self._lock:

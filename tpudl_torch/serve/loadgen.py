@@ -11,17 +11,20 @@ no client hangs on a dead server.
 Each client fires tpudl's ``serve.tick`` fault point before a submit (a
 ``burst`` rule's count is that many extra fire-and-forget submits in the
 same tick) and ``serve.client`` (a ``slow_client`` rule stalls it).
-``tenant=`` is not ported yet (ROADMAP Queue 1, 'The rest of
-observability').
+``tenant=`` stamps the requests with an attribution scope
+(:mod:`tpudl_torch.obs.attribution`): a string tags every client, a
+sequence gives client ``c`` its ``c % len``-th entry.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import numpy as np
 
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs.metrics import percentile
 from tpudl_torch.serve.queue import AdmissionError
 from tpudl_torch.testing import faults as _faults
@@ -48,11 +51,12 @@ def run_closed_loop(server, make_prompt, *, requests: int,
 
     ``make_prompt(i)`` supplies the i-th prompt (ragged lengths are the
     point). The server must already be started (or be run concurrently
-    by the caller)."""
-    if tenant is not None:
-        raise NotImplementedError(
-            "run_closed_loop(tenant=...) is not ported to tpudl_torch yet "
-            "(ROADMAP Queue 1, 'The rest of observability')")
+    by the caller).
+
+    ``tenant`` stamps the generated requests with an attribution scope:
+    a string tags every client with that tenant; a sequence assigns
+    client ``c`` the ``c % len``-th entry (``tenant=("a", "b")`` drives
+    two tenants). None leaves requests unattributed."""
     # one leaf lock for every tally: the critical sections are scalar
     # bumps/list appends and never nest with the server's locks
     lock = threading.Lock()
@@ -95,20 +99,32 @@ def run_closed_loop(server, make_prompt, *, requests: int,
             if req.ttft_s is not None:
                 ttfts.append(req.ttft_s)
 
+    def _tenant_of(cid: int):
+        if tenant is None or isinstance(tenant, str):
+            return tenant
+        seq = list(tenant)
+        return seq[cid % len(seq)] if seq else None
+
     def _client(cid: int):
-        while True:
-            i = _next_index()
-            if i >= int(requests):
-                return
-            burst = _faults.fire("serve.tick", tick=i, client=cid)
-            if burst:
-                # the injected spike: that many extra submits in ONE
-                # tick, fire-and-forget — their fate (served or typed
-                # rejected) is what an overload test asserts on
-                for _ in range(int(burst)):
-                    _submit(i, wait=False)
-            _faults.fire("serve.client", client=cid, i=i)
-            _submit(i, wait=True)
+        # the client thread IS the submit thread, so entering the scope
+        # here is exactly where ServeRequest captures it
+        ctx = (_attr.scope(tenant=_tenant_of(cid))
+               if _tenant_of(cid) is not None
+               else contextlib.nullcontext())
+        with ctx:
+            while True:
+                i = _next_index()
+                if i >= int(requests):
+                    return
+                burst = _faults.fire("serve.tick", tick=i, client=cid)
+                if burst:
+                    # the injected spike: that many extra submits in ONE
+                    # tick, fire-and-forget — their fate (served or
+                    # typed rejected) is what an overload test asserts on
+                    for _ in range(int(burst)):
+                        _submit(i, wait=False)
+                _faults.fire("serve.client", client=cid, i=i)
+                _submit(i, wait=True)
 
     t0 = time.perf_counter()
     threads = [threading.Thread(target=_client, args=(c,),

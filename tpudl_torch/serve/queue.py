@@ -11,11 +11,11 @@ shed at ``take``, before any device work is spent on it, with a typed
 :class:`DeadlineExceeded` (``serve.deadline_sheds``); the server also
 sheds mid-decode under the same type.
 
-Two hooks of tpudl change: the instance lock is a plain
-``threading.Lock`` (tpudl's lock sanitizer is not ported), and the
-attribution scope a request captures at submit, with the ``tokens_in``
-charge, is left out (ROADMAP Queue 1, 'The rest of observability');
-``ServeRequest.scope`` stays ``None``. Metrics publish outside the lock.
+One hook of tpudl changes: the instance lock is a plain
+``threading.Lock`` (tpudl's lock sanitizer is not ported). A request
+captures its submitter's attribution scope (``ServeRequest.scope``), and
+an admitted prompt charges ``tokens_in`` to it. Metrics publish outside
+the lock.
 ``ServeRequest(rng=)`` is an int seed or a ``torch.Generator`` for
 sampled decode (:class:`~tpudl_torch.serve.slots.SlotDecoder` reads it),
 not a JAX key.
@@ -30,6 +30,7 @@ from collections import deque
 
 import numpy as np
 
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.serve import reqtrace as _reqtrace
 
@@ -121,10 +122,11 @@ class ServeRequest:
         self.trace = _reqtrace.new_trace()
         if self.trace is not None:
             self.trace.stamp("submit")
-        # tpudl captures the submitter's attribution scope here; the
-        # attribution ledger is not ported yet (ROADMAP Queue 1, 'The rest
-        # of observability')
-        self.scope = None
+        # attribution scope captured on the CLIENT thread: the loop
+        # thread serves many tenants per tick, so per-request charges
+        # (completions, tokens, SLO samples) follow the submitter's
+        # scope, not the loop's (tpudl.obs.attribution)
+        self.scope = _attr.current_scope()
 
     @property
     def nbytes(self) -> int:
@@ -230,8 +232,11 @@ class RequestQueue:
             req.trace.stamp("admit")
         _metrics.counter("serve.requests").inc()
         _metrics.gauge("serve.queue_depth").set(depth)
-        # tpudl charges the prompt's tokens_in to the submitter's scope
-        # here (ROADMAP Queue 1, 'The rest of observability')
+        # attribution: prompt tokens entering the serve plane, charged
+        # to the submitter's captured scope (rejects charge nothing)
+        _attr.charge("tokens_in", int(req.prompt.shape[1]),
+                     key=req.scope.key if req.scope is not None
+                     else None)
         return req
 
     def take(self, k: int, *, model: str | None = None) -> list:

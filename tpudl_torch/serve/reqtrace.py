@@ -19,8 +19,8 @@ that phase, so no trace lock exists. ``TPUDL_SERVE_TRACE=0`` makes
 :func:`new_trace` return ``None``; ``TPUDL_SERVE_TRACE_EVENTS`` bounds the
 stamps and ``TPUDL_SERVE_TRACE_CADENCE`` sets the decode stride.
 :func:`request_record` gives lengths, ids and millisecond segments, never
-prompt tokens. tpudl's flight recorder, which files those records, is
-not ported yet (ROADMAP Queue 1, 'The rest of observability').
+prompt tokens; the serve loop files one per completed request in the
+flight recorder's request ring.
 """
 
 from __future__ import annotations

@@ -10,7 +10,12 @@ CUDA-graph replay on the card) and harvests completions. An unrecoverable
 error fails every pending request typed, so a dead server never parks a
 client.
 
-``serve.latency_ms`` and ``serve.ttft_s`` histograms carry p50/p99; the
+``serve.latency_ms`` and ``serve.ttft_s`` histograms carry p50/p99, and
+every completion feeds the SLO engine (:mod:`tpudl_torch.obs.slo`: the
+windowed p50/p99, burn rates and tail exemplars), charges its submitter's
+attribution scope ``serve_completed``, ``slo_samples`` and ``tokens_out``,
+and files its descriptor in the flight recorder's request ring; the loop
+beats a ``serve.loop`` watchdog heartbeat every tick. The
 session's :class:`~tpudl_torch.obs.pipeline.PipelineReport` (``config
 ["serve"]``, the ``dispatch`` stage, ``tokens``, the ``queue_depth`` and
 ``slot_occupancy`` gauges) publishes ``serve.batch_occupancy`` and
@@ -23,10 +28,6 @@ queue with their partial tokens dropped (the retry decodes them again
 from the prompt, so the streams are a healthy run's) and re-runs with the
 ladder's overrides, ``dispatch_depth`` narrowing the admission width.
 Each tick fires tpudl's ``serve.dispatch`` fault point.
-
-Not ported yet (ROADMAP Queue 1, 'The rest of observability'): the SLO
-engine, the flight recorder's request ring, the watchdog heartbeat and
-the attribution charges.
 """
 
 from __future__ import annotations
@@ -34,8 +35,13 @@ from __future__ import annotations
 import threading
 import time
 
+from tpudl_torch.obs import attribution as _attr
+from tpudl_torch.obs import flight as _flight
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.obs import pipeline as _pipeline
+from tpudl_torch.obs import slo as _slo
+from tpudl_torch.obs import watchdog as _watchdog
+from tpudl_torch.serve import reqtrace as _reqtrace
 from tpudl_torch.serve.queue import DeadlineExceeded, RequestQueue, \
     ServeRequest
 from tpudl_torch.testing import faults as _faults
@@ -171,31 +177,39 @@ class Server:
         self._requeue_inflight()
         t0 = time.perf_counter()
         tick = completed = admitted = 0
-        while True:
-            tick += 1
-            _faults.fire("serve.dispatch", tick=tick)
-            self._shed_expired(entries)
-            admitted += self._admit(entries, max_active, report)
-            stepped = 0
-            for entry in entries:
-                if entry.engine.active():
-                    with report.stage("dispatch"):
-                        stepped += entry.engine.step()
-            if stepped:
-                report.count("tokens", stepped)
-            completed += self._harvest(entries, report)
-            depth = self.queue.depth()
-            active = sum(len(e.engine.active()) for e in entries)
-            report.gauge("queue_depth", depth)
-            report.gauge("slot_occupancy", active / max(width_default, 1))
-            if self._max_ticks is not None and tick >= self._max_ticks:
-                break
-            if depth == 0 and active == 0:
-                if self._stop.is_set():
+        with _watchdog.heartbeat("serve.loop",
+                                 models=len(entries)) as hb:
+            while True:
+                tick += 1
+                _faults.fire("serve.dispatch", tick=tick)
+                self._shed_expired(entries)
+                admitted += self._admit(entries, max_active, report)
+                stepped = 0
+                for entry in entries:
+                    if entry.engine.active():
+                        with report.stage("dispatch"):
+                            stepped += entry.engine.step()
+                if stepped:
+                    report.count("tokens", stepped)
+                completed += self._harvest(entries, report)
+                depth = self.queue.depth()
+                active = sum(len(e.engine.active()) for e in entries)
+                report.gauge("queue_depth", depth)
+                report.gauge("slot_occupancy",
+                             active / max(width_default, 1))
+                hb.beat(tick=tick, depth=depth, active=active)
+                if self._max_ticks is not None \
+                        and tick >= self._max_ticks:
                     break
-                time.sleep(0.0005)  # idle poll, clients may appear
+                if depth == 0 and active == 0:
+                    if self._stop.is_set():
+                        break
+                    time.sleep(0.0005)  # idle poll, clients may appear
         wall = time.perf_counter() - t0
         report.finish(wall)
+        # final gauge refresh so a post-run snapshot or status read shows
+        # the session's closing window, not a stale throttled view
+        _slo.get_slo_engine().publish(force=True)
         return {"ticks": tick, "completed": completed,
                 "admitted": admitted, "wall_s": round(wall, 4),
                 "models": len(entries),
@@ -242,18 +256,32 @@ class Server:
                 admitted += 1
         return admitted
 
+    # copied from tpudl/serve/server.py:Server._harvest
     def _harvest(self, entries, report) -> int:
         done = 0
+        slo = _slo.get_slo_engine()
         for entry in entries:
             for req, toks in entry.engine.pop_completed():
                 req.finish(toks)
                 _metrics.histogram("serve.latency_ms").observe(
                     req.latency_s * 1000.0)
                 _metrics.counter("serve.completed").inc()
-                # tpudl charges the request's completion, SLO sample and
-                # tokens_out to its submitter's scope here, stamps the SLO
-                # engine and files the flight recorder's request record
-                # (ROADMAP Queue 1, 'The rest of observability')
+                # attribution: the loop thread serves every tenant, so
+                # per-request charges follow the scope captured at
+                # submit — paired 1:1 with serve.completed and the
+                # latency observe above (the reconciliation contract)
+                skey = (req.scope.key if req.scope is not None
+                        else None)
+                _attr.charge("serve_completed", key=skey)
+                _attr.charge("slo_samples", key=skey)
+                _attr.charge("tokens_out",
+                             int(getattr(req.tokens, "size", 0)),
+                             key=skey)
+                # windowed SLO stamp + tail-exemplar check, then the
+                # flight recorder's request ring (descriptor only)
+                slo.record(req)
+                _flight.get_recorder().record_request(
+                    _reqtrace.request_record(req))
                 report.progress(1)
                 done += 1
         return done

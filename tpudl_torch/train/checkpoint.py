@@ -24,8 +24,9 @@ needs neither ml_dtypes nor jax. Restored leaves are CPU tensors (numpy
 has no bfloat16), or, with ``like=``, placed like the ``like`` leaf: on
 its device for a tensor, as a numpy array for a numpy leaf.
 
-tpudl's flight-recorder samples of corrupt checkpoints are not ported yet
-(ROADMAP Queue 1, 'The rest of observability').
+A corrupt checkpoint that a restore drops is counted
+(``train.checkpoint.corrupt``) and filed in the flight recorder's error
+ring with its reason, as tpudl files it.
 """
 
 from __future__ import annotations
@@ -305,8 +306,12 @@ class CheckpointManager:
             raise CheckpointCorruption(f"{path}: unreadable ({e!r})") from e
         return {"meta": meta, "arrays": arrays}
 
-    def _drop(self, step: int) -> None:
+    def _drop(self, step: int, reason: str) -> None:
+        from tpudl_torch.obs import flight as _flight
+
         _metrics.counter("train.checkpoint.corrupt").inc()
+        _flight.record_error("train.checkpoint.corrupt", reason,
+                             step=int(step), dir=self._dir)
         with self._lock:
             if self._manifest.pop(str(int(step)), None) is not None:
                 try:
@@ -330,8 +335,8 @@ class CheckpointManager:
         for cand in self._candidate_steps():
             try:
                 payload = self._load_verified(cand)
-            except CheckpointCorruption:
-                self._drop(cand)
+            except CheckpointCorruption as e:
+                self._drop(cand, str(e))
                 continue
             return self._rebuild(payload, like)
         return None

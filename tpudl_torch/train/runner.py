@@ -50,9 +50,10 @@ valid checkpoint; ``RestartsExhausted`` (with ``__cause__``) ends it.
 Each restart, with its cause and the step the gang died at, is filed in
 the flight recorder (``record_restart``), and ``Trainer.fit`` fires
 tpudl's ``train.step`` fault point before every step (a ``FaultPlan``'s
-``kill_at_step`` preempts there). tpudl's watchdog heartbeat, tracer
-spans and attribution are not ported yet (ROADMAP Queue 1, 'The rest of
-observability').
+``kill_at_step`` preempts there). Each launch is a ``train.run`` host
+span; ``fit`` holds a ``train.fit`` watchdog heartbeat beaten once a step
+(with the step and the examples so far) and charges the caller's
+attribution scope the rows of every batch (``rows_in``).
 On a local mesh (the cards of this process, ``build_mesh(devices=...)``)
 ``fit`` runs one step over the whole batch on the model's device: the
 model spreads its forward over the cards itself (README's long-context
@@ -88,8 +89,11 @@ from tpudl_torch import distributed as D
 from tpudl_torch import mesh as M
 from tpudl_torch.device import resolve_device
 from tpudl_torch.jobs.retry import RetryPolicy, is_fatal
+from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import flight as _obs_flight
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.obs import tracer as _obs_tracer
+from tpudl_torch.obs import watchdog as _obs_watchdog
 from tpudl_torch.testing import faults as _faults
 from tpudl_torch.train.checkpoint import CheckpointManager
 from tpudl_torch.train.step import _layout_mesh, make_train_step
@@ -239,7 +243,10 @@ class HorovodRunner:
         attempt = 0
         while True:
             try:
-                return self._launch(n, dev, n_model, main, kwargs, attempt)
+                with _obs_tracer.span("train.run", attempt=attempt,
+                                      mesh_size=n):
+                    return self._launch(n, dev, n_model, main, kwargs,
+                                        attempt)
             except Exception as e:
                 if is_fatal(e) or not self.retry_policy.is_transient(e):
                     # a Preempted unwind, or a permanent failure, is an
@@ -559,6 +566,9 @@ class Trainer:
         # the wall-clock rate
         step_hist = _obs_metrics.histogram("train.step_seconds")
         step_gauge = _obs_metrics.gauge("train.last_step")
+        # one beat a step: a wedged data_fn or a hung dispatch flags a
+        # stall naming the step it froze at
+        hb = _obs_watchdog.heartbeat("train.fit", steps=steps, start=start)
         try:
             for step in range(start, steps):
                 if stop is not None and self._agreed(bool(stop()), device):
@@ -567,6 +577,9 @@ class Trainer:
                     if mgr is not None:
                         self._save(mgr, step, model, optimizer, force=True)
                     raise Preempted(step, saved=mgr is not None)
+                # step and examples ride the beat: obs top shows training
+                # progress from the heartbeat's info
+                hb.beat(step=step, examples=examples)
                 # the fault point of the preemption tests: a FaultPlan
                 # can send SIGTERM or raise at an exact step
                 _faults.fire("train.step", step=step)
@@ -584,6 +597,9 @@ class Trainer:
                 step_gauge.set(step + 1)
                 executed += 1
                 examples += rows
+                # training rows consumed under the caller's scope (fit
+                # runs on the calling thread, so no carry is needed)
+                _attr.charge("rows_in", rows)
                 done = step + 1
                 if mgr is not None and done < steps:
                     self._save(mgr, done, model, optimizer)
@@ -595,6 +611,7 @@ class Trainer:
             if mgr is not None and steps > start:
                 self._save(mgr, steps, model, optimizer, force=True)
         finally:
+            hb.__exit__(None, None, None)
             _obs_metrics.counter("train.steps").inc(executed)
             _obs_metrics.counter("train.examples").inc(examples)
         return model, optimizer, self.history

@@ -4,9 +4,9 @@ Copied from ``tpudl/udf/registry.py``: a UDF is a named callable ``Frame
 → Frame`` (one batched call a block inside) plus the input and output
 column names that :func:`tpudl_torch.frame.sql` binds to. The port keeps
 its own registry; it never shares tpudl's. :func:`metered` is the
-per-UDF instrumentation the port's UDFs share: tpudl's counters and
-latency histogram, without its watchdog heartbeat and tracer span
-(ROADMAP Queue 1, 'The rest of observability').
+per-UDF instrumentation the port's UDFs share, as tpudl's UDFs each
+carry it: the counters and latency histogram, a watchdog heartbeat and a
+host span named after the UDF.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import dataclasses
 from typing import Callable
 
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.obs import tracer as _obs_tracer
+from tpudl_torch.obs import watchdog as _obs_watchdog
 
 __all__ = ["UDF", "register_udf", "get_udf", "list_udfs", "unregister_udf",
            "metered"]
@@ -57,11 +59,17 @@ def unregister_udf(name: str) -> None:
     _REGISTRY.pop(name, None)
 
 
-def metered(udf_name: str, run: Callable) -> Callable:
+def metered(udf_name: str, run: Callable, **info) -> Callable:
     """``run`` (``Frame → Frame``) counted as tpudl counts a UDF call:
-    ``udf.<name>.seconds`` (histogram), ``.calls`` and ``.rows``."""
+    ``udf.<name>.seconds`` (histogram), ``.calls`` and ``.rows``; the call
+    holds a ``udf.<name>`` watchdog heartbeat (a wedged UDF is a stall
+    named after it; ``info`` rides on it) and is a ``udf.<name>`` host
+    span."""
     def frame_fn(frame):
-        with _obs_metrics.timed(f"udf.{udf_name}.seconds"):
+        with _obs_watchdog.heartbeat(f"udf.{udf_name}", rows=len(frame),
+                                     **info), \
+                _obs_metrics.timed(f"udf.{udf_name}.seconds"), \
+                _obs_tracer.span(f"udf.{udf_name}", rows=len(frame)):
             out = run(frame)
         _obs_metrics.counter(f"udf.{udf_name}.calls").inc()
         _obs_metrics.counter(f"udf.{udf_name}.rows").inc(len(frame))

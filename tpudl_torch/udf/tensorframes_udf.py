@@ -15,8 +15,8 @@ knobs ``prefetch_depth``, ``prepare_workers``, ``fuse_steps`` and
     sql("SELECT my_udf(x) AS y FROM t", {"t": frame})
 
 Each call counts ``udf.<name>.calls`` and ``.rows`` and times
-``udf.<name>.seconds``. tpudl's watchdog heartbeat and tracer span around
-the call are not ported (ROADMAP Queue 1, 'The rest of observability').
+``udf.<name>.seconds``, under a ``udf.<name>`` watchdog heartbeat and
+host span (:func:`~tpudl_torch.udf.registry.metered`).
 ``mesh`` (a local :class:`~tpudl_torch.mesh.Mesh`) runs each block over
 the mesh's cards, one per-batch function a card. ``blocked`` is
 accepted and ignored, as in tpudl: one call a block is the only
@@ -103,7 +103,7 @@ def makeGraphUDF(graph, udf_name: str, fetches=None,
             wire_codec=wire_codec, cache_dir=cache_dir,
             device_cache=device_cache)
 
-    frame_fn = metered(udf_name, run)
+    frame_fn = metered(udf_name, run, batch_size=batch_size)
 
     if register:
         return register_udf(udf_name, frame_fn, in_cols[0], out_col)
