@@ -39,7 +39,7 @@ Phases (any failure exits non-zero before the final line):
    rows; where PIL imports, also over ``readImages`` of 64 JPEGs. cuDNN's
    TF32 setting is back at PyTorch's default (allowed) for this phase, so
    the f32 checks hold the stages' own precision. Print images/s (median
-   and spread of 5 windows each), achieved TFLOP/s against the bounds,
+   and spread of 2 windows each), achieved TFLOP/s against the bounds,
    and the per-batch function's rate alone; hold 4 rows (and 2 of the
    480×640 batch) against the same stage on the CPU, bf16 against f32,
    and a profile split of one batch in each dtype. Then the other nine
@@ -49,7 +49,7 @@ Phases (any failure exits non-zero before the final line):
    MobileNetV2, DenseNet121, ResNet101, ResNet152 and EfficientNetB0 with
    the featurizer over 256 rows in f32 and bf16 and one predictor call;
    each prints its parameter count, counted work, rates (median and
-   spread of 5 windows) and the time of its leg, holds bf16 against f32,
+   spread of 2 windows) and the time of its leg, holds bf16 against f32,
    and holds 2 rows (features, and scores for configs[1]) against the CPU
    run with perturbed BN stats. Last, after every timed run, a profile
    split of one ResNet50 and one Xception batch in each dtype, and the
@@ -62,7 +62,7 @@ Phases (any failure exits non-zero before the final line):
    (``TPUDL_FRAME_PREFETCH=0``), pipelined (the defaults K=2, N=2, D=2)
    and fused (``fuseSteps=4``). Image arms: InceptionV3 f32 and bf16,
    ResNet50 f32 and bf16 and MobileNetV2 bf16, each over 512 rows in
-   batches of 64: images/s (median and spread of 3 windows), the
+   batches of 64: images/s (median and spread of 2 windows), the
    ``PipelineReport`` stages and gauges, the per-batch function's own
    rate, and, last, the card's idle share from one profile over a whole
    8-batch transform of each arm. Pipelined and fused outputs must equal
@@ -102,7 +102,7 @@ Phases (any failure exits non-zero before the final line):
    writes itself (``save_keras_file``; the card's machine has no keras),
    from seeded weights: configs[4] (``bench.py``'s
    ``measure_keras_transformer``), ``KerasTransformer`` over 65,536 rows ×
-   100 at ``batchSize=8192`` (rows/s, median and spread of 3 windows; 64
+   100 at ``batchSize=8192`` (rows/s, median and spread of 2 windows; 64
    rows against the CPU); configs[2] (``measure_estimator_inception``),
    ``KerasImageFileEstimator`` fine-tuning Keras InceptionV3 + a Dense(2)
    softmax head (the committed ``config.json`` fixture) on 96 seeded
@@ -159,7 +159,7 @@ Phases (any failure exits non-zero before the final line):
    route), ``fromSavedModelWithSignature`` against ``fromKeras`` on the
    same weights and against the CPU (2e-5 of max |y|, 4 rows at
    299×299), ``TFImageTransformer`` over it and over the ``.keras`` graph
-   in turn (images/s, 256 structs, batch 64, f32, 3 windows), its
+   in turn (images/s, 256 structs, batch 64, f32, 2 windows), its
    ``fuseSteps=4`` arm bit for bit, ``makeGraphUDF`` over it through
    ``sql`` (WHERE, LIMIT 64) bit for bit against ``TFImageTransformer``;
    ``TFTransformer`` over the float64 checkpoint graph by signature
@@ -191,7 +191,7 @@ Phases (any failure exits non-zero before the final line):
    ``KerasImageFileTransformer`` over 512 JPEGs, batch 64, in four arms
    (the float32 loader; the uint8 loader and its u8 codec; that with
    ``cacheDir``, cold then warm; that with ``deviceCache``), images/s
-   over 3 windows, the decodes, shard hits, bytes prepared and h2d
+   over 2 windows, the decodes, shard hits, bytes prepared and h2d
    seconds of each, the card's idle share, every arm bit for bit the
    first and 2 rows against the CPU; ``budget_bytes()`` and arm (d) under
    a 64 MB budget (evictions, bit for bit); configs[2]'s fit with the
@@ -212,7 +212,7 @@ Phases (any failure exits non-zero before the final line):
    mesh of every card. ``DeepImageFeaturizer("InceptionV3")`` over 512
    structs at 299x299, f32 and bf16, each mesh and its ``fuseSteps=4`` arm
    beside the stage without a mesh (the one-card mesh bit for bit, the
-   others within 2e-5 of max |y| in f32 and 1e-2 in bf16), images/s of every arm over 3 windows
+   others within 2e-5 of max |y| in f32 and 1e-2 in bf16), images/s of every arm over 2 windows
    with the arms in turn; ``LMFeaturizer`` at phase 4's width over 69
    texts (the one-card mesh bit for bit, the others within 1e-4 of max
    |y|; 12 forward launches a batch on every entry; the report's mesh and
@@ -276,7 +276,7 @@ Phases (any failure exits non-zero before the final line):
    width: ``LMFeaturizer`` over 128 texts armed against unarmed (the
    first armed run misses on its first batch only, 12 flash forward
    launches a batch in both, graph replays counted, features bit for bit
-   or within 2e-5 of max |y|, rows/s over 3 windows with the arms in
+   or within 2e-5 of max |y|, rows/s over 2 windows with the arms in
    turn); InceptionV3 bf16 ``DeepImageFeaturizer`` unfused over 512
    structs armed against unarmed (``warmup(299, 299)`` then ``transform``
    misses nothing, features within 1e-2 of max |y|, images/s over 3
@@ -360,6 +360,31 @@ Phases (any failure exits non-zero before the final line):
    tenants (the SLO gauges, the ledger, ``obs top --once``); the armed
    plane against unarmed on the LM and fused InceptionV3 bf16. The
    phase's seconds.
+21. The analyzers, the lock sanitizer, the capture-storm sentinel and
+   the debug hooks at phase 4's width: ``python -m tpudl_torch.analysis
+   tpudl_torch`` exits 0; four children started together
+   (``--analysis-child KIND DIR``): under ``TPUDL_TSAN=1
+   TPUDL_TRACECK=1`` phase 4's ``LMFeaturizer`` over 64 texts eager and
+   with ``fuseSteps=4`` through the program store (12 flash launches a
+   batch, features bit for bit this process's unarmed run), phase 15's
+   engine behind a supervised ``Server`` (8 greedy streams equal to
+   serial ``generate``) and one phase-4b step under ``debug_nans`` (12 of
+   each backward kernel, the loss bit for bit the plain step's), its
+   report with no finding and no storm, the hold times and the captures
+   per identity printed; a fresh closure through the store 5 times under
+   ``TPUDL_TRACECK_STORM=3`` (one storm, which ``python -m
+   tpudl_torch.obs doctor`` reads ``recompile_storm``); two threads
+   taking two named locks in opposite orders (``DeadlockError``, a
+   report naming both); ``checkify_fn`` around phase 4's embedding
+   function captured through the store (a clean replay bit for bit, a
+   NaN written into the embedding table and an out-of-range token id
+   each flagged after its replay, no device-side assert). The phase's
+   seconds.
+
+Every device-time reading (the idle shares, the profile splits, the
+merged timeline) goes through ``tpudl_torch.obs.trace.capture``: marker
+kernels fence the block and absorb what the profiler drops at a
+capture's head; a truncated capture is taken again once, then fails.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -378,10 +403,16 @@ then phase 15, ``--parallel-only`` phase 1 and then phase 16,
 ``--compile-only`` phase 1 and then phase 17, ``--group-only`` phase 1,
 phase 16 (whose local-mesh figures phase 18 prints beside its own) and
 then phase 18, over every visible card, ``--jobs-only`` phase 1 and
-then phase 19, and ``--obs-only`` phase 1 and then phase 20.
+then phase 19, ``--obs-only`` phase 1 and then phase 20, and
+``--analysis-only`` phase 1 and then phase 21.
 ``python3 chip_smoke.py --profile-study`` profiles phase 20's
 ``LMFeaturizer`` in a fresh process and again after each of several
 kinds of earlier profiler sessions, and prints what each capture lost.
+``python3 chip_smoke.py --head-bisect`` runs the whole main path with
+a marked capture of one ``LMFeaturizer`` batch after each of phases
+4–20 (``HeadProbe``) and two idle child processes that only capture
+(``--head-clock-child every|late``), and prints each capture's lost
+head beside the process's age.
 ``python3 chip_smoke.py --parent-overhead TREE`` times phase 20's
 unarmed overhead arm on the ``tpudl_torch`` of ``TREE`` (a checkout of
 an earlier commit) and on this one, a child process each, in the order
@@ -399,7 +430,9 @@ batch of each arm.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import glob
 import json
 import os
 import subprocess
@@ -484,7 +517,7 @@ IMAGE_MODEL = "InceptionV3"
 IMAGE_ROWS, IMAGE_BATCH = 512, 64  # 8 batches at the model's 299×299
 IMAGE_BIG = (480, 640)             # through the antialiased resize
 IMAGE_BIG_ROWS = 256               # 4 batches at 480×640
-IMAGE_WINDOWS = 3                  # timed windows of each rate (median, spread)
+IMAGE_WINDOWS = 2                  # timed windows of each rate (median, spread)
 IMAGE_CPU_ROWS = 4                 # card vs CPU rows (and 2 of the big batch)
 # card vs CPU run of the f32 stage, relative to max |y| (init(0) features
 # are ~5e-3, so an absolute bound would prove nothing): 94 conv layers
@@ -522,7 +555,7 @@ EXEC_IMAGE = (("InceptionV3", "float32"), ("InceptionV3", "bfloat16"),
               ("ResNet50", "float32"), ("ResNet50", "bfloat16"),
               ("MobileNetV2", "bfloat16"))
 EXEC_FUSE = 4
-EXEC_WINDOWS = 3                   # timed windows of each executor arm
+EXEC_WINDOWS = 2                   # timed windows of each executor arm
 EXEC_ARMS = {"serial": {}, "pipelined": {}, "fused": {"fuseSteps": EXEC_FUSE}}
 # the pool study (--pool-study): host-bound bf16 cells, arms in turn
 POOL_MODELS = ("ResNet50", "InceptionV3", "MobileNetV2")
@@ -1034,20 +1067,52 @@ def reset_launch_counts():
         cuda_ops.launch_counts[name] = 0
 
 
+def card_capture(body, cpu=True):
+    """``body()`` under ``obs.trace.capture``, the one path every device
+    reading here takes: ``(profiler, body's result)``. A truncated
+    capture (its loss may reach the block) is refused and the reading
+    taken once more."""
+    from tpudl_torch.obs import trace as T
+
+    for attempt in (1, 2):
+        try:
+            with T.capture(cpu=cpu) as prof:
+                out = body()
+            return prof, out
+        except T.TruncatedCapture as e:
+            if attempt == 2:
+                raise
+            print(f"    {e}; the reading is taken again", flush=True)
+
+
+def timed_ms(fn):
+    """A function that runs ``fn()`` and returns its wall ms, the card
+    synchronized."""
+    def run():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    return run
+
+
+def card_kernels(prof):
+    """The card's entries of a capture's ``key_averages()`` (every device
+    reading here is an ``obs.trace.capture``), without its marker
+    kernels."""
+    from tpudl_torch.obs import trace as T
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and T.MARK_KERNEL not in e.key]
+
+
 def profile_run(what, fn, top=6):
     """Where one run of ``fn`` spends the card's time: kernel time by
     name from torch.profiler, and its share of the run's wall time
     (measured under the profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    prof, wall_ms = card_capture(timed_ms(fn))
+    kernels = card_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
         print(f"  profile of {what}: device time not measured (the "
@@ -1344,17 +1409,9 @@ def profile_image_batch(dtype_name, fn, card):
     """Where one batch's card time goes: kernel time attributed to the
     aten op that launched it (``self_device_time_total``), grouped by
     ``IMAGE_OP_GROUPS``, and the card's idle share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = card_capture(timed_ms(fn))
     events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = card_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
         print("  profile: device time not measured (the profiler saw no "
@@ -1774,16 +1831,13 @@ def idle_profile(fn):
     """(wall ms, card-busy ms, device events) of one run of ``fn`` under
     torch.profiler, tracing the card alone (recording host ops as well
     would slow the host-bound arms it measures): the busy time sums every
-    kernel and copy the card ran, graph replays included."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel and copy the card ran, graph replays included, through a
+    marked capture."""
+    prof, wall_ms = card_capture(timed_ms(fn), cpu=False)
+    if prof.capture["head_lost"]:
+        print(f"    (the capture lost {prof.capture['head_lost']} device "
+              "events at its head, all of them markers)", flush=True)
+    dev = card_kernels(prof)
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     return wall_ms, busy, sum(e.count for e in dev)
 
@@ -2373,14 +2427,9 @@ def profile_train_step(what, fn, card, op_groups=None):
     launched it, from the innermost aten op up through its callers) and
     the card's idle share of the step's wall time."""
     op_groups = op_groups or TRAIN_OP_GROUPS
-    from torch.profiler import ProfilerActivity, profile
+    from tpudl_torch.obs import trace as T
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = card_capture(timed_ms(fn))
     groups = {name: [0.0, 0] for name, _ in op_groups}
     names = {}
     for e in prof.events():
@@ -2391,6 +2440,8 @@ def profile_train_step(what, fn, card, op_groups=None):
             ops.append(up.name)
             up = up.cpu_parent
         for k in e.kernels:
+            if T.MARK_KERNEL in k.name:
+                continue
             name = next(g for g, test in op_groups if test(ops, k.name))
             groups[name][0] += k.duration / 1e3
             groups[name][1] += 1
@@ -6284,18 +6335,21 @@ def wall_ms(fn, reps=RING_REPS) -> float:
 def card_idle(fn):
     """(wall ms, {card: busy ms}) of one ``fn()`` under torch.profiler,
     tracing the cards alone: each card's busy time sums the kernels and
-    copies it ran."""
-    from torch.profiler import ProfilerActivity, profile
+    copies it ran, through a marked capture."""
+    from tpudl_torch.obs import trace as T
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run():
         sync_all()
         t0 = time.perf_counter()
         fn()
         sync_all()
-        wall = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    prof, wall = card_capture(run, cpu=False)
     busy: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                T.MARK_KERNEL not in e.name:
             busy[e.device_index] = (busy.get(e.device_index, 0.0)
                                     + e.self_device_time_total / 1e3)
     return wall, busy
@@ -7532,14 +7586,15 @@ def rank_idle(fn, dev):
     """(wall ms, busy ms, NCCL ms) of one ``fn()`` on this rank's card,
     under torch.profiler tracing the card: busy sums the kernels and
     copies it ran, NCCL's part of it the collectives' kernels, which spin
-    while a peer is late (so busy minus NCCL is the card's own work)."""
-    from torch.profiler import ProfilerActivity, profile
+    while a peer is late (so busy minus NCCL is the card's own work);
+    through a marked capture."""
+    from tpudl_torch.obs import trace as T
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = rank_ms(fn, dev)
+    prof, wall = card_capture(lambda: rank_ms(fn, dev), cpu=False)
     mine = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.device_index == dev.index]
+            and e.device_index == dev.index
+            and T.MARK_KERNEL not in e.name]
     busy = sum(e.self_device_time_total for e in mine) / 1e3
     nccl = sum(e.self_device_time_total for e in mine
                if "nccl" in e.name.lower()) / 1e3
@@ -8573,9 +8628,16 @@ def obs_profiled(what, fn, tmp, card, problems):
     from tpudl_torch.obs import trace as T
 
     d = os.path.join(tmp, what.replace(" ", "_"))
-    reset_launch_counts()
-    with obs.profile(d) as prof:
-        fn()
+    for attempt in (1, 2):
+        reset_launch_counts()
+        try:
+            with obs.profile(d) as prof:
+                fn()
+            break
+        except T.TruncatedCapture as e:
+            if attempt == 2:
+                raise
+            print(f"    {e}; the capture is taken again", flush=True)
     launches = dict(cuda_ops.launch_counts)
     cap = prof.capture
     host = obs.export_chrome_trace(os.path.join(d, "run.host.trace.json"),
@@ -9210,6 +9272,596 @@ def profile_study(card):
           f"were truncated: {failures or 'none'}; card {card}", flush=True)
 
 
+HEAD_PAUSE_S = 0.02                # the bisect's second capture: host pause
+# where --head-bisect's probe rows and its children's logs go
+HEAD_OUT = os.environ.get("CHIP_SMOKE_OUT",
+                          os.path.join(REPO_DIR, "chip_smoke_out"))
+HEAD_CLOCK_AGES = {"every": (0, 100, 200, 400, 600, 800),
+                   "late": (800, 820)}  # child ages (s) of a probe capture
+
+
+class HeadProbe:
+    """The head-loss bisect's probe: one ``LMFeaturizer`` batch (16 texts,
+    12 flash launches) at phase 4's width under three marked captures —
+    one through ``obs.profile`` as every reading takes it, two by hand
+    that synchronize first, the second also pausing the host
+    ``HEAD_PAUSE_S`` after the profiler starts and before its markers —
+    with each capture's marker record and its launches without a kernel
+    and least (kernel start - launch start)."""
+
+    def __init__(self, card):
+        from tpudl_torch.frame import Frame
+        from tpudl_torch.ml import LMFeaturizer
+        from tpudl_torch.text import ByteTokenizer
+        from tpudl_torch.zoo.transformer import TinyCausalLM
+
+        spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+        self.stage = LMFeaturizer(inputCol="text", outputCol="vec",
+                                  model=spec, weights=spec.init(SEED),
+                                  tokenizer=ByteTokenizer(),
+                                  batchSize=BATCH)
+        self.frame = Frame({"text": make_texts(STUDY_TEXTS, SEED + 23)})
+        self.card = card
+        self.rows = []
+        os.makedirs(HEAD_OUT, exist_ok=True)
+
+    def _paused(self, d, pause_s):
+        """A marked capture as ``obs.profile`` takes it, after a
+        synchronize, with the host paused ``pause_s`` between the
+        profiler's start and the head markers."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from tpudl_torch.obs import trace as T
+
+        os.makedirs(d, exist_ok=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause_s)
+            T._launch_marks(T.HEAD_MARKS)
+            self.stage.transform(self.frame)
+            torch.cuda.synchronize()
+            T._launch_marks(1, T.TAIL_CYCLES)
+        raw = os.path.join(d, "paused.json")
+        prof.export_chrome_trace(raw)
+        _, cap = T.account_marks(T.load_host_trace_events(raw), T.HEAD_MARKS)
+        return cap, raw_capture_stats(raw)
+
+    def __call__(self, tag):
+        import tempfile
+
+        from tpudl_torch import cuda_ops, obs
+
+        counts = dict(cuda_ops.launch_counts)       # the phases' own counts
+        self.stage.transform(self.frame)            # loads and warms
+        torch.cuda.synchronize()
+        from tpudl_torch.obs import trace as T
+
+        with tempfile.TemporaryDirectory(prefix="tpudl-head-") as tmp:
+            try:
+                with obs.profile(os.path.join(tmp, "marked")) as prof:
+                    self.stage.transform(self.frame)
+            except T.TruncatedCapture:
+                pass                  # recorded: prof.capture says so
+            # the saved trace: its block's kernels and launches (a trace
+            # exports once; the markers are out of it)
+            stats = raw_capture_stats(prof.trace_path)
+            synced, synced_stats = self._paused(
+                os.path.join(tmp, "synced"), 0.0)
+            paused, paused_stats = self._paused(
+                os.path.join(tmp, "paused"), HEAD_PAUSE_S)
+        cuda_ops.launch_counts.update(counts)
+        cap = prof.capture
+        age = time.perf_counter() - T_START
+        self.rows.append((tag, round(age), cap["head_lost"],
+                          cap["launches_without_kernel"],
+                          stats["min_kernel_minus_launch_us"],
+                          synced["head_lost"],
+                          synced_stats["min_kernel_minus_launch_us"],
+                          paused["head_lost"],
+                          paused["launches_without_kernel"],
+                          paused_stats["min_kernel_minus_launch_us"]))
+        with open(os.path.join(HEAD_OUT, f"head-bisect-{os.getpid()}.txt"),
+                  "a") as f:
+            f.write(repr(self.rows[-1]) + "\n")
+        print(f"  head probe after {tag}: process age {age:.0f} s; "
+              f"obs.profile: head_lost {cap['head_lost']}, "
+              f"launches_without_kernel {cap['launches_without_kernel']}, "
+              f"truncated {cap['truncated']}, block {stats}; synced "
+              f"first: head_lost {synced['head_lost']}, raw "
+              f"{synced_stats}; synced and paused "
+              f"{HEAD_PAUSE_S * 1e3:.0f} ms after start: head_lost "
+              f"{paused['head_lost']}, launches_without_kernel "
+              f"{paused['launches_without_kernel']}, raw {paused_stats}; "
+              f"card {self.card}", flush=True)
+
+    def table(self):
+        print("  head-loss bisect (tag, age s; obs.profile: head_lost, "
+              "launches_without_kernel, min kernel-launch us; synced: "
+              "head_lost, min kernel-launch us; synced and paused: "
+              "head_lost, launches_without_kernel, min kernel-launch us):",
+              flush=True)
+        for row in self.rows:
+            print(f"    {row}", flush=True)
+
+
+def head_clock_child(mode):
+    """A process that runs nothing but the head probe, at the ages
+    ``HEAD_CLOCK_AGES[mode]`` of its own clock, idle between: whether a
+    capture's head loss grows with the process's age alone."""
+    probe = HeadProbe(card_line())
+    t0 = time.perf_counter()
+    for age in HEAD_CLOCK_AGES[mode]:
+        time.sleep(max(0.0, age - (time.perf_counter() - t0)))
+        probe(f"{mode} child at {age} s")
+    probe.table()
+
+
+def start_clock_children():
+    """Start the bisect's two idle children; their output goes under
+    ``HEAD_OUT`` (``$CHIP_SMOKE_OUT``, default ``chip_smoke_out/``)."""
+    out = HEAD_OUT
+    os.makedirs(out, exist_ok=True)
+    kids = []
+    for mode in HEAD_CLOCK_AGES:
+        log = open(os.path.join(out, f"head-clock-{mode}.log"), "w")
+        kids.append((mode, log, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--head-clock-child",
+             mode], stdout=log, stderr=subprocess.STDOUT, cwd=REPO_DIR)))
+    atexit.register(lambda: [p.kill() for _, _, p in kids
+                             if p.poll() is None])
+    return kids
+
+
+def finish_clock_children(kids):
+    for mode, log, p in kids:
+        try:
+            rc = p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        log.close()
+        with open(log.name) as f:
+            tail = [ln for ln in f if "head probe" in ln or "    (" in ln]
+        print(f"  head clock child {mode}: rc {rc}", flush=True)
+        for ln in tail:
+            print("  " + ln.rstrip(), flush=True)
+
+
+# phase 21: the analyzers, the lock sanitizer, the capture-storm sentinel
+# and the debug hooks (tpudl_torch.analysis, testing.tsan/traceck, debug)
+ANALYSIS_FUSE = 4                  # the armed LMFeaturizer's fused arm
+ANALYSIS_STORM_CALLS = 5           # fresh closures through the store
+ANALYSIS_STORM = 3                 # TPUDL_TRACECK_STORM of the storm child
+ANALYSIS_CK_SEQ = 1024             # the checkify leg's tokens a row
+ANALYSIS_CHILD_TIMEOUT = 600
+ANALYSIS_CHILDREN = ("storm", "deadlock", "checkify", "armed")
+ANALYSIS_ENV = {
+    "armed": {"TPUDL_TSAN": "1", "TPUDL_TRACECK": "1"},
+    "storm": {"TPUDL_TRACECK": "1",
+              "TPUDL_TRACECK_STORM": str(ANALYSIS_STORM)},
+    "deadlock": {"TPUDL_TSAN": "1", "TPUDL_TSAN_DEADLOCK_S": "0.5"},
+    "checkify": {},
+}
+
+
+def analysis_lm_stage(spec, weights, **kw):
+    from tpudl_torch.ml import LMFeaturizer
+    from tpudl_torch.text import ByteTokenizer
+
+    return LMFeaturizer(inputCol="text", outputCol="vec", model=spec,
+                        weights=weights, tokenizer=ByteTokenizer(),
+                        batchSize=BATCH, **kw)
+
+
+def analysis_armed_child(tmp):
+    """Under ``TPUDL_TSAN=1 TPUDL_TRACECK=1``: phase 4's ``LMFeaturizer``
+    over 64 texts eager and fused through the store, phase 15's engine
+    behind a supervised ``Server``, one phase-4b step plain and one under
+    ``debug_nans``; writes ``armed.json``."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.debug import debug_nans
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.serve import ModelRegistry, RequestQueue, Server
+    from tpudl_torch.testing import traceck, tsan
+    from tpudl_torch.train import Trainer, adamw
+    from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
+
+    out = {"tsan": tsan.enabled(), "traceck": traceck.installed()}
+    want = np.load(os.path.join(tmp, "features.npy"))
+    spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="meta")
+    weights = spec.init(SEED)
+    frame = Frame({"text": make_texts(OBS_TEXTS, SEED + 20)})
+    for arm, kw in (("eager", {}), ("fused", {"fuseSteps": ANALYSIS_FUSE})):
+        with aot_env(os.path.join(tmp, "store") if kw else None):
+            st = analysis_lm_stage(spec, weights, **kw)
+            st.transform(frame)               # loads, warms, captures
+            reset_launch_counts()
+            y = np.stack(list(st.transform(frame)["vec"]))
+            out[f"lm_{arm}"] = {"bitwise": bool(np.array_equal(y, want)),
+                                "launches": dict(cuda_ops.launch_counts)}
+        del st
+    reg = ModelRegistry()
+    entry = reg.add_model("lm", spec, weights, slots=SERVE_SLOTS,
+                          cache_len=SERVE_CACHE, warm=True)
+    prompts = serve_prompts(SERVE_PARITY_PLENS, SEED)
+    srv = Server(reg, RequestQueue(cap=64), supervise=True)
+    reqs = [srv.submit(p, SERVE_MAX_NEW, model="lm") for p in prompts]
+    srv._stop.set()
+    summary = srv.run()
+    streams = [np.asarray(r.result(timeout=SERVE_TIMEOUT)) for r in reqs]
+    serial = [serve_serial(entry.engine.model, p, SERVE_MAX_NEW)
+              for p in prompts]
+    out["serve"] = {"completed": summary["completed"],
+                    "equal": [bool(np.array_equal(a, b))
+                              for a, b in zip(streams, serial)]}
+    del reg, entry, srv
+    torch.cuda.empty_cache()
+    rows = training_rows(TRAIN_BATCH)
+    for arm in ("plain", "debug_nans"):
+        lm = TinyCausalLM(**TRAIN_ARCH, device="cuda")
+        load_jax_params(lm, lm.init(SEED))
+        reset_launch_counts()
+        with (debug_nans() if arm == "debug_nans"
+              else contextlib.nullcontext()):
+            _, _, hist = Trainer(lm.loss_fn(), adamw(LR), log_every=1).fit(
+                lm, lambda s: rows, 1)
+        torch.cuda.synchronize()
+        out[f"train_{arm}"] = {"loss": hist[0]["loss"],
+                               "launches": dict(cuda_ops.launch_counts)}
+        del lm
+    out["anomaly_after"] = torch.is_anomaly_enabled()
+    rep = tsan.report()
+    out["tsan"] = {"findings": rep["findings"],
+                   "hold_times": rep["hold_times"],
+                   "locks_seen": rep["locks_seen"]}
+    out["traceck"] = {"counts": traceck.counts(),
+                      "findings": traceck.findings()}
+    with open(os.path.join(tmp, "armed.json"), "w") as f:
+        json.dump(out, f)
+
+
+def analysis_storm_child(tmp):
+    """Under ``TPUDL_TRACECK=1 TPUDL_TRACECK_STORM=3``: a fresh closure
+    through the program store ``ANALYSIS_STORM_CALLS`` times (a capture
+    each), then a flight dump into ``tmp/storm``; writes ``storm.json``."""
+    from tpudl_torch.compile.store import ProgramStore
+    from tpudl_torch.obs import flight
+    from tpudl_torch.testing import traceck
+
+    store = ProgramStore(os.path.join(tmp, "storm-store"))
+    x = torch.randn(256, 256, device="cuda")
+    for k in range(ANALYSIS_STORM_CALLS):
+        store.call(lambda t, k=k: t @ t + k, (x,))
+    torch.cuda.synchronize()
+    os.makedirs(os.path.join(tmp, "storm"), exist_ok=True)
+    path = flight.dump(reason="storm", path=os.path.join(
+        tmp, "storm", f"tpudl-dump-{os.getpid()}.json.gz"))
+    with open(os.path.join(tmp, "storm.json"), "w") as f:
+        json.dump({"installed": traceck.installed(),
+                   "counts": traceck.counts(),
+                   "findings": traceck.findings(), "dump": path}, f)
+
+
+def analysis_deadlock_child(tmp):
+    """Under ``TPUDL_TSAN=1 TPUDL_TSAN_DEADLOCK_S=0.5``: two threads take
+    two named locks in opposite orders; exits 3 when the sanitizer
+    reported the deadlock (its report lands in ``TPUDL_FLIGHT_DIR``)."""
+    import threading
+
+    from tpudl_torch.testing import tsan
+
+    a = tsan.named_lock("phase21.abba.a")
+    b = tsan.named_lock("phase21.abba.b")
+    barrier = threading.Barrier(2)
+
+    def take(first, second):
+        with first:
+            barrier.wait()
+            with second:
+                pass
+
+    threads = [threading.Thread(target=take, args=p)
+               for p in ((a, b), (b, a))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    tsan.write_report()
+    dead = [f for f in tsan.findings() if f["kind"] == "deadlock"]
+    sys.exit(3 if dead and not any(th.is_alive() for th in threads) else 1)
+
+
+def analysis_checkify_child(tmp):
+    """``checkify_fn`` around phase 4's embedding function (``hidden`` and
+    a mean over the sequence) captured through the program store: a
+    clean replay, a NaN written into the embedding table the graph reads,
+    an out-of-range token id; writes ``checkify.json``."""
+    from tpudl_torch import cuda_ops
+    from tpudl_torch.compile.store import ProgramStore
+    from tpudl_torch.debug import NaNError, OOBError, checkify_fn
+    from tpudl_torch.device import full_f32
+    from tpudl_torch.zoo.transformer import TinyCausalLM, load_jax_params
+
+    lm = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN, device="cuda")
+    load_jax_params(lm, lm.init(SEED))
+    checked = checkify_fn(lambda tokens: lm.hidden(tokens).mean(dim=1))
+    store = ProgramStore(os.path.join(tmp, "ck-store"))
+    rng = np.random.default_rng(SEED + 21)
+    tokens = torch.from_numpy(rng.integers(
+        1, VOCAB, (BATCH, ANALYSIS_CK_SEQ)).astype(np.int64)).cuda()
+    out = {}
+
+    def caught(fn, kind):
+        try:
+            fn()
+        except kind as e:
+            return str(e)
+        return None
+
+    def flagged(args, kind):
+        """Where a call through the store raised ``kind``: at the call
+        (an eager run), or at the check after a replay."""
+        try:
+            store.call(checked, args)
+        except kind as e:
+            return ["call", str(e)]
+        try:
+            checked.check()
+        except kind as e:
+            return ["replay", str(e)]
+        return None
+
+    with torch.inference_mode(), full_f32():
+        eager = checked(tokens)
+        reset_launch_counts()
+        store.call(checked, (tokens,))           # a miss: eager, captured
+        replay = store.call(checked, (tokens,))  # a hit: the replay
+        checked.check()
+        torch.cuda.synchronize()
+        out["launches"] = dict(cuda_ops.launch_counts)
+        out["clean_bitwise"] = bool(torch.equal(replay, eager))
+        out["programs"] = store.programs()
+        table = lm.embed["table"]
+        row = int(tokens[0, 0])
+        saved = table[row].clone()
+        table[row, 0] = float("nan")
+        out["nan"] = flagged((tokens,), NaNError)
+        table[row] = saved
+        bad = tokens.clone()
+        bad[0, 5] = VOCAB + 7
+        out["oob_eager"] = caught(lambda: checked(bad), OOBError)
+        out["oob_replay"] = flagged((bad,), OOBError)
+        torch.cuda.synchronize()                 # no device-side assert
+        again = store.call(checked, (tokens,))
+        checked.check()
+        out["after_bitwise"] = bool(torch.equal(again, eager))
+    with open(os.path.join(tmp, "checkify.json"), "w") as f:
+        json.dump(out, f)
+
+
+def analysis_child(kind, tmp):
+    {"armed": analysis_armed_child, "storm": analysis_storm_child,
+     "deadlock": analysis_deadlock_child,
+     "checkify": analysis_checkify_child}[kind](tmp)
+
+
+def start_analysis_child(kind, tmp):
+    env = dict(os.environ, TPUDL_FLIGHT_DIR=os.path.join(tmp, kind),
+               **ANALYSIS_ENV[kind])
+    os.makedirs(env["TPUDL_FLIGHT_DIR"], exist_ok=True)
+    log = open(os.path.join(tmp, f"{kind}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--analysis-child", kind,
+         tmp], stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO_DIR)
+    return proc, log, time.perf_counter()
+
+
+def finish_analysis_child(kind, child, tmp, problems):
+    proc, log, t0 = child
+    try:
+        rc = proc.wait(timeout=ANALYSIS_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    log.close()
+    text = open(log.name).read()
+    print(f"  {kind} child: rc {rc} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    want_rc = 3 if kind == "deadlock" else 0
+    if rc != want_rc:
+        print("\n".join("    " + ln for ln in text.splitlines()[-25:]),
+              flush=True)
+        problems.append(f"{kind} child exited {rc} (want {want_rc})")
+        return None, text
+    path = os.path.join(tmp, f"{kind}.json")
+    return (json.load(open(path)) if os.path.exists(path) else {}), text
+
+
+def analysis_gate(card, problems):
+    """``python -m tpudl_torch.analysis --json tpudl_torch``: rc 0, no
+    finding."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "tpudl_torch.analysis",
+                          "--json", "tpudl_torch"], capture_output=True,
+                         text=True, cwd=REPO_DIR, timeout=300)
+    dt = time.perf_counter() - t0
+    try:
+        doc = json.loads(run.stdout)
+    except ValueError:
+        doc = {"files": 0, "findings": ["unreadable output"], "errors": []}
+    ok = run.returncode == 0 and not doc["findings"] and not doc["errors"]
+    print(f"  the gate: python -m tpudl_torch.analysis tpudl_torch: rc "
+          f"{run.returncode}, {doc['files']} files, {len(doc['findings'])} "
+          f"finding(s), {len(doc['errors'])} error(s) in {dt:.1f} s; "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        print(run.stderr[-3000:], flush=True)
+        problems.append("the gate")
+
+
+def analysis_check_armed(res, card, problems):
+    if res is None:
+        return {}
+    want = LAYERS * -(-OBS_TEXTS // BATCH)
+    ok_lm = all(res[f"lm_{arm}"]["bitwise"] and
+                res[f"lm_{arm}"]["launches"]["flash_attn_fwd"] == want
+                for arm in ("eager", "fused"))
+    print(f"  armed LMFeaturizer over {OBS_TEXTS} texts: eager "
+          f"{res['lm_eager']}, fused (fuseSteps={ANALYSIS_FUSE}, aot) "
+          f"{res['lm_fused']} (want {want} forward launches, features bit "
+          f"for bit the unarmed parent's); {'ok' if ok_lm else 'MISS'}; "
+          f"card {card}", flush=True)
+    srv = res["serve"]
+    ok_srv = all(srv["equal"]) and srv["completed"] == len(srv["equal"])
+    print(f"  armed supervised Server: {srv['completed']} greedy requests, "
+          f"streams equal to serial generate {srv['equal']}; "
+          f"{'ok' if ok_srv else 'MISS'}", flush=True)
+    plain, dn = res["train_plain"], res["train_debug_nans"]
+    layers = TRAIN_ARCH["layers"]
+    ok_tr = (dn["loss"] == plain["loss"] and not res["anomaly_after"]
+             and all(dn["launches"][k] == layers
+                     for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv")))
+    print(f"  one phase-4b step under debug_nans: loss {dn['loss']!r} "
+          f"against the plain step's {plain['loss']!r} (bit for bit: "
+          f"{dn['loss'] == plain['loss']}), launches {dn['launches']} (want "
+          f"{layers} of each backward kernel), anomaly mode off after: "
+          f"{not res['anomaly_after']}; {'ok' if ok_tr else 'MISS'}; card "
+          f"{card}", flush=True)
+    kinds = [f["kind"] for f in res["tsan"]["findings"]]
+    storms = res["traceck"]["findings"]
+    ok_rep = (res["tsan"].get("findings") == [] and storms == []
+              and res["traceck"]["counts"])
+    holds = sorted(res["tsan"]["hold_times"].items(),
+                   key=lambda kv: -kv[1]["max_s"])
+    print(f"  armed report: tsan findings {kinds or 'none'} "
+          f"(inversions, deadlocks, lockset, declared-order: "
+          f"{sum(k == 'inversion' for k in kinds)}, "
+          f"{sum(k == 'deadlock' for k in kinds)}, "
+          f"{sum(k == 'lockset' for k in kinds)}, "
+          f"{sum(k == 'declared-order' for k in kinds)}); "
+          f"{len(res['tsan']['locks_seen'])} named locks seen; "
+          f"traceck storms {len(storms)}; {'ok' if ok_rep else 'MISS'}",
+          flush=True)
+    print("  hold times (max s, total s, acquisitions), longest first: "
+          + "; ".join(f"{k} {v['max_s']:.6f} {v['total_s']:.6f} {v['n']}"
+                      for k, v in holds[:12]), flush=True)
+    print("  captures per identity: " + "; ".join(
+        f"{os.path.relpath(k.split(':')[0], REPO_DIR)}:"
+        f"{':'.join(k.split(':')[1:])} x{n}"
+        for k, n in sorted(res["traceck"]["counts"].items())), flush=True)
+    for what, ok in (("armed LMFeaturizer", ok_lm),
+                     ("armed serving", ok_srv),
+                     ("debug_nans training step", ok_tr),
+                     ("armed report", ok_rep)):
+        if not ok:
+            problems.append(what)
+    return {"analysis_armed_lm": res["lm_fused"]["launches"],
+            "analysis_debug_nans_training": dn["launches"]}
+
+
+def analysis_check_storm(res, tmp, card, problems):
+    if res is None:
+        return
+    doc = subprocess.run([sys.executable, "-m", "tpudl_torch.obs", "doctor",
+                          os.path.join(tmp, "storm")], capture_output=True,
+                         text=True, cwd=REPO_DIR, timeout=120)
+    counts = sorted(res["counts"].values())
+    ok = (res["installed"] and len(res["findings"]) == 1
+          and counts == [ANALYSIS_STORM_CALLS] and doc.returncode == 0
+          and "recompile_storm" in doc.stdout)
+    print(f"  storm child: {ANALYSIS_STORM_CALLS} fresh closures through the "
+          f"store, captures per identity {counts}, storm findings "
+          f"{res['findings']}; python -m tpudl_torch.obs doctor rc "
+          f"{doc.returncode}, says recompile_storm: "
+          f"{'recompile_storm' in doc.stdout}; {'ok' if ok else 'MISS'}",
+          flush=True)
+    if not ok:
+        print(doc.stdout[-2000:] + doc.stderr[-2000:], flush=True)
+        problems.append("storm child")
+
+
+def analysis_check_deadlock(res, text, tmp, problems):
+    reports = sorted(glob.glob(os.path.join(tmp, "deadlock",
+                                            "tpudl-tsan-*.json")))
+    dead = []
+    if reports:
+        rep = json.load(open(reports[-1]))
+        dead = [f for f in rep["findings"] if f["kind"] == "deadlock"]
+    ok = (res is not None and "DeadlockError" in text and dead
+          and set(dead[0]["locks"]) == {"phase21.abba.a", "phase21.abba.b"})
+    print(f"  deadlock child: DeadlockError raised: {'DeadlockError' in text};"
+          f" report {os.path.basename(reports[-1]) if reports else None} "
+          f"names {dead[0]['locks'] if dead else None}; "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        problems.append("deadlock child")
+
+
+def analysis_check_checkify(res, card, problems):
+    if res is None:
+        return {}
+    ok = (res["clean_bitwise"] and res["after_bitwise"]
+          and res["launches"]["flash_attn_fwd"] == 2 * LAYERS
+          and res["oob_eager"]
+          and all(res[k] and res[k][0] == "replay"
+                  for k in ("nan", "oob_replay")))
+    print(f"  checkify child: the embed function through the store "
+          f"({res['programs']} program), clean replay bit for bit: "
+          f"{res['clean_bitwise']}; launches {res['launches']} (want "
+          f"{2 * LAYERS} forward: the miss's eager run and one replay); NaN "
+          f"in the table on replay: {res['nan']!r}; out-of-range token "
+          f"eager: {res['oob_eager']!r}, on replay: {res['oob_replay']!r}; "
+          f"synchronize then a clean replay bit for bit: "
+          f"{res['after_bitwise']}; {'ok' if ok else 'MISS'}; card {card}",
+          flush=True)
+    if not ok:
+        problems.append("checkify child")
+    return {"analysis_checkify_embed": res["launches"]}
+
+
+def run_analysis(card):
+    """Phase 21: the gate on this machine, then four children started
+    together — the storm, the deadlock and the checkify legs at once, the
+    armed leg once this process has the unarmed features it is held to.
+    Every check runs and prints; the phase fails at its end if any did
+    not hold. Returns the kernel launches of its paths."""
+    import tempfile
+
+    from tpudl_torch.frame import Frame
+    from tpudl_torch.zoo.transformer import TinyCausalLM
+
+    t_phase = time.perf_counter()
+    problems = []
+    with tempfile.TemporaryDirectory(prefix="tpudl-analysis-") as tmp:
+        kids = {kind: start_analysis_child(kind, tmp)
+                for kind in ANALYSIS_CHILDREN if kind != "armed"}
+        spec = TinyCausalLM(VOCAB, DIM, HEADS, LAYERS, MAX_LEN,
+                            device="meta")
+        st = analysis_lm_stage(spec, spec.init(SEED))
+        frame = Frame({"text": make_texts(OBS_TEXTS, SEED + 20)})
+        np.save(os.path.join(tmp, "features.npy"),
+                np.stack(list(st.transform(frame)["vec"])))
+        del st
+        torch.cuda.empty_cache()
+        kids["armed"] = start_analysis_child("armed", tmp)
+        analysis_gate(card, problems)
+        results = {kind: finish_analysis_child(kind, kids[kind], tmp,
+                                               problems)
+                   for kind in ANALYSIS_CHILDREN}
+        counts = analysis_check_armed(results["armed"][0], card, problems)
+        analysis_check_storm(results["storm"][0], tmp, card, problems)
+        analysis_check_deadlock(results["deadlock"][0],
+                                results["deadlock"][1], tmp, problems)
+        counts.update(analysis_check_checkify(results["checkify"][0], card,
+                                              problems))
+    print(f"  phase 21: {time.perf_counter() - t_phase:.1f} s; card {card}",
+          flush=True)
+    if problems:
+        fail("phase 21: " + "; ".join(problems))
+    return counts
+
+
 UNARMED_CHILD_ROUNDS = 3           # timed runs a stage in each child
 
 
@@ -9338,7 +9990,8 @@ def run_obs(card):
 def main(argv) -> int:
     # a cold-start child's clock starts at its process start: no nvidia-smi
     card = ("" if argv[:1] in (["--compile-child"], ["--jobs-child"],
-                               ["--obs-stall-child"], ["--unarmed-child"])
+                               ["--obs-stall-child"], ["--unarmed-child"],
+                               ["--analysis-child"])
             else card_line())
     print(f"card: {card}", flush=True)
     if not torch.cuda.is_available():
@@ -9352,6 +10005,9 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN "
           "(f32 products run in full f32)", flush=True)
+    bisect = argv == ["--head-bisect"]   # the whole path, probed a phase
+    if bisect:
+        argv = []
     if argv == ["--image-only"]:
         # phase 6 alone, in a process that has run no profiler session
         print(f"phase 6 alone: image slice at full width on {card}",
@@ -9474,6 +10130,17 @@ def main(argv) -> int:
         print(f"obs-only run: every check passed in "
               f"{time.perf_counter() - T_START:.1f} s")
         return 0
+    if argv == ["--analysis-only"]:
+        from tpudl_torch import _build
+
+        _build.build()
+        print(f"phase 21: the analyzers, the sanitizer, the sentinel and "
+              f"the debug hooks on {card}", flush=True)
+        run_analysis(card)
+        print(f"card: {card}")
+        print(f"chip_smoke.py --analysis-only: every check passed in "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return 0
     if argv == ["--profile-study"]:
         print(f"the profiler capture study on {card}", flush=True)
         profile_study(card)
@@ -9491,6 +10158,12 @@ def main(argv) -> int:
         return 0
     if len(argv) == 2 and argv[0] == "--unarmed-child":
         unarmed_child(argv[1])            # --parent-overhead's child
+        return 0
+    if len(argv) == 3 and argv[0] == "--analysis-child":
+        analysis_child(argv[1], argv[2])  # phase 21's children
+        return 0
+    if len(argv) == 2 and argv[0] == "--head-clock-child":
+        head_clock_child(argv[1])         # --head-bisect's idle children
         return 0
     if len(argv) == 2 and argv[0] == "--obs-stall-child":
         obs_stall_child(argv[1])          # phase 20's stall leg
@@ -9521,8 +10194,9 @@ def main(argv) -> int:
              "--executor-only, --train-only, --keras-only, --surface-only, "
              "--graph-only, --keras2-only, --data-only, --mesh-only, "
              "--serve-only, --parallel-only, --compile-only, --group-only, "
-             "--jobs-only, --obs-only, --ranks N, --pool-study, "
-             "--profile-study and --parent-overhead TREE")
+             "--jobs-only, --obs-only, --analysis-only, --ranks N, "
+             "--pool-study, --profile-study, --head-bisect and "
+             "--parent-overhead TREE")
 
     from tpudl_torch import _build
 
@@ -9532,6 +10206,7 @@ def main(argv) -> int:
     print(f"  built {sorted(logs) or 'nothing (cached)'} from "
           f"{_build.CSRC} in {time.perf_counter() - t0:.1f} s")
     check_ptxas(logs)
+    kids = start_clock_children() if bisect else []
 
     print("phase 3: kernels vs their plain versions", flush=True)
     slice_err = check_flash()
@@ -9540,8 +10215,11 @@ def main(argv) -> int:
     print(f"phase 4: serving slice at full width on {card}", flush=True)
     launches = run_slice()
 
+    probe = HeadProbe(card) if bisect else (lambda tag: None)
+    probe("phase 4")
     print(f"phase 4b: training slice at full width on {card}", flush=True)
     train_counts = run_training()
+    probe("phase 4b")
 
     print("phase 5: kernel timing at the serving shape "
           f"{list(SLICE_SHAPE)} causal", flush=True)
@@ -9610,42 +10288,60 @@ def main(argv) -> int:
                 "shape": list(TRAIN_SHAPE), "dtype": name})
     print(f"phase 6: image slice at full width on {card}", flush=True)
     run_image_slice(card)
+    probe("phase 6")
     print(f"phase 7: the executor at full width on {card}", flush=True)
     fwd_entry["launches_by_path"]["executor"] = run_executor(card)
+    probe("phase 7")
     print(f"phase 8: ResNet50 training through HorovodRunner on {card}",
           flush=True)
     resnet_counts = run_resnet_training(card)
+    probe("phase 8")
     print(f"phase 9: the Keras surface at full width on {card}", flush=True)
     keras_counts = run_keras_surface(card)
+    probe("phase 9")
     print(f"phase 10: model selection and SQL UDFs at full width on {card}",
           flush=True)
     surface_counts = run_surface(card)
+    probe("phase 10")
     print(f"phase 11: TF graph ingestion at full width on {card}",
           flush=True)
     graph_counts = run_graph_ingest(card)
+    probe("phase 11")
     print(f"phase 12: the Keras files at full width on {card}", flush=True)
     keras2_counts = run_keras2_files(card)
+    probe("phase 12")
     print(f"phase 13: the data layer at full width on {card}", flush=True)
     data_counts = run_data_layer(card)
+    probe("phase 13")
     print(f"phase 14: the data-parallel mesh at full width on {card}",
           flush=True)
     mesh_counts = run_mesh(card)
+    probe("phase 14")
     print(f"phase 15: serving at full width on {card}", flush=True)
     serve_counts = run_serve(card)
+    probe("phase 15")
     print(f"phase 16: LM parallelism at full width on {card}", flush=True)
     parallel_counts = run_parallel(card)
+    probe("phase 16")
     print(f"phase 17: the compile subsystem at full width on {card}",
           flush=True)
     compile_counts_ = run_compile(card)
+    probe("phase 17")
     print(f"phase 18: the model axis over a process group on {card}",
           flush=True)
     group_counts = run_group(card)
+    probe("phase 18")
     print(f"phase 19: jobs, faults and the supervisor at full width on "
           f"{card}", flush=True)
     jobs_counts = run_jobs(card)
+    probe("phase 19")
     print(f"phase 20: the rest of observability at full width on {card}",
           flush=True)
     obs_counts = run_obs(card)
+    probe("phase 20")
+    print(f"phase 21: the analyzers, the sanitizer, the sentinel and the "
+          f"debug hooks on {card}", flush=True)
+    analysis_counts = run_analysis(card)
     for entry in kernels:
         entry.setdefault("launches_by_path", {
             "training": train_counts[entry["name"]]})
@@ -9662,8 +10358,12 @@ def main(argv) -> int:
         for path, counts in {**data_counts, **mesh_counts,
                              **serve_counts, **parallel_counts,
                              **compile_counts_, **group_counts,
-                             **jobs_counts, **obs_counts}.items():
+                             **jobs_counts, **obs_counts,
+                             **analysis_counts}.items():
             entry["launches_by_path"][path] = counts[entry["name"]]
+    if bisect:
+        probe.table()
+        finish_clock_children(kids)
     print(f"card: {card}")
     print(f"chip_smoke.py: every check passed in "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -553,31 +553,16 @@ _COPY_CHECKED = {"data/codec.py": None, "data/shards.py": None,
 
 
 class _ServeHooks(ast.NodeTransformer):
-    """tpudl's code with the one hook the port changes: the lock
-    sanitizer's ``_tsan.named_lock(...)`` is a plain ``threading.Lock()``
-    and its ``if _tsan.ENABLED:`` guard checks are gone (the sanitizer is
-    not ported)."""
+    """tpudl's code with its lock sanitizer spelled as the port's: the
+    port keeps every ``_tsan.named_lock(...)`` construction and ``if
+    _tsan.ENABLED:`` guard check (:mod:`tpudl_torch.testing.tsan`), so a
+    reference to ``tpudl.testing.tsan`` becomes one to
+    ``tpudl_torch.testing.tsan`` and the blocks compare as they are
+    (``_code_of`` then spells both packages' imports as tpudl's)."""
 
-    @staticmethod
-    def _call_of(node, owner):
-        return (isinstance(node, ast.Call)
-                and isinstance(node.func, ast.Attribute)
-                and isinstance(node.func.value, ast.Name)
-                and node.func.value.id == owner)
-
-    def visit_If(self, node):
-        test = node.test
-        if (isinstance(test, ast.Attribute)
-                and isinstance(test.value, ast.Name)
-                and test.value.id == "_tsan" and not node.orelse):
-            return None
-        return self.generic_visit(node)
-
-    def visit_Call(self, node):
-        self.generic_visit(node)
-        if self._call_of(node, "_tsan"):
-            return ast.Call(ast.Attribute(ast.Name("threading", ast.Load()),
-                                          "Lock", ast.Load()), [], [])
+    def visit_ImportFrom(self, node):
+        if node.module in ("tpudl.testing", "tpudl.testing.tsan"):
+            node.module = "tpudl_torch" + node.module[len("tpudl"):]
         return node
 
 
@@ -619,8 +604,8 @@ def test_copied_blocks_equal_their_tpudl_source():
     """Every ``# copied from tpudl/<file>:<name>`` block of the data, serve
     and observability slices is its source's code, docstrings aside
     (``<name>[key]``: the branch of ``<name>`` on that key). The serve and
-    obs blocks are held with tpudl's lock sanitizer swapped out
-    (``_ServeHooks``)."""
+    obs blocks are held with tpudl's lock sanitizer spelled as the port's
+    (``_ServeHooks``): both keep its hooks."""
     checked = []
     for sub, names in _COPY_CHECKED.items():
         text = (REPO / "tpudl_torch" / sub).read_text()

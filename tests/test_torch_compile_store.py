@@ -570,3 +570,47 @@ def test_kernel_dir_follows_the_cache(tmp_path, monkeypatch, case):
                 ccache.DEFAULT_CACHE_DIR)
     finally:
         ccache._reset_for_tests()
+
+
+@pytest.mark.parametrize("where", ["cpu", "meta"])
+def test_a_restore_keeps_each_leafs_place_in_its_signature(where):
+    """A fused group's microbatches are host tensors the graph copies in,
+    so its entry's leaves say ``cpu``; a restore built every leaf on the
+    card, its signature missed the entry's, and the first fused transform
+    after the manifest held the entry captured its program twice (60
+    forward launches instead of 48, chip_smoke phase 21). ``meta`` stands
+    in for the card."""
+    like = (torch.zeros(4, 3, dtype=torch.int32, device=where),
+            torch.ones(4, dtype=torch.float32, device=where))
+    sig = cstore.signature_of(like)
+    again = cstore._zeros_of(sig["leaves"], torch.device("meta"))
+    assert cstore.signature_of(again) == sig
+
+
+def test_a_cards_program_is_one_program_with_or_without_its_index(
+        tmp_path, monkeypatch):
+    """The executor's fused dispatch keys its card as ``cuda``
+    (``resolve_device``), a restore from the manifest as ``cuda:0``:
+    before the key named the index, the two were two programs (phase 21
+    on the card: 2 captures of one identity where 1 was due). Held here
+    with the card's identity stood in."""
+    for name, value in (("current_device", lambda: 0),
+                        ("get_device_name", lambda i=None: "card"),
+                        ("device_count", lambda: 1),
+                        ("get_device_capability", lambda i=None: (9, 0))):
+        monkeypatch.setattr(torch.cuda, name, value)
+    cstore._backend.cache_clear()
+    try:
+        store = cstore.ProgramStore(str(tmp_path))
+
+        def fn(x):
+            return x * 2
+
+        like = (torch.zeros(4, 2),)
+        bare, _ = store._find(fn, None, like, 4, torch.device("cuda"), None)
+        indexed, _ = store._find(fn, None, like, 4,
+                                 torch.device("cuda", 0), None)
+        assert bare.tkey == indexed.tkey
+        assert bare.device == torch.device("cuda", 0)
+    finally:
+        cstore._backend.cache_clear()

@@ -11,7 +11,9 @@
   ``trace`` subcommand reads the directory.
 - The marker kernels a capture on a card is fenced by count a loss at its
   head and flag a truncated capture, with or without another thread's
-  kernels among them, and leave the trace exactly the block's."""
+  kernels among them, and leave the trace exactly the block's; a
+  truncated capture is written and raises, through ``profile()`` and the
+  plain ``capture()`` every device-time reading takes."""
 
 import gzip
 import json
@@ -23,6 +25,7 @@ import torch
 from tpudl.obs import trace as jtrace
 
 from tpudl_torch.obs import __main__ as cli
+from tpudl_torch.obs import metrics as tmetrics
 from tpudl_torch.obs import trace as ttrace
 from tpudl_torch.obs import tracer as ttracer
 
@@ -151,11 +154,12 @@ MARK = "void at::cuda::(anonymous namespace)::spin_kernel<long>(long)"
 def fenced(n_head, tail=True, launcher=False):
     """kineto_events() with ``n_head`` short marker kernels before the
     block's device events (from 50 µs) and a long closing one after them
-    (at 500 µs), each with its runtime launch and flow arrow; with
-    ``launcher``, another thread's kernels from 0 µs on, among them."""
+    (at 500 µs, 600 µs long), each with its runtime launch and flow
+    arrow; with ``launcher``, another thread's kernels from 0 µs on,
+    among them."""
     ev = kineto_events()
     marks = [(50.0 + i * 0.1, 0.05) for i in range(n_head)] + (
-        [(500.0, 60.0)] if tail else [])
+        [(500.0, 600.0)] if tail else [])
     for i, (ts, dur) in enumerate(marks):
         corr = 9000 + i
         ev.append({"ph": "X", "cat": "kernel", "name": MARK, "pid": 0,
@@ -224,3 +228,37 @@ def test_a_cpu_capture_has_no_markers_and_records_so(tmp_path, capsys):
     assert ttrace.load_capture(prof.trace_path) == prof.capture
     assert cli.main(["trace", str(tmp_path)]) == 0
     assert "capture:" not in capsys.readouterr().out
+
+
+def test_a_truncated_capture_is_written_and_raises(tmp_path, monkeypatch):
+    """A capture whose loss may reach the block gives no device totals:
+    ``profile()`` writes its trace for inspection, counts it, and
+    raises; so does the plain ``capture()`` every device reading takes."""
+    real = ttrace.account_marks
+
+    def truncated(events, marks):
+        kept, cap = real(events, marks)
+        return kept, dict(cap, head_marks=8, head_seen=0, head_lost=8,
+                          tail_seen=True, truncated=True)
+
+    monkeypatch.setattr(ttrace, "account_marks", truncated)
+    before = tmetrics.counter("obs.profile.truncated").value
+    with pytest.raises(ttrace.TruncatedCapture, match="truncated"):
+        with ttrace.profile(str(tmp_path)) as prof:
+            torch.ones(8) + 1
+    assert ttrace.load_capture(prof.trace_path)["truncated"] is True
+    with pytest.raises(ttrace.TruncatedCapture):
+        with ttrace.capture(cpu=False):
+            torch.ones(8) + 1
+    assert tmetrics.counter("obs.profile.truncated").value == before + 2
+
+
+def test_capture_is_the_marked_session_profile_writes(tmp_path):
+    with ttrace.capture(cpu=False) as prof:
+        torch.ones(8) + 1
+    assert prof.capture["head_marks"] == 0 and not prof.capture["truncated"]
+    assert isinstance(prof.trace["traceEvents"], list)
+    assert prof.key_averages() is not None
+    with ttrace.profile(str(tmp_path)) as prof:
+        torch.ones(8) + 1
+    assert ttrace.load_capture(prof.trace_path) == prof.capture

@@ -38,16 +38,28 @@ Ported so far, slice by slice:
   fault-injection harness (:mod:`tpudl_torch.testing.faults`), the
   executor's and the server's degradation ladder
   (:mod:`tpudl_torch.frame.supervisor`) and the flight recorder
-  (:mod:`tpudl_torch.obs.flight`).
+  (:mod:`tpudl_torch.obs.flight`);
+- the analyzers (:mod:`tpudl_torch.analysis`, ``python -m
+  tpudl_torch.analysis``), the lock sanitizer
+  (:mod:`tpudl_torch.testing.tsan`, ``TPUDL_TSAN=1``), the capture-storm
+  sentinel (:mod:`tpudl_torch.testing.traceck`, ``TPUDL_TRACECK=1``) and
+  the numerical-debug hooks (:mod:`tpudl_torch.debug`).
 
 The names below load lazily, as tpudl's top-level names do (its
 ``_LAZY`` map, restricted to what the port has).
 """
 
 import importlib
+import os as _os
 
 from tpudl_torch.device import resolve_device
 from tpudl_torch.version import __version__
+
+if _os.environ.get("TPUDL_TRACECK", "0") == "1":
+    # recompile-storm sentinel (tpudl_torch.testing.traceck): install the
+    # counting capture shim BEFORE any module captures a graph, as tpudl
+    # installs its jit shim
+    from tpudl_torch.testing import traceck as _traceck  # noqa: F401
 
 # symbol → defining module: the subset of tpudl's _LAZY that is ported
 _LAZY = {

@@ -10,11 +10,12 @@ raises; nothing falls back to the eager function.
 
 from __future__ import annotations
 
-import threading
 from collections.abc import Callable
 
 import numpy as np
 import torch
+
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["FusedGraph", "PlainProgram", "BoundGraph", "as_outputs",
            "fused_plain"]
@@ -59,7 +60,7 @@ class FusedGraph:
     ``torch.inference_mode``."""
 
     def __init__(self, run_fn: Callable, m: int, like, n_out: int, device):
-        self._run_fn = run_fn
+        self._fn = run_fn
         self._m = int(m)
         self._n_out = n_out
         with torch.inference_mode():
@@ -69,26 +70,30 @@ class FusedGraph:
         self.static_out: tuple = ()
         self.graph = None
         self.launches: dict = {}
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("compile.graphs.fused")
         self._done = None  # event after the last run's clones
 
     def _capture(self, warm: bool = True):
         from tpudl_torch import cuda_ops
 
         def run():
-            outs = [as_outputs(self._run_fn(
+            outs = [as_outputs(self._fn(
                 *(x[i] for x in self.static_in)), self._n_out)
                 for i in range(self._m)]
             self.static_out = tuple(torch.cat([o[j] for o in outs])
                                     for j in range(self._n_out))
+        run.__wrapped__ = self._fn   # what the graph runs, to traceck
 
         def warmup():
             if warm:
-                self._run_fn(*(x[0] for x in self.static_in))
+                self._fn(*(x[0] for x in self.static_in))
 
+        # tpudl: ignore[jit-cache-churn] — one capture a graph: run()
+        # and warmup() are made here only while self.graph is None (the
+        # caller holds the graph's lock), so no identity churns
         self.graph, self.launches = cuda_ops.capture_graph(
             run, self.static_in[0].device, warmup=warmup)
-        self._run_fn = None  # captured: the graph no longer calls fn
+        self._fn = None  # captured: the graph no longer calls fn
 
     def _load(self, group):
         for j, x in enumerate(self.static_in):
@@ -130,6 +135,10 @@ class FusedGraph:
         memory pool can go back to the allocator."""
         with self._lock:
             if self._done is not None:
+                # tpudl: ignore[lock-held-blocking] — the wait IS the
+                # release: under the graph's lock no replay can start
+                # between it and the pool's return (an evicted graph
+                # only; never on the dispatch path)
                 self._done.synchronize()
 
 
@@ -140,7 +149,7 @@ class PlainProgram:
     graph = None
 
     def __init__(self, run_fn, m: int, n_out: int):
-        self._run_fn = run_fn
+        self._fn = run_fn
         self._m = int(m)
         self._n_out = n_out
 
@@ -149,8 +158,8 @@ class PlainProgram:
 
     def run(self, group, report) -> tuple:
         if self._m == 1:
-            return as_outputs(self._run_fn(*group[0][0]), self._n_out)
-        return fused_plain(self._run_fn, group, self._n_out)
+            return as_outputs(self._fn(*group[0][0]), self._n_out)
+        return fused_plain(self._fn, group, self._n_out)
 
     def release(self):
         pass
@@ -189,8 +198,14 @@ class BoundGraph:
             for t, s in zip(self._restore, saved):
                 t.copy_(s)
 
+        def run():
+            self.fn(*self.state)
+        run.__wrapped__ = self.fn    # what the graph runs, to traceck
+
+        # tpudl: ignore[jit-cache-churn] — one capture a program: ready()
+        # returns early once self.graph is set, so run() is made once
         self.graph, self.launches = cuda_ops.capture_graph(
-            lambda: self.fn(*self.state), self.device, warmup=warmup)
+            run, self.device, warmup=warmup)
 
     def __call__(self):
         if not self.graphs:

@@ -70,7 +70,6 @@ import json
 import math
 import os
 import re
-import threading
 import time
 import weakref
 import zlib
@@ -81,6 +80,7 @@ import torch
 
 from tpudl_torch.compile.graphs import BoundGraph, FusedGraph, PlainProgram
 from tpudl_torch.testing import faults as _faults
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["ProgramStore", "BoundGraph", "get_program_store",
            "reset_program_store", "aot_enabled", "store_dir", "warm_start",
@@ -153,7 +153,7 @@ def backend_token(device=None) -> dict:
 
 # -- fn fingerprinting -------------------------------------------------------
 
-_FP_LOCK = threading.Lock()
+_FP_LOCK = _tsan.named_lock("compile.fingerprint_memo")
 _FP_MEMO: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 _SAMPLE = 1 << 16  # closure-array crc sample bytes (head + tail)
@@ -412,14 +412,17 @@ def _program_device(args):
 
 
 def _zeros_of(leaves, device) -> list:
-    """Zero-filled arguments of an entry's shapes, on ``device`` (zeroed as
-    bytes: the unsigned wire dtypes have no fill kernel everywhere)."""
+    """Zero-filled arguments of an entry's shapes, on ``device`` — or on
+    the host where the entry's leaf was (a fused group's microbatches are
+    host tensors the graph copies in), so that their signature is the
+    entry's (zeroed as bytes: the unsigned wire dtypes have no fill kernel
+    everywhere)."""
     out = []
-    for shape, dtype, *_ in leaves:
+    for shape, dtype, where, *_ in leaves:
         dt = getattr(torch, dtype)
         n = math.prod(shape)
         raw = torch.zeros(max(n, 1) * dt.itemsize, dtype=torch.uint8,
-                          device=device)
+                          device="cpu" if where == "cpu" else device)
         out.append(raw.view(dt)[:n].reshape(shape))
     return out
 
@@ -506,7 +509,7 @@ class ProgramStore:
 
     def __init__(self, root: str):
         self.root = str(root)
-        self._lock = threading.RLock()
+        self._lock = _tsan.named_lock("compile.program_store", kind="rlock")
         # (key, live owner id, device) → (ref, program)
         self._table: collections.OrderedDict = collections.OrderedDict()
         self._entries: dict = {}
@@ -547,6 +550,9 @@ class ProgramStore:
                              if isinstance(v, dict)}
         lad = m.get("ladder")
         if isinstance(lad, dict):
+            # tpudl: ignore[daemon-shared-write] — runs from __init__
+            # only, before the instance is published to any thread;
+            # later writes (note_ladder) hold the store's lock
             self._ladder_meta = lad
 
     def _write_manifest_locked(self) -> None:
@@ -712,7 +718,11 @@ class ProgramStore:
         ``owner``'s (default ``fn``) on ``device``, at the signature of
         ``like`` (one microbatch's arguments) with ``micro`` microbatches,
         or None; ``site`` is its key, which :meth:`_build` fills on a
-        miss."""
+        miss. A card's key names its index, as a tensor's device does
+        (the executor's ``cuda`` and a restore's ``cuda:0`` are one
+        card's one program)."""
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         fp, portable = fn_fingerprint(fn)
         ident, ref, target = _live_ref(fn if owner is None else owner)
         sig = signature_of(like, mesh)
@@ -1014,7 +1024,7 @@ class ProgramStore:
 # -- the process-wide store --------------------------------------------------
 
 _STORE: ProgramStore | None = None
-_STORE_LOCK = threading.Lock()
+_STORE_LOCK = _tsan.named_lock("compile.store.singleton")
 
 
 # copied from tpudl/compile/store.py:get_program_store

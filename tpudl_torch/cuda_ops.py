@@ -41,6 +41,8 @@ import threading
 
 import torch
 
+from tpudl_torch.testing import tsan as _tsan
+
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "launch_counts", "capture_launches",
            "count_replay", "capture_graph", "HEAD_DIMS"]
@@ -54,7 +56,7 @@ launch_counts = {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 0,
                  "flash_attn_bwd_dkv": 0}
 
 
-_counts_lock = threading.Lock()
+_counts_lock = _tsan.named_lock("cuda_ops.launch_counts")
 _capturing = threading.local()  # .launches: this thread's capture record
 
 
@@ -90,7 +92,7 @@ def count_replay(launches: dict) -> None:
 
 
 # one capture at a time in the process
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = _tsan.named_lock("cuda_ops.capture")
 
 
 def capture_graph(run, device, warmup=None):

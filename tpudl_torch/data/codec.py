@@ -35,7 +35,6 @@ identity otherwise or when no card is there to measure.
 from __future__ import annotations
 
 import os
-import threading
 import time
 
 import numpy as np
@@ -43,6 +42,7 @@ import torch
 
 from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _m
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = [
     "CodecError",
@@ -292,7 +292,7 @@ def host_tensor(arr: np.ndarray, pin: bool = False) -> torch.Tensor:
 
 
 _WIRE_MBPS_CACHE: dict = {}
-_WIRE_MBPS_LOCK = threading.Lock()
+_WIRE_MBPS_LOCK = _tsan.named_lock("data.codec.wire_probe")
 
 
 def probe_wire_mbps(mb: int = 4) -> float | None:
@@ -315,9 +315,15 @@ def probe_wire_mbps(mb: int = 4) -> float | None:
             host = torch.zeros(mb << 20, dtype=torch.uint8, pin_memory=True)
             dev = torch.empty_like(host, device="cuda")
             dev[: 1 << 20].copy_(host[: 1 << 20], non_blocking=True)  # warm
+            # tpudl: ignore[lock-held-blocking] — the probe IS the
+            # blocking op: the lock serializes "one probe, ever", and
+            # concurrent probes would skew each other's timing (waiters
+            # get the cached result the moment it exists)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             dev.copy_(host, non_blocking=True)
+            # tpudl: ignore[lock-held-blocking] — see above: the timed
+            # transfer must run under the probe lock
             torch.cuda.synchronize()
             mbps = mb / (time.perf_counter() - t0)
         _WIRE_MBPS_CACHE["mbps"] = mbps
@@ -429,7 +435,7 @@ class CodecPlan:
         self._deferred = base if isinstance(base, str) else None
         self._codecs: list[WireCodec | None] = [
             None if self._deferred else base for _ in range(n_cols)]
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("data.codec.plan")
         self._report = report
 
     # -- resolution --------------------------------------------------------
@@ -452,6 +458,9 @@ class CodecPlan:
             return c
         with self._lock:
             if self._codecs[col] is None:
+                # tpudl: ignore[lock-held-blocking] — resolution may run
+                # the one-time wire probe (probe_wire_mbps); one thread
+                # resolves a column while the others wait for its codec
                 self._codecs[col] = self._resolve_one(arr)
             return self._codecs[col]
 

@@ -42,7 +42,6 @@ gauge. On a device OOM the executor's supervisor
 from __future__ import annotations
 
 import os
-import threading
 import zlib
 from collections import OrderedDict
 
@@ -51,6 +50,7 @@ import torch
 
 from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _m
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["DeviceBatchCache", "Pin", "get_device_cache",
            "reset_device_cache", "run_key", "budget_bytes",
@@ -125,7 +125,7 @@ def run_key(material_key: str, mesh=None, device=None) -> str:
 
 _TOKEN_MEMO: dict = {}
 _TOKEN_MEMO_CAP = 32
-_TOKEN_MEMO_LOCK = threading.Lock()
+_TOKEN_MEMO_LOCK = _tsan.named_lock("data.device_cache.token_memo")
 _PROBE_ELEMS = 16384
 
 
@@ -251,7 +251,7 @@ class DeviceBatchCache:
         # the lock: pinned bytes total + unpinned bytes per run
         self._pinned_bytes = 0
         self._unpinned_by_run: dict = {}
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("data.device_cache")
         _m.gauge("data.hbm.budget_bytes").set(self._budget)
         _m.gauge("data.hbm.bytes_resident").set(0)
 
@@ -441,7 +441,7 @@ class DeviceBatchCache:
 
 
 _CACHE: DeviceBatchCache | None = None
-_CACHE_LOCK = threading.Lock()
+_CACHE_LOCK = _tsan.named_lock("data.device_cache.singleton")
 
 
 # copied from tpudl/data/device_cache.py:get_device_cache

@@ -50,6 +50,7 @@ import numpy as np
 from tpudl_torch.data.codec import BF16_BITS
 from tpudl_torch.obs import metrics as _m
 from tpudl_torch.testing import faults as _faults
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["ShardCache", "ShardCorruption", "ShardEvicted", "cache_key",
            "MANIFEST_NAME", "MANIFEST_VERSION"]
@@ -142,7 +143,7 @@ class ShardCache:
         self.key = str(key)
         self.dir = os.path.join(str(cache_dir), self.key)
         os.makedirs(self.dir, exist_ok=True)
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("data.shards.manifest")
         self._verified: set[str] = set()
         self._shards: dict[str, dict] = {}
         self.meta: dict = {}

@@ -3,9 +3,10 @@
 from __future__ import annotations
 
 import contextlib
-import threading
 
 import torch
+
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["resolve_device", "full_f32"]
 
@@ -24,7 +25,7 @@ def resolve_device(device="cuda") -> torch.device:
 
 # process-wide state of full_f32: how many blocks are open, on any thread,
 # and the flags the first of them found
-_F32_LOCK = threading.Lock()
+_F32_LOCK = _tsan.named_lock("device.full_f32")
 _f32_depth = 0
 _f32_saved = None
 

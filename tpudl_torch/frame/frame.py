@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 import time
 from collections import deque
 from collections.abc import Callable, Iterator, Mapping, Sequence
@@ -61,6 +60,7 @@ from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import flight as _flight
 from tpudl_torch.obs import watchdog as _watchdog
 from tpudl_torch.testing import faults as _faults
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["Frame", "LazyColumn", "null_mask", "concat"]
 
@@ -324,7 +324,7 @@ def _host_outputs(result) -> bool:
 
 # one lock over the graphs cached on every fn: two threads never build one
 # key's graph twice (captures take ``cuda_ops.capture_graph``'s lock)
-_FUSED_LOCK = threading.Lock()
+_FUSED_LOCK = _tsan.named_lock("frame.fused_cache")
 _FUSED_CACHE_SIZE = 8  # graphs kept per fn, least recently used out
 
 
@@ -415,7 +415,9 @@ def _fire_in(stage: str, point: str, **ctx):
         if getattr(e, "tpudl_stage", None) is None:
             try:
                 e.tpudl_stage = stage
-            # an exception with immutable attributes stays untagged
+            # tpudl: ignore[swallowed-except] — an exception with
+            # immutable attributes stays untagged; the raise below
+            # carries it either way
             except Exception:
                 pass
         raise
@@ -1182,6 +1184,9 @@ class Frame:
             if window is None:
                 with report.stage("d2h"):
                     _faults.fire("frame.d2h")
+                    # tpudl: ignore[hot-sync] — this wait IS the d2h
+                    # stage of a window of depth 1: the copy was started
+                    # at dispatch, and the batch's rows are read next
                     entry.wait()
                 handle(entry)
             else:

@@ -31,11 +31,13 @@ Supervision is off by default (``TPUDL_FRAME_DEGRADE=1`` or
 ``map_batches(supervise=True)`` / ``Server(supervise=True)`` arms it): a
 retry re-executes user code, so the owner of the process opts in.
 
-The recompile-storm signal: tpudl samples its trace sentinel's
-``traceck.storms``. The port has no trace sentinel; its nearest
-observable is the program store's capture misses, so an attempt that
-failed after the store captured a new program for that attempt counts as
-a storm. The misses are the attempt's own
+The recompile-storm signal has two sources. As tpudl does, the
+supervisor samples the trace sentinel's ``traceck.storms`` around an
+attempt (:mod:`tpudl_torch.testing.traceck`, ``TPUDL_TRACECK=1``: a
+capture identity past its threshold during the attempt). Beside it, the
+program store's capture misses: an attempt that failed after the store
+captured a new program for that attempt counts as a storm, armed
+sentinel or not. The misses are the attempt's own
 (:func:`tpudl_torch.compile.store.counting_misses`, a context variable
 set around the attempt), never the process's ``compile.misses``: another
 thread missing the store meanwhile does not turn a stage fault into a
@@ -171,7 +173,8 @@ def classify_exception(exc: BaseException, *, stage: str | None = None,
     ``transfer`` / ``recompile_storm`` / ``stage`` / ``fatal``).
     ``stage`` is the ``tpudl_stage`` tag the innermost
     :meth:`PipelineReport.stage` block left on the exception; ``storm``
-    says whether the attempt captured new programs. A user ``fn`` that
+    says whether the attempt captured new programs (its own store misses)
+    or the traceck sentinel counted new storms during it. A user ``fn`` that
     raises some other library's "out of memory" wording mid-message
     stays a stage fault, as in tpudl: only the allocator's own error
     evicts the device cache."""
@@ -201,6 +204,15 @@ def enabled(kwarg=None) -> bool:
     if kwarg is not None:
         return bool(kwarg)
     return os.environ.get("TPUDL_FRAME_DEGRADE", "0") == "1"
+
+
+# copied from tpudl/frame/supervisor.py:_storms
+def _storms() -> float:
+    """Current traceck storm count (0 when the sentinel is unarmed —
+    the counter simply never moves)."""
+    from tpudl_torch.obs import metrics as _m
+
+    return float(_m.counter("traceck.storms").value)
 
 
 class Supervisor:
@@ -261,6 +273,7 @@ class Supervisor:
             while True:
                 attempt_no += 1
                 hb.beat(attempt=attempt_no, rungs=len(self.rungs))
+                storms0 = _storms()
                 with _store.counting_misses() as misses:
                     try:
                         result = attempt(dict(self.overrides))
@@ -270,11 +283,12 @@ class Supervisor:
                         failed = None
                 if failed is not None:
                     stage = getattr(failed, "tpudl_stage", None)
-                    kind = classify_exception(failed, stage=stage,
-                                              storm=misses[0] > 0)
+                    kind = classify_exception(
+                        failed, stage=stage,
+                        storm=misses[0] > 0 or _storms() > storms0)
                     if kind == "fatal":
                         raise failed
-                    if kind == "recompile_storm":
+                    if kind == "recompile_storm" and misses[0]:
                         self._record_storm(failed, stage, misses[0])
                     self._on_fault(failed, kind, attempt_no)  # raises
                     continue                                 # or rung'd
@@ -298,7 +312,8 @@ class Supervisor:
             _m.counter("compile.storms").inc()
             _flight.record_error("compile.storm", exc, stage=stage,
                                  misses=int(misses))
-        # the observer must never take down the recovery it narrates
+        # tpudl: ignore[swallowed-except] — the observer must never
+        # take down the recovery it narrates
         except Exception:
             pass
 
@@ -470,7 +485,8 @@ class Supervisor:
             _flight.record_error(
                 "frame.degraded", exc, rung=label, stage=stage,
                 rungs_applied=len(self.rungs), **extra)
-        # the observer must never take down the recovery it narrates
+        # tpudl: ignore[swallowed-except] — the observer must never
+        # take down the recovery it narrates
         except Exception:
             pass
         log.warning(
@@ -510,7 +526,8 @@ class Supervisor:
                 "frame.degraded.exhausted", exc, fault_kind=kind,
                 stage=stage, rungs=",".join(self.rungs) or None)
             _flight.dump(reason="degraded_exhausted", error=exc)
-        # forensics are best-effort; the typed raise below must happen
+        # tpudl: ignore[swallowed-except] — forensics are best-effort;
+        # the typed raise below must happen regardless
         except Exception:
             pass
         cls = _TYPE_FOR.get(kind, StageFault)

@@ -27,7 +27,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import threading
 from io import BytesIO
 from typing import Callable, Iterable
 
@@ -36,6 +35,7 @@ import numpy as np
 from tpudl_torch.frame.frame import Frame, LazyColumn, _env_int
 from tpudl_torch.obs import flight as _flight
 from tpudl_torch.obs import metrics as _obs_metrics
+from tpudl_torch.testing import tsan as _tsan
 
 try:  # PIL is the decode substrate, as in tpudl
     from PIL import Image
@@ -457,9 +457,9 @@ class LazyFileColumn(LazyColumn):
         self._validity: np.ndarray | None = None
         self._memo: tuple[bytes, np.ndarray] | None = None
         self.reads = 0
-        self._reads_lock = threading.Lock()
-        self._memo_lock = threading.Lock()
-        self._transform_lock = threading.Lock()
+        self._reads_lock = _tsan.named_lock("image.lazyfile.reads")
+        self._memo_lock = _tsan.named_lock("image.lazyfile.memo")
+        self._transform_lock = _tsan.named_lock("image.lazyfile.transform")
         self.io_workers = int(io_workers if io_workers is not None
                               else _env_workers("TPUDL_FRAME_IO_WORKERS",
                                                 self._IO_WORKERS))

@@ -46,7 +46,6 @@ with -1, ``FusedBatchNorm``'s default epsilon), the port follows TF.
 
 from __future__ import annotations
 
-import threading
 
 import numpy as np
 import torch
@@ -54,6 +53,7 @@ import torch.nn.functional as F
 
 from tpudl_torch.device import full_f32
 from tpudl_torch.ingest import protowire as pw
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["UnsupportedOpError", "build_torch_fn", "tensor_name", "op_name",
            "node_op_map", "validated_input", "validated_output"]
@@ -156,7 +156,7 @@ class _Shared:
 
     def __init__(self, library):
         self.library = library
-        self.lock = threading.Lock()
+        self.lock = _tsan.named_lock("ingest.graphdef.shared")
         self.node_values: dict = {}     # id(Const node) -> ndarray
         self.arrays: dict = {}          # id(ndarray) -> ndarray (a Const's)
         self.uploads: dict = {}         # (device, id(ndarray)) -> tensor

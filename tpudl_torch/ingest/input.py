@@ -60,7 +60,6 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 
 import torch
 
@@ -72,6 +71,7 @@ from tpudl_torch.ingest.keras_graph import (build_torch_fn, graph_steps,
 from tpudl_torch.ingest.kerasfile import (bf16_variables, file_layout,
                                           load_keras_file)
 from tpudl_torch.ingest.tensor_bundle import BundleReader, latest_checkpoint
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["TFInputGraph", "keras_model_path"]
 
@@ -101,7 +101,7 @@ class TFInputGraph:
         self._weights = weights
         self._bf16 = bf16_variables(config, layout)
         self._frozen: dict = {}
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("ingest.input.graph")
         self.graph_def = None
         self.input_tensor_name_from_signature = None
         self.output_tensor_name_from_signature = None
@@ -123,7 +123,7 @@ class TFInputGraph:
         self.config = None
         self.params = None
         self._fns: dict = {}
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("ingest.input.graph")
         return self
 
     @property

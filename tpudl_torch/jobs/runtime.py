@@ -43,6 +43,7 @@ import threading
 import time
 
 from tpudl_torch.jobs.spec import JobSpec
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["JobRuntime", "JobContext", "JobPreempted", "RC_PREEMPTED",
            "MANIFEST_NAME", "MANIFEST_SCHEMA", "MANIFEST_VERSION",
@@ -231,7 +232,7 @@ class JobRuntime:
         self.spec = spec
         self._install_signals = bool(install_signals)
         self._stop = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("jobs.runtime.manifest")
         self._manifest: dict | None = None
         self._prev_sigterm = None
         # device topology this attempt runs on ({axis: size}, {} =
@@ -322,8 +323,9 @@ class JobRuntime:
                     _flight.get_recorder().record_event(
                         "job.aot_warm_start", restored=restored,
                         store=m["program_store"])
-        # the warm start is an accelerator: a broken or foreign store
-        # must never block a resume (the run just captures cold)
+        # tpudl: ignore[swallowed-except] — the warm start is an
+        # accelerator: a broken/foreign store must never block a
+        # resume (the run just captures cold)
         except Exception:
             pass
         self._manifest = m
@@ -336,7 +338,7 @@ class JobRuntime:
                 name=self.spec.name, fingerprint=fp[:12],
                 attempt=m["attempt"], resumed=prev is not None,
                 manifest=self.manifest_path())
-        # guards the job.start
+        # tpudl: ignore[swallowed-except] — guards the job.start
         # breadcrumb itself; the run must start regardless
         except Exception:
             pass
@@ -398,7 +400,7 @@ class JobRuntime:
 
                 _flight.record_error("job.checkpoint_pointer", e,
                                      workdir=self.spec.workdir)
-            # guards the breadcrumb
+            # tpudl: ignore[swallowed-except] — guards the breadcrumb
             # itself; pointer refresh stays best-effort either way
             except Exception:
                 pass
@@ -425,7 +427,7 @@ class JobRuntime:
                 reason="preempted_resumable",
                 path=os.path.join(self.spec.workdir,
                                   f"tpudl-dump-{os.getpid()}.json.gz"))
-        # forensics must never block
+        # tpudl: ignore[swallowed-except] — forensics must never block
         # the preemption exit path; the manifest (already persisted
         # above) is the resume contract, the dump is evidence
         except Exception:
@@ -463,7 +465,7 @@ class JobRuntime:
 
                 _flight.get_recorder().record_event(
                     "job.done", manifest=self.manifest_path())
-            # guards the job.done
+            # tpudl: ignore[swallowed-except] — guards the job.done
             # breadcrumb; the result is already in hand
             except Exception:
                 pass
@@ -482,7 +484,7 @@ class JobRuntime:
 
                 _flight.record_error("job.failed", e,
                                      manifest=self.manifest_path())
-            # guards the job.failed
+            # tpudl: ignore[swallowed-except] — guards the job.failed
             # breadcrumb; the re-raise below carries the real error
             except Exception:
                 pass

@@ -64,7 +64,6 @@ import copy as _copy
 import dataclasses
 import math
 import os
-import threading
 import weakref
 
 import numpy as np
@@ -74,6 +73,7 @@ import torch.distributed as dist
 from tpudl_torch import distributed as D
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.testing import faults as _faults
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "NamedSharding",
            "model_axis_size", "build_mesh", "replicate", "PerDevice",
@@ -461,7 +461,7 @@ def _coalesced(tensors, collective, device) -> tuple[int, int]:
 
 # replicas of a module on a local mesh, made once a (module, device)
 _REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_REPLICAS_LOCK = threading.Lock()
+_REPLICAS_LOCK = _tsan.named_lock("mesh.replicas")
 
 
 def _copy_to(tree, dev: torch.device):

@@ -22,7 +22,6 @@ carries the caller's attribution scope.
 
 from __future__ import annotations
 
-import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Callable, Iterator, Sequence
@@ -35,6 +34,7 @@ from tpudl_torch.obs import flight as _obs_flight
 from tpudl_torch.obs import metrics as _obs_metrics
 from tpudl_torch.obs import tracer as _obs_tracer
 from tpudl_torch.obs import watchdog as _obs_watchdog
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["TrialScheduler", "device_slices", "visible_devices"]
 
@@ -105,7 +105,7 @@ class TrialScheduler:
         if self._max_parallel:
             slices = slices[: self._max_parallel]
         free = list(range(len(slices)))
-        free_lock = threading.Lock()
+        free_lock = _tsan.named_lock("ml.hpo.slices")
         ended = []             # trial indices in the order the trials ended
 
         def run_one(i, item):

@@ -16,10 +16,11 @@ import hashlib
 import logging
 import os
 import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
+
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["available", "decode_resize_batch", "build", "lib_path"]
 
@@ -30,7 +31,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _LIBS = ("-ljpeg", "-lpthread")
 _ABI_VERSION = 1
-_lock = threading.Lock()
+_lock = _tsan.named_lock("native.build")
 _lib = None
 _build_failed = False
 
@@ -41,6 +42,9 @@ def lib_path() -> Path:
     return _BUILD_DIR / f"libtpudl_decode-{h.hexdigest()[:16]}.so"
 
 
+# tpudl: ignore[lock-held-blocking] — the one-shot native build: the
+# lock EXISTS to hold everyone while one g++ subprocess (timeout=120)
+# compiles; a second concurrent build would race the .so write
 def build() -> bool:
     """Compile ``decode.cpp`` unless its library exists. Returns success.
     The library is written under a temporary name and renamed, so a

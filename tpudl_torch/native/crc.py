@@ -14,10 +14,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
+
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["crc32c", "crc32c_plain", "masked", "build", "lib_path"]
 
@@ -25,7 +26,7 @@ _SRC = Path(__file__).resolve().parent / "crc32c.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _ABI_VERSION = 1
-_lock = threading.Lock()
+_lock = _tsan.named_lock("native.crc.build")
 _lib = None
 
 
@@ -35,6 +36,9 @@ def lib_path() -> Path:
     return _BUILD_DIR / f"libtpudl_crc32c-{h.hexdigest()[:16]}.so"
 
 
+# tpudl: ignore[lock-held-blocking] — the one-shot library build: the
+# lock holds every caller while one g++ subprocess (timeout=120)
+# compiles; the library is renamed into place, never loaded half-built
 def build() -> Path:
     """Compile ``crc32c.cpp`` unless its library exists; raise on failure.
     The library is written under a temporary name and renamed, so a

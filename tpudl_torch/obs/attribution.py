@@ -1,6 +1,6 @@
 """Attribution plane: scoped resource ledgers for multi-tenant obs.
 
-Port of ``tpudl/obs/attribution.py`` (without the lock sanitizer's
+Port of ``tpudl/obs/attribution.py`` (with its lock sanitizer's
 hooks). Every counter in :mod:`tpudl_torch.obs.metrics` is process-wide;
 this module adds who used it:
 
@@ -30,11 +30,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
-import threading
 import time
 from collections import OrderedDict
 
 from tpudl_torch.obs import metrics as _metrics
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["Scope", "scope", "current_scope", "carry", "ScopeLedger",
            "get_ledger", "reset_ledger", "charge", "ledger_snapshot",
@@ -177,7 +177,7 @@ class ScopeLedger:
 
     def __init__(self):
         self.cap = max(1, _env_int("TPUDL_OBS_SCOPES", 64))
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.attribution.ledger")
         self._scopes: OrderedDict[str, dict] = OrderedDict()
         self._unattributed = _zero_row()
         self._evicted = 0

@@ -2,13 +2,14 @@
 
 Port of ``tpudl/obs/doctor.py`` over the port's dumps (which share
 tpudl's schema, so it reads tpudl's dumps too and classifies them as
-tpudl's doctor does). One rule reads other evidence: the port has no
-trace sentinel (tpudl's ``traceck``), so ``recompile_storm`` reads the
-port's own storm evidence — the program store's capture misses that a
+tpudl's doctor does). ``recompile_storm`` reads tpudl's evidence — the
+traceck sentinel's ``traceck.storms`` and its ``traceck.recompile_storm``
+error-ring entries (:mod:`tpudl_torch.testing.traceck`, the port's
+twin, counts CUDA-graph captures a function identity) — and, beside it,
+the port's scoped signal: the program store's capture misses that a
 failed supervised attempt made itself (``compile.storms`` and the
 ``compile.storm`` entries of the error ring, filed by
-:mod:`tpudl_torch.frame.supervisor`) — beside ``traceck.storms`` in a
-tpudl dump.
+:mod:`tpudl_torch.frame.supervisor`).
 
 The offline half of failure forensics: given one
 ``tpudl-dump-*.json.gz`` (or a directory of them from a multi-host
@@ -25,9 +26,10 @@ gang), merge per-host evidence and CLASSIFY the failure:
 - ``decode_error_storm`` — decode/corruption errors are a large
   fraction of reads (``imageio.decode_errors``, ``data.cache.corrupt``
   and the error ring agree): the data went bad, not the code;
-- ``recompile_storm`` — a failed supervised attempt made program-store
-  capture misses of its own (``compile.storms``; in a tpudl dump, the
-  traceck sentinel's ``traceck.storms``), and the error ring agrees:
+- ``recompile_storm`` — the traceck sentinel flagged a function
+  identity captured past its threshold (``traceck.storms``), or a
+  failed supervised attempt made program-store capture misses of its
+  own (``compile.storms``), and the error ring agrees:
   the run was recompiling instead of computing — ranked beside (and checked
   before) ``dispatch_slowdown``, because a storm IS the usual cause
   of a slow dispatch that nobody can explain;
@@ -400,12 +402,12 @@ def classify(merged: dict) -> dict:
                 "suspect_host": suspect_host,
                 "evidence": evidence, "stage_rates": rates}
 
-    # 2b. recompile storm: a failed supervised attempt captured new
-    #     programs of its own (the port's compile.storms), or, in a
-    #     tpudl dump, the traceck sentinel measured a fn identity
-    #     retracing. Checked BEFORE the stall rules — compiling reads as
-    #     a dispatch stall/slowdown from outside; the storm is the
-    #     cause, not the symptom
+    # 2b. recompile storm: the traceck sentinel measured a fn identity
+    #     capturing (or, in a tpudl dump, retracing) past its threshold,
+    #     or a failed supervised attempt captured new programs of its
+    #     own (compile.storms). Checked BEFORE the stall rules —
+    #     compiling reads as a dispatch stall/slowdown from outside; the
+    #     storm is the cause, not the symptom
     storms = sum(_metric_value(d, "compile.storms")
                  + _metric_value(d, "traceck.storms")
                  for d in hosts.values())

@@ -46,6 +46,8 @@ import traceback
 import zlib
 from collections import deque
 
+from tpudl_torch.testing import tsan as _tsan
+
 __all__ = ["FlightRecorder", "get_recorder", "record_error",
            "record_batch", "record_request", "dump", "install",
            "DUMP_SCHEMA", "DUMP_VERSION", "dump_path_for"]
@@ -93,8 +95,8 @@ def _backend_info() -> dict:
             info["backend"] = "cuda"
         else:
             info["backend"] = "cpu"
-    # best-effort probe of a possibly wedged runtime; a missing key IS
-    # the evidence
+    # tpudl: ignore[swallowed-except] — best-effort probe of a possibly
+    # wedged runtime; a missing key IS the evidence
     except Exception:
         pass
     try:
@@ -102,6 +104,8 @@ def _backend_info() -> dict:
         if dist.is_available() and dist.is_initialized():
             info["process_index"] = int(dist.get_rank())
             info["process_count"] = int(dist.get_world_size())
+    # tpudl: ignore[swallowed-except] — as above: a process group that
+    # cannot answer leaves its keys out of the dump
     except Exception:
         pass
     return info
@@ -147,7 +151,7 @@ class FlightRecorder:
     """Bounded in-memory black box + atomic gzip dump writer."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.flight.recorder")
         self._batches: deque = deque(
             maxlen=max(1, _env_int("TPUDL_FLIGHT_BATCHES",
                                    _DEFAULT_BATCHES)))
@@ -181,10 +185,16 @@ class FlightRecorder:
                                for a in arrays],
                     "fingerprint": batch_fingerprint(arrays)}
             desc.update(info)
-        # the per-batch hook must never take down the pipeline
+        # tpudl: ignore[swallowed-except] — per-batch hot-path hook:
+        # the observer must never take down the pipeline, and there is
+        # no cheaper breadcrumb channel than this recorder itself
         except Exception:
             return
         with self._lock:
+            if _tsan.ENABLED:
+                _tsan.check_guarded("obs.flight.recorder",
+                                    "flight-recorder batch ring",
+                                    lock=self._lock)
             self._batches.append(desc)
 
     # copied from tpudl/obs/flight.py:FlightRecorder.record_error
@@ -257,7 +267,8 @@ class FlightRecorder:
             from tpudl_torch.obs import metrics as _m
 
             snap = _m.snapshot()
-        # a broken registry just means a sparser trajectory in the dump
+        # tpudl: ignore[swallowed-except] — periodic tick: a broken
+        # metrics registry just means a sparser trajectory in the dump
         except Exception:
             return
         with self._lock:
@@ -308,12 +319,16 @@ class FlightRecorder:
             from tpudl_torch.obs import metrics as _m
 
             payload["metrics"] = _m.snapshot()
+        # tpudl: ignore[swallowed-except] — dying-interpreter dump
+        # takes what it can get; the empty default marks the gap
         except Exception:
             payload["metrics"] = {}
         try:
             from tpudl_torch.obs import pipeline as _p
 
             payload["pipeline_reports"] = _p.pipeline_reports()
+        # tpudl: ignore[swallowed-except] — dying-interpreter dump
+        # takes what it can get; the empty default marks the gap
         except Exception:
             payload["pipeline_reports"] = {}
         try:
@@ -326,12 +341,16 @@ class FlightRecorder:
                  "tid": s.tid, "thread": s.thread_name,
                  "attrs": dict(s.attrs) if s.attrs else None}
                 for s in spans]
+        # tpudl: ignore[swallowed-except] — dying-interpreter dump
+        # takes what it can get; the empty default marks the gap
         except Exception:
             payload["spans"] = []
         try:
             from tpudl_torch.obs import watchdog as _w
 
             payload["heartbeats"] = _w.get_registry().describe()
+        # tpudl: ignore[swallowed-except] — dying-interpreter dump
+        # takes what it can get; the empty default marks the gap
         except Exception:
             payload["heartbeats"] = {}
         try:
@@ -344,6 +363,8 @@ class FlightRecorder:
             led["reconcile"] = _attr.reconcile(payload.get("metrics")
                                                or None)
             payload["ledger"] = led
+        # tpudl: ignore[swallowed-except] — dying-interpreter dump
+        # takes what it can get; the None default marks the gap
         except Exception:
             payload["ledger"] = None
         return payload
@@ -436,9 +457,13 @@ class FlightRecorder:
             try:
                 prev = signal.getsignal(sig)
 
-                # dump() assembles on a bounded worker thread, so an
-                # interrupted frame holding a recorder lock cannot
-                # deadlock it; then the earlier handler, or the default
+                # tpudl: ignore[signal-handler, signal-lock] — THE
+                # forensics handler: dump() assembles on a bounded
+                # WORKER thread (timeout=10) so an interrupted frame
+                # holding an obs lock can't deadlock it (the worker,
+                # not the handler frame, takes the recorder/metrics/
+                # report locks), then chains/re-raises for default
+                # exit semantics
                 def handler(signum, frame, _prev=prev):
                     self.dump(reason=f"signal:{signum}", timeout=10.0)
                     if callable(_prev):
@@ -463,8 +488,9 @@ class FlightRecorder:
                 faulthandler.enable(file=self._fault_file,
                                     all_threads=True)
                 self.record_event("faulthandler", path=fault_path)
-            # opt-in extra: an unwritable fault log must not break
-            # install()
+            # tpudl: ignore[swallowed-except] — opt-in extra: an
+            # unwritable fault log must not break install(); the reset
+            # to None records that it is off
             except Exception:
                 self._fault_file = None
         self.record_event("install")

@@ -38,6 +38,7 @@ import threading
 import time
 
 from tpudl_torch.obs.metrics import _env_float
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["collect_status", "write_status", "ensure_status_writer",
            "start_status_writer", "stop_status_writer", "status_path",
@@ -401,7 +402,7 @@ class StatusWriter:
 
 
 _WRITER: StatusWriter | None = None
-_WRITER_LOCK = threading.Lock()
+_WRITER_LOCK = _tsan.named_lock("obs.live.writer")
 _CHECKED = False  # fast path: ensure() is called per heartbeat
 
 
@@ -461,12 +462,6 @@ def stop_status_writer():
     global _WRITER, _CHECKED
     with _WRITER_LOCK:
         if _WRITER is not None:
-            # tpudl: ignore[lock-held-blocking] — stop(final=False)
-            # only joins the 1 Hz writer thread (timeout=2.0); the
-            # probe-reaching path the analyzer sees is final=True's
-            # collect_status, whose roofline read uses the CACHED wire
-            # probe (roofline.py: never re-probed from the status
-            # thread)
             _WRITER.stop(final=False)
             _WRITER = None
         _CHECKED = False

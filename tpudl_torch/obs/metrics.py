@@ -1,6 +1,6 @@
 """Process-wide metrics registry: counters, gauges, bounded histograms.
 
-Port of ``tpudl/obs/metrics.py`` (without the lock sanitizer's hooks).
+Port of ``tpudl/obs/metrics.py`` (with its lock sanitizer's hooks).
 Every layer (the executor, the image reads, the stages, HPO, UDFs, the
 trainer, the serve plane) publishes into ONE thread-safe registry, so a
 run's numbers come out of one ``snapshot()``. Opt-in JSONL sink: with
@@ -20,9 +20,10 @@ import atexit
 import contextlib
 import json
 import os
-import threading
 import time
 from collections import deque
+
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry", "counter", "gauge", "histogram", "snapshot",
@@ -63,7 +64,7 @@ class Counter:
 
     def __init__(self):
         self.value = 0.0
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.metrics.counter")
 
     def inc(self, amount: float = 1.0):
         a = float(amount)  # numpy scalars would poison the JSON sink
@@ -86,7 +87,7 @@ class Gauge:
         self.count = 0
         self.total = 0.0
         self.max = None
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.metrics.gauge")
 
     def set(self, value: float):
         v = float(value)
@@ -121,7 +122,7 @@ class Histogram:
         self.total = 0.0
         self.min = None
         self.max = None
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.metrics.histogram")
 
     def observe(self, value: float):
         v = float(value)
@@ -172,7 +173,7 @@ class MetricsRegistry:
 
     def __init__(self):
         self._metrics: dict[str, object] = {}
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.metrics.registry")
         self._next_flush = 0.0  # monotonic deadline; 0 = resolve lazily
         self._atexit_registered = False
 
@@ -180,6 +181,10 @@ class MetricsRegistry:
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
+                if _tsan.ENABLED:
+                    _tsan.check_guarded("obs.metrics.registry",
+                                        "metrics registry name map",
+                                        lock=self._lock)
                 m = self._metrics[name] = cls(**kw)
                 self._register_atexit()
             elif not isinstance(m, cls):

@@ -1,7 +1,7 @@
 """Per-run pipeline reports: stage times, gauges, and the report ring.
 
 Copied from ``tpudl/obs/pipeline.py`` (``PipelineReport`` and the ring of
-recent reports), without the lock sanitizer. Each
+recent reports), with its lock sanitizer's hooks. Each
 :meth:`PipelineReport.stage` block is a host span ``frame.<stage>`` on the
 tracer and enters and leaves the run's watchdog heartbeat (set by the
 executor), so a stall names the stage it froze in; it tags an exception
@@ -21,12 +21,12 @@ from __future__ import annotations
 import contextlib
 import itertools
 import os
-import threading
 import time
 from collections import deque
 
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.obs import tracer as _tracer
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["PipelineReport", "last_pipeline_report", "set_last_pipeline",
            "pipeline_reports", "get_pipeline_report"]
@@ -83,7 +83,7 @@ class PipelineReport:
         # the executor's watchdog heartbeat (set by map_batches): every
         # stage entry beats it with the stage name
         self.heartbeat = None
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.pipeline.report")
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -104,9 +104,9 @@ class PipelineReport:
                 if getattr(e, "tpudl_stage", None) is None:
                     try:
                         e.tpudl_stage = name
-                    # an exception with immutable attributes stays
-                    # untagged; the classifier falls back to its type and
-                    # message
+                    # tpudl: ignore[swallowed-except] — exceptions with
+                    # __slots__/immutable attrs just stay untagged; the
+                    # classifier falls back to type/message anchoring
                     except Exception:
                         pass
                 raise
@@ -254,7 +254,7 @@ def _ring_size() -> int:
 
 
 _REPORTS: deque = deque(maxlen=_ring_size())
-_REPORTS_LOCK = threading.Lock()
+_REPORTS_LOCK = _tsan.named_lock("obs.pipeline.ring")
 
 
 def set_last_pipeline(report: PipelineReport | None):
@@ -263,6 +263,10 @@ def set_last_pipeline(report: PipelineReport | None):
     if report is None:
         return
     with _REPORTS_LOCK:
+        if _tsan.ENABLED:
+            _tsan.check_guarded("obs.pipeline.ring",
+                                "pipeline-report ring",
+                                lock=_REPORTS_LOCK)
         _REPORTS.append(report)
 
 

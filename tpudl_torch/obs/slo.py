@@ -1,6 +1,6 @@
 """Windowed SLO engine for the serve plane.
 
-Port of ``tpudl/obs/slo.py`` (without the lock sanitizer's hooks). It
+Port of ``tpudl/obs/slo.py`` (with its lock sanitizer's hooks). It
 keeps a bounded ring of ``(monotonic_t, latency_ms)`` stamps, one per
 completed request, and computes over sliding windows:
 
@@ -22,13 +22,13 @@ are published outside the engine's lock, throttled.
 from __future__ import annotations
 
 import os
-import threading
 import time
 
 from collections import deque
 
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.obs.metrics import percentile as _percentile
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["SloEngine", "get_slo_engine", "reset_slo_engine",
            "ERROR_BUDGET"]
@@ -72,7 +72,7 @@ class SloEngine:
                             _env_float("TPUDL_SERVE_SLO_WINDOW_S", 30.0))
         self.long_window_s = 10.0 * self.window_s
         self.tail_k = max(1.0, _env_float("TPUDL_SERVE_SLO_TAIL_K", 4.0))
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.slo.engine")
         self._stamps: deque = deque(maxlen=_RING_CAP)
         self._median_ms: float | None = None  # cached (exemplar gate)
         self._next_publish = 0.0

@@ -26,12 +26,18 @@ the merged timeline is stream-relative, which is exact when both streams
 cover one window (``obs.profile`` records its window on the tracer).
 
 A capture can lose device events at its head: on an NVIDIA H100 80GB HBM3
-at 700 W, late in a process that had run many profiler sessions, Kineto's
-trace held 58-68 fewer device events than the block ran, the first ones,
-while their launches' host records stayed. :func:`profile` fences its
-block with marker kernels, so the trace says how many it lost
-(``tpudlCapture``) and a loss that reaches the block is flagged, not
-summed as the block's.
+at 700 W Kineto's trace holds fewer device events than the block ran, the
+first ones, while their launches' host records stay: a span of the
+capture's first device time that grows with the time since the process's
+first profiler session (0 events at 19 s, 64 at 807 s in a process that
+did nothing but capture) and jumps in some sessions (every one of 512
+~2 µs markers once), whatever the process ran meanwhile. No port call
+resets it, so every device-time reading goes through :func:`capture`: it
+fences the block with marker kernels, which absorb the loss (the trace
+says how many it lost, ``tpudlCapture``), and a capture whose loss may
+reach the block raises :class:`TruncatedCapture` rather than give totals
+that are not the block's. :func:`profile` is :func:`capture` with the trace written to a
+directory.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ import json
 import os
 import time
 
-__all__ = ["profile", "named_scope", "load_trace_events", "account_marks",
+__all__ = ["profile", "capture", "TruncatedCapture", "named_scope",
+           "load_trace_events", "account_marks",
            "load_capture", "summarize_device_trace", "load_host_trace_events",
            "find_trace_files", "merge_trace_events", "summarize_merged",
            "DEVICE_CATEGORIES", "device_events"]
@@ -58,14 +65,19 @@ _TRACE_SEQ = itertools.count()
 
 
 # A capture on a card opens with HEAD_MARKS launches of torch.cuda._sleep's
-# spin kernel that return at once and closes with one that spins
-# TAIL_CYCLES (tens of µs), each side fenced by a synchronize: how many
-# head markers reach the trace is how many device events the capture lost
-# at its head, and the markers are taken out of the trace. A block that
-# itself calls torch.cuda._sleep is miscounted.
-HEAD_MARKS = 512
-TAIL_CYCLES = 100_000
-TAIL_MIN_US = 20.0                 # a spin kernel this long is the tail marker
+# spin kernel, each spinning HEAD_CYCLES (~25 µs on an H100), and closes
+# with one that spins TAIL_CYCLES (~0.5 ms), each side fenced by a
+# synchronize: how many head markers reach the trace is how many device
+# events the capture lost at its head, and the markers are taken out of
+# the trace. The loss is a span of the capture's first device time, which
+# drifts with the process's age and jumps in some sessions (a whole 512
+# of ~2 µs markers once, on the H100): the head spans ~25 ms, so a loss
+# reaches the block only past that. A block that itself calls
+# torch.cuda._sleep is miscounted.
+HEAD_MARKS = 1024
+HEAD_CYCLES = 50_000
+TAIL_CYCLES = 1_000_000
+TAIL_MIN_US = 250.0                # a spin kernel this long is the tail marker
 MARK_KERNEL = "spin_kernel"
 
 
@@ -132,81 +144,109 @@ def _orphan_launches(events: list[dict]) -> int:
                and e["args"]["correlation"] not in corr)
 
 
-@contextlib.contextmanager
-def profile(log_dir: str):
-    """Capture a ``torch.profiler`` trace of the enclosed block: CPU
-    activity always, CUDA activity when a card is present (the block's
-    kernels, copies and fills, each under its own name). On exit the card
-    is synchronized, the trace is written into ``log_dir`` as
-    ``tpudl-<pid>-<n>.trace.json.gz`` (Chrome trace-event JSON, which
-    :func:`load_trace_events` and ``chrome://tracing`` read) and the
-    capture window is recorded on the host-span tracer, so
-    ``export_chrome_trace(path, window="profile")`` exports exactly the
-    spans this block covered. Yields the ``torch.profiler.profile``
-    object; on exit its ``trace_path`` is set, and its ``capture`` holds
-    :func:`account_marks`' record (also the trace's ``tpudlCapture``).
+class TruncatedCapture(RuntimeError):
+    """A capture lost every head marker, or its closing one: the loss
+    may reach the block, so its device totals are not the block's."""
 
-    On a card the block is fenced by marker kernels (``HEAD_MARKS``
-    before, one after; see :func:`account_marks`). A capture whose head markers did not all reach
-    the trace lost that many device events at its head (counted on
-    ``obs.profile.head_lost``); one that lost every head marker, or the
-    closing one, is truncated: it warns and counts
-    ``obs.profile.truncated``, and its device totals are not the
-    block's."""
-    import warnings
+
+@contextlib.contextmanager
+def capture(cpu: bool = True):
+    """A ``torch.profiler`` session over the enclosed block: the one path
+    the port reads device time through. CUDA activity when a card is
+    present, CPU activity too unless ``cpu=False`` (recording host ops
+    would slow a host-bound block). On a card the block is fenced: a
+    synchronize and ``HEAD_MARKS`` marker kernels before it, a
+    synchronize and one closing marker after. Yields the
+    ``torch.profiler.profile`` object; on exit its ``trace`` holds the
+    Chrome trace without the markers (nor their launches), its
+    ``capture`` :func:`account_marks`' record, and its events and
+    ``key_averages()`` stay readable (the markers are ``MARK_KERNEL``
+    there). A capture that lost head markers counts
+    ``obs.profile.head_lost``; a truncated one counts
+    ``obs.profile.truncated`` and raises :class:`TruncatedCapture`."""
+    import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as _torch_profile
 
     from tpudl_torch.obs import metrics as _metrics
-    from tpudl_torch.obs import tracer as _tracer_mod
 
     cuda = torch.cuda.is_available()
-    activities = [ProfilerActivity.CPU]
+    activities = [ProfilerActivity.CPU] if cpu or not cuda else []
     if cuda:
         activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
+        torch.cuda.synchronize()
     prof = _torch_profile(activities=activities)
     marks = HEAD_MARKS if cuda else 0
-    t0_us = time.time() * 1e6
     prof.__enter__()
     try:
         if marks:
-            _launch_marks(marks)
+            _launch_marks(marks, HEAD_CYCLES)
         yield prof
     finally:
         if cuda:
             torch.cuda.synchronize()
             _launch_marks(1, TAIL_CYCLES)
         prof.__exit__(None, None, None)
-        _tracer_mod.get_tracer().last_profile_window = (t0_us,
-                                                        time.time() * 1e6)
-        stem = os.path.join(
-            log_dir, f"tpudl-{os.getpid()}-{next(_TRACE_SEQ)}.trace.json")
-        prof.export_chrome_trace(stem)
-        with open(stem) as f:
+    fd, tmp = tempfile.mkstemp(suffix=".trace.json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(tmp)
+        with open(tmp) as f:
             tr = json.load(f)
-        os.remove(stem)
-        events = tr["traceEvents"] if isinstance(tr, dict) else tr
-        kept, capture = account_marks(events, marks)
-        tr = dict(tr, traceEvents=kept) if isinstance(tr, dict) else {
-            "traceEvents": kept}
-        tr["tpudlCapture"] = capture
-        with gzip.open(stem + ".gz", "wt") as dst:
-            json.dump(tr, dst)
-        prof.trace_path = stem + ".gz"
-        prof.capture = capture
-        _metrics.counter("obs.profile.captures").inc()
-        if capture["head_lost"]:
-            _metrics.counter("obs.profile.head_lost").inc(
-                capture["head_lost"])
-        if capture["truncated"]:
-            _metrics.counter("obs.profile.truncated").inc()
-            warnings.warn(
-                f"obs.profile: truncated capture {prof.trace_path} "
-                f"({capture}): its device totals are not the block's",
-                RuntimeWarning, stacklevel=3)
+    finally:
+        os.remove(tmp)
+    events = tr["traceEvents"] if isinstance(tr, dict) else tr
+    kept, record = account_marks(events, marks)
+    prof.trace = (dict(tr, traceEvents=kept) if isinstance(tr, dict)
+                  else {"traceEvents": kept})
+    prof.capture = record
+    _metrics.counter("obs.profile.captures").inc()
+    if record["head_lost"]:
+        _metrics.counter("obs.profile.head_lost").inc(record["head_lost"])
+    if record["truncated"]:
+        _metrics.counter("obs.profile.truncated").inc()
+        raise TruncatedCapture(
+            f"obs.profile: truncated capture ({record}): its device "
+            f"totals are not the block's")
+
+
+@contextlib.contextmanager
+def profile(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block through
+    :func:`capture` (CPU activity always, CUDA activity when a card is
+    present: the block's kernels, copies and fills, each under its own
+    name, fenced by marker kernels). On exit the trace is written into
+    ``log_dir`` as ``tpudl-<pid>-<n>.trace.json.gz`` (Chrome trace-event
+    JSON, which :func:`load_trace_events` and ``chrome://tracing`` read)
+    with the capture's record as its ``tpudlCapture``, and the capture
+    window is recorded on the host-span tracer, so
+    ``export_chrome_trace(path, window="profile")`` exports exactly the
+    spans this block covered. Yields the ``torch.profiler.profile``
+    object; on exit its ``trace_path`` and ``capture`` are set. A
+    truncated capture is written all the same, then raises
+    :class:`TruncatedCapture`."""
+    from tpudl_torch.obs import tracer as _tracer_mod
+
+    os.makedirs(log_dir, exist_ok=True)
+    t0_us = time.time() * 1e6
+    truncated = None
+    try:
+        with capture(cpu=True) as prof:
+            yield prof
+    except TruncatedCapture as e:
+        truncated = e
+    _tracer_mod.get_tracer().last_profile_window = (t0_us,
+                                                    time.time() * 1e6)
+    path = os.path.join(
+        log_dir, f"tpudl-{os.getpid()}-{next(_TRACE_SEQ)}.trace.json.gz")
+    tr = dict(prof.trace, tpudlCapture=prof.capture)
+    with gzip.open(path, "wt") as dst:
+        json.dump(tr, dst)
+    prof.trace_path = path
+    if truncated is not None:
+        raise truncated
 
 
 def named_scope(name: str):

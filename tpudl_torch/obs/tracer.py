@@ -29,6 +29,8 @@ import threading
 import time
 from collections import deque
 
+from tpudl_torch.testing import tsan as _tsan
+
 __all__ = ["Span", "Tracer", "get_tracer", "span", "export_chrome_trace"]
 
 _DEFAULT_RING = 65536
@@ -73,7 +75,7 @@ class Tracer:
             except ValueError:
                 ring = _DEFAULT_RING
         self._spans: deque[Span] = deque(maxlen=max(1, int(ring)))
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.tracer.ring")
         self.dropped = 0  # spans pushed out of the ring
         # (start_us, end_us) of the most recent obs.profile capture —
         # set by tpudl.obs.trace.profile so exports can window to it

@@ -1,6 +1,6 @@
 """Stall watchdog: heartbeat registry and the no-progress daemon.
 
-Port of ``tpudl/obs/watchdog.py`` (without the lock sanitizer's hooks).
+Port of ``tpudl/obs/watchdog.py`` (with its lock sanitizer's hooks).
 A hung infeed and a slow run look alike from outside; the watchdog tells
 them apart while the process is alive:
 
@@ -31,6 +31,8 @@ import sys
 import threading
 import time
 import traceback
+
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["Heartbeat", "HeartbeatRegistry", "Watchdog", "get_registry",
            "heartbeat", "start_watchdog", "stop_watchdog",
@@ -108,7 +110,7 @@ class Heartbeat:
         # one lock per heartbeat covers the beat fields AND the
         # in-flight stage map: the watchdog daemon and the status
         # writer snapshot both while beat()/stage_enter() mutate them
-        self._iflock = threading.Lock()
+        self._iflock = _tsan.named_lock("obs.watchdog.heartbeat")
 
     def beat(self, **info):
         """Progress happened. ``info`` overlays the heartbeat's info
@@ -206,7 +208,7 @@ class HeartbeatRegistry:
     see :class:`Heartbeat`)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("obs.watchdog.registry")
         self._active: set[Heartbeat] = set()
         self._tls = threading.local()
 
@@ -221,6 +223,10 @@ class HeartbeatRegistry:
         parent = stack[-1] if stack else None
         hb = Heartbeat(name, self, parent=parent, **info)
         with self._lock:
+            if _tsan.ENABLED:
+                _tsan.check_guarded("obs.watchdog.registry",
+                                    "heartbeat registry active set",
+                                    lock=self._lock)
             self._active.add(hb)
         stack.append(hb)
         return hb
@@ -337,7 +343,7 @@ class Watchdog:
 
 _REGISTRY = HeartbeatRegistry()
 _WATCHDOG: Watchdog | None = None
-_WATCHDOG_LOCK = threading.Lock()
+_WATCHDOG_LOCK = _tsan.named_lock("obs.watchdog.daemon")
 
 
 # copied from tpudl/obs/watchdog.py:get_registry
@@ -394,9 +400,5 @@ def stop_watchdog():
     global _WATCHDOG
     with _WATCHDOG_LOCK:
         if _WATCHDOG is not None:
-            # tpudl: ignore[lock-held-blocking] — may-analysis:
-            # name-based resolution maps .stop() onto StatusWriter.stop
-            # too; this receiver is a Watchdog, whose stop() joins the
-            # daemon with timeout=2.0 and touches no device path
             _WATCHDOG.stop()
             _WATCHDOG = None

@@ -28,6 +28,7 @@ from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs.metrics import percentile
 from tpudl_torch.serve.queue import AdmissionError
 from tpudl_torch.testing import faults as _faults
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["run_closed_loop"]
 
@@ -59,7 +60,7 @@ def run_closed_loop(server, make_prompt, *, requests: int,
     two tenants). None leaves requests unattributed."""
     # one leaf lock for every tally: the critical sections are scalar
     # bumps/list appends and never nest with the server's locks
-    lock = threading.Lock()
+    lock = _tsan.named_lock("serve.loadgen")
     counter = [0]
     latencies: list = []
     ttfts: list = []

@@ -11,8 +11,8 @@ shed at ``take``, before any device work is spent on it, with a typed
 :class:`DeadlineExceeded` (``serve.deadline_sheds``); the server also
 sheds mid-decode under the same type.
 
-One hook of tpudl changes: the instance lock is a plain
-``threading.Lock`` (tpudl's lock sanitizer is not ported). A request
+The instance lock is tpudl's ``serve.queue`` named lock
+(:mod:`tpudl_torch.testing.tsan`). A request
 captures its submitter's attribution scope (``ServeRequest.scope``), and
 an admitted prompt charges ``tokens_in`` to it. Metrics publish outside
 the lock.
@@ -33,6 +33,7 @@ import numpy as np
 from tpudl_torch.obs import attribution as _attr
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.serve import reqtrace as _reqtrace
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["AdmissionError", "DeadlineExceeded", "Evicted",
            "RequestQueue", "ServeRequest"]
@@ -184,7 +185,7 @@ class RequestQueue:
         self.budget_bytes = (int(float(budget) * (1 << 20))
                              if budget else None)
         self._default_deadline_s = _env_float("TPUDL_SERVE_DEADLINE_S")
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("serve.queue")
         self._items: deque[ServeRequest] = deque()
         self._bytes = 0
         _metrics.gauge("serve.queue_cap").set(self.cap)

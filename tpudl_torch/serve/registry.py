@@ -18,12 +18,12 @@ publishes outside it.
 
 from __future__ import annotations
 
-import threading
 import time
 
 from tpudl_torch.compile.store import aot_enabled
 from tpudl_torch.obs import metrics as _metrics
 from tpudl_torch.serve.slots import SlotDecoder
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["ModelEntry", "ModelRegistry"]
 
@@ -53,7 +53,7 @@ class ModelRegistry:
     """Name → :class:`ModelEntry` map shared by one server."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("serve.registry")
         self._entries: dict[str, ModelEntry] = {}
 
     def add_model(self, name: str, model, params=None, *,

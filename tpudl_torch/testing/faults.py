@@ -35,8 +35,9 @@ import builtins
 import json
 import os
 import signal
-import threading
 import time
+
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["FaultPlan", "FaultInjected", "arm", "disarm", "fire",
            "install_from_env", "oom_error", "PLAN_ENV"]
@@ -44,7 +45,7 @@ __all__ = ["FaultPlan", "FaultInjected", "arm", "disarm", "fire",
 PLAN_ENV = "TPUDL_FAULT_PLAN"
 
 _PLAN: "FaultPlan | None" = None
-_ARM_LOCK = threading.Lock()
+_ARM_LOCK = _tsan.named_lock("testing.faults.arm")
 
 
 # copied from tpudl/testing/faults.py:FaultInjected
@@ -134,7 +135,7 @@ class FaultPlan:
     """A deterministic set of fault rules, armed process-globally."""
 
     def __init__(self, rules):
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("testing.faults.plan")
         self.rules = [r if isinstance(r, _Rule) else _Rule(dict(r))
                       for r in rules]
         self.fired: list[dict] = []  # every TRIGGERED fault, for asserts
@@ -252,8 +253,8 @@ class FaultPlan:
                 action=matched.action, call=matched.calls,
                 **{k: v for k, v in ctx.items()
                    if isinstance(v, (int, float, str, bool, type(None)))})
-        # guards the fault breadcrumb; the injected fault below must
-        # still fire
+        # tpudl: ignore[swallowed-except] — guards the fault
+        # breadcrumb; the injected fault below must still fire
         except Exception:
             pass
         if matched.action == "delay":

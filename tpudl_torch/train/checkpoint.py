@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from tpudl_torch.obs import metrics as _metrics
+from tpudl_torch.testing import tsan as _tsan
 
 __all__ = ["CheckpointManager", "CheckpointCorruption", "as_numpy_state"]
 
@@ -142,7 +143,7 @@ class CheckpointManager:
         os.makedirs(self._dir, exist_ok=True)
         self.save_every = int(save_every)
         self.max_to_keep = int(max_to_keep)
-        self._lock = threading.Lock()
+        self._lock = _tsan.named_lock("train.checkpoint.manifest")
         self._manifest: dict[str, dict] = {}
         self._load_manifest()
 

@@ -275,6 +275,9 @@ class HorovodRunner:
                     "the last checkpoint in %.2fs", type(e).__name__, e,
                     attempt, self.max_restarts, delay)
                 if delay > 0:
+                    # tpudl: ignore[adhoc-retry] — the pacing COMES
+                    # from the shared RetryPolicy (recorded above);
+                    # this sleep is the gang-restart boundary itself
                     time.sleep(delay)
 
     def _launch(self, n, dev, n_model, main, kwargs, attempt):
